@@ -45,6 +45,22 @@ def kernel_problem(seed, m=64, n=128, k=16, zeros=False):
     return x, w, h
 
 
+def masked_problem(seed, m=32, n=24, k=4, frac=0.6, weights=False):
+    """f32 (x, mask, w, h) numpy arrays at tpunmf's masked kernel-test shape
+    (tests/test_masked.py): a fully unobserved row 3 and column 5, and
+    with ``weights`` a real-valued mask in [0.5, 2) on the observed cells."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((m, k)) @ rng.random((k, n)) + 0.05).astype(np.float32)
+    mask = (rng.random((m, n)) < frac).astype(np.float32)
+    mask[3, :] = 0.0
+    mask[:, 5] = 0.0
+    if weights:
+        mask *= (0.5 + 1.5 * rng.random((m, n))).astype(np.float32)
+    w = (rng.random((m, k)) + 0.1).astype(np.float32)
+    h = (rng.random((k, n)) + 0.1).astype(np.float32)
+    return x, mask, w, h
+
+
 def t(a):
     """numpy -> CPU tensor (a copy, so read-only JAX buffers are fine)."""
     return torch.from_numpy(np.array(a))

@@ -75,8 +75,10 @@ def test_facade_properties_and_save_guard(tmp_path):
 
 @pytest.mark.parametrize("method", ["anls", "admm", "ao_admm", "hals", "ntf"])
 def test_unported_methods_raise(method):
+    # hals is ported, its multilevel= warm start is not
+    kw = {"multilevel": {"levels": 2}} if method == "hals" else {}
     with pytest.raises(NotImplementedError, match="not ported"):
-        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method)
+        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, **kw)
 
 
 def test_unknown_method_fails_as_tpunmf_does():
@@ -89,13 +91,20 @@ def test_unknown_method_fails_as_tpunmf_does():
 
 @pytest.mark.parametrize("option", ["schedule", "beta", "mask", "multilevel", "mesh"])
 def test_unported_routes_raise(option):
+    if option == "mask":
+        # mask= is ported; with an unported route it fails tpunmf's
+        # mutual-exclusion check first (tpunmf/api.py:122-129)
+        with pytest.raises(ValueError, match="beta and mask are mutually exclusive"):
+            tpunmf_torch.NMF(t(lowrank()), 5).factorize(
+                method="mur", mask=np.ones((60, 48)), beta=1)
+        return
     with pytest.raises(NotImplementedError, match=option):
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", **{option: 1})
 
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(checkpoint_path="ckpt"), NotImplementedError),
-    (dict(distance_type="kl", objective="lagged", use_pallas=True), NotImplementedError),
+    (dict(multilevel={"levels": 2}), NotImplementedError),
     (dict(w_init=np.ones((60, 5))), ValueError),
     (dict(distance_type="is"), KeyError),
     (dict(objective_every=0), ValueError),

@@ -24,6 +24,7 @@ from tpunmf_torch.core import convergence as tconv
 from tpunmf_torch.init import nndsvd as tnndsvd
 from tpunmf_torch.init import random_init, randomized_svd
 from tpunmf_torch.io import convert
+from tpunmf_torch.ops import mur_fused as tmur_fused
 from tpunmf_torch.solvers import mur as tmur
 from tpunmf_torch.solvers.mur import _mur_block
 
@@ -84,6 +85,52 @@ def test_slice_matches_tpunmf(name, use_pallas):
     np.testing.assert_allclose(model.w, np.asarray(want.w), rtol=1e-8, atol=1e-12)
     np.testing.assert_allclose(model.h, np.asarray(want.h), rtol=1e-8, atol=1e-12)
     assert model.w.dtype == np.float64
+
+
+@pytest.mark.parametrize("name", ["kl_exact_nndsvd_zero", "kl_lambda",
+                                  "kl_explicit_init", "kl_converges"])
+def test_lagged_trace_is_tpunmf_exact_trace_shifted_by_one(name):
+    """objective='lagged' on the fused route records, at iteration i, the
+    objective of the iterate entering it: lagged[i+1] == exact[i] and
+    lagged[0] == exact[0]; a convergence stop comes one iteration later
+    (tpunmf/solvers/mur.py:199-235)."""
+    case = CASES[name]
+    kw = _kwargs(case)
+    want = _jax_run(name)
+    before = tmur_fused.mur_w_update.lagged_launches
+    got = tmur(t(_data(case)), 5, use_pallas=True, objective="lagged", **kw)
+    assert tmur_fused.mur_w_update.lagged_launches == before  # CPU: plain version
+    lagged, exact = np.asarray(got.obj_history), np.asarray(want.obj_history)
+    assert_traces_match(lagged[:1], exact[:1])
+    if name == "kl_converges":
+        # away from the min_iter boundary: the exact stop lies beyond min_iter + 1
+        assert want.i > kw["min_iter"] + 1 and got.i == want.i + 1
+        assert_traces_match(lagged[1:], exact)
+    else:
+        assert got.i == want.i == kw["max_iter"] - 1
+        assert_traces_match(lagged[1:], exact[:-1])
+    # the plain route ignores 'lagged', as tpunmf's step_kl does
+    plain = tmur(t(_data(case)), 5, use_pallas=False, objective="lagged", **kw)
+    assert plain.i == want.i
+    assert_traces_match(plain.obj_history, want.obj_history)
+
+
+def test_lagged_objective_every_records_on_refresh_iterations_only():
+    """With objective_every=3 the lagged W pass runs on refresh iterations
+    ((i+1) % 3 == 0, and the last possible one) and the obj-free pass
+    otherwise; each recorded value is still tpunmf's exact[i]."""
+    case = CASES["kl_exact_nndsvd_zero"]
+    kw = _kwargs(case)
+    want = np.asarray(_jax_run("kl_exact_nndsvd_zero").obj_history)
+    got = tmur(t(_data(case)), 5, use_pallas=True, objective="lagged",
+               objective_every=3, **kw)
+    assert got.i == kw["max_iter"] - 1
+    lagged = np.asarray(got.obj_history)
+    refresh = np.array([(i + 1) % 3 == 0 or i + 1 >= kw["max_iter"]
+                        for i in range(kw["max_iter"])])
+    np.testing.assert_array_equal(~np.isnan(lagged[1:]), refresh)
+    assert_traces_match(lagged[:1], want[:1])
+    assert_traces_match(lagged[1:][refresh], want[:-1][refresh])
 
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "plain"])

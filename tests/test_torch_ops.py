@@ -87,6 +87,36 @@ def test_eu_updates_round_the_factor_like_the_kernel_for_bf16_x(which):
     np.testing.assert_allclose(got, want, rtol=KERNEL_RTOL)
 
 
+@pytest.mark.parametrize("lam", [0.0, 0.2])
+def test_lagged_w_update_matches_pallas_kernel(lam):
+    """The W pass with the lagged objective: the new W, and the masked KL
+    of the incoming (w, h) (tpunmf/ops/mur_fused.py:114-141)."""
+    x, w, h = kernel_problem(18, zeros=True)
+    xj = jnp.asarray(x)
+    bm, bn = jmur_fused.mur_tileable(xj, w.shape[1])
+    want_w, want_obj = jmur_fused.mur_w_update(
+        xj, jnp.asarray(w), jnp.asarray(h), distance_type="kl", lam=lam, bm=bm,
+        bn=bn, with_lagged_obj=True, interpret=True)
+    before = (tmur_fused.mur_w_update.launches, tmur_fused.mur_w_update.lagged_launches)
+    got_w, got_obj = tmur_fused.mur_w_update(t(x), t(w), t(h), distance_type="kl",
+                                             lam=lam, with_lagged_obj=True)
+    assert (tmur_fused.mur_w_update.launches,
+            tmur_fused.mur_w_update.lagged_launches) == before
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=KERNEL_RTOL)
+    assert got_obj.dim() == 0 and np.isfinite(float(got_obj))
+    np.testing.assert_allclose(float(got_obj), float(want_obj), rtol=SUM_RTOL)
+    assert torch.equal(got_w, tmur_fused.mur_w_update(t(x), t(w), t(h),
+                                                      distance_type="kl", lam=lam))
+    assert torch.equal(got_obj, tfused.kl_obj(t(x), t(w), t(h)))
+
+
+def test_lagged_objective_is_a_kl_only_mode():
+    x, w, h = (t(a) for a in kernel_problem(19))
+    for fn in (tmur_fused.mur_w_update, tmur_fused.mur_w_update_ref):
+        with pytest.raises(ValueError, match="KL-only"):
+            fn(x, w, h, distance_type="eu", lam=0.0, with_lagged_obj=True)
+
+
 def test_eu_obj_matches_pallas_kernel():
     x, w, h = kernel_problem(4)
     xj, wj, hj = jnp.asarray(x), jnp.asarray(w), jnp.asarray(h)

@@ -4,8 +4,10 @@ Same surface as ``tpunmf.NMF`` for what is ported: ``NMF(data, factors,
 saving=True, param_file=None)``, ``.w`` / ``.h``, ``factorize``,
 ``default_save_name`` (the reference's file-name grammar,
 nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
-Only ``method="mur"`` is ported; the other known methods and the routing
-extensions raise ``NotImplementedError``.
+Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR) and
+``method="hals"``; the other known methods and the routing extensions
+``schedule=``, ``beta=``, ``multilevel=`` and ``mesh=`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,12 +21,12 @@ from .io.npz import load_results, save_results
 # tpunmf's dispatch list, kept whole so an unknown method fails the same way
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
-_PORTED = ("mur",)
-_UNPORTED_OPTIONS = ("schedule", "beta", "mask", "multilevel", "mesh")
+_PORTED = ("mur", "hals")
+_UNPORTED_OPTIONS = ("schedule", "beta", "multilevel", "mesh")
 
 
 class NMF:
-    """Non-negative matrix factorization (MUR ported so far).
+    """Non-negative matrix factorization (MUR, masked MUR and HALS ported).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -71,13 +73,28 @@ class NMF:
                 f"method {method!r} is not ported yet; ported: "
                 + " ".join(_PORTED))
         params = {**self.method_params, **method_params}
+        mask = None
+        if method == "mur":
+            # routing extensions, as tpunmf/api.py:122-129 (None is ignored)
+            chosen = [n for n in ("schedule", "beta", "mask")
+                      if params.get(n) is not None]
+            if len(chosen) > 1:
+                raise ValueError(
+                    f"{' and '.join(chosen)} are mutually exclusive")
+            mask = params.pop("mask", None)
         for opt in _UNPORTED_OPTIONS:
             if params.pop(opt, None) is not None:
                 raise NotImplementedError(f"{opt}= is not ported yet")
 
-        from .solvers import mur as _mur
+        from . import solvers
 
-        self.results = _mur(self.data, self.factors, **params)
+        if method == "hals":
+            self.results = solvers.hals(self.data, self.factors, **params)
+        elif mask is not None:
+            self.results = solvers.mur_masked(self.data, mask, self.factors,
+                                              **params)
+        else:
+            self.results = solvers.mur(self.data, self.factors, **params)
         print("Factorization done.")
         if saving:
             self.save_factorization()

@@ -1,3 +1,3 @@
-from .synthetic import lowrank_dense, tfidf_like
+from .synthetic import lowrank_dense, movielens_like, tfidf_like
 
-__all__ = ["lowrank_dense", "tfidf_like"]
+__all__ = ["lowrank_dense", "movielens_like", "tfidf_like"]

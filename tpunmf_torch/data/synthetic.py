@@ -1,8 +1,9 @@
 """Synthetic data generators (numpy only), the same as ``tpunmf.data``'s.
 
-Copies of ``lowrank_dense`` and ``tfidf_like`` from tpunmf/data/synthetic.py,
-so that the port's scripts make the same matrices from the same seeds
-without importing ``tpunmf`` (which imports JAX).
+Copies of ``lowrank_dense``, ``tfidf_like`` and ``movielens_like`` from
+tpunmf/data/synthetic.py, so that the port's scripts make the same
+matrices from the same seeds without importing ``tpunmf`` (which imports
+JAX).
 """
 from __future__ import annotations
 
@@ -42,3 +43,18 @@ def tfidf_like(n_terms: int, n_docs: int, *, n_topics: int = 50,
     df = (counts > 0).sum(axis=1)
     idf = np.log((1 + n_docs) / (1 + df)) + 1.0
     return (tf * idf[:, None]).astype(dtype)
+
+
+def movielens_like(n_users: int, n_items: int, *, n_factors: int = 8,
+                   density: float = 0.05, seed: int = 0,
+                   dtype=np.float32) -> np.ndarray:
+    """Dense-ified recommender matrix: planted user/item factors, ratings
+    1..5 on a random support, zeros elsewhere (BASELINE config[2] stand-in
+    for MovieLens-1M)."""
+    rng = np.random.default_rng(seed)
+    u = rng.gamma(2.0, 1.0, (n_users, n_factors))
+    v = rng.gamma(2.0, 1.0, (n_factors, n_items))
+    scores = u @ v
+    scores = 1 + 4 * (scores - scores.min()) / (np.ptp(scores) + 1e-9)
+    mask = rng.random((n_users, n_items)) < density
+    return (np.round(scores) * mask).astype(dtype)

@@ -1,4 +1,5 @@
-// Shared building blocks of the MUR kernels (objective.cu, mur_update.cu).
+// Shared building blocks of the kernels (objective.cu, mur_update.cu,
+// masked_update.cu; hals_sweep.cu uses only the launch helpers).
 //
 // Every kernel runs 256 threads as a 16 x 16 grid (ty, tx).  A thread owns a
 // TM x TN micro-tile of a (16*TM) x (16*TN) block tile: rows ty + 16*a and
@@ -16,8 +17,38 @@ constexpr int kThreads = 256;  // 16 x 16
 constexpr int kChunk = 16;     // contraction depth staged per shared tile
 constexpr float kEps = 1e-9f;  // the MUR guard of tpunmf/ops/mur_fused.py:38
 
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Launch a kernel of kThreads threads that needs `smem` bytes of dynamic
+// shared memory; returns the launch's error.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// out[0] = scale * sum(partials[0:count]), added in double in a fixed order by
+// one block (objective.cu): cross-block sums without float atomics.
+cudaError_t reduce_partials_into(const float* partials, int count, float scale, float* out,
+                                 cudaStream_t stream);
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(unsigned char v) { return (float)v; }
+
+// One cell of the masked KL objective (tpunmf/core/losses.py:20-25): the log
+// has no eps, +inf is zeroed before NaN, and -x + wh is added for every cell.
+// Needs IEEE logf and division (no --use_fast_math).
+__device__ __forceinline__ float kl_term(float xv, float wh) {
+  float val = xv * logf(xv / wh);
+  if (isinf(val) && val > 0.f) val = 0.f;
+  if (isnan(val)) val = 0.f;
+  return (val - xv) + wh;
+}
 
 // A factor value rounded to X's storage type (round to nearest even, as
 // torch's .to(bfloat16)) and back: the EU kernels cast the factor to X's

@@ -3,6 +3,7 @@
 //
 // Replaces the Pallas kernels of tpunmf/ops/mur_fused.py:
 //   mur_w_update (:169, pallas_call :245): _w_eu_kernel (:76), _w_kl_kernel (:95)
+//   mur_w_update(with_lagged_obj=True) (pallas_call :227): _w_kl_obj_kernel (:114)
 //   mur_h_update (:750, pallas_call :797): _h_eu_kernel (:708), _h_kl_kernel (:729)
 //
 // Bound on the H100: every kernel reads X once (4 or 2 bytes a cell) and does
@@ -25,6 +26,12 @@
 //    a (rows x k) accumulator held in dynamic shared memory (at most 135 KB at
 //    k = 1024; the block is halved in that direction above k = 512).  X is
 //    upcast to f32, as on the TPU (mur_fused.py:103, :737).
+//  * The lagged W pass (w_kl_kernel<..., LAGGED = true>) also sums the masked
+//    KL of the incoming (W, H) from the same S tiles, with the raw S (no eps)
+//    in the log, as mur_fused.py:134-138.  The TPU added into one SMEM scalar
+//    over its sequential grid; here each block writes one partial and
+//    reduce_partials_into (objective.cu) adds them in a fixed order, so the sum is
+//    bit-reproducible run to run.  No float atomics.
 //  * Ragged edges are masked by zero loads and bounds-checked stores, so any
 //    (m, n, k <= 1024) works; the TPU needed dividing blocks.
 //  * Nothing is written in place: the wrapper allocates fresh outputs.
@@ -161,11 +168,14 @@ __global__ void __launch_bounds__(kThreads)
 // a = W * ((X / (W H + eps)) H^T), b = hsum; out = 2a / (b + sqrt(b^2 + 4 lam a)).
 // A block owns rows [row0, row0 + 16*TM) and all k; grid ceil(m / (16*TM)).
 // Dynamic shared memory: the (16*TM) x (kpad + 1) accumulator.
-template <typename XT, int TM>
+// LAGGED: partials[blockIdx.x] = the block's rows' masked KL(X, W H) of the
+// incoming W, H (tpunmf/core/losses.py:20-25 masking, as objective.cu).
+template <typename XT, int TM, bool LAGGED>
 __global__ void __launch_bounds__(kThreads)
     w_kl_kernel(const XT* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ h, const float* __restrict__ hsum, float lam,
-                int m, int n, int k, int kpad, float* __restrict__ out) {
+                int m, int n, int k, int kpad, float* __restrict__ out,
+                float* __restrict__ partials) {
   constexpr int TN = 4, BM = 16 * TM, BN = kTile, LDP = BM + 1, LDT = BN + 1;
   __shared__ WhStage<TM, TN> stage;
   __shared__ float Ps[BN * LDP];  // P transposed: Ps[t][r] = P[row0 + r][j0 + t]
@@ -175,19 +185,24 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int row0 = blockIdx.x * BM;
 
+  double obj = 0.0;  // this thread's cells, one f32 sum per tile added in double
   for (int l = tid; l < BM * lda; l += kThreads) acc[l] = 0.f;
   for (int j0 = 0; j0 < n; j0 += BN) {
     float s[TM][TN];
     wh_tile<TM, TN>(s, w, h, m, n, k, row0, j0, stage);  // ends with a barrier
+    float tile_obj = 0.f;
 #pragma unroll
     for (int a = 0; a < TM; ++a) {
 #pragma unroll
       for (int b = 0; b < TN; ++b) {
         const int r = ty + 16 * a, c = tx + 16 * b, gr = row0 + r, gc = j0 + c;
-        Ps[c * LDP + r] =
-            (gr < m && gc < n) ? to_f32(x[(long long)gr * n + gc]) / (s[a][b] + kEps) : 0.f;
+        const bool in = gr < m && gc < n;
+        const float xv = in ? to_f32(x[(long long)gr * n + gc]) : 0.f;
+        Ps[c * LDP + r] = in ? xv / (s[a][b] + kEps) : 0.f;
+        if (LAGGED && in) tile_obj += kl_term(xv, s[a][b]);
       }
     }
+    if (LAGGED) obj += tile_obj;
     for (int c0 = 0; c0 < kpad; c0 += BN) {
       for (int l = tid; l < BN * BN; l += kThreads) {
         const int cc = l / BN, t = l % BN, gk = c0 + cc, gc = j0 + t;
@@ -213,6 +228,16 @@ __global__ void __launch_bounds__(kThreads)
       const float b = hsum[c];
       out[o] = 2.f * a / (b + sqrtf(b * b + 4.f * lam * a));
     }
+  }
+  if constexpr (LAGGED) {
+    __shared__ double red[kThreads];
+    red[tid] = obj;
+    __syncthreads();
+    for (int stride = kThreads / 2; stride > 0; stride /= 2) {
+      if (tid < stride) red[tid] += red[tid + stride];
+      __syncthreads();
+    }
+    if (tid == 0) partials[blockIdx.x] = (float)red[0];
   }
 }
 
@@ -279,22 +304,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// Launch a kernel that needs `smem` bytes of dynamic shared memory.
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 // k above this halves the KL block along the axis that holds all of k, so the
 // accumulator stays near 130 KB of shared memory.
 constexpr int kWideRank = 512;
+
+// Rows of W a KL W-pass block owns at rank k.
+int w_kl_rows(int k) { return k <= kWideRank ? 64 : 32; }
+
+template <typename XT, bool LAGGED>
+cudaError_t w_kl_update(const XT* x, const float* w, const float* h, const float* hsum,
+                        float lam, int m, int n, int k, float* out, float* partials,
+                        cudaStream_t s) {
+  const int kpad = ceil_div(k, kTile) * kTile, bm = w_kl_rows(k);
+  const size_t smem = bm * (kpad + 1) * sizeof(float);
+  return bm == 64 ? launch(w_kl_kernel<XT, 4, LAGGED>, dim3(ceil_div(m, bm)), smem, s, x, w,
+                           h, hsum, lam, m, n, k, kpad, out, partials)
+                  : launch(w_kl_kernel<XT, 2, LAGGED>, dim3(ceil_div(m, bm)), smem, s, x, w,
+                           h, hsum, lam, m, n, k, kpad, out, partials);
+}
 
 template <typename XT>
 cudaError_t w_update(const void* xv, const float* w, const float* h, const float* aux,
@@ -304,15 +331,17 @@ cudaError_t w_update(const void* xv, const float* w, const float* h, const float
     return launch(w_eu_kernel<XT>, dim3(ceil_div(m, kTile), ceil_div(k, kTile)), 0, s, x,
                   w, h, aux, lam, m, n, k, out);
   }
-  const int kpad = ceil_div(k, kTile) * kTile;
-  if (k <= kWideRank) {
-    constexpr int BM = 64;
-    return launch(w_kl_kernel<XT, 4>, dim3(ceil_div(m, BM)), BM * (kpad + 1) * sizeof(float),
-                  s, x, w, h, aux, lam, m, n, k, kpad, out);
-  }
-  constexpr int BM = 32;
-  return launch(w_kl_kernel<XT, 2>, dim3(ceil_div(m, BM)), BM * (kpad + 1) * sizeof(float), s,
-                x, w, h, aux, lam, m, n, k, kpad, out);
+  return w_kl_update<XT, false>(x, w, h, aux, lam, m, n, k, out, nullptr, s);
+}
+
+template <typename XT>
+cudaError_t w_update_lagged(const void* xv, const float* w, const float* h,
+                            const float* hsum, float lam, int m, int n, int k, float* out,
+                            float* partials, float* obj, cudaStream_t s) {
+  cudaError_t err = w_kl_update<XT, true>(static_cast<const XT*>(xv), w, h, hsum, lam, m, n,
+                                          k, out, partials, s);
+  if (err != cudaSuccess) return err;
+  return reduce_partials_into(partials, ceil_div(m, w_kl_rows(k)), 1.f, obj, s);
 }
 
 template <typename XT>
@@ -353,6 +382,31 @@ int tpunmf_mur_w_update(const void* x, int x_is_bf16, const void* w, const void*
       x_is_bf16
           ? tpunmf::w_update<__nv_bfloat16>(x, wf, hf, af, lam, m, n, k, is_kl, o, s)
           : tpunmf::w_update<float>(x, wf, hf, af, lam, m, n, k, is_kl, o, s);
+  return static_cast<int>(err);
+}
+
+// Rows of partials tpunmf_mur_w_update_lagged needs at (m, k).
+int tpunmf_mur_w_lagged_blocks(int m, int k) {
+  return tpunmf::ceil_div(m, tpunmf::w_kl_rows(k));
+}
+
+// KL W half-update that also writes the masked KL of the incoming (W, H) to
+// obj[0] (the lagged objective).  hsum is rowsum(H) (k,); partials holds
+// tpunmf_mur_w_lagged_blocks(m, k) floats of scratch.
+int tpunmf_mur_w_update_lagged(const void* x, int x_is_bf16, const void* w, const void* h,
+                               const void* hsum, float lam, int m, int n, int k, void* out,
+                               void* partials, void* obj, void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* hf = static_cast<const float*>(h);
+  const float* hs = static_cast<const float*>(hsum);
+  float* o = static_cast<float*>(out);
+  float* p = static_cast<float*>(partials);
+  float* ob = static_cast<float*>(obj);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      x_is_bf16
+          ? tpunmf::w_update_lagged<__nv_bfloat16>(x, wf, hf, hs, lam, m, n, k, o, p, ob, s)
+          : tpunmf::w_update_lagged<float>(x, wf, hf, hs, lam, m, n, k, o, p, ob, s);
   return static_cast<int>(err);
 }
 

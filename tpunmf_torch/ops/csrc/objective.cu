@@ -49,10 +49,7 @@ __global__ void __launch_bounds__(kThreads)
         const float xv = to_f32(x[(long long)gr * n + gc]);
         const float wh = s[a][b];
         if (KL) {
-          float val = xv * logf(xv / wh);
-          if (isinf(val) && val > 0.f) val = 0.f;
-          if (isnan(val)) val = 0.f;
-          sum += (val - xv) + wh;
+          sum += kl_term(xv, wh);
         } else {
           const float d = xv - wh;
           sum += d * d;
@@ -98,12 +95,17 @@ cudaError_t launch_objective(const void* x, const float* w, const float* h, int 
     objective_kernel<XT, false><<<grid, kThreads, 0, stream>>>(xt, w, h, m, n, k, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_partials<<<1, kThreads, 0, stream>>>(partials, grid.x * grid.y,
-                                              kl ? 1.f : 0.5f, out);
-  return cudaGetLastError();
+  return reduce_partials_into(partials, grid.x * grid.y, kl ? 1.f : 0.5f, out, stream);
 }
 
 }  // namespace
+
+cudaError_t reduce_partials_into(const float* partials, int count, float scale, float* out,
+                                 cudaStream_t stream) {
+  reduce_partials<<<1, kThreads, 0, stream>>>(partials, count, scale, out);
+  return cudaGetLastError();
+}
+
 }  // namespace tpunmf
 
 extern "C" {

@@ -1,3 +1,5 @@
+from .hals import hals
+from .masked import mur_masked
 from .mur import mur
 
-__all__ = ["mur"]
+__all__ = ["hals", "mur", "mur_masked"]

@@ -157,5 +157,5 @@ def run_loop(
 def finalize_history(carry: LoopCarry) -> tuple[int, list]:
     """Convert carry to the reference's (i, obj_history) convention."""
     completed = int(carry.i)
-    obj_history = list(carry.obj_buf.numpy()[: completed + 1])
+    obj_history = list(host_array(carry.obj_buf)[: completed + 1])
     return completed - 1, obj_history

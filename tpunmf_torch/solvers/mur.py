@@ -10,8 +10,11 @@ it defaults to True exactly when X is a CUDA tensor):
 
   * fused (2 passes over X, +1 for the exact objective): ``mur_w_update``
     and ``mur_h_update`` (ops/mur_fused.py) and the objective passes
-    ``eu_residual_obj`` / ``kl_obj`` (ops/fused.py).  On CUDA these launch
-    the hand-written kernels; on the CPU they run their plain versions.
+    ``eu_residual_obj`` / ``kl_obj`` (ops/fused.py).  With
+    ``objective="lagged"`` (KL) the W pass also returns the objective of
+    the incoming iterate and the objective pass is dropped: 2 passes, the
+    trace shifted by one iteration.  On CUDA these launch the hand-written
+    kernels; on the CPU they run their plain versions.
   * plain (``step_eu`` / ``step_kl``): PyTorch products, EU by the Gram
     trick, KL carrying the ratio from the trailing objective pass.
 
@@ -86,6 +89,19 @@ def _mur_block(
 
     def step_kl_fused(inner, i):
         w, h = inner
+        if objective == "lagged":
+            # the W pass emits KL of the INCOMING iterate, so the trailing
+            # objective pass is dropped and the recorded objective (and the
+            # convergence stop) lags one iteration (tpunmf mur.py:199-235);
+            # off-cadence iterations run the obj-free W kernel
+            if objective_every == 1 or refresh(i):
+                w, obj = mur_w_update(x, w, h, distance_type="kl",
+                                      lam=lambda_w, with_lagged_obj=True)
+            else:
+                w = mur_w_update(x, w, h, distance_type="kl", lam=lambda_w)
+                obj = torch.tensor(math.nan)
+            h, _ = mur_h_update(x, w, h, distance_type="kl", lam=lambda_h)
+            return (w, h), obj
         w = mur_w_update(x, w, h, distance_type="kl", lam=lambda_w)
         h, _ = mur_h_update(x, w, h, distance_type="kl", lam=lambda_h)
         return (w, h), cadence_obj(i, lambda: kl_obj(x, w, h))
@@ -164,9 +180,11 @@ def mur(
       w_init/h_init: explicit initial factors.
       key: ``torch.Generator`` or int seed for random init (default seed 0;
         torch's draws differ from jax.random's).
-      objective: 'exact' (fused residual pass) or 'gram' (EU Gram-trick,
-        no extra m*n pass).  'lagged' on the fused KL route is not ported
-        yet and raises.
+      objective: 'exact' (fused residual pass), 'gram' (EU Gram-trick,
+        no extra m*n pass) or 'lagged' (fused KL route: the objective of
+        the incoming iterate from the W pass, so the trace and the
+        convergence stop lag one iteration; other routes take it as
+        'exact', as tpunmf does).
       objective_every: compute/record the objective only every N-th
         iteration (plus the last possible one); skipped iterations record
         NaN.
@@ -186,10 +204,6 @@ def mur(
     x = torch.as_tensor(x)
     if use_pallas is None:
         use_pallas = x.device.type == "cuda"
-    if use_pallas and distance_type == "kl" and objective == "lagged":
-        raise NotImplementedError(
-            "objective='lagged' needs the lagged-objective W kernel "
-            "(_w_kl_obj_kernel), which is not ported yet (ROADMAP.md, queue 2)")
 
     experiment = MurExperiment(
         method="mur",
