@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; 75-95 s of command time on an H100
+    python3 chip_smoke.py       # one card; about two minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -20,10 +20,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      - masked MUR (mask=): EU and KL at MovieLens-10M's dimensions, 69878
        users x 10677 items, 1.34% observed, r64 (movielens_like's recipe,
        made on the card);
-     - MUR KL with objective="lagged" at config[1], against the exact run.
+     - MUR KL with objective="lagged" at config[1], against the exact run;
+     - serving (tpunmf_torch.serve.topk): 20 batches of 64 users against
+       n = 2^20 items at r128, k = 100, exact, quantized (bf16 first stage
+       from a stored bf16 H) and exact with 1% of the items excluded, and
+       20 batches at r512, n = 2^19, exact; kernel route against the plain
+       route (the same code with the kernels' plain versions), each
+       answer held against a stable sort of its own scores;
+     - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
+       (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
+       adaptive, and KL.
      Each path's launch counters are set to 0 just before it and read just
      after; each run must launch its kernels and give finite factors and
-     trace (non-increasing for EU).
+     trace (non-increasing for MUR and HALS EU; ADMM's is not monotone).
   4. a save_factorization / load_factorization round trip.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
@@ -31,6 +40,7 @@ this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -66,6 +76,18 @@ SWEEP_TOL = 1e-4
 LAGGED_RTOL = 1e-4
 # MovieLens-10M: 10,000,054 ratings of 69,878 users on 10,677 items
 ML10M = (69878, 10677, 0.0134)
+# BASELINE config[3] (benchmarks/run_configs.py:176-188): ADMM, L1 on H
+CONFIG3 = dict(m=50000, n=20000, k=128, density=0.02, seed=3)
+ADMM_KW = dict(rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n"),
+               nndsvd_init=(True, "zero"))
+# the fused scoring kernel against its plain version: both accumulate the
+# same f32 products in another order; |got - want| <= 2e-5 (1 + |want|),
+# tpunmf's tolerance against interpret mode (tests/test_serve.py:456-459)
+SCORE_TOL = 2e-5
+# serving: top-k values of the kernel and plain routes (scores summed in
+# another order), relative
+SERVE_VALUE_RTOL = 1e-5
+SERVE_BATCH, SERVE_BATCHES, SERVE_K = 64, 20, 100
 
 KERNELS = {
     "mur_w_update": ("tpunmf_torch/ops/csrc/mur_update.cu",
@@ -83,10 +105,18 @@ KERNELS = {
                         "tpunmf/ops/masked_fused.py:129"),
     "masked_h_update": ("tpunmf_torch/ops/csrc/masked_update.cu",
                         "tpunmf/ops/masked_fused.py:224"),
+    "kl_ratio_and_obj": ("tpunmf_torch/ops/csrc/objective.cu",
+                         "tpunmf/ops/fused.py:253"),
+    "blockmax_relayout": ("tpunmf_torch/ops/csrc/topk_select.cu",
+                          "tpunmf/ops/topk_select.py:77"),
+    "score_blockmax_relayout": ("tpunmf_torch/ops/csrc/topk_select.cu",
+                                "tpunmf/ops/topk_select.py:156"),
 }
 # the shape whose times the kernels line reports (its f32 case)
 HEADLINE = {"kl_obj": "KL", "mur_w_update_lagged": "KL",
-            "masked_w_update": "ML-10M", "masked_h_update": "ML-10M"}
+            "masked_w_update": "ML-10M", "masked_h_update": "ML-10M",
+            "kl_ratio_and_obj": "config[3]", "blockmax_relayout": "serve",
+            "score_blockmax_relayout": "serve"}
 
 
 class SmokeFailure(RuntimeError):
@@ -124,15 +154,42 @@ def time_pair(torch, plain, kernel, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def chunks(got, want, size=1 << 26):
+    """(got, want) as float64 pieces of at most ``size`` elements, so that
+    comparing two config[3]-sized outputs (1e9 cells) needs no 8 GB
+    temporaries."""
+    for a, b in zip(got.reshape(-1).split(size), want.reshape(-1).split(size)):
+        yield a.double(), b.double()
+
+
 def max_rel_err(got, want):
-    got, want = got.double(), want.double()
-    denom = want.abs().clamp_min(float(np.finfo(np.float32).tiny))
-    return float(((got - want).abs() / denom).max())
+    tiny = float(np.finfo(np.float32).tiny)
+    return max(float(((a - b).abs() / b.abs().clamp_min(tiny)).max())
+               for a, b in chunks(got, want))
 
 
 def scaled_err(got, want):
-    got, want = got.double(), want.double()
-    return float((got - want).abs().max() / want.abs().max())
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def close_err(got, want):
+    """max |got - want| / (1 + |want|): against t, rtol = atol = t."""
+    return max(float(((a - b).abs() / (1.0 + b.abs())).max())
+               for a, b in chunks(got, want))
+
+
+def bit_err(got, want):
+    """0 when the tensors hold the same values with NaN in the same places,
+    else the largest difference (inf where only one side is NaN)."""
+    import torch
+
+    worst = 0.0
+    for a, b in chunks(got, want):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return float("inf")
+        real = ~torch.isnan(b)
+        worst = max(worst, float((a[real] - b[real]).abs().max()))
+    return worst
 
 
 def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
@@ -144,12 +201,11 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     rel = max(err(a, b) for a, b in zip(got, want))
-    abs_err = max(float((a.double() - b.double()).abs().max())
-                  for a, b in zip(got, want))
+    abs_err = max(bit_err(a, b) for a, b in zip(got, want))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     ms, plain_ms = time_pair(torch, plain, kern, reps)
     ok = finite and rel <= rtol
-    print(f"  {name:19s} {label:30s} {what:24s} err={rel:.3e} "
+    print(f"  {name:19s} {label:36s} {what:24s} err={rel:.3e} "
           f"(tol {rtol:.0e}) max_abs_err={abs_err:.3e} "
           f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -274,6 +330,78 @@ def masked_phase(torch, records, cases, reps):
         del w, h, binary, weights
 
 
+def kl_ratio_phase(torch, records, cases, reps):
+    """kl_ratio_and_obj against its plain version: the ratio and the
+    objective, both within OBJECTIVE_RTOL."""
+    from tpunmf_torch.ops import fused
+
+    for label, x, k in cases:
+        m, n = x.shape
+        g = torch.Generator(device="cuda")
+        g.manual_seed(12)
+        w = torch.rand((m, k), generator=g, device="cuda") + 0.1
+        h = torch.rand((k, n), generator=g, device="cuda") + 0.1
+        check_kernel(torch, records, "kl_ratio_and_obj", label, "ratio, objective",
+                     lambda: fused.kl_ratio_and_obj(x, w, h),
+                     lambda: fused.kl_ratio_and_obj_ref(x, w, h), OBJECTIVE_RTOL, reps)
+        del w, h
+
+
+def serving_kernel_phase(torch, records, reps):
+    """blockmax_relayout (bit for bit) and score_blockmax_relayout
+    (SCORE_TOL) against their plain versions at the serving shapes, and
+    torch.topk on the full (64, 2^20) scores beside the block-max route."""
+    from tpunmf_torch.ops import topk_select as ts
+    from tpunmf_torch.serve import topk
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    for label, b, n, dtype in ((f"serve ({SERVE_BATCH}, {1 << 20}) f32", SERVE_BATCH,
+                                1 << 20, torch.float32),
+                               (f"serve ({SERVE_BATCH}, {1 << 20}) bf16", SERVE_BATCH,
+                                1 << 20, torch.bfloat16),
+                               ("ragged (3, 40000) f32", 3, 40000, torch.float32),
+                               (f"two row tiles (96, {1 << 20}) f32", 96, 1 << 20,
+                                torch.float32)):
+        s = torch.randn((b, n), generator=g, device="cuda").to(dtype)
+        check_kernel(torch, records, "blockmax_relayout", label, "bit for bit",
+                     lambda: ts.blockmax_relayout(s), lambda: ts.blockmax_relayout_ref(s),
+                     0.0, reps, err=bit_err)
+        if dtype == torch.float32 and b == SERVE_BATCH:
+            scores = s
+        del s
+    for label, b, r, n, hdtype in (
+            (f"serve ({SERVE_BATCH}, 128)x(128, {1 << 20}) f32", SERVE_BATCH, 128,
+             1 << 20, torch.float32),
+            (f"serve ({SERVE_BATCH}, 128)x(128, {1 << 20}) bf16 H", SERVE_BATCH, 128,
+             1 << 20, torch.bfloat16),
+            (f"serve ({SERVE_BATCH}, 512)x(512, {1 << 19}) f32", SERVE_BATCH, 512,
+             1 << 19, torch.float32),
+            ("ragged (96, 128)x(128, 40000) f32", 96, 128, 40000, torch.float32)):
+        w = torch.rand((b, r), generator=g, device="cuda").to(hdtype)
+        h = torch.rand((r, n), generator=g, device="cuda").to(hdtype)
+        check_kernel(torch, records, "score_blockmax_relayout", label, "f32 accumulate",
+                     lambda: ts.score_blockmax_relayout(w, h),
+                     lambda: ts.score_blockmax_relayout_ref(w, h), SCORE_TOL, reps,
+                     err=close_err)
+        del w, h
+
+    # torch.topk of the whole score matrix against the block-max route
+    # (blockmax_relayout + the gathered sort) on the same scores
+    got = topk._exact_topk(scores, SERVE_K)
+    want = torch.topk(scores, SERVE_K)
+    require(torch.equal(got[0], want.values), "torch.topk and the block-max route "
+                                              "disagree on the top-k values")
+    route_ms, topk_ms = time_pair(torch, lambda: torch.topk(scores, SERVE_K),
+                                  lambda: topk._exact_topk(scores, SERVE_K), reps)
+    line = {"scores": [SERVE_BATCH, 1 << 20], "k": SERVE_K, "torch_topk_ms": topk_ms,
+            "blockmax_route_ms": route_ms}
+    print(f"  torch.topk of ({SERVE_BATCH}, {1 << 20}) f32 at k={SERVE_K}: "
+          f"{topk_ms:.4f} ms; block-max route on the same scores {route_ms:.4f} ms "
+          f"(same values)", flush=True)
+    return line
+
+
 def reset_counters(counters):
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -303,7 +431,7 @@ def run_slice(torch, tt, wrappers, label, x, k, distance, data_dtype, card,
     route over the same run for comparison; returns the rates, the routes'
     agreement and the fused route's trace."""
     kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
-    if method == "mur":
+    if method in ("mur", "admm"):
         kw["distance_type"] = distance
     if data_dtype is not None:
         kw["data_dtype"] = data_dtype
@@ -349,7 +477,7 @@ def run_slice(torch, tt, wrappers, label, x, k, distance, data_dtype, card,
             f"{label}: factor shapes {fused.w.shape} {fused.h.shape}")
     require(route_err <= rtol, f"{label}: fused and plain routes disagree "
                                f"({route_err:.3e} > {rtol:.0e})")
-    if distance == "eu":
+    if distance == "eu" and method != "admm":  # ADMM's trace is not monotone
         rises = np.diff(hist) / hist[:-1]
         require(np.all(rises <= EU_MONOTONE_RTOL),
                 f"{label}: EU objective rose by {rises.max():.3e}")
@@ -410,6 +538,187 @@ def movielens_on_card(torch, n_users, n_items, density, seed, n_factors=8):
     return x, observed
 
 
+@contextlib.contextmanager
+def plain_serving():
+    """The serving code with the kernels' plain versions in their place:
+    the plain route that the kernel route is compared with."""
+    from tpunmf_torch.ops import topk_select as ts
+    from tpunmf_torch.serve import topk
+
+    saved = topk.blockmax_relayout, topk.score_blockmax_relayout
+    topk.blockmax_relayout = ts.blockmax_relayout_ref
+    topk.score_blockmax_relayout = ts.score_blockmax_relayout_ref
+    try:
+        yield
+    finally:
+        topk.blockmax_relayout, topk.score_blockmax_relayout = saved
+
+
+def serving_data(torch, r, n, seed, exclusion=False):
+    """W for SERVE_BATCHES batches of SERVE_BATCH users and H, U[0,1) from a
+    seeded CUDA generator (bench.py's serving cells draw the same
+    distribution); with ``exclusion`` 1% of the items of every user."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    users = torch.rand((SERVE_BATCHES * SERVE_BATCH, r), generator=g, device="cuda")
+    h = torch.rand((r, n), generator=g, device="cuda")
+    excl = None
+    if exclusion:
+        excl = torch.rand((SERVE_BATCHES * SERVE_BATCH, n), generator=g,
+                          device="cuda") < 0.01
+    return users, h, excl
+
+
+def serve_batches(torch, request):
+    """request(i) for every batch after two warm-up calls: the answers and
+    each batch's latency in ms (CUDA events around the request; the
+    request's own host read of its acceptance check is inside)."""
+    request(0)
+    request(1)
+    answers, ms = [], []
+    for i in range(SERVE_BATCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        answers.append(request(i))
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return answers, ms
+
+
+def serving_mode(torch, label, request):
+    """One serving mode on the kernel route and on the plain route."""
+    kernel_answers, kernel_ms = serve_batches(torch, request)
+    with plain_serving():
+        plain_answers, plain_ms = serve_batches(torch, request)
+    worst = 0.0
+    for (kv, _), (pv, _) in zip(kernel_answers, plain_answers):
+        worst = max(worst, float(((kv.double() - pv.double()).abs()
+                                  / pv.double().abs()).max()))
+    same_idx = float(np.mean([float((ki == pi).float().mean()) for (_, ki), (_, pi)
+                              in zip(kernel_answers, plain_answers)]))
+    out = {"batch_ms": float(np.mean(kernel_ms)), "plain_batch_ms": float(np.mean(plain_ms)),
+           "batch_ms_max": float(np.max(kernel_ms)),
+           "qps": SERVE_BATCH * 1e3 / float(np.mean(kernel_ms)),
+           "plain_qps": SERVE_BATCH * 1e3 / float(np.mean(plain_ms)),
+           "value_err": worst, "same_indices": same_idx}
+    print(f"  {label}: kernel route {out['batch_ms']:.4f} ms/batch "
+          f"({out['qps']:.0f} QPS), plain route {out['plain_batch_ms']:.4f} ms/batch "
+          f"({out['plain_qps']:.0f} QPS); values kernel vs plain max rel {worst:.3e} "
+          f"(tol {SERVE_VALUE_RTOL:.0e}), same indices {same_idx:.4f}", flush=True)
+    require(worst <= SERVE_VALUE_RTOL, f"{label}: kernel and plain routes disagree")
+    for v, i in kernel_answers + plain_answers:
+        require(v.shape == (SERVE_BATCH, SERVE_K) and i.dtype == torch.int64,
+                f"{label}: answer of shape {tuple(v.shape)}, {i.dtype}")
+        require(bool(torch.isfinite(v).all()), f"{label}: non-finite top-k values")
+    return out, kernel_answers, plain_answers
+
+
+def check_own_scores(torch, label, answers, scores_of, batches=2, candidates=None):
+    """Each of the first ``batches`` answers equals a stable sort of the
+    scores its route ranked: all n of them, or the (b, c) rescored
+    candidates ``candidates(i)`` gives with ``scores_of(i)`` (ties then go
+    to the earlier candidate, as tpunmf's rerank orders them)."""
+    from tpunmf_torch.serve import topk
+
+    for i in range(batches):
+        v, idx = topk._topk(scores_of(i), SERVE_K)
+        if candidates is not None:
+            idx = torch.gather(candidates(i), 1, idx)
+        bad = int((v != answers[i][0]).sum() + (idx != answers[i][1]).sum())
+        require(bad == 0, f"{label}: batch {i} is not the top-k of its own scores "
+                          f"({bad} of {2 * v.numel()} entries differ)")
+
+
+def serving_path(torch, runs):
+    """The serving cells; returns what check_serving needs afterwards (the
+    checks launch kernels, which must not count toward the path)."""
+    from tpunmf_torch.serve import topk
+
+    kept = {}
+    users, h, excl = serving_data(torch, 128, 1 << 20, seed=21, exclusion=True)
+    hq = h.to(torch.bfloat16)  # the stored low-precision copy
+    batch = lambda i: users[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]
+    modes = {
+        "serve exact r128": lambda i: topk.topk_scores_dense(batch(i), h, SERVE_K),
+        "serve bf16 r128": lambda i: topk.topk_retrieval(
+            None, batch(i), h, SERVE_K, first_stage_dtype="bf16", h_quantized=hq,
+            oversample=2),
+        "serve exclude r128": lambda i: topk.topk_retrieval(
+            None, batch(i), h, SERVE_K,
+            exclude=excl[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]),
+    }
+    for label, request in modes.items():
+        runs[label], kernel, plain = serving_mode(torch, label, request)
+        kept[label] = (kernel, plain)
+    kept["r128"] = (batch, h, hq, excl)
+    users512, h512, _ = serving_data(torch, 512, 1 << 19, seed=22)
+    batch512 = lambda i: users512[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]
+    runs["serve exact r512"], kernel, plain = serving_mode(
+        torch, "serve exact r512",
+        lambda i: topk.topk_scores_dense(batch512(i), h512, SERVE_K))
+    kept["serve exact r512"] = (kernel, plain)
+    kept["r512"] = (batch512, h512)
+    return kept
+
+
+def check_serving(torch, runs, kept):
+    """Every serving answer against its own scores (the kernel route's
+    rebuilt from the kernel's s3), and the quantized route's recall@100
+    against the exact route."""
+    from tpunmf_torch.ops import topk_select as ts
+    from tpunmf_torch.serve import topk
+
+    batch, h, hq, excl = kept["r128"]
+    batch512, h512 = kept["r512"]
+
+    def from_s3(w, hh):
+        return ts.score_blockmax_relayout(w, hh)[1].reshape(w.shape[0], -1)[:, :hh.shape[1]]
+
+    for label, bt, hh in (("serve exact r128", batch, h), ("serve exact r512", batch512, h512)):
+        kernel, plain = kept[label]
+        check_own_scores(torch, label + " kernel", kernel, lambda i: from_s3(bt(i), hh))
+        check_own_scores(torch, label + " plain", plain, lambda i: topk._score(bt(i), hh))
+    kernel, plain = kept["serve exclude r128"]
+    masked = lambda i: torch.where(excl[i * SERVE_BATCH:(i + 1) * SERVE_BATCH], -torch.inf,
+                                   topk._score(batch(i), h))
+    check_own_scores(torch, "serve exclude r128 kernel", kernel, masked)
+    check_own_scores(torch, "serve exclude r128 plain", plain, masked)
+    for i in range(SERVE_BATCHES):
+        taken = torch.gather(excl[i * SERVE_BATCH:(i + 1) * SERVE_BATCH], 1, kernel[i][1])
+        require(not bool(taken.any()), "serve exclude r128: an excluded item was served")
+
+    # quantized: the candidates are the top 2k of the first stage's own
+    # scores, reranked by the exact rescore of those candidates
+    kernel, plain = kept["serve bf16 r128"]
+    for route, answers, stage in (("kernel", kernel, lambda w: from_s3(w, hq)),
+                                  ("plain", plain, lambda w: topk._score(w, hq))):
+        def cands(i, stage=stage):
+            return topk._topk(stage(batch(i).to(torch.bfloat16)), 2 * SERVE_K)[1]
+
+        def rescored(i):
+            return torch.bmm(h.T[cands(i)], batch(i)[:, :, None])[:, :, 0]
+        check_own_scores(torch, f"serve bf16 r128 {route}", answers, rescored,
+                         candidates=cands)
+    exact_kernel = kept["serve exact r128"][0]
+    recall = float(np.mean([topk.recall_at_k(q[1], e[1]) for q, e in zip(kernel, exact_kernel)]))
+    runs["serve bf16 r128"]["recall_at_100"] = recall
+    print(f"  serve bf16 r128: recall@{SERVE_K} against the exact route {recall:.4f}; "
+          f"every answer is the top-k of its own scores", flush=True)
+
+
+def config3_on_card(torch):
+    """BASELINE config[3]'s matrix, made on the host with the seed's draws
+    and densified to float32 on the card."""
+    from tpunmf_torch.data import densify, sparse_csr
+
+    csr = sparse_csr(CONFIG3["m"], CONFIG3["n"], density=CONFIG3["density"],
+                     k=CONFIG3["k"], seed=CONFIG3["seed"])
+    x = torch.from_numpy(densify(csr)).cuda()
+    return x, csr.nnz
+
+
 def roundtrip_phase(tt, x, k):
     model = tt.NMF(x, k)
     model.factorize(method="mur", distance_type="eu", min_iter=3, max_iter=3)
@@ -441,7 +750,8 @@ def main() -> int:
     import tpunmf_torch as tt
     from tpunmf_torch.data import lowrank_dense, movielens_like, tfidf_like
     from tpunmf_torch.init import nndsvd
-    from tpunmf_torch.ops import _build, fused, hals_sweep, masked_fused, mur_fused
+    from tpunmf_torch.ops import (_build, fused, hals_sweep, masked_fused, mur_fused,
+                                  topk_select)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -452,7 +762,11 @@ def main() -> int:
                 "mur_w_update_lagged": (mur_fused.mur_w_update, "lagged_launches"),
                 "gs_sweep": (hals_sweep.gs_sweep, "launches"),
                 "masked_w_update": (masked_fused.masked_w_update, "launches"),
-                "masked_h_update": (masked_fused.masked_h_update, "launches")}
+                "masked_h_update": (masked_fused.masked_h_update, "launches"),
+                "kl_ratio_and_obj": (fused.kl_ratio_and_obj, "launches"),
+                "blockmax_relayout": (topk_select.blockmax_relayout, "launches"),
+                "score_blockmax_relayout": (topk_select.score_blockmax_relayout,
+                                            "launches")}
 
     t_start = time.perf_counter()
     card = nvidia_smi_line()
@@ -481,6 +795,11 @@ def main() -> int:
     print(f"  MovieLens-shaped data made in {time.perf_counter() - t0:.1f} s: "
           f"{tuple(ml1_x.shape)} {float((ml1_x > 0).float().mean()):.4f} observed; "
           f"{tuple(ml10_x.shape)} {int(ml10_obs.sum())} observed", flush=True)
+    t0 = time.perf_counter()
+    adm_x, adm_nnz = config3_on_card(torch)
+    adm_label = f"config[3] {tuple(adm_x.shape)} k{CONFIG3['k']} f32"
+    print(f"  BASELINE config[3] made in {time.perf_counter() - t0:.1f} s: "
+          f"{tuple(adm_x.shape)}, {adm_nnz} nonzeros", flush=True)
 
     t_phase = time.perf_counter()
     print("phase 2: kernels vs plain versions", flush=True)
@@ -500,6 +819,11 @@ def main() -> int:
     masked_phase(torch, records, [
         (f"ML-1M {tuple(ml1_x.shape)} k64 f32", ml1_x, ml1_x > 0, 64),
         (f"ML-10M {tuple(ml10_x.shape)} k64 f32", ml10_x, ml10_obs, 64)], reps=3)
+    kl_ratio_phase(torch, records, [
+        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37),
+        (f"KL {tuple(kl_x.shape)} k{kl_k} f32", kl_x, kl_k),
+        (adm_label, adm_x, CONFIG3["k"])], reps=3)
+    topk_line = serving_kernel_phase(torch, records, reps=5)
     print(f"  phase 2 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     t_phase = time.perf_counter()
@@ -539,15 +863,37 @@ def main() -> int:
             torch, tt, "KL config[1] lagged", kl_x, kl_k,
             runs["KL config[1]"]["trace"], RUN_ITERS, card)
 
+    def admm_path():
+        for label, dist, mode in (("ADMM EU fixed config[3]", "eu", "fixed"),
+                                  ("ADMM EU adaptive config[3]", "eu", "adaptive"),
+                                  ("ADMM KL config[3]", "kl", "fixed")):
+            runs[label] = run_slice(
+                torch, tt, counters, label, adm_x, CONFIG3["k"], dist, None, card,
+                RUN_ITERS, method="admm",
+                needed=("eu_residual_obj" if dist == "eu" else "kl_ratio_and_obj",),
+                rho_mode=mode, **ADMM_KW)
+
+    def drive(label, needed, body):
+        out, launched = run_path(torch, counters, label, needed, body)
+        for name, c in launched.items():
+            launches[name] += c
+        return out
+
     for label, needed, body in (
             ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj"),
              mur_path),
             ("HALS path", ("gs_sweep", "eu_residual_obj"), hals_path),
             ("masked MUR path", ("masked_w_update", "masked_h_update"), masked_path),
             ("lagged KL path", ("mur_w_update_lagged", "mur_h_update"), lagged_path)):
-        _, launched = run_path(torch, counters, label, needed, body)
-        for name, c in launched.items():
-            launches[name] += c
+        drive(label, needed, body)
+    # the ADMM KL path holds ~10 config[3]-sized arrays (4 GB each)
+    del ml10_x, ml10_obs, ml1_x
+    kept = drive("serving path", ("score_blockmax_relayout", "blockmax_relayout"),
+                 lambda: serving_path(torch, runs))
+    check_serving(torch, runs, kept)
+    del kept
+    torch.cuda.empty_cache()
+    drive("ADMM path", ("eu_residual_obj", "kl_ratio_and_obj"), admm_path)
     print(f"  launches over the paths: {launches}", flush=True)
     for name, c in launches.items():
         require(c > 0, f"{name} was not launched on any path")
@@ -574,7 +920,8 @@ def main() -> int:
          "cases": records[name]["cases"]}
         for name, (src, rep) in KERNELS.items()],
         "runs": {label: {k: v for k, v in r.items() if k != "trace"}
-                 for label, r in runs.items()}}))
+                 for label, r in runs.items()},
+        "torch_topk": topk_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ import torch
 import tpunmf_torch
 from _torch_parity import (cuda_device, kernel_problem, lowrank,  # noqa: F401
                            masked_problem, t)
-from tpunmf_torch.ops import fused, hals_sweep, masked_fused, mur_fused
+from tpunmf_torch.ops import fused, hals_sweep, masked_fused, mur_fused, topk_select
+from tpunmf_torch.serve import topk
 
 # f32 sums of positive terms in another order (see chip_smoke.py)
 RTOL = 1e-4
@@ -236,3 +237,128 @@ def test_lagged_route_is_the_exact_route_shifted_by_one(cuda_device):
     assert mur_fused.mur_w_update.lagged_launches == before + 20
     np.testing.assert_allclose(lagged.obj_history[1:], exact.obj_history[:-1], rtol=1e-5)
     assert lagged.obj_history[0] == exact.obj_history[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_kl_ratio_and_obj_matches_plain_version(cuda_device, xdtype):
+    x, w, h = _on(cuda_device, xdtype)
+    assert bool((x == 0).any())
+    before = fused.kl_ratio_and_obj.launches
+    got_r, got_o = fused.kl_ratio_and_obj(x, w, h)
+    assert fused.kl_ratio_and_obj.launches == before + 1
+    want_r, want_o = fused.kl_ratio_and_obj_ref(x, w, h)
+    assert got_r.dtype == torch.float32 and got_r.shape == x.shape
+    torch.testing.assert_close(got_r, want_r, rtol=RTOL, atol=0)
+    torch.testing.assert_close(got_o, want_o, rtol=RTOL, atol=0)
+    # the same objective as kl_obj's kernel, and bit-reproducible
+    torch.testing.assert_close(got_o, fused.kl_obj(x, w, h), rtol=RTOL, atol=0)
+    assert torch.equal(fused.kl_ratio_and_obj(x, w, h)[1], got_o)
+
+
+def _same_bits(got, want):
+    """Equal values, NaN in the same places."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("b,n", [(4, 16384), (3, 40000), (70, 20000)])
+@pytest.mark.parametrize("sel_block", [128, 256])
+def test_blockmax_relayout_matches_plain_version_bit_for_bit(cuda_device, sel_block, b, n,
+                                                             dtype):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(b * n)
+    s = torch.randn((b, n), generator=g, device=cuda_device).to(dtype)
+    s[b - 1, n // 3] = float("nan")  # propagates into its block's maximum
+    s[0, :] = -float("inf")          # a fully excluded row stays -inf, not finfo.min
+    before = topk_select.blockmax_relayout.launches
+    got = topk_select.blockmax_relayout(s, sel_block)
+    assert topk_select.blockmax_relayout.launches == before + 1
+    want = topk_select.blockmax_relayout_ref(s, sel_block)
+    for a, w in zip(got, want):
+        _same_bits(a, w)
+    assert int(torch.isnan(got[0][b - 1]).sum()) == 1
+    assert bool((got[0][0, :n // sel_block] == -float("inf")).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hdtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,r,n", [(8, 128, 16384), (8, 37, 40000), (96, 128, 16384),
+                                   (64, 512, 20000), (3, 1, 300)])
+def test_score_blockmax_relayout_matches_plain_version(cuda_device, b, r, n, hdtype):
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(b + r + n)
+    w = torch.rand((b, r), generator=g, device=cuda_device).to(hdtype)
+    h = torch.rand((r, n), generator=g, device=cuda_device).to(hdtype)
+    before = topk_select.score_blockmax_relayout.launches
+    got_m, got_s3 = topk_select.score_blockmax_relayout(w, h)
+    assert topk_select.score_blockmax_relayout.launches == before + 1
+    want_m, want_s3 = topk_select.score_blockmax_relayout_ref(w, h)
+    assert got_m.dtype == got_s3.dtype == torch.float32
+    torch.testing.assert_close(got_m, want_m, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_s3, want_s3, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_score_blockmax_relayout_propagates_nan(cuda_device):
+    w = torch.rand((5, 16), device=cuda_device)
+    h = torch.rand((16, 40000), device=cuda_device)
+    h[3, 777] = float("nan")
+    got_m, got_s3 = topk_select.score_blockmax_relayout(w, h)
+    assert bool(torch.isnan(got_m[:, 777 // 128]).all())
+    assert int(torch.isnan(got_m).sum()) == 5
+    assert bool(torch.isnan(got_s3.reshape(5, -1)[:, 777]).all())
+
+
+@pytest.mark.cuda
+def test_serving_wrappers_raise_instead_of_falling_back(cuda_device):
+    s = torch.rand((3, 1000), device=cuda_device)
+    with pytest.raises(TypeError):
+        topk_select.blockmax_relayout(s.half())
+    with pytest.raises(ValueError):
+        topk_select.blockmax_relayout(s.T.contiguous().T)
+    w, h = torch.rand((3, 1025), device=cuda_device), torch.rand((1025, 1000), device=cuda_device)
+    with pytest.raises(ValueError):
+        topk_select.score_blockmax_relayout(w, h)
+    with pytest.raises(TypeError):
+        topk_select.score_blockmax_relayout(w[:, :8].double(), h[:8].double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"first_stage_dtype": "bf16"}, {"exclude": True}])
+def test_serving_on_the_card_matches_the_cpu(cuda_device, kw):
+    """Exact scores (multiples of 1/16): the card's answer, through its
+    kernels, equals the CPU's, ties included."""
+    rng = np.random.default_rng(17)
+    w = (rng.integers(0, 16, (64, 32)) / 16).astype(np.float32)
+    h = (rng.integers(0, 16, (32, 50000)) / 16).astype(np.float32)
+    kw = dict(kw)
+    if kw.pop("exclude", False):
+        kw["exclude"] = rng.random((64, 50000)) < 0.1
+    before = (topk_select.blockmax_relayout.launches,
+              topk_select.score_blockmax_relayout.launches)
+    got = topk.topk_retrieval(None, t(w).to(cuda_device), t(h).to(cuda_device), 100, **kw)
+    want = topk.topk_retrieval(None, t(w), t(h), 100, **kw)
+    after = (topk_select.blockmax_relayout.launches,
+             topk_select.score_blockmax_relayout.launches)
+    assert after[0] + after[1] > before[0] + before[1]
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+@pytest.mark.parametrize("rho_mode", ["fixed", "adaptive"])
+def test_admm_kernel_route_matches_plain_route(cuda_device, rho_mode, dist):
+    x = t(lowrank()).float().to(cuda_device)
+    kw = dict(method="admm", distance_type=dist, rho_mode=rho_mode, min_iter=20,
+              max_iter=20, reg_h=(0.1, "l1n"))
+    counter = fused.kl_ratio_and_obj if dist == "kl" else fused.eu_residual_obj
+    before = counter.launches
+    k_run = tpunmf_torch.NMF(x, 5).factorize(**kw)
+    assert counter.launches == before + 20
+    p_run = tpunmf_torch.NMF(x, 5).factorize(use_pallas=False, **kw)
+    assert counter.launches == before + 20
+    np.testing.assert_allclose(k_run.obj_history, p_run.obj_history, rtol=1e-4)

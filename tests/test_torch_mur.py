@@ -174,6 +174,29 @@ def test_state_carried_from_tpunmf_continues_its_run(distance, use_pallas):
     np.testing.assert_allclose(back.inner[1], np.asarray(want.h), rtol=1e-8)
 
 
+@pytest.mark.parametrize("distance", ["eu", "kl"])
+def test_plain_route_calls_no_kernel_wrapper(distance, monkeypatch):
+    """use_pallas=False runs plain versions only: on a CUDA tensor a kernel
+    wrapper would launch its kernel, and the plain route is what the
+    kernels are held against.  Every wrapper the solver module can reach
+    is made to raise."""
+    module = importlib.import_module("tpunmf_torch.solvers.mur")
+    fused = importlib.import_module("tpunmf_torch.ops.fused")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain route called a kernel wrapper")
+
+    for name in ("eu_residual_obj", "kl_obj", "mur_w_update", "mur_h_update"):
+        monkeypatch.setattr(module, name, refuse)
+    monkeypatch.setattr(fused, "kl_ratio_and_obj", refuse)
+    assert not hasattr(module, "kl_ratio_and_obj")
+    kw = dict(_BASE, distance_type=distance, max_iter=10)
+    got = tmur(t(lowrank()), 5, use_pallas=False, **kw)
+    want = jmur(lowrank(), 5, **kw)
+    assert got.i == want.i
+    assert_traces_match(got.obj_history, want.obj_history)
+
+
 def test_bf16_plain_route_matches_tpunmf_plain_route():
     """bf16 X, f32 factors: plain route against plain route (the fused
     route rounds the factor to bf16 in its products; the plain one not)."""

@@ -16,10 +16,12 @@ from _torch_parity import KERNEL_RTOL, SUM_RTOL, kernel_problem, t
 from tpunmf.core import losses as jlosses
 from tpunmf.ops import fused as jfused
 from tpunmf.ops import mur_fused as jmur_fused
+from tpunmf.ops import topk_select as jselect
 from tpunmf_torch.core import losses as tlosses
 from tpunmf_torch.ops import _build, _launch
 from tpunmf_torch.ops import fused as tfused
 from tpunmf_torch.ops import mur_fused as tmur_fused
+from tpunmf_torch.ops import topk_select as tselect
 
 DIST_LAM = [(d, lam) for d in ("eu", "kl") for lam in (0.0, 0.2)]
 
@@ -170,6 +172,84 @@ def test_kl_ratio_and_obj_match_tpunmf_at_f64():
     np.testing.assert_allclose(float(to), float(jo), rtol=1e-13)
     np.testing.assert_allclose(tfused.kl_ratio(t(x), t(w), t(h)).numpy(),
                                np.asarray(jr), rtol=1e-14)
+
+
+def test_kl_ratio_and_obj_matches_pallas_kernel_with_zeros():
+    """The ratio takes the eps, the KL term the raw product (exact zeros
+    in X exercise the masking)."""
+    x, w, h = kernel_problem(15, zeros=True)
+    assert (x == 0).mean() > 0.1
+    xj, wj, hj = jnp.asarray(x), jnp.asarray(w), jnp.asarray(h)
+    want_r, want_o = jfused._kl_ratio_obj_pallas(
+        xj, wj, hj, 1e-9, *jfused._tileable(xj, wj, hj), interpret=True)
+    for fn in (tfused.kl_ratio_and_obj, tfused.kl_ratio_and_obj_ref):
+        got_r, got_o = fn(t(x), t(w), t(h))
+        assert got_r.dtype == torch.float32 and got_r.shape == x.shape
+        np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=1e-6)
+        np.testing.assert_allclose(float(got_o), float(want_o), rtol=1e-5)
+
+
+# tests/test_serve.py:373-376's shapes: one tile, a ragged tail, an odd
+# batch over two tiles, bfloat16
+BLOCKMAX_SHAPES = [(4, 16384, "float32"), (4, 40000, "float32"),
+                   (3, 16384 * 2, "float32"), (8, 20000, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,n,dtype", BLOCKMAX_SHAPES)
+def test_blockmax_relayout_matches_pallas_kernel_bit_for_bit(b, n, dtype):
+    rng = np.random.default_rng(b * n)
+    s = rng.standard_normal((b, n)).astype(np.float32)
+    s[b - 1, n // 3] = np.nan  # propagates into its block's maximum
+    sj = jnp.asarray(s).astype(getattr(jnp, dtype))
+    want_m, want_s3 = jselect.blockmax_relayout(sj, interpret=True)
+    got_m, got_s3 = tselect.blockmax_relayout(t(s).to(getattr(torch, dtype)))
+    assert got_m.dtype == got_s3.dtype == getattr(torch, dtype)
+    assert got_s3.shape == want_s3.shape and got_s3.shape[1] % 128 == 0
+    np.testing.assert_array_equal(got_m.float().numpy(), np.asarray(want_m, np.float32))
+    np.testing.assert_array_equal(got_s3.float().numpy(), np.asarray(want_s3, np.float32))
+    assert torch.isnan(got_m[b - 1]).sum() == 1
+    lo = torch.finfo(got_s3.dtype).min
+    assert bool((got_s3.reshape(b, -1)[:, n:] == lo).all())
+
+
+# tests/test_serve.py:447-450's shapes: ragged n, bfloat16 inputs, two
+# row tiles
+SCORE_SHAPES = [(8, 128, 16384, "float32"), (8, 128, 40000, "float32"),
+                (8, 64, 16384, "bfloat16"), (96, 128, 16384, "float32")]
+
+
+@pytest.mark.parametrize("b,r,n,dtype", SCORE_SHAPES)
+def test_score_blockmax_relayout_matches_pallas_kernel(b, r, n, dtype):
+    rng = np.random.default_rng(b * r + n)
+    w = rng.random((b, r)).astype(np.float32)
+    h = rng.random((r, n)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want_m, want_s3 = jselect.score_blockmax_relayout(
+        jnp.asarray(w).astype(jd), jnp.asarray(h).astype(jd), interpret=True)
+    got_m, got_s3 = tselect.score_blockmax_relayout(t(w).to(td), t(h).to(td))
+    assert got_m.dtype == got_s3.dtype == torch.float32
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_s3.numpy(), np.asarray(want_s3), rtol=2e-5, atol=2e-5)
+
+
+def test_serving_wrappers_on_the_cpu_take_their_plain_versions():
+    rng = np.random.default_rng(16)
+    s = t(rng.standard_normal((3, 500)).astype(np.float32))
+    w, h = t(rng.random((3, 8)).astype(np.float32)), t(rng.random((8, 500)).astype(np.float32))
+    before = (tselect.blockmax_relayout.launches, tselect.score_blockmax_relayout.launches,
+              tfused.kl_ratio_and_obj.launches)
+    for a, b in zip(tselect.blockmax_relayout(s), tselect.blockmax_relayout_ref(s)):
+        assert torch.equal(a, b)
+    for a, b in zip(tselect.score_blockmax_relayout(w, h),
+                    tselect.score_blockmax_relayout_ref(w, h)):
+        assert torch.equal(a, b)
+    assert (tselect.blockmax_relayout.launches, tselect.score_blockmax_relayout.launches,
+            tfused.kl_ratio_and_obj.launches) == before
+    meta = torch.empty((4, 256), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tselect.blockmax_relayout(meta)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tselect.blockmax_relayout(s, sel_block=100)
 
 
 def test_gram_objective_matches_tpunmf():

@@ -4,8 +4,8 @@ Same surface as ``tpunmf.NMF`` for what is ported: ``NMF(data, factors,
 saving=True, param_file=None)``, ``.w`` / ``.h``, ``factorize``,
 ``default_save_name`` (the reference's file-name grammar,
 nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
-Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR) and
-``method="hals"``; the other known methods and the routing extensions
+Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR),
+``method="hals"`` and ``method="admm"``; the other known methods and the routing extensions
 ``schedule=``, ``beta=``, ``multilevel=`` and ``mesh=`` raise
 ``NotImplementedError``.
 """
@@ -21,12 +21,13 @@ from .io.npz import load_results, save_results
 # tpunmf's dispatch list, kept whole so an unknown method fails the same way
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
-_PORTED = ("mur", "hals")
+_PORTED = ("mur", "hals", "admm")
 _UNPORTED_OPTIONS = ("schedule", "beta", "multilevel", "mesh")
 
 
 class NMF:
-    """Non-negative matrix factorization (MUR, masked MUR and HALS ported).
+    """Non-negative matrix factorization (MUR, masked MUR, HALS and ADMM
+    ported).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -90,6 +91,8 @@ class NMF:
 
         if method == "hals":
             self.results = solvers.hals(self.data, self.factors, **params)
+        elif method == "admm":
+            self.results = solvers.admm(self.data, self.factors, **params)
         elif mask is not None:
             self.results = solvers.mur_masked(self.data, mask, self.factors,
                                               **params)

@@ -1,3 +1,3 @@
-from .synthetic import lowrank_dense, movielens_like, tfidf_like
+from .synthetic import densify, lowrank_dense, movielens_like, sparse_csr, tfidf_like
 
-__all__ = ["lowrank_dense", "movielens_like", "tfidf_like"]
+__all__ = ["densify", "lowrank_dense", "movielens_like", "sparse_csr", "tfidf_like"]

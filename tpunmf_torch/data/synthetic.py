@@ -1,11 +1,14 @@
-"""Synthetic data generators (numpy only), the same as ``tpunmf.data``'s.
+"""Synthetic data generators (numpy and scipy), the same as ``tpunmf.data``'s.
 
-Copies of ``lowrank_dense``, ``tfidf_like`` and ``movielens_like`` from
-tpunmf/data/synthetic.py, so that the port's scripts make the same
-matrices from the same seeds without importing ``tpunmf`` (which imports
-JAX).
+Copies of ``lowrank_dense``, ``tfidf_like``, ``movielens_like`` and
+``sparse_csr`` from tpunmf/data/synthetic.py, and ``densify`` (the dense
+form of tpunmf/data/sparse_panels.py:149-159), so that the port's scripts
+make the same matrices from the same seeds without importing ``tpunmf``
+(which imports JAX).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -58,3 +61,46 @@ def movielens_like(n_users: int, n_items: int, *, n_factors: int = 8,
     scores = 1 + 4 * (scores - scores.min()) / (np.ptp(scores) + 1e-9)
     mask = rng.random((n_users, n_items)) < density
     return (np.round(scores) * mask).astype(dtype)
+
+
+# entries per chunk of sparse_csr's values (2**14 x k f64 products each)
+_SPARSE_CHUNK = 1 << 14
+
+
+def sparse_csr(m: int, n: int, *, density: float = 0.01, k: int = 16,
+               seed: int = 0, dtype=np.float32):
+    """Sparse non-negative matrix in scipy CSR with planted structure
+    (BASELINE configs[3,4] families).
+
+    The same draws as ``tpunmf``'s, and the same matrix bit for bit: each
+    entry's value is the same row-wise sum of the same k products (a
+    C-ordered (entries, k) array, as ``w[rows] * h[:, cols].T`` is),
+    computed here in chunks of entries on a few threads, so that BASELINE
+    config[3] (2e7 entries at k = 128) neither holds 20 GB of products at
+    once nor takes a minute."""
+    import scipy.sparse as sp
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(seed)
+    nnz = int(m * n * density)
+    rows = rng.integers(0, m, nnz)
+    cols = rng.integers(0, n, nnz)
+    w = rng.random((m, k))
+    h = rng.random((k, n))
+    ht = np.ascontiguousarray(h.T)
+    vals = np.empty(nnz, dtype=dtype)
+
+    def chunk(s):
+        e = s + _SPARSE_CHUNK
+        vals[s:e] = (w[rows[s:e]] * ht[cols[s:e]]).sum(axis=1)
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(chunk, range(0, nnz, _SPARSE_CHUNK)))
+    mat = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    mat.sum_duplicates()
+    return mat
+
+
+def densify(matrix) -> np.ndarray:
+    """The sparse matrix as a dense float32 array (``tpunmf.data.densify``)."""
+    return np.asarray(matrix.toarray(), dtype=np.float32)

@@ -1,8 +1,12 @@
-// Fused objective passes of MUR: 0.5 * ||X - WH||_F^2 and the masked KL sum.
+// Fused objective passes: 0.5 * ||X - WH||_F^2, the masked KL sum, and the
+// masked KL sum together with the ratio X / (WH + eps).
 //
 // Replaces the Pallas kernels of tpunmf/ops/fused.py: _eu_obj_kernel (body
-// :76, pallas_call :136, entry eu_residual_obj :233) and _kl_obj_kernel (body
-// :93, pallas_call :204, entry kl_obj :220).
+// :76, pallas_call :136, entry eu_residual_obj :233), _kl_obj_kernel (body
+// :93, pallas_call :204, entry kl_obj :220) and _kl_ratio_obj_kernel (body
+// :106, pallas_call :175, entry kl_ratio_and_obj :253).  The ratio variant
+// also writes one f32 per cell: 4 bytes against 2k flops per cell, so at the
+// ranks of the callers (50-128) it stays bound by the WH tiles.
 //
 // Bound on the H100: one read of X (m*n elements) against 2*m*n*k FMA for
 // the WH tiles.  At rank 50-128 that is k/2 = 25-64 flops per f32 X byte,
@@ -26,11 +30,13 @@ namespace {
 
 constexpr int kObjTM = 4, kObjTN = 4, kObjTile = 64;
 
-template <typename XT, bool KL>
+// RATIO (KL only): also ratio[cell] = x / (wh + eps), with the raw wh in
+// the KL term (tpunmf/ops/fused.py:113-119).
+template <typename XT, bool KL, bool RATIO>
 __global__ void __launch_bounds__(kThreads)
     objective_kernel(const XT* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ h, int m, int n, int k,
-                     float* __restrict__ partials) {
+                     const float* __restrict__ h, int m, int n, int k, float eps,
+                     float* __restrict__ ratio, float* __restrict__ partials) {
   __shared__ WhStage<kObjTM, kObjTN> stage;
   __shared__ float red[kThreads];
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -46,8 +52,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int b = 0; b < kObjTN; ++b) {
       const int gr = row0 + ty + 16 * a, gc = col0 + tx + 16 * b;
       if (gr < m && gc < n) {
-        const float xv = to_f32(x[(long long)gr * n + gc]);
+        const long long cell = (long long)gr * n + gc;
+        const float xv = to_f32(x[cell]);
         const float wh = s[a][b];
+        if (RATIO) ratio[cell] = xv / (wh + eps);
         if (KL) {
           sum += kl_term(xv, wh);
         } else {
@@ -83,16 +91,22 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) out[0] = (float)(scale * red[0]);
 }
 
+// ratio != nullptr selects the KL kernel that also writes the ratio.
 template <typename XT>
 cudaError_t launch_objective(const void* x, const float* w, const float* h, int m, int n,
-                             int k, bool kl, float* partials, float* out,
-                             cudaStream_t stream) {
+                             int k, bool kl, float eps, float* ratio, float* partials,
+                             float* out, cudaStream_t stream) {
   const dim3 grid((n + kObjTile - 1) / kObjTile, (m + kObjTile - 1) / kObjTile);
   const XT* xt = static_cast<const XT*>(x);
-  if (kl)
-    objective_kernel<XT, true><<<grid, kThreads, 0, stream>>>(xt, w, h, m, n, k, partials);
+  if (ratio != nullptr)
+    objective_kernel<XT, true, true>
+        <<<grid, kThreads, 0, stream>>>(xt, w, h, m, n, k, eps, ratio, partials);
+  else if (kl)
+    objective_kernel<XT, true, false>
+        <<<grid, kThreads, 0, stream>>>(xt, w, h, m, n, k, eps, ratio, partials);
   else
-    objective_kernel<XT, false><<<grid, kThreads, 0, stream>>>(xt, w, h, m, n, k, partials);
+    objective_kernel<XT, false, false>
+        <<<grid, kThreads, 0, stream>>>(xt, w, h, m, n, k, eps, ratio, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_partials_into(partials, grid.x * grid.y, kl ? 1.f : 0.5f, out, stream);
@@ -125,8 +139,28 @@ int tpunmf_objective(const void* x, int x_is_bf16, const void* w, const void* h,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      x_is_bf16 ? tpunmf::launch_objective<__nv_bfloat16>(x, wf, hf, m, n, k, is_kl, p, o, s)
-                : tpunmf::launch_objective<float>(x, wf, hf, m, n, k, is_kl, p, o, s);
+      x_is_bf16
+          ? tpunmf::launch_objective<__nv_bfloat16>(x, wf, hf, m, n, k, is_kl, 0.f, nullptr, p,
+                                                    o, s)
+          : tpunmf::launch_objective<float>(x, wf, hf, m, n, k, is_kl, 0.f, nullptr, p, o, s);
+  return static_cast<int>(err);
+}
+
+// ratio (m x n f32) = X / (WH + eps) and the masked KL sum into out[0], from
+// one pass; partials as for tpunmf_objective.
+int tpunmf_kl_ratio_obj(const void* x, int x_is_bf16, const void* w, const void* h, int m,
+                        int n, int k, float eps, void* ratio, void* partials, void* out,
+                        void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* hf = static_cast<const float*>(h);
+  float* r = static_cast<float*>(ratio);
+  float* p = static_cast<float*>(partials);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      x_is_bf16
+          ? tpunmf::launch_objective<__nv_bfloat16>(x, wf, hf, m, n, k, true, eps, r, p, o, s)
+          : tpunmf::launch_objective<float>(x, wf, hf, m, n, k, true, eps, r, p, o, s);
   return static_cast<int>(err);
 }
 

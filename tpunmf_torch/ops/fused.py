@@ -2,9 +2,10 @@
 
   * ``eu_residual_obj`` : 0.5 * ||X - WH||_F^2   (kernel: csrc/objective.cu)
   * ``kl_obj``          : masked KL objective   (kernel: csrc/objective.cu)
-  * ``kl_ratio``, ``kl_ratio_and_obj``: plain PyTorch only; the plain KL
-    route (``use_pallas=False``) uses them.  Their kernels are still to be
-    ported (ROADMAP.md, queue 2).
+  * ``kl_ratio_and_obj``: (X / (WH + eps), masked KL objective) from one
+    pass (kernel: csrc/objective.cu); ADMM's KL objective
+  * ``kl_ratio``        : plain PyTorch only, for MUR's plain KL route; its
+    kernel is still to be ported (ROADMAP.md, queue 2)
 
 A wrapper takes its plain version (``*_ref``) only for a tensor on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each wrapper counts
@@ -78,7 +79,31 @@ def kl_ratio(x, w, h, *, eps: float = _EPS):
     return x / (w @ h + eps)
 
 
-def kl_ratio_and_obj(x, w, h, *, eps: float = _EPS):
-    """(x/(wh+eps), masked-KL objective) from one product."""
+@full_f32()
+def kl_ratio_and_obj_ref(x, w, h, *, eps: float = _EPS):
+    """Plain version of :func:`kl_ratio_and_obj`: the ratio takes the eps,
+    the KL term the raw product (tpunmf/ops/fused.py:260-265)."""
+    x = x.to(w.dtype)
     wh = w @ h
     return x / (wh + eps), kl_elementwise_sum(x, wh)
+
+
+def kl_ratio_and_obj(x, w, h, *, eps: float = _EPS):
+    """(x / (w @ h + eps) as an m x n float32 tensor, masked KL objective),
+    from one fused sweep."""
+    if on_cpu(x):
+        return kl_ratio_and_obj_ref(x, w, h, eps=eps)
+    m, n, k = check_operands("kl_ratio_and_obj", x, w, h)
+    lib = _build.library()
+    ratio = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    partials = torch.empty(lib.tpunmf_objective_blocks(m, n),
+                           dtype=torch.float32, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    call("tpunmf_kl_ratio_obj", x.device, x.data_ptr(),
+         int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(), m, n, k,
+         float(eps), ratio.data_ptr(), partials.data_ptr(), out.data_ptr())
+    kl_ratio_and_obj.launches += 1
+    return ratio, out
+
+
+kl_ratio_and_obj.launches = 0

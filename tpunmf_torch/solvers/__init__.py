@@ -1,5 +1,6 @@
+from .admm import admm
 from .hals import hals
 from .masked import mur_masked
 from .mur import mur
 
-__all__ = ["hals", "mur", "mur_masked"]
+__all__ = ["admm", "hals", "mur", "mur_masked"]

@@ -33,7 +33,7 @@ from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj,
-                         kl_ratio, kl_ratio_and_obj)
+                         kl_ratio, kl_ratio_and_obj_ref)
 from ..ops.mur_fused import mur_h_update, mur_w_update
 from .common import (LoopCarry, finalize_history, host_array, init_carry,
                      run_loop, verbose_precision, while_block)
@@ -129,7 +129,7 @@ def _mur_block(
         d = torch.sum(w, dim=0)[:, None]  # == column of w.T @ ones_like(x)
         h = 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lambda_h * c))
         if objective_every == 1 or refresh(i):
-            r, obj = kl_ratio_and_obj(x, w, h, eps=_EPS)
+            r, obj = kl_ratio_and_obj_ref(x, w, h, eps=_EPS)
         else:
             # off-cadence trailing passes skip the log term (the ratio is
             # still needed by the next W update)
@@ -255,7 +255,7 @@ def mur(
                 obj0 = kl_obj(x, w, h)
                 inner = (w, h)
             else:
-                r0, obj0 = kl_ratio_and_obj(x, w, h, eps=_EPS)
+                r0, obj0 = kl_ratio_and_obj_ref(x, w, h, eps=_EPS)
                 inner = (w, h, r0)
         else:
             obj0 = (eu_residual_obj if use_pallas else eu_residual_obj_ref)(x, w, h)
