@@ -8,19 +8,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      tpunmf_torch/ops/csrc with nvcc (sm_90a) and print the build time.
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes and ragged ones: the error against a stated tolerance,
-     and both times (CUDA events, in the order plain, kernel, kernel,
-     plain).
+     both times (CUDA events, in the order plain, kernel, kernel, plain)
+     and the kernel's bound (the larger of its flops over the card's peak
+     rate and its bytes over the memory rate).  At EU 8192x8192 r128 (f32
+     and bf16 X) and KL 8192x4096 r128 the single-pass iteration is also
+     timed against the 2-pass pair, in turns.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
-     - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, and
-       KL at its defaults (random init, exact objective) on BASELINE
-       config[1], 20000x11000 r50 (tfidf_like, seed 1);
+     - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
+       tpunmf's route rule sends to the single pass, and the same runs on
+       the 2-pass pair for comparison; EU f32 at 8192x16384 r128, which the
+       rule sends to the 2-pass pair; KL at its defaults (random init,
+       exact objective) on BASELINE config[1], 20000x11000 r50 (tfidf_like,
+       seed 1), 2-pass; KL at 8192x4096 r128 (tfidf_like, seed 4), single
+       pass, exact and objective="lagged";
+     - NMF given a numpy array (it runs on the card);
      - HALS (method="hals"): EU 8192x8192 r128 f32, inner_sweeps=2, from
        one NNDSVD 'zero' init given to both routes;
      - masked MUR (mask=): EU and KL at MovieLens-10M's dimensions, 69878
        users x 10677 items, 1.34% observed, r64 (movielens_like's recipe,
        made on the card);
-     - MUR KL with objective="lagged" at config[1], against the exact run;
+     - MUR KL with objective="lagged" at config[1] and at 8192x4096, each
+       against its exact run;
      - serving (tpunmf_torch.serve.topk): 20 batches of 64 users against
        n = 2^20 items at r128, k = 100, exact, quantized (bf16 first stage
        from a stored bf16 H) and exact with 1% of the items excluded, and
@@ -31,8 +40,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
        adaptive, and KL.
      Each path's launch counters are set to 0 just before it and read just
-     after; each run must launch its kernels and give finite factors and
-     trace (non-increasing for MUR and HALS EU; ADMM's is not monotone).
+     after; each run must launch its route's kernels and none of the other
+     route's, and give finite factors and trace (non-increasing for MUR and
+     HALS EU; ADMM's is not monotone).
   4. a save_factorization / load_factorization round trip.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
@@ -89,6 +99,12 @@ SCORE_TOL = 2e-5
 SERVE_VALUE_RTOL = 1e-5
 SERVE_BATCH, SERVE_BATCHES, SERVE_K = 64, 20, 100
 
+# the single-pass shapes: tpunmf's own route test (tests/test_ops.py:265-277)
+KL_SINGLE = dict(m=8192, n=4096, k=128, seed=4)
+EU_WIDE = dict(m=8192, n=16384, k=128, seed=0)
+SINGLE_EU = ("mur_iteration_eu", "eu_residual_obj")
+PAIR = ("mur_w_update", "mur_h_update")
+
 KERNELS = {
     "mur_w_update": ("tpunmf_torch/ops/csrc/mur_update.cu",
                      "tpunmf/ops/mur_fused.py:169"),
@@ -111,12 +127,16 @@ KERNELS = {
                           "tpunmf/ops/topk_select.py:77"),
     "score_blockmax_relayout": ("tpunmf_torch/ops/csrc/topk_select.cu",
                                 "tpunmf/ops/topk_select.py:156"),
+    "mur_iteration_eu": ("tpunmf_torch/ops/csrc/mur_iteration.cu",
+                         "tpunmf/ops/mur_fused.py:314"),
+    "mur_iteration_kl": ("tpunmf_torch/ops/csrc/mur_iteration.cu",
+                         "tpunmf/ops/mur_fused.py:652"),
 }
 # the shape whose times the kernels line reports (its f32 case)
 HEADLINE = {"kl_obj": "KL", "mur_w_update_lagged": "KL",
             "masked_w_update": "ML-10M", "masked_h_update": "ML-10M",
             "kl_ratio_and_obj": "config[3]", "blockmax_relayout": "serve",
-            "score_blockmax_relayout": "serve"}
+            "score_blockmax_relayout": "serve", "mur_iteration_kl": "KL"}
 
 
 class SmokeFailure(RuntimeError):
@@ -192,10 +212,27 @@ def bit_err(got, want):
     return worst
 
 
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mur_flops(name, x, k, dist=None):
+    """(f32, bf16) flops of one call of a MUR kernel on X at rank k."""
+    import torch
+    from tpunmf_torch.ops import roofline
+
+    return roofline.mur_flops(name, *x.shape, k, x.dtype == torch.bfloat16, dist)
+
+
 def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
-                 err=max_rel_err):
+                 err=max_rel_err, inputs=(), flops=(0.0, 0.0), library=None):
     """One kernel call against its plain version on the same inputs: the
-    error (over every output) against rtol, and both times."""
+    error (over every output) against rtol, both times, the bound of the
+    call (tpunmf_torch/ops/roofline.py: ``inputs`` read once, its outputs
+    written once, ``flops`` (f32, bf16) done), and where one PyTorch call
+    computes the same function (``library``), that call's time."""
+    from tpunmf_torch.ops import roofline
+
     got, want = kern(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -204,17 +241,22 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
     abs_err = max(bit_err(a, b) for a, b in zip(got, want))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     ms, plain_ms = time_pair(torch, plain, kern, reps)
+    library_ms = None if library is None else time_pair(torch, library, library, reps)[0]
+    bound_ms, bound_by = roofline.bound(*flops, nbytes(inputs) + nbytes(got))
     ok = finite and rel <= rtol
     print(f"  {name:19s} {label:36s} {what:24s} err={rel:.3e} "
           f"(tol {rtol:.0e}) max_abs_err={abs_err:.3e} "
-          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"({bound_by})" + ("" if library is None else f"  library {library_ms:.4f} ms")
+          + f"  {'ok' if ok else 'FAIL'}", flush=True)
     require(finite, f"{name} {label} {what}: non-finite output")
     require(rel <= rtol, f"{name} {label} {what}: error {rel:.3e} above {rtol:.0e}")
     rec = records.setdefault(name, {"max_abs_err": 0.0, "cases": []})
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     rec["cases"].append({"shape": label, "case": what, "max_rel_err": rel,
-                         "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms})
+                         "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms})
 
 
 def kernel_phase(torch, cases, reps):
@@ -233,23 +275,24 @@ def kernel_phase(torch, cases, reps):
         for dist in distances:
             for lam in (0.0, 0.2):
                 checks.append((
-                    "mur_w_update", f"{dist} lam={lam}",
+                    "mur_w_update", dist, f"{dist} lam={lam}",
                     lambda d=dist, l=lam: mur_fused.mur_w_update(
                         x, w, h, distance_type=d, lam=l),
                     lambda d=dist, l=lam: mur_fused.mur_w_update_ref(
                         x, w, h, distance_type=d, lam=l), UPDATE_RTOL))
                 checks.append((
-                    "mur_h_update", f"{dist} lam={lam}",
+                    "mur_h_update", dist, f"{dist} lam={lam}",
                     lambda d=dist, l=lam: mur_fused.mur_h_update(
                         x, w, h, distance_type=d, lam=l),
                     lambda d=dist, l=lam: mur_fused.mur_h_update_ref(
                         x, w, h, distance_type=d, lam=l), UPDATE_RTOL))
             obj = "eu_residual_obj" if dist == "eu" else "kl_obj"
-            checks.append((obj, dist, lambda o=obj: getattr(fused, o)(x, w, h),
+            checks.append((obj, dist, dist, lambda o=obj: getattr(fused, o)(x, w, h),
                            lambda o=obj: getattr(fused, o + "_ref")(x, w, h),
                            OBJECTIVE_RTOL))
-        for name, what, kern, plain, rtol in checks:
-            check_kernel(torch, records, name, label, what, kern, plain, rtol, reps)
+        for name, dist, what, kern, plain, rtol in checks:
+            check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
+                         inputs=(x, w, h), flops=mur_flops(name, x, k, dist))
         del w, h
     return records
 
@@ -270,7 +313,49 @@ def lagged_phase(torch, records, x, k, label, reps):
         check_kernel(torch, records, "mur_w_update_lagged", label, f"kl lam={lam}",
                      lambda: mur_fused.mur_w_update(x, w, h, **kw),
                      lambda: mur_fused.mur_w_update_ref(x, w, h, **kw),
-                     UPDATE_RTOL, reps)
+                     UPDATE_RTOL, reps, inputs=(x, w, h),
+                     flops=mur_flops("mur_w_update_lagged", x, k, "kl"))
+
+
+def iteration_phase(torch, records, cases, reps):
+    """mur_iteration_eu / mur_iteration_kl against their plain versions
+    (every output, KL's objective too, within UPDATE_RTOL: f32 sums of
+    positive terms in another order), and where ``pair`` is set the single
+    pass against the 2-pass pair (mur_w_update + mur_h_update) on the same
+    inputs, timed in turns (pair, single, single, pair); returns those
+    times."""
+    from tpunmf_torch.ops import mur_fused
+
+    routes = {}
+    for label, x, k, dist, pair in cases:
+        m, n = x.shape
+        g = torch.Generator(device="cuda")
+        g.manual_seed(14)
+        w = torch.rand((m, k), generator=g, device="cuda") + 0.1
+        h = torch.rand((k, n), generator=g, device="cuda") + 0.1
+        name = "mur_iteration_" + dist
+        tileable = mur_fused.iter_eu_tileable if dist == "eu" else mur_fused.iter_kl_tileable
+        route = tileable(x, k)
+        # tpunmf's strip height where its rule gives one, else one strip
+        bm = m if route is None else route if dist == "eu" else route[0]
+        kern, ref = getattr(mur_fused, name), getattr(mur_fused, name + "_ref")
+        for lam in (0.0, 0.2):
+            check_kernel(torch, records, name, label, f"{dist} lam={lam} bm={bm}",
+                         lambda l=lam: kern(x, w, h, lam_w=l, bm=bm),
+                         lambda l=lam: ref(x, w, h, lam_w=l), UPDATE_RTOL, reps,
+                         inputs=(x, w, h), flops=mur_flops(name, x, k))
+        if pair:
+            def two_pass():
+                w1 = mur_fused.mur_w_update(x, w, h, distance_type=dist, lam=0.0)
+                return mur_fused.mur_h_update(x, w1, h, distance_type=dist, lam=0.0)
+
+            single_ms, pair_ms = time_pair(torch, two_pass,
+                                           lambda: kern(x, w, h, lam_w=0.0, bm=bm), reps)
+            routes[label] = {"single_ms": single_ms, "pair_ms": pair_ms}
+            print(f"  {label}: single pass {single_ms:.4f} ms, 2-pass pair "
+                  f"{pair_ms:.4f} ms (mur_w_update + mur_h_update, in turns)", flush=True)
+        del w, h
+    return routes
 
 
 def sweep_phase(torch, records, cases, reps):
@@ -290,11 +375,13 @@ def sweep_phase(torch, records, cases, reps):
             for lam in (0.0, 0.3):
                 for nsweeps in (1, 2):
                     kw = dict(lam=lam, nsweeps=nsweeps)
+                    # each sweep updates every entry of V from a row of the Gram
                     check_kernel(torch, records, "gs_sweep", label,
                                  f"{frame} lam={lam} sweeps={nsweeps}",
                                  lambda: hals_sweep.gs_sweep(a, gram, v, **kw),
                                  lambda: hals_sweep.gs_sweep_ref(a, gram, v, **kw),
-                                 SWEEP_TOL, reps, err=scaled_err)
+                                 SWEEP_TOL, reps, err=scaled_err, inputs=(a, gram, v),
+                                 flops=(2.0 * k * k * v.shape[1] * nsweeps, 0.0))
         del w, h, frames
 
 
@@ -319,14 +406,16 @@ def masked_phase(torch, records, cases, reps):
                 for lam in (0.0, 0.2):
                     kw = dict(distance_type=dist, lam=lam)
                     what = f"{dist} lam={lam} {mask_name}"
+                    # S = W H and two products against a factor: 6 m n k
+                    work = dict(inputs=(x, mask, w, h), flops=(6.0 * m * n * k, 0.0))
                     check_kernel(torch, records, "masked_w_update", label, what,
                                  lambda: mf.masked_w_update(x, mask, w, h, **kw),
                                  lambda: mf.masked_w_update_ref(x, mask, w, h, **kw),
-                                 UPDATE_RTOL, reps)
+                                 UPDATE_RTOL, reps, **work)
                     check_kernel(torch, records, "masked_h_update", label, what,
                                  lambda: mf.masked_h_update(x, mask, w, h, **kw),
                                  lambda: mf.masked_h_update_ref(x, mask, w, h, **kw),
-                                 UPDATE_RTOL, reps)
+                                 UPDATE_RTOL, reps, **work)
         del w, h, binary, weights
 
 
@@ -343,7 +432,8 @@ def kl_ratio_phase(torch, records, cases, reps):
         h = torch.rand((k, n), generator=g, device="cuda") + 0.1
         check_kernel(torch, records, "kl_ratio_and_obj", label, "ratio, objective",
                      lambda: fused.kl_ratio_and_obj(x, w, h),
-                     lambda: fused.kl_ratio_and_obj_ref(x, w, h), OBJECTIVE_RTOL, reps)
+                     lambda: fused.kl_ratio_and_obj_ref(x, w, h), OBJECTIVE_RTOL, reps,
+                     inputs=(x, w, h), flops=mur_flops("kl_ratio_and_obj", x, k))
         del w, h
 
 
@@ -364,9 +454,14 @@ def serving_kernel_phase(torch, records, reps):
                                (f"two row tiles (96, {1 << 20}) f32", 96, 1 << 20,
                                 torch.float32)):
         s = torch.randn((b, n), generator=g, device="cuda").to(dtype)
+        # where n is a multiple of the 128-wide block, s3 is a view of the
+        # scores and one torch.amax computes the maxima: the library call
+        library = ((lambda: torch.amax(s.view(b, n // 128, 128), dim=2))
+                   if n % 128 == 0 else None)
         check_kernel(torch, records, "blockmax_relayout", label, "bit for bit",
                      lambda: ts.blockmax_relayout(s), lambda: ts.blockmax_relayout_ref(s),
-                     0.0, reps, err=bit_err)
+                     0.0, reps, err=bit_err, inputs=(s,), flops=(float(b * n), 0.0),
+                     library=library)
         if dtype == torch.float32 and b == SERVE_BATCH:
             scores = s
         del s
@@ -380,10 +475,12 @@ def serving_kernel_phase(torch, records, reps):
             ("ragged (96, 128)x(128, 40000) f32", 96, 128, 40000, torch.float32)):
         w = torch.rand((b, r), generator=g, device="cuda").to(hdtype)
         h = torch.rand((r, n), generator=g, device="cuda").to(hdtype)
+        product = 2.0 * b * r * n  # and one comparison a score
+        flops = ((b * n, product) if hdtype == torch.bfloat16 else (product + b * n, 0.0))
         check_kernel(torch, records, "score_blockmax_relayout", label, "f32 accumulate",
                      lambda: ts.score_blockmax_relayout(w, h),
                      lambda: ts.score_blockmax_relayout_ref(w, h), SCORE_TOL, reps,
-                     err=close_err)
+                     err=close_err, inputs=(w, h), flops=flops)
         del w, h
 
     # torch.topk of the whole score matrix against the block-max route
@@ -426,10 +523,11 @@ def run_path(torch, counters, label, needed, body):
 
 
 def run_slice(torch, tt, wrappers, label, x, k, distance, data_dtype, card,
-              iters, method="mur", needed=None, **extra):
+              iters, method="mur", needed=None, banned=(), **extra):
     """One NMF run of `iters` iterations on the fused route, and the plain
     route over the same run for comparison; returns the rates, the routes'
-    agreement and the fused route's trace."""
+    agreement and the fused route's trace.  The fused run must launch every
+    kernel of ``needed`` and none of ``banned`` (the other route's)."""
     kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
     if method in ("mur", "admm"):
         kw["distance_type"] = distance
@@ -486,21 +584,26 @@ def run_slice(torch, tt, wrappers, label, x, k, distance, data_dtype, card,
                   "kl_obj" if distance == "kl" else "eu_residual_obj")
     for name in needed:
         require(launched[name] > 0, f"{label}: {name} was not launched")
+    for name in banned:
+        require(launched[name] == 0, f"{label}: {name} was launched off its route")
     return {"fused_it_s": iters / fused_s, "plain_it_s": iters / plain_s,
             "route_err": route_err, "trace": hist.tolist()}
 
 
-def lagged_run(torch, tt, label, x, k, exact_trace, iters, card):
+def lagged_run(torch, tt, wrappers, label, x, k, exact_trace, iters, card, needed):
     """MUR KL with objective='lagged' on the kernel route: its trace is the
-    exact route's shifted by one iteration."""
+    exact route's shifted by one iteration, and it launches ``needed``."""
     kw = dict(method="mur", distance_type="kl", min_iter=iters, max_iter=iters,
               objective="lagged")
     tt.NMF(x, k).factorize(**{**kw, "min_iter": 2, "max_iter": 2})
+    before = counts(wrappers)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = tt.NMF(x, k).factorize(**kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    for name in needed:
+        require(counts(wrappers)[name] > before[name], f"{label}: {name} was not launched")
     lagged = np.asarray(res.obj_history, dtype=np.float64)
     exact = np.asarray(exact_trace)
     require(res.i == iters - 1 and len(lagged) == iters + 1,
@@ -516,6 +619,43 @@ def lagged_run(torch, tt, label, x, k, exact_trace, iters, card):
     require(shift_err <= LAGGED_RTOL and first_err <= LAGGED_RTOL,
             f"{label}: the lagged trace is not the exact trace shifted by one")
     return {"fused_it_s": iters / secs, "shift_err": shift_err}
+
+
+def profile_run(torch, tt, label, x, k, distance, iters=20):
+    """Device time by kernel over one factorize() of `iters` iterations
+    (torch.profiler; the kernels run on one stream, so their sum is their
+    union), it/s in that window, and the device's idle share of its host
+    wall time (an upper bound: the profiler's own overhead is inside)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(method="mur", distance_type=distance, min_iter=iters, max_iter=iters)
+    tt.NMF(x, k).factorize(**{**kw, "min_iter": 2, "max_iter": 2})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tt.NMF(x, k).factorize(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            name = re.sub(r"^(void )?([\w:]+::)?(\(anonymous namespace\)::)?", "", e.key)
+            name = re.split(r"[<(]", name)[0]
+            if "gemm" in e.key.lower() or "splitK" in e.key:
+                name = "cuBLAS GEMM"
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / iters
+    device = sum(kernels.values())
+    out = {"device_ms_per_it": device, "wall_ms_per_it": 1e3 * wall / iters,
+           "it_s": iters / wall, "idle_share": 1.0 - device * iters / (1e3 * wall),
+           "kernels_ms_per_it": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])}
+    print(f"  profile {label}: {out['device_ms_per_it']:.3f} ms/it on the device, "
+          f"{out['it_s']:.1f} it/s, idle share {out['idle_share']:.3f}; "
+          + ", ".join(f"{n} {v:.3f}" for n, v in out["kernels_ms_per_it"].items()), flush=True)
+    return out
 
 
 def movielens_on_card(torch, n_users, n_items, density, seed, n_factors=8):
@@ -536,6 +676,19 @@ def movielens_on_card(torch, n_users, n_items, density, seed, n_factors=8):
     observed = torch.rand((n_users, n_items), generator=g, device="cuda") < density
     x.mul_(observed)
     return x, observed
+
+
+@contextlib.contextmanager
+def two_pass_route():
+    """MUR with tpunmf's single-pass rule turned off: every shape takes the
+    2-pass pair (for comparing the two routes at one shape)."""
+    mur = sys.modules["tpunmf_torch.solvers.mur"]
+    saved = mur.iter_eu_tileable, mur.iter_kl_tileable
+    mur.iter_eu_tileable = mur.iter_kl_tileable = lambda x, k: None
+    try:
+        yield
+    finally:
+        mur.iter_eu_tileable, mur.iter_kl_tileable = saved
 
 
 @contextlib.contextmanager
@@ -766,7 +919,9 @@ def main() -> int:
                 "kl_ratio_and_obj": (fused.kl_ratio_and_obj, "launches"),
                 "blockmax_relayout": (topk_select.blockmax_relayout, "launches"),
                 "score_blockmax_relayout": (topk_select.score_blockmax_relayout,
-                                            "launches")}
+                                            "launches"),
+                "mur_iteration_eu": (mur_fused.mur_iteration_eu, "launches"),
+                "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches")}
 
     t_start = time.perf_counter()
     card = nvidia_smi_line()
@@ -778,15 +933,22 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    eu_x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
+    eu_np = lowrank_dense(8192, 8192, 128, seed=0)
+    eu_x = torch.from_numpy(eu_np).cuda()
     kl_x = torch.from_numpy(tfidf_like(20000, 11000, n_topics=50, seed=1)).cuda()
     eu_k, kl_k = 128, 50
+    wide_x = torch.from_numpy(lowrank_dense(EU_WIDE["m"], EU_WIDE["n"], EU_WIDE["k"],
+                                            seed=EU_WIDE["seed"])).cuda()
+    kl2_x = torch.from_numpy(tfidf_like(KL_SINGLE["m"], KL_SINGLE["n"],
+                                        n_topics=KL_SINGLE["k"], seed=KL_SINGLE["seed"])).cuda()
+    kl2_label = f"KL {tuple(kl2_x.shape)} k{KL_SINGLE['k']} f32"
     ragged = torch.from_numpy(
         tfidf_like(1000, 777, n_topics=37, seed=2) + 0.05).cuda()
     ragged[::7, ::5] = 0.0  # exact zeros for the KL masking
-    print(f"  data made in {time.perf_counter() - t0:.1f} s: EU {tuple(eu_x.shape)}, "
-          f"KL {tuple(kl_x.shape)} ({float((kl_x == 0).float().mean()):.4f} zeros)",
-          flush=True)
+    print(f"  data made in {time.perf_counter() - t0:.1f} s: EU {tuple(eu_x.shape)} and "
+          f"{tuple(wide_x.shape)}, KL {tuple(kl_x.shape)} "
+          f"({float((kl_x == 0).float().mean()):.4f} zeros) and {tuple(kl2_x.shape)} "
+          f"({float((kl2_x == 0).float().mean()):.4f} zeros)", flush=True)
     t0 = time.perf_counter()
     # BASELINE config[2]'s MovieLens-1M stand-in (benchmarks/run_configs.py:151-155)
     ml1_x = torch.from_numpy(movielens_like(6040, 3706, density=0.2, seed=2)).cuda()
@@ -813,6 +975,14 @@ def main() -> int:
     records = kernel_phase(torch, cases, reps=5)
     lagged_phase(torch, records, ragged, 37, f"ragged {tuple(ragged.shape)} k37 f32", 5)
     lagged_phase(torch, records, kl_x, kl_k, f"KL {tuple(kl_x.shape)} k{kl_k} f32", 5)
+    route_line = iteration_phase(torch, records, [
+        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37, "eu", False),
+        (f"ragged {tuple(ragged.shape)} k37 bf16", ragged.bfloat16(), 37, "eu", False),
+        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37, "kl", False),
+        (f"ragged {tuple(ragged.shape)} k37 bf16", ragged.bfloat16(), 37, "kl", False),
+        (f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k, "eu", True),
+        (f"EU {tuple(eu_x.shape)} k{eu_k} bf16", eu_x.bfloat16(), eu_k, "eu", True),
+        (kl2_label, kl2_x, KL_SINGLE["k"], "kl", True)], reps=5)
     sweep_phase(torch, records, [
         (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37),
         (f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k)], reps=3)
@@ -831,12 +1001,35 @@ def main() -> int:
     runs, launches = {}, {name: 0 for name in KERNELS}
 
     def mur_path():
-        for label, x, k, dist, dd in (
-                ("EU bf16", eu_x, eu_k, "eu", torch.bfloat16),
-                ("EU f32", eu_x, eu_k, "eu", None),
-                ("KL config[1]", kl_x, kl_k, "kl", None)):
+        # tpunmf's route rule: the single pass at the EU headline and at
+        # KL 8192x4096, the 2-pass pair at EU 8192x16384 and at config[1]
+        for label, x, k, dist, dd, needed, banned in (
+                ("EU bf16", eu_x, eu_k, "eu", torch.bfloat16, SINGLE_EU, PAIR),
+                ("EU f32", eu_x, eu_k, "eu", None, SINGLE_EU, PAIR),
+                ("EU f32 8192x16384", wide_x, EU_WIDE["k"], "eu", None,
+                 PAIR + ("eu_residual_obj",), ("mur_iteration_eu",)),
+                ("KL config[1]", kl_x, kl_k, "kl", None, PAIR + ("kl_obj",),
+                 ("mur_iteration_kl",)),
+                ("KL 8192x4096", kl2_x, KL_SINGLE["k"], "kl", None,
+                 ("mur_iteration_kl", "kl_obj"), PAIR)):
             runs[label] = run_slice(torch, tt, counters, label, x, k, dist, dd,
-                                    card, RUN_ITERS)
+                                    card, RUN_ITERS, needed=needed, banned=banned)
+        # the same EU headline runs on the 2-pass pair, for the routes' it/s
+        with two_pass_route():
+            for label, dd in (("EU bf16 2-pass", torch.bfloat16), ("EU f32 2-pass", None)):
+                runs[label] = run_slice(torch, tt, counters, label, eu_x, eu_k, "eu", dd,
+                                        card, RUN_ITERS, needed=PAIR,
+                                        banned=("mur_iteration_eu",))
+
+    def numpy_path():
+        # a numpy array means the card: the run must launch the kernels
+        t0 = time.perf_counter()
+        res = tt.NMF(eu_np, eu_k).factorize(method="mur", distance_type="eu",
+                                            min_iter=5, max_iter=5)
+        require(np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.obj_history)),
+                "NMF(numpy): non-finite factors or trace")
+        print(f"  NMF(numpy {eu_np.shape} {eu_np.dtype}): 5 iterations in "
+              f"{time.perf_counter() - t0:.1f} s, obj[5]={res.obj_history[-1]:.6e}", flush=True)
 
     def hals_path():
         t0 = time.perf_counter()
@@ -860,8 +1053,12 @@ def main() -> int:
 
     def lagged_path():
         runs["KL config[1] lagged"] = lagged_run(
-            torch, tt, "KL config[1] lagged", kl_x, kl_k,
-            runs["KL config[1]"]["trace"], RUN_ITERS, card)
+            torch, tt, counters, "KL config[1] lagged", kl_x, kl_k,
+            runs["KL config[1]"]["trace"], RUN_ITERS, card,
+            needed=("mur_w_update_lagged", "mur_h_update"))
+        runs["KL 8192x4096 lagged"] = lagged_run(
+            torch, tt, counters, "KL 8192x4096 lagged", kl2_x, KL_SINGLE["k"],
+            runs["KL 8192x4096"]["trace"], RUN_ITERS, card, needed=("mur_iteration_kl",))
 
     def admm_path():
         for label, dist, mode in (("ADMM EU fixed config[3]", "eu", "fixed"),
@@ -879,15 +1076,29 @@ def main() -> int:
             launches[name] += c
         return out
 
+    def profile_path():
+        # where the time goes on both routes, at the single pass's shapes
+        for label, x, k, dist in (("EU f32", eu_x, eu_k, "eu"),
+                                  ("KL 8192x4096", kl2_x, KL_SINGLE["k"], "kl")):
+            profiles[label] = profile_run(torch, tt, label, x, k, dist)
+            with two_pass_route():
+                profiles[label + " 2-pass"] = profile_run(torch, tt, label + " 2-pass", x,
+                                                          k, dist)
+
+    profiles = {}
     for label, needed, body in (
-            ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj"),
-             mur_path),
+            ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj",
+                          "mur_iteration_eu", "mur_iteration_kl"), mur_path),
+            ("NMF(numpy) path", SINGLE_EU, numpy_path),
             ("HALS path", ("gs_sweep", "eu_residual_obj"), hals_path),
             ("masked MUR path", ("masked_w_update", "masked_h_update"), masked_path),
-            ("lagged KL path", ("mur_w_update_lagged", "mur_h_update"), lagged_path)):
+            ("lagged KL path", ("mur_w_update_lagged", "mur_h_update", "mur_iteration_kl"),
+             lagged_path),
+            ("profile of the MUR routes", ("mur_iteration_eu", "mur_iteration_kl"),
+             profile_path)):
         drive(label, needed, body)
     # the ADMM KL path holds ~10 config[3]-sized arrays (4 GB each)
-    del ml10_x, ml10_obs, ml1_x
+    del ml10_x, ml10_obs, ml1_x, wide_x
     kept = drive("serving path", ("score_blockmax_relayout", "blockmax_relayout"),
                  lambda: serving_path(torch, runs))
     check_serving(torch, runs, kept)
@@ -911,17 +1122,22 @@ def main() -> int:
                 if c["shape"].startswith(want) and c["shape"].endswith("f32")]
         return hits[0]
 
+    # library_ms: only blockmax_relayout has one PyTorch call computing its
+    # function (torch.amax over a view); the others fuse a product with an
+    # update, a masked sum or a selection, and have none (null)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": records[name]["max_abs_err"],
          "ms": headline(name)["ms"], "plain_ms": headline(name)["plain_ms"],
+         "bound_ms": headline(name)["bound_ms"], "bound_by": headline(name)["bound_by"],
+         "library_ms": headline(name)["library_ms"],
          "shape": headline(name)["shape"] + " " + headline(name)["case"],
          "cases": records[name]["cases"]}
         for name, (src, rep) in KERNELS.items()],
         "runs": {label: {k: v for k, v in r.items() if k != "trace"}
                  for label, r in runs.items()},
-        "torch_topk": topk_line}))
+        "torch_topk": topk_line, "single_vs_pair": route_line, "profiles": profiles}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -362,3 +362,76 @@ def test_admm_kernel_route_matches_plain_route(cuda_device, rho_mode, dist):
     p_run = tpunmf_torch.NMF(x, 5).factorize(use_pallas=False, **kw)
     assert counter.launches == before + 20
     np.testing.assert_allclose(k_run.obj_history, p_run.obj_history, rtol=1e-4)
+
+
+def _iteration(which, x, w, h, lam):
+    if which == "eu":
+        return (mur_fused.mur_iteration_eu(x, w, h, lam_w=lam, bm=x.shape[0]),
+                mur_fused.mur_iteration_eu_ref(x, w, h, lam_w=lam))
+    return (mur_fused.mur_iteration_kl(x, w, h, lam_w=lam, bm=x.shape[0]),
+            mur_fused.mur_iteration_kl_ref(x, w, h, lam_w=lam))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 128, 512])
+@pytest.mark.parametrize("n", [777, 50001])  # one wave of rows; five, the last ragged
+@pytest.mark.parametrize("which", ["eu", "kl"])
+def test_iteration_kernels_match_plain_versions(cuda_device, which, n, k, xdtype):
+    x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
+    counter = getattr(mur_fused, "mur_iteration_" + which)
+    before = counter.launches
+    got, want = _iteration(which, x, w, h, lam=0.2)
+    assert counter.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+    # every cross-block sum has a fixed order: the same inputs, the same bits
+    again = _iteration(which, x, w, h, lam=0.2)[0]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_iteration_kl_objective_is_the_lagged_w_pass_s(cuda_device):
+    x, w, h = _on(cuda_device, torch.float32, m=300, n=50001, k=37)
+    obj = mur_fused.mur_iteration_kl(x, w, h, lam_w=0.0, bm=300)[2]
+    torch.testing.assert_close(obj, fused.kl_obj_ref(x, w, h), rtol=RTOL, atol=0)
+    lagged = mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.0,
+                                    with_lagged_obj=True)[1]
+    torch.testing.assert_close(obj, lagged, rtol=RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_iteration_wrappers_raise_instead_of_falling_back(cuda_device):
+    x, w, h = _on(cuda_device, torch.float32)
+    with pytest.raises(TypeError):
+        mur_fused.mur_iteration_eu(x.double(), w, h, lam_w=0.0, bm=1000)
+    with pytest.raises(ValueError):
+        mur_fused.mur_iteration_kl(x.T.contiguous().T, w, h, lam_w=0.0, bm=1000)
+    with pytest.raises(ValueError):
+        mur_fused.mur_iteration_kl(x, w, h, lam_w=0.0, bm=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist,shape", [("eu", (64, 48)), ("kl", (128, 96))])
+def test_single_pass_route_matches_plain_route(cuda_device, dist, shape):
+    """Shapes that tpunmf's rule sends to the single pass."""
+    x = t(lowrank(m=shape[0], n=shape[1])).float().to(cuda_device)
+    kw = dict(method="mur", distance_type=dist, min_iter=5, max_iter=5,
+              nndsvd_init=(True, "mean"))
+    counter = getattr(mur_fused, "mur_iteration_" + dist)
+    before = (counter.launches, mur_fused.mur_w_update.launches)
+    k_run = tpunmf_torch.NMF(x, 5).factorize(**kw)
+    assert (counter.launches, mur_fused.mur_w_update.launches) == (before[0] + 5, before[1])
+    p_run = tpunmf_torch.NMF(x, 5).factorize(use_pallas=False, **kw)
+    np.testing.assert_allclose(k_run.obj_history, p_run.obj_history, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_numpy_input_runs_on_the_card(cuda_device):
+    before = mur_fused.mur_iteration_eu.launches
+    res = tpunmf_torch.NMF(lowrank(m=64).astype(np.float32), 5).factorize(
+        method="mur", distance_type="eu", max_iter=5)
+    assert mur_fused.mur_iteration_eu.launches == before + 5
+    assert np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.obj_history))

@@ -186,7 +186,8 @@ def test_plain_route_calls_no_kernel_wrapper(distance, monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("the plain route called a kernel wrapper")
 
-    for name in ("eu_residual_obj", "kl_obj", "mur_w_update", "mur_h_update"):
+    for name in ("eu_residual_obj", "kl_obj", "mur_w_update", "mur_h_update",
+                 "mur_iteration_eu", "mur_iteration_kl"):
         monkeypatch.setattr(module, name, refuse)
     monkeypatch.setattr(fused, "kl_ratio_and_obj", refuse)
     assert not hasattr(module, "kl_ratio_and_obj")

@@ -1,0 +1,266 @@
+"""MUR's single-pass routes and the entry points' device rule.
+
+The single-pass plain versions are held against ``tpunmf``'s Pallas kernels
+in interpret mode; the port's route predicates against ``tpunmf``'s; the
+single-pass steps of the port's solver (at f64, where the predicates give
+None, so their strip heights are set by hand) against ``tpunmf``'s plain
+route, iterate for iterate.  The CUDA kernels themselves run only on the
+card (tests/test_torch_cuda.py).
+"""
+import functools
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpunmf_torch
+from _torch_parity import KERNEL_RTOL, SUM_RTOL, assert_traces_match, kernel_problem, lowrank, t
+from tpunmf.ops import mur_fused as jmur_fused
+from tpunmf.solvers import mur as jmur
+from tpunmf_torch.core.device import as_input
+from tpunmf_torch.ops import mur_fused as tmur_fused
+from tpunmf_torch.ops import roofline
+from tpunmf_torch.serve import topk as ttopk
+from tpunmf_torch.solvers import admm, hals, mur, mur_masked
+
+port_mur = importlib.import_module("tpunmf_torch.solvers.mur")
+
+
+@pytest.mark.parametrize("xdtype,lam", [("float32", 0.0), ("float32", 0.3),
+                                        ("bfloat16", 0.0)])
+def test_iteration_eu_matches_pallas_kernel(xdtype, lam):
+    x, w, h = kernel_problem(20)
+    xj = jnp.asarray(x).astype(getattr(jnp, xdtype))
+    want = jmur_fused.mur_iteration_eu(xj, jnp.asarray(w), jnp.asarray(h), lam_w=lam,
+                                       bm=32, interpret=True)
+    xt = t(x).to(getattr(torch, xdtype))
+    before = tmur_fused.mur_iteration_eu.launches
+    got = tmur_fused.mur_iteration_eu(xt, t(w), t(h), lam_w=lam, bm=32)
+    assert tmur_fused.mur_iteration_eu.launches == before  # CPU: plain version
+    # bf16 X: both sides round the same operands (H, and w_new before
+    # W'^T X) to bf16, so f32 tolerance holds (observed 5e-7)
+    for g, j in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == j.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=KERNEL_RTOL)
+    if xdtype == "bfloat16":  # the rounding of w_new before W'^T X matters
+        unrounded = (got[0].T @ xt.float()).numpy()
+        assert not np.allclose(got[1].numpy(), unrounded, rtol=1e-6)
+
+
+@pytest.mark.parametrize("bs", [None, 64])
+@pytest.mark.parametrize("lam", [0.0, 0.2])
+def test_iteration_kl_matches_pallas_kernel_with_zeros(lam, bs):
+    x, w, h = kernel_problem(21, zeros=True)
+    assert (x == 0).mean() > 0.1
+    want_w, want_r, want_o = jmur_fused.mur_iteration_kl(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(h), lam_w=lam, bm=32, bs=bs,
+        interpret=True)
+    got_w, got_r, got_o = tmur_fused.mur_iteration_kl(t(x), t(w), t(h), lam_w=lam,
+                                                      bm=32, bs=bs)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=KERNEL_RTOL)
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), rtol=KERNEL_RTOL)
+    assert got_o.dim() == 0 and np.isfinite(float(got_o))
+    np.testing.assert_allclose(float(got_o), float(want_o), rtol=SUM_RTOL)
+    # the objective is the lagged W pass's: the masked KL of the incoming (w, h)
+    _, lagged = tmur_fused.mur_w_update(t(x), t(w), t(h), distance_type="kl", lam=lam,
+                                        with_lagged_obj=True)
+    assert torch.equal(got_o, lagged)
+
+
+def test_iteration_wrappers_check_the_strips_as_tpunmf():
+    x, w, h = (t(a) for a in kernel_problem(22))
+    with pytest.raises(ValueError, match="bm=48 must divide m=64"):
+        tmur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=48)
+    with pytest.raises(ValueError, match="bm=48 must divide m=64"):
+        tmur_fused.mur_iteration_kl(x, w, h, lam_w=0.0, bm=48)
+    with pytest.raises(ValueError, match="bs=100 must divide n=128"):
+        tmur_fused.mur_iteration_kl(x, w, h, lam_w=0.0, bm=32, bs=100)
+
+
+# the route table of the single pass (tpunmf's own rule), with every shape
+# of it, small shapes the tests run, and shapes on both sides of the budget
+PREDICATE_SHAPES = [(8192, 8192), (8192, 16384), (20000, 11000), (8192, 4096),
+                    (64, 48), (60, 48), (128, 96), (4096, 4096), (16384, 2048),
+                    (1000, 777)]
+RANKS = (1, 16, 50, 128, 512)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("shape", PREDICATE_SHAPES)
+def test_route_predicates_are_tpunmf_s(shape, dtype):
+    meta = torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+    spec = jax.ShapeDtypeStruct(shape, getattr(jnp, dtype))
+    for k in RANKS:
+        assert tmur_fused.iter_eu_tileable(meta, k) == jmur_fused.iter_eu_tileable(spec, k)
+        assert tmur_fused.iter_kl_tileable(meta, k) == jmur_fused.iter_kl_tileable(spec, k)
+
+
+@pytest.mark.parametrize("dist,shape,dtype,route", [
+    ("eu", (8192, 8192), "float32", 64),
+    ("eu", (8192, 8192), "bfloat16", 128),
+    ("eu", (8192, 16384), "float32", None),
+    ("kl", (20000, 11000), "float32", None),
+    ("kl", (8192, 4096), "float32", (128, None)),
+])
+def test_route_table(dist, shape, dtype, route):
+    """Single pass where tpunmf takes it, the 2-pass pair elsewhere."""
+    meta = torch.empty(shape, dtype=getattr(torch, dtype), device="meta")
+    pred = tmur_fused.iter_eu_tileable if dist == "eu" else tmur_fused.iter_kl_tileable
+    k = 50 if shape == (20000, 11000) else 128
+    assert pred(meta, k) == route
+
+
+def test_roofline_bound_is_the_larger_time():
+    """One GFLOP-second of f32 work, or of bytes, is 1 ms at the peaks."""
+    assert roofline.bound(67e9, 0.0, 1e6) == (1.0, "operations")
+    assert roofline.bound(1e6, 0.0, 3.35e9) == (1.0, "bytes")
+    assert roofline.bound(0.0, 989e9, 0.0) == (1.0, "operations")
+    # EU products of a bf16 X run on both-bf16 operands; KL stays f32
+    m, n, k = 64, 32, 8
+    f32, bf16 = roofline.mur_flops("mur_iteration_eu", m, n, k, True)
+    assert bf16 == 4.0 * m * n * k and f32 == 2.0 * k * k * (m + n) + 2.0 * m * k * k
+    assert roofline.mur_flops("mur_iteration_kl", m, n, k, True) == (8.0 * m * n * k, 0.0)
+    assert len(roofline._unported()) == 7
+
+
+# single-pass routes at f64 against tpunmf's plain route
+_BASE = dict(min_iter=5, max_iter=40, tol1=1e-9, tol2=1e-9, nndsvd_init=(True, "zero"))
+SINGLE_CASES = {
+    "eu_exact": dict(distance_type="eu"),
+    "eu_gram": dict(distance_type="eu", objective="gram"),
+    "eu_lambda": dict(distance_type="eu", lambda_w=0.1, lambda_h=0.3),
+    "eu_objective_every_3": dict(distance_type="eu", objective_every=3),
+    "eu_converges": dict(distance_type="eu", tol2=0.3, min_iter=3),
+    "kl_exact": dict(distance_type="kl"),
+    "kl_lambda": dict(distance_type="kl", lambda_w=0.2, lambda_h=0.05),
+    "kl_objective_every_3": dict(distance_type="kl", objective_every=3),
+    "kl_converges": dict(distance_type="kl", tol2=0.3, min_iter=3, max_iter=200),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_jax_run(name):
+    return jmur(lowrank(), 5, use_pallas=False, **{**_BASE, **SINGLE_CASES[name]})
+
+
+def _single_pass_run(monkeypatch, objective=None, **kw):
+    """The port's mur() with the single pass forced at f64 (bm 12 divides
+    lowrank()'s m = 60); returns the result and the single-pass calls."""
+    calls = []
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(port_mur, "iter_eu_tileable", lambda x, k: 12)
+    monkeypatch.setattr(port_mur, "iter_kl_tileable", lambda x, k: (12, None))
+    for name in ("mur_iteration_eu", "mur_iteration_kl", "mur_w_update", "mur_h_update"):
+        monkeypatch.setattr(port_mur, name, counted(getattr(port_mur, name)))
+    if objective is not None:
+        kw["objective"] = objective
+    res = mur(t(lowrank()), 5, use_pallas=True, **kw)
+    return res, calls
+
+
+@pytest.mark.parametrize("name", list(SINGLE_CASES))
+def test_single_pass_route_matches_tpunmf_at_f64(name, monkeypatch):
+    kw = {**_BASE, **SINGLE_CASES[name]}
+    want = _plain_jax_run(name)
+    got, calls = _single_pass_run(monkeypatch, **kw)
+    kernel = "mur_iteration_" + kw["distance_type"]
+    assert calls == [kernel] * (got.i + 1)
+    assert got.i == want.i
+    assert_traces_match(got.obj_history, want.obj_history)
+    np.testing.assert_allclose(got.w, np.asarray(want.w), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(got.h, np.asarray(want.h), rtol=1e-8, atol=1e-12)
+    if "converges" in name:
+        assert 3 < got.i < kw["max_iter"] - 1
+
+
+@pytest.mark.parametrize("name", ["kl_exact", "kl_lambda", "kl_converges"])
+def test_single_pass_lagged_trace_is_tpunmf_exact_trace_shifted_by_one(name, monkeypatch):
+    kw = {**_BASE, **SINGLE_CASES[name]}
+    want = _plain_jax_run(name)
+    got, calls = _single_pass_run(monkeypatch, objective="lagged", **kw)
+    assert set(calls) == {"mur_iteration_kl"}
+    lagged, exact = np.asarray(got.obj_history), np.asarray(want.obj_history)
+    assert_traces_match(lagged[:1], exact[:1])
+    if name == "kl_converges":
+        assert want.i > kw["min_iter"] + 1 and got.i == want.i + 1
+        assert_traces_match(lagged[1:], exact)
+    else:
+        assert got.i == want.i == kw["max_iter"] - 1
+        assert_traces_match(lagged[1:], exact[:-1])
+
+
+@pytest.mark.parametrize("dist,shape", [("eu", (64, 48)), ("eu", (60, 48)),
+                                        ("kl", (128, 96)), ("kl", (60, 48))])
+def test_factorize_takes_the_single_pass_where_tpunmf_does(dist, shape, monkeypatch):
+    """f32 X through NMF.factorize(use_pallas=True) on the CPU: the single
+    pass exactly where tpunmf's predicate gives a strip height."""
+    calls = []
+    for name in ("mur_iteration_eu", "mur_iteration_kl", "mur_w_update"):
+        fn = getattr(port_mur, name)
+        monkeypatch.setattr(port_mur, name,
+                            lambda *a, _fn=fn, _n=name, **k: calls.append(_n) or _fn(*a, **k))
+    x = lowrank(m=shape[0], n=shape[1]).astype(np.float32)
+    spec = jax.ShapeDtypeStruct(shape, jnp.float32)
+    tileable = jmur_fused.iter_eu_tileable if dist == "eu" else jmur_fused.iter_kl_tileable
+    single = tileable(spec, 5) is not None
+    assert single == (shape != (60, 48))
+    res = tpunmf_torch.NMF(t(x), 5).factorize(method="mur", distance_type=dist, max_iter=6,
+                                              use_pallas=True)
+    want = ["mur_iteration_" + dist] if single else ["mur_w_update"]
+    assert calls == want * 6
+    assert np.all(np.isfinite(res.obj_history)) and res.w.dtype == np.float32
+
+
+# ---------------------------------------------------------- the device rule
+
+def test_a_tensor_keeps_its_device_and_other_input_follows():
+    x = t(lowrank())
+    assert as_input(x) is x
+    assert as_input(np.ones(3), device=x.device).device.type == "cpu"
+    got = mur(x, 5, distance_type="eu", max_iter=3)
+    assert got.w.dtype == np.float64  # ran on the CPU at X's dtype
+
+
+def _entry_points():
+    x = lowrank()
+    return {
+        "mur": lambda: mur(x, 5, max_iter=2),
+        "mur_masked": lambda: mur_masked(x, x > 0.5, 5, max_iter=2),
+        "hals": lambda: hals(x, 5, max_iter=2),
+        "admm": lambda: admm(x, 5, max_iter=2),
+        "topk_retrieval": lambda: ttopk.topk_retrieval(None, x[:4], x[:, :20].T, 3),
+        "topk_streaming": lambda: ttopk.topk_streaming(x[:4, :20], x[:, :20].T, 60, 3),
+        "NMF": lambda: tpunmf_torch.NMF(x, 5).factorize(max_iter=2),
+    }
+
+
+@pytest.mark.parametrize("entry", list(_entry_points()))
+def test_numpy_input_without_a_card_raises(entry, monkeypatch):
+    """Numpy means the card; with none, the port raises and does not run
+    on the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass a CPU torch.Tensor"):
+        _entry_points()[entry]()
+
+
+def test_serving_inputs_follow_h():
+    rng = np.random.default_rng(23)
+    w = rng.random((4, 8)).astype(np.float32)
+    h = rng.random((8, 300)).astype(np.float32)
+    exclude = rng.random((4, 300)) < 0.2
+    want = ttopk.topk_retrieval(None, t(w), t(h), 5, exclude=t(exclude))
+    got = ttopk.topk_retrieval(None, w, t(h), 5, exclude=exclude)
+    for g, e in zip(got, want):
+        assert g.device.type == "cpu" and torch.equal(g, e)
+    got = ttopk.topk_streaming(t(w), h, 300, 5, panel_cols=128)
+    assert got[0].device.type == "cpu"
+    assert torch.equal(got[1], ttopk.topk_scores_dense(t(w), t(h), 5)[1])

@@ -121,4 +121,221 @@ __device__ __forceinline__ void wh_tile(float (&s)[TM][TN], const float* __restr
   }
 }
 
+// ------------------------------------------------ the MUR kernels' tile loops
+// Shared by the 2-pass kernels (mur_update.cu), which run them over all of X,
+// and the single-pass iteration (mur_iteration.cu), which runs them over a
+// range of X's rows or columns.  Ranges start at multiples of kTile, so a
+// tile never straddles two ranges; the edges of the matrices are masked.
+
+constexpr int kTile = 64;  // 16 * 4: the EU tile, and the KL tile along the
+                           // axis of X the loop walks
+// k above this halves the KL block along the axis that holds all of k, so
+// its accumulator stays near 130 KB of shared memory.
+constexpr int kWideRank = 512;
+
+// Rows of W (columns of H) a KL block owns at rank k.
+inline int kl_block(int k) { return k <= kWideRank ? 64 : 32; }
+
+// A factor element as an EU product takes it: a float factor rounded to X's
+// storage type (tpunmf/ops/mur_fused.py:84, :716), or one that the wrapper
+// already cast to X's type (tpunmf/ops/mur_fused.py:330).
+template <typename XT>
+__device__ __forceinline__ float factor_as_x(float v) { return round_as_x<XT>(v); }
+template <typename XT>
+__device__ __forceinline__ float factor_as_x(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Staging of the 64 x 64 EU tiles: a[kChunk][kTile + 1], b[kChunk][kTile + 1].
+struct EuStage {
+  float a[kChunk * (kTile + 1)];
+  float b[kChunk * (kTile + 1)];
+};
+
+// acc[a][b] += sum_{j0 <= j < j1} X[row0 + ty + 16a][j] * F[c0 + tx + 16b][j]
+// with X (m, n) and F (k, n) row-major, F taken by factor_as_x: a 64 x 64
+// tile of X F^T over the columns [j0, j1) of X (j1 <= n).
+template <typename XT, typename FT>
+__device__ __forceinline__ void x_ft_tile(float (&acc)[4][4], const XT* __restrict__ x,
+                                          const FT* __restrict__ f, int m, int n, int k,
+                                          int row0, int c0, int j0, int j1, EuStage& st) {
+  constexpr int LD = kTile + 1;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int jb = j0; jb < j1; jb += kChunk) {
+    for (int l = tid; l < kChunk * kTile; l += kThreads) {
+      const int r = l / kChunk, kk = l % kChunk, gr = row0 + r, gj = jb + kk;
+      st.a[kk * LD + r] = (gr < m && gj < j1) ? to_f32(x[(long long)gr * n + gj]) : 0.f;
+    }
+    for (int l = tid; l < kChunk * kTile; l += kThreads) {
+      const int c = l / kChunk, kk = l % kChunk, gc = c0 + c, gj = jb + kk;
+      st.b[kk * LD + c] =
+          (gc < k && gj < j1) ? factor_as_x<XT>(f[(long long)gc * n + gj]) : 0.f;
+    }
+    __syncthreads();
+    micro_gemm<4, 4>(acc, st.a, LD, st.b, LD, kChunk, ty, tx);
+    __syncthreads();
+  }
+}
+
+// acc[a][b] += sum_{i0 <= i < i1} F[i][c0 + ty + 16a] * X[i][col0 + tx + 16b]
+// with F (m, k) float rounded to X's type and X (m, n): a 64 x 64 tile of
+// F^T X over the rows [i0, i1) of X (i1 <= m).
+template <typename XT>
+__device__ __forceinline__ void ft_x_tile(float (&acc)[4][4], const XT* __restrict__ x,
+                                          const float* __restrict__ f, int n, int k, int col0,
+                                          int c0, int i0, int i1, EuStage& st) {
+  constexpr int LD = kTile + 1;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int ib = i0; ib < i1; ib += kChunk) {
+    for (int l = tid; l < kChunk * kTile; l += kThreads) {
+      const int kk = l / kTile, r = l % kTile, gi = ib + kk, gc = c0 + r;
+      st.a[kk * LD + r] = (gi < i1 && gc < k) ? round_as_x<XT>(f[(long long)gi * k + gc]) : 0.f;
+    }
+    for (int l = tid; l < kChunk * kTile; l += kThreads) {
+      const int kk = l / kTile, c = l % kTile, gi = ib + kk, gj = col0 + c;
+      st.b[kk * LD + c] = (gi < i1 && gj < n) ? to_f32(x[(long long)gi * n + gj]) : 0.f;
+    }
+    __syncthreads();
+    micro_gemm<4, 4>(acc, st.a, LD, st.b, LD, kChunk, ty, tx);
+    __syncthreads();
+  }
+}
+
+// acc[a][b] += sum_kk W[row0 + ty + 16a][kk] * G[kk][c0 + tx + 16b] with W
+// (m, k) and G (k, k): a 64 x 64 tile of W G (the EU W denominator).
+__device__ __forceinline__ void w_g_tile(float (&acc)[4][4], const float* __restrict__ w,
+                                         const float* __restrict__ g, int m, int k, int row0,
+                                         int c0, EuStage& st) {
+  constexpr int LD = kTile + 1;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int k0 = 0; k0 < k; k0 += kChunk) {
+    for (int l = tid; l < kChunk * kTile; l += kThreads) {
+      const int r = l / kChunk, kk = l % kChunk, gr = row0 + r, gk = k0 + kk;
+      st.a[kk * LD + r] = (gr < m && gk < k) ? w[(long long)gr * k + gk] : 0.f;
+    }
+    for (int l = tid; l < kChunk * kTile; l += kThreads) {
+      const int kk = l / kTile, c = l % kTile, gk = k0 + kk, gc = c0 + c;
+      st.b[kk * LD + c] = (gk < k && gc < k) ? g[(long long)gk * k + gc] : 0.f;
+    }
+    __syncthreads();
+    micro_gemm<4, 4>(acc, st.a, LD, st.b, LD, kChunk, ty, tx);
+    __syncthreads();
+  }
+}
+
+// Shared memory of the KL row loop: the S staging, P transposed
+// (ps[t][r] = P[row0 + r][j + t]) and the H tile (ts[t][c] = H[c0 + c][j + t]).
+template <int TM>
+struct KlRowStage {
+  WhStage<TM, 4> wh;
+  float ps[kTile * (16 * TM + 1)];
+  float ts[kTile * (kTile + 1)];
+};
+
+// The KL W-side loop over the columns [j0, j1) of X for the rows
+// [row0, row0 + 16 TM): acc[r][c] += sum_j P[row0 + r][j] H[c][j], with
+// P = X / (W H + eps) and acc row-major of stride lda (kpad + 1).  LAGGED:
+// obj += the masked KL of (X, W H) over those cells, with the raw W H in the
+// log (tpunmf/ops/mur_fused.py:134-138); one f32 sum per tile, added in double.
+template <typename XT, int TM, bool LAGGED>
+__device__ __forceinline__ void kl_rows(const XT* __restrict__ x, const float* __restrict__ w,
+                                        const float* __restrict__ h, int m, int n, int k,
+                                        int kpad, int row0, int j0, int j1, float* acc, int lda,
+                                        double& obj, KlRowStage<TM>& st) {
+  constexpr int TN = 4, BM = 16 * TM, BN = kTile, LDP = BM + 1, LDT = BN + 1;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int jt = j0; jt < j1; jt += BN) {
+    float s[TM][TN];
+    wh_tile<TM, TN>(s, w, h, m, n, k, row0, jt, st.wh);  // ends with a barrier
+    float tile_obj = 0.f;
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+#pragma unroll
+      for (int b = 0; b < TN; ++b) {
+        const int r = ty + 16 * a, c = tx + 16 * b, gr = row0 + r, gc = jt + c;
+        const bool in = gr < m && gc < n;
+        const float xv = in ? to_f32(x[(long long)gr * n + gc]) : 0.f;
+        st.ps[c * LDP + r] = in ? xv / (s[a][b] + kEps) : 0.f;
+        if (LAGGED && in) tile_obj += kl_term(xv, s[a][b]);
+      }
+    }
+    if (LAGGED) obj += tile_obj;
+    for (int c0 = 0; c0 < kpad; c0 += BN) {
+      for (int l = tid; l < BN * BN; l += kThreads) {
+        const int cc = l / BN, t = l % BN, gk = c0 + cc, gc = jt + t;
+        st.ts[t * LDT + cc] = (gk < k && gc < n) ? h[(long long)gk * n + gc] : 0.f;
+      }
+      __syncthreads();
+      float part[TM][TN];
+      zero(part);
+      micro_gemm<TM, TN>(part, st.ps, LDP, st.ts, LDT, BN, ty, tx);
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b) acc[(ty + 16 * a) * lda + c0 + tx + 16 * b] += part[a][b];
+      __syncthreads();
+    }
+  }
+}
+
+// Shared memory of the KL column loop: the S staging, P
+// (ps[r][c] = P[i + r][col0 + c]) and the W tile (ws[r][cc] = W[i + r][c0 + cc]).
+template <int TN>
+struct KlColStage {
+  WhStage<4, TN> wh;
+  float ps[kTile * (16 * TN + 1)];
+  float ws[kTile * (kTile + 1)];
+};
+
+// The KL H-side loop over the rows [i0, i1) of X for the columns
+// [col0, col0 + 16 TN): acc[c][j] += sum_i W[i][c] P[i][col0 + j], with
+// P = X / (W H + eps) and acc row-major of stride 16 TN + 1 (kpad rows).
+template <typename XT, int TN>
+__device__ __forceinline__ void kl_cols(const XT* __restrict__ x, const float* __restrict__ w,
+                                        const float* __restrict__ h, int m, int n, int k,
+                                        int kpad, int col0, int i0, int i1, float* acc,
+                                        KlColStage<TN>& st) {
+  constexpr int TM = 4, BM = kTile, BN = 16 * TN, LDP = BN + 1, LDW = BM + 1, ldc = BN + 1;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int it = i0; it < i1; it += BM) {
+    float s[TM][TN];
+    wh_tile<TM, TN>(s, w, h, m, n, k, it, col0, st.wh);  // ends with a barrier
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+#pragma unroll
+      for (int b = 0; b < TN; ++b) {
+        const int r = ty + 16 * a, c = tx + 16 * b, gi = it + r, gc = col0 + c;
+        st.ps[r * LDP + c] =
+            (gi < m && gc < n) ? to_f32(x[(long long)gi * n + gc]) / (s[a][b] + kEps) : 0.f;
+      }
+    }
+    for (int c0 = 0; c0 < kpad; c0 += BM) {
+      for (int l = tid; l < BM * BM; l += kThreads) {
+        const int r = l / BM, cc = l % BM, gi = it + r, gk = c0 + cc;
+        st.ws[r * LDW + cc] = (gi < m && gk < k) ? w[(long long)gi * k + gk] : 0.f;
+      }
+      __syncthreads();
+      float part[TM][TN];
+      zero(part);
+      micro_gemm<TM, TN>(part, st.ws, LDW, st.ps, LDP, BM, ty, tx);
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b) acc[(c0 + ty + 16 * a) * ldc + tx + 16 * b] += part[a][b];
+      __syncthreads();
+    }
+  }
+}
+
+// A block's double partial (one value per thread) reduced to thread 0's
+// return value, in a fixed order.  Every thread of the block must call it.
+__device__ __forceinline__ double block_sum(double v) {
+  __shared__ double red[kThreads];
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride /= 2) {
+    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
+    __syncthreads();
+  }
+  return red[0];
+}
+
 }  // namespace tpunmf

@@ -34,8 +34,6 @@
 namespace tpunmf {
 namespace {
 
-constexpr int kTile = 64;
-
 // Dynamic shared memory of a masked block: two accumulators of `acc` floats
 // each, two masked operand tiles of `p` floats, one factor tile of `t`
 // floats, and the S staging.

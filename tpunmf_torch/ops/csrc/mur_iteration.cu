@@ -1,0 +1,449 @@
+// The single-pass MUR iteration: the whole W half-update and the H
+// numerator of one iteration from one read of X in device memory.
+//
+// Replaces the Pallas kernels of tpunmf/ops/mur_fused.py:
+//   mur_iteration_eu (:314, pallas_call :340): _iter_eu_kernel (:259)
+//   mur_iteration_kl (:652, pallas_call :679): _iter_kl_kernel (:522) and
+//       _iter_kl_blocked_kernel (:595); the latter's column sub-blocks (bs)
+//       were a VMEM tiling of the TPU, and the kernels here stream over
+//       columns anyway, so one design serves both bodies.
+//
+//   EU: numer = X round(H)^T, W' = W * numer / (W Gh + lam W + eps),
+//       wtx = round(W')^T X, gram = W'^T W'          (round: to X's type)
+//   KL: a = W * ((X / (W H + eps)) H^T), b = rowsum(H),
+//       W' = 2a / (b + sqrt(b^2 + 4 lam a)), wtr = W'^T (X / (W' H + eps)),
+//       obj = masked KL of the incoming (W, H), from the first W H tiles
+//
+// What bounds them on the H100: EU does 4*m*n*k f32 FMA flops and KL 8*m*n*k
+// on one read of X, k to 2k flops per X byte at f32 (twice that at bf16):
+// above the f32 FMA ridge (67 TFLOP/s over 3.35 TB/s, 20 flop/byte) at the
+// ranks these kernels serve, so FMA throughput bounds them.  The TPU kernels
+// exist to read X once instead of twice; that is what this design keeps,
+// with the same plain FMA tiling as mur_update.cu (common.cuh): the gain is
+// in bytes, the cost in flops is that of the 2-pass pair.  Tensor cores,
+// TMA and a persistent kernel that keeps the k x n accumulator on chip are
+// later work.
+//
+// Design: a wave schedule that lets the 50 MB L2 stand in for the TPU's
+// VMEM.  The TPU runs its grid in order on one core and keeps the k x n
+// accumulator (wtx / wtr) resident across the row strips; on the card blocks
+// run in parallel and a block has 227 KB of shared memory, so the rows of X
+// are taken in waves of R rows, R * n * sizeof(X) <= kWaveBytes (24 MB), and
+// for each wave, in stream order:
+//   (A) a row kernel forms the W side over column chunks of the wave
+//       (x_ft_tile for EU; kl_rows, with the lagged objective, for KL): one
+//       partial per chunk, so the wave fills the card;
+//   (A2) an elementwise epilogue adds the chunks' partials in a fixed order
+//       and forms W' for the wave's rows (EU: with the denominator W Gh,
+//       formed for all rows before the first wave by w_g_tile, the
+//       product mur_update.cu's w_eu_kernel forms);
+//   (B) a column kernel adds the wave's rows into wtx / wtr (ft_x_tile for
+//       EU; kl_cols, which recomputes W' H, for KL).  Each output element
+//       has one owner: the first wave writes, later waves add.  Where the
+//       wave has too few column tiles to fill the card, B splits the wave's
+//       rows too, writes partials, and sum_slices adds them in order.
+// The wave's X is still in L2 when B reads it, so X crosses device memory
+// about once per iteration.  The extra traffic is the accumulator's read
+// and write once per wave (2 * k * n * 4 bytes each) and the partials of A.
+// EU's gram = W'^T W' is formed after the last wave, over row chunks of W'
+// with per-chunk partials.  Every cross-block sum is per-block partials added
+// in a fixed order (KL's objective by reduce_partials_into, objective.cu):
+// no float atomics, and the same inputs give the same bits.  Ragged edges
+// load zeros and bound their stores; any (m, n) and k <= 1024 work.
+// Built without --use_fast_math: division, sqrtf and logf stay IEEE.
+#include <algorithm>
+#include <climits>
+
+#include "common.cuh"
+
+namespace tpunmf {
+namespace {
+
+constexpr long long kWaveBytes = 24ll << 20;  // X bytes per wave, well under the L2
+// Blocks a launch aims for: 4 per SM of the H100.  At 2 the FMA tiles of a
+// short wave hide too little latency (measured slower on the card).
+constexpr int kFill = 4 * 132;
+
+inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
+
+// How many pieces to split `extent` (in kTile units) into so that `blocks`
+// blocks become about kFill; 1 when the launch already covers the SMs.
+inline int split_for(int blocks, int extent) {
+  if (blocks >= kFill / 2) return 1;
+  const int s = ceil_div(kFill, blocks);
+  return s < extent ? s : extent;
+}
+
+// Blocks of an elementwise pass over len elements (grid-stride beyond).
+inline dim3 elementwise_grid(long long len) {
+  const long long blocks = (len + kThreads - 1) / kThreads;
+  return dim3((unsigned)(blocks < kFill ? blocks : kFill));
+}
+
+struct Plan {
+  int rows, waves;             // R rows of X per wave (a multiple of kTile)
+  int a_cols, nsplit;          // (A): column chunk width, chunks
+  int b_rows, msplit;          // (B): row chunk height, chunks
+  int g_rows, gsplit;          // EU gram: row chunk height, chunks
+  long long a_part, b_part, g_part, obj_part, den, scratch;  // float offsets, total
+};
+
+Plan make_plan(int m, int n, int k, int x_bytes, bool kl) {
+  Plan p{};
+  long long rows = kWaveBytes / ((long long)n * x_bytes) / kTile * kTile;
+  const int all = round_up(m, kTile);
+  p.rows = rows < kTile ? kTile : (rows > all ? all : (int)rows);
+  p.waves = ceil_div(m, p.rows);
+  const int ktiles = ceil_div(k, kTile);
+
+  // KL blocks own whole rows (columns) and all of k; EU blocks 64 x 64 tiles
+  const int tile = kl ? kl_block(k) : kTile;
+  const int a_blocks = ceil_div(p.rows, tile) * (kl ? 1 : ktiles);
+  p.a_cols = round_up(ceil_div(n, split_for(a_blocks, ceil_div(n, kTile))), kTile);
+  p.nsplit = ceil_div(n, p.a_cols);
+
+  const int b_blocks = ceil_div(n, tile) * (kl ? 1 : ktiles);
+  p.b_rows = round_up(ceil_div(p.rows, split_for(b_blocks, p.rows / kTile)), kTile);
+  p.msplit = ceil_div(p.rows, p.b_rows);
+
+  p.g_rows = round_up(ceil_div(m, split_for(ktiles * ktiles, ceil_div(m, kTile))), kTile);
+  p.gsplit = kl ? 0 : ceil_div(m, p.g_rows);
+
+  p.a_part = 0;
+  p.b_part = p.a_part + (long long)p.nsplit * p.rows * k;
+  p.g_part = p.b_part + (p.msplit > 1 ? (long long)p.msplit * k * n : 0);
+  p.obj_part = p.g_part + (long long)p.gsplit * k * k;
+  p.den = p.obj_part + (kl ? (long long)p.waves * ceil_div(p.rows, tile) * p.nsplit : 0);
+  p.scratch = p.den + (kl ? 0 : (long long)m * k);
+  return p;
+}
+
+// out[i] = (add ? out[i] : 0) + parts[0][i] + parts[1][i] + ..., in that order.
+__global__ void __launch_bounds__(kThreads)
+    sum_slices_kernel(float* __restrict__ out, const float* __restrict__ parts, int count,
+                      long long len, bool add) {
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
+       i += (long long)gridDim.x * kThreads) {
+    float v = add ? out[i] : 0.f;
+    for (int s = 0; s < count; ++s) v += parts[s * len + i];
+    out[i] = v;
+  }
+}
+
+cudaError_t sum_slices(float* out, const float* parts, int count, long long len, bool add,
+                       cudaStream_t s) {
+  return launch(sum_slices_kernel, elementwise_grid(len), 0, s, out, parts, count, len, add);
+}
+
+// ------------------------------------------------------------------------ EU
+// (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]);
+// grid (ceil(wave rows / 64), ceil(k / 64), nsplit).  hc is H in X's type.
+template <typename XT>
+__global__ void __launch_bounds__(kThreads)
+    eu_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ hc, int m, int n, int k,
+                   int r0, int rows, int a_cols, float* __restrict__ part) {
+  __shared__ EuStage st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int row0 = r0 + blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.z * a_cols, j1 = min(j0 + a_cols, n);
+  float numer[4][4];
+  zero(numer);
+  x_ft_tile<XT>(numer, x, hc, m, n, k, row0, c0, j0, j1, st);
+  float* out = part + (long long)blockIdx.z * rows * k;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
+      if (gr < m && gc < k) out[(long long)(gr - r0) * k + gc] = numer[a][b];
+    }
+}
+
+// den = W Gh for all rows, before the first wave; grid (ceil(m / 64), ceil(k / 64)).
+__global__ void __launch_bounds__(kThreads)
+    eu_den_kernel(const float* __restrict__ w, const float* __restrict__ gh, int m, int k,
+                  float* __restrict__ den) {
+  __shared__ EuStage st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int row0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  float acc[4][4];
+  zero(acc);
+  w_g_tile(acc, w, gh, m, k, row0, c0, st);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
+      if (gr < m && gc < k) den[(long long)gr * k + gc] = acc[a][b];
+    }
+}
+
+// (A2) W' = W * numer / (den + lam W + eps) for the wave's rows [r0, r1),
+// numer the chunks' partials added in order.
+__global__ void __launch_bounds__(kThreads)
+    eu_w_kernel(const float* __restrict__ w, const float* __restrict__ den,
+                const float* __restrict__ part, int nsplit, float lam, int k, int r0, int r1,
+                int rows, float* __restrict__ out) {
+  const long long len = (long long)(r1 - r0) * k;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
+       i += (long long)gridDim.x * kThreads) {
+    float numer = 0.f;
+    for (int z = 0; z < nsplit; ++z) numer += part[(long long)z * rows * k + i];
+    const long long o = (long long)r0 * k + i;
+    const float wv = w[o];
+    out[o] = wv * numer / (den[o] + lam * wv + kEps);
+  }
+}
+
+// (B) the wave's rows of round(W')^T X into wtx; grid (ceil(n / 64),
+// ceil(k / 64), msplit).  msplit == 1: wtx = (first ? 0 : wtx) + tile;
+// otherwise part[z] = the tile of row chunk z.
+template <typename XT>
+__global__ void __launch_bounds__(kThreads)
+    eu_cols_kernel(const XT* __restrict__ x, const float* __restrict__ w_new, int n, int k,
+                   int r0, int r1, int b_rows, bool first, float* __restrict__ wtx,
+                   float* __restrict__ part) {
+  __shared__ EuStage st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int i0 = r0 + blockIdx.z * b_rows, i1 = min(i0 + b_rows, r1);
+  float acc[4][4];
+  zero(acc);
+  ft_x_tile<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, st);
+  const bool direct = gridDim.z == 1;
+  float* out = direct ? wtx : part + (long long)blockIdx.z * k * n;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = c0 + ty + 16 * a, gj = col0 + tx + 16 * b;
+      if (gr < k && gj < n) {
+        const long long o = (long long)gr * n + gj;
+        out[o] = (direct && !first ? out[o] : 0.f) + acc[a][b];
+      }
+    }
+}
+
+// gram partial of row chunk z: part[z] = W'[chunk]^T W'[chunk];
+// grid (ceil(k / 64), ceil(k / 64), gsplit).
+__global__ void __launch_bounds__(kThreads)
+    gram_kernel(const float* __restrict__ w, int m, int k, int g_rows,
+                float* __restrict__ part) {
+  __shared__ EuStage st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int i0 = blockIdx.z * g_rows, i1 = min(i0 + g_rows, m);
+  float acc[4][4];
+  zero(acc);
+  ft_x_tile<float>(acc, w, w, k, k, col0, c0, i0, i1, st);
+  float* out = part + (long long)blockIdx.z * k * k;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = c0 + ty + 16 * a, gc = col0 + tx + 16 * b;
+      if (gr < k && gc < k) out[(long long)gr * k + gc] = acc[a][b];
+    }
+}
+
+template <typename XT>
+cudaError_t iteration_eu(const void* xv, const void* hv, const float* w, const float* gh,
+                         float lam, int m, int n, int k, float* w_out, float* wtx, float* gram,
+                         float* scratch, cudaStream_t s) {
+  const XT* x = static_cast<const XT*>(xv);
+  const XT* hc = static_cast<const XT*>(hv);
+  const Plan p = make_plan(m, n, k, sizeof(XT), false);
+  const int ktiles = ceil_div(k, kTile);
+  cudaError_t err = launch(eu_den_kernel, dim3(ceil_div(m, kTile), ktiles), 0, s, w, gh, m, k,
+                           scratch + p.den);
+  for (int wave = 0; wave < p.waves && err == cudaSuccess; ++wave) {
+    const int r0 = wave * p.rows, r1 = std::min(r0 + p.rows, m), rtiles = ceil_div(r1 - r0, kTile);
+    err = launch(eu_rows_kernel<XT>, dim3(rtiles, ktiles, p.nsplit), 0, s, x, hc, m, n, k, r0,
+                 p.rows, p.a_cols, scratch + p.a_part);
+    if (err != cudaSuccess) break;
+    err = launch(eu_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w,
+                 static_cast<const float*>(scratch + p.den), scratch + p.a_part, p.nsplit, lam,
+                 k, r0, r1, p.rows, w_out);
+    if (err != cudaSuccess) break;
+    const int msplit = ceil_div(r1 - r0, p.b_rows);
+    err = launch(eu_cols_kernel<XT>, dim3(ceil_div(n, kTile), ktiles, p.msplit), 0, s, x,
+                 static_cast<const float*>(w_out), n, k, r0, r1, p.b_rows, wave == 0, wtx,
+                 scratch + p.b_part);
+    if (err == cudaSuccess && p.msplit > 1)
+      err = sum_slices(wtx, scratch + p.b_part, msplit, (long long)k * n, wave > 0, s);
+  }
+  if (err != cudaSuccess) return err;
+  err = launch(gram_kernel, dim3(ktiles, ktiles, p.gsplit), 0, s,
+               static_cast<const float*>(w_out), m, k, p.g_rows, scratch + p.g_part);
+  if (err != cudaSuccess) return err;
+  return sum_slices(gram, scratch + p.g_part, p.gsplit, (long long)k * k, false, s);
+}
+
+// ------------------------------------------------------------------------ KL
+// (A) for the rows [row0, row0 + 16 TM) and column chunk y:
+// part[y][r - r0][c] = sum_j P[r][j] H[c][j], P = X / (W H + eps), and the
+// block's masked KL of (X, W H) into obj_part[blockIdx.y * gridDim.x +
+// blockIdx.x]; grid (ceil(wave rows / (16 TM)), nsplit).  Dynamic shared
+// memory: the (16 TM) x (kpad + 1) accumulator.
+template <typename XT, int TM>
+__global__ void __launch_bounds__(kThreads)
+    kl_rows_kernel(const XT* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ h, int m, int n, int k, int kpad, int r0, int rows,
+                   int a_cols, float* __restrict__ part, float* __restrict__ obj_part) {
+  constexpr int BM = 16 * TM;
+  __shared__ KlRowStage<TM> st;
+  extern __shared__ float acc[];
+  const int lda = kpad + 1, tid = threadIdx.x;
+  const int row0 = r0 + blockIdx.x * BM;
+  const int j0 = blockIdx.y * a_cols, j1 = min(j0 + a_cols, n);
+  double obj = 0.0;
+  for (int l = tid; l < BM * lda; l += kThreads) acc[l] = 0.f;
+  kl_rows<XT, TM, true>(x, w, h, m, n, k, kpad, row0, j0, j1, acc, lda, obj, st);
+  float* out = part + (long long)blockIdx.y * rows * k;
+  for (int l = tid; l < BM * k; l += kThreads) {
+    const int r = l / k, c = l % k, gr = row0 + r;
+    if (gr < m) out[(long long)(gr - r0) * k + c] = acc[r * lda + c];
+  }
+  const double sum = block_sum(obj);
+  if (tid == 0) obj_part[blockIdx.y * gridDim.x + blockIdx.x] = (float)sum;
+}
+
+// (A2) a = W * (the chunks' partials added in order), W' = 2a / (b +
+// sqrt(b^2 + 4 lam a)) for the wave's rows [r0, r1).
+__global__ void __launch_bounds__(kThreads)
+    kl_w_kernel(const float* __restrict__ w, const float* __restrict__ hsum,
+                const float* __restrict__ part, int nsplit, float lam, int k, int r0, int r1,
+                int rows, float* __restrict__ out) {
+  const long long len = (long long)(r1 - r0) * k;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
+       i += (long long)gridDim.x * kThreads) {
+    float acc = 0.f;
+    for (int z = 0; z < nsplit; ++z) acc += part[(long long)z * rows * k + i];
+    const long long o = (long long)r0 * k + i;
+    const float a = w[o] * acc;
+    const float b = hsum[i % k];
+    out[o] = 2.f * a / (b + sqrtf(b * b + 4.f * lam * a));
+  }
+}
+
+// (B) the wave's rows of W'^T (X / (W' H + eps)) for the columns
+// [col0, col0 + 16 TN); grid (ceil(n / (16 TN)), msplit).  msplit == 1:
+// wtr = (first ? 0 : wtr) + acc; otherwise part[z] = row chunk z's acc.
+// Dynamic shared memory: the kpad x (16 TN + 1) accumulator.
+template <typename XT, int TN>
+__global__ void __launch_bounds__(kThreads)
+    kl_cols_kernel(const XT* __restrict__ x, const float* __restrict__ w_new,
+                   const float* __restrict__ h, int m, int n, int k, int kpad, int r0, int r1,
+                   int b_rows, bool first, float* __restrict__ wtr, float* __restrict__ part) {
+  constexpr int BN = 16 * TN, ldc = BN + 1;
+  __shared__ KlColStage<TN> st;
+  extern __shared__ float acc[];
+  const int tid = threadIdx.x, col0 = blockIdx.x * BN;
+  const int i0 = r0 + blockIdx.y * b_rows, i1 = min(i0 + b_rows, r1);
+  for (int l = tid; l < kpad * ldc; l += kThreads) acc[l] = 0.f;
+  kl_cols<XT, TN>(x, w_new, h, m, n, k, kpad, col0, i0, i1, acc, st);
+  const bool direct = gridDim.y == 1;
+  float* out = direct ? wtr : part + (long long)blockIdx.y * k * n;
+  for (int l = tid; l < k * BN; l += kThreads) {
+    const int ck = l / BN, c = l % BN, gc = col0 + c;
+    if (gc < n) {
+      const long long o = (long long)ck * n + gc;
+      out[o] = (direct && !first ? out[o] : 0.f) + acc[ck * ldc + c];
+    }
+  }
+}
+
+template <typename XT, int TM>
+cudaError_t iteration_kl_tiles(const XT* x, const float* w, const float* h, const float* hsum,
+                         float lam, int m, int n, int k, float* w_out, float* wtr, float* obj,
+                         float* scratch, cudaStream_t s) {
+  constexpr int BM = 16 * TM, TN = TM, BN = 16 * TN;
+  const Plan p = make_plan(m, n, k, sizeof(XT), true);
+  const int kpad = round_up(k, kTile);
+  const size_t a_smem = (size_t)BM * (kpad + 1) * sizeof(float);
+  const size_t b_smem = (size_t)kpad * (BN + 1) * sizeof(float);
+  float* obj_part = scratch + p.obj_part;
+  int nobj = 0;
+  cudaError_t err = cudaSuccess;
+  for (int wave = 0; wave < p.waves && err == cudaSuccess; ++wave) {
+    const int r0 = wave * p.rows, r1 = std::min(r0 + p.rows, m), rblocks = ceil_div(r1 - r0, BM);
+    err = launch(kl_rows_kernel<XT, TM>, dim3(rblocks, p.nsplit), a_smem, s, x, w, h, m, n, k,
+                 kpad, r0, p.rows, p.a_cols, scratch + p.a_part, obj_part + nobj);
+    nobj += rblocks * p.nsplit;
+    if (err != cudaSuccess) break;
+    err = launch(kl_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w, hsum,
+                 scratch + p.a_part, p.nsplit, lam, k, r0, r1, p.rows, w_out);
+    if (err != cudaSuccess) break;
+    const int msplit = ceil_div(r1 - r0, p.b_rows);
+    err = launch(kl_cols_kernel<XT, TN>, dim3(ceil_div(n, BN), p.msplit), b_smem, s, x,
+                 static_cast<const float*>(w_out), h, m, n, k, kpad, r0, r1, p.b_rows,
+                 wave == 0, wtr, scratch + p.b_part);
+    if (err == cudaSuccess && p.msplit > 1)
+      err = sum_slices(wtr, scratch + p.b_part, msplit, (long long)k * n, wave > 0, s);
+  }
+  if (err != cudaSuccess) return err;
+  return reduce_partials_into(obj_part, nobj, 1.f, obj, s);
+}
+
+template <typename XT>
+cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const float* hsum,
+                         float lam, int m, int n, int k, float* w_out, float* wtr, float* obj,
+                         float* scratch, cudaStream_t s) {
+  const XT* x = static_cast<const XT*>(xv);
+  return kl_block(k) == 64
+             ? iteration_kl_tiles<XT, 4>(x, w, h, hsum, lam, m, n, k, w_out, wtr, obj, scratch, s)
+             : iteration_kl_tiles<XT, 2>(x, w, h, hsum, lam, m, n, k, w_out, wtr, obj, scratch, s);
+}
+
+}  // namespace
+}  // namespace tpunmf
+
+extern "C" {
+
+// Floats of scratch tpunmf_mur_iteration_eu (is_kl = 0) or _kl (is_kl = 1)
+// needs at (m, n, k); -1 if that is more than an int can count.
+int tpunmf_mur_iteration_scratch(int m, int n, int k, int x_is_bf16, int is_kl) {
+  const long long s = tpunmf::make_plan(m, n, k, x_is_bf16 ? 2 : 4, is_kl).scratch;
+  return s <= INT_MAX ? (int)s : -1;
+}
+
+// EU iteration.  hc is H (k, n) in X's type, gh = H H^T (k, k); writes W'
+// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).
+int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const void* hc,
+                            const void* gh, float lam, int m, int n, int k, void* w_out,
+                            void* wtx, void* gram, void* scratch, void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* gf = static_cast<const float*>(gh);
+  float* wo = static_cast<float*>(w_out);
+  float* tx = static_cast<float*>(wtx);
+  float* gr = static_cast<float*>(gram);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      x_is_bf16
+          ? tpunmf::iteration_eu<__nv_bfloat16>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
+          : tpunmf::iteration_eu<float>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s);
+  return static_cast<int>(err);
+}
+
+// KL iteration.  hsum = rowsum(H) (k,); writes W' (m, k), wtr = W'^T (X /
+// (W' H + eps)) (k, n) and obj[0] = the masked KL of the incoming (W, H).
+int tpunmf_mur_iteration_kl(const void* x, int x_is_bf16, const void* w, const void* h,
+                            const void* hsum, float lam, int m, int n, int k, void* w_out,
+                            void* wtr, void* obj, void* scratch, void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* hf = static_cast<const float*>(h);
+  const float* hs = static_cast<const float*>(hsum);
+  float* wo = static_cast<float*>(w_out);
+  float* tr = static_cast<float*>(wtr);
+  float* ob = static_cast<float*>(obj);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      x_is_bf16
+          ? tpunmf::iteration_kl<__nv_bfloat16>(x, wf, hf, hs, lam, m, n, k, wo, tr, ob, sc, s)
+          : tpunmf::iteration_kl<float>(x, wf, hf, hs, lam, m, n, k, wo, tr, ob, sc, s);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -10,8 +10,9 @@
 // 2*m*n*k (EU) or 4*m*n*k (KL) f32 FMA flops on it, k/2 to k flops per X byte:
 // above the f32 FMA ridge (~20 flop/byte) at the slice's ranks 50-128, so the
 // FMA throughput of the tiles bounds these kernels, not HBM.  This first
-// version is plain shared-memory tiling with f32 FMA (common.cuh); tensor
-// cores (mma/wgmma), TMA and warp specialisation are left for later work.
+// version is plain shared-memory tiling with f32 FMA; its tile loops live in
+// common.cuh, shared with the single-pass iteration (mur_iteration.cu).
+// Tensor cores (mma/wgmma), TMA and warp specialisation are later work.
 //
 // Design:
 //  * EU (w_eu_kernel, h_eu_kernel): a block owns a 64 x 64 tile of the output
@@ -41,9 +42,6 @@
 namespace tpunmf {
 namespace {
 
-constexpr int kTile = 64;  // 16 * 4: the EU kernels' tile, and the KL kernels'
-                           // tile along the axis of X they loop over
-
 // ----------------------------------------------------------------- EU, W pass
 // out = W * (X H^T) / (W Gh + lam W + eps); grid (ceil(m/64), ceil(k/64)).
 template <typename XT>
@@ -51,48 +49,20 @@ __global__ void __launch_bounds__(kThreads)
     w_eu_kernel(const XT* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ h, const float* __restrict__ gh, float lam,
                 int m, int n, int k, float* __restrict__ out) {
-  constexpr int TM = 4, TN = 4, LD = kTile + 1;
-  __shared__ float As[kChunk * LD];
-  __shared__ float Bs[kChunk * LD];
+  __shared__ EuStage st;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int row0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
 
-  float numer[TM][TN];
+  float numer[4][4], den[4][4];
   zero(numer);
-  for (int j0 = 0; j0 < n; j0 += kChunk) {
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int r = l / kChunk, kk = l % kChunk, gr = row0 + r, gj = j0 + kk;
-      As[kk * LD + r] = (gr < m && gj < n) ? to_f32(x[(long long)gr * n + gj]) : 0.f;
-    }
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int c = l / kChunk, kk = l % kChunk, gc = c0 + c, gj = j0 + kk;
-      Bs[kk * LD + c] = (gc < k && gj < n) ? round_as_x<XT>(h[(long long)gc * n + gj]) : 0.f;
-    }
-    __syncthreads();
-    micro_gemm<TM, TN>(numer, As, LD, Bs, LD, kChunk, ty, tx);
-    __syncthreads();
-  }
-
-  float den[TM][TN];
+  x_ft_tile<XT>(numer, x, h, m, n, k, row0, c0, 0, n, st);
   zero(den);
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int r = l / kChunk, kk = l % kChunk, gr = row0 + r, gk = k0 + kk;
-      As[kk * LD + r] = (gr < m && gk < k) ? w[(long long)gr * k + gk] : 0.f;
-    }
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int kk = l / kTile, c = l % kTile, gk = k0 + kk, gc = c0 + c;
-      Bs[kk * LD + c] = (gk < k && gc < k) ? gh[(long long)gk * k + gc] : 0.f;
-    }
-    __syncthreads();
-    micro_gemm<TM, TN>(den, As, LD, Bs, LD, kChunk, ty, tx);
-    __syncthreads();
-  }
+  w_g_tile(den, w, gh, m, k, row0, c0, st);
 
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int b = 0; b < TN; ++b) {
+    for (int b = 0; b < 4; ++b) {
       const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
       if (gr < m && gc < k) {
         const float wv = w[(long long)gr * k + gc];
@@ -111,48 +81,35 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ h, const float* __restrict__ gw, float lam,
                 int m, int n, int k, float* __restrict__ h_out,
                 float* __restrict__ numer_out) {
-  constexpr int TM = 4, TN = 4, LD = kTile + 1;
-  __shared__ float As[kChunk * LD];
-  __shared__ float Bs[kChunk * LD];
+  constexpr int LD = kTile + 1;
+  __shared__ EuStage st;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
 
-  float numer[TM][TN];
+  float numer[4][4];
   zero(numer);
-  for (int i0 = 0; i0 < m; i0 += kChunk) {
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int kk = l / kTile, r = l % kTile, gi = i0 + kk, gc = c0 + r;
-      As[kk * LD + r] = (gi < m && gc < k) ? round_as_x<XT>(w[(long long)gi * k + gc]) : 0.f;
-    }
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int kk = l / kTile, c = l % kTile, gi = i0 + kk, gj = col0 + c;
-      Bs[kk * LD + c] = (gi < m && gj < n) ? to_f32(x[(long long)gi * n + gj]) : 0.f;
-    }
-    __syncthreads();
-    micro_gemm<TM, TN>(numer, As, LD, Bs, LD, kChunk, ty, tx);
-    __syncthreads();
-  }
+  ft_x_tile<XT>(numer, x, w, n, k, col0, c0, 0, m, st);
 
-  float den[TM][TN];
+  float den[4][4];
   zero(den);
   for (int k0 = 0; k0 < k; k0 += kChunk) {
     for (int l = tid; l < kChunk * kTile; l += kThreads) {
       const int r = l / kChunk, kk = l % kChunk, gr = c0 + r, gk = k0 + kk;
-      As[kk * LD + r] = (gr < k && gk < k) ? gw[(long long)gr * k + gk] : 0.f;
+      st.a[kk * LD + r] = (gr < k && gk < k) ? gw[(long long)gr * k + gk] : 0.f;
     }
     for (int l = tid; l < kChunk * kTile; l += kThreads) {
       const int kk = l / kTile, c = l % kTile, gk = k0 + kk, gj = col0 + c;
-      Bs[kk * LD + c] = (gk < k && gj < n) ? h[(long long)gk * n + gj] : 0.f;
+      st.b[kk * LD + c] = (gk < k && gj < n) ? h[(long long)gk * n + gj] : 0.f;
     }
     __syncthreads();
-    micro_gemm<TM, TN>(den, As, LD, Bs, LD, kChunk, ty, tx);
+    micro_gemm<4, 4>(den, st.a, LD, st.b, LD, kChunk, ty, tx);
     __syncthreads();
   }
 
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int b = 0; b < TN; ++b) {
+    for (int b = 0; b < 4; ++b) {
       const int gr = c0 + ty + 16 * a, gj = col0 + tx + 16 * b;
       if (gr < k && gj < n) {
         const long long o = (long long)gr * n + gj;
@@ -176,49 +133,16 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ h, const float* __restrict__ hsum, float lam,
                 int m, int n, int k, int kpad, float* __restrict__ out,
                 float* __restrict__ partials) {
-  constexpr int TN = 4, BM = 16 * TM, BN = kTile, LDP = BM + 1, LDT = BN + 1;
-  __shared__ WhStage<TM, TN> stage;
-  __shared__ float Ps[BN * LDP];  // P transposed: Ps[t][r] = P[row0 + r][j0 + t]
-  __shared__ float Ts[BN * LDT];  // Ts[t][c] = H[c0 + c][j0 + t]
+  constexpr int BM = 16 * TM;
+  __shared__ KlRowStage<TM> st;
   extern __shared__ float acc[];  // acc[r][c], row stride kpad + 1
   const int lda = kpad + 1;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
 
-  double obj = 0.0;  // this thread's cells, one f32 sum per tile added in double
+  double obj = 0.0;  // this thread's cells
   for (int l = tid; l < BM * lda; l += kThreads) acc[l] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += BN) {
-    float s[TM][TN];
-    wh_tile<TM, TN>(s, w, h, m, n, k, row0, j0, stage);  // ends with a barrier
-    float tile_obj = 0.f;
-#pragma unroll
-    for (int a = 0; a < TM; ++a) {
-#pragma unroll
-      for (int b = 0; b < TN; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b, gr = row0 + r, gc = j0 + c;
-        const bool in = gr < m && gc < n;
-        const float xv = in ? to_f32(x[(long long)gr * n + gc]) : 0.f;
-        Ps[c * LDP + r] = in ? xv / (s[a][b] + kEps) : 0.f;
-        if (LAGGED && in) tile_obj += kl_term(xv, s[a][b]);
-      }
-    }
-    if (LAGGED) obj += tile_obj;
-    for (int c0 = 0; c0 < kpad; c0 += BN) {
-      for (int l = tid; l < BN * BN; l += kThreads) {
-        const int cc = l / BN, t = l % BN, gk = c0 + cc, gc = j0 + t;
-        Ts[t * LDT + cc] = (gk < k && gc < n) ? h[(long long)gk * n + gc] : 0.f;
-      }
-      __syncthreads();
-      float part[TM][TN];
-      zero(part);
-      micro_gemm<TM, TN>(part, Ps, LDP, Ts, LDT, BN, ty, tx);
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < TN; ++b) acc[(ty + 16 * a) * lda + c0 + tx + 16 * b] += part[a][b];
-      __syncthreads();
-    }
-  }
+  kl_rows<XT, TM, LAGGED>(x, w, h, m, n, k, kpad, row0, 0, n, acc, lda, obj, st);
 
   for (int l = tid; l < BM * k; l += kThreads) {
     const int r = l / k, c = l % k, gr = row0 + r;
@@ -230,14 +154,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if constexpr (LAGGED) {
-    __shared__ double red[kThreads];
-    red[tid] = obj;
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride /= 2) {
-      if (tid < stride) red[tid] += red[tid + stride];
-      __syncthreads();
-    }
-    if (tid == 0) partials[blockIdx.x] = (float)red[0];
+    const double sum = block_sum(obj);
+    if (tid == 0) partials[blockIdx.x] = (float)sum;
   }
 }
 
@@ -252,44 +170,14 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ h, const float* __restrict__ wsum, float lam,
                 int m, int n, int k, int kpad, float* __restrict__ h_out,
                 float* __restrict__ numer_out) {
-  constexpr int TM = 4, BM = kTile, BN = 16 * TN, LDP = BN + 1, LDW = BM + 1;
-  __shared__ WhStage<TM, TN> stage;
-  __shared__ float Ps[BM * LDP];  // Ps[r][c] = P[i0 + r][col0 + c]
-  __shared__ float Ws[BM * LDW];  // Ws[r][cc] = W[i0 + r][c0 + cc]
+  constexpr int BN = 16 * TN, ldc = BN + 1;
+  __shared__ KlColStage<TN> st;
   extern __shared__ float acc[];  // acc[ck][c], row stride BN + 1
-  constexpr int ldc = BN + 1;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x;
   const int col0 = blockIdx.x * BN;
 
   for (int l = tid; l < kpad * ldc; l += kThreads) acc[l] = 0.f;
-  for (int i0 = 0; i0 < m; i0 += BM) {
-    float s[TM][TN];
-    wh_tile<TM, TN>(s, w, h, m, n, k, i0, col0, stage);  // ends with a barrier
-#pragma unroll
-    for (int a = 0; a < TM; ++a) {
-#pragma unroll
-      for (int b = 0; b < TN; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b, gi = i0 + r, gc = col0 + c;
-        Ps[r * LDP + c] =
-            (gi < m && gc < n) ? to_f32(x[(long long)gi * n + gc]) / (s[a][b] + kEps) : 0.f;
-      }
-    }
-    for (int c0 = 0; c0 < kpad; c0 += BM) {
-      for (int l = tid; l < BM * BM; l += kThreads) {
-        const int r = l / BM, cc = l % BM, gi = i0 + r, gk = c0 + cc;
-        Ws[r * LDW + cc] = (gi < m && gk < k) ? w[(long long)gi * k + gk] : 0.f;
-      }
-      __syncthreads();
-      float part[TM][TN];
-      zero(part);
-      micro_gemm<TM, TN>(part, Ws, LDW, Ps, LDP, BM, ty, tx);
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < TN; ++b) acc[(c0 + ty + 16 * a) * ldc + tx + 16 * b] += part[a][b];
-      __syncthreads();
-    }
-  }
+  kl_cols<XT, TN>(x, w, h, m, n, k, kpad, col0, 0, m, acc, st);
 
   for (int l = tid; l < k * BN; l += kThreads) {
     const int ck = l / BN, c = l % BN, gc = col0 + c;
@@ -304,18 +192,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// k above this halves the KL block along the axis that holds all of k, so the
-// accumulator stays near 130 KB of shared memory.
-constexpr int kWideRank = 512;
-
-// Rows of W a KL W-pass block owns at rank k.
-int w_kl_rows(int k) { return k <= kWideRank ? 64 : 32; }
-
 template <typename XT, bool LAGGED>
 cudaError_t w_kl_update(const XT* x, const float* w, const float* h, const float* hsum,
                         float lam, int m, int n, int k, float* out, float* partials,
                         cudaStream_t s) {
-  const int kpad = ceil_div(k, kTile) * kTile, bm = w_kl_rows(k);
+  const int kpad = ceil_div(k, kTile) * kTile, bm = kl_block(k);
   const size_t smem = bm * (kpad + 1) * sizeof(float);
   return bm == 64 ? launch(w_kl_kernel<XT, 4, LAGGED>, dim3(ceil_div(m, bm)), smem, s, x, w,
                            h, hsum, lam, m, n, k, kpad, out, partials)
@@ -341,7 +222,7 @@ cudaError_t w_update_lagged(const void* xv, const float* w, const float* h,
   cudaError_t err = w_kl_update<XT, true>(static_cast<const XT*>(xv), w, h, hsum, lam, m, n,
                                           k, out, partials, s);
   if (err != cudaSuccess) return err;
-  return reduce_partials_into(partials, ceil_div(m, w_kl_rows(k)), 1.f, obj, s);
+  return reduce_partials_into(partials, ceil_div(m, kl_block(k)), 1.f, obj, s);
 }
 
 template <typename XT>
@@ -387,7 +268,7 @@ int tpunmf_mur_w_update(const void* x, int x_is_bf16, const void* w, const void*
 
 // Rows of partials tpunmf_mur_w_update_lagged needs at (m, k).
 int tpunmf_mur_w_lagged_blocks(int m, int k) {
-  return tpunmf::ceil_div(m, tpunmf::w_kl_rows(k));
+  return tpunmf::ceil_div(m, tpunmf::kl_block(k));
 }
 
 // KL W half-update that also writes the masked KL of the incoming (W, H) to

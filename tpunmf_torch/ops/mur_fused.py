@@ -1,4 +1,4 @@
-"""The 2-pass fused MUR iteration: a CUDA kernel per half-update.
+"""The fused MUR iteration: the 2-pass pair, and the single pass.
 
   W pass (``mur_w_update``, csrc/mur_update.cu):
       EU: W <- W * (X H^T) / (W Gh + lw W + eps)               (nmf/mur.py:29)
@@ -13,10 +13,17 @@
           H <- 2c / (d + sqrt(d^2 + 4 lh c))
       and emits the raw numerator too (the Gram objective needs W^T X).
 
-Only the k x k Grams ``Gh = H H^T`` / ``Gw = W^T W`` and the row/column
-sums are formed outside the kernels, as ``tpunmf`` forms them outside its
-Pallas bodies.  Outputs are new tensors: nothing is updated in place (the
-EU epilogue of a row block reads all of W_i).
+  Single pass (``mur_iteration_eu`` / ``mur_iteration_kl``,
+  csrc/mur_iteration.cu): the W update and the H numerator of a whole
+  iteration from one read of X in device memory; the caller finishes the
+  k-sized H update.  ``iter_eu_tileable`` / ``iter_kl_tileable`` are
+  ``tpunmf``'s route rule for it.
+
+Only the k x k Grams ``Gh = H H^T`` / ``Gw = W^T W``, the row/column sums
+and the single pass's cast of H to X's dtype are formed outside the
+kernels, as ``tpunmf`` forms them outside its Pallas bodies.  Outputs are
+new tensors: nothing is updated in place (the EU epilogue of a row block
+reads all of W_i).
 
 A wrapper takes its plain version (``*_ref``) only for a tensor on the
 CPU; for a CUDA tensor it launches its kernel or raises.  Each wrapper
@@ -147,6 +154,152 @@ def mur_h_update(x, w, h, *, distance_type: str, lam: float):
     return h_out, numer
 
 
+# ------------------------------------------------- the single-pass iteration
+
+def iter_eu_tileable(x, k: int):
+    """Strip height bm for the single-pass EU iteration, or None.
+
+    This is ``tpunmf``'s route rule (tpunmf/ops/mur_fused.py:290-311),
+    kept so that each shape takes the route ``tpunmf`` gives it: its
+    constants describe ``tpunmf``'s strip layout on the TPU (a full-width X
+    strip, H^T and the WtX accumulator resident in its fast memory), not
+    this card.  The CUDA kernel chooses its own tiling; ``bm`` is checked
+    against m, as ``tpunmf`` checks it.  ``x`` is anything with ``.shape``
+    and ``.dtype`` (a ``meta`` tensor will do)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        return None
+    m, n = x.shape
+    xb = x.dtype.itemsize
+    budget = 14 * 1024 * 1024
+    fixed = k * n * xb + k * n * 4 + k * k * 4 * 2
+    cands = (512, 256, 128, 64, 32, 16) if xb == 2 else \
+            (512, 256, 128, 64, 32, 16, 8)
+    for bm in cands:
+        if m % bm:
+            continue
+        need = fixed + 2 * bm * n * xb + 3 * bm * k * 4
+        if need <= budget:
+            return bm
+    return None
+
+
+def iter_kl_tileable(x, k: int):
+    """(bm, bs) for the single-pass KL iteration, or None.
+
+    ``tpunmf``'s route rule (tpunmf/ops/mur_fused.py:563-592), kept so
+    that each shape takes the route ``tpunmf`` gives it; its constants
+    describe ``tpunmf``'s resident strip on the TPU, not this card.  It
+    never selects the column-subblocked variant (bs is always None)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        return None
+    m, n = x.shape
+    xb = x.dtype.itemsize
+    budget = 14 * 1024 * 1024
+    fixed = 2 * k * n * 4
+    for bm in (128, 64):
+        if m % bm:
+            continue
+        need = fixed + 2 * bm * n * xb + 2 * bm * n * 4 + 3 * bm * k * 4
+        if need <= budget:
+            return bm, None
+    return None
+
+
+def _check_strips(x, bm, bs=None):
+    m, n = x.shape
+    if m % bm:
+        raise ValueError(f"bm={bm} must divide m={m} (grid would truncate)")
+    if bs is not None and n % bs:
+        raise ValueError(f"bs={bs} must divide n={n} (grid would truncate)")
+
+
+@full_f32()
+def mur_iteration_eu_ref(x, w, h, *, lam_w: float):
+    """Plain version of :func:`mur_iteration_eu`: (w_new, wtx, gram_w)."""
+    xf = x.to(w.dtype)
+    numer = xf @ _factor_as_x(h, x).T
+    w_new = w * numer / (w @ (h @ h.T) + lam_w * w + _EPS)
+    wtx = _factor_as_x(w_new, x).T @ xf
+    return w_new, wtx, w_new.T @ w_new
+
+
+@full_f32()
+def mur_iteration_kl_ref(x, w, h, *, lam_w: float):
+    """Plain version of :func:`mur_iteration_kl`: (w_new, wtr, obj)."""
+    xf = x.to(w.dtype)
+    wh = w @ h
+    a = w * ((xf / (wh + _EPS)) @ h.T)
+    b = torch.sum(h, dim=1)[None, :]
+    w_new = 2.0 * a / (b + torch.sqrt(b * b + 4.0 * lam_w * a))
+    wtr = w_new.T @ (xf / (w_new @ h + _EPS))
+    return w_new, wtr, kl_elementwise_sum(xf, wh)
+
+
+def _scratch(x, k, is_kl):
+    m, n = x.shape
+    count = _build.library().tpunmf_mur_iteration_scratch(
+        m, n, k, int(x.dtype == torch.bfloat16), int(is_kl))
+    if count < 0:
+        raise ValueError(f"shape {tuple(x.shape)} at k={k} needs more scratch "
+                         "than the kernel can index")
+    return torch.empty(max(count, 1), dtype=torch.float32, device=x.device)
+
+
+@full_f32()
+def mur_iteration_eu(x, w, h, *, lam_w: float, bm: int):
+    """The EU W half-update and H numerator in one pass over X.
+
+    Returns (w_new (m, k), wtx = round(w_new)^T X (k, n), gram_w =
+    w_new^T w_new (k, k)), all f32; the caller finishes with
+    ``h * wtx / (gram_w @ h + lam_h h + eps)`` (tpunmf/ops/mur_fused.py:
+    314-362).  ``bm`` is ``iter_eu_tileable``'s strip height and must
+    divide m, as in ``tpunmf``."""
+    _check_strips(x, bm)
+    if on_cpu(x):
+        return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
+    m, n, k = check_operands("mur_iteration_eu", x, w, h)
+    gh = h @ h.T
+    hc = h.to(x.dtype)  # pre-cast, as tpunmf/ops/mur_fused.py:330
+    w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    wtx = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    gram = torch.empty((k, k), dtype=torch.float32, device=x.device)
+    scratch = _scratch(x, k, False)
+    call("tpunmf_mur_iteration_eu", x.device, x.data_ptr(),
+         int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(), gh.data_ptr(),
+         float(lam_w), m, n, k, w_new.data_ptr(), wtx.data_ptr(), gram.data_ptr(),
+         scratch.data_ptr())
+    mur_iteration_eu.launches += 1
+    return w_new, wtx, gram
+
+
+@full_f32()
+def mur_iteration_kl(x, w, h, *, lam_w: float, bm: int, bs: int | None = None):
+    """The KL W half-update, H numerator and lagged objective in one pass.
+
+    Returns (w_new (m, k), wtr = w_new^T (X / (w_new H + eps)) (k, n),
+    obj 0-d), obj the masked KL of the INCOMING (w, h); the caller finishes
+    with the H closed form (tpunmf/ops/mur_fused.py:652-702).  ``bm`` and
+    ``bs`` must divide m and n, as in ``tpunmf``; ``bs`` chose a TPU
+    tiling of the same function and changes nothing here."""
+    _check_strips(x, bm, bs)
+    if on_cpu(x):
+        return mur_iteration_kl_ref(x, w, h, lam_w=lam_w)
+    m, n, k = check_operands("mur_iteration_kl", x, w, h)
+    hsum = torch.sum(h, dim=1)
+    w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    wtr = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    obj = torch.empty((), dtype=torch.float32, device=x.device)
+    scratch = _scratch(x, k, True)
+    call("tpunmf_mur_iteration_kl", x.device, x.data_ptr(),
+         int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(), hsum.data_ptr(),
+         float(lam_w), m, n, k, w_new.data_ptr(), wtr.data_ptr(), obj.data_ptr(),
+         scratch.data_ptr())
+    mur_iteration_kl.launches += 1
+    return w_new, wtr, obj
+
+
 mur_w_update.launches = 0
 mur_w_update.lagged_launches = 0
 mur_h_update.launches = 0
+mur_iteration_eu.launches = 0
+mur_iteration_kl.launches = 0

@@ -1,0 +1,88 @@
+"""The least time an H100 could take for a kernel's work: its bound.
+
+A kernel's bound is the larger of two times: its operations over the
+card's peak rate for their type, and the bytes it must move (each input
+read once, each output written once) over the memory rate.  The peaks
+are those of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates):
+f32 outside the tensor cores, and bf16 on the tensor cores, which a
+product may use only where both its operands already are bf16.
+
+``chip_smoke.py`` computes each ported kernel's bound from the tensors of
+its run.  Run as a script, this module prints the bounds of the TPU
+kernels that are not ported yet, at the shapes their paths will run:
+
+    python -m tpunmf_torch.ops.roofline
+"""
+from __future__ import annotations
+
+PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+
+
+def bound(f32_flops: float, bf16_flops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time and what sets it."""
+    ops = f32_flops / PEAK_F32 + bf16_flops / PEAK_BF16
+    mem = nbytes / PEAK_BYTES
+    return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
+def mur_flops(name: str, m: int, n: int, k: int, x_bf16: bool,
+              dist: str | None = None) -> tuple[float, float]:
+    """(f32, bf16) flops of one call of a MUR kernel on X (m, n) at rank k.
+
+    2 m n k is one product against X; the EU products of a bf16 X take the
+    factor rounded to bf16, so both their operands are bf16.  The k x k
+    Grams and their products with a factor are f32."""
+    mnk = 2.0 * m * n * k
+    eu_x = (0.0, mnk) if x_bf16 else (mnk, 0.0)
+    grams = 2.0 * k * k * (m + n)
+    if name in ("mur_iteration_eu", "mur_iteration_eu_dma", "v1_iter"):
+        return 2 * eu_x[0] + grams + 2.0 * m * k * k, 2 * eu_x[1]
+    if name == "v2_iter":  # v1 with the H update folded in: Gw H
+        return 2 * eu_x[0] + grams + 2.0 * m * k * k + 2.0 * k * k * n, 2 * eu_x[1]
+    if name == "mur_iteration_kl":
+        return 4 * mnk, 0.0
+    if name in ("mur_w_update", "mur_h_update", "mur_w_update_lagged"):
+        return (eu_x[0] + grams, eu_x[1]) if dist == "eu" else (2 * mnk, 0.0)
+    return mnk, 0.0  # the objectives and kl_ratio: W H against X
+
+
+def _unported():
+    """(kernel, shape, f32 flops, bf16 flops, bytes) of the TPU kernels
+    not ported yet, at the shapes their paths will run."""
+    m = n = 8192
+    k = 128
+    f32, bf16 = 4, 2
+    eu_io = (m * k + k * n) * f32 + (m * k + k * n + k * k) * f32  # W, H in; W', wtx, Gw out
+    cfg1 = (20000, 11000, 50)
+    rows = [
+        ("kl_ratio", "20000x11000 r50 f32", *mur_flops("kl_ratio", *cfg1, False),
+         cfg1[0] * cfg1[1] * 2 * f32 + (cfg1[0] + cfg1[1]) * cfg1[2] * f32),
+        ("mur_iteration_eu_dma", "8192x8192 r128 bf16",
+         *mur_flops("mur_iteration_eu_dma", m, n, k, True), m * n * bf16 + eu_io),
+        # the X H^T strip product, k Gauss-Seidel steps of 2k flops a row
+        # (one sweep), W'^T X and the Gram
+        ("hals_iteration_eu", "8192x8192 r128 f32, 1 sweep",
+         2 * 2.0 * m * n * k + 2.0 * m * k * k + 2.0 * k * k * (m + n) + 2.0 * m * k * k,
+         0.0, m * n * f32 + eu_io),
+        ("bench.py read probe", "8192x8192 f32", float(m * n), 0.0, m * n * f32 + n * f32),
+        ("v1_iter", "8192x8192 r128 bf16", *mur_flops("v1_iter", m, n, k, True),
+         m * n * bf16 + eu_io),
+        ("v2_iter", "8192x8192 r128 bf16", *mur_flops("v2_iter", m, n, k, True),
+         m * n * bf16 + eu_io + k * n * f32),
+        # int8 X widened to bf16 (exact) on the way into both products
+        ("iter_eu_int8", "8192x8192 r128 int8", *mur_flops("v1_iter", m, n, k, True),
+         m * n * 1 + eu_io),
+    ]
+    return rows
+
+
+def main() -> None:
+    for name, shape, f32_flops, bf16_flops, nbytes in _unported():
+        ms, by = bound(f32_flops, bf16_flops, nbytes)
+        print(f"{name:22s} {shape:30s} {f32_flops / 1e9:8.2f} GFLOP f32 "
+              f"{bf16_flops / 1e9:8.2f} GFLOP bf16 {nbytes / 1e6:9.1f} MB "
+              f"bound {ms:.4f} ms ({by})")
+
+
+if __name__ == "__main__":
+    main()

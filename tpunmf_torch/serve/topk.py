@@ -34,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from ..core.device import as_input
 from ..core.precision import full_f32
 from ..ops.topk_select import (blockmax_relayout, score_blockmax_fits,
                                score_blockmax_relayout)
@@ -203,11 +204,12 @@ def _scored_topk(w_batch, h, k: int, block: int = _TOPK_BLOCK,
 
 
 def _tensors(w_batch, h, exclude=None):
-    """The inputs as tensors on H's device (exclusion as bool)."""
-    h = torch.as_tensor(h)
-    w_batch = torch.as_tensor(w_batch, device=h.device)
+    """The inputs as tensors on H's device (exclusion as bool); H that is
+    not a tensor goes to the CUDA device (core/device.py)."""
+    h = as_input(h)
+    w_batch = as_input(w_batch, device=h.device)
     if exclude is not None:
-        exclude = torch.as_tensor(exclude, dtype=torch.bool, device=h.device)
+        exclude = as_input(exclude, dtype=torch.bool, device=h.device)
     return w_batch, h, exclude
 
 
@@ -331,7 +333,7 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
         raise NotImplementedError(
             "mesh=: sharded serving is not ported yet (ROADMAP.md, queue 1, "
             "item 9 'Multi-GPU')")
-    w_batch = torch.as_tensor(w_batch)
+    w_batch = as_input(w_batch)
     device = w_batch.device
     take = min(panel_cols, n)
     slicer = h_source if callable(h_source) else (lambda s, e: h_source[:, s:e])

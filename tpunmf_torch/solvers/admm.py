@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..core.device import as_input
 from ..core.linalg import spd_solve
 from ..core.losses import distance
 from ..core.precision import full_f32
@@ -184,8 +185,9 @@ def admm(
     ``rho_mu``), ``spd_solver`` ('chol' | 'cg', default 'chol'), explicit
     ``w_init``/``h_init``, ``key`` (``torch.Generator`` or int seed for
     random init and randomized SVD; torch's draws differ from
-    jax.random's), ``use_pallas`` and blocked execution.  V is a tensor
-    (or array) on the device the run should use.
+    jax.random's), ``use_pallas`` and blocked execution.  V that is a tensor
+    stays on its device; any other V goes to the CUDA device (as in
+    :func:`tpunmf_torch.solvers.mur`).
     """
     if distance_type not in ("eu", "kl"):
         raise TypeError("Unknown loss type.")
@@ -196,7 +198,7 @@ def admm(
     if spd_solver not in ("chol", "cg"):
         raise ValueError("spd_solver must be 'chol' or 'cg'")
 
-    v = torch.as_tensor(v).contiguous()
+    v = as_input(v).contiguous()
     if use_pallas is None:
         use_pallas = v.device.type == "cuda"
 

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from ..core.device import as_input
 from ..core.losses import eu_objective_gram
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
@@ -116,7 +117,7 @@ def hals(
     if inner_sweeps < 1:
         raise ValueError("inner_sweeps must be >= 1")
 
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if use_pallas is None:
         use_pallas = x.device.type == "cuda"
     kernels = bool(use_pallas) and x.dtype == torch.float32

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..core.device import as_input
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
@@ -109,10 +110,10 @@ def mur_masked(
     """
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if mask is None:
         raise ValueError("mur_masked requires a mask; use mur() without one")
-    mask = torch.as_tensor(mask, device=x.device).to(x.dtype)
+    mask = as_input(mask, device=x.device).to(x.dtype)
     if mask.shape != x.shape:
         raise ValueError(f"mask shape {tuple(mask.shape)} != data shape "
                          f"{tuple(x.shape)}")

@@ -5,9 +5,17 @@ update formulas including the regularized KL closed form
 ``2a / (b + sqrt(b^2 + 4*lambda*a))``, the 1e-9 guards, negative-data
 elevation, defaults, convergence semantics and the ``Results`` record.
 
-Two routes, chosen by ``use_pallas`` (the name ``tpunmf`` gives the switch;
-it defaults to True exactly when X is a CUDA tensor):
+Routes, chosen by ``use_pallas`` (the name ``tpunmf`` gives the switch;
+it defaults to True exactly when X is a CUDA tensor) and, on the kernel
+route, by ``tpunmf``'s own rule for the shape:
 
+  * single pass (1 pass over X, +1 for the exact objective):
+    ``mur_iteration_eu`` / ``mur_iteration_kl`` (ops/mur_fused.py), taken
+    exactly where ``tpunmf`` takes it: where ``iter_eu_tileable`` /
+    ``iter_kl_tileable`` give X's shape, dtype and rank a strip height
+    (tpunmf/solvers/mur.py:403-423; its manual-DMA EU variant is not
+    ported).  KL's kernel also returns the objective of the incoming
+    iterate, which ``objective="lagged"`` records.
   * fused (2 passes over X, +1 for the exact objective): ``mur_w_update``
     and ``mur_h_update`` (ops/mur_fused.py) and the objective passes
     ``eu_residual_obj`` / ``kl_obj`` (ops/fused.py).  With
@@ -28,13 +36,15 @@ from typing import Optional
 
 import torch
 
+from ..core.device import as_input
 from ..core.losses import eu_objective_gram
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj,
                          kl_ratio, kl_ratio_and_obj_ref)
-from ..ops.mur_fused import mur_h_update, mur_w_update
+from ..ops.mur_fused import (iter_eu_tileable, iter_kl_tileable, mur_h_update,
+                             mur_iteration_eu, mur_iteration_kl, mur_w_update)
 from .common import (LoopCarry, finalize_history, host_array, init_carry,
                      run_loop, verbose_precision, while_block)
 
@@ -56,6 +66,8 @@ def _mur_block(
     max_iter: int,
     objective: str,
     use_pallas: bool,
+    single_pass_bm=None,
+    kl_single_bm=None,
     objective_every: int = 1,
     verbose=False,
 ) -> LoopCarry:
@@ -65,6 +77,8 @@ def _mur_block(
     on the plain KL route, r = x / (w h + eps) from the previous trailing
     pass.  On the plain route with bfloat16 X, ``x`` is the X upcast to
     the factors' dtype (tpunmf's jnp products promote it the same way).
+    ``single_pass_bm`` (EU) and ``kl_single_bm`` ((bm, bs), KL) select the
+    single-pass steps, as in tpunmf (mur.py:282-289).
     """
 
     def refresh(i):
@@ -75,6 +89,31 @@ def _mur_block(
         if objective_every == 1 or refresh(i):
             return fn()
         return torch.tensor(math.nan)
+
+    def step_eu_single(inner, i):
+        """Whole iteration in one pass over X (tpunmf mur.py:133-154)."""
+        w, h = inner
+        w, wtx, gram_w = mur_iteration_eu(x, w, h, lam_w=lambda_w, bm=single_pass_bm)
+        h_new = h * wtx / (gram_w @ h + lambda_h * h + _EPS)
+        if objective == "gram":
+            obj = cadence_obj(i, lambda: eu_objective_gram(xsq, wtx, gram_w, h_new))
+        else:
+            obj = cadence_obj(i, lambda: eu_residual_obj(x, w, h_new))
+        return (w, h_new), obj
+
+    def step_kl_single(inner, i):
+        """Whole KL iteration in one pass over X (tpunmf mur.py:156-179):
+        the kernel always returns the objective of the incoming iterate,
+        which 'lagged' records; other objectives add the exact pass."""
+        w, h = inner
+        w, wtr, obj_prev = mur_iteration_kl(x, w, h, lam_w=lambda_w,
+                                            bm=kl_single_bm[0], bs=kl_single_bm[1])
+        c = h * wtr
+        d = torch.sum(w, dim=0)[:, None]
+        h = 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lambda_h * c))
+        if objective == "lagged":
+            return (w, h), cadence_obj(i, lambda: obj_prev)
+        return (w, h), cadence_obj(i, lambda: kl_obj(x, w, h))
 
     def step_eu_fused(inner, i):
         w, h = inner
@@ -136,7 +175,11 @@ def _mur_block(
             r, obj = kl_ratio(x, w, h, eps=_EPS), torch.tensor(math.nan)
         return (w, h, r), obj
 
-    if use_pallas:
+    if distance_type == "eu" and single_pass_bm is not None:
+        step = step_eu_single
+    elif distance_type == "kl" and kl_single_bm is not None:
+        step = step_kl_single
+    elif use_pallas:
         step = step_kl_fused if distance_type == "kl" else step_eu_fused
     else:
         step = step_kl if distance_type == "kl" else step_eu
@@ -181,10 +224,10 @@ def mur(
       key: ``torch.Generator`` or int seed for random init (default seed 0;
         torch's draws differ from jax.random's).
       objective: 'exact' (fused residual pass), 'gram' (EU Gram-trick,
-        no extra m*n pass) or 'lagged' (fused KL route: the objective of
-        the incoming iterate from the W pass, so the trace and the
-        convergence stop lag one iteration; other routes take it as
-        'exact', as tpunmf does).
+        no extra m*n pass) or 'lagged' (KL kernel routes: the objective of
+        the incoming iterate from the W pass or the single pass, so the
+        trace and the convergence stop lag one iteration; the plain route
+        takes it as 'exact', as tpunmf does).
       objective_every: compute/record the objective only every N-th
         iteration (plus the last possible one); skipped iterations record
         NaN.
@@ -192,8 +235,9 @@ def mur(
         float32).
       use_pallas: fused kernel route on/off (default: on for CUDA X).
       block_size/on_block_end: blocked execution with a host callback.
-    X is a tensor (or array) on the device the run should use; the factors
-    live where X lives.
+    X that is a tensor stays on its device (a CPU tensor runs on the CPU);
+    any other X (a numpy array) goes to the CUDA device, and raises without
+    one.  The factors live where X lives.
     """
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
@@ -201,7 +245,7 @@ def mur(
     if objective_every < 1:
         raise ValueError("objective_every must be >= 1")
 
-    x = torch.as_tensor(x)
+    x = as_input(x)
     if use_pallas is None:
         use_pallas = x.device.type == "cuda"
 
@@ -247,6 +291,11 @@ def mur(
         else:
             xsq = torch.zeros((), dtype=factor_dtype, device=x.device)
 
+        # the single pass where tpunmf takes it (tpunmf mur.py:403-423)
+        single_pass_bm = (iter_eu_tileable(x, k)
+                          if use_pallas and distance_type == "eu" else None)
+        kl_single_bm = (iter_kl_tileable(x, k)
+                        if use_pallas and distance_type == "kl" else None)
         if not use_pallas:
             # the plain route's products promote bf16 X, as jnp's do
             x = x.to(factor_dtype)
@@ -268,6 +317,7 @@ def mur(
             x, xsq, c, stop, tol1, tol2, float(lambda_w), float(lambda_h),
             distance_type=distance_type, min_iter=min_iter, max_iter=max_iter,
             objective=objective, use_pallas=use_pallas,
+            single_pass_bm=single_pass_bm, kl_single_bm=kl_single_bm,
             objective_every=objective_every,
             verbose=verbose_precision(verbose, tol1, tol2),
         )
