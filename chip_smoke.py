@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and the kernel's bound (the larger of its flops over the card's peak
      rate and its bytes over the memory rate).  At EU 8192x8192 r128 (f32
      and bf16 X) and KL 8192x4096 r128 the single-pass iteration is also
-     timed against the 2-pass pair, in turns.
+     timed against the 2-pass pair, in turns.  The ratio and objective
+     passes also run at MUR's high rank, 8192x4096 / 8192x8192 r1536,
+     and kl_ratio at ragged 1000x777 k37 and k1100 and at KL config[1].
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
@@ -22,7 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        exact objective) on BASELINE config[1], 20000x11000 r50 (tfidf_like,
        seed 1), 2-pass; KL at 8192x4096 r128 (tfidf_like, seed 4), single
        pass, exact and objective="lagged";
-     - NMF given a numpy array (it runs on the card);
+     - MUR's high-rank step (1024 < k <= 2048: plain products, the
+       ratio and objective kernels): KL at 8192x4096 and EU at 8192x8192,
+       both r1536; KL must launch kl_ratio 50 times and kl_ratio_and_obj
+       51, EU eu_residual_obj 51, and neither an update kernel;
+     - NMF given float64 numpy arrays (they run on the card as float32,
+       through their routes' kernels): MUR EU and KL at 8192x8192 r128,
+       and mask=, HALS and ADMM at 1000x777 r37; and a CUDA float64 tensor
+       (the plain route: no kernel launched);
      - HALS (method="hals"): EU 8192x8192 r128 f32, inner_sweeps=2, from
        one NNDSVD 'zero' init given to both routes;
      - masked MUR (mask=): EU and KL at MovieLens-10M's dimensions, 69878
@@ -104,6 +113,11 @@ KL_SINGLE = dict(m=8192, n=4096, k=128, seed=4)
 EU_WIDE = dict(m=8192, n=16384, k=128, seed=0)
 SINGLE_EU = ("mur_iteration_eu", "eu_residual_obj")
 PAIR = ("mur_w_update", "mur_h_update")
+UPDATES = PAIR + ("mur_iteration_eu", "mur_iteration_kl")
+# MUR's high-rank step: above the update kernels' 1024, within the
+# objective kernels' 2048 (tpunmf takes its jnp step with the ratio and
+# objective kernels there, tpunmf/solvers/mur.py:256-280)
+HIGH_RANK = 1536
 
 KERNELS = {
     "mur_w_update": ("tpunmf_torch/ops/csrc/mur_update.cu",
@@ -131,12 +145,14 @@ KERNELS = {
                          "tpunmf/ops/mur_fused.py:314"),
     "mur_iteration_kl": ("tpunmf_torch/ops/csrc/mur_iteration.cu",
                          "tpunmf/ops/mur_fused.py:652"),
+    "kl_ratio": ("tpunmf_torch/ops/csrc/objective.cu", "tpunmf/ops/fused.py:243"),
 }
 # the shape whose times the kernels line reports (its f32 case)
 HEADLINE = {"kl_obj": "KL", "mur_w_update_lagged": "KL",
             "masked_w_update": "ML-10M", "masked_h_update": "ML-10M",
             "kl_ratio_and_obj": "config[3]", "blockmax_relayout": "serve",
-            "score_blockmax_relayout": "serve", "mur_iteration_kl": "KL"}
+            "score_blockmax_relayout": "serve", "mur_iteration_kl": "KL",
+            "kl_ratio": "high-rank KL"}
 
 
 class SmokeFailure(RuntimeError):
@@ -419,21 +435,28 @@ def masked_phase(torch, records, cases, reps):
         del w, h, binary, weights
 
 
-def kl_ratio_phase(torch, records, cases, reps):
-    """kl_ratio_and_obj against its plain version: the ratio and the
-    objective, both within OBJECTIVE_RTOL."""
+PASS_CASE = {"kl_ratio": "ratio", "kl_ratio_and_obj": "ratio, objective",
+             "eu_residual_obj": "eu", "kl_obj": "kl"}
+
+
+def pass_phase(torch, records, cases, reps):
+    """The ratio and objective passes of csrc/objective.cu against their
+    plain versions: kl_ratio elementwise within UPDATE_RTOL (W H is a sum
+    of positive terms, so the only error is f32 summation order), the
+    objectives (and kl_ratio_and_obj's ratio) within OBJECTIVE_RTOL."""
     from tpunmf_torch.ops import fused
 
-    for label, x, k in cases:
+    for name, label, x, k in cases:
         m, n = x.shape
         g = torch.Generator(device="cuda")
         g.manual_seed(12)
         w = torch.rand((m, k), generator=g, device="cuda") + 0.1
         h = torch.rand((k, n), generator=g, device="cuda") + 0.1
-        check_kernel(torch, records, "kl_ratio_and_obj", label, "ratio, objective",
-                     lambda: fused.kl_ratio_and_obj(x, w, h),
-                     lambda: fused.kl_ratio_and_obj_ref(x, w, h), OBJECTIVE_RTOL, reps,
-                     inputs=(x, w, h), flops=mur_flops("kl_ratio_and_obj", x, k))
+        kern, ref = getattr(fused, name), getattr(fused, name + "_ref")
+        check_kernel(torch, records, name, label, PASS_CASE[name],
+                     lambda: kern(x, w, h), lambda: ref(x, w, h),
+                     UPDATE_RTOL if name == "kl_ratio" else OBJECTIVE_RTOL, reps,
+                     inputs=(x, w, h), flops=mur_flops(name, x, k))
         del w, h
 
 
@@ -523,11 +546,12 @@ def run_path(torch, counters, label, needed, body):
 
 
 def run_slice(torch, tt, wrappers, label, x, k, distance, data_dtype, card,
-              iters, method="mur", needed=None, banned=(), **extra):
+              iters, method="mur", needed=None, banned=(), exact=None, **extra):
     """One NMF run of `iters` iterations on the fused route, and the plain
     route over the same run for comparison; returns the rates, the routes'
     agreement and the fused route's trace.  The fused run must launch every
-    kernel of ``needed`` and none of ``banned`` (the other route's)."""
+    kernel of ``needed``, none of ``banned`` (the other route's), and each
+    kernel of ``exact`` exactly that many times."""
     kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
     if method in ("mur", "admm"):
         kw["distance_type"] = distance
@@ -586,6 +610,9 @@ def run_slice(torch, tt, wrappers, label, x, k, distance, data_dtype, card,
         require(launched[name] > 0, f"{label}: {name} was not launched")
     for name in banned:
         require(launched[name] == 0, f"{label}: {name} was launched off its route")
+    for name, count in (exact or {}).items():
+        require(launched[name] == count,
+                f"{label}: {name} launched {launched[name]} times, not {count}")
     return {"fused_it_s": iters / fused_s, "plain_it_s": iters / plain_s,
             "route_err": route_err, "trace": hist.tolist()}
 
@@ -621,7 +648,7 @@ def lagged_run(torch, tt, wrappers, label, x, k, exact_trace, iters, card, neede
     return {"fused_it_s": iters / secs, "shift_err": shift_err}
 
 
-def profile_run(torch, tt, label, x, k, distance, iters=20):
+def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False):
     """Device time by kernel over one factorize() of `iters` iterations
     (torch.profiler; the kernels run on one stream, so their sum is their
     union), it/s in that window, and the device's idle share of its host
@@ -632,6 +659,8 @@ def profile_run(torch, tt, label, x, k, distance, iters=20):
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(method="mur", distance_type=distance, min_iter=iters, max_iter=iters)
+    if plain:
+        kw["use_pallas"] = False
     tt.NMF(x, k).factorize(**{**kw, "min_iter": 2, "max_iter": 2})
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -921,7 +950,8 @@ def main() -> int:
                 "score_blockmax_relayout": (topk_select.score_blockmax_relayout,
                                             "launches"),
                 "mur_iteration_eu": (mur_fused.mur_iteration_eu, "launches"),
-                "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches")}
+                "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches"),
+                "kl_ratio": (fused.kl_ratio, "launches")}
 
     t_start = time.perf_counter()
     card = nvidia_smi_line()
@@ -942,9 +972,11 @@ def main() -> int:
     kl2_x = torch.from_numpy(tfidf_like(KL_SINGLE["m"], KL_SINGLE["n"],
                                         n_topics=KL_SINGLE["k"], seed=KL_SINGLE["seed"])).cuda()
     kl2_label = f"KL {tuple(kl2_x.shape)} k{KL_SINGLE['k']} f32"
-    ragged = torch.from_numpy(
-        tfidf_like(1000, 777, n_topics=37, seed=2) + 0.05).cuda()
-    ragged[::7, ::5] = 0.0  # exact zeros for the KL masking
+    high_kl_label = f"high-rank KL {tuple(kl2_x.shape)} k{HIGH_RANK} f32"
+    high_eu_label = f"high-rank EU {tuple(eu_x.shape)} k{HIGH_RANK} f32"
+    ragged_np = tfidf_like(1000, 777, n_topics=37, seed=2) + 0.05
+    ragged_np[::7, ::5] = 0.0  # exact zeros for the KL masking
+    ragged = torch.from_numpy(ragged_np).cuda()
     print(f"  data made in {time.perf_counter() - t0:.1f} s: EU {tuple(eu_x.shape)} and "
           f"{tuple(wide_x.shape)}, KL {tuple(kl_x.shape)} "
           f"({float((kl_x == 0).float().mean()):.4f} zeros) and {tuple(kl2_x.shape)} "
@@ -989,10 +1021,23 @@ def main() -> int:
     masked_phase(torch, records, [
         (f"ML-1M {tuple(ml1_x.shape)} k64 f32", ml1_x, ml1_x > 0, 64),
         (f"ML-10M {tuple(ml10_x.shape)} k64 f32", ml10_x, ml10_obs, 64)], reps=3)
-    kl_ratio_phase(torch, records, [
-        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37),
-        (f"KL {tuple(kl_x.shape)} k{kl_k} f32", kl_x, kl_k),
-        (adm_label, adm_x, CONFIG3["k"])], reps=3)
+    rag = f"ragged {tuple(ragged.shape)}"
+    pass_phase(torch, records, [
+        ("kl_ratio_and_obj", f"{rag} k37 f32", ragged, 37),
+        ("kl_ratio_and_obj", f"KL {tuple(kl_x.shape)} k{kl_k} f32", kl_x, kl_k),
+        ("kl_ratio_and_obj", adm_label, adm_x, CONFIG3["k"]),
+        # the ratio pass of MUR's high-rank KL step, past the update
+        # kernels' rank bound, and at the BASELINE row's shape
+        ("kl_ratio", f"{rag} k37 f32", ragged, 37),
+        ("kl_ratio", f"{rag} k37 bf16", ragged.bfloat16(), 37),
+        ("kl_ratio", f"{rag} k1100 f32", ragged, 1100),
+        ("kl_ratio", f"{rag} k1100 bf16", ragged.bfloat16(), 1100),
+        ("kl_ratio", f"KL {tuple(kl_x.shape)} k{kl_k} f32", kl_x, kl_k),
+        ("kl_ratio", high_kl_label, kl2_x, HIGH_RANK),
+        # the high-rank step's objective passes at its shapes
+        ("kl_ratio_and_obj", high_kl_label, kl2_x, HIGH_RANK),
+        ("kl_obj", high_kl_label, kl2_x, HIGH_RANK),
+        ("eu_residual_obj", high_eu_label, eu_x, HIGH_RANK)], reps=3)
     topk_line = serving_kernel_phase(torch, records, reps=5)
     print(f"  phase 2 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -1021,15 +1066,60 @@ def main() -> int:
                                         card, RUN_ITERS, needed=PAIR,
                                         banned=("mur_iteration_eu",))
 
+    def high_rank_path():
+        # above the update kernels' rank bound: tpunmf's jnp step with the
+        # ratio and objective kernels, against the plain route
+        for label, x, dist, exact in (
+                (f"KL {tuple(kl2_x.shape)} k{HIGH_RANK}", kl2_x, "kl",
+                 {"kl_ratio": RUN_ITERS, "kl_ratio_and_obj": RUN_ITERS + 1}),
+                (f"EU {tuple(eu_x.shape)} k{HIGH_RANK}", eu_x, "eu",
+                 {"eu_residual_obj": RUN_ITERS + 1})):
+            runs[label] = run_slice(torch, tt, counters, label, x, HIGH_RANK, dist, None,
+                                    card, RUN_ITERS, needed=tuple(exact), banned=UPDATES,
+                                    exact=exact)
+
     def numpy_path():
-        # a numpy array means the card: the run must launch the kernels
-        t0 = time.perf_counter()
-        res = tt.NMF(eu_np, eu_k).factorize(method="mur", distance_type="eu",
-                                            min_iter=5, max_iter=5)
-        require(np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.obj_history)),
-                "NMF(numpy): non-finite factors or trace")
-        print(f"  NMF(numpy {eu_np.shape} {eu_np.dtype}): 5 iterations in "
-              f"{time.perf_counter() - t0:.1f} s, obj[5]={res.obj_history[-1]:.6e}", flush=True)
+        # numpy means the card, float64 as float32: each run must launch its
+        # route's kernels (tpunmf's jnp.asarray makes float64 float32 too)
+        runs_np = (
+            ("MUR EU", eu_np.astype(np.float64), eu_k, dict(method="mur", distance_type="eu"),
+             {"mur_iteration_eu": 5, "eu_residual_obj": 6}),
+            ("MUR KL", eu_np.astype(np.float64), eu_k, dict(method="mur", distance_type="kl"),
+             {"mur_w_update": 5, "mur_h_update": 5, "kl_obj": 6}),
+            ("mask=", ragged_np.astype(np.float64), 37,
+             dict(method="mur", distance_type="kl", mask=ragged_np > 0.1),
+             {"masked_w_update": 5, "masked_h_update": 5}),
+            ("HALS", ragged_np.astype(np.float64), 37, dict(method="hals"),
+             {"gs_sweep": 10, "eu_residual_obj": 6}),
+            ("ADMM", ragged_np.astype(np.float64), 37, dict(method="admm", distance_type="eu"),
+             {"eu_residual_obj": 5}))
+        for label, data, k, kw, exact in runs_np:
+            t0 = time.perf_counter()
+            before = counts(counters)
+            res = tt.NMF(data, k).factorize(min_iter=5, max_iter=5, **kw)
+            launched = {n: c - before[n] for n, c in counts(counters).items()}
+            print(f"  NMF(numpy {data.shape} {data.dtype}) {label}: 5 iterations in "
+                  f"{time.perf_counter() - t0:.1f} s, obj[5]={res.obj_history[-1]:.6e}, "
+                  f"factors {res.w.dtype}; launches "
+                  f"{ {n: c for n, c in launched.items() if c} }", flush=True)
+            require(np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.h))
+                    and np.all(np.isfinite(res.obj_history)),
+                    f"NMF(numpy float64) {label}: non-finite factors or trace")
+            require(res.w.dtype == np.float32, f"NMF(numpy float64) {label}: factors "
+                                               f"{res.w.dtype}, not float32")
+            for name, count in exact.items():
+                require(launched[name] == count, f"NMF(numpy float64) {label}: {name} "
+                                                 f"launched {launched[name]} times, not {count}")
+
+    def float64_tensor_path():
+        # a CUDA float64 tensor asks for float64: the plain route, no kernel
+        x = torch.from_numpy(ragged_np.astype(np.float64)).cuda()
+        res = tt.NMF(x, 37).factorize(method="mur", distance_type="eu", min_iter=5,
+                                      max_iter=5)
+        require(res.w.dtype == np.float64 and np.all(np.isfinite(res.obj_history)),
+                f"CUDA float64 tensor: factors {res.w.dtype} or a non-finite trace")
+        print(f"  CUDA float64 tensor {tuple(x.shape)}: 5 iterations, factors "
+              f"{res.w.dtype}, obj[5]={res.obj_history[-1]:.6e}", flush=True)
 
     def hals_path():
         t0 = time.perf_counter()
@@ -1084,19 +1174,31 @@ def main() -> int:
             with two_pass_route():
                 profiles[label + " 2-pass"] = profile_run(torch, tt, label + " 2-pass", x,
                                                           k, dist)
+        # and on the high-rank step and the plain route at its shapes
+        for label, x, dist in ((f"KL 8192x4096 k{HIGH_RANK}", kl2_x, "kl"),
+                               (f"EU 8192x8192 k{HIGH_RANK}", eu_x, "eu")):
+            profiles[label] = profile_run(torch, tt, label, x, HIGH_RANK, dist)
+            profiles[label + " plain"] = profile_run(torch, tt, label + " plain", x,
+                                                     HIGH_RANK, dist, plain=True)
 
     profiles = {}
     for label, needed, body in (
             ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj",
                           "mur_iteration_eu", "mur_iteration_kl"), mur_path),
-            ("NMF(numpy) path", SINGLE_EU, numpy_path),
+            ("high-rank MUR path", ("kl_ratio", "kl_ratio_and_obj", "eu_residual_obj"),
+             high_rank_path),
+            ("NMF(numpy float64) path", SINGLE_EU + PAIR + ("kl_obj", "gs_sweep",
+                                                            "masked_w_update"), numpy_path),
             ("HALS path", ("gs_sweep", "eu_residual_obj"), hals_path),
             ("masked MUR path", ("masked_w_update", "masked_h_update"), masked_path),
             ("lagged KL path", ("mur_w_update_lagged", "mur_h_update", "mur_iteration_kl"),
              lagged_path),
-            ("profile of the MUR routes", ("mur_iteration_eu", "mur_iteration_kl"),
-             profile_path)):
+            ("profile of the MUR routes", ("mur_iteration_eu", "mur_iteration_kl",
+                                           "kl_ratio"), profile_path)):
         drive(label, needed, body)
+    _, launched = run_path(torch, counters, "CUDA float64 tensor path", (),
+                           float64_tensor_path)
+    require(sum(launched.values()) == 0, "a CUDA float64 tensor launched a kernel")
     # the ADMM KL path holds ~10 config[3]-sized arrays (4 GB each)
     del ml10_x, ml10_obs, ml1_x, wide_x
     kept = drive("serving path", ("score_blockmax_relayout", "blockmax_relayout"),
@@ -1124,7 +1226,7 @@ def main() -> int:
 
     # library_ms: only blockmax_relayout has one PyTorch call computing its
     # function (torch.amax over a view); the others fuse a product with an
-    # update, a masked sum or a selection, and have none (null)
+    # update, a masked sum, a division or a selection, and have none (null)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

@@ -111,9 +111,9 @@ def test_state_carried_from_tpunmf_continues_its_run(distance):
 
 
 def test_kernel_route_calls_the_kernel_wrappers(monkeypatch):
-    """use_pallas=True selects the wrappers (plain versions on the CPU, with
-    no launch counted); use_pallas=False, the default for CPU data, calls
-    the plain versions only."""
+    """use_pallas=True on float32 V selects the wrappers (plain versions on
+    the CPU, with no launch counted); use_pallas=False, the default for
+    CPU data, and float64 V call the plain versions only."""
     calls = []
     module = importlib.import_module("tpunmf_torch.solvers.admm")
     for name in ("eu_residual_obj", "kl_ratio_and_obj"):
@@ -122,9 +122,11 @@ def test_kernel_route_calls_the_kernel_wrappers(monkeypatch):
                             calls.append(_n) or _r(*a, **kw))
     before = tfused.kl_ratio_and_obj.launches
     for distance in ("eu", "kl"):
+        tadmm(t(lowrank()).float(), 5, distance_type=distance, min_iter=3, max_iter=3,
+              use_pallas=True)
+        tadmm(t(lowrank()).float(), 5, distance_type=distance, min_iter=3, max_iter=3)
         tadmm(t(lowrank()), 5, distance_type=distance, min_iter=3, max_iter=3,
               use_pallas=True)
-        tadmm(t(lowrank()), 5, distance_type=distance, min_iter=3, max_iter=3)
     assert calls == ["eu_residual_obj"] * 3 + ["kl_ratio_and_obj"] * 3
     assert tfused.kl_ratio_and_obj.launches == before
 

@@ -14,6 +14,7 @@ from _torch_parity import (cuda_device, kernel_problem, lowrank,  # noqa: F401
                            masked_problem, t)
 from tpunmf_torch.ops import fused, hals_sweep, masked_fused, mur_fused, topk_select
 from tpunmf_torch.serve import topk
+from tpunmf_torch.solvers.mur import mur_route
 
 # f32 sums of positive terms in another order (see chip_smoke.py)
 RTOL = 1e-4
@@ -429,9 +430,132 @@ def test_single_pass_route_matches_plain_route(cuda_device, dist, shape):
 
 
 @pytest.mark.cuda
-def test_numpy_input_runs_on_the_card(cuda_device):
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_numpy_input_runs_on_the_card(cuda_device, dtype):
+    """float64 numpy goes to the card as float32 (as jnp.asarray makes it
+    float32 in tpunmf) and takes the kernels."""
     before = mur_fused.mur_iteration_eu.launches
-    res = tpunmf_torch.NMF(lowrank(m=64).astype(np.float32), 5).factorize(
+    res = tpunmf_torch.NMF(lowrank(m=64).astype(dtype), 5).factorize(
         method="mur", distance_type="eu", max_iter=5)
     assert mur_fused.mur_iteration_eu.launches == before + 5
     assert np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.obj_history))
+    assert res.w.dtype == np.float32
+
+
+# every launch counter of the port's kernels
+COUNTERS = [(mur_fused.mur_w_update, "launches"), (mur_fused.mur_w_update, "lagged_launches"),
+            (mur_fused.mur_h_update, "launches"), (mur_fused.mur_iteration_eu, "launches"),
+            (mur_fused.mur_iteration_kl, "launches"), (fused.eu_residual_obj, "launches"),
+            (fused.kl_obj, "launches"), (fused.kl_ratio, "launches"),
+            (fused.kl_ratio_and_obj, "launches"), (hals_sweep.gs_sweep, "launches"),
+            (masked_fused.masked_w_update, "launches"),
+            (masked_fused.masked_h_update, "launches"),
+            (topk_select.blockmax_relayout, "launches"),
+            (topk_select.score_blockmax_relayout, "launches")]
+
+
+def _launches():
+    return [getattr(fn, attr) for fn, attr in COUNTERS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 1024, 1025, 2048])
+def test_kl_ratio_matches_plain_version(cuda_device, k, xdtype):
+    x, w, h = _on(cuda_device, xdtype, m=300, n=277, k=k)
+    assert bool((x == 0).any())
+    before = fused.kl_ratio.launches
+    got = fused.kl_ratio(x, w, h)
+    assert fused.kl_ratio.launches == before + 1
+    want = fused.kl_ratio_ref(x, w, h)
+    assert got.dtype == torch.float32 and got.shape == x.shape and got.is_cuda
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=0)
+    assert torch.equal(got == 0, x == 0)
+    # one owner per cell, k summed in a fixed order: the same bits again
+    assert torch.equal(fused.kl_ratio(x, w, h), got)
+    # the same ratio as kl_ratio_and_obj's kernel writes
+    assert torch.equal(fused.kl_ratio_and_obj(x, w, h)[0], got)
+
+
+@pytest.mark.cuda
+def test_kernel_families_raise_past_their_rank_bounds(cuda_device):
+    x, w, h = _on(cuda_device, torch.float32, m=64, n=48, k=2049)
+    for fn in (fused.kl_ratio, fused.kl_obj, fused.eu_residual_obj):
+        with pytest.raises(ValueError, match="outside"):
+            fn(x, w, h)
+    with pytest.raises(ValueError, match="outside"):
+        fused.kl_ratio_and_obj(x, w, h)
+    x, w, h = _on(cuda_device, torch.float32, m=64, n=48, k=1025)
+    assert torch.isfinite(fused.kl_obj(x, w, h))  # the objectives take 1025
+    with pytest.raises(ValueError, match="outside"):
+        mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.0)
+    with pytest.raises(ValueError, match="outside"):
+        mur_fused.mur_h_update(x, w, h, distance_type="eu", lam=0.0)
+    with pytest.raises(ValueError, match="outside"):
+        masked_fused.masked_w_update(x, (x > 0).to(torch.uint8), w, h, distance_type="eu",
+                                     lam=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm"])
+def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
+    """NMF(float64 numpy) runs on the card as float32 through the kernels
+    its route takes, with finite factors and trace."""
+    x = lowrank(m=64)
+    kw = {"mur eu": dict(method="mur", distance_type="eu"),
+          "mur kl": dict(method="mur", distance_type="kl"),
+          "mask": dict(method="mur", distance_type="kl", mask=x > 0.5),
+          "hals": dict(method="hals"),
+          "admm": dict(method="admm", distance_type="eu")}[entry]
+    if entry.startswith("mur "):
+        route, _ = mur_route(torch.empty(x.shape, dtype=torch.float32, device="meta"), 5,
+                             kw["distance_type"])
+        update = (getattr(mur_fused, "mur_iteration_" + kw["distance_type"])
+                  if route == "single" else mur_fused.mur_w_update)
+        expect = {update: 5, fused.eu_residual_obj if entry == "mur eu" else fused.kl_obj: 6}
+    else:
+        expect = {"mask": {masked_fused.masked_w_update: 5, masked_fused.masked_h_update: 5},
+                  "hals": {hals_sweep.gs_sweep: 10, fused.eu_residual_obj: 6},
+                  "admm": {fused.eu_residual_obj: 5}}[entry]
+    before = {fn: fn.launches for fn in expect}
+    res = tpunmf_torch.NMF(x, 5).factorize(min_iter=5, max_iter=5, **kw)
+    assert {fn: fn.launches - before[fn] for fn in expect} == expect
+    assert res.w.dtype == np.float32
+    assert np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.h))
+    assert np.all(np.isfinite(res.obj_history))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm"])
+def test_a_cuda_float64_tensor_launches_no_kernel(cuda_device, entry):
+    x = t(lowrank(m=64)).to(cuda_device)
+    kw = {"mur eu": dict(method="mur", distance_type="eu"),
+          "mur kl": dict(method="mur", distance_type="kl"),
+          "mask": dict(method="mur", distance_type="kl", mask=x > 0.5),
+          "hals": dict(method="hals"),
+          "admm": dict(method="admm", distance_type="kl")}[entry]
+    before = _launches()
+    res = tpunmf_torch.NMF(x, 5).factorize(min_iter=5, max_iter=5, **kw)
+    assert _launches() == before
+    assert res.w.dtype == np.float64 and np.all(np.isfinite(res.obj_history))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_high_rank_step_matches_plain_route(cuda_device, dist):
+    """k = 1536: tpunmf's jnp step with the ratio and objective kernels,
+    no update kernel, against the plain route over 5 iterations."""
+    x = t(lowrank(m=300, n=277)).float().to(cuda_device)
+    assert mur_route(x, 1536, dist) == ("high_rank", None)
+    kw = dict(method="mur", distance_type=dist, min_iter=5, max_iter=5)
+    before = _launches()
+    k_run = tpunmf_torch.NMF(x, 1536).factorize(**kw)
+    launched = dict(zip(COUNTERS, (a - b for a, b in zip(_launches(), before))))
+    want = ({(fused.kl_ratio, "launches"): 5, (fused.kl_ratio_and_obj, "launches"): 6}
+            if dist == "kl" else {(fused.eu_residual_obj, "launches"): 6})
+    assert {c: n for c, n in launched.items() if n} == want
+    before = _launches()
+    p_run = tpunmf_torch.NMF(x, 1536).factorize(use_pallas=False, **kw)
+    assert _launches() == before
+    assert k_run.i == p_run.i == 4
+    np.testing.assert_allclose(k_run.obj_history, p_run.obj_history, rtol=1e-4)

@@ -3,8 +3,10 @@
 Both run on the CPU at float64 from the same numpy inputs; the port is run
 on both of its routes (``use_pallas=True`` takes the fused steps, whose
 wrappers run their plain versions on the CPU, and ``use_pallas=False``
-the plain steps).  The traces must agree to 1e-10 relative with the same
-final ``i`` and NaN in the same places.
+the plain steps).  float64 X takes the plain route by rule, so the fused
+cases force the 2-pass pair (``_pair_at_f64``), as the single-pass tests
+force the single pass.  The traces must agree to 1e-10 relative with the
+same final ``i`` and NaN in the same places.
 """
 import functools
 import importlib
@@ -27,6 +29,15 @@ from tpunmf_torch.io import convert
 from tpunmf_torch.ops import mur_fused as tmur_fused
 from tpunmf_torch.solvers import mur as tmur
 from tpunmf_torch.solvers.mur import _mur_block
+
+port_mur = importlib.import_module("tpunmf_torch.solvers.mur")
+
+
+def _pair_at_f64(monkeypatch, use_pallas=True):
+    """With ``use_pallas``, let the update kernels take float64 X, so that
+    mur() takes the 2-pass pair (the rule sends f64 to the plain route)."""
+    if use_pallas:
+        monkeypatch.setattr(port_mur, "updates_take", lambda x, k: True)
 
 _BASE = dict(min_iter=5, max_iter=40, tol1=1e-9, tol2=1e-9,
              nndsvd_init=(True, "zero"))
@@ -71,7 +82,8 @@ def _jax_run(name):
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "plain"])
 @pytest.mark.parametrize("name", list(CASES))
-def test_slice_matches_tpunmf(name, use_pallas):
+def test_slice_matches_tpunmf(name, use_pallas, monkeypatch):
+    _pair_at_f64(monkeypatch, use_pallas)
     case = CASES[name]
     want = _jax_run(name)
     model = tpunmf_torch.NMF(t(_data(case)), 5)
@@ -89,11 +101,12 @@ def test_slice_matches_tpunmf(name, use_pallas):
 
 @pytest.mark.parametrize("name", ["kl_exact_nndsvd_zero", "kl_lambda",
                                   "kl_explicit_init", "kl_converges"])
-def test_lagged_trace_is_tpunmf_exact_trace_shifted_by_one(name):
+def test_lagged_trace_is_tpunmf_exact_trace_shifted_by_one(name, monkeypatch):
     """objective='lagged' on the fused route records, at iteration i, the
     objective of the iterate entering it: lagged[i+1] == exact[i] and
     lagged[0] == exact[0]; a convergence stop comes one iteration later
     (tpunmf/solvers/mur.py:199-235)."""
+    _pair_at_f64(monkeypatch)
     case = CASES[name]
     kw = _kwargs(case)
     want = _jax_run(name)
@@ -115,10 +128,11 @@ def test_lagged_trace_is_tpunmf_exact_trace_shifted_by_one(name):
     assert_traces_match(plain.obj_history, want.obj_history)
 
 
-def test_lagged_objective_every_records_on_refresh_iterations_only():
+def test_lagged_objective_every_records_on_refresh_iterations_only(monkeypatch):
     """With objective_every=3 the lagged W pass runs on refresh iterations
     ((i+1) % 3 == 0, and the last possible one) and the obj-free pass
     otherwise; each recorded value is still tpunmf's exact[i]."""
+    _pair_at_f64(monkeypatch)
     case = CASES["kl_exact_nndsvd_zero"]
     kw = _kwargs(case)
     want = np.asarray(_jax_run("kl_exact_nndsvd_zero").obj_history)
@@ -135,7 +149,8 @@ def test_lagged_objective_every_records_on_refresh_iterations_only():
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "plain"])
 @pytest.mark.parametrize("distance", ["eu", "kl"])
-def test_blocks_and_on_block_end_match_tpunmf(distance, use_pallas):
+def test_blocks_and_on_block_end_match_tpunmf(distance, use_pallas, monkeypatch):
+    _pair_at_f64(monkeypatch, use_pallas)
     kw = dict(_BASE, distance_type=distance, max_iter=30, block_size=7)
     seen_j, seen_t = [], []
     want = jmur(lowrank(), 5, on_block_end=lambda c: seen_j.append(int(c.i)), **kw)
@@ -166,7 +181,7 @@ def test_state_carried_from_tpunmf_continues_its_run(distance, use_pallas):
     out = _mur_block(t(lowrank()), torch.zeros((), dtype=torch.float64), carry, 20,
                      kw["tol1"], kw["tol2"], 0.0, 0.0, distance_type=distance,
                      min_iter=kw["min_iter"], max_iter=20, objective="exact",
-                     use_pallas=use_pallas)
+                     route="pair" if use_pallas else "plain")
     assert out.i == 20
     assert_traces_match(out.obj_buf.numpy(), np.asarray(want.obj_history))
     back = convert.carry_to_numpy(out)
@@ -179,23 +194,34 @@ def test_plain_route_calls_no_kernel_wrapper(distance, monkeypatch):
     """use_pallas=False runs plain versions only: on a CUDA tensor a kernel
     wrapper would launch its kernel, and the plain route is what the
     kernels are held against.  Every wrapper the solver module can reach
-    is made to raise."""
+    is made to raise; the plain step calls the plain versions of the
+    high-rank step's passes."""
     module = importlib.import_module("tpunmf_torch.solvers.mur")
     fused = importlib.import_module("tpunmf_torch.ops.fused")
 
     def refuse(*a, **kw):
         raise AssertionError("the plain route called a kernel wrapper")
 
-    for name in ("eu_residual_obj", "kl_obj", "mur_w_update", "mur_h_update",
-                 "mur_iteration_eu", "mur_iteration_kl"):
+    for name in ("eu_residual_obj", "kl_obj", "kl_ratio", "kl_ratio_and_obj",
+                 "mur_w_update", "mur_h_update", "mur_iteration_eu", "mur_iteration_kl"):
         monkeypatch.setattr(module, name, refuse)
-    monkeypatch.setattr(fused, "kl_ratio_and_obj", refuse)
-    assert not hasattr(module, "kl_ratio_and_obj")
+    for name in ("eu_residual_obj", "kl_obj", "kl_ratio", "kl_ratio_and_obj"):
+        monkeypatch.setattr(fused, name, refuse)
+    plain = []
+    for name in ("kl_ratio_ref", "kl_ratio_and_obj_ref", "eu_residual_obj_ref"):
+        monkeypatch.setattr(module, name, lambda *a, _fn=getattr(module, name), _n=name,
+                            **k: plain.append(_n) or _fn(*a, **k))
     kw = dict(_BASE, distance_type=distance, max_iter=10)
     got = tmur(t(lowrank()), 5, use_pallas=False, **kw)
     want = jmur(lowrank(), 5, **kw)
     assert got.i == want.i
     assert_traces_match(got.obj_history, want.obj_history)
+    iters = got.i + 1
+    if distance == "kl":
+        assert plain.count("kl_ratio_ref") == iters
+        assert plain.count("kl_ratio_and_obj_ref") == iters + 1
+    else:
+        assert plain == ["eu_residual_obj_ref"] * (iters + 1)
 
 
 def test_bf16_plain_route_matches_tpunmf_plain_route():
@@ -217,9 +243,10 @@ def test_bf16_plain_route_matches_tpunmf_plain_route():
     (torch.float32, torch.bfloat16, torch.float32),
 ])
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "plain"])
-def test_no_dtype_drift(dtype, data_dtype, factor, use_pallas):
+def test_no_dtype_drift(dtype, data_dtype, factor, use_pallas, monkeypatch):
     """Elevation and the epilogue constants keep X's dtype; factors are f32
     for bf16 X (tpunmf mur.py:375-378)."""
+    _pair_at_f64(monkeypatch, use_pallas)
     x = t(lowrank() - 0.2).to(dtype)
     res = tmur(x, 5, distance_type="kl", max_iter=3, data_dtype=data_dtype,
                use_pallas=use_pallas)
@@ -233,7 +260,7 @@ def test_no_dtype_drift(dtype, data_dtype, factor, use_pallas):
 def test_kernel_route_gets_row_major_operands(init, monkeypatch):
     """The CUDA wrappers refuse strided operands; torch's SVD returns a
     column-major U, so mur() must hand over contiguous factors and X."""
-    port_mur = importlib.import_module("tpunmf_torch.solvers.mur")
+    _pair_at_f64(monkeypatch)
     seen = []
 
     def checked(fn):

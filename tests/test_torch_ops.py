@@ -170,8 +170,34 @@ def test_kl_ratio_and_obj_match_tpunmf_at_f64():
     tr, to = tfused.kl_ratio_and_obj(t(x), t(w), t(h))
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-14)
     np.testing.assert_allclose(float(to), float(jo), rtol=1e-13)
-    np.testing.assert_allclose(tfused.kl_ratio(t(x), t(w), t(h)).numpy(),
-                               np.asarray(jr), rtol=1e-14)
+    want = np.asarray(jfused.kl_ratio(jnp.asarray(x), jnp.asarray(w), jnp.asarray(h)))
+    for fn in (tfused.kl_ratio, tfused.kl_ratio_ref):
+        got = fn(t(x), t(w), t(h))
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-14)
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+def test_kl_ratio_matches_pallas_kernel_with_zeros(xdtype):
+    """X / (W H + eps) as an f32 m x n array, the eps in the denominator
+    (exact zeros in X give exact zeros); bf16 X is widened to f32."""
+    x, w, h = kernel_problem(24, zeros=True)
+    assert (x == 0).mean() > 0.1
+    xj, wj, hj = jnp.asarray(x).astype(getattr(jnp, xdtype)), jnp.asarray(w), jnp.asarray(h)
+    # tpunmf's _tileable refuses bf16 X (it then takes its jnp step); the
+    # kernel body runs on it all the same, at f32's tile
+    tile = jfused._tileable(jnp.asarray(x), wj, hj)
+    want = np.asarray(jfused._kl_ratio_pallas(xj, wj, hj, 1e-9, *tile, interpret=True))
+    xt = t(x).to(getattr(torch, xdtype))
+    before = tfused.kl_ratio.launches
+    for fn in (tfused.kl_ratio, tfused.kl_ratio_ref):
+        got = fn(xt, t(w), t(h))
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+        assert torch.equal(got == 0, xt == 0)
+    assert tfused.kl_ratio.launches == before  # CPU: the plain version
+    # the same ratio as kl_ratio_and_obj's
+    assert torch.equal(tfused.kl_ratio(xt, t(w), t(h)), tfused.kl_ratio_and_obj(xt, t(w), t(h))[0])
 
 
 def test_kl_ratio_and_obj_matches_pallas_kernel_with_zeros():
@@ -265,7 +291,7 @@ def test_gram_objective_matches_tpunmf():
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     x, w, h = kernel_problem(9)
     wrappers = (tmur_fused.mur_w_update, tmur_fused.mur_h_update,
-                tfused.eu_residual_obj, tfused.kl_obj)
+                tfused.eu_residual_obj, tfused.kl_obj, tfused.kl_ratio)
     before = [fn.launches for fn in wrappers]
     got = tmur_fused.mur_w_update(t(x), t(w), t(h), distance_type="kl", lam=0.1)
     want = tmur_fused.mur_w_update_ref(t(x), t(w), t(h), distance_type="kl", lam=0.1)
@@ -273,6 +299,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     tmur_fused.mur_h_update(t(x), t(w), t(h), distance_type="eu", lam=0.0)
     tfused.eu_residual_obj(t(x), t(w), t(h))
     tfused.kl_obj(t(x), t(w), t(h))
+    assert torch.equal(tfused.kl_ratio(t(x), t(w), t(h)), tfused.kl_ratio_ref(t(x), t(w), t(h)))
     assert [fn.launches for fn in wrappers] == before
 
 
@@ -299,8 +326,14 @@ def test_check_operands_rejects(bad):
     else:
         x = torch.ones((12, 8)).T
     with pytest.raises((TypeError, ValueError)):
-        _launch.check_operands("k", x, w, h)
-    assert _launch.check_operands("k", *(t(a) for a in kernel_problem(11, m=8, n=12, k=3))) == (8, 12, 3)
+        _launch.check_operands("k", x, w, h, max_rank=1024)
+    good = [t(a) for a in kernel_problem(11, m=8, n=12, k=3)]
+    assert _launch.check_operands("k", *good, max_rank=1024) == (8, 12, 3)
+    if bad == "rank":  # each family passes its own bound: the objectives 2048
+        assert _launch.check_operands("k", good[0], w, h, max_rank=2048) == (8, 12, 1025)
+        with pytest.raises(ValueError, match=r"k=2049 outside \[1, 2048\]"):
+            _launch.check_operands("k", good[0], torch.ones((8, 2049)),
+                                   torch.ones((2049, 12)), max_rank=2048)
 
 
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):

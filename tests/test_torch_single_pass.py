@@ -123,7 +123,7 @@ def test_roofline_bound_is_the_larger_time():
     f32, bf16 = roofline.mur_flops("mur_iteration_eu", m, n, k, True)
     assert bf16 == 4.0 * m * n * k and f32 == 2.0 * k * k * (m + n) + 2.0 * m * k * k
     assert roofline.mur_flops("mur_iteration_kl", m, n, k, True) == (8.0 * m * n * k, 0.0)
-    assert len(roofline._unported()) == 7
+    assert len(roofline._unported()) == 6
 
 
 # single-pass routes at f64 against tpunmf's plain route
@@ -147,8 +147,9 @@ def _plain_jax_run(name):
 
 
 def _single_pass_run(monkeypatch, objective=None, **kw):
-    """The port's mur() with the single pass forced at f64 (bm 12 divides
-    lowrank()'s m = 60); returns the result and the single-pass calls."""
+    """The port's mur() with the single pass forced at f64 (the rule sends
+    f64 to the plain route; bm 12 divides lowrank()'s m = 60); returns the
+    result and the single-pass calls."""
     calls = []
 
     def counted(fn):
@@ -157,6 +158,7 @@ def _single_pass_run(monkeypatch, objective=None, **kw):
             return fn(*a, **k)
         return wrapper
 
+    monkeypatch.setattr(port_mur, "updates_take", lambda x, k: True)
     monkeypatch.setattr(port_mur, "iter_eu_tileable", lambda x, k: 12)
     monkeypatch.setattr(port_mur, "iter_kl_tileable", lambda x, k: (12, None))
     for name in ("mur_iteration_eu", "mur_iteration_kl", "mur_w_update", "mur_h_update"):

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "tpunmf_objective_blocks": (_I, _I),
     # x, x_is_bf16, w, h, m, n, k, eps, ratio, partials, out, stream
     "tpunmf_kl_ratio_obj": (_P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
+    # x, x_is_bf16, w, h, m, n, k, eps, ratio, stream
+    "tpunmf_kl_ratio": (_P, _I, _P, _P, _I, _I, _I, _F, _P, _P),
     # scores, dtype (0 f32, 1 bf16, 2 f64), b, n, nbp, sel, bmax, s3, stream
     "tpunmf_blockmax_relayout": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     # w (f32), h, h dtype (0 f32, 1 bf16, 2 f16), b, r, n, nbp, sel, bmax,

@@ -5,6 +5,9 @@ import torch
 
 from . import _build
 
+# the rank bound of the update, sweep and scoring kernels, whose shared
+# memory holds rows of k accumulators; the objective kernels stage k in
+# chunks and take more (fused.OBJECTIVE_MAX_RANK)
 MAX_RANK = 1024
 
 
@@ -18,8 +21,9 @@ def on_cpu(x: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {x.device}")
 
 
-def check_operands(name: str, x, w, h, *extra):
-    """Validate (x, w, h[, extra...]) for a kernel launch; returns (m, n, k)."""
+def check_operands(name: str, x, w, h, *extra, max_rank: int):
+    """Validate (x, w, h[, extra...]) for a launch of a kernel that takes
+    ranks 1..``max_rank``; returns (m, n, k)."""
     if x.dim() != 2 or w.dim() != 2 or h.dim() != 2:
         raise ValueError(f"{name}: x, w and h must be 2-D")
     m, n = x.shape
@@ -27,8 +31,8 @@ def check_operands(name: str, x, w, h, *extra):
     if w.shape[0] != m or h.shape != (k, n):
         raise ValueError(f"{name}: shapes x{tuple(x.shape)} w{tuple(w.shape)} "
                          f"h{tuple(h.shape)} do not chain")
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(f"{name}: rank k={k} outside [1, {MAX_RANK}]")
+    if not 1 <= k <= max_rank:
+        raise ValueError(f"{name}: rank k={k} outside [1, {max_rank}]")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: x must be float32 or bfloat16 on CUDA, got "
                         f"{x.dtype} (pass use_pallas=False for the plain route)")

@@ -3,13 +3,18 @@
   * ``eu_residual_obj`` : 0.5 * ||X - WH||_F^2   (kernel: csrc/objective.cu)
   * ``kl_obj``          : masked KL objective   (kernel: csrc/objective.cu)
   * ``kl_ratio_and_obj``: (X / (WH + eps), masked KL objective) from one
-    pass (kernel: csrc/objective.cu); ADMM's KL objective
-  * ``kl_ratio``        : plain PyTorch only, for MUR's plain KL route; its
-    kernel is still to be ported (ROADMAP.md, queue 2)
+    pass (kernel: csrc/objective.cu); ADMM's KL objective, and the
+    trailing pass of MUR's high-rank KL step
+  * ``kl_ratio``        : X / (WH + eps) as an m x n float32 tensor
+    (kernel: csrc/objective.cu); the ratio pass of MUR's high-rank KL step
 
 A wrapper takes its plain version (``*_ref``) only for a tensor on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each wrapper counts
-its launches in ``<wrapper>.launches``.
+its launches in ``<wrapper>.launches``.  ``objective_takes`` says which X
+and ranks the kernels take: float32 or bfloat16 X at 1 <= k <= 2048 (the
+kernels stage k in chunks of 16 and hold nothing sized by it; 2048 is
+``tpunmf``'s own cut, tpunmf/ops/fused.py:52).  A solver asks it before it
+calls a wrapper.
 
 The plain versions round the same operands to the same types as the
 kernels: X (float32 or bfloat16) is upcast to the factors' type, and WH is
@@ -25,6 +30,14 @@ from . import _build
 from ._launch import call, check_operands, on_cpu
 
 _EPS = 1e-9
+OBJECTIVE_MAX_RANK = 2048
+
+
+def objective_takes(x, k: int) -> bool:
+    """Whether this module's kernels take X of this dtype at rank k (with
+    float32 factors): float32 or bfloat16 X, 1 <= k <= 2048.  ``x`` is
+    anything with ``.dtype`` (a ``meta`` tensor will do)."""
+    return x.dtype in (torch.float32, torch.bfloat16) and 1 <= k <= OBJECTIVE_MAX_RANK
 
 
 @full_f32()
@@ -41,7 +54,7 @@ def kl_obj_ref(x, w, h):
 
 
 def _objective(name, x, w, h, is_kl):
-    m, n, k = check_operands(name, x, w, h)
+    m, n, k = check_operands(name, x, w, h, max_rank=OBJECTIVE_MAX_RANK)
     lib = _build.library()
     partials = torch.empty(lib.tpunmf_objective_blocks(m, n),
                            dtype=torch.float32, device=x.device)
@@ -74,9 +87,26 @@ eu_residual_obj.launches = 0
 kl_obj.launches = 0
 
 
+@full_f32()
+def kl_ratio_ref(x, w, h, *, eps: float = _EPS):
+    """Plain version of :func:`kl_ratio`."""
+    return x.to(w.dtype) / (w @ h + eps)
+
+
 def kl_ratio(x, w, h, *, eps: float = _EPS):
-    """x / (w @ h + eps) (MUR-KL ratio, nmf/mur.py:25)."""
-    return x / (w @ h + eps)
+    """x / (w @ h + eps) as an m x n float32 tensor, w @ h formed a tile at
+    a time and never stored (MUR-KL ratio, nmf/mur.py:25)."""
+    if on_cpu(x):
+        return kl_ratio_ref(x, w, h, eps=eps)
+    m, n, k = check_operands("kl_ratio", x, w, h, max_rank=OBJECTIVE_MAX_RANK)
+    ratio = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    call("tpunmf_kl_ratio", x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
+         w.data_ptr(), h.data_ptr(), m, n, k, float(eps), ratio.data_ptr())
+    kl_ratio.launches += 1
+    return ratio
+
+
+kl_ratio.launches = 0
 
 
 @full_f32()
@@ -93,7 +123,8 @@ def kl_ratio_and_obj(x, w, h, *, eps: float = _EPS):
     from one fused sweep."""
     if on_cpu(x):
         return kl_ratio_and_obj_ref(x, w, h, eps=eps)
-    m, n, k = check_operands("kl_ratio_and_obj", x, w, h)
+    m, n, k = check_operands("kl_ratio_and_obj", x, w, h,
+                             max_rank=OBJECTIVE_MAX_RANK)
     lib = _build.library()
     ratio = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partials = torch.empty(lib.tpunmf_objective_blocks(m, n),

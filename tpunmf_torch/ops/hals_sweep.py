@@ -34,6 +34,15 @@ _EPS = 1e-16  # tpunmf/ops/hals_sweep.py:38 (MUR's is 1e-9)
 _INT_MAX = 2**31 - 1
 
 
+def sweep_takes(x, k: int) -> bool:
+    """Whether HALS on X of this dtype at rank k sweeps with the kernel:
+    float32 X (``tpunmf`` engages its sweep kernel for float32 X only,
+    tpunmf/solvers/hals.py:236-237; HALS's factors keep X's dtype) and
+    1 <= k <= 1024.  ``x`` is anything with ``.dtype`` (a ``meta`` tensor
+    will do)."""
+    return x.dtype == torch.float32 and 1 <= k <= MAX_RANK
+
+
 @full_f32()
 def gs_sweep_ref(a, g, v, *, lam: float, nsweeps: int):
     """Plain version of :func:`gs_sweep`; returns a new tensor laid out as

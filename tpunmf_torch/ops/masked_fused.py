@@ -13,7 +13,8 @@ Rounding follows the TPU kernels and differs from the unmasked EU ones:
 X and M are upcast to the factors' type and the factor is NOT rounded to
 X's dtype (masked_fused.py:86-92, 182-188).  ``M`` is either 1-byte
 (``torch.uint8`` or ``torch.bool``, a binary mask) or of X's dtype (a
-real-valued weight mask); X is float32 or bfloat16 on CUDA.
+real-valued weight mask); X is float32 or bfloat16 on CUDA, at ranks up
+to 1024 (``masked_takes``).
 
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``<wrapper>.launches``
@@ -24,10 +25,18 @@ from __future__ import annotations
 import torch
 
 from ..core.precision import full_f32
-from ._launch import call, check_operands, on_cpu
+from ._launch import MAX_RANK, call, check_operands, on_cpu
 
 _EPS = 1e-9
 _BYTE_MASKS = (torch.uint8, torch.bool)
+
+
+def masked_takes(x, k: int) -> bool:
+    """Whether the masked kernels take X of this dtype at rank k: float32
+    or bfloat16 X, 1 <= k <= 1024 (``tpunmf``'s ``masked_tileable`` gives
+    no tile above 1024 either).  A solver asks this before it calls a
+    wrapper; ``x`` is anything with ``.dtype`` (a ``meta`` tensor will do)."""
+    return x.dtype in (torch.float32, torch.bfloat16) and 1 <= k <= MAX_RANK
 
 
 def _guarded(num2, den, old):
@@ -64,7 +73,7 @@ def _run_kernel(name, x, mask, w, h, distance_type, lam):
     """Check the operands and launch C entry ``tpunmf_<name>``."""
     if distance_type not in ("eu", "kl"):
         raise KeyError(f"Unknown distance type {distance_type!r}")
-    m, n, k = check_operands(name, x, w, h)
+    m, n, k = check_operands(name, x, w, h, max_rank=MAX_RANK)
     if mask.shape != x.shape or mask.device != x.device:
         raise ValueError(f"{name}: mask {tuple(mask.shape)} on {mask.device} does "
                          f"not match x {tuple(x.shape)} on {x.device}")

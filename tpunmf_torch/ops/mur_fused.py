@@ -19,6 +19,9 @@
   k-sized H update.  ``iter_eu_tileable`` / ``iter_kl_tileable`` are
   ``tpunmf``'s route rule for it.
 
+``updates_take`` says which X and ranks the kernels take (float32 or
+bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
+
 Only the k x k Grams ``Gh = H H^T`` / ``Gw = W^T W``, the row/column sums
 and the single pass's cast of H to X's dtype are formed outside the
 kernels, as ``tpunmf`` forms them outside its Pallas bodies.  Outputs are
@@ -40,9 +43,19 @@ import torch
 from ..core.losses import kl_elementwise_sum
 from ..core.precision import full_f32
 from . import _build
-from ._launch import call, check_operands, on_cpu
+from ._launch import MAX_RANK, call, check_operands, on_cpu
 
 _EPS = 1e-9
+_X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def updates_take(x, k: int) -> bool:
+    """Whether this module's kernels (the 2-pass pair and the single pass)
+    take X of this dtype at rank k: float32 or bfloat16 X, 1 <= k <= 1024.
+    A solver asks this before it calls a wrapper; the wrappers raise on
+    what they refuse.  ``x`` is anything with ``.dtype`` (a ``meta``
+    tensor will do)."""
+    return x.dtype in _X_DTYPES and 1 <= k <= MAX_RANK
 
 
 def _factor_as_x(f, x):
@@ -109,7 +122,7 @@ def mur_w_update(x, w, h, *, distance_type: str, lam: float,
     if on_cpu(x):
         return mur_w_update_ref(x, w, h, distance_type=distance_type, lam=lam,
                                 with_lagged_obj=with_lagged_obj)
-    check_operands("mur_w_update", x, w, h)
+    check_operands("mur_w_update", x, w, h, max_rank=MAX_RANK)
     aux = torch.sum(h, dim=1) if is_kl else h @ h.T
     m, n = x.shape
     k = w.shape[1]
@@ -140,7 +153,7 @@ def mur_h_update(x, w, h, *, distance_type: str, lam: float):
     is_kl = _check_distance(distance_type)
     if on_cpu(x):
         return mur_h_update_ref(x, w, h, distance_type=distance_type, lam=lam)
-    check_operands("mur_h_update", x, w, h)
+    check_operands("mur_h_update", x, w, h, max_rank=MAX_RANK)
     aux = torch.sum(w, dim=0) if is_kl else w.T @ w
     m, n = x.shape
     k = w.shape[1]
@@ -166,7 +179,7 @@ def iter_eu_tileable(x, k: int):
     this card.  The CUDA kernel chooses its own tiling; ``bm`` is checked
     against m, as ``tpunmf`` checks it.  ``x`` is anything with ``.shape``
     and ``.dtype`` (a ``meta`` tensor will do)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _X_DTYPES:
         return None
     m, n = x.shape
     xb = x.dtype.itemsize
@@ -190,7 +203,7 @@ def iter_kl_tileable(x, k: int):
     that each shape takes the route ``tpunmf`` gives it; its constants
     describe ``tpunmf``'s resident strip on the TPU, not this card.  It
     never selects the column-subblocked variant (bs is always None)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _X_DTYPES:
         return None
     m, n = x.shape
     xb = x.dtype.itemsize
@@ -257,7 +270,7 @@ def mur_iteration_eu(x, w, h, *, lam_w: float, bm: int):
     _check_strips(x, bm)
     if on_cpu(x):
         return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
-    m, n, k = check_operands("mur_iteration_eu", x, w, h)
+    m, n, k = check_operands("mur_iteration_eu", x, w, h, max_rank=MAX_RANK)
     gh = h @ h.T
     hc = h.to(x.dtype)  # pre-cast, as tpunmf/ops/mur_fused.py:330
     w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
@@ -284,7 +297,7 @@ def mur_iteration_kl(x, w, h, *, lam_w: float, bm: int, bs: int | None = None):
     _check_strips(x, bm, bs)
     if on_cpu(x):
         return mur_iteration_kl_ref(x, w, h, lam_w=lam_w)
-    m, n, k = check_operands("mur_iteration_kl", x, w, h)
+    m, n, k = check_operands("mur_iteration_kl", x, w, h, max_rank=MAX_RANK)
     hsum = torch.sum(h, dim=1)
     w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
     wtr = torch.empty((k, n), dtype=torch.float32, device=x.device)

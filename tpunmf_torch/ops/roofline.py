@@ -53,10 +53,7 @@ def _unported():
     k = 128
     f32, bf16 = 4, 2
     eu_io = (m * k + k * n) * f32 + (m * k + k * n + k * k) * f32  # W, H in; W', wtx, Gw out
-    cfg1 = (20000, 11000, 50)
     rows = [
-        ("kl_ratio", "20000x11000 r50 f32", *mur_flops("kl_ratio", *cfg1, False),
-         cfg1[0] * cfg1[1] * 2 * f32 + (cfg1[0] + cfg1[1]) * cfg1[2] * f32),
         ("mur_iteration_eu_dma", "8192x8192 r128 bf16",
          *mur_flops("mur_iteration_eu_dma", m, n, k, True), m * n * bf16 + eu_io),
         # the X H^T strip product, k Gauss-Seidel steps of 2k flops a row

@@ -18,10 +18,13 @@ The m*n-sized products ``w_aux.T @ v``, ``h_aux @ v.T`` and (KL)
 ``w_aux @ h_aux`` are ``torch.matmul`` with TF32 off on both routes, as
 ``tpunmf`` leaves them to XLA.  ``use_pallas`` (default: True exactly when
 V is a CUDA tensor) selects the objective: the kernels ``eu_residual_obj``
-/ ``kl_ratio_and_obj`` (ops/fused.py; on the CPU their plain versions), or
-their plain versions directly.  The objective does not feed back into the
-iterates, so the two routes run the same trajectory.  The KL route
-discards the ratio that ``kl_ratio_and_obj`` writes, as ``tpunmf`` does.
+/ ``kl_ratio_and_obj`` (ops/fused.py; on the CPU their plain versions)
+where they take V and k (``objective_takes``; the factors keep V's dtype
+and the kernels take float32 factors, so V must be float32), or their
+plain versions directly (float64 V, k > 2048).  The objective does not
+feed back into the iterates, so the two routes run the same trajectory.
+The KL route discards the ratio that ``kl_ratio_and_obj`` writes, as
+``tpunmf`` does.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from ..core.precision import full_f32
 from ..core.types import AdmmExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_ratio_and_obj,
-                         kl_ratio_and_obj_ref)
+                         kl_ratio_and_obj_ref, objective_takes)
 from ..prox import prox
 from .common import (LoopCarry, finalize_history, host_array, init_carry, run_loop,
                      verbose_precision, while_block)
@@ -74,7 +77,9 @@ def _admm_block(
 
     ``carry.inner`` is (w, h, w_aux, h_aux, dual_w, dual_h, rho) for EU and
     (w, h, w_aux, h_aux, dual_w, dual_h, v_aux, dual_v, rho) for KL, rho a
-    0-d tensor; the carried tensors are never updated in place."""
+    0-d tensor; the carried tensors are never updated in place.
+    ``use_pallas`` here means the objective kernels, which :func:`admm`
+    chooses by V's dtype and rank."""
 
     def balance(rho, w, h, w_aux, h_aux, w_prev, h_prev, duals):
         """Residual balancing: returns (rho_new, rescaled duals)."""
@@ -201,6 +206,7 @@ def admm(
     v = as_input(v).contiguous()
     if use_pallas is None:
         use_pallas = v.device.type == "cuda"
+    kernels = bool(use_pallas) and v.dtype == torch.float32 and objective_takes(v, k)
 
     experiment = AdmmExperiment(
         method="admm",
@@ -247,7 +253,7 @@ def admm(
             v, c, stop, tol1, tol2, reg_w[0], reg_h[0], rho_tau, rho_mu,
             distance_type=distance_type, prox_w=reg_w[1], prox_h=reg_h[1],
             rho_mode=rho_mode, spd_solver=spd_solver, min_iter=min_iter,
-            max_iter=max_iter, use_pallas=use_pallas,
+            max_iter=max_iter, use_pallas=kernels,
             verbose=verbose_precision(verbose, tol1, tol2),
         )
 

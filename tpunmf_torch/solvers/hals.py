@@ -8,17 +8,22 @@ the Tikhonov weights ``lambda_w``/``lambda_h``, the 1e-16 guard, the nudge
 of generated inits, defaults, convergence semantics and the ``Results``
 record are ``tpunmf``'s.  Euclidean objective only.
 
-Two routes, chosen by ``use_pallas`` (the switch ``tpunmf`` passes to its
-``_hals_block``; it defaults to True exactly when X is a CUDA tensor):
+The kernels, chosen by ``use_pallas`` (the switch ``tpunmf`` passes to
+its ``_hals_block``; it defaults to True exactly when X is a CUDA tensor)
+and X's dtype and rank, the sweeps and the objective each on its own:
 
-  * kernel route, for float32 X only (as ``tpunmf`` engages its sweep
-    kernel only for f32 X, tpunmf/solvers/hals.py:236-237): both halves
-    sweep with ``gs_sweep`` (ops/hals_sweep.py) and the exact objective is
-    ``eu_residual_obj`` (ops/fused.py).  On CUDA these launch the
-    hand-written kernels; on the CPU they run their plain versions.
-  * plain route (``use_pallas=False``, or X not float32): the same sweeps
-    as a loop of PyTorch ops (``gs_sweep_ref``) and the plain objective.
-    The factors keep X's dtype, as in ``tpunmf``.
+  * sweeps: ``gs_sweep`` (ops/hals_sweep.py) for both halves where the
+    sweep kernel takes X and k (float32 X, as ``tpunmf`` engages its sweep
+    kernel only for f32 X, tpunmf/solvers/hals.py:236-237, and k <= 1024:
+    ``sweep_takes``); elsewhere the same sweeps as a loop of PyTorch ops
+    (``gs_sweep_ref``).
+  * exact objective: ``eu_residual_obj`` (ops/fused.py) for float32 X
+    where the objective kernels take k (k <= 2048: ``objective_takes``);
+    elsewhere its plain version.  So float32 X at 1024 < k <= 2048 sweeps
+    in PyTorch and takes the objective kernel.
+On CUDA the wrappers launch the hand-written kernels; on the CPU they run
+their plain versions.  The factors keep X's dtype, as in ``tpunmf``, and
+the kernels take float32 factors, so bfloat16 and float64 X run plain.
 
 The GEMMs ``X H^T``, ``W^T X`` and the Grams are plain ``torch.matmul``
 on both routes, with TF32 off (``tpunmf`` leaves them to XLA).  The
@@ -36,8 +41,8 @@ from ..core.losses import eu_objective_gram
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
-from ..ops.fused import eu_residual_obj, eu_residual_obj_ref
-from ..ops.hals_sweep import gs_sweep, gs_sweep_ref
+from ..ops.fused import eu_residual_obj, eu_residual_obj_ref, objective_takes
+from ..ops.hals_sweep import gs_sweep, gs_sweep_ref, sweep_takes
 from .common import finalize_history, host_array, init_carry, run_loop, while_block
 
 _EPS = 1e-16
@@ -45,11 +50,13 @@ _EPS = 1e-16
 
 def _hals_block(x, xsq, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
                 min_iter: int, max_iter: int, inner_sweeps: int,
-                objective: str, kernels: bool, verbose=False):
+                objective: str, sweep_kernel: bool, objective_kernel: bool,
+                verbose=False):
     """Run HALS iterations from ``carry`` up to ``stop_i`` (or convergence);
-    ``kernels`` selects the kernel route (see the module docstring)."""
-    sweep = gs_sweep if kernels else gs_sweep_ref
-    residual = eu_residual_obj if kernels else eu_residual_obj_ref
+    ``sweep_kernel`` and ``objective_kernel`` select the kernels (see the
+    module docstring)."""
+    sweep = gs_sweep if sweep_kernel else gs_sweep_ref
+    residual = eu_residual_obj if objective_kernel else eu_residual_obj_ref
 
     def step(inner, i):
         w, h = inner
@@ -108,8 +115,9 @@ def hals(
     ``torch.Generator`` or int seed), ``inner_sweeps`` (sweeps per
     cross-product), objective 'exact' or 'gram', block_size/on_block_end.
     ``sweep_unroll`` is accepted and has no effect: it is the unroll count
-    of ``tpunmf``'s XLA loop.  ``use_pallas``: kernel route on/off (default
-    on for CUDA X; the kernels engage for float32 X only).
+    of ``tpunmf``'s XLA loop.  ``use_pallas``: kernels on/off (default on
+    for CUDA X; they engage for float32 X, the sweeps up to k = 1024 and
+    the objective up to 2048).
     ``checkpoint_path`` is not ported yet and raises.
     """
     if distance_type != "eu":
@@ -120,7 +128,10 @@ def hals(
     x = as_input(x)
     if use_pallas is None:
         use_pallas = x.device.type == "cuda"
-    kernels = bool(use_pallas) and x.dtype == torch.float32
+    sweep_kernel = bool(use_pallas) and sweep_takes(x, k)
+    # the factors keep X's dtype and the kernels take float32 factors
+    objective_kernel = (bool(use_pallas) and x.dtype == torch.float32
+                        and objective_takes(x, k))
 
     experiment = MurExperiment(
         method="hals", components=k, distance_type="eu",
@@ -155,7 +166,7 @@ def hals(
             xsq = torch.sum(xf * xf)
         else:
             xsq = torch.zeros((), dtype=x.dtype, device=x.device)
-        obj0 = (eu_residual_obj if kernels else eu_residual_obj_ref)(x, w, h)
+        obj0 = (eu_residual_obj if objective_kernel else eu_residual_obj_ref)(x, w, h)
 
     carry = init_carry(obj0, max_iter, (w, h))
 
@@ -163,7 +174,8 @@ def hals(
         return _hals_block(
             x, xsq, c, stop, tol1, tol2, float(lambda_w), float(lambda_h),
             min_iter=min_iter, max_iter=max_iter, inner_sweeps=inner_sweeps,
-            objective=objective, kernels=kernels, verbose=verbose)
+            objective=objective, sweep_kernel=sweep_kernel,
+            objective_kernel=objective_kernel, verbose=verbose)
 
     carry = run_loop(
         run, carry, max_iter=max_iter, block_size=block_size,

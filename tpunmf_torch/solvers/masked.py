@@ -13,16 +13,18 @@ elevated over the observed cells only; NNDSVD runs on the zero-filled
 ``x * mask``; the config tag is ``"|masked"``.
 
 Two routes, chosen by ``use_pallas`` (default True exactly when X is a
-CUDA tensor):
+CUDA tensor) and X's dtype and rank:
 
-  * kernel route: ``masked_w_update`` / ``masked_h_update``, one pass over
-    (X, M) per half-update.  The factors are float32 for bfloat16 X (X's
-    dtype otherwise), and a binary mask rides as 1-byte integers, a
-    real-valued weight mask in X's dtype (tpunmf/solvers/masked.py:183-198).
-    On CUDA these launch the hand-written kernels; on the CPU they run
-    their plain versions.
-  * plain route: the same formulas as PyTorch products, factors and mask
-    in X's dtype.
+  * kernel route, where the masked kernels take X and k (float32 or
+    bfloat16 X, k <= 1024: ``masked_takes``): ``masked_w_update`` /
+    ``masked_h_update``, one pass over (X, M) per half-update.  The
+    factors are float32 for bfloat16 X (X's dtype otherwise), and a binary
+    mask rides as 1-byte integers, a real-valued weight mask in X's dtype
+    (tpunmf/solvers/masked.py:183-198).  On CUDA these launch the
+    hand-written kernels; on the CPU they run their plain versions.
+  * plain route (``use_pallas=False``, float64 X, k > 1024): the same
+    formulas as PyTorch products, factors and mask in X's dtype, as
+    ``tpunmf`` runs where ``masked_tileable`` gives no tile.
 
 The objectives are plain PyTorch on both routes, as in ``tpunmf``.
 """
@@ -36,7 +38,7 @@ from ..core.device import as_input
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
-from ..ops.masked_fused import (masked_h_update, masked_h_update_ref,
+from ..ops.masked_fused import (masked_h_update, masked_h_update_ref, masked_takes,
                                 masked_w_update, masked_w_update_ref)
 from .common import finalize_history, host_array, init_carry, run_loop, while_block
 
@@ -106,7 +108,8 @@ def mur_masked(
     any finite filler (0 is conventional).  Other kwargs match
     :func:`tpunmf_torch.solvers.mur` (``key``: a ``torch.Generator`` or int
     seed for the random init); ``use_pallas``: kernel route on/off
-    (default on for CUDA X).  ``checkpoint_path`` is not ported yet.
+    (default on for CUDA X; it engages where ``masked_takes`` says so).
+    ``checkpoint_path`` is not ported yet.
     """
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
@@ -119,6 +122,7 @@ def mur_masked(
                          f"{tuple(x.shape)}")
     if use_pallas is None:
         use_pallas = x.device.type == "cuda"
+    kernels = bool(use_pallas) and masked_takes(x, k)
 
     experiment = MurExperiment(
         method="mur", components=k, distance_type=distance_type,
@@ -144,7 +148,7 @@ def mur_masked(
                                kind="abs_normal", dtype=x.dtype,
                                device=x.device)
 
-        if use_pallas:
+        if kernels:
             # the kernels compute float32 factors for bfloat16 X
             if x.dtype == torch.bfloat16:
                 w, h = w.float(), h.float()
@@ -163,7 +167,7 @@ def mur_masked(
         return _mur_masked_block(
             x, mask, c, stop, tol1, tol2, float(lambda_w), float(lambda_h),
             distance_type=distance_type, min_iter=min_iter, max_iter=max_iter,
-            kernels=bool(use_pallas), verbose=verbose)
+            kernels=kernels, verbose=verbose)
 
     carry = run_loop(
         run, carry, max_iter=max_iter, block_size=block_size,

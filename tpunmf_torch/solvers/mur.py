@@ -5,9 +5,9 @@ update formulas including the regularized KL closed form
 ``2a / (b + sqrt(b^2 + 4*lambda*a))``, the 1e-9 guards, negative-data
 elevation, defaults, convergence semantics and the ``Results`` record.
 
-Routes, chosen by ``use_pallas`` (the name ``tpunmf`` gives the switch;
-it defaults to True exactly when X is a CUDA tensor) and, on the kernel
-route, by ``tpunmf``'s own rule for the shape:
+Routes: ``mur_route`` chooses one per run, from ``use_pallas`` (the name
+``tpunmf`` gives the switch; it defaults to True exactly when X is a CUDA
+tensor) and X's dtype and rank, before any wrapper is called:
 
   * single pass (1 pass over X, +1 for the exact objective):
     ``mur_iteration_eu`` / ``mur_iteration_kl`` (ops/mur_fused.py), taken
@@ -16,15 +16,27 @@ route, by ``tpunmf``'s own rule for the shape:
     (tpunmf/solvers/mur.py:403-423; its manual-DMA EU variant is not
     ported).  KL's kernel also returns the objective of the incoming
     iterate, which ``objective="lagged"`` records.
-  * fused (2 passes over X, +1 for the exact objective): ``mur_w_update``
-    and ``mur_h_update`` (ops/mur_fused.py) and the objective passes
-    ``eu_residual_obj`` / ``kl_obj`` (ops/fused.py).  With
-    ``objective="lagged"`` (KL) the W pass also returns the objective of
-    the incoming iterate and the objective pass is dropped: 2 passes, the
-    trace shifted by one iteration.  On CUDA these launch the hand-written
-    kernels; on the CPU they run their plain versions.
-  * plain (``step_eu`` / ``step_kl``): PyTorch products, EU by the Gram
-    trick, KL carrying the ratio from the trailing objective pass.
+  * fused, the 2-pass pair (2 passes over X, +1 for the exact objective),
+    wherever else the update kernels take X and k (float32 or bfloat16,
+    k <= 1024): ``mur_w_update`` and ``mur_h_update`` (ops/mur_fused.py)
+    and the objective passes ``eu_residual_obj`` / ``kl_obj``
+    (ops/fused.py).  With ``objective="lagged"`` (KL) the W pass also
+    returns the objective of the incoming iterate and the objective pass
+    is dropped: 2 passes, the trace shifted by one iteration.
+  * high rank, where the objective kernels take X and k and the update
+    kernels do not (1024 < k <= 2048): ``tpunmf``'s jnp step with its
+    Pallas ratio and objective passes (tpunmf/solvers/mur.py:242-280),
+    ``step_eu`` / ``step_kl`` below with the products in ``torch.matmul``
+    and the passes ``kl_ratio``, ``kl_ratio_and_obj`` and
+    ``eu_residual_obj`` (ops/fused.py).  bfloat16 X is upcast to float32
+    once, at setup (the jnp step promotes it in every product).
+    ``objective="lagged"`` runs as 'exact', as in ``tpunmf``.
+  * plain (``use_pallas=False``, float64 X, k > 2048): the same
+    ``step_eu`` / ``step_kl`` with the plain versions of those passes.
+    EU by the Gram trick, KL carrying the ratio from the trailing
+    objective pass.
+On CUDA the wrappers launch the hand-written kernels; on the CPU they run
+their plain versions.
 
 The objective is read to the host once per iteration (solvers/common.py),
 so both routes stop at the same iteration as ``tpunmf``.
@@ -41,14 +53,42 @@ from ..core.losses import eu_objective_gram
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
-from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj,
-                         kl_ratio, kl_ratio_and_obj_ref)
+from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj, kl_ratio,
+                         kl_ratio_and_obj, kl_ratio_and_obj_ref, kl_ratio_ref,
+                         objective_takes)
 from ..ops.mur_fused import (iter_eu_tileable, iter_kl_tileable, mur_h_update,
-                             mur_iteration_eu, mur_iteration_kl, mur_w_update)
+                             mur_iteration_eu, mur_iteration_kl, mur_w_update,
+                             updates_take)
 from .common import (LoopCarry, finalize_history, host_array, init_carry,
                      run_loop, verbose_precision, while_block)
 
 _EPS = 1e-9
+
+
+def mur_route(x, k: int, distance_type: str, use_pallas: bool = True):
+    """(route, strips): the step a run of MUR on X at rank k takes.
+
+    route is 'single', 'pair', 'high_rank' or 'plain' (module docstring);
+    strips is the single pass's strip height (EU: bm, KL: (bm, bs)) and
+    None on the other routes.  A rule of X's dtype, shape and rank only:
+    ``x`` is anything with ``.shape`` and ``.dtype`` (a ``meta`` tensor
+    will do)."""
+    if use_pallas and updates_take(x, k):
+        tileable = iter_eu_tileable if distance_type == "eu" else iter_kl_tileable
+        strips = tileable(x, k)
+        return ("pair", None) if strips is None else ("single", strips)
+    if use_pallas and objective_takes(x, k):
+        return "high_rank", None
+    return "plain", None
+
+
+def _passes(route: str):
+    """(ratio, ratio-and-objective, EU objective) passes of the high-rank
+    and plain steps: the kernels' wrappers (tpunmf mur.py:252-253,
+    261-277), or on the plain route their plain versions."""
+    if route == "plain":
+        return kl_ratio_ref, kl_ratio_and_obj_ref, eu_residual_obj_ref
+    return kl_ratio, kl_ratio_and_obj, eu_residual_obj
 
 
 def _mur_block(
@@ -65,20 +105,18 @@ def _mur_block(
     min_iter: int,
     max_iter: int,
     objective: str,
-    use_pallas: bool,
-    single_pass_bm=None,
-    kl_single_bm=None,
+    route: str,
+    strips=None,
     objective_every: int = 1,
     verbose=False,
 ) -> LoopCarry:
     """Run MUR iterations from ``carry`` up to ``stop_i`` (or convergence).
 
-    ``carry.inner`` is (w, h) on the fused route and for EU, and (w, h, r)
-    on the plain KL route, r = x / (w h + eps) from the previous trailing
-    pass.  On the plain route with bfloat16 X, ``x`` is the X upcast to
-    the factors' dtype (tpunmf's jnp products promote it the same way).
-    ``single_pass_bm`` (EU) and ``kl_single_bm`` ((bm, bs), KL) select the
-    single-pass steps, as in tpunmf (mur.py:282-289).
+    ``route`` and ``strips`` are :func:`mur_route`'s.  ``carry.inner`` is
+    (w, h) on the kernel-update routes and for EU, and (w, h, r) on the
+    high-rank and plain KL routes, r = x / (w h + eps) from the previous
+    trailing pass.  On those two routes ``x`` is bfloat16 X upcast to the
+    factors' dtype (tpunmf's jnp products promote it the same way).
     """
 
     def refresh(i):
@@ -93,7 +131,7 @@ def _mur_block(
     def step_eu_single(inner, i):
         """Whole iteration in one pass over X (tpunmf mur.py:133-154)."""
         w, h = inner
-        w, wtx, gram_w = mur_iteration_eu(x, w, h, lam_w=lambda_w, bm=single_pass_bm)
+        w, wtx, gram_w = mur_iteration_eu(x, w, h, lam_w=lambda_w, bm=strips)
         h_new = h * wtx / (gram_w @ h + lambda_h * h + _EPS)
         if objective == "gram":
             obj = cadence_obj(i, lambda: eu_objective_gram(xsq, wtx, gram_w, h_new))
@@ -107,7 +145,7 @@ def _mur_block(
         which 'lagged' records; other objectives add the exact pass."""
         w, h = inner
         w, wtr, obj_prev = mur_iteration_kl(x, w, h, lam_w=lambda_w,
-                                            bm=kl_single_bm[0], bs=kl_single_bm[1])
+                                            bm=strips[0], bs=strips[1])
         c = h * wtr
         d = torch.sum(w, dim=0)[:, None]
         h = 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lambda_h * c))
@@ -145,6 +183,8 @@ def _mur_block(
         h, _ = mur_h_update(x, w, h, distance_type="kl", lam=lambda_h)
         return (w, h), cadence_obj(i, lambda: kl_obj(x, w, h))
 
+    ratio, ratio_obj, eu_obj = _passes(route)
+
     def step_eu(inner, i):
         w, h = inner
         gram_h = h @ h.T
@@ -155,7 +195,7 @@ def _mur_block(
         if objective == "gram":
             obj = cadence_obj(i, lambda: eu_objective_gram(xsq, wtx, gram_w, h))
         else:
-            obj = cadence_obj(i, lambda: eu_residual_obj_ref(x, w, h))
+            obj = cadence_obj(i, lambda: eu_obj(x, w, h))
         return (w, h), obj
 
     def step_kl(inner, i):
@@ -163,26 +203,22 @@ def _mur_block(
         a = w * (r @ h.T)
         b = torch.sum(h, dim=1)  # == row of ones_like(x) @ h.T (nmf/mur.py:26)
         w = 2.0 * a / (b[None, :] + torch.sqrt(b[None, :] ** 2 + 4.0 * lambda_w * a))
-        r2 = kl_ratio(x, w, h, eps=_EPS)
+        r2 = ratio(x, w, h, eps=_EPS)
         c = h * (w.T @ r2)
         d = torch.sum(w, dim=0)[:, None]  # == column of w.T @ ones_like(x)
         h = 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lambda_h * c))
         if objective_every == 1 or refresh(i):
-            r, obj = kl_ratio_and_obj_ref(x, w, h, eps=_EPS)
+            r, obj = ratio_obj(x, w, h, eps=_EPS)
         else:
             # off-cadence trailing passes skip the log term (the ratio is
             # still needed by the next W update)
-            r, obj = kl_ratio(x, w, h, eps=_EPS), torch.tensor(math.nan)
+            r, obj = ratio(x, w, h, eps=_EPS), torch.tensor(math.nan)
         return (w, h, r), obj
 
-    if distance_type == "eu" and single_pass_bm is not None:
-        step = step_eu_single
-    elif distance_type == "kl" and kl_single_bm is not None:
-        step = step_kl_single
-    elif use_pallas:
-        step = step_kl_fused if distance_type == "kl" else step_eu_fused
-    else:
-        step = step_kl if distance_type == "kl" else step_eu
+    steps = {"single": (step_eu_single, step_kl_single),
+             "pair": (step_eu_fused, step_kl_fused),
+             "high_rank": (step_eu, step_kl), "plain": (step_eu, step_kl)}
+    step = steps[route][distance_type == "kl"]
     with torch.no_grad(), full_f32():
         return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,
                            max_iter=max_iter, verbose=verbose)
@@ -224,20 +260,21 @@ def mur(
       key: ``torch.Generator`` or int seed for random init (default seed 0;
         torch's draws differ from jax.random's).
       objective: 'exact' (fused residual pass), 'gram' (EU Gram-trick,
-        no extra m*n pass) or 'lagged' (KL kernel routes: the objective of
-        the incoming iterate from the W pass or the single pass, so the
-        trace and the convergence stop lag one iteration; the plain route
-        takes it as 'exact', as tpunmf does).
+        no extra m*n pass) or 'lagged' (the KL pair and single pass: the
+        objective of the incoming iterate from the W pass or the single
+        pass, so the trace and the convergence stop lag one iteration; the
+        high-rank and plain routes take it as 'exact', as tpunmf does).
       objective_every: compute/record the objective only every N-th
         iteration (plus the last possible one); skipped iterations record
         NaN.
       data_dtype: storage dtype for x (e.g. torch.bfloat16; factors stay
         float32).
-      use_pallas: fused kernel route on/off (default: on for CUDA X).
+      use_pallas: kernel routes on/off (default: on for CUDA X); with it
+        on, X's dtype and rank choose the route (``mur_route``).
       block_size/on_block_end: blocked execution with a host callback.
     X that is a tensor stays on its device (a CPU tensor runs on the CPU);
-    any other X (a numpy array) goes to the CUDA device, and raises without
-    one.  The factors live where X lives.
+    any other X (a numpy array) goes to the CUDA device, float64 as
+    float32, and raises without one.  The factors live where X lives.
     """
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
@@ -291,23 +328,21 @@ def mur(
         else:
             xsq = torch.zeros((), dtype=factor_dtype, device=x.device)
 
-        # the single pass where tpunmf takes it (tpunmf mur.py:403-423)
-        single_pass_bm = (iter_eu_tileable(x, k)
-                          if use_pallas and distance_type == "eu" else None)
-        kl_single_bm = (iter_kl_tileable(x, k)
-                        if use_pallas and distance_type == "kl" else None)
-        if not use_pallas:
-            # the plain route's products promote bf16 X, as jnp's do
+        route, strips = mur_route(x, k, distance_type, use_pallas)
+        if route in ("high_rank", "plain"):
+            # the jnp step's products promote bf16 X; upcast it once here
             x = x.to(factor_dtype)
         if distance_type == "kl":
-            if use_pallas:
+            if route in ("single", "pair"):
                 obj0 = kl_obj(x, w, h)
                 inner = (w, h)
-            else:
-                r0, obj0 = kl_ratio_and_obj_ref(x, w, h, eps=_EPS)
+            else:  # tpunmf mur.py:430
+                r0, obj0 = _passes(route)[1](x, w, h, eps=_EPS)
                 inner = (w, h, r0)
         else:
-            obj0 = (eu_residual_obj if use_pallas else eu_residual_obj_ref)(x, w, h)
+            # on the high-rank step tpunmf's init takes the jnp objective
+            # (mur.py:433) and the port its kernel: the same function
+            obj0 = _passes(route)[2](x, w, h)
             inner = (w, h)
 
     carry = init_carry(obj0, max_iter, inner)
@@ -316,8 +351,7 @@ def mur(
         return _mur_block(
             x, xsq, c, stop, tol1, tol2, float(lambda_w), float(lambda_h),
             distance_type=distance_type, min_iter=min_iter, max_iter=max_iter,
-            objective=objective, use_pallas=use_pallas,
-            single_pass_bm=single_pass_bm, kl_single_bm=kl_single_bm,
+            objective=objective, route=route, strips=strips,
             objective_every=objective_every,
             verbose=verbose_precision(verbose, tol1, tol2),
         )
