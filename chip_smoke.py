@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about two minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about three minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -15,6 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      timed against the 2-pass pair, in turns.  The ratio and objective
      passes also run at MUR's high rank, 8192x4096 / 8192x8192 r1536,
      and kl_ratio at ragged 1000x777 k37 and k1100 and at KL config[1].
+     The two single passes behind the port's switches: hals_iteration_eu
+     at 8192x8192 r128 (f32 at 2 and 1 sweeps, bf16) and ragged 1000x777
+     k40, and mur_iteration_eu_dma at 8192x8192 r128 (f32, bf16) and
+     ragged k37, which is also held to mur_iteration_eu bit for bit and
+     timed against it in turns.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
@@ -47,11 +52,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        answer held against a stable sort of its own scores;
      - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
-       adaptive, and KL.
+       adaptive, and KL;
+     - the switched single passes (tpunmf_torch/solvers/cuda_defaults.py,
+       off by default as in tpunmf, flipped by switched()): HALS at
+       8192x8192 r128 f32 with hals_single_pass on, and MUR EU at the same
+       X, f32 and bf16, with mur_single_pass_variant "dma", each from its
+       default run's init and held to that run's trace, with profiles.
      Each path's launch counters are set to 0 just before it and read just
      after; each run must launch its route's kernels and none of the other
      route's, and give finite factors and trace (non-increasing for MUR and
-     HALS EU; ADMM's is not monotone).
+     HALS EU; ADMM's is not monotone).  The paths with the switches at their
+     defaults must launch neither switched kernel.
   4. a save_factorization / load_factorization round trip.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
@@ -90,6 +101,12 @@ EU_MONOTONE_RTOL = 1e-5
 # HALS sweeps clamp at 0, so an element's relative error means nothing
 # near a clamp: the sweep is held to max|got - want| / max|want|
 SWEEP_TOL = 1e-4
+# hals_iteration_eu against its plain version, on the same scale: the kernel
+# forms X round(H)^T itself (FMA tiles) where the plain version takes cuBLAS's,
+# another f32 summation order, and each Gauss-Seidel step subtracts sums up
+# to k times larger than their difference, so that rounding comes out
+# amplified (1.6e-4 measured at 8192x8192 r128 with random factors)
+HALS_ITER_TOL = 1e-3
 # lagged[i+1] against the exact route's exact[i]: the same KL sums, one
 # from the W pass's tiles and one from the objective kernel's
 LAGGED_RTOL = 1e-4
@@ -146,7 +163,13 @@ KERNELS = {
     "mur_iteration_kl": ("tpunmf_torch/ops/csrc/mur_iteration.cu",
                          "tpunmf/ops/mur_fused.py:652"),
     "kl_ratio": ("tpunmf_torch/ops/csrc/objective.cu", "tpunmf/ops/fused.py:243"),
+    "mur_iteration_eu_dma": ("tpunmf_torch/ops/csrc/mur_iteration.cu",
+                             "tpunmf/ops/mur_fused.py:465"),
+    "hals_iteration_eu": ("tpunmf_torch/ops/csrc/hals_iteration.cu",
+                          "tpunmf/ops/hals_sweep.py:186"),
 }
+# the kernels that only the port's switches reach (tpunmf's defaults: off)
+OPT_IN = ("mur_iteration_eu_dma", "hals_iteration_eu")
 # the shape whose times the kernels line reports (its f32 case)
 HEADLINE = {"kl_obj": "KL", "mur_w_update_lagged": "KL",
             "masked_w_update": "ML-10M", "masked_h_update": "ML-10M",
@@ -401,6 +424,67 @@ def sweep_phase(torch, records, cases, reps):
         del w, h, frames
 
 
+def opt_in_phase(torch, records, eu_x, k, ragged, reps):
+    """hals_iteration_eu (HALS_ITER_TOL, scaled: the sweeps clamp) and
+    mur_iteration_eu_dma (UPDATE_RTOL) against their plain versions, and
+    the dma variant against mur_iteration_eu: the same outputs bit for bit,
+    timed in turns (auto, dma, dma, auto).  Returns those times."""
+    from tpunmf_torch.ops import hals_sweep, mur_fused, roofline
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(15)
+
+    def factors(m, n, kk):
+        return (torch.rand((m, kk), generator=g, device="cuda") + 0.1,
+                torch.rand((kk, n), generator=g, device="cuda") + 0.1)
+
+    eu, rag = f"EU {tuple(eu_x.shape)} k{k}", f"ragged {tuple(ragged.shape)}"
+    # the HALS path's 2 sweeps first: the kernels line reports the first case
+    for label, x, kk, nsweeps, lam in (
+            (f"{eu} f32", eu_x, k, 2, 0.0), (f"{eu} f32", eu_x, k, 1, 0.0),
+            (f"{eu} bf16", eu_x.bfloat16(), k, 2, 0.0),
+            (f"{rag} k40 f32", ragged, 40, 2, 0.3),
+            (f"{rag} k40 bf16", ragged.bfloat16(), 40, 2, 0.3)):
+        m, n = x.shape
+        w, h = factors(m, n, kk)
+        bm = hals_sweep.hals_iter_tileable(x, kk) or m  # tpunmf's strips, else one
+        kw = dict(lam_w=lam, nsweeps=nsweeps)
+        check_kernel(torch, records, "hals_iteration_eu", label,
+                     f"lam={lam} sweeps={nsweeps} bm={bm}",
+                     lambda: hals_sweep.hals_iteration_eu(x, w, h, bm=bm, **kw),
+                     lambda: hals_sweep.hals_iteration_eu_ref(x, w, h, **kw),
+                     HALS_ITER_TOL, reps, err=scaled_err, inputs=(x, w, h),
+                     flops=roofline.hals_flops(m, n, kk, x.dtype == torch.bfloat16, nsweeps))
+        del w, h
+    line = {}
+    for label, x, kk in ((f"{eu} f32", eu_x, k), (f"{eu} bf16", eu_x.bfloat16(), k),
+                         (f"{rag} k37 f32", ragged, 37),
+                         (f"{rag} k37 bf16", ragged.bfloat16(), 37)):
+        m, n = x.shape
+        w, h = factors(m, n, kk)
+        # tpunmf's strip heights where its rules give one, else two strips / one
+        bm = mur_fused.iter_eu_dma_tileable(x, kk) or m // 2
+        auto_bm = mur_fused.iter_eu_tileable(x, kk) or m
+        for lam in (0.0, 0.2):
+            check_kernel(torch, records, "mur_iteration_eu_dma", label, f"eu lam={lam} bm={bm}",
+                         lambda l=lam: mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=l, bm=bm),
+                         lambda l=lam: mur_fused.mur_iteration_eu_dma_ref(x, w, h, lam_w=l),
+                         UPDATE_RTOL, reps, inputs=(x, w, h),
+                         flops=mur_flops("mur_iteration_eu_dma", x, kk))
+        dma = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.2, bm=bm)
+        auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.2, bm=auto_bm)
+        diff = max(bit_err(a, b) for a, b in zip(dma, auto))
+        dma_ms, auto_ms = time_pair(
+            torch, lambda: mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=auto_bm),
+            lambda: mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.0, bm=bm), reps)
+        line[label] = {"dma_ms": dma_ms, "auto_ms": auto_ms, "max_abs_diff": diff}
+        print(f"  {label}: mur_iteration_eu_dma {dma_ms:.4f} ms, mur_iteration_eu "
+              f"{auto_ms:.4f} ms (in turns); max |dma - auto| {diff:.3e}", flush=True)
+        require(diff == 0.0, f"{label}: the dma variant and mur_iteration_eu differ")
+        del w, h, dma, auto
+    return line
+
+
 def masked_phase(torch, records, cases, reps):
     """masked_w_update / masked_h_update against their plain versions:
     EU and KL, lam 0 and 0.2, a 1-byte binary mask and an f32 weight
@@ -648,7 +732,49 @@ def lagged_run(torch, tt, wrappers, label, x, k, exact_trace, iters, card, neede
     return {"fused_it_s": iters / secs, "shift_err": shift_err}
 
 
-def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False):
+def switched_run(torch, tt, wrappers, label, x, k, ref_trace, rtol, exact, card, iters,
+                 **kw):
+    """One NMF run of `iters` iterations with a route switch flipped: it
+    launches each kernel of ``exact`` exactly that many times, its trace is
+    finite and non-increasing (EU), and its first iterations agree with
+    ``ref_trace``, the default route's run from the same init, within rtol."""
+    kw = dict(min_iter=iters, max_iter=iters, **kw)
+    tt.NMF(x, k).factorize(**{**kw, "min_iter": 2, "max_iter": 2})
+    before = counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tt.NMF(x, k).factorize(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {n: c - before[n] for n, c in counts(wrappers).items()}
+    hist = np.asarray(res.obj_history, dtype=np.float64)
+    ref = np.asarray(ref_trace)
+    first = slice(0, ROUTE_ITERS + 1)
+    err = float(np.max(np.abs(hist[first] - ref[first]) / np.abs(ref[first])))
+    whole = float(np.max(np.abs(hist - ref) / np.abs(ref)))
+    print(f"  {label}: i={res.i} obj[{iters}]={hist[-1]:.6e}; {iters / secs:.2f} it/s "
+          f"(wall clock over factorize(), init included; {card}); first {ROUTE_ITERS} "
+          f"iterations against the default route max rel {err:.3e} (tol {rtol:.0e}), "
+          f"all {iters} {whole:.3e}; launches {launched}", flush=True)
+    require(res.i == iters - 1 and len(hist) == iters + 1,
+            f"{label}: ran {res.i + 1} iterations, expected {iters}")
+    require(np.all(np.isfinite(hist)), f"{label}: non-finite objective")
+    require(np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.h)),
+            f"{label}: non-finite factors")
+    require(res.w.shape == (x.shape[0], k) and res.h.shape == (k, x.shape[1]),
+            f"{label}: factor shapes {res.w.shape} {res.h.shape}")
+    require(err <= rtol, f"{label}: the switched and default routes disagree "
+                         f"({err:.3e} > {rtol:.0e})")
+    rises = np.diff(hist) / hist[:-1]
+    require(np.all(rises <= EU_MONOTONE_RTOL), f"{label}: EU objective rose by {rises.max():.3e}")
+    for name, count in exact.items():
+        require(launched[name] == count,
+                f"{label}: {name} launched {launched[name]} times, not {count}")
+    return {"fused_it_s": iters / secs, "route_err": err, "trace_err": whole}
+
+
+def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False, method="mur",
+                **extra):
     """Device time by kernel over one factorize() of `iters` iterations
     (torch.profiler; the kernels run on one stream, so their sum is their
     union), it/s in that window, and the device's idle share of its host
@@ -658,7 +784,9 @@ def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(method="mur", distance_type=distance, min_iter=iters, max_iter=iters)
+    kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
+    if method == "mur":
+        kw["distance_type"] = distance
     if plain:
         kw["use_pallas"] = False
     tt.NMF(x, k).factorize(**{**kw, "min_iter": 2, "max_iter": 2})
@@ -718,6 +846,22 @@ def two_pass_route():
         yield
     finally:
         mur.iter_eu_tileable, mur.iter_kl_tileable = saved
+
+
+@contextlib.contextmanager
+def switched(**values):
+    """The port's route switches (tpunmf_torch/solvers/cuda_defaults.py) set
+    to ``values``, e.g. hals_single_pass=True, and restored after."""
+    from tpunmf_torch.solvers import cuda_defaults
+
+    saved = {name: getattr(cuda_defaults, name) for name in values}
+    for name, value in values.items():
+        setattr(cuda_defaults, name, lambda device, v=value: v)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(cuda_defaults, name, fn)
 
 
 @contextlib.contextmanager
@@ -951,7 +1095,9 @@ def main() -> int:
                                             "launches"),
                 "mur_iteration_eu": (mur_fused.mur_iteration_eu, "launches"),
                 "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches"),
-                "kl_ratio": (fused.kl_ratio, "launches")}
+                "kl_ratio": (fused.kl_ratio, "launches"),
+                "mur_iteration_eu_dma": (mur_fused.mur_iteration_eu_dma, "launches"),
+                "hals_iteration_eu": (hals_sweep.hals_iteration_eu, "launches")}
 
     t_start = time.perf_counter()
     card = nvidia_smi_line()
@@ -1039,6 +1185,7 @@ def main() -> int:
         ("kl_obj", high_kl_label, kl2_x, HIGH_RANK),
         ("eu_residual_obj", high_eu_label, eu_x, HIGH_RANK)], reps=3)
     topk_line = serving_kernel_phase(torch, records, reps=5)
+    dma_line = opt_in_phase(torch, records, eu_x, eu_k, ragged, reps=3)
     print(f"  phase 2 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     t_phase = time.perf_counter()
@@ -1127,12 +1274,45 @@ def main() -> int:
         # nudges the inits it makes (tpunmf/solvers/hals.py:221-225)
         w0, h0 = nndsvd(eu_x, eu_k, variant="zero")
         w0, h0 = w0.clamp(min=1e-16).contiguous(), h0.clamp(min=1e-16).contiguous()
+        hals_init[:] = [w0, h0]
         torch.cuda.synchronize()
         print(f"  HALS: NNDSVD 'zero' init in {time.perf_counter() - t0:.1f} s", flush=True)
         runs["HALS EU f32"] = run_slice(
             torch, tt, counters, "HALS EU f32", eu_x, eu_k, "eu", None, card,
             RUN_ITERS, method="hals", needed=("gs_sweep", "eu_residual_obj"),
             inner_sweeps=2, w_init=w0, h_init=h0)
+
+    def hals_single_path():
+        # tpunmf's hals_single_pass, off by default, on: the HALS path's run
+        # again, from its init, through hals_iteration_eu
+        w0, h0 = hals_init
+        with switched(hals_single_pass=True):
+            runs["HALS EU f32 single pass"] = switched_run(
+                torch, tt, counters, "HALS EU f32 single pass", eu_x, eu_k,
+                runs["HALS EU f32"]["trace"], SWEEP_TOL,
+                {"hals_iteration_eu": RUN_ITERS, "gs_sweep": RUN_ITERS,
+                 "eu_residual_obj": RUN_ITERS + 1}, card, RUN_ITERS,
+                method="hals", inner_sweeps=2, w_init=w0, h_init=h0)
+            profiles["HALS EU f32 single pass"] = profile_run(
+                torch, tt, "HALS EU f32 single pass", eu_x, eu_k, "eu", method="hals",
+                inner_sweeps=2, w_init=w0, h_init=h0)
+        profiles["HALS EU f32"] = profile_run(torch, tt, "HALS EU f32", eu_x, eu_k, "eu",
+                                              method="hals", inner_sweeps=2, w_init=w0,
+                                              h_init=h0)
+
+    def mur_dma_path():
+        # tpunmf's mur_single_pass_variant "dma": the MUR path's EU headline
+        # runs again (the same random init) through mur_iteration_eu_dma
+        with switched(mur_single_pass_variant="dma"):
+            for label, dd in (("EU bf16", torch.bfloat16), ("EU f32", None)):
+                dname = "bfloat16" if dd is not None else "float32"
+                runs[label + " dma"] = switched_run(
+                    torch, tt, counters, label + " dma", eu_x, eu_k, runs[label]["trace"],
+                    ROUTE_RTOL[dname], {"mur_iteration_eu_dma": RUN_ITERS,
+                                        "mur_iteration_eu": 0,
+                                        "eu_residual_obj": RUN_ITERS + 1},
+                    card, RUN_ITERS, method="mur", distance_type="eu", data_dtype=dd)
+            profiles["EU f32 dma"] = profile_run(torch, tt, "EU f32 dma", eu_x, eu_k, "eu")
 
     def masked_path():
         for dist in ("eu", "kl"):
@@ -1160,10 +1340,13 @@ def main() -> int:
                 needed=("eu_residual_obj" if dist == "eu" else "kl_ratio_and_obj",),
                 rho_mode=mode, **ADMM_KW)
 
-    def drive(label, needed, body):
+    def drive(label, needed, body, opt_in=False):
         out, launched = run_path(torch, counters, label, needed, body)
         for name, c in launched.items():
             launches[name] += c
+        if not opt_in:  # the switches at tpunmf's defaults
+            for name in OPT_IN:
+                require(launched[name] == 0, f"{label}: {name} was launched off its switch")
         return out
 
     def profile_path():
@@ -1181,7 +1364,7 @@ def main() -> int:
             profiles[label + " plain"] = profile_run(torch, tt, label + " plain", x,
                                                      HIGH_RANK, dist, plain=True)
 
-    profiles = {}
+    profiles, hals_init = {}, []
     for label, needed, body in (
             ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj",
                           "mur_iteration_eu", "mur_iteration_kl"), mur_path),
@@ -1196,6 +1379,10 @@ def main() -> int:
             ("profile of the MUR routes", ("mur_iteration_eu", "mur_iteration_kl",
                                            "kl_ratio"), profile_path)):
         drive(label, needed, body)
+    drive("HALS single-pass path", ("hals_iteration_eu", "gs_sweep", "eu_residual_obj"),
+          hals_single_path, opt_in=True)
+    drive("MUR EU dma path", ("mur_iteration_eu_dma", "eu_residual_obj"), mur_dma_path,
+          opt_in=True)
     _, launched = run_path(torch, counters, "CUDA float64 tensor path", (),
                            float64_tensor_path)
     require(sum(launched.values()) == 0, "a CUDA float64 tensor launched a kernel")
@@ -1239,7 +1426,8 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()],
         "runs": {label: {k: v for k, v in r.items() if k != "trace"}
                  for label, r in runs.items()},
-        "torch_topk": topk_line, "single_vs_pair": route_line, "profiles": profiles}))
+        "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
+        "profiles": profiles}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ from _torch_parity import (cuda_device, kernel_problem, lowrank,  # noqa: F401
                            masked_problem, t)
 from tpunmf_torch.ops import fused, hals_sweep, masked_fused, mur_fused, topk_select
 from tpunmf_torch.serve import topk
+from tpunmf_torch.solvers import cuda_defaults
 from tpunmf_torch.solvers.mur import mur_route
 
 # f32 sums of positive terms in another order (see chip_smoke.py)
@@ -451,7 +452,9 @@ COUNTERS = [(mur_fused.mur_w_update, "launches"), (mur_fused.mur_w_update, "lagg
             (masked_fused.masked_w_update, "launches"),
             (masked_fused.masked_h_update, "launches"),
             (topk_select.blockmax_relayout, "launches"),
-            (topk_select.score_blockmax_relayout, "launches")]
+            (topk_select.score_blockmax_relayout, "launches"),
+            (mur_fused.mur_iteration_eu_dma, "launches"),
+            (hals_sweep.hals_iteration_eu, "launches")]
 
 
 def _launches():
@@ -559,3 +562,96 @@ def test_high_rank_step_matches_plain_route(cuda_device, dist):
     assert _launches() == before
     assert k_run.i == p_run.i == 4
     np.testing.assert_allclose(k_run.obj_history, p_run.obj_history, rtol=1e-4)
+
+
+# ------------------------------------- the single passes behind the switches
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 40, 128, 513])
+@pytest.mark.parametrize("n", [777, 50001])  # one wave of rows; five, the last ragged
+def test_hals_iteration_matches_plain_version(cuda_device, n, k, xdtype):
+    x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
+    for nsweeps, lam in ((1, 0.0), (2, 0.3)):
+        before = hals_sweep.hals_iteration_eu.launches
+        got = hals_sweep.hals_iteration_eu(x, w, h, lam_w=lam, nsweeps=nsweeps, bm=300)
+        assert hals_sweep.hals_iteration_eu.launches == before + 1
+        want = hals_sweep.hals_iteration_eu_ref(x, w, h, lam_w=lam, nsweeps=nsweeps)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+            assert torch.isfinite(a).all()
+            # the sweeps clamp at 0: held to max |got - want| / max |want|
+            assert _scaled_err(a, b) <= RTOL
+        assert (got[0] >= 0).all()
+        again = hals_sweep.hals_iteration_eu(x, w, h, lam_w=lam, nsweeps=nsweeps, bm=300)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 128, 512])
+@pytest.mark.parametrize("n", [776, 777, 50001])  # rows on 16 bytes (f32 and bf16), or not
+def test_mur_iteration_eu_dma_matches_plain_version_and_auto_bit_for_bit(cuda_device, n, k,
+                                                                         xdtype):
+    x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
+    before = (mur_fused.mur_iteration_eu_dma.launches, mur_fused.mur_iteration_eu.launches)
+    got = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.2, bm=150)
+    assert (mur_fused.mur_iteration_eu_dma.launches,
+            mur_fused.mur_iteration_eu.launches) == (before[0] + 1, before[1])
+    want = mur_fused.mur_iteration_eu_dma_ref(x, w, h, lam_w=0.2)
+    auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.2, bm=150)
+    for a, b, c in zip(got, want, auto):
+        assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+        assert torch.equal(a, c)  # the same FMAs in the same order
+
+
+@pytest.mark.cuda
+def test_opt_in_wrappers_raise_instead_of_falling_back(cuda_device):
+    x, w, h = _on(cuda_device, torch.float32, m=64, n=48, k=8)
+    with pytest.raises(TypeError):
+        hals_sweep.hals_iteration_eu(x.double(), w, h, lam_w=0.0, nsweeps=1, bm=64)
+    with pytest.raises(TypeError):
+        mur_fused.mur_iteration_eu_dma(x.double(), w, h, lam_w=0.0, bm=32)
+    with pytest.raises(TypeError):
+        hals_sweep.hals_iteration_eu(x, w.double(), h.double(), lam_w=0.0, nsweeps=1, bm=64)
+    with pytest.raises(ValueError, match="at least 2 strips"):
+        mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.0, bm=64)
+    with pytest.raises(ValueError):
+        hals_sweep.hals_iteration_eu(x.T.contiguous().T, w, h, lam_w=0.0, nsweeps=1, bm=64)
+
+
+def _launched_by(fn):
+    before = _launches()
+    out = fn()
+    return out, {c: n for c, n in zip(COUNTERS, (a - b for a, b in zip(_launches(), before)))
+                 if n}
+
+
+@pytest.mark.cuda
+def test_switches_route_the_single_passes_and_default_off(cuda_device, monkeypatch):
+    """With tpunmf's defaults neither kernel runs; with the port's switches
+    flipped, HALS and MUR EU launch exactly the single passes.  X has rank
+    16, so at k = 8 and 5 the residual stays well above f32 rounding."""
+    x = t(lowrank(m=64, k=16)).float().to(cuda_device)
+    hals_kw = dict(method="hals", min_iter=5, max_iter=5, inner_sweeps=2)
+    mur_kw = dict(method="mur", distance_type="eu", min_iter=5, max_iter=5,
+                  nndsvd_init=(True, "mean"))
+    hals_run, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 8).factorize(**hals_kw))
+    assert launched == {(hals_sweep.gs_sweep, "launches"): 10,
+                        (fused.eu_residual_obj, "launches"): 6}
+    auto_run, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 5).factorize(**mur_kw))
+    assert launched == {(mur_fused.mur_iteration_eu, "launches"): 5,
+                        (fused.eu_residual_obj, "launches"): 6}
+    monkeypatch.setattr(cuda_defaults, "hals_single_pass", lambda device: True)
+    monkeypatch.setattr(cuda_defaults, "mur_single_pass_variant", lambda device: "dma")
+    single_run, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 8).factorize(**hals_kw))
+    assert launched == {(hals_sweep.hals_iteration_eu, "launches"): 5,
+                        (hals_sweep.gs_sweep, "launches"): 5,
+                        (fused.eu_residual_obj, "launches"): 6}
+    np.testing.assert_allclose(single_run.obj_history, hals_run.obj_history, rtol=1e-4)
+    dma_run, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 5).factorize(**mur_kw))
+    assert launched == {(mur_fused.mur_iteration_eu_dma, "launches"): 5,
+                        (fused.eu_residual_obj, "launches"): 6}
+    np.testing.assert_array_equal(dma_run.obj_history, auto_run.obj_history)
+    np.testing.assert_array_equal(dma_run.w, auto_run.w)

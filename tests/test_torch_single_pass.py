@@ -123,7 +123,12 @@ def test_roofline_bound_is_the_larger_time():
     f32, bf16 = roofline.mur_flops("mur_iteration_eu", m, n, k, True)
     assert bf16 == 4.0 * m * n * k and f32 == 2.0 * k * k * (m + n) + 2.0 * m * k * k
     assert roofline.mur_flops("mur_iteration_kl", m, n, k, True) == (8.0 * m * n * k, 0.0)
-    assert len(roofline._unported()) == 6
+    assert len(roofline._unported()) == 4
+    # the HALS single pass at 2 sweeps: two products against X, the Grams
+    # and 2 sweeps of k steps of 2k flops a row
+    assert roofline.hals_flops(m, n, k, False, 2) == (
+        4.0 * m * n * k + 2.0 * k * k * (m + n) + 4.0 * m * k * k, 0.0)
+    assert roofline.hals_flops(m, n, k, True, 1)[1] == 4.0 * m * n * k
 
 
 # single-pass routes at f64 against tpunmf's plain route

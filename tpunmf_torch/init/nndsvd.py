@@ -67,7 +67,7 @@ def _nndsvd_from_svd(u, s, vt, x_mean, rank, variant, key=None):
 # 'auto' switches to randomized SVD only beyond this min-dimension, on the
 # CPU and on CUDA alike (tpunmf lowers it to 2048 on a TPU only).  The CUDA
 # value is the CPU one until a measurement on the card says otherwise
-# (PERF.md, open questions).
+# (ROADMAP.md, queue 1, item 10: the 'auto' rSVD threshold on CUDA).
 _AUTO_RSVD_THRESHOLD = 16384
 
 

@@ -38,12 +38,16 @@ _SIGNATURES = {
     # h_out, numer_out, stream
     "tpunmf_mur_h_update": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P),
     # x, x_is_bf16, w, hc (H in X's type), gh, lam, m, n, k, w_out, wtx,
-    # gram, scratch, stream
-    "tpunmf_mur_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P),
+    # gram, scratch, dma, stream
+    "tpunmf_mur_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     # x, x_is_bf16, w, h, hsum, lam, m, n, k, w_out, wtr, obj, scratch, stream
     "tpunmf_mur_iteration_kl": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P),
-    # m, n, k, x_is_bf16, is_kl -> floats of scratch the iteration needs
-    "tpunmf_mur_iteration_scratch": (_I, _I, _I, _I, _I),
+    # x, x_is_bf16, w, hc (H in X's type), hht, lam, m, n, k, nsweeps,
+    # w_out, wtx, gram, scratch, stream
+    "tpunmf_hals_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # m, n, k, x_is_bf16, kind (0 MUR EU, 1 MUR KL, 2 HALS) -> floats of
+    # scratch the single-pass iteration needs
+    "tpunmf_iteration_scratch": (_I, _I, _I, _I, _I),
     # a, a strides (2), g, v, v strides (2), lam, k, cols, nsweeps,
     # out, out strides (2), stream
     "tpunmf_gs_sweep": (_P, _I, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P, _I, _I, _P),

@@ -47,6 +47,37 @@ def check_operands(name: str, x, w, h, *extra, max_rank: int):
     return m, n, k
 
 
+def factor_as_x(f, x):
+    """Round a factor to X's storage dtype, then compute in the factor's
+    (the EU products of the kernels cast the factor to X's dtype first)."""
+    return f.to(x.dtype).to(f.dtype) if x.dtype != f.dtype else f
+
+
+def check_strips(x, bm, bs=None):
+    """Raise where ``tpunmf``'s strip height bm (or column block bs) would
+    not divide X, as its single-pass wrappers do."""
+    m, n = x.shape
+    if m % bm:
+        raise ValueError(f"bm={bm} must divide m={m} (grid would truncate)")
+    if bs is not None and n % bs:
+        raise ValueError(f"bs={bs} must divide n={n} (grid would truncate)")
+
+
+# the single-pass iterations of csrc/wave.cuh, as tpunmf_iteration_scratch counts them
+WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS = 0, 1, 2
+
+
+def wave_scratch(x, k: int, kind: int) -> torch.Tensor:
+    """The float32 scratch a single-pass iteration of ``kind`` needs."""
+    m, n = x.shape
+    count = _build.library().tpunmf_iteration_scratch(
+        m, n, k, int(x.dtype == torch.bfloat16), kind)
+    if count < 0:
+        raise ValueError(f"shape {tuple(x.shape)} at k={k} needs more scratch "
+                         "than the kernel can index")
+    return torch.empty(max(count, 1), dtype=torch.float32, device=x.device)
+
+
 def call(name: str, device, *args) -> None:
     """Call C entry ``name`` on ``device``'s current stream and check it."""
     lib = _build.library()

@@ -1,5 +1,7 @@
 // Shared building blocks of the kernels (objective.cu, mur_update.cu,
-// masked_update.cu; hals_sweep.cu uses only the launch helpers).
+// masked_update.cu, and through wave.cuh mur_iteration.cu and
+// hals_iteration.cu; hals_sweep.cu uses the launch helpers and the HALS
+// chain).
 //
 // Every kernel runs 256 threads as a 16 x 16 grid (ty, tx).  A thread owns a
 // TM x TN micro-tile of a (16*TM) x (16*TN) block tile: rows ty + 16*a and
@@ -10,6 +12,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace tpunmf {
 
@@ -199,6 +203,191 @@ __device__ __forceinline__ void ft_x_tile(float (&acc)[4][4], const XT* __restri
   }
 }
 
+// ------------------------------- the same two tile loops, copies overlapped
+// x_ft_tile_async / ft_x_tile_async compute what x_ft_tile / ft_x_tile do,
+// with the same FMAs in the same order (so the same bits), but stage each
+// kChunk slab in two shared-memory buffers: the next slab's copies are
+// issued with cp.async before the FMAs on the current one, so the copy of
+// X and of the factor overlaps the products (the counterpart of the TPU
+// kernel's double-buffered strip DMA, tpunmf/ops/mur_fused.py:368-442).
+// cp.async copies 16 bytes without passing through registers, so the
+// staged rows keep X's layout and type: rows padded by 16 bytes (not by one
+// float) so that each starts on 16 bytes, read back as 16-byte vectors.
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most the latest committed group of this thread is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() { return __float2bfloat16(0.f); }
+
+// One 16-byte piece (V = 16 / sizeof(T) elements) of a staged tile:
+// dst[v] = v < valid ? src[v] : 0.  A whole piece of an aligned row goes by
+// cp.async; a ragged edge, or a row that does not start on 16 bytes (X with
+// n % V != 0), by plain loads.  src is not read where valid <= 0.
+template <typename T>
+__device__ __forceinline__ void stage_piece(T* dst, const T* src, int valid, bool aligned) {
+  constexpr int V = 16 / sizeof(T);
+  if (aligned && valid >= V) {
+    cp_async16(dst, src);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) dst[v] = v < valid ? src[v] : zero_of<T>();
+  }
+}
+
+// The 16 bytes at p (shared memory, 16-byte aligned) as floats.
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&out)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // a bf16 is the high half of its float, exactly
+    out[2 * q] = __uint_as_float(words[q] << 16);
+    out[2 * q + 1] = __uint_as_float(words[q] & 0xffff0000u);
+  }
+}
+
+// Two buffers of x_ft_tile_async: kTile rows of X and of the factor, kChunk
+// columns each, in X's type; element (r, j) at r * LD + j.
+template <typename XT>
+struct XftStage {
+  static constexpr int V = 16 / sizeof(XT), LD = kChunk + V;
+  alignas(16) XT x[2][kTile * LD];
+  alignas(16) XT f[2][kTile * LD];
+};
+
+// x_ft_tile with the factor F already in X's type (the wrapper's pre-cast
+// H); `aligned`: every row of X and F starts on 16 bytes.  Reading 16-byte
+// vectors along the contraction keeps the FMA order of micro_gemm and is
+// free of bank conflicts (8 threads of a phase, rows 16 * LD bytes apart).
+template <typename XT>
+__device__ __forceinline__ void x_ft_tile_async(float (&acc)[4][4], const XT* __restrict__ x,
+                                                const XT* __restrict__ f, int m, int n, int k,
+                                                int row0, int c0, int j0, int j1, bool aligned,
+                                                XftStage<XT>& st) {
+  constexpr int V = XftStage<XT>::V, LD = XftStage<XT>::LD, ROW = kChunk / V;
+  constexpr int PIECES = kTile * ROW;  // of each operand
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  auto issue = [&](int buf, int jb) {
+    for (int l = tid; l < 2 * PIECES; l += kThreads) {
+      const bool is_x = l < PIECES;
+      const int q = is_x ? l : l - PIECES, r = q / ROW, j = q % ROW * V, gj = jb + j;
+      const int g = (is_x ? row0 : c0) + r;
+      const bool in = g < (is_x ? m : k);
+      stage_piece((is_x ? st.x[buf] : st.f[buf]) + r * LD + j,
+                  (is_x ? x : f) + (long long)g * n + gj, in ? j1 - gj : 0, aligned);
+    }
+    cp_async_commit();
+  };
+  issue(0, j0);
+  int buf = 0;
+  for (int jb = j0; jb < j1; jb += kChunk, buf ^= 1) {
+    if (jb + kChunk < j1)
+      issue(buf ^ 1, jb + kChunk);
+    else
+      cp_async_commit();  // an empty group: wait_one then always means "this slab"
+    cp_async_wait_one();
+    __syncthreads();
+    const XT* xs = st.x[buf];
+    const XT* fs = st.f[buf];
+#pragma unroll
+    for (int t0 = 0; t0 < kChunk; t0 += V) {
+      float a[4][V];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_vec(xs + (ty + 16 * i) * LD + t0, a[i]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float b[V];
+        load_vec(fs + (tx + 16 * jj) * LD + t0, b);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(a[i][v], b[v], acc[i][jj]);
+      }
+    }
+    __syncthreads();  // the slab is read before the next issue overwrites it
+  }
+}
+
+// Two buffers of ft_x_tile_async: kChunk rows of F (float, kTile columns)
+// and of X (X's type, kTile columns); element (t, c) at t * LD + c.
+template <typename XT>
+struct FtxStage {
+  static constexpr int V = 16 / sizeof(XT), LDX = kTile + V, LDF = kTile + 4;
+  alignas(16) float f[2][kChunk * LDF];
+  alignas(16) XT x[2][kChunk * LDX];
+};
+
+// ft_x_tile from two-stage copies; `x_aligned` / `f_aligned`: every row of
+// X / F starts on 16 bytes.  F is rounded to X's type as it is read.
+template <typename XT>
+__device__ __forceinline__ void ft_x_tile_async(float (&acc)[4][4], const XT* __restrict__ x,
+                                                const float* __restrict__ f, int n, int k,
+                                                int col0, int c0, int i0, int i1, bool x_aligned,
+                                                bool f_aligned, FtxStage<XT>& st) {
+  constexpr int V = FtxStage<XT>::V, LDX = FtxStage<XT>::LDX, LDF = FtxStage<XT>::LDF;
+  constexpr int XROW = kTile / V, FROW = kTile / 4, XP = kChunk * XROW, FP = kChunk * FROW;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  auto issue = [&](int buf, int ib) {
+    for (int l = tid; l < XP + FP; l += kThreads) {
+      if (l < XP) {
+        const int t = l / XROW, c = l % XROW * V, gi = ib + t, gj = col0 + c;
+        stage_piece(st.x[buf] + t * LDX + c, x + (long long)gi * n + gj,
+                    gi < i1 ? n - gj : 0, x_aligned);
+      } else {
+        const int q = l - XP, t = q / FROW, c = q % FROW * 4, gi = ib + t, gc = c0 + c;
+        stage_piece(st.f[buf] + t * LDF + c, f + (long long)gi * k + gc,
+                    gi < i1 ? k - gc : 0, f_aligned);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0, i0);
+  int buf = 0;
+  for (int ib = i0; ib < i1; ib += kChunk, buf ^= 1) {
+    if (ib + kChunk < i1)
+      issue(buf ^ 1, ib + kChunk);
+    else
+      cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const float* fs = st.f[buf];
+    const XT* xs = st.x[buf];
+#pragma unroll 4
+    for (int t = 0; t < kChunk; ++t) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = round_as_x<XT>(fs[t * LDF + ty + 16 * i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = to_f32(xs[t * LDX + tx + 16 * j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
 // acc[a][b] += sum_kk W[row0 + ty + 16a][kk] * G[kk][c0 + tx + 16b] with W
 // (m, k) and G (k, k): a 64 x 64 tile of W G (the EU W denominator).
 __device__ __forceinline__ void w_g_tile(float (&acc)[4][4], const float* __restrict__ w,
@@ -336,6 +525,64 @@ __device__ __forceinline__ double block_sum(double v) {
     __syncthreads();
   }
   return red[0];
+}
+
+// ------------------------------------------ the HALS Gauss-Seidel chain
+// Shared by gs_sweep (hals_sweep.cu) and the single-pass HALS iteration's
+// sweep epilogue (hals_iteration.cu).
+
+constexpr float kHalsEps = 1e-16f;  // tpunmf/ops/hals_sweep.py:38
+
+// nsweeps passes of the k-step rank-1 closed-form chain over one column c of
+// V (W frame: one row of W), held by one warp: lane t holds V[t + 32 i, c]
+// in vr[i] and the numerator A[t + 32 i, c] in ar[i] (zero past k).
+//   numer = A[l, c] - G[l, :] . V[:, c] + G[l, l] V[l, c]
+//   V[l, c] = max(numer / (G[l, l] + lam + eps), 0)
+// A step is KPT FMAs of G's row l against the lane's V, a 5-level butterfly
+// (__shfl_xor_sync) and the update by the lane that owns row l; G (k, k,
+// row-major) is read through the read-only cache.  The whole warp calls it;
+// no block-wide barrier inside.
+template <int KPT>
+__device__ __forceinline__ void gs_chain(float (&vr)[KPT], const float (&ar)[KPT],
+                                         const float* __restrict__ g, float lam, int k,
+                                         int nsweeps, int lane) {
+  for (int sweep = 0; sweep < nsweeps; ++sweep) {
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      for (int t = 0; t < 32; ++t) {
+        const int l = 32 * i + t;
+        if (l >= k) break;  // uniform across the warp
+        const float* grow = g + (long long)l * k;
+        float dot = 0.f;
+#pragma unroll
+        for (int ii = 0; ii < KPT; ++ii) {
+          const int j = lane + 32 * ii;
+          if (j < k) dot = fmaf(__ldg(grow + j), vr[ii], dot);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == t) {
+          const float gll = __ldg(grow + l);
+          const float numer = ar[i] - dot + gll * vr[i];
+          const float q = numer / (gll + lam + kHalsEps);
+          vr[i] = q < 0.f ? 0.f : q;  // max(q, 0) that keeps a NaN, as jnp.maximum
+        }
+      }
+    }
+  }
+}
+
+// f(std::integral_constant<int, KPT>()) for the values per lane KPT of a
+// warp that holds a column of k <= 1024 (the smallest power of two with
+// 32 * KPT >= k).
+template <typename F>
+cudaError_t with_kpt(int k, F f) {
+  if (k <= 32) return f(std::integral_constant<int, 1>());
+  if (k <= 64) return f(std::integral_constant<int, 2>());
+  if (k <= 128) return f(std::integral_constant<int, 4>());
+  if (k <= 256) return f(std::integral_constant<int, 8>());
+  if (k <= 512) return f(std::integral_constant<int, 16>());
+  return f(std::integral_constant<int, 32>());
 }
 
 }  // namespace tpunmf

@@ -1,0 +1,106 @@
+// The single-pass HALS iteration: HALS's whole W half and the H numerator
+// of one iteration from one read of X in device memory.
+//
+// Replaces the Pallas kernel of tpunmf/ops/hals_sweep.py: hals_iteration_eu
+// (:186, pallas_call :203), body _hals_iter_kernel (:123).
+//
+//   xht = X round(H)^T, then nsweeps Gauss-Seidel sweeps over the k columns
+//   of W against G = H H^T (eps 1e-16, tpunmf/solvers/hals.py:54-69),
+//   wtx = round(W')^T X, gram = W'^T W'                 (round: to X's type)
+//
+// The TPU kernel keeps p = W G as a running rank-1 update inside its strip;
+// the chain here recomputes each step's dot product (gs_chain, as gs_sweep
+// does): the same function with another rounding.
+//
+// What bounds it on the H100: the two products against X, 4*m*n*k f32 FMA
+// flops on one read of X, as mur_iteration.cu's EU iteration; the sweeps
+// add 2*nsweeps*m*k^2 flops, a serial chain along k whose steps are bound
+// by the latency of a warp's dot product and butterfly.  Design: the EU
+// wave schedule of wave.cuh (MUR's single pass) with the elementwise W
+// update replaced by a sweep epilogue: for each wave, after the row kernel
+// (A) has written X round(H)^T in column-chunk partials, one warp owns one
+// row of W, adds the row's partials in a fixed order (the launch after (A)
+// in stream order, so every partial is written before a sweep reads it),
+// and runs the chain against G in registers; the column kernel (B) then
+// reads the wave's W' with X still in L2.  No W Gh denominator is formed.
+// Built without --use_fast_math: the division stays IEEE.
+#include "wave.cuh"
+
+namespace tpunmf {
+namespace {
+
+constexpr int kWarps = kThreads / 32;
+
+// (A2) W' for the wave's rows [r0, r1): xht[r] = the chunks' partials added
+// in order, then nsweeps sweeps of W[r] against g = H H^T (k, k); one warp a
+// row, lane t holding columns t + 32 i.
+template <int KPT>
+__global__ void __launch_bounds__(kThreads)
+    hals_w_kernel(const float* __restrict__ w, const float* __restrict__ g,
+                  const float* __restrict__ part, int nsplit, float lam, int k, int r0, int r1,
+                  int rows, int nsweeps, float* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const int r = r0 + blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= r1) return;  // the whole warp: no barrier follows
+  const long long o = (long long)r * k, po = (long long)(r - r0) * k;
+  float vr[KPT], ar[KPT];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int j = lane + 32 * i;
+    float xht = 0.f;
+    if (j < k)
+      for (int z = 0; z < nsplit; ++z) xht += part[(long long)z * rows * k + po + j];
+    ar[i] = xht;
+    vr[i] = j < k ? w[o + j] : 0.f;
+  }
+  gs_chain<KPT>(vr, ar, g, lam, k, nsweeps, lane);
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int j = lane + 32 * i;
+    if (j < k) out[o + j] = vr[i];
+  }
+}
+
+template <typename XT, int KPT>
+cudaError_t iteration_hals(const void* xv, const void* hv, const float* w, const float* g,
+                           float lam, int m, int n, int k, int nsweeps, float* w_out, float* wtx,
+                           float* gram, float* scratch, cudaStream_t s) {
+  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveHals);
+  const float* part = scratch + p.a_part;
+  auto sweeps = [&](int r0, int r1) {
+    return launch(hals_w_kernel<KPT>, dim3(ceil_div(r1 - r0, kWarps)), 0, s, w, g, part,
+                  p.nsplit, lam, k, r0, r1, p.rows, nsweeps, w_out);
+  };
+  return eu_waves<XT, false>(p, static_cast<const XT*>(xv), static_cast<const XT*>(hv), m, n,
+                             k, sweeps, w_out, wtx, gram, scratch, s);
+}
+
+}  // namespace
+}  // namespace tpunmf
+
+extern "C" {
+
+// HALS iteration.  hc is H (k, n) in X's type, hht = H H^T (k, k); writes
+// W' (m, k) after nsweeps sweeps, wtx = round(W')^T X (k, n) and gram =
+// W'^T W' (k, k).  k <= 1024; scratch: tpunmf_iteration_scratch(kind 2).
+int tpunmf_hals_iteration_eu(const void* x, int x_is_bf16, const void* w, const void* hc,
+                             const void* hht, float lam, int m, int n, int k, int nsweeps,
+                             void* w_out, void* wtx, void* gram, void* scratch, void* stream) {
+  using namespace tpunmf;
+  const float* wf = static_cast<const float*>(w);
+  const float* gf = static_cast<const float*>(hht);
+  float* wo = static_cast<float*>(w_out);
+  float* tx = static_cast<float*>(wtx);
+  float* gr = static_cast<float*>(gram);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_kpt(k, [&](auto kpt) {
+    constexpr int KPT = decltype(kpt)::value;
+    return x_is_bf16 ? iteration_hals<__nv_bfloat16, KPT>(x, hc, wf, gf, lam, m, n, k, nsweeps,
+                                                          wo, tx, gr, sc, s)
+                     : iteration_hals<float, KPT>(x, hc, wf, gf, lam, m, n, k, nsweeps, wo, tx,
+                                                  gr, sc, s);
+  }));
+}
+
+}  // extern "C"

@@ -21,7 +21,8 @@
 //  * Every column is independent, so one warp owns one column: lane t holds
 //    V[t + 32 i, c] and A[t + 32 i, c] (i < KPT) in registers for the whole
 //    call.  A step is KPT FMAs of G's row l against the lane's V, a 5-level
-//    butterfly (__shfl_xor_sync), and the update by the lane that owns row l.
+//    butterfly (__shfl_xor_sync), and the update by the lane that owns row l
+//    (gs_chain, common.cuh, which the single-pass HALS iteration shares).
 //    Warps run independently: no block-wide barrier inside the chain.
 //  * G is read by every warp of the card: through the read-only cache
 //    (__ldg), each step a coalesced row of it (64 KB in all at k = 128, so it
@@ -35,7 +36,6 @@
 namespace tpunmf {
 namespace {
 
-constexpr float kHalsEps = 1e-16f;  // tpunmf/ops/hals_sweep.py:38
 constexpr int kWarps = kThreads / 32;
 
 template <int KPT>
@@ -55,43 +55,12 @@ __global__ void __launch_bounds__(kThreads)
     vr[i] = j < k ? v[(long long)j * v_s0 + c * v_s1] : 0.f;
     ar[i] = j < k ? a[(long long)j * a_s0 + c * a_s1] : 0.f;
   }
-  for (int sweep = 0; sweep < nsweeps; ++sweep) {
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      for (int t = 0; t < 32; ++t) {
-        const int l = 32 * i + t;
-        if (l >= k) break;  // uniform across the warp
-        const float* grow = g + (long long)l * k;
-        float dot = 0.f;
-#pragma unroll
-        for (int ii = 0; ii < KPT; ++ii) {
-          const int j = lane + 32 * ii;
-          if (j < k) dot = fmaf(__ldg(grow + j), vr[ii], dot);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (lane == t) {
-          const float gll = __ldg(grow + l);
-          const float numer = ar[i] - dot + gll * vr[i];
-          const float q = numer / (gll + lam + kHalsEps);
-          vr[i] = q < 0.f ? 0.f : q;  // max(q, 0) that keeps a NaN, as jnp.maximum
-        }
-      }
-    }
-  }
+  gs_chain<KPT>(vr, ar, g, lam, k, nsweeps, lane);
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int j = lane + 32 * i;
     if (j < k) out[(long long)j * o_s0 + c * o_s1] = vr[i];
   }
-}
-
-template <int KPT>
-cudaError_t sweep(const float* a, int a_s0, int a_s1, const float* g, const float* v,
-                  int v_s0, int v_s1, float lam, int k, int cols, int nsweeps, float* out,
-                  int o_s0, int o_s1, cudaStream_t s) {
-  return launch(gs_sweep_kernel<KPT>, dim3(ceil_div(cols, kWarps)), 0, s, a, a_s0, a_s1, g,
-                v, v_s0, v_s1, lam, k, cols, nsweeps, out, o_s0, o_s1);
 }
 
 }  // namespace
@@ -105,26 +74,16 @@ extern "C" {
 int tpunmf_gs_sweep(const void* a, int a_s0, int a_s1, const void* g, const void* v,
                     int v_s0, int v_s1, float lam, int k, int cols, int nsweeps, void* out,
                     int o_s0, int o_s1, void* stream) {
-  using tpunmf::sweep;
+  using namespace tpunmf;
   const float* af = static_cast<const float*>(a);
   const float* gf = static_cast<const float*>(g);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (k <= 32)
-    err = sweep<1>(af, a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1, s);
-  else if (k <= 64)
-    err = sweep<2>(af, a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1, s);
-  else if (k <= 128)
-    err = sweep<4>(af, a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1, s);
-  else if (k <= 256)
-    err = sweep<8>(af, a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1, s);
-  else if (k <= 512)
-    err = sweep<16>(af, a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1, s);
-  else
-    err = sweep<32>(af, a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1, s);
-  return static_cast<int>(err);
+  return static_cast<int>(with_kpt(k, [&](auto kpt) {
+    return launch(gs_sweep_kernel<decltype(kpt)::value>, dim3(ceil_div(cols, kWarps)), 0, s, af,
+                  a_s0, a_s1, gf, vf, v_s0, v_s1, lam, k, cols, nsweeps, of, o_s0, o_s1);
+  }));
 }
 
 }  // extern "C"

@@ -3,6 +3,7 @@
 //
 // Replaces the Pallas kernels of tpunmf/ops/mur_fused.py:
 //   mur_iteration_eu (:314, pallas_call :340): _iter_eu_kernel (:259)
+//   mur_iteration_eu_dma (:465, pallas_call :484): _iter_eu_dma_kernel (:368)
 //   mur_iteration_kl (:652, pallas_call :679): _iter_kl_kernel (:522) and
 //       _iter_kl_blocked_kernel (:595); the latter's column sub-blocks (bs)
 //       were a VMEM tiling of the TPU, and the kernels here stream over
@@ -24,141 +25,32 @@
 // TMA and a persistent kernel that keeps the k x n accumulator on chip are
 // later work.
 //
-// Design: a wave schedule that lets the 50 MB L2 stand in for the TPU's
-// VMEM.  The TPU runs its grid in order on one core and keeps the k x n
-// accumulator (wtx / wtr) resident across the row strips; on the card blocks
-// run in parallel and a block has 227 KB of shared memory, so the rows of X
-// are taken in waves of R rows, R * n * sizeof(X) <= kWaveBytes (24 MB), and
-// for each wave, in stream order:
-//   (A) a row kernel forms the W side over column chunks of the wave
-//       (x_ft_tile for EU; kl_rows, with the lagged objective, for KL): one
-//       partial per chunk, so the wave fills the card;
-//   (A2) an elementwise epilogue adds the chunks' partials in a fixed order
-//       and forms W' for the wave's rows (EU: with the denominator W Gh,
-//       formed for all rows before the first wave by w_g_tile, the
-//       product mur_update.cu's w_eu_kernel forms);
-//   (B) a column kernel adds the wave's rows into wtx / wtr (ft_x_tile for
-//       EU; kl_cols, which recomputes W' H, for KL).  Each output element
-//       has one owner: the first wave writes, later waves add.  Where the
-//       wave has too few column tiles to fill the card, B splits the wave's
-//       rows too, writes partials, and sum_slices adds them in order.
-// The wave's X is still in L2 when B reads it, so X crosses device memory
-// about once per iteration.  The extra traffic is the accumulator's read
-// and write once per wave (2 * k * n * 4 bytes each) and the partials of A.
-// EU's gram = W'^T W' is formed after the last wave, over row chunks of W'
-// with per-chunk partials.  Every cross-block sum is per-block partials added
-// in a fixed order (KL's objective by reduce_partials_into, objective.cu):
-// no float atomics, and the same inputs give the same bits.  Ragged edges
-// load zeros and bound their stores; any (m, n) and k <= 1024 work.
-// Built without --use_fast_math: division, sqrtf and logf stay IEEE.
-#include <algorithm>
+// Design: the wave schedule of wave.cuh, which lets the 50 MB L2 stand in
+// for the TPU's VMEM.  Per wave: (A) x_ft_tile for EU, kl_rows (with the
+// lagged objective) for KL; (A2) EU's elementwise W update with the
+// denominator W Gh, formed for all rows before the first wave by w_g_tile
+// (the product mur_update.cu's w_eu_kernel forms), or KL's closed form;
+// (B) ft_x_tile for EU, kl_cols (which recomputes W' H) for KL.  KL's
+// objective is summed by reduce_partials_into (objective.cu).
+//
+// The "dma" EU variant is the same schedule with (A) and (B) on the
+// two-stage cp.async tile loops (x_ft_tile_async, ft_x_tile_async): the
+// next slab of X and of the factor is in flight while the FMAs run on the
+// current one, as the TPU kernel double-buffers its strips by hand.  The
+// FMAs and their order are those of the plain EU variant, so its outputs
+// are the same bits.  While FMA throughput bounds both, hiding copy latency
+// can buy little.
+//
+// Ragged edges load zeros and bound their stores; any (m, n) and k <= 1024
+// work.  Built without --use_fast_math: division, sqrtf and logf stay IEEE.
 #include <climits>
 
-#include "common.cuh"
+#include "wave.cuh"
 
 namespace tpunmf {
 namespace {
 
-constexpr long long kWaveBytes = 24ll << 20;  // X bytes per wave, well under the L2
-// Blocks a launch aims for: 4 per SM of the H100.  At 2 the FMA tiles of a
-// short wave hide too little latency (measured slower on the card).
-constexpr int kFill = 4 * 132;
-
-inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
-
-// How many pieces to split `extent` (in kTile units) into so that `blocks`
-// blocks become about kFill; 1 when the launch already covers the SMs.
-inline int split_for(int blocks, int extent) {
-  if (blocks >= kFill / 2) return 1;
-  const int s = ceil_div(kFill, blocks);
-  return s < extent ? s : extent;
-}
-
-// Blocks of an elementwise pass over len elements (grid-stride beyond).
-inline dim3 elementwise_grid(long long len) {
-  const long long blocks = (len + kThreads - 1) / kThreads;
-  return dim3((unsigned)(blocks < kFill ? blocks : kFill));
-}
-
-struct Plan {
-  int rows, waves;             // R rows of X per wave (a multiple of kTile)
-  int a_cols, nsplit;          // (A): column chunk width, chunks
-  int b_rows, msplit;          // (B): row chunk height, chunks
-  int g_rows, gsplit;          // EU gram: row chunk height, chunks
-  long long a_part, b_part, g_part, obj_part, den, scratch;  // float offsets, total
-};
-
-Plan make_plan(int m, int n, int k, int x_bytes, bool kl) {
-  Plan p{};
-  long long rows = kWaveBytes / ((long long)n * x_bytes) / kTile * kTile;
-  const int all = round_up(m, kTile);
-  p.rows = rows < kTile ? kTile : (rows > all ? all : (int)rows);
-  p.waves = ceil_div(m, p.rows);
-  const int ktiles = ceil_div(k, kTile);
-
-  // KL blocks own whole rows (columns) and all of k; EU blocks 64 x 64 tiles
-  const int tile = kl ? kl_block(k) : kTile;
-  const int a_blocks = ceil_div(p.rows, tile) * (kl ? 1 : ktiles);
-  p.a_cols = round_up(ceil_div(n, split_for(a_blocks, ceil_div(n, kTile))), kTile);
-  p.nsplit = ceil_div(n, p.a_cols);
-
-  const int b_blocks = ceil_div(n, tile) * (kl ? 1 : ktiles);
-  p.b_rows = round_up(ceil_div(p.rows, split_for(b_blocks, p.rows / kTile)), kTile);
-  p.msplit = ceil_div(p.rows, p.b_rows);
-
-  p.g_rows = round_up(ceil_div(m, split_for(ktiles * ktiles, ceil_div(m, kTile))), kTile);
-  p.gsplit = kl ? 0 : ceil_div(m, p.g_rows);
-
-  p.a_part = 0;
-  p.b_part = p.a_part + (long long)p.nsplit * p.rows * k;
-  p.g_part = p.b_part + (p.msplit > 1 ? (long long)p.msplit * k * n : 0);
-  p.obj_part = p.g_part + (long long)p.gsplit * k * k;
-  p.den = p.obj_part + (kl ? (long long)p.waves * ceil_div(p.rows, tile) * p.nsplit : 0);
-  p.scratch = p.den + (kl ? 0 : (long long)m * k);
-  return p;
-}
-
-// out[i] = (add ? out[i] : 0) + parts[0][i] + parts[1][i] + ..., in that order.
-__global__ void __launch_bounds__(kThreads)
-    sum_slices_kernel(float* __restrict__ out, const float* __restrict__ parts, int count,
-                      long long len, bool add) {
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
-       i += (long long)gridDim.x * kThreads) {
-    float v = add ? out[i] : 0.f;
-    for (int s = 0; s < count; ++s) v += parts[s * len + i];
-    out[i] = v;
-  }
-}
-
-cudaError_t sum_slices(float* out, const float* parts, int count, long long len, bool add,
-                       cudaStream_t s) {
-  return launch(sum_slices_kernel, elementwise_grid(len), 0, s, out, parts, count, len, add);
-}
-
 // ------------------------------------------------------------------------ EU
-// (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]);
-// grid (ceil(wave rows / 64), ceil(k / 64), nsplit).  hc is H in X's type.
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-    eu_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ hc, int m, int n, int k,
-                   int r0, int rows, int a_cols, float* __restrict__ part) {
-  __shared__ EuStage st;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int row0 = r0 + blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.z * a_cols, j1 = min(j0 + a_cols, n);
-  float numer[4][4];
-  zero(numer);
-  x_ft_tile<XT>(numer, x, hc, m, n, k, row0, c0, j0, j1, st);
-  float* out = part + (long long)blockIdx.z * rows * k;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
-      if (gr < m && gc < k) out[(long long)(gr - r0) * k + gc] = numer[a][b];
-    }
-}
-
 // den = W Gh for all rows, before the first wave; grid (ceil(m / 64), ceil(k / 64)).
 __global__ void __launch_bounds__(kThreads)
     eu_den_kernel(const float* __restrict__ w, const float* __restrict__ gh, int m, int k,
@@ -195,88 +87,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// (B) the wave's rows of round(W')^T X into wtx; grid (ceil(n / 64),
-// ceil(k / 64), msplit).  msplit == 1: wtx = (first ? 0 : wtx) + tile;
-// otherwise part[z] = the tile of row chunk z.
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-    eu_cols_kernel(const XT* __restrict__ x, const float* __restrict__ w_new, int n, int k,
-                   int r0, int r1, int b_rows, bool first, float* __restrict__ wtx,
-                   float* __restrict__ part) {
-  __shared__ EuStage st;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const int i0 = r0 + blockIdx.z * b_rows, i1 = min(i0 + b_rows, r1);
-  float acc[4][4];
-  zero(acc);
-  ft_x_tile<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, st);
-  const bool direct = gridDim.z == 1;
-  float* out = direct ? wtx : part + (long long)blockIdx.z * k * n;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gr = c0 + ty + 16 * a, gj = col0 + tx + 16 * b;
-      if (gr < k && gj < n) {
-        const long long o = (long long)gr * n + gj;
-        out[o] = (direct && !first ? out[o] : 0.f) + acc[a][b];
-      }
-    }
-}
-
-// gram partial of row chunk z: part[z] = W'[chunk]^T W'[chunk];
-// grid (ceil(k / 64), ceil(k / 64), gsplit).
-__global__ void __launch_bounds__(kThreads)
-    gram_kernel(const float* __restrict__ w, int m, int k, int g_rows,
-                float* __restrict__ part) {
-  __shared__ EuStage st;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const int i0 = blockIdx.z * g_rows, i1 = min(i0 + g_rows, m);
-  float acc[4][4];
-  zero(acc);
-  ft_x_tile<float>(acc, w, w, k, k, col0, c0, i0, i1, st);
-  float* out = part + (long long)blockIdx.z * k * k;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gr = c0 + ty + 16 * a, gc = col0 + tx + 16 * b;
-      if (gr < k && gc < k) out[(long long)gr * k + gc] = acc[a][b];
-    }
-}
-
-template <typename XT>
+template <typename XT, bool ASYNC>
 cudaError_t iteration_eu(const void* xv, const void* hv, const float* w, const float* gh,
                          float lam, int m, int n, int k, float* w_out, float* wtx, float* gram,
                          float* scratch, cudaStream_t s) {
-  const XT* x = static_cast<const XT*>(xv);
-  const XT* hc = static_cast<const XT*>(hv);
-  const Plan p = make_plan(m, n, k, sizeof(XT), false);
-  const int ktiles = ceil_div(k, kTile);
-  cudaError_t err = launch(eu_den_kernel, dim3(ceil_div(m, kTile), ktiles), 0, s, w, gh, m, k,
-                           scratch + p.den);
-  for (int wave = 0; wave < p.waves && err == cudaSuccess; ++wave) {
-    const int r0 = wave * p.rows, r1 = std::min(r0 + p.rows, m), rtiles = ceil_div(r1 - r0, kTile);
-    err = launch(eu_rows_kernel<XT>, dim3(rtiles, ktiles, p.nsplit), 0, s, x, hc, m, n, k, r0,
-                 p.rows, p.a_cols, scratch + p.a_part);
-    if (err != cudaSuccess) break;
-    err = launch(eu_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w,
-                 static_cast<const float*>(scratch + p.den), scratch + p.a_part, p.nsplit, lam,
-                 k, r0, r1, p.rows, w_out);
-    if (err != cudaSuccess) break;
-    const int msplit = ceil_div(r1 - r0, p.b_rows);
-    err = launch(eu_cols_kernel<XT>, dim3(ceil_div(n, kTile), ktiles, p.msplit), 0, s, x,
-                 static_cast<const float*>(w_out), n, k, r0, r1, p.b_rows, wave == 0, wtx,
-                 scratch + p.b_part);
-    if (err == cudaSuccess && p.msplit > 1)
-      err = sum_slices(wtx, scratch + p.b_part, msplit, (long long)k * n, wave > 0, s);
-  }
+  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveEu);
+  const float* den = scratch + p.den;
+  const float* part = scratch + p.a_part;
+  cudaError_t err = launch(eu_den_kernel, dim3(ceil_div(m, kTile), ceil_div(k, kTile)), 0, s, w,
+                           gh, m, k, scratch + p.den);
   if (err != cudaSuccess) return err;
-  err = launch(gram_kernel, dim3(ktiles, ktiles, p.gsplit), 0, s,
-               static_cast<const float*>(w_out), m, k, p.g_rows, scratch + p.g_part);
-  if (err != cudaSuccess) return err;
-  return sum_slices(gram, scratch + p.g_part, p.gsplit, (long long)k * k, false, s);
+  auto w_update = [&](int r0, int r1) {
+    return launch(eu_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w, den, part,
+                  p.nsplit, lam, k, r0, r1, p.rows, w_out);
+  };
+  return eu_waves<XT, ASYNC>(p, static_cast<const XT*>(xv), static_cast<const XT*>(hv), m, n, k,
+                             w_update, w_out, wtx, gram, scratch, s);
 }
 
 // ------------------------------------------------------------------------ KL
@@ -358,7 +184,7 @@ cudaError_t iteration_kl_tiles(const XT* x, const float* w, const float* h, cons
                          float lam, int m, int n, int k, float* w_out, float* wtr, float* obj,
                          float* scratch, cudaStream_t s) {
   constexpr int BM = 16 * TM, TN = TM, BN = 16 * TN;
-  const Plan p = make_plan(m, n, k, sizeof(XT), true);
+  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveKl);
   const int kpad = round_up(k, kTile);
   const size_t a_smem = (size_t)BM * (kpad + 1) * sizeof(float);
   const size_t b_smem = (size_t)kpad * (BN + 1) * sizeof(float);
@@ -400,18 +226,20 @@ cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const f
 
 extern "C" {
 
-// Floats of scratch tpunmf_mur_iteration_eu (is_kl = 0) or _kl (is_kl = 1)
-// needs at (m, n, k); -1 if that is more than an int can count.
-int tpunmf_mur_iteration_scratch(int m, int n, int k, int x_is_bf16, int is_kl) {
-  const long long s = tpunmf::make_plan(m, n, k, x_is_bf16 ? 2 : 4, is_kl).scratch;
+// Floats of scratch the single-pass iteration of `kind` (0: MUR EU, 1: MUR
+// KL, 2: HALS EU) needs at (m, n, k); -1 if that is more than an int can
+// count.
+int tpunmf_iteration_scratch(int m, int n, int k, int x_is_bf16, int kind) {
+  const long long s = tpunmf::make_plan(m, n, k, x_is_bf16 ? 2 : 4, kind).scratch;
   return s <= INT_MAX ? (int)s : -1;
 }
 
 // EU iteration.  hc is H (k, n) in X's type, gh = H H^T (k, k); writes W'
-// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).
+// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).  dma = 1:
+// the tile loops with two-stage cp.async copies (the same bits).
 int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const void* hc,
                             const void* gh, float lam, int m, int n, int k, void* w_out,
-                            void* wtx, void* gram, void* scratch, void* stream) {
+                            void* wtx, void* gram, void* scratch, int dma, void* stream) {
   const float* wf = static_cast<const float*>(w);
   const float* gf = static_cast<const float*>(gh);
   float* wo = static_cast<float*>(w_out);
@@ -419,10 +247,15 @@ int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const v
   float* gr = static_cast<float*>(gram);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      x_is_bf16
-          ? tpunmf::iteration_eu<__nv_bfloat16>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
-          : tpunmf::iteration_eu<float>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s);
+  using tpunmf::iteration_eu;
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (x_is_bf16)
+    err = dma ? iteration_eu<bf16, true>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
+              : iteration_eu<bf16, false>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s);
+  else
+    err = dma ? iteration_eu<float, true>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
+              : iteration_eu<float, false>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s);
   return static_cast<int>(err);
 }
 

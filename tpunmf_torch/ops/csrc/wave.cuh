@@ -1,0 +1,236 @@
+// The wave schedule of the single-pass iterations: MUR's EU and KL
+// (mur_iteration.cu) and HALS's EU (hals_iteration.cu).
+//
+// The TPU kernels run their grid in order on one core and keep the k x n
+// accumulator (wtx / wtr) resident across the row strips; on the card blocks
+// run in parallel and a block has 227 KB of shared memory, so the rows of X
+// are taken in waves of R rows, R * n * sizeof(X) <= kWaveBytes (24 MB, well
+// under the 50 MB L2), and for each wave, in stream order:
+//   (A) a row kernel forms the W side over column chunks of the wave: one
+//       partial per chunk, so the wave fills the card;
+//   (A2) an epilogue adds the chunks' partials in a fixed order and forms W'
+//       for the wave's rows (MUR: elementwise; HALS: the Gauss-Seidel sweeps);
+//   (B) a column kernel adds the wave's rows into wtx / wtr.  Each output
+//       element has one owner: the first wave writes, later waves add.
+//       Where the wave has too few column tiles to fill the card, B splits
+//       the wave's rows too, writes partials, and sum_slices adds them in
+//       order.
+// The wave's X is still in L2 when B reads it, so X crosses device memory
+// about once per iteration.  EU's gram = W'^T W' is formed after the last
+// wave, over row chunks of W' with per-chunk partials.  Every cross-block
+// sum is per-block partials added in a fixed order: no float atomics, and
+// the same inputs give the same bits.
+#pragma once
+
+#include <algorithm>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace tpunmf {
+namespace {
+
+constexpr long long kWaveBytes = 24ll << 20;  // X bytes per wave, well under the L2
+// Blocks a launch aims for: 4 per SM of the H100.  At 2 the FMA tiles of a
+// short wave hide too little latency (measured slower on the card).
+constexpr int kFill = 4 * 132;
+
+inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
+
+// How many pieces to split `extent` (in kTile units) into so that `blocks`
+// blocks become about kFill; 1 when the launch already covers the SMs.
+inline int split_for(int blocks, int extent) {
+  if (blocks >= kFill / 2) return 1;
+  const int s = ceil_div(kFill, blocks);
+  return s < extent ? s : extent;
+}
+
+// Blocks of an elementwise pass over len elements (grid-stride beyond).
+inline dim3 elementwise_grid(long long len) {
+  const long long blocks = (len + kThreads - 1) / kThreads;
+  return dim3((unsigned)(blocks < kFill ? blocks : kFill));
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The iteration a plan is for (the `kind` of tpunmf_iteration_scratch).
+enum Wave { kWaveEu = 0, kWaveKl = 1, kWaveHals = 2 };
+
+struct Plan {
+  int rows, waves;             // R rows of X per wave (a multiple of kTile)
+  int a_cols, nsplit;          // (A): column chunk width, chunks
+  int b_rows, msplit;          // (B): row chunk height, chunks
+  int g_rows, gsplit;          // EU gram: row chunk height, chunks
+  long long a_part, b_part, g_part, obj_part, den, scratch;  // float offsets, total
+};
+
+inline Plan make_plan(int m, int n, int k, int x_bytes, int kind) {
+  const bool kl = kind == kWaveKl;
+  Plan p{};
+  long long rows = kWaveBytes / ((long long)n * x_bytes) / kTile * kTile;
+  const int all = round_up(m, kTile);
+  p.rows = rows < kTile ? kTile : (rows > all ? all : (int)rows);
+  p.waves = ceil_div(m, p.rows);
+  const int ktiles = ceil_div(k, kTile);
+
+  // KL blocks own whole rows (columns) and all of k; EU blocks 64 x 64 tiles
+  const int tile = kl ? kl_block(k) : kTile;
+  const int a_blocks = ceil_div(p.rows, tile) * (kl ? 1 : ktiles);
+  p.a_cols = round_up(ceil_div(n, split_for(a_blocks, ceil_div(n, kTile))), kTile);
+  p.nsplit = ceil_div(n, p.a_cols);
+
+  const int b_blocks = ceil_div(n, tile) * (kl ? 1 : ktiles);
+  p.b_rows = round_up(ceil_div(p.rows, split_for(b_blocks, p.rows / kTile)), kTile);
+  p.msplit = ceil_div(p.rows, p.b_rows);
+
+  p.g_rows = round_up(ceil_div(m, split_for(ktiles * ktiles, ceil_div(m, kTile))), kTile);
+  p.gsplit = kl ? 0 : ceil_div(m, p.g_rows);
+
+  p.a_part = 0;
+  p.b_part = p.a_part + (long long)p.nsplit * p.rows * k;
+  p.g_part = p.b_part + (p.msplit > 1 ? (long long)p.msplit * k * n : 0);
+  p.obj_part = p.g_part + (long long)p.gsplit * k * k;
+  p.den = p.obj_part + (kl ? (long long)p.waves * ceil_div(p.rows, tile) * p.nsplit : 0);
+  p.scratch = p.den + (kind == kWaveEu ? (long long)m * k : 0);
+  return p;
+}
+
+// out[i] = (add ? out[i] : 0) + parts[0][i] + parts[1][i] + ..., in that order.
+__global__ void __launch_bounds__(kThreads)
+    sum_slices_kernel(float* __restrict__ out, const float* __restrict__ parts, int count,
+                      long long len, bool add) {
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
+       i += (long long)gridDim.x * kThreads) {
+    float v = add ? out[i] : 0.f;
+    for (int s = 0; s < count; ++s) v += parts[s * len + i];
+    out[i] = v;
+  }
+}
+
+inline cudaError_t sum_slices(float* out, const float* parts, int count, long long len,
+                              bool add, cudaStream_t s) {
+  return launch(sum_slices_kernel, elementwise_grid(len), 0, s, out, parts, count, len, add);
+}
+
+// ----------------------------------------------------- the EU wave kernels
+// ASYNC: the tile loops with two-stage cp.async copies (common.cuh), the
+// same FMAs in the same order.
+
+// (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]);
+// grid (ceil(wave rows / 64), ceil(k / 64), nsplit).  hc is H in X's type;
+// `aligned`: the rows of X and hc start on 16 bytes.
+template <typename XT, bool ASYNC>
+__global__ void __launch_bounds__(kThreads)
+    eu_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ hc, int m, int n, int k,
+                   int r0, int rows, int a_cols, bool aligned, float* __restrict__ part) {
+  __shared__ std::conditional_t<ASYNC, XftStage<XT>, EuStage> st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int row0 = r0 + blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.z * a_cols, j1 = min(j0 + a_cols, n);
+  float numer[4][4];
+  zero(numer);
+  if constexpr (ASYNC)
+    x_ft_tile_async<XT>(numer, x, hc, m, n, k, row0, c0, j0, j1, aligned, st);
+  else
+    x_ft_tile<XT>(numer, x, hc, m, n, k, row0, c0, j0, j1, st);
+  float* out = part + (long long)blockIdx.z * rows * k;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
+      if (gr < m && gc < k) out[(long long)(gr - r0) * k + gc] = numer[a][b];
+    }
+}
+
+// (B) the wave's rows of round(W')^T X into wtx; grid (ceil(n / 64),
+// ceil(k / 64), msplit).  msplit == 1: wtx = (first ? 0 : wtx) + tile;
+// otherwise part[z] = the tile of row chunk z.  x_aligned / w_aligned: the
+// rows of X / W' start on 16 bytes.
+template <typename XT, bool ASYNC>
+__global__ void __launch_bounds__(kThreads)
+    eu_cols_kernel(const XT* __restrict__ x, const float* __restrict__ w_new, int n, int k,
+                   int r0, int r1, int b_rows, bool first, bool x_aligned, bool w_aligned,
+                   float* __restrict__ wtx, float* __restrict__ part) {
+  __shared__ std::conditional_t<ASYNC, FtxStage<XT>, EuStage> st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int i0 = r0 + blockIdx.z * b_rows, i1 = min(i0 + b_rows, r1);
+  float acc[4][4];
+  zero(acc);
+  if constexpr (ASYNC)
+    ft_x_tile_async<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, x_aligned, w_aligned, st);
+  else
+    ft_x_tile<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, st);
+  const bool direct = gridDim.z == 1;
+  float* out = direct ? wtx : part + (long long)blockIdx.z * k * n;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = c0 + ty + 16 * a, gj = col0 + tx + 16 * b;
+      if (gr < k && gj < n) {
+        const long long o = (long long)gr * n + gj;
+        out[o] = (direct && !first ? out[o] : 0.f) + acc[a][b];
+      }
+    }
+}
+
+// gram partial of row chunk z: part[z] = W'[chunk]^T W'[chunk];
+// grid (ceil(k / 64), ceil(k / 64), gsplit).
+__global__ void __launch_bounds__(kThreads)
+    gram_kernel(const float* __restrict__ w, int m, int k, int g_rows,
+                float* __restrict__ part) {
+  __shared__ EuStage st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int i0 = blockIdx.z * g_rows, i1 = min(i0 + g_rows, m);
+  float acc[4][4];
+  zero(acc);
+  ft_x_tile<float>(acc, w, w, k, k, col0, c0, i0, i1, st);
+  float* out = part + (long long)blockIdx.z * k * k;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = c0 + ty + 16 * a, gc = col0 + tx + 16 * b;
+      if (gr < k && gc < k) out[(long long)gr * k + gc] = acc[a][b];
+    }
+}
+
+// The EU waves: per wave (A), epilogue(r0, r1) (which writes W' for the
+// wave's rows [r0, r1) into w_out from the partials at scratch + p.a_part),
+// (B); then gram = W'^T W'.  hc is H (k, n) in X's type.
+template <typename XT, bool ASYNC, typename Epilogue>
+cudaError_t eu_waves(const Plan& p, const XT* x, const XT* hc, int m, int n, int k,
+                     Epilogue epilogue, float* w_out, float* wtx, float* gram, float* scratch,
+                     cudaStream_t s) {
+  constexpr int V = 16 / sizeof(XT);
+  const bool x_aligned = n % V == 0 && aligned16(x);
+  const bool h_aligned = x_aligned && aligned16(hc);
+  const bool w_aligned = k % 4 == 0 && aligned16(w_out);
+  const int ktiles = ceil_div(k, kTile);
+  cudaError_t err = cudaSuccess;
+  for (int wave = 0; wave < p.waves && err == cudaSuccess; ++wave) {
+    const int r0 = wave * p.rows, r1 = std::min(r0 + p.rows, m), rtiles = ceil_div(r1 - r0, kTile);
+    err = launch(eu_rows_kernel<XT, ASYNC>, dim3(rtiles, ktiles, p.nsplit), 0, s, x, hc, m, n,
+                 k, r0, p.rows, p.a_cols, h_aligned, scratch + p.a_part);
+    if (err != cudaSuccess) break;
+    err = epilogue(r0, r1);
+    if (err != cudaSuccess) break;
+    const int msplit = ceil_div(r1 - r0, p.b_rows);
+    err = launch(eu_cols_kernel<XT, ASYNC>, dim3(ceil_div(n, kTile), ktiles, p.msplit), 0, s, x,
+                 static_cast<const float*>(w_out), n, k, r0, r1, p.b_rows, wave == 0, x_aligned,
+                 w_aligned, wtx, scratch + p.b_part);
+    if (err == cudaSuccess && p.msplit > 1)
+      err = sum_slices(wtx, scratch + p.b_part, msplit, (long long)k * n, wave > 0, s);
+  }
+  if (err != cudaSuccess) return err;
+  err = launch(gram_kernel, dim3(ktiles, ktiles, p.gsplit), 0, s,
+               static_cast<const float*>(w_out), m, k, p.g_rows, scratch + p.g_part);
+  if (err != cudaSuccess) return err;
+  return sum_slices(gram, scratch + p.g_part, p.gsplit, (long long)k * k, false, s);
+}
+
+}  // namespace
+}  // namespace tpunmf

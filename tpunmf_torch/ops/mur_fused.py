@@ -17,7 +17,10 @@
   csrc/mur_iteration.cu): the W update and the H numerator of a whole
   iteration from one read of X in device memory; the caller finishes the
   k-sized H update.  ``iter_eu_tileable`` / ``iter_kl_tileable`` are
-  ``tpunmf``'s route rule for it.
+  ``tpunmf``'s route rule for it.  ``mur_iteration_eu_dma`` is the EU pass
+  with its copies overlapped with the products (``tpunmf``'s manual-DMA
+  variant, which its ``mur_single_pass_variant`` switch selects;
+  ``iter_eu_dma_tileable`` is its rule).
 
 ``updates_take`` says which X and ranks the kernels take (float32 or
 bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
@@ -43,7 +46,8 @@ import torch
 from ..core.losses import kl_elementwise_sum
 from ..core.precision import full_f32
 from . import _build
-from ._launch import MAX_RANK, call, check_operands, on_cpu
+from ._launch import (MAX_RANK, WAVE_MUR_EU, WAVE_MUR_KL, call, check_operands,
+                      check_strips, factor_as_x, on_cpu, wave_scratch)
 
 _EPS = 1e-9
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -58,11 +62,6 @@ def updates_take(x, k: int) -> bool:
     return x.dtype in _X_DTYPES and 1 <= k <= MAX_RANK
 
 
-def _factor_as_x(f, x):
-    """Round a factor to X's storage dtype, then compute in the factor's."""
-    return f.to(x.dtype).to(f.dtype) if x.dtype != f.dtype else f
-
-
 @full_f32()
 def mur_w_update_ref(x, w, h, *, distance_type: str, lam: float,
                      with_lagged_obj: bool = False):
@@ -71,7 +70,7 @@ def mur_w_update_ref(x, w, h, *, distance_type: str, lam: float,
     xf = x.to(w.dtype)
     if distance_type == "eu":
         gh = h @ h.T
-        numer = xf @ _factor_as_x(h, x).T
+        numer = xf @ factor_as_x(h, x).T
         return w * numer / (w @ gh + lam * w + _EPS)
     wh = w @ h
     r = xf / (wh + _EPS)
@@ -89,7 +88,7 @@ def mur_h_update_ref(x, w, h, *, distance_type: str, lam: float):
     xf = x.to(w.dtype)
     if distance_type == "eu":
         gw = w.T @ w
-        numer = _factor_as_x(w, x).T @ xf
+        numer = factor_as_x(w, x).T @ xf
         return h * numer / (gw @ h + lam * h + _EPS), numer
     r = xf / (w @ h + _EPS)
     numer = w.T @ r
@@ -218,21 +217,37 @@ def iter_kl_tileable(x, k: int):
     return None
 
 
-def _check_strips(x, bm, bs=None):
+def iter_eu_dma_tileable(x, k: int):
+    """Strip height bm for the "dma" variant of the single-pass EU
+    iteration, or None.
+
+    ``tpunmf``'s route rule (tpunmf/ops/mur_fused.py:445-462), copied as
+    it is: its constants describe the manual-DMA kernel's residency in the
+    TPU's fast memory (H^T, the WtX accumulator, two X strip slots, the W
+    slots), not this card.  It needs at least 2 strips.  ``x`` is anything
+    with ``.shape`` and ``.dtype`` (a ``meta`` tensor will do)."""
+    if x.dtype not in _X_DTYPES:
+        return None
     m, n = x.shape
-    if m % bm:
-        raise ValueError(f"bm={bm} must divide m={m} (grid would truncate)")
-    if bs is not None and n % bs:
-        raise ValueError(f"bs={bs} must divide n={n} (grid would truncate)")
+    xb = x.dtype.itemsize
+    budget = 13 * 1024 * 1024
+    fixed = k * n * xb + k * n * 4 + 2 * k * k * 4
+    for bm in (256, 128, 64, 32):
+        if m % bm or m // bm < 2:
+            continue
+        need = fixed + 2 * bm * n * xb + 4 * bm * k * 4
+        if need <= budget:
+            return bm
+    return None
 
 
 @full_f32()
 def mur_iteration_eu_ref(x, w, h, *, lam_w: float):
     """Plain version of :func:`mur_iteration_eu`: (w_new, wtx, gram_w)."""
     xf = x.to(w.dtype)
-    numer = xf @ _factor_as_x(h, x).T
+    numer = xf @ factor_as_x(h, x).T
     w_new = w * numer / (w @ (h @ h.T) + lam_w * w + _EPS)
-    wtx = _factor_as_x(w_new, x).T @ xf
+    wtx = factor_as_x(w_new, x).T @ xf
     return w_new, wtx, w_new.T @ w_new
 
 
@@ -248,14 +263,27 @@ def mur_iteration_kl_ref(x, w, h, *, lam_w: float):
     return w_new, wtr, kl_elementwise_sum(xf, wh)
 
 
-def _scratch(x, k, is_kl):
-    m, n = x.shape
-    count = _build.library().tpunmf_mur_iteration_scratch(
-        m, n, k, int(x.dtype == torch.bfloat16), int(is_kl))
-    if count < 0:
-        raise ValueError(f"shape {tuple(x.shape)} at k={k} needs more scratch "
-                         "than the kernel can index")
-    return torch.empty(max(count, 1), dtype=torch.float32, device=x.device)
+@full_f32()
+def mur_iteration_eu_dma_ref(x, w, h, *, lam_w: float):
+    """Plain version of :func:`mur_iteration_eu_dma`: the function of
+    :func:`mur_iteration_eu_ref` (tpunmf names ``mur_iteration_eu`` as the
+    DMA kernel's CPU oracle, tpunmf/ops/mur_fused.py:470-472)."""
+    return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
+
+
+def _launch_iteration_eu(name, x, w, h, lam_w, dma):
+    m, n, k = check_operands(name, x, w, h, max_rank=MAX_RANK)
+    gh = h @ h.T
+    hc = h.to(x.dtype)  # pre-cast, as tpunmf/ops/mur_fused.py:330, :481
+    w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    wtx = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    gram = torch.empty((k, k), dtype=torch.float32, device=x.device)
+    scratch = wave_scratch(x, k, WAVE_MUR_EU)
+    call("tpunmf_mur_iteration_eu", x.device, x.data_ptr(),
+         int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(), gh.data_ptr(),
+         float(lam_w), m, n, k, w_new.data_ptr(), wtx.data_ptr(), gram.data_ptr(),
+         scratch.data_ptr(), int(dma))
+    return w_new, wtx, gram
 
 
 @full_f32()
@@ -267,22 +295,30 @@ def mur_iteration_eu(x, w, h, *, lam_w: float, bm: int):
     ``h * wtx / (gram_w @ h + lam_h h + eps)`` (tpunmf/ops/mur_fused.py:
     314-362).  ``bm`` is ``iter_eu_tileable``'s strip height and must
     divide m, as in ``tpunmf``."""
-    _check_strips(x, bm)
+    check_strips(x, bm)
     if on_cpu(x):
         return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
-    m, n, k = check_operands("mur_iteration_eu", x, w, h, max_rank=MAX_RANK)
-    gh = h @ h.T
-    hc = h.to(x.dtype)  # pre-cast, as tpunmf/ops/mur_fused.py:330
-    w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    wtx = torch.empty((k, n), dtype=torch.float32, device=x.device)
-    gram = torch.empty((k, k), dtype=torch.float32, device=x.device)
-    scratch = _scratch(x, k, False)
-    call("tpunmf_mur_iteration_eu", x.device, x.data_ptr(),
-         int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(), gh.data_ptr(),
-         float(lam_w), m, n, k, w_new.data_ptr(), wtx.data_ptr(), gram.data_ptr(),
-         scratch.data_ptr())
+    out = _launch_iteration_eu("mur_iteration_eu", x, w, h, lam_w, dma=False)
     mur_iteration_eu.launches += 1
-    return w_new, wtx, gram
+    return out
+
+
+@full_f32()
+def mur_iteration_eu_dma(x, w, h, *, lam_w: float, bm: int):
+    """:func:`mur_iteration_eu` with its copies of X and the factors
+    overlapped with the products (tpunmf/ops/mur_fused.py:465-512): the
+    kernel stages each slab in two shared-memory buffers with ``cp.async``.
+    The same FMAs in the same order, so the same outputs, bit for bit.
+    ``bm`` is ``iter_eu_dma_tileable``'s strip height: it must divide m
+    and give at least 2 strips, as in ``tpunmf``."""
+    check_strips(x, bm)
+    if x.shape[0] // bm < 2:
+        raise ValueError("need at least 2 strips to double-buffer")
+    if on_cpu(x):
+        return mur_iteration_eu_dma_ref(x, w, h, lam_w=lam_w)
+    out = _launch_iteration_eu("mur_iteration_eu_dma", x, w, h, lam_w, dma=True)
+    mur_iteration_eu_dma.launches += 1
+    return out
 
 
 @full_f32()
@@ -294,7 +330,7 @@ def mur_iteration_kl(x, w, h, *, lam_w: float, bm: int, bs: int | None = None):
     with the H closed form (tpunmf/ops/mur_fused.py:652-702).  ``bm`` and
     ``bs`` must divide m and n, as in ``tpunmf``; ``bs`` chose a TPU
     tiling of the same function and changes nothing here."""
-    _check_strips(x, bm, bs)
+    check_strips(x, bm, bs)
     if on_cpu(x):
         return mur_iteration_kl_ref(x, w, h, lam_w=lam_w)
     m, n, k = check_operands("mur_iteration_kl", x, w, h, max_rank=MAX_RANK)
@@ -302,7 +338,7 @@ def mur_iteration_kl(x, w, h, *, lam_w: float, bm: int, bs: int | None = None):
     w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
     wtr = torch.empty((k, n), dtype=torch.float32, device=x.device)
     obj = torch.empty((), dtype=torch.float32, device=x.device)
-    scratch = _scratch(x, k, True)
+    scratch = wave_scratch(x, k, WAVE_MUR_KL)
     call("tpunmf_mur_iteration_kl", x.device, x.data_ptr(),
          int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(), hsum.data_ptr(),
          float(lam_w), m, n, k, w_new.data_ptr(), wtr.data_ptr(), obj.data_ptr(),
@@ -315,4 +351,5 @@ mur_w_update.launches = 0
 mur_w_update.lagged_launches = 0
 mur_h_update.launches = 0
 mur_iteration_eu.launches = 0
+mur_iteration_eu_dma.launches = 0
 mur_iteration_kl.launches = 0

@@ -46,6 +46,17 @@ def mur_flops(name: str, m: int, n: int, k: int, x_bf16: bool,
     return mnk, 0.0  # the objectives and kl_ratio: W H against X
 
 
+def hals_flops(m: int, n: int, k: int, x_bf16: bool, nsweeps: int) -> tuple[float, float]:
+    """(f32, bf16) flops of one ``hals_iteration_eu`` call on X (m, n) at
+    rank k: X round(H)^T and round(W')^T X (both-bf16 operands at bf16 X),
+    the Grams H H^T and W'^T W', and ``nsweeps`` sweeps of k steps of 2k
+    flops a row of W."""
+    mnk = 2.0 * m * n * k
+    sweeps = 2.0 * nsweeps * m * k * k
+    grams = 2.0 * k * k * (m + n)
+    return (grams + sweeps, 2 * mnk) if x_bf16 else (2 * mnk + grams + sweeps, 0.0)
+
+
 def _unported():
     """(kernel, shape, f32 flops, bf16 flops, bytes) of the TPU kernels
     not ported yet, at the shapes their paths will run."""
@@ -54,13 +65,6 @@ def _unported():
     f32, bf16 = 4, 2
     eu_io = (m * k + k * n) * f32 + (m * k + k * n + k * k) * f32  # W, H in; W', wtx, Gw out
     rows = [
-        ("mur_iteration_eu_dma", "8192x8192 r128 bf16",
-         *mur_flops("mur_iteration_eu_dma", m, n, k, True), m * n * bf16 + eu_io),
-        # the X H^T strip product, k Gauss-Seidel steps of 2k flops a row
-        # (one sweep), W'^T X and the Gram
-        ("hals_iteration_eu", "8192x8192 r128 f32, 1 sweep",
-         2 * 2.0 * m * n * k + 2.0 * m * k * k + 2.0 * k * k * (m + n) + 2.0 * m * k * k,
-         0.0, m * n * f32 + eu_io),
         ("bench.py read probe", "8192x8192 f32", float(m * n), 0.0, m * n * f32 + n * f32),
         ("v1_iter", "8192x8192 r128 bf16", *mur_flops("v1_iter", m, n, k, True),
          m * n * bf16 + eu_io),

@@ -149,7 +149,7 @@ def run_loop(
     if checkpoint_path:
         raise NotImplementedError(
             "checkpoint_path: io/checkpoint.py is not ported yet "
-            "(ROADMAP.md, queue 1, item 10 'Tooling')")
+            "(ROADMAP.md, queue 1, item 6 'Tooling')")
     return drive(run_block, carry, max_iter=max_iter, block_size=block_size,
                  on_block_end=on_block_end)
 

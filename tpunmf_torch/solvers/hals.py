@@ -26,9 +26,15 @@ their plain versions.  The factors keep X's dtype, as in ``tpunmf``, and
 the kernels take float32 factors, so bfloat16 and float64 X run plain.
 
 The GEMMs ``X H^T``, ``W^T X`` and the Grams are plain ``torch.matmul``
-on both routes, with TF32 off (``tpunmf`` leaves them to XLA).  The
-single-pass HALS kernel (``hals_iteration_eu``) is off by default in
-``tpunmf`` and is not ported.
+on both routes, with TF32 off (``tpunmf`` leaves them to XLA).
+
+The single pass (``step_single``, tpunmf/solvers/hals.py:95-118): the W
+half and the H numerator from one read of X by ``hals_iteration_eu``
+(ops/hals_sweep.py), then the H sweeps and the objective.  Taken exactly
+where ``tpunmf`` takes it (hals.py:236-241): the sweep kernel is engaged,
+the port's switch ``cuda_defaults.hals_single_pass`` is on (off by
+default, as in ``tpunmf``) and ``hals_iter_tileable`` gives a strip
+height.
 """
 from __future__ import annotations
 
@@ -42,7 +48,9 @@ from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import eu_residual_obj, eu_residual_obj_ref, objective_takes
-from ..ops.hals_sweep import gs_sweep, gs_sweep_ref, sweep_takes
+from ..ops.hals_sweep import (gs_sweep, gs_sweep_ref, hals_iter_tileable,
+                              hals_iteration_eu, sweep_takes)
+from . import cuda_defaults
 from .common import finalize_history, host_array, init_carry, run_loop, while_block
 
 _EPS = 1e-16
@@ -51,12 +59,27 @@ _EPS = 1e-16
 def _hals_block(x, xsq, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
                 min_iter: int, max_iter: int, inner_sweeps: int,
                 objective: str, sweep_kernel: bool, objective_kernel: bool,
-                verbose=False):
+                single_pass_bm=None, verbose=False):
     """Run HALS iterations from ``carry`` up to ``stop_i`` (or convergence);
-    ``sweep_kernel`` and ``objective_kernel`` select the kernels (see the
-    module docstring)."""
+    ``sweep_kernel`` and ``objective_kernel`` select the kernels, and a
+    ``single_pass_bm`` the single pass (see the module docstring)."""
     sweep = gs_sweep if sweep_kernel else gs_sweep_ref
     residual = eu_residual_obj if objective_kernel else eu_residual_obj_ref
+
+    def h_half_and_objective(w, h, wtx, wtw):
+        h = sweep(wtx, wtw, h, lam=lambda_h, nsweeps=inner_sweeps)
+        if objective == "gram":
+            obj = eu_objective_gram(xsq, wtx, wtw, h)
+        else:
+            obj = residual(x, w, h)
+        return (w, h), obj
+
+    def step_single(inner, i):
+        """The W half and the H numerator in one pass over X."""
+        w, h = inner
+        w, wtx, wtw = hals_iteration_eu(x, w, h, lam_w=lambda_w, nsweeps=inner_sweeps,
+                                        bm=single_pass_bm)
+        return h_half_and_objective(w, h, wtx, wtw)
 
     def step(inner, i):
         w, h = inner
@@ -66,17 +89,11 @@ def _hals_block(x, xsq, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
         hht = h @ h.T
         w = sweep(xht.T, hht, w.T, lam=lambda_w, nsweeps=inner_sweeps).T
         # H half (mirror)
-        wtx = w.T @ x
-        wtw = w.T @ w
-        h = sweep(wtx, wtw, h, lam=lambda_h, nsweeps=inner_sweeps)
-        if objective == "gram":
-            obj = eu_objective_gram(xsq, wtx, wtw, h)
-        else:
-            obj = residual(x, w, h)
-        return (w, h), obj
+        return h_half_and_objective(w, h, w.T @ x, w.T @ w)
 
+    chosen = step if single_pass_bm is None else step_single
     with torch.no_grad(), full_f32():
-        return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,
+        return while_block(chosen, carry, stop_i, tol1, tol2, min_iter=min_iter,
                            max_iter=max_iter, verbose=verbose)
 
 
@@ -132,6 +149,9 @@ def hals(
     # the factors keep X's dtype and the kernels take float32 factors
     objective_kernel = (bool(use_pallas) and x.dtype == torch.float32
                         and objective_takes(x, k))
+    single_pass_bm = None
+    if sweep_kernel and cuda_defaults.hals_single_pass(x.device):
+        single_pass_bm = hals_iter_tileable(x, k)
 
     experiment = MurExperiment(
         method="hals", components=k, distance_type="eu",
@@ -175,7 +195,8 @@ def hals(
             x, xsq, c, stop, tol1, tol2, float(lambda_w), float(lambda_h),
             min_iter=min_iter, max_iter=max_iter, inner_sweeps=inner_sweeps,
             objective=objective, sweep_kernel=sweep_kernel,
-            objective_kernel=objective_kernel, verbose=verbose)
+            objective_kernel=objective_kernel, single_pass_bm=single_pass_bm,
+            verbose=verbose)
 
     carry = run_loop(
         run, carry, max_iter=max_iter, block_size=block_size,

@@ -13,9 +13,12 @@ tensor) and X's dtype and rank, before any wrapper is called:
     ``mur_iteration_eu`` / ``mur_iteration_kl`` (ops/mur_fused.py), taken
     exactly where ``tpunmf`` takes it: where ``iter_eu_tileable`` /
     ``iter_kl_tileable`` give X's shape, dtype and rank a strip height
-    (tpunmf/solvers/mur.py:403-423; its manual-DMA EU variant is not
-    ported).  KL's kernel also returns the objective of the incoming
-    iterate, which ``objective="lagged"`` records.
+    (tpunmf/solvers/mur.py:403-423).  Where the port's switch
+    ``cuda_defaults.mur_single_pass_variant`` says "dma" ("auto" by
+    default, as in ``tpunmf``) and ``iter_eu_dma_tileable`` gives a
+    strip height, EU takes ``mur_iteration_eu_dma`` (tpunmf/solvers/
+    mur.py:413-419).  KL's kernel also returns the objective of the
+    incoming iterate, which ``objective="lagged"`` records.
   * fused, the 2-pass pair (2 passes over X, +1 for the exact objective),
     wherever else the update kernels take X and k (float32 or bfloat16,
     k <= 1024): ``mur_w_update`` and ``mur_h_update`` (ops/mur_fused.py)
@@ -56,9 +59,10 @@ from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj, kl_ratio,
                          kl_ratio_and_obj, kl_ratio_and_obj_ref, kl_ratio_ref,
                          objective_takes)
-from ..ops.mur_fused import (iter_eu_tileable, iter_kl_tileable, mur_h_update,
-                             mur_iteration_eu, mur_iteration_kl, mur_w_update,
-                             updates_take)
+from ..ops.mur_fused import (iter_eu_dma_tileable, iter_eu_tileable, iter_kl_tileable,
+                             mur_h_update, mur_iteration_eu, mur_iteration_eu_dma,
+                             mur_iteration_kl, mur_w_update, updates_take)
+from . import cuda_defaults
 from .common import (LoopCarry, finalize_history, host_array, init_carry,
                      run_loop, verbose_precision, while_block)
 
@@ -69,13 +73,21 @@ def mur_route(x, k: int, distance_type: str, use_pallas: bool = True):
     """(route, strips): the step a run of MUR on X at rank k takes.
 
     route is 'single', 'pair', 'high_rank' or 'plain' (module docstring);
-    strips is the single pass's strip height (EU: bm, KL: (bm, bs)) and
-    None on the other routes.  A rule of X's dtype, shape and rank only:
-    ``x`` is anything with ``.shape`` and ``.dtype`` (a ``meta`` tensor
-    will do)."""
+    strips is the single pass's strip height (EU: bm, or ("dma", bm) for
+    the "dma" variant; KL: (bm, bs)) and None on the other routes.  A rule
+    of X's dtype, shape and rank, and the port's switch: ``x`` is anything
+    with ``.shape``, ``.dtype`` and ``.device`` (a ``meta`` tensor will
+    do)."""
     if use_pallas and updates_take(x, k):
-        tileable = iter_eu_tileable if distance_type == "eu" else iter_kl_tileable
-        strips = tileable(x, k)
+        if distance_type != "eu":
+            strips = iter_kl_tileable(x, k)
+        else:
+            strips = iter_eu_tileable(x, k)
+            if (strips is not None
+                    and cuda_defaults.mur_single_pass_variant(x.device) == "dma"):
+                dma_bm = iter_eu_dma_tileable(x, k)
+                if dma_bm is not None:
+                    strips = ("dma", dma_bm)
         return ("pair", None) if strips is None else ("single", strips)
     if use_pallas and objective_takes(x, k):
         return "high_rank", None
@@ -131,7 +143,10 @@ def _mur_block(
     def step_eu_single(inner, i):
         """Whole iteration in one pass over X (tpunmf mur.py:133-154)."""
         w, h = inner
-        w, wtx, gram_w = mur_iteration_eu(x, w, h, lam_w=lambda_w, bm=strips)
+        if isinstance(strips, tuple):  # ("dma", bm)
+            w, wtx, gram_w = mur_iteration_eu_dma(x, w, h, lam_w=lambda_w, bm=strips[1])
+        else:
+            w, wtx, gram_w = mur_iteration_eu(x, w, h, lam_w=lambda_w, bm=strips)
         h_new = h * wtx / (gram_w @ h + lambda_h * h + _EPS)
         if objective == "gram":
             obj = cadence_obj(i, lambda: eu_objective_gram(xsq, wtx, gram_w, h_new))
