@@ -19,7 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      at 8192x8192 r128 (f32 at 2 and 1 sweeps, bf16) and ragged 1000x777
      k40, and mur_iteration_eu_dma at 8192x8192 r128 (f32, bf16) and
      ragged k37, which is also held to mur_iteration_eu bit for bit and
-     timed against it in turns.
+     timed against it in turns.  The sweep scripts' kernels: v1_iter and
+     v2_iter at 8192x8192 r128 (bf16 and f32 X) and ragged k37, v1 held to
+     mur_iteration_eu(lam_w=0) bit for bit and timed against it in turns;
+     iter_eu_int8 at 8192x8192 r128 (X + 0.05 quantised) and ragged k37;
+     the read probe at 8192x8192 f32 and a ragged 896x777, with its rate.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
@@ -58,11 +62,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        8192x8192 r128 f32 with hals_single_pass on, and MUR EU at the same
        X, f32 and bf16, with mur_single_pass_variant "dma", each from its
        default run's init and held to that run's trace, with profiles.
+     - the sweep scripts' paths (tpunmf_torch/sweeps), at their 8192x8192
+       r128 from their own recipes, 30 iterations each: the v1 and v2
+       loops on bf16 X from one init (exactly 30 v1_iter, 30 v2_iter, no
+       other kernel; their results agree within the bf16 route tolerance),
+       the tensor-core probe, and the int8 loop against the f32 single-pass
+       loop (exactly 30 iter_eu_int8 and 30 mur_iteration_eu) with the
+       objective's relative deviation; and the read rate of the 8192x8192
+       f32 X by the read probe (exactly 360 launches).
      Each path's launch counters are set to 0 just before it and read just
      after; each run must launch its route's kernels and none of the other
      route's, and give finite factors and trace (non-increasing for MUR and
      HALS EU; ADMM's is not monotone).  The paths with the switches at their
-     defaults must launch neither switched kernel.
+     defaults must launch neither switched kernel, and no NMF.factorize
+     path may launch a sweep script's kernel or the read probe.
   4. a save_factorization / load_factorization round trip.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
@@ -167,15 +180,25 @@ KERNELS = {
                              "tpunmf/ops/mur_fused.py:465"),
     "hals_iteration_eu": ("tpunmf_torch/ops/csrc/hals_iteration.cu",
                           "tpunmf/ops/hals_sweep.py:186"),
+    "v1_iter": ("tpunmf_torch/ops/csrc/mur_variants.cu", "benchmarks/sweep_iter2.py:38"),
+    "v2_iter": ("tpunmf_torch/ops/csrc/mur_variants.cu", "benchmarks/sweep_iter2.py:92"),
+    "iter_eu_int8": ("tpunmf_torch/ops/csrc/mur_variants.cu", "benchmarks/sweep_int8.py:49"),
+    "read_probe": ("tpunmf_torch/ops/csrc/read_probe.cu", "bench.py:240"),
 }
 # the kernels that only the port's switches reach (tpunmf's defaults: off)
 OPT_IN = ("mur_iteration_eu_dma", "hals_iteration_eu")
-# the shape whose times the kernels line reports (its f32 case)
+# the kernels of the sweep scripts and of the read-rate probe, which no
+# NMF.factorize path may launch
+SWEEP_ONLY = ("v1_iter", "v2_iter", "iter_eu_int8", "read_probe")
+SWEEP_ITERS = 30  # the sweep scripts' loops (benchmarks/sweep_iter2.py:123)
+# the shape whose times the kernels line reports (its f32 case, or X's
+# type in HEADLINE_X: the sweep scripts' own)
 HEADLINE = {"kl_obj": "KL", "mur_w_update_lagged": "KL",
             "masked_w_update": "ML-10M", "masked_h_update": "ML-10M",
             "kl_ratio_and_obj": "config[3]", "blockmax_relayout": "serve",
             "score_blockmax_relayout": "serve", "mur_iteration_kl": "KL",
             "kl_ratio": "high-rank KL"}
+HEADLINE_X = {"v1_iter": "bf16", "v2_iter": "bf16", "iter_eu_int8": "int8"}
 
 
 class SmokeFailure(RuntimeError):
@@ -482,6 +505,73 @@ def opt_in_phase(torch, records, eu_x, k, ragged, reps):
               f"{auto_ms:.4f} ms (in turns); max |dma - auto| {diff:.3e}", flush=True)
         require(diff == 0.0, f"{label}: the dma variant and mur_iteration_eu differ")
         del w, h, dma, auto
+    return line
+
+
+def variant_phase(torch, records, eu_x, k, ragged, reps):
+    """The sweep scripts' kernels against their plain versions (UPDATE_RTOL:
+    sums of positive terms in another order): v1_iter and v2_iter at the
+    scripts' 8192x8192 r128 on bf16 X and on f32 X and at ragged k37, v1
+    also against mur_iteration_eu(lam_w=0) on the same inputs, bit for bit,
+    timed in turns (auto, v1, v1, auto); iter_eu_int8 on X + 0.05 quantised
+    as sweep_int8.py does and on the ragged X; and the read probe at 8192x8192
+    f32 (268 MB, past the 50 MB L2) with torch.sum(x, 0) as its library call,
+    and at a ragged 896x777 (n % 4 != 0).  Returns the v1 / auto times."""
+    from tpunmf_torch.ops import mur_fused, mur_variants, read_probe, roofline
+    from tpunmf_torch.sweeps import sweep_int8
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+
+    def factors(m, n, kk):
+        return (torch.rand((m, kk), generator=g, device="cuda") + 0.1,
+                torch.rand((kk, n), generator=g, device="cuda") + 0.1)
+
+    eu, rag = f"EU {tuple(eu_x.shape)} k{k}", f"ragged {tuple(ragged.shape)} k37"
+    line = {}
+    # the scripts' bf16 X first: the kernels line reports the first case
+    for label, x, kk, bm in ((f"{eu} bf16", eu_x.bfloat16(), k, 128), (f"{eu} f32", eu_x, k, 128),
+                             (f"{rag} f32", ragged, 37, 8), (f"{rag} bf16", ragged.bfloat16(), 37, 8)):
+        m, n = x.shape
+        w, h = factors(m, n, kk)
+        for name in ("v1_iter", "v2_iter"):
+            kern, ref = getattr(mur_variants, name), getattr(mur_variants, name + "_ref")
+            check_kernel(torch, records, name, label, f"eu lam=0 bm={bm}",
+                         lambda: kern(x, w, h, bm), lambda: ref(x, w, h), UPDATE_RTOL, reps,
+                         inputs=(x, w, h), flops=mur_flops(name, x, kk))
+        auto_bm = mur_fused.iter_eu_tileable(x, kk) or m
+        v1 = mur_variants.v1_iter(x, w, h, bm)
+        auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=auto_bm)
+        diff = max(bit_err(a, b) for a, b in zip(v1, auto))
+        v1_ms, auto_ms = time_pair(
+            torch, lambda: mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=auto_bm),
+            lambda: mur_variants.v1_iter(x, w, h, bm), reps)
+        line[label] = {"v1_ms": v1_ms, "auto_ms": auto_ms, "max_abs_diff": diff}
+        print(f"  {label}: v1_iter {v1_ms:.4f} ms, mur_iteration_eu(lam_w=0) {auto_ms:.4f} ms "
+              f"(in turns); max |v1 - auto| {diff:.3e}: "
+              f"{'the same bits' if diff == 0.0 else 'NOT the same bits'}", flush=True)
+        require(diff == 0.0, f"{label}: v1_iter and mur_iteration_eu(lam_w=0) differ")
+        del w, h, v1, auto
+    for label, x, kk, bm in ((f"{eu} int8", eu_x + 0.05, k, 128), (f"{rag} int8", ragged, 37, 8)):
+        m, n = x.shape
+        w, h = factors(m, n, kk)
+        xq, scale = sweep_int8.quantize(x)
+        check_kernel(torch, records, "iter_eu_int8", label, f"eu lam=0 bm={bm}",
+                     lambda: mur_variants.iter_eu_int8(xq, scale, w, h, bm),
+                     lambda: mur_variants.iter_eu_int8_ref(xq, scale, w, h), UPDATE_RTOL, reps,
+                     inputs=(xq, scale, w, h), flops=mur_flops("iter_eu_int8", xq, kk))
+        del w, h, xq
+    s = torch.tensor(0.5, device="cuda")
+    for label, x in ((f"EU {tuple(eu_x.shape)} f32", eu_x),
+                     ("ragged (896, 777) f32", ragged[:896].contiguous())):
+        library = (lambda: torch.sum(x, dim=0)) if x is eu_x else None
+        check_kernel(torch, records, "read_probe", label, "s=0.5",
+                     lambda: read_probe.read_probe(x, s), lambda: read_probe.read_probe_ref(x, s),
+                     UPDATE_RTOL, reps, inputs=(x, s), flops=roofline.read_probe_flops(*x.shape),
+                     library=library)
+    probe = records["read_probe"]["cases"][0]
+    print(f"  read probe {tuple(eu_x.shape)} f32: {nbytes((eu_x,)) / probe['ms'] / 1e9:.3f} "
+          f"TB/s per call (published peak 3.35 TB/s)", flush=True)
     return line
 
 
@@ -1077,7 +1167,8 @@ def main() -> int:
     from tpunmf_torch.data import lowrank_dense, movielens_like, tfidf_like
     from tpunmf_torch.init import nndsvd
     from tpunmf_torch.ops import (_build, fused, hals_sweep, masked_fused, mur_fused,
-                                  topk_select)
+                                  mur_variants, read_probe, topk_select)
+    from tpunmf_torch.sweeps import sweep_int8, sweep_iter2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1097,7 +1188,11 @@ def main() -> int:
                 "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches"),
                 "kl_ratio": (fused.kl_ratio, "launches"),
                 "mur_iteration_eu_dma": (mur_fused.mur_iteration_eu_dma, "launches"),
-                "hals_iteration_eu": (hals_sweep.hals_iteration_eu, "launches")}
+                "hals_iteration_eu": (hals_sweep.hals_iteration_eu, "launches"),
+                "v1_iter": (mur_variants.v1_iter, "launches"),
+                "v2_iter": (mur_variants.v2_iter, "launches"),
+                "iter_eu_int8": (mur_variants.iter_eu_int8, "launches"),
+                "read_probe": (read_probe.read_probe, "launches")}
 
     t_start = time.perf_counter()
     card = nvidia_smi_line()
@@ -1186,6 +1281,7 @@ def main() -> int:
         ("eu_residual_obj", high_eu_label, eu_x, HIGH_RANK)], reps=3)
     topk_line = serving_kernel_phase(torch, records, reps=5)
     dma_line = opt_in_phase(torch, records, eu_x, eu_k, ragged, reps=3)
+    v1_line = variant_phase(torch, records, eu_x, eu_k, ragged, reps=3)
     print(f"  phase 2 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     t_phase = time.perf_counter()
@@ -1340,13 +1436,72 @@ def main() -> int:
                 needed=("eu_residual_obj" if dist == "eu" else "kl_ratio_and_obj",),
                 rho_mode=mode, **ADMM_KW)
 
-    def drive(label, needed, body, opt_in=False):
+    def sweep_path():
+        # the sweep scripts' loops at their shape, 30 iterations each from
+        # the scripts' init; warm-up runs happen before the counts are reset
+        x, w0, h0 = sweep_data["iter2"]
+        out = {}
+        for label, make in (("v1 loop", sweep_iter2.make_v1), ("v2 loop", sweep_iter2.make_v2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[label] = float(make(128)(x, w0, h0, SWEEP_ITERS))  # a host read
+            secs = time.perf_counter() - t0
+            runs[f"sweep {label} bf16"] = {"it_s": SWEEP_ITERS / secs, "value": out[label]}
+            print(f"  sweep {label} {tuple(x.shape)} r128 bf16: {SWEEP_ITERS} iterations, "
+                  f"{SWEEP_ITERS / secs:.2f} it/s (wall clock; {card}); sum(W[0]) + "
+                  f"sum(H[:, 0]) = {out[label]:.6e}", flush=True)
+        err = abs(out["v1 loop"] - out["v2 loop"]) / abs(out["v1 loop"])
+        print(f"  sweep v1 loop vs v2 loop: rel {err:.3e} (tol {ROUTE_RTOL['bfloat16']:.0e})",
+              flush=True)
+        require(np.isfinite(out["v1 loop"]) and err <= ROUTE_RTOL["bfloat16"],
+                f"sweep loops: v1 and v2 disagree ({err:.3e})")
+        t, tflops = sweep_iter2.mxu_probe(0)
+        runs["tensor-core probe"] = {"ms": 1e3 * t, "tflops": tflops}
+        print(f"  tensor-core probe (2048x65536x2048 bf16, torch.matmul): {1e3 * t:.3f} ms, "
+              f"{tflops:.1f} TFLOP/s (published dense bf16 peak 989; {card})", flush=True)
+
+    def int8_path():
+        # sweep_int8's loop against the f32 single-pass loop from one init
+        x, xq, scale, w0, h0 = sweep_data["int8"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wq, hq, _ = sweep_int8.make_run(128)(xq, scale, w0, h0, SWEEP_ITERS)
+        torch.cuda.synchronize()
+        secs_q = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wf, hf = sweep_int8.run_f32(x, w0, h0, SWEEP_ITERS)
+        torch.cuda.synchronize()
+        secs_f = time.perf_counter() - t0
+        obj_q, obj_f = sweep_int8.objective(x, wq, hq), sweep_int8.objective(x, wf, hf)
+        dev = (obj_q - obj_f) / obj_f
+        runs["sweep int8 loop"] = {"it_s": SWEEP_ITERS / secs_q, "f32_it_s": SWEEP_ITERS / secs_f,
+                                   "obj_int8": obj_q, "obj_f32": obj_f, "rel_dev": dev}
+        print(f"  sweep int8 loop {tuple(xq.shape)} r128: {SWEEP_ITERS / secs_q:.2f} it/s, f32 "
+              f"single-pass loop {SWEEP_ITERS / secs_f:.2f} it/s (wall clock; {card}); objective "
+              f"after {SWEEP_ITERS}: int8 {obj_q:.6e} vs f32 {obj_f:.6e} (rel dev {dev:+.3%})",
+              flush=True)
+        require(all(bool(torch.isfinite(a).all()) for a in (wq, hq, wf, hf))
+                and np.isfinite(obj_q) and np.isfinite(obj_f), "sweep int8: non-finite result")
+
+    def rate_path():
+        rate = read_probe.read_rate(eu_x)
+        runs["read rate"] = {"bytes_per_s": rate}
+        print(f"  read rate of {tuple(eu_x.shape)} f32 (read_probe, 110 less 10 calls): "
+              f"{rate / 1e12:.3f} TB/s against the published 3.35 ({card})", flush=True)
+        require(np.isfinite(rate) and rate > 0, f"read rate {rate}")
+
+    def drive(label, needed, body, opt_in=False, exact=None):
         out, launched = run_path(torch, counters, label, needed, body)
         for name, c in launched.items():
             launches[name] += c
-        if not opt_in:  # the switches at tpunmf's defaults
-            for name in OPT_IN:
-                require(launched[name] == 0, f"{label}: {name} was launched off its switch")
+        if exact is not None:  # exactly these launches, none of any other kernel
+            for name, c in launched.items():
+                require(c == exact.get(name, 0),
+                        f"{label}: {name} launched {c} times, not {exact.get(name, 0)}")
+            return out
+        # the switches at tpunmf's defaults; no NMF path reaches the sweeps' kernels
+        for name in (() if opt_in else OPT_IN) + SWEEP_ONLY:
+            require(launched[name] == 0, f"{label}: {name} was launched off its path")
         return out
 
     def profile_path():
@@ -1394,6 +1549,22 @@ def main() -> int:
     del kept
     torch.cuda.empty_cache()
     drive("ADMM path", ("eu_residual_obj", "kl_ratio_and_obj"), admm_path)
+    del adm_x
+    torch.cuda.empty_cache()
+    # the sweep scripts' data and warm-up runs (2 iterations each), before
+    # their paths' counts are reset
+    x2, w2, h2 = sweep_iter2.problem(0)
+    x8, w8, h8 = sweep_int8.problem(0)
+    sweep_data = {"iter2": (x2, w2, h2), "int8": (x8, *sweep_int8.quantize(x8), w8, h8)}
+    sweep_iter2.make_v1(128)(x2, w2, h2, 2)
+    sweep_iter2.make_v2(128)(x2, w2, h2, 2)
+    sweep_int8.make_run(128)(*sweep_data["int8"][1:], 2)
+    sweep_int8.run_f32(x8, w8, h8, 2)
+    drive("sweep_iter2 path", ("v1_iter", "v2_iter"), sweep_path,
+          exact={"v1_iter": SWEEP_ITERS, "v2_iter": SWEEP_ITERS})
+    drive("sweep_int8 path", ("iter_eu_int8", "mur_iteration_eu"), int8_path,
+          exact={"iter_eu_int8": SWEEP_ITERS, "mur_iteration_eu": SWEEP_ITERS})
+    drive("read-rate path", ("read_probe",), rate_path, exact={"read_probe": 3 * (10 + 110)})
     print(f"  launches over the paths: {launches}", flush=True)
     for name, c in launches.items():
         require(c > 0, f"{name} was not launched on any path")
@@ -1407,13 +1578,14 @@ def main() -> int:
 
     def headline(name):
         want = HEADLINE.get(name, "EU") + " "
-        hits = [c for c in records[name]["cases"]
-                if c["shape"].startswith(want) and c["shape"].endswith("f32")]
+        hits = [c for c in records[name]["cases"] if c["shape"].startswith(want)
+                and c["shape"].endswith(HEADLINE_X.get(name, "f32"))]
         return hits[0]
 
-    # library_ms: only blockmax_relayout has one PyTorch call computing its
-    # function (torch.amax over a view); the others fuse a product with an
-    # update, a masked sum, a division or a selection, and have none (null)
+    # library_ms: only blockmax_relayout (torch.amax over a view) and the
+    # read probe (torch.sum over rows) have one PyTorch call computing their
+    # function; the others fuse a product with an update, a masked sum, a
+    # division or a selection, and have none (null)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
@@ -1427,6 +1599,7 @@ def main() -> int:
         "runs": {label: {k: v for k, v in r.items() if k != "trace"}
                  for label, r in runs.items()},
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
+        "v1_vs_auto": v1_line,
         "profiles": profiles}))
     print(card)
     print(json.dumps({"ok": True, "device": {

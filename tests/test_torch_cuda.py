@@ -12,10 +12,12 @@ import torch
 import tpunmf_torch
 from _torch_parity import (cuda_device, kernel_problem, lowrank,  # noqa: F401
                            masked_problem, t)
-from tpunmf_torch.ops import fused, hals_sweep, masked_fused, mur_fused, topk_select
+from tpunmf_torch.ops import (fused, hals_sweep, masked_fused, mur_fused, mur_variants,
+                              read_probe, topk_select)
 from tpunmf_torch.serve import topk
 from tpunmf_torch.solvers import cuda_defaults
 from tpunmf_torch.solvers.mur import mur_route
+from tpunmf_torch.sweeps import sweep_int8, sweep_iter2
 
 # f32 sums of positive terms in another order (see chip_smoke.py)
 RTOL = 1e-4
@@ -454,7 +456,9 @@ COUNTERS = [(mur_fused.mur_w_update, "launches"), (mur_fused.mur_w_update, "lagg
             (topk_select.blockmax_relayout, "launches"),
             (topk_select.score_blockmax_relayout, "launches"),
             (mur_fused.mur_iteration_eu_dma, "launches"),
-            (hals_sweep.hals_iteration_eu, "launches")]
+            (hals_sweep.hals_iteration_eu, "launches"), (mur_variants.v1_iter, "launches"),
+            (mur_variants.v2_iter, "launches"), (mur_variants.iter_eu_int8, "launches"),
+            (read_probe.read_probe, "launches")]
 
 
 def _launches():
@@ -655,3 +659,104 @@ def test_switches_route_the_single_passes_and_default_off(cuda_device, monkeypat
                         (fused.eu_residual_obj, "launches"): 6}
     np.testing.assert_array_equal(dma_run.obj_history, auto_run.obj_history)
     np.testing.assert_array_equal(dma_run.w, auto_run.w)
+
+
+# --------------------------- the sweep scripts' variants and the read probe
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 128, 512])
+@pytest.mark.parametrize("n", [777, 50001])  # one wave of rows; several, the last ragged
+def test_v_iters_match_plain_versions_and_mur_iteration_eu(cuda_device, n, k, xdtype):
+    x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
+    before = (mur_variants.v1_iter.launches, mur_variants.v2_iter.launches)
+    v1 = mur_variants.v1_iter(x, w, h, bm=150)
+    v2 = mur_variants.v2_iter(x, w, h, bm=150)
+    assert (mur_variants.v1_iter.launches, mur_variants.v2_iter.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in ((v1, mur_variants.v1_iter_ref(x, w, h)),
+                      (v2, mur_variants.v2_iter_ref(x, w, h))):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+    # v1 is mur_iteration_eu at lam_w = 0: the same FMAs in the same order
+    auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=150)
+    assert all(torch.equal(a, b) for a, b in zip(v1, auto))
+    assert all(torch.equal(a, b) for a, b in zip((v2[0], v2[2], v2[3]), v1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0.0, 0.5])  # X >= 0; X with negative values
+@pytest.mark.parametrize("k", [1, 37, 128])
+@pytest.mark.parametrize("n", [777, 50001])
+def test_iter_eu_int8_matches_plain_version(cuda_device, n, k, shift):
+    x, w, h = _on(cuda_device, torch.float32, m=300, n=n, k=k)
+    xq, scale = sweep_int8.quantize(x - shift)
+    assert bool((xq < 0).any()) == (shift > 0)
+    before = mur_variants.iter_eu_int8.launches
+    got = mur_variants.iter_eu_int8(xq, scale, w, h, bm=150)
+    assert mur_variants.iter_eu_int8.launches == before + 1
+    for a, b in zip(got, mur_variants.iter_eu_int8_ref(xq, scale, w, h)):
+        assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+        if shift == 0.0:
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+        else:  # signed sums cancel: max |got - want| / max |want|
+            assert _scaled_err(a, b) <= RTOL
+    again = mur_variants.iter_eu_int8(xq, scale, w, h, bm=150)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 777, 1000])
+@pytest.mark.parametrize("offset", [0, 1])  # X on 16 bytes, or one float past them
+def test_read_probe_matches_plain_version(cuda_device, n, offset):
+    m = 384
+    buf = torch.rand(m * n + offset, device=cuda_device)
+    x = buf[offset:].view(m, n)
+    for s in (0.0, torch.tensor(2.5, device=cuda_device)):
+        before = read_probe.read_probe.launches
+        got = read_probe.read_probe(x, s)
+        assert read_probe.read_probe.launches == before + 1
+        assert got.shape == (1, n) and got.dtype == torch.float32
+        torch.testing.assert_close(got, read_probe.read_probe_ref(x, s), rtol=RTOL, atol=0)
+        assert torch.equal(read_probe.read_probe(x, s), got)  # fixed-order sums
+
+
+@pytest.mark.cuda
+def test_read_rate_is_a_positive_rate(cuda_device):
+    x = torch.rand((1024, 4096), device=cuda_device)
+    before = read_probe.read_probe.launches
+    rate = read_probe.read_rate(x, lo=2, hi=12)
+    assert rate > 0 and read_probe.read_probe.launches == before + 3 * (2 + 12)
+
+
+@pytest.mark.cuda
+def test_variant_wrappers_raise_instead_of_falling_back(cuda_device):
+    x, w, h = _on(cuda_device, torch.float32, m=64, n=48, k=8)
+    xq, scale = sweep_int8.quantize(x)
+    with pytest.raises(TypeError):
+        mur_variants.v1_iter(x.double(), w, h, bm=32)
+    with pytest.raises(TypeError):
+        mur_variants.iter_eu_int8(x, scale, w, h, bm=32)
+    with pytest.raises(ValueError):
+        mur_variants.v2_iter(x.T.contiguous().T, w, h, bm=32)
+    with pytest.raises(ValueError, match="must divide"):
+        mur_variants.iter_eu_int8(xq, scale, w, h, bm=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        read_probe.read_probe(torch.rand((256, 128), device=cuda_device).T, 0.0)
+
+
+@pytest.mark.cuda
+def test_sweep_loops_launch_their_kernels_on_the_card(cuda_device):
+    """The v1 and v2 loops agree from one init (the same passes; v2's H
+    update is its own kernel, v1's torch's), each launching only its kernel."""
+    x, w, h = _on(cuda_device, torch.bfloat16, m=256, n=300, k=16)
+    got = {}
+    for make, fn in (("make_v1", mur_variants.v1_iter), ("make_v2", mur_variants.v2_iter)):
+        got[make], launched = _launched_by(lambda: getattr(sweep_iter2, make)(64)(x, w, h, 5))
+        assert launched == {(fn, "launches"): 5}
+    torch.testing.assert_close(got["make_v1"], got["make_v2"], rtol=1e-4, atol=0)
+    xq, scale = sweep_int8.quantize(x.float())
+    (wq, hq, _), launched = _launched_by(lambda: sweep_int8.make_run(64)(xq, scale, w, h, 5))
+    assert launched == {(mur_variants.iter_eu_int8, "launches"): 5}
+    assert torch.isfinite(wq).all() and torch.isfinite(hq).all()

@@ -123,7 +123,14 @@ def test_roofline_bound_is_the_larger_time():
     f32, bf16 = roofline.mur_flops("mur_iteration_eu", m, n, k, True)
     assert bf16 == 4.0 * m * n * k and f32 == 2.0 * k * k * (m + n) + 2.0 * m * k * k
     assert roofline.mur_flops("mur_iteration_kl", m, n, k, True) == (8.0 * m * n * k, 0.0)
-    assert len(roofline._unported()) == 4
+    # every TPU kernel is ported; the sweep scripts' variants: v1 is the EU
+    # single pass, v2 adds Gw H (2 k k n), int8 X multiplies in bf16
+    assert roofline._unported() == []
+    assert roofline.mur_flops("v1_iter", m, n, k, True) == (f32, bf16)
+    assert roofline.mur_flops("v1_iter", m, n, k, False) == (f32 + bf16, 0.0)
+    assert roofline.mur_flops("v2_iter", m, n, k, True) == (f32 + 2.0 * k * k * n, bf16)
+    assert roofline.mur_flops("iter_eu_int8", m, n, k, False) == (f32, bf16)
+    assert roofline.read_probe_flops(m, n) == (2.0 * m * n, 0.0)
     # the HALS single pass at 2 sweeps: two products against X, the Grams
     # and 2 sweeps of k steps of 2k flops a row
     assert roofline.hals_flops(m, n, k, False, 2) == (

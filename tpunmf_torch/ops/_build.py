@@ -45,9 +45,20 @@ _SIGNATURES = {
     # x, x_is_bf16, w, hc (H in X's type), hht, lam, m, n, k, nsweeps,
     # w_out, wtx, gram, scratch, stream
     "tpunmf_hals_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # m, n, k, x_is_bf16, kind (0 MUR EU, 1 MUR KL, 2 HALS) -> floats of
-    # scratch the single-pass iteration needs
+    # m, n, k, x_bytes (X's element size), kind (0 MUR EU and its variants,
+    # 1 MUR KL, 2 HALS) -> floats of scratch the single-pass iteration needs
     "tpunmf_iteration_scratch": (_I, _I, _I, _I, _I),
+    # x, x_is_bf16, ht (H^T (n, k) in X's type), w, gh, m, n, k, w_out,
+    # wtx, gram, scratch, stream
+    "tpunmf_v1_iter": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # x, x_is_bf16, ht, h, w, gh, m, n, k, w_out, h_out, wtx, gram,
+    # scratch, stream
+    "tpunmf_v2_iter": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # xq (int8), h, w, gh, scale (device float), m, n, k, w_out, wtx, gram,
+    # scratch, stream
+    "tpunmf_iter_eu_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # x, s (device float), m, n, partials, out, stream
+    "tpunmf_read_probe": (_P, _P, _I, _I, _P, _P, _P),
     # a, a strides (2), g, v, v strides (2), lam, k, cols, nsweeps,
     # out, out strides (2), stream
     "tpunmf_gs_sweep": (_P, _I, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P, _I, _I, _P),

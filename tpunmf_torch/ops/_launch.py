@@ -21,9 +21,10 @@ def on_cpu(x: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {x.device}")
 
 
-def check_operands(name: str, x, w, h, *extra, max_rank: int):
+def check_operands(name: str, x, w, h, *extra, max_rank: int,
+                   x_dtypes=(torch.float32, torch.bfloat16)):
     """Validate (x, w, h[, extra...]) for a launch of a kernel that takes
-    ranks 1..``max_rank``; returns (m, n, k)."""
+    ranks 1..``max_rank`` and X of ``x_dtypes``; returns (m, n, k)."""
     if x.dim() != 2 or w.dim() != 2 or h.dim() != 2:
         raise ValueError(f"{name}: x, w and h must be 2-D")
     m, n = x.shape
@@ -33,9 +34,9 @@ def check_operands(name: str, x, w, h, *extra, max_rank: int):
                          f"h{tuple(h.shape)} do not chain")
     if not 1 <= k <= max_rank:
         raise ValueError(f"{name}: rank k={k} outside [1, {max_rank}]")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: x must be float32 or bfloat16 on CUDA, got "
-                        f"{x.dtype} (pass use_pallas=False for the plain route)")
+    if x.dtype not in x_dtypes:
+        raise TypeError(f"{name}: x must be {' or '.join(map(str, x_dtypes))} on CUDA, "
+                        f"got {x.dtype} (pass use_pallas=False for the plain route)")
     for t in (x, w, h, *extra):
         if t.device != x.device:
             raise ValueError(f"{name}: operands on {t.device} and {x.device}")
@@ -70,8 +71,7 @@ WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS = 0, 1, 2
 def wave_scratch(x, k: int, kind: int) -> torch.Tensor:
     """The float32 scratch a single-pass iteration of ``kind`` needs."""
     m, n = x.shape
-    count = _build.library().tpunmf_iteration_scratch(
-        m, n, k, int(x.dtype == torch.bfloat16), kind)
+    count = _build.library().tpunmf_iteration_scratch(m, n, k, x.element_size(), kind)
     if count < 0:
         raise ValueError(f"shape {tuple(x.shape)} at k={k} needs more scratch "
                          "than the kernel can index")

@@ -7,12 +7,14 @@
 // TM x TN micro-tile of a (16*TM) x (16*TN) block tile: rows ty + 16*a and
 // columns tx + 16*b.  Products are f32 FMA from shared-memory tiles; the
 // ragged edges of every operand are masked by loading zeros.  X is float or
-// __nv_bfloat16 and is always read through to_f32(); factors are float.
+// __nv_bfloat16 (int8_t in the EU tile loops of mur_variants.cu) and is
+// always read through to_f32(); factors are float.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace tpunmf {
@@ -43,6 +45,7 @@ cudaError_t reduce_partials_into(const float* partials, int count, float scale, 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(unsigned char v) { return (float)v; }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }  // exact, as in bf16
 
 // One cell of the masked KL objective (tpunmf/core/losses.py:20-25): the log
 // has no eps, +inf is zeroed before NaN, and -x + wh is added for every cell.
@@ -64,6 +67,12 @@ __device__ __forceinline__ float round_as_x<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float round_as_x<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+// int8 X is multiplied in bf16 (benchmarks/sweep_int8.py:37-45): the factor
+// meets it rounded to bf16
+template <>
+__device__ __forceinline__ float round_as_x<int8_t>(float v) {
+  return round_as_x<__nv_bfloat16>(v);
 }
 
 // acc[a][b] += sum_{t < depth} A[t*lda + ty + 16a] * B[t*ldb + tx + 16b]
@@ -156,8 +165,9 @@ struct EuStage {
 
 // acc[a][b] += sum_{j0 <= j < j1} X[row0 + ty + 16a][j] * F[c0 + tx + 16b][j]
 // with X (m, n) and F (k, n) row-major, F taken by factor_as_x: a 64 x 64
-// tile of X F^T over the columns [j0, j1) of X (j1 <= n).
-template <typename XT, typename FT>
+// tile of X F^T over the columns [j0, j1) of X (j1 <= n).  NK: F is stored
+// as F^T, (n, k) row-major (the sweep scripts' pre-cast H^T).
+template <typename XT, typename FT, bool NK = false>
 __device__ __forceinline__ void x_ft_tile(float (&acc)[4][4], const XT* __restrict__ x,
                                           const FT* __restrict__ f, int m, int n, int k,
                                           int row0, int c0, int j0, int j1, EuStage& st) {
@@ -169,9 +179,11 @@ __device__ __forceinline__ void x_ft_tile(float (&acc)[4][4], const XT* __restri
       st.a[kk * LD + r] = (gr < m && gj < j1) ? to_f32(x[(long long)gr * n + gj]) : 0.f;
     }
     for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int c = l / kChunk, kk = l % kChunk, gc = c0 + c, gj = jb + kk;
-      st.b[kk * LD + c] =
-          (gc < k && gj < j1) ? factor_as_x<XT>(f[(long long)gc * n + gj]) : 0.f;
+      // neighbouring threads on neighbouring addresses of F in either layout
+      const int c = NK ? l % kTile : l / kChunk, kk = NK ? l / kTile : l % kChunk;
+      const int gc = c0 + c, gj = jb + kk;
+      const long long at = NK ? (long long)gj * k + gc : (long long)gc * n + gj;
+      st.b[kk * LD + c] = (gc < k && gj < j1) ? factor_as_x<XT>(f[at]) : 0.f;
     }
     __syncthreads();
     micro_gemm<4, 4>(acc, st.a, LD, st.b, LD, kChunk, ty, tx);

@@ -71,8 +71,8 @@ cudaError_t iteration_hals(const void* xv, const void* hv, const float* w, const
     return launch(hals_w_kernel<KPT>, dim3(ceil_div(r1 - r0, kWarps)), 0, s, w, g, part,
                   p.nsplit, lam, k, r0, r1, p.rows, nsweeps, w_out);
   };
-  return eu_waves<XT, false>(p, static_cast<const XT*>(xv), static_cast<const XT*>(hv), m, n,
-                             k, sweeps, w_out, wtx, gram, scratch, s);
+  return eu_waves<XT, XT, false, false>(p, static_cast<const XT*>(xv), static_cast<const XT*>(hv),
+                                        m, n, k, sweeps, w_out, wtx, gram, scratch, s);
 }
 
 }  // namespace

@@ -31,7 +31,9 @@
 // denominator W Gh, formed for all rows before the first wave by w_g_tile
 // (the product mur_update.cu's w_eu_kernel forms), or KL's closed form;
 // (B) ft_x_tile for EU, kl_cols (which recomputes W' H) for KL.  KL's
-// objective is summed by reduce_partials_into (objective.cu).
+// objective is summed by reduce_partials_into (objective.cu).  The EU pass
+// is mur_eu_waves (wave.cuh), which the sweep scripts' variants
+// (mur_variants.cu) share.
 //
 // The "dma" EU variant is the same schedule with (A) and (B) on the
 // two-stage cp.async tile loops (x_ft_tile_async, ft_x_tile_async): the
@@ -51,58 +53,14 @@ namespace tpunmf {
 namespace {
 
 // ------------------------------------------------------------------------ EU
-// den = W Gh for all rows, before the first wave; grid (ceil(m / 64), ceil(k / 64)).
-__global__ void __launch_bounds__(kThreads)
-    eu_den_kernel(const float* __restrict__ w, const float* __restrict__ gh, int m, int k,
-                  float* __restrict__ den) {
-  __shared__ EuStage st;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int row0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  float acc[4][4];
-  zero(acc);
-  w_g_tile(acc, w, gh, m, k, row0, c0, st);
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
-      if (gr < m && gc < k) den[(long long)gr * k + gc] = acc[a][b];
-    }
-}
-
-// (A2) W' = W * numer / (den + lam W + eps) for the wave's rows [r0, r1),
-// numer the chunks' partials added in order.
-__global__ void __launch_bounds__(kThreads)
-    eu_w_kernel(const float* __restrict__ w, const float* __restrict__ den,
-                const float* __restrict__ part, int nsplit, float lam, int k, int r0, int r1,
-                int rows, float* __restrict__ out) {
-  const long long len = (long long)(r1 - r0) * k;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
-       i += (long long)gridDim.x * kThreads) {
-    float numer = 0.f;
-    for (int z = 0; z < nsplit; ++z) numer += part[(long long)z * rows * k + i];
-    const long long o = (long long)r0 * k + i;
-    const float wv = w[o];
-    out[o] = wv * numer / (den[o] + lam * wv + kEps);
-  }
-}
-
+// mur_eu_waves (wave.cuh) with H (k, n) pre-cast to X's type.
 template <typename XT, bool ASYNC>
 cudaError_t iteration_eu(const void* xv, const void* hv, const float* w, const float* gh,
                          float lam, int m, int n, int k, float* w_out, float* wtx, float* gram,
                          float* scratch, cudaStream_t s) {
-  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveEu);
-  const float* den = scratch + p.den;
-  const float* part = scratch + p.a_part;
-  cudaError_t err = launch(eu_den_kernel, dim3(ceil_div(m, kTile), ceil_div(k, kTile)), 0, s, w,
-                           gh, m, k, scratch + p.den);
-  if (err != cudaSuccess) return err;
-  auto w_update = [&](int r0, int r1) {
-    return launch(eu_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w, den, part,
-                  p.nsplit, lam, k, r0, r1, p.rows, w_out);
-  };
-  return eu_waves<XT, ASYNC>(p, static_cast<const XT*>(xv), static_cast<const XT*>(hv), m, n, k,
-                             w_update, w_out, wtx, gram, scratch, s);
+  return mur_eu_waves<XT, XT, false, ASYNC>(static_cast<const XT*>(xv),
+                                            static_cast<const XT*>(hv), w, gh, lam, nullptr, m,
+                                            n, k, w_out, wtx, gram, scratch, s);
 }
 
 // ------------------------------------------------------------------------ KL
@@ -226,11 +184,12 @@ cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const f
 
 extern "C" {
 
-// Floats of scratch the single-pass iteration of `kind` (0: MUR EU, 1: MUR
-// KL, 2: HALS EU) needs at (m, n, k); -1 if that is more than an int can
-// count.
-int tpunmf_iteration_scratch(int m, int n, int k, int x_is_bf16, int kind) {
-  const long long s = tpunmf::make_plan(m, n, k, x_is_bf16 ? 2 : 4, kind).scratch;
+// Floats of scratch the single-pass iteration of `kind` (0: MUR EU and the
+// sweep scripts' variants, 1: MUR KL, 2: HALS EU) needs at (m, n, k) for X
+// of x_bytes (4 f32, 2 bf16, 1 int8) an element; -1 if that is more than an
+// int can count.
+int tpunmf_iteration_scratch(int m, int n, int k, int x_bytes, int kind) {
+  const long long s = tpunmf::make_plan(m, n, k, x_bytes, kind).scratch;
   return s <= INT_MAX ? (int)s : -1;
 }
 

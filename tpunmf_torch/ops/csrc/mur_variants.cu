@@ -1,0 +1,141 @@
+// The sweep scripts' single-pass EU variants: the MUR EU iteration at
+// lam_w = 0 with three operand layouts or types.
+//
+// Replaces the Pallas kernels of benchmarks/:
+//   v1_iter (sweep_iter2.py:38, pallas_call :43): _v1_kernel (:19), with
+//       H^T pre-cast to X's type and handed in as an (n, k) array
+//   v2_iter (sweep_iter2.py:92, pallas_call :98): _v2_kernel (:66), v1 with
+//       the H update H' = H wtx / (gw H + eps) folded into its last grid step
+//   iter_eu_int8 (sweep_int8.py:49, pallas_call :54): _iter_eu_int8_kernel
+//       (:27), v1 on int8 X widened to bf16 (exactly), H and W' rounded to
+//       bf16, the numerator and wtx scaled by the per-matrix s
+//
+//   W' = W * numer / (W Gh + eps), numer = X round(H)^T (int8: times s),
+//   wtx = round(W')^T X (int8: times s), gram = W'^T W'   (round: to X's
+//   type, bf16 for int8)
+//
+// What bounds them on the H100: the 4*m*n*k FMA flops of mur_iteration_eu
+// (k to 2k flops per X byte at f32, 4k at int8), above the f32 FMA ridge
+// (20 flop/byte), so FMA throughput; int8 X's 4x fewer bytes buy nothing
+// while the products run on plain FMA tiles.  The design is that of
+// mur_iteration_eu: mur_eu_waves (wave.cuh) with the plain tile loops of
+// common.cuh, whose (A) reads the (n, k) H^T (v1, v2) or rounds f32 H to
+// bf16 as it stages it (int8), and whose (B) rounds W' to X's type (bf16
+// for int8).  v1 is mur_iteration_eu at lam_w = 0: the same staged values,
+// FMAs and order, so the same bits.
+//
+// On the card no block is "last": v2's H update is one more launch after the
+// Gram, in stream order (a 64 x 64 FMA tile of gw H per block, k deep, with
+// the elementwise epilogue), and int8's wtx is scaled by one elementwise
+// launch at the end, as the JAX wrapper scales it outside its kernel
+// (sweep_int8.py:75).  s is read from device memory: no call reads the
+// host.  Every cross-block sum is per-block partials added in a fixed
+// order.  Ragged edges load zeros; any (m, n) and k <= 1024 work.
+#include "wave.cuh"
+
+namespace tpunmf {
+namespace {
+
+// H' = H * wtx / (gw H + eps); grid (ceil(n / 64), ceil(k / 64)).
+__global__ void __launch_bounds__(kThreads)
+    h_update_kernel(const float* __restrict__ gw, const float* __restrict__ h,
+                    const float* __restrict__ wtx, int n, int k, float* __restrict__ h_out) {
+  __shared__ WhStage<4, 4> st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int col0 = blockIdx.x * kTile, row0 = blockIdx.y * kTile;
+  float hd[4][4];
+  wh_tile<4, 4>(hd, gw, h, k, n, k, row0, col0, st);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = row0 + ty + 16 * a, gc = col0 + tx + 16 * b;
+      if (gr < k && gc < n) {
+        const long long o = (long long)gr * n + gc;
+        h_out[o] = h[o] * wtx[o] / (hd[a][b] + kEps);
+      }
+    }
+}
+
+// v[i] *= *s
+__global__ void __launch_bounds__(kThreads)
+    scale_kernel(float* __restrict__ v, const float* __restrict__ s, long long len) {
+  const float sv = *s;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
+       i += (long long)gridDim.x * kThreads)
+    v[i] *= sv;
+}
+
+// v1 and, where h_out is not null, v2's H update after it.
+template <typename XT>
+cudaError_t v_iter(const void* xv, const void* htv, const float* h, const float* w,
+                   const float* gh, int m, int n, int k, float* w_out, float* h_out, float* wtx,
+                   float* gram, float* scratch, cudaStream_t s) {
+  cudaError_t err = mur_eu_waves<XT, XT, true, false>(
+      static_cast<const XT*>(xv), static_cast<const XT*>(htv), w, gh, 0.f, nullptr, m, n, k,
+      w_out, wtx, gram, scratch, s);
+  if (err != cudaSuccess || h_out == nullptr) return err;
+  return launch(h_update_kernel, dim3(ceil_div(n, kTile), ceil_div(k, kTile)), 0, s,
+                static_cast<const float*>(gram), h, static_cast<const float*>(wtx), n, k, h_out);
+}
+
+cudaError_t v_iter_any(const void* x, int x_is_bf16, const void* ht, const void* h,
+                       const void* w, const void* gh, int m, int n, int k, void* w_out,
+                       void* h_out, void* wtx, void* gram, void* scratch, void* stream) {
+  const float* hf = static_cast<const float*>(h);
+  const float* wf = static_cast<const float*>(w);
+  const float* gf = static_cast<const float*>(gh);
+  float* wo = static_cast<float*>(w_out);
+  float* ho = static_cast<float*>(h_out);
+  float* tx = static_cast<float*>(wtx);
+  float* gr = static_cast<float*>(gram);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_is_bf16 ? v_iter<__nv_bfloat16>(x, ht, hf, wf, gf, m, n, k, wo, ho, tx, gr, sc, s)
+                   : v_iter<float>(x, ht, hf, wf, gf, m, n, k, wo, ho, tx, gr, sc, s);
+}
+
+}  // namespace
+}  // namespace tpunmf
+
+extern "C" {
+
+// v1_iter.  ht is H^T (n, k) in X's type, gh = H H^T (k, k); writes W'
+// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).  scratch:
+// tpunmf_iteration_scratch(kind 0).
+int tpunmf_v1_iter(const void* x, int x_is_bf16, const void* ht, const void* w, const void* gh,
+                   int m, int n, int k, void* w_out, void* wtx, void* gram, void* scratch,
+                   void* stream) {
+  return static_cast<int>(tpunmf::v_iter_any(x, x_is_bf16, ht, nullptr, w, gh, m, n, k, w_out,
+                                             nullptr, wtx, gram, scratch, stream));
+}
+
+// v2_iter: v1_iter, then H' = H * wtx / (gram H + eps) (k, n) from H (k, n) f32.
+int tpunmf_v2_iter(const void* x, int x_is_bf16, const void* ht, const void* h, const void* w,
+                   const void* gh, int m, int n, int k, void* w_out, void* h_out, void* wtx,
+                   void* gram, void* scratch, void* stream) {
+  return static_cast<int>(tpunmf::v_iter_any(x, x_is_bf16, ht, h, w, gh, m, n, k, w_out, h_out,
+                                             wtx, gram, scratch, stream));
+}
+
+// iter_eu_int8.  xq int8 (m, n), h f32 (k, n) (rounded to bf16 as it is
+// staged), gh = H H^T, scale a device float; writes W' (m, k), wtx = s *
+// bf16(W')^T xq (k, n) and gram = W'^T W'.  scratch: kind 0 at 1-byte X.
+int tpunmf_iter_eu_int8(const void* xq, const void* h, const void* w, const void* gh,
+                        const void* scale, int m, int n, int k, void* w_out, void* wtx,
+                        void* gram, void* scratch, void* stream) {
+  using namespace tpunmf;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sv = static_cast<const float*>(scale);
+  float* tx = static_cast<float*>(wtx);
+  cudaError_t err = mur_eu_waves<int8_t, float, false, false>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(h),
+      static_cast<const float*>(w), static_cast<const float*>(gh), 0.f, sv, m, n, k,
+      static_cast<float*>(w_out), tx, static_cast<float*>(gram), static_cast<float*>(scratch),
+      s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long len = (long long)k * n;
+  return static_cast<int>(launch(scale_kernel, elementwise_grid(len), 0, s, tx, sv, len));
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
 // The wave schedule of the single-pass iterations: MUR's EU and KL
-// (mur_iteration.cu) and HALS's EU (hals_iteration.cu).
+// (mur_iteration.cu), the sweep scripts' EU variants (mur_variants.cu) and
+// HALS's EU (hals_iteration.cu).
 //
 // The TPU kernels run their grid in order on one core and keep the k x n
 // accumulator (wtx / wtr) resident across the row strips; on the card blocks
@@ -117,12 +118,14 @@ inline cudaError_t sum_slices(float* out, const float* parts, int count, long lo
 // same FMAs in the same order.
 
 // (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]);
-// grid (ceil(wave rows / 64), ceil(k / 64), nsplit).  hc is H in X's type;
-// `aligned`: the rows of X and hc start on 16 bytes.
-template <typename XT, bool ASYNC>
+// grid (ceil(wave rows / 64), ceil(k / 64), nsplit).  f is H (k, n) of type
+// FT, or with NK H^T (n, k), taken by factor_as_x; the two-stage loops take
+// H (k, n) in X's type only.  `aligned`: the rows of X and f start on 16 bytes.
+template <typename XT, typename FT, bool NK, bool ASYNC>
 __global__ void __launch_bounds__(kThreads)
-    eu_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ hc, int m, int n, int k,
+    eu_rows_kernel(const XT* __restrict__ x, const FT* __restrict__ f, int m, int n, int k,
                    int r0, int rows, int a_cols, bool aligned, float* __restrict__ part) {
+  static_assert(!ASYNC || (std::is_same_v<FT, XT> && !NK), "cp.async stages H (k, n) as X");
   __shared__ std::conditional_t<ASYNC, XftStage<XT>, EuStage> st;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int row0 = r0 + blockIdx.x * kTile, c0 = blockIdx.y * kTile;
@@ -130,9 +133,9 @@ __global__ void __launch_bounds__(kThreads)
   float numer[4][4];
   zero(numer);
   if constexpr (ASYNC)
-    x_ft_tile_async<XT>(numer, x, hc, m, n, k, row0, c0, j0, j1, aligned, st);
+    x_ft_tile_async<XT>(numer, x, f, m, n, k, row0, c0, j0, j1, aligned, st);
   else
-    x_ft_tile<XT>(numer, x, hc, m, n, k, row0, c0, j0, j1, st);
+    x_ft_tile<XT, FT, NK>(numer, x, f, m, n, k, row0, c0, j0, j1, st);
   float* out = part + (long long)blockIdx.z * rows * k;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -200,21 +203,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // The EU waves: per wave (A), epilogue(r0, r1) (which writes W' for the
 // wave's rows [r0, r1) into w_out from the partials at scratch + p.a_part),
-// (B); then gram = W'^T W'.  hc is H (k, n) in X's type.
-template <typename XT, bool ASYNC, typename Epilogue>
-cudaError_t eu_waves(const Plan& p, const XT* x, const XT* hc, int m, int n, int k,
+// (B); then gram = W'^T W'.  f is H as eu_rows_kernel takes it.
+template <typename XT, typename FT, bool NK, bool ASYNC, typename Epilogue>
+cudaError_t eu_waves(const Plan& p, const XT* x, const FT* f, int m, int n, int k,
                      Epilogue epilogue, float* w_out, float* wtx, float* gram, float* scratch,
                      cudaStream_t s) {
   constexpr int V = 16 / sizeof(XT);
   const bool x_aligned = n % V == 0 && aligned16(x);
-  const bool h_aligned = x_aligned && aligned16(hc);
+  const bool h_aligned = x_aligned && aligned16(f);
   const bool w_aligned = k % 4 == 0 && aligned16(w_out);
   const int ktiles = ceil_div(k, kTile);
   cudaError_t err = cudaSuccess;
   for (int wave = 0; wave < p.waves && err == cudaSuccess; ++wave) {
     const int r0 = wave * p.rows, r1 = std::min(r0 + p.rows, m), rtiles = ceil_div(r1 - r0, kTile);
-    err = launch(eu_rows_kernel<XT, ASYNC>, dim3(rtiles, ktiles, p.nsplit), 0, s, x, hc, m, n,
-                 k, r0, p.rows, p.a_cols, h_aligned, scratch + p.a_part);
+    err = launch(eu_rows_kernel<XT, FT, NK, ASYNC>, dim3(rtiles, ktiles, p.nsplit), 0, s, x, f,
+                 m, n, k, r0, p.rows, p.a_cols, h_aligned, scratch + p.a_part);
     if (err != cudaSuccess) break;
     err = epilogue(r0, r1);
     if (err != cudaSuccess) break;
@@ -230,6 +233,68 @@ cudaError_t eu_waves(const Plan& p, const XT* x, const XT* hc, int m, int n, int
                static_cast<const float*>(w_out), m, k, p.g_rows, scratch + p.g_part);
   if (err != cudaSuccess) return err;
   return sum_slices(gram, scratch + p.g_part, p.gsplit, (long long)k * k, false, s);
+}
+
+// ------------------------------------------------ the MUR EU single pass
+// Shared by mur_iteration.cu (mur_iteration_eu and its dma variant) and
+// mur_variants.cu (the sweep scripts' v1_iter, v2_iter and iter_eu_int8).
+
+// den = W Gh for all rows, before the first wave; grid (ceil(m / 64), ceil(k / 64)).
+__global__ void __launch_bounds__(kThreads)
+    eu_den_kernel(const float* __restrict__ w, const float* __restrict__ gh, int m, int k,
+                  float* __restrict__ den) {
+  __shared__ EuStage st;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int row0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  float acc[4][4];
+  zero(acc);
+  w_g_tile(acc, w, gh, m, k, row0, c0, st);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
+      if (gr < m && gc < k) den[(long long)gr * k + gc] = acc[a][b];
+    }
+}
+
+// (A2) W' = W * numer / (den + lam W + eps) for the wave's rows [r0, r1),
+// numer the chunks' partials added in order, times *scale where scale is
+// not null (int8 X's dequantisation, benchmarks/sweep_int8.py:38-39).
+__global__ void __launch_bounds__(kThreads)
+    eu_w_kernel(const float* __restrict__ w, const float* __restrict__ den,
+                const float* __restrict__ part, int nsplit, float lam,
+                const float* __restrict__ scale, int k, int r0, int r1, int rows,
+                float* __restrict__ out) {
+  const long long len = (long long)(r1 - r0) * k;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < len;
+       i += (long long)gridDim.x * kThreads) {
+    float numer = 0.f;
+    for (int z = 0; z < nsplit; ++z) numer += part[(long long)z * rows * k + i];
+    if (scale != nullptr) numer *= *scale;
+    const long long o = (long long)r0 * k + i;
+    const float wv = w[o];
+    out[o] = wv * numer / (den[o] + lam * wv + kEps);
+  }
+}
+
+// The MUR EU single pass: den = W Gh, then the EU waves with the W update
+// as epilogue.  f is H as eu_rows_kernel takes it (FT, NK).
+template <typename XT, typename FT, bool NK, bool ASYNC>
+cudaError_t mur_eu_waves(const XT* x, const FT* f, const float* w, const float* gh, float lam,
+                         const float* scale, int m, int n, int k, float* w_out, float* wtx,
+                         float* gram, float* scratch, cudaStream_t s) {
+  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveEu);
+  const float* den = scratch + p.den;
+  const float* part = scratch + p.a_part;
+  cudaError_t err = launch(eu_den_kernel, dim3(ceil_div(m, kTile), ceil_div(k, kTile)), 0, s, w,
+                           gh, m, k, scratch + p.den);
+  if (err != cudaSuccess) return err;
+  auto w_update = [&](int r0, int r1) {
+    return launch(eu_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w, den, part,
+                  p.nsplit, lam, scale, k, r0, r1, p.rows, w_out);
+  };
+  return eu_waves<XT, FT, NK, ASYNC>(p, x, f, m, n, k, w_update, w_out, wtx, gram, scratch, s);
 }
 
 }  // namespace

@@ -9,7 +9,8 @@ product may use only where both its operands already are bf16.
 
 ``chip_smoke.py`` computes each ported kernel's bound from the tensors of
 its run.  Run as a script, this module prints the bounds of the TPU
-kernels that are not ported yet, at the shapes their paths will run:
+kernels that are not ported yet, at the shapes their paths will run (every
+one is ported now, and it says so):
 
     python -m tpunmf_torch.ops.roofline
 """
@@ -30,12 +31,13 @@ def mur_flops(name: str, m: int, n: int, k: int, x_bf16: bool,
     """(f32, bf16) flops of one call of a MUR kernel on X (m, n) at rank k.
 
     2 m n k is one product against X; the EU products of a bf16 X take the
-    factor rounded to bf16, so both their operands are bf16.  The k x k
-    Grams and their products with a factor are f32."""
+    factor rounded to bf16, so both their operands are bf16, and so do
+    ``iter_eu_int8``'s (int8 X widened to bf16, whatever ``x_bf16`` says).
+    The k x k Grams and their products with a factor are f32."""
     mnk = 2.0 * m * n * k
-    eu_x = (0.0, mnk) if x_bf16 else (mnk, 0.0)
+    eu_x = (0.0, mnk) if x_bf16 or name == "iter_eu_int8" else (mnk, 0.0)
     grams = 2.0 * k * k * (m + n)
-    if name in ("mur_iteration_eu", "mur_iteration_eu_dma", "v1_iter"):
+    if name in ("mur_iteration_eu", "mur_iteration_eu_dma", "v1_iter", "iter_eu_int8"):
         return 2 * eu_x[0] + grams + 2.0 * m * k * k, 2 * eu_x[1]
     if name == "v2_iter":  # v1 with the H update folded in: Gw H
         return 2 * eu_x[0] + grams + 2.0 * m * k * k + 2.0 * k * k * n, 2 * eu_x[1]
@@ -57,27 +59,21 @@ def hals_flops(m: int, n: int, k: int, x_bf16: bool, nsweeps: int) -> tuple[floa
     return (grams + sweeps, 2 * mnk) if x_bf16 else (2 * mnk + grams + sweeps, 0.0)
 
 
+def read_probe_flops(m: int, n: int) -> tuple[float, float]:
+    """(f32, bf16) flops of one ``read_probe`` call on X (m, n): X + s and
+    the sum, an add each per element."""
+    return 2.0 * m * n, 0.0
+
+
 def _unported():
     """(kernel, shape, f32 flops, bf16 flops, bytes) of the TPU kernels
-    not ported yet, at the shapes their paths will run."""
-    m = n = 8192
-    k = 128
-    f32, bf16 = 4, 2
-    eu_io = (m * k + k * n) * f32 + (m * k + k * n + k * k) * f32  # W, H in; W', wtx, Gw out
-    rows = [
-        ("bench.py read probe", "8192x8192 f32", float(m * n), 0.0, m * n * f32 + n * f32),
-        ("v1_iter", "8192x8192 r128 bf16", *mur_flops("v1_iter", m, n, k, True),
-         m * n * bf16 + eu_io),
-        ("v2_iter", "8192x8192 r128 bf16", *mur_flops("v2_iter", m, n, k, True),
-         m * n * bf16 + eu_io + k * n * f32),
-        # int8 X widened to bf16 (exact) on the way into both products
-        ("iter_eu_int8", "8192x8192 r128 int8", *mur_flops("v1_iter", m, n, k, True),
-         m * n * 1 + eu_io),
-    ]
-    return rows
+    not ported yet, at the shapes their paths will run: none is left."""
+    return []
 
 
 def main() -> None:
+    if not _unported():
+        print("every TPU kernel of the repository is ported: none is left")
     for name, shape, f32_flops, bf16_flops, nbytes in _unported():
         ms, by = bound(f32_flops, bf16_flops, nbytes)
         print(f"{name:22s} {shape:30s} {f32_flops / 1e9:8.2f} GFLOP f32 "
