@@ -24,6 +24,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      mur_iteration_eu(lam_w=0) bit for bit and timed against it in turns;
      iter_eu_int8 at 8192x8192 r128 (X + 0.05 quantised) and ragged k37;
      the read probe at 8192x8192 f32 and a ragged 896x777, with its rate.
+     blockmax_relayout at (64, 2^20) and the read probe at 8192x8192 are
+     also timed in turns with the one PyTorch call that computes their
+     function (torch.amax of the scores' view, torch.sum over rows), with
+     the bytes per second each reaches.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
@@ -53,7 +57,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        from a stored bf16 H) and exact with 1% of the items excluded, and
        20 batches at r512, n = 2^19, exact; kernel route against the plain
        route (the same code with the kernels' plain versions), each
-       answer held against a stable sort of its own scores;
+       answer held against a stable sort of its own scores, and after
+       the path, each mode's device and wall ms per request from a profile
+       of 10 requests on each route;
      - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
        adaptive, and KL;
@@ -137,6 +143,8 @@ SCORE_TOL = 2e-5
 # another order), relative
 SERVE_VALUE_RTOL = 1e-5
 SERVE_BATCH, SERVE_BATCHES, SERVE_K = 64, 20, 100
+# calls of a kernel and of its library call that the profiler times
+PROFILED_CALLS = 20
 
 # the single-pass shapes: tpunmf's own route test (tests/test_ops.py:265-277)
 KL_SINGLE = dict(m=8192, n=4096, k=128, seed=4)
@@ -236,6 +244,23 @@ def time_pair(torch, plain, kernel, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def device_ms(torch, fn, calls):
+    """Device ms per call of ``fn`` over ``calls`` calls: the time of its
+    kernels in torch.profiler, with no host time between them inside."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / calls
+
+
 def chunks(got, want, size=1 << 26):
     """(got, want) as float64 pieces of at most ``size`` elements, so that
     comparing two config[3]-sized outputs (1e9 cells) needs no 8 GB
@@ -278,6 +303,13 @@ def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def written(outputs, inputs):
+    """The outputs whose bytes a call writes: one that shares an input's
+    storage (a view of it) writes none."""
+    shared = {t.untyped_storage().data_ptr() for t in inputs}
+    return [o for o in outputs if o.untyped_storage().data_ptr() not in shared]
+
+
 def mur_flops(name, x, k, dist=None):
     """(f32, bf16) flops of one call of a MUR kernel on X at rank k."""
     import torch
@@ -290,9 +322,12 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
                  err=max_rel_err, inputs=(), flops=(0.0, 0.0), library=None):
     """One kernel call against its plain version on the same inputs: the
     error (over every output) against rtol, both times, the bound of the
-    call (tpunmf_torch/ops/roofline.py: ``inputs`` read once, its outputs
-    written once, ``flops`` (f32, bf16) done), and where one PyTorch call
-    computes the same function (``library``), that call's time."""
+    call (tpunmf_torch/ops/roofline.py: ``inputs`` read once, the outputs
+    that are not views of an input written once, ``flops`` (f32, bf16)
+    done), and where one PyTorch call computes the same function
+    (``library``), that call's time in turns with the kernel's (library,
+    kernel, kernel, library; ``reps`` calls a run, as ``ms``), both
+    device times (profiler), and the bytes per second of each."""
     from tpunmf_torch.ops import roofline
 
     got, want = kern(), plain()
@@ -303,22 +338,34 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
     abs_err = max(bit_err(a, b) for a, b in zip(got, want))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     ms, plain_ms = time_pair(torch, plain, kern, reps)
-    library_ms = None if library is None else time_pair(torch, library, library, reps)[0]
-    bound_ms, bound_by = roofline.bound(*flops, nbytes(inputs) + nbytes(got))
+    moved = nbytes(inputs) + nbytes(written(got, inputs))
+    library_ms = turns_ms = kern_dev = lib_dev = None
+    if library is not None:
+        turns_ms, library_ms = time_pair(torch, library, kern, reps)
+        kern_dev, lib_dev = (device_ms(torch, f, PROFILED_CALLS) for f in (kern, library))
+    bound_ms, bound_by = roofline.bound(*flops, moved)
     ok = finite and rel <= rtol
     print(f"  {name:19s} {label:36s} {what:24s} err={rel:.3e} "
           f"(tol {rtol:.0e}) max_abs_err={abs_err:.3e} "
           f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-          f"({bound_by})" + ("" if library is None else f"  library {library_ms:.4f} ms")
-          + f"  {'ok' if ok else 'FAIL'}", flush=True)
+          f"({bound_by})  {'ok' if ok else 'FAIL'}", flush=True)
+    if library is not None:
+        print(f"  {name:19s} {label:36s} in turns with the library call, {reps} calls "
+              f"a run, on {moved / 1e6:.1f} MB: kernel {turns_ms:.4f} ms "
+              f"({moved / turns_ms / 1e9:.3f} TB/s), library {library_ms:.4f} ms "
+              f"({moved / library_ms / 1e9:.3f} TB/s); device time (profiler, "
+              f"{PROFILED_CALLS} calls) kernel {kern_dev:.4f} ms "
+              f"({moved / kern_dev / 1e9:.3f} TB/s), library {lib_dev:.4f} ms "
+              f"({moved / lib_dev / 1e9:.3f} TB/s)", flush=True)
     require(finite, f"{name} {label} {what}: non-finite output")
     require(rel <= rtol, f"{name} {label} {what}: error {rel:.3e} above {rtol:.0e}")
     rec = records.setdefault(name, {"max_abs_err": 0.0, "cases": []})
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     rec["cases"].append({"shape": label, "case": what, "max_rel_err": rel,
                          "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": library_ms})
+                         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                         "library_ms": library_ms, "turns_ms": turns_ms,
+                         "device_ms": kern_dev, "library_device_ms": lib_dev})
 
 
 def kernel_phase(torch, cases, reps):
@@ -571,7 +618,7 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
                      library=library)
     probe = records["read_probe"]["cases"][0]
     print(f"  read probe {tuple(eu_x.shape)} f32: {nbytes((eu_x,)) / probe['ms'] / 1e9:.3f} "
-          f"TB/s per call (published peak 3.35 TB/s)", flush=True)
+          f"TB/s per call, {reps} calls a run (published peak 3.35 TB/s)", flush=True)
     return line
 
 
@@ -651,10 +698,12 @@ def serving_kernel_phase(torch, records, reps):
                                (f"two row tiles (96, {1 << 20}) f32", 96, 1 << 20,
                                 torch.float32)):
         s = torch.randn((b, n), generator=g, device="cuda").to(dtype)
-        # where n is a multiple of the 128-wide block, s3 is a view of the
-        # scores and one torch.amax computes the maxima: the library call
+        # where the blocks tile n exactly (n = 2^20), the kernel returns s3
+        # as a view of the scores (no bytes written: the bound is the read of
+        # S plus the maxima) and one torch.amax of that view computes the
+        # same maxima: the library call
         library = ((lambda: torch.amax(s.view(b, n // 128, 128), dim=2))
-                   if n % 128 == 0 else None)
+                   if n % (128 * 128) == 0 else None)
         check_kernel(torch, records, "blockmax_relayout", label, "bit for bit",
                      lambda: ts.blockmax_relayout(s), lambda: ts.blockmax_relayout_ref(s),
                      0.0, reps, err=bit_err, inputs=(s,), flops=(float(b * n), 0.0),
@@ -863,15 +912,31 @@ def switched_run(torch, tt, wrappers, label, x, k, ref_trace, rtol, exact, card,
     return {"fused_it_s": iters / secs, "route_err": err, "trace_err": whole}
 
 
+def device_ms_by_kernel(prof, per):
+    """Device ms by kernel in a profile, over ``per`` iterations or
+    requests; cuBLAS's products under one name."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            name = re.sub(r"^(void )?([\w:]+::)?(\(anonymous namespace\)::)?", "", e.key)
+            name = re.split(r"[<(]", name)[0]
+            if "gemm" in e.key.lower() or "splitK" in e.key:
+                name = "cuBLAS GEMM"
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / per
+    return kernels
+
+
 def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False, method="mur",
                 **extra):
     """Device time by kernel over one factorize() of `iters` iterations
     (torch.profiler; the kernels run on one stream, so their sum is their
     union), it/s in that window, and the device's idle share of its host
     wall time (an upper bound: the profiler's own overhead is inside)."""
-    import re
-
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
@@ -886,15 +951,7 @@ def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False, method=
         tt.NMF(x, k).factorize(**kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and us > 0:
-            name = re.sub(r"^(void )?([\w:]+::)?(\(anonymous namespace\)::)?", "", e.key)
-            name = re.split(r"[<(]", name)[0]
-            if "gemm" in e.key.lower() or "splitK" in e.key:
-                name = "cuBLAS GEMM"
-            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / iters
+    kernels = device_ms_by_kernel(prof, iters)
     device = sum(kernels.values())
     out = {"device_ms_per_it": device, "wall_ms_per_it": 1e3 * wall / iters,
            "it_s": iters / wall, "idle_share": 1.0 - device * iters / (1e3 * wall),
@@ -1003,8 +1060,30 @@ def serve_batches(torch, request):
     return answers, ms
 
 
+def serving_profile(torch, request, requests=10):
+    """Device and wall ms per request over ``requests`` requests
+    (torch.profiler's kernel time, and the host clock around them with a
+    synchronize at the end: an upper bound, the profiler's overhead is
+    inside), the device's idle share of that wall time, and the three
+    kernels that take the most device time, ms per request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(requests):
+            request(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_ms_by_kernel(prof, requests)
+    device_ms, wall_ms = sum(kernels.values()), 1e3 * wall / requests
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:3])
+    return device_ms, wall_ms, 1.0 - device_ms / wall_ms, top
+
+
 def serving_mode(torch, label, request):
-    """One serving mode on the kernel route and on the plain route."""
+    """One serving mode on the kernel route and on the plain route, CUDA
+    events around each request."""
     kernel_answers, kernel_ms = serve_batches(torch, request)
     with plain_serving():
         plain_answers, plain_ms = serve_batches(torch, request)
@@ -1065,18 +1144,34 @@ def serving_path(torch, runs):
             None, batch(i), h, SERVE_K,
             exclude=excl[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]),
     }
+    users512, h512, _ = serving_data(torch, 512, 1 << 19, seed=22)
+    batch512 = lambda i: users512[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]
+    modes["serve exact r512"] = lambda i: topk.topk_scores_dense(batch512(i), h512, SERVE_K)
     for label, request in modes.items():
         runs[label], kernel, plain = serving_mode(torch, label, request)
         kept[label] = (kernel, plain)
     kept["r128"] = (batch, h, hq, excl)
-    users512, h512, _ = serving_data(torch, 512, 1 << 19, seed=22)
-    batch512 = lambda i: users512[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]
-    runs["serve exact r512"], kernel, plain = serving_mode(
-        torch, "serve exact r512",
-        lambda i: topk.topk_scores_dense(batch512(i), h512, SERVE_K))
-    kept["serve exact r512"] = (kernel, plain)
     kept["r512"] = (batch512, h512)
+    kept["requests"] = modes
     return kept
+
+
+def profile_serving(torch, runs, requests):
+    """Each serving mode's device and wall ms per request on both routes
+    (serving_profile), after the serving path's counts were read: the
+    profiled requests are not the path's."""
+    for label, request in requests.items():
+        kernel = serving_profile(torch, request)
+        with plain_serving():
+            plain = serving_profile(torch, request)
+        runs[label].update(device_ms=kernel[0], wall_ms=kernel[1], idle_share=kernel[2],
+                           kernels_ms=kernel[3], plain_device_ms=plain[0],
+                           plain_wall_ms=plain[1], plain_idle_share=plain[2],
+                           plain_kernels_ms=plain[3])
+        for route, p in (("kernel", kernel), ("plain", plain)):
+            print(f"  {label}: profiled {route} route, ms per request device / wall "
+                  f"{p[0]:.4f} / {p[1]:.4f} (idle {p[2]:.3f}); "
+                  + ", ".join(f"{n} {v:.4f}" for n, v in p[3].items()), flush=True)
 
 
 def check_serving(torch, runs, kept):
@@ -1546,6 +1641,7 @@ def main() -> int:
     kept = drive("serving path", ("score_blockmax_relayout", "blockmax_relayout"),
                  lambda: serving_path(torch, runs))
     check_serving(torch, runs, kept)
+    profile_serving(torch, runs, kept["requests"])
     del kept
     torch.cuda.empty_cache()
     drive("ADMM path", ("eu_residual_obj", "kl_ratio_and_obj"), admm_path)
@@ -1582,15 +1678,18 @@ def main() -> int:
                 and c["shape"].endswith(HEADLINE_X.get(name, "f32"))]
         return hits[0]
 
-    # library_ms: only blockmax_relayout (torch.amax over a view) and the
-    # read probe (torch.sum over rows) have one PyTorch call computing their
-    # function; the others fuse a product with an update, a masked sum, a
-    # division or a selection, and have none (null)
+    # library_ms: only blockmax_relayout (torch.amax over the view of the
+    # scores that its s3 is) and the read probe (torch.sum over rows) have
+    # one PyTorch call computing their function, timed in turns with the
+    # kernel as ms is with the plain version; their device times are in
+    # their cases.  The others fuse a product with an update, a masked
+    # sum, a division or a selection, and have none (null)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": records[name]["max_abs_err"],
-         "ms": headline(name)["ms"], "plain_ms": headline(name)["plain_ms"],
+         "ms": headline(name)["ms"],
+         "plain_ms": headline(name)["plain_ms"],
          "bound_ms": headline(name)["bound_ms"], "bound_by": headline(name)["bound_by"],
          "library_ms": headline(name)["library_ms"],
          "shape": headline(name)["shape"] + " " + headline(name)["case"],

@@ -269,7 +269,8 @@ def _same_bits(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
-@pytest.mark.parametrize("b,n", [(4, 16384), (3, 40000), (70, 20000)])
+@pytest.mark.parametrize("b,n", [(4, 16384), (3, 40000), (70, 20000),
+                                 (5, 20001)])  # rows off 16 bytes: scalar loads
 @pytest.mark.parametrize("sel_block", [128, 256])
 def test_blockmax_relayout_matches_plain_version_bit_for_bit(cuda_device, sel_block, b, n,
                                                              dtype):
@@ -286,6 +287,33 @@ def test_blockmax_relayout_matches_plain_version_bit_for_bit(cuda_device, sel_bl
         _same_bits(a, w)
     assert int(torch.isnan(got[0][b - 1]).sum()) == 1
     assert bool((got[0][0, :n // sel_block] == -float("inf")).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("b,n,sel_block,offset", [
+    (4, 16384, 128, 0), (4, 16384, 128, 1),  # scores on 16 bytes, or one value past them
+    (2, 32768, 256, 0), (64, 1 << 20, 128, 0)])  # the serving shape
+def test_blockmax_relayout_s3_is_a_view_and_maxima_are_amax(cuda_device, offset, sel_block,
+                                                            n, b, dtype):
+    """Where nbp * sel_block == n the kernel returns the scores as s3 and
+    writes only the maxima: torch.amax of the view, bit for bit."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(b + n + offset)
+    buf = torch.randn(b * n + offset, generator=g, device=cuda_device).to(dtype)
+    s = buf[offset:].view(b, n)
+    s[b - 1, n // 3] = float("nan")  # propagates into its block's maximum
+    s[0, :] = -float("inf")          # a fully excluded row stays -inf
+    before = topk_select.blockmax_relayout.launches
+    bmax, s3 = topk_select.blockmax_relayout(s, sel_block)
+    assert topk_select.blockmax_relayout.launches == before + 1
+    assert s3.shape == (b, n // sel_block, sel_block)
+    assert s3.data_ptr() == s.data_ptr()
+    assert s3.untyped_storage().data_ptr() == s.untyped_storage().data_ptr()
+    _same_bits(bmax, torch.amax(s.view(b, n // sel_block, sel_block), dim=2))
+    assert int(torch.isnan(bmax).sum()) == 1
+    assert bool(torch.isnan(bmax[b - 1, (n // 3) // sel_block]))
+    assert bool((bmax[0] == -float("inf")).all())
 
 
 @pytest.mark.cuda
@@ -720,6 +748,28 @@ def test_read_probe_matches_plain_version(cuda_device, n, offset):
         assert got.shape == (1, n) and got.dtype == torch.float32
         torch.testing.assert_close(got, read_probe.read_probe_ref(x, s), rtol=RTOL, atol=0)
         assert torch.equal(read_probe.read_probe(x, s), got)  # fixed-order sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(8192, 8192), (896, 777)])
+def test_read_probe_is_one_launch_with_the_same_bits(cuda_device, m, n):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(m + n)
+    x = torch.rand((m, n), generator=g, device=cuda_device)
+    s = torch.tensor(0.25, device=cuda_device)
+    got = read_probe.read_probe(x, s)
+    assert torch.equal(read_probe.read_probe(x, s), got)  # fixed-order sums, no atomics
+    torch.testing.assert_close(got, read_probe.read_probe_ref(x, s), rtol=RTOL, atol=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        read_probe.read_probe(x, s)
+        torch.cuda.synchronize()
+    device_events = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+    assert device_events == 1
 
 
 @pytest.mark.cuda

@@ -238,6 +238,28 @@ def test_blockmax_relayout_matches_pallas_kernel_bit_for_bit(b, n, dtype):
     assert bool((got_s3.reshape(b, -1)[:, n:] == lo).all())
 
 
+@pytest.mark.parametrize("b,n,dtype,sel_block",
+                         [(b, n, dtype, 128) for b, n, dtype in BLOCKMAX_SHAPES]
+                         + [(2, 32768, "float32", 256), (4, 16384, "float32", 256)])
+def test_blockmax_relayout_s3_is_a_view_exactly_where_the_blocks_tile_n(b, n, dtype,
+                                                                        sel_block):
+    """nbp * sel_block == n: s3 shares the scores' storage; elsewhere it is
+    a fresh tensor padded with finfo.min.  Both against the Pallas kernel."""
+    rng = np.random.default_rng(b * n + sel_block)
+    s = rng.standard_normal((b, n)).astype(np.float32)
+    want_m, want_s3 = jselect.blockmax_relayout(jnp.asarray(s).astype(getattr(jnp, dtype)),
+                                                sel_block=sel_block, interpret=True)
+    scores = t(s).to(getattr(torch, dtype))
+    got_m, got_s3 = tselect.blockmax_relayout(scores, sel_block)
+    np.testing.assert_array_equal(got_m.float().numpy(), np.asarray(want_m, np.float32))
+    np.testing.assert_array_equal(got_s3.float().numpy(), np.asarray(want_s3, np.float32))
+    nbp = got_s3.shape[1]
+    shares = got_s3.untyped_storage().data_ptr() == scores.untyped_storage().data_ptr()
+    assert shares == (nbp * sel_block == n)
+    if not shares:
+        assert bool((got_s3.reshape(b, -1)[:, n:] == torch.finfo(got_s3.dtype).min).all())
+
+
 # tests/test_serve.py:447-450's shapes: ragged n, bfloat16 inputs, two
 # row tiles
 SCORE_SHAPES = [(8, 128, 16384, "float32"), (8, 128, 40000, "float32"),

@@ -172,14 +172,19 @@ def test_v1_plain_version_is_mur_iteration_eu_s_at_lam_0(xdtype):
     assert all(torch.equal(g, j) for g, j in zip((v2[0], v2[2], v2[3]), got))
 
 
-@pytest.mark.parametrize("s", [0.0, 3.0, torch.tensor([[-1.5]])])
-def test_read_probe_plain_version_is_its_formula(s):
+# three values of s at 256x100, then 0.25 at the shapes the card tests run
+# (n % 4 != 0, a slab past n, one strip)
+@pytest.mark.parametrize("s,m,n", [
+    (0.0, 256, 100), (3.0, 256, 100), (torch.tensor([[-1.5]]), 256, 100),
+    (0.25, 896, 777), (0.25, 128, 1), (0.25, 384, 1000), (0.25, 1024, 64)],
+    ids=["0.0", "3.0", "s2", "896x777", "128x1", "384x1000", "1024x64"])
+def test_read_probe_plain_version_is_its_formula(s, m, n):
     """bench.py:237: the column sums of X + s over the strips, (1, n) f32."""
-    x = np.random.default_rng(56).random((256, 100)).astype(np.float32)
+    x = np.random.default_rng(56).random((m, n)).astype(np.float32)
     before = read_probe.read_probe.launches
     got = read_probe.read_probe(t(x), s)
     assert read_probe.read_probe.launches == before
-    assert got.shape == (1, 100) and got.dtype == torch.float32
+    assert got.shape == (1, n) and got.dtype == torch.float32
     want = np.sum(x.astype(np.float64) + float(s), axis=0, keepdims=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=KERNEL_RTOL)
 

@@ -57,8 +57,8 @@ _SIGNATURES = {
     # xq (int8), h, w, gh, scale (device float), m, n, k, w_out, wtx, gram,
     # scratch, stream
     "tpunmf_iter_eu_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    # x, s (device float), m, n, partials, out, stream
-    "tpunmf_read_probe": (_P, _P, _I, _I, _P, _P, _P),
+    # x, s (device float), m, n, out, stream
+    "tpunmf_read_probe": (_P, _P, _I, _I, _P, _P),
     # a, a strides (2), g, v, v strides (2), lam, k, cols, nsweeps,
     # out, out strides (2), stream
     "tpunmf_gs_sweep": (_P, _I, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P, _I, _I, _P),
@@ -73,7 +73,8 @@ _SIGNATURES = {
     "tpunmf_kl_ratio_obj": (_P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     # x, x_is_bf16, w, h, m, n, k, eps, ratio, stream
     "tpunmf_kl_ratio": (_P, _I, _P, _P, _I, _I, _I, _F, _P, _P),
-    # scores, dtype (0 f32, 1 bf16, 2 f64), b, n, nbp, sel, bmax, s3, stream
+    # scores, dtype (0 f32, 1 bf16, 2 f64), b, n, nbp, sel, bmax, s3 (NULL
+    # where s3 is a view of the scores), stream
     "tpunmf_blockmax_relayout": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
     # w (f32), h, h dtype (0 f32, 1 bf16, 2 f16), b, r, n, nbp, sel, bmax,
     # s3, stream

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernels of tpunmf/ops/topk_select.py: _bmax_kernel
 // (body :71, pallas_call :97, entry blockmax_relayout :77) and
 // _score_bmax_kernel (body :118, pallas_call :188, entry
-// score_blockmax_relayout :156).  Both write, for scores S (b x n):
+// score_blockmax_relayout :156).  Both give, for scores S (b x n):
 //   s3   (b, nbp, sel): S row by row, padded with the dtype's lowest finite
 //        value (finfo.min, not -inf: tpunmf/ops/topk_select.py:17-19) up to
 //        nbp * sel columns, nbp = ceil(n / (128 * sel)) * 128;
@@ -12,12 +12,21 @@
 //        block holds a NaN (tpunmf/serve/topk.py:160-163), so fmaxf is not
 //        used.
 //
-// blockmax_relayout is bound by bytes: one read of S and one write of s3.
-// On the TPU the relayout was a real data movement (lanes to sublanes); on
-// the card a row-major (b, n) array and its (b, nbp, sel) view differ only
-// in the padding, so the kernel is a padded copy with a warp-wide max: one
-// warp per (row, block), lanes on neighbouring columns, so that every load
-// and store is coalesced.
+// blockmax_relayout is bound by bytes.  On the TPU the relayout was a real
+// data movement (lanes to sublanes); on the card a row-major (b, n) array and
+// its (b, nbp, sel) view are the same bytes whenever nbp * sel == n (n = 2^20
+// at the serving shape).  There the wrapper returns s3 as a view of S and the
+// kernel reads S once and writes only bmax: its bound is the read.  Where the
+// blocks overhang n, s3 is a fresh padded copy that the same kernel writes as
+// it reads (one read plus one write).  Design (blockmax_kernel): a group of
+// 32 / E lanes owns a 128-column piece of a block, E the values of a 16-byte
+// load (4 f32, 8 bf16, 2 f64), so a lane starts 4 independent 16-byte loads
+// a piece before its first comparison; a warp takes E blocks a step and
+// walks a run of 32 consecutive blocks, one run a warp (2048 blocks of 8
+// warps at the serving shape).  The group reduces with shuffles, the 32
+// maxima of a run are gathered one to a lane and the warp writes them with
+// one coalesced store.  Scores whose base or row length is not on 16 bytes
+// take the same schedule with scalar loads; s3's stores are always 16 bytes.
 //
 // score_blockmax_relayout computes S = W H (W b x r float32, H r x n float32,
 // bfloat16 or float16, f32 FMA accumulation and output: products of two
@@ -79,30 +88,81 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float load_f32(const __half* p) { return __half2float(*p); }
 
+// 16 bytes of scores: kE values of T
 template <typename T>
+struct alignas(16) Pack {
+  static constexpr int kE = 16 / sizeof(T);
+  T e[kE];
+};
+
+// the pack at p, of which the first `valid` values exist (at or past them:
+// lowest<T>(), the padding of s3).  kVec: p is on 16 bytes and n % kE == 0,
+// so a pack lies wholly inside the row or wholly past its end.
+template <typename T, bool kVec>
+__device__ __forceinline__ Pack<T> load_pack(const T* p, long long valid) {
+  Pack<T> out;
+  if (kVec && valid > 0) {
+    *reinterpret_cast<uint4*>(&out) = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+#pragma unroll
+    for (int i = 0; i < Pack<T>::kE; ++i) out.e[i] = (!kVec && i < valid) ? p[i] : lowest<T>();
+  }
+  return out;
+}
+
+constexpr int kRun = 32;  // consecutive blocks a warp walks: one maximum a lane
+
+// bmax[blk] = the maximum of sel-wide block blk of the scores, blk < blocks
+// (= b * nbp).  kCopy: also s3[blk] = the block, padded past n; else s3 is
+// the scores themselves (nbp * sel == n) and is not written.
+template <typename T, bool kVec, bool kCopy>
 __global__ void __launch_bounds__(kThreads)
-    blockmax_kernel(const T* __restrict__ scores, int b, int n, int nbp, int sel,
+    blockmax_kernel(const T* __restrict__ scores, int n, int nbp, int sel, long long blocks,
                     T* __restrict__ bmax, T* __restrict__ s3) {
   using C = typename Cmp<T>::type;
-  const long long warp = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= (long long)b * nbp) return;  // a whole warp leaves together
-  const long long row = warp / nbp, blk = warp % nbp;
-  const long long col0 = blk * sel;
-  const T* src = scores + row * n;
-  T* dst = s3 + warp * sel;
-  C m = -INFINITY;
-#pragma unroll 4
-  for (int j = lane; j < sel; j += 32) {
-    const long long c = col0 + j;
-    const T v = c < n ? src[c] : lowest<T>();
-    dst[j] = v;
-    m = nan_max(m, to_cmp(v));
-  }
+  constexpr int kE = Pack<T>::kE;
+  constexpr int kGroup = 32 / kE;       // lanes of a block: 128 columns, 4 packs a lane
+  constexpr int kPerStep = 32 / kGroup;  // blocks of a warp step
+  constexpr int kU = 128 / (kGroup * kE);
+  const int lane = threadIdx.x % 32, group = lane / kGroup, sub = lane % kGroup;
+  const int packs = sel / (kGroup * kE);  // of a lane in a block: a multiple of kU
+  // the warp's run; a warp past the last run leaves whole
+  const long long run = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (run * kRun >= blocks) return;
+  C mine = -INFINITY;  // the maximum of block run * kRun + lane
+  for (int step = 0; step < kRun / kPerStep; ++step) {
+    const long long blk = run * kRun + step * kPerStep + group;
+    C m = -INFINITY;
+    if (blk < blocks) {
+      const long long row = kCopy ? blk / nbp : 0;
+      const long long col0 = kCopy ? (blk - row * nbp) * sel : 0;
+      const T* src = kCopy ? scores + row * n + col0 : scores + blk * sel;
+      const long long valid = kCopy ? n - col0 : sel;
+      for (int j0 = 0; j0 < packs; j0 += kU) {
+        Pack<T> v[kU];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) bmax[warp] = from_cmp<T>(m);
+        for (int u = 0; u < kU; ++u) {
+          const int off = ((j0 + u) * kGroup + sub) * kE;
+          v[u] = load_pack<T, kVec>(src + off, valid - off);
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (kCopy)  // s3 is fresh and sel % 128 == 0: every pack is on 16 bytes
+            *reinterpret_cast<uint4*>(s3 + blk * sel + ((j0 + u) * kGroup + sub) * kE) =
+                *reinterpret_cast<const uint4*>(&v[u]);
+#pragma unroll
+          for (int i = 0; i < kE; ++i) m = nan_max(m, to_cmp(v[u].e[i]));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = kGroup / 2; off > 0; off >>= 1)
+      m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const C got = __shfl_sync(0xffffffffu, m, (lane % kPerStep) * kGroup);
+    if (lane / kPerStep == step) mine = got;
+  }
+  const long long blk = run * kRun + lane;
+  if (blk < blocks) bmax[blk] = from_cmp<T>(mine);
 }
 
 template <typename HT>
@@ -164,15 +224,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T, bool kVec, bool kCopy>
+cudaError_t launch_blockmax_as(const void* scores, int b, int n, int nbp, int sel, void* bmax,
+                               void* s3, cudaStream_t stream) {
+  const long long blocks = (long long)b * nbp;
+  const long long runs = (blocks + kRun - 1) / kRun;  // one a warp
+  const long long grid = (runs + kWarps - 1) / kWarps;
+  blockmax_kernel<T, kVec, kCopy><<<(unsigned)grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(scores), n, nbp, sel, blocks, static_cast<T*>(bmax),
+      static_cast<T*>(s3));
+  return cudaGetLastError();
+}
+
+// s3 == nullptr: nbp * sel == n, s3 is the scores themselves, only bmax is
+// written
 template <typename T>
 cudaError_t launch_blockmax(const void* scores, int b, int n, int nbp, int sel, void* bmax,
                             void* s3, cudaStream_t stream) {
-  const long long warps = (long long)b * nbp;
-  const dim3 grid((unsigned)((warps + kWarps - 1) / kWarps));
-  blockmax_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(scores), b, n, nbp,
-                                                    sel, static_cast<T*>(bmax),
-                                                    static_cast<T*>(s3));
-  return cudaGetLastError();
+  const bool vec = reinterpret_cast<uintptr_t>(scores) % 16 == 0 && n % Pack<T>::kE == 0;
+  if (s3 == nullptr)
+    return vec ? launch_blockmax_as<T, true, false>(scores, b, n, nbp, sel, bmax, s3, stream)
+               : launch_blockmax_as<T, false, false>(scores, b, n, nbp, sel, bmax, s3, stream);
+  return vec ? launch_blockmax_as<T, true, true>(scores, b, n, nbp, sel, bmax, s3, stream)
+             : launch_blockmax_as<T, false, true>(scores, b, n, nbp, sel, bmax, s3, stream);
 }
 
 template <typename HT>
@@ -190,7 +264,8 @@ cudaError_t launch_score(const float* w, const void* h, int b, int r, int n, int
 extern "C" {
 
 // scores (b x n) -> bmax (b x nbp), s3 (b x nbp x sel), all of one dtype:
-// 0 float32, 1 bfloat16, 2 float64.  sel is a multiple of 128.
+// 0 float32, 1 bfloat16, 2 float64.  sel is a multiple of 128.  s3 NULL:
+// nbp * sel == n and s3 is a view of the scores; only bmax is written.
 int tpunmf_blockmax_relayout(const void* scores, int dtype, int b, int n, int nbp, int sel,
                              void* bmax, void* s3, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

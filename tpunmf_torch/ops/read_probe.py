@@ -1,11 +1,14 @@
 """The device's read rate, from a STREAM-style read probe (csrc/read_probe.cu).
 
 ``read_probe(x, s)`` is the kernel of ``bench.py``'s memory-rate probe
-(bench.py:215-262): the (1, n) float32 column sums of X + s over 128-row
-strips, s a scalar that changes from call to call so that no call can be
-elided.  ``read_rate(x)`` times it as ``bench.py`` does (bench.py:264-299):
-the time of ``hi`` calls less that of ``lo`` calls, over ``hi - lo``,
-taken with CUDA events, so the fixed cost of a run cancels.
+(bench.py:215-262): the (1, n) float32 column sums of X + s, m a multiple
+of 128 (the TPU grid's strips), s a scalar that changes from call to call
+so that no call can be elided.  On the card a call is one launch, with no
+scratch and no second pass: each block sums a 32-column slab over all
+rows in a fixed order.  ``read_rate(x)`` times it as ``bench.py`` does
+(bench.py:264-299): the time of ``hi`` calls less that of ``lo`` calls,
+over ``hi - lo``, taken with CUDA events, so the fixed cost of a run
+cancels.
 
 ``read_probe`` takes its plain version (``read_probe_ref``) only for a
 tensor on the CPU; for a CUDA tensor it launches its kernel or raises, and
@@ -45,10 +48,8 @@ def read_probe(x, s):
         raise ValueError("read_probe: x must be contiguous")
     s = torch.as_tensor(s, dtype=torch.float32, device=x.device).reshape(())
     m, n = x.shape
-    part = torch.empty((m // STRIP, n), dtype=torch.float32, device=x.device)
     out = torch.empty((1, n), dtype=torch.float32, device=x.device)
-    call("tpunmf_read_probe", x.device, x.data_ptr(), s.data_ptr(), m, n, part.data_ptr(),
-         out.data_ptr())
+    call("tpunmf_read_probe", x.device, x.data_ptr(), s.data_ptr(), m, n, out.data_ptr())
     read_probe.launches += 1
     return out
 

@@ -7,7 +7,10 @@
 
   * ``blockmax_relayout(scores)``: (b, n) scores -> (bmax (b, nbp),
     s3 (b, nbp, sel_block)), in the scores' dtype (float32, bfloat16,
-    float64); kernel: csrc/topk_select.cu
+    float64); where nbp * sel_block == n (n = 2^20 at the serving shape)
+    s3 is a view of ``scores`` and shares its storage, and the kernel
+    reads the scores once and writes only the maxima; kernel:
+    csrc/topk_select.cu
   * ``score_blockmax_relayout(w_batch, h)``: the same pair for
     ``w_batch @ h`` with float32 accumulation and output whatever the
     inputs' dtype (float32, bfloat16, float16), without writing the b x n
@@ -57,7 +60,11 @@ def blockmax_relayout_ref(scores, sel_block: int = 128):
 
 
 def blockmax_relayout(scores, sel_block: int = 128):
-    """(b, n) scores -> (block maxima (b, nbp), relayout (b, nbp, sel_block))."""
+    """(b, n) scores -> (block maxima (b, nbp), relayout (b, nbp, sel_block)).
+
+    Where nbp * sel_block == n, s3 is ``scores.view(b, nbp, sel_block)``
+    (it shares the scores' storage, as the plain version's does) and the
+    kernel writes only the maxima; elsewhere s3 is a fresh padded copy."""
     if on_cpu(scores):
         return blockmax_relayout_ref(scores, sel_block)
     if scores.dim() != 2:
@@ -70,10 +77,13 @@ def blockmax_relayout(scores, sel_block: int = 128):
     b, n = scores.shape
     nbp = _blocks(n, sel_block)
     bmax = torch.empty((b, nbp), dtype=scores.dtype, device=scores.device)
-    s3 = torch.empty((b, nbp, sel_block), dtype=scores.dtype, device=scores.device)
+    if nbp * sel_block == n:
+        s3, s3_ptr = scores.view(b, nbp, sel_block), None  # NULL: the kernel writes no s3
+    else:
+        s3 = torch.empty((b, nbp, sel_block), dtype=scores.dtype, device=scores.device)
+        s3_ptr = s3.data_ptr()
     call("tpunmf_blockmax_relayout", scores.device, scores.data_ptr(),
-         _SCORE_DTYPES[scores.dtype], b, n, nbp, sel_block, bmax.data_ptr(),
-         s3.data_ptr())
+         _SCORE_DTYPES[scores.dtype], b, n, nbp, sel_block, bmax.data_ptr(), s3_ptr)
     blockmax_relayout.launches += 1
     return bmax, s3
 
