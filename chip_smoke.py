@@ -27,7 +27,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      blockmax_relayout at (64, 2^20) and the read probe at 8192x8192 are
      also timed in turns with the one PyTorch call that computes their
      function (torch.amax of the scores' view, torch.sum over rows), with
-     the bytes per second each reaches.
+     the bytes per second each reaches.  The tensor-core kernels
+     (masked_h_update at MovieLens-10M, kl_ratio_and_obj and kl_ratio at
+     config[3], config[1] and r1536) also print their profiler device time
+     and the TFLOP/s of f32 products (TB/s where bytes bind) alone, on the
+     device and at the bound; masked_h_update also runs on bf16 X and must
+     give the same bits on a second call, and kl_ratio must give
+     kl_ratio_and_obj's ratio bit for bit at every shape.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
@@ -49,7 +55,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        one NNDSVD 'zero' init given to both routes;
      - masked MUR (mask=): EU and KL at MovieLens-10M's dimensions, 69878
        users x 10677 items, 1.34% observed, r64 (movielens_like's recipe,
-       made on the card);
+       made on the card; profiled on both routes after the paths);
      - MUR KL with objective="lagged" at config[1] and at 8192x4096, each
        against its exact run;
      - serving (tpunmf_torch.serve.topk): 20 batches of 64 users against
@@ -62,7 +68,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        of 10 requests on each route;
      - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
-       adaptive, and KL;
+       adaptive, and KL (profiled on both routes after the path);
      - the switched single passes (tpunmf_torch/solvers/cuda_defaults.py,
        off by default as in tpunmf, flipped by switched()): HALS at
        8192x8192 r128 f32 with hals_single_pass on, and MUR EU at the same
@@ -246,7 +252,9 @@ def time_pair(torch, plain, kernel, reps):
 
 def device_ms(torch, fn, calls):
     """Device ms per call of ``fn`` over ``calls`` calls: the time of its
-    kernels in torch.profiler, with no host time between them inside."""
+    kernels in torch.profiler, with no host time between them inside.
+    Where the profiler shows no device time (its tracing is not always
+    there), CUDA events around ``calls`` calls back to back instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,7 +266,18 @@ def device_ms(torch, fn, calls):
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / calls
+    if us > 0:
+        return us / 1e3 / calls
+    print(f"  (the profiler showed no device time: CUDA events over {calls} calls)",
+          flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def chunks(got, want, size=1 << 26):
@@ -319,15 +338,19 @@ def mur_flops(name, x, k, dist=None):
 
 
 def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
-                 err=max_rel_err, inputs=(), flops=(0.0, 0.0), library=None):
+                 err=max_rel_err, inputs=(), flops=(0.0, 0.0, 0.0), library=None,
+                 profiled=False):
     """One kernel call against its plain version on the same inputs: the
     error (over every output) against rtol, both times, the bound of the
     call (tpunmf_torch/ops/roofline.py: ``inputs`` read once, the outputs
-    that are not views of an input written once, ``flops`` (f32, bf16)
-    done), and where one PyTorch call computes the same function
-    (``library``), that call's time in turns with the kernel's (library,
-    kernel, kernel, library; ``reps`` calls a run, as ``ms``), both
-    device times (profiler), and the bytes per second of each."""
+    that are not views of an input written once, ``flops`` (f32
+    elementwise, bf16 product, f32 product) done), and where one PyTorch
+    call computes the same function (``library``), that call's time in
+    turns with the kernel's (library, kernel, kernel, library; ``reps``
+    calls a run, as ``ms``), both device times (profiler), and the bytes
+    per second of each.  ``profiled``: the kernel's device time (profiler)
+    too, and the rate it reaches on what binds it (TFLOP/s of its products
+    where operations do, TB/s where bytes do), alone and on the device."""
     from tpunmf_torch.ops import roofline
 
     got, want = kern(), plain()
@@ -343,7 +366,10 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
     if library is not None:
         turns_ms, library_ms = time_pair(torch, library, kern, reps)
         kern_dev, lib_dev = (device_ms(torch, f, PROFILED_CALLS) for f in (kern, library))
-    bound_ms, bound_by = roofline.bound(*flops, moved)
+    elif profiled:
+        kern_dev = device_ms(torch, kern, PROFILED_CALLS)
+    f32_flops, bf16_flops, product_flops = flops
+    bound_ms, bound_by = roofline.bound(f32_flops, bf16_flops, moved, product_flops)
     ok = finite and rel <= rtol
     print(f"  {name:19s} {label:36s} {what:24s} err={rel:.3e} "
           f"(tol {rtol:.0e}) max_abs_err={abs_err:.3e} "
@@ -357,6 +383,19 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
               f"{PROFILED_CALLS} calls) kernel {kern_dev:.4f} ms "
               f"({moved / kern_dev / 1e9:.3f} TB/s), library {lib_dev:.4f} ms "
               f"({moved / lib_dev / 1e9:.3f} TB/s)", flush=True)
+    rates = None
+    if profiled:
+        # TFLOP/s of f32 products (or of all flops) where operations bind,
+        # TB/s where bytes do; both per ms: work / 1e9 / ms
+        work, unit = ((product_flops or f32_flops + bf16_flops, "TFLOP/s")
+                      if bound_by == "operations" else (moved, "TB/s"))
+        rates = {"unit": unit, "alone": work / ms / 1e9, "device": work / kern_dev / 1e9,
+                 "bound": work / bound_ms / 1e9}
+        print(f"  {name:19s} {label:36s} device time (profiler, {PROFILED_CALLS} calls) "
+              f"{kern_dev:.4f} ms; {unit} alone {rates['alone']:.3f}, on the device "
+              f"{rates['device']:.3f}, at the bound {rates['bound']:.3f} "
+              f"({product_flops / 1e9:.1f} GFLOP of f32 products, {moved / 1e6:.1f} MB)",
+              flush=True)
     require(finite, f"{name} {label} {what}: non-finite output")
     require(rel <= rtol, f"{name} {label} {what}: error {rel:.3e} above {rtol:.0e}")
     rec = records.setdefault(name, {"max_abs_err": 0.0, "cases": []})
@@ -365,7 +404,8 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
                          "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                          "library_ms": library_ms, "turns_ms": turns_ms,
-                         "device_ms": kern_dev, "library_device_ms": lib_dev})
+                         "device_ms": kern_dev, "library_device_ms": lib_dev,
+                         "rates": rates})
 
 
 def kernel_phase(torch, cases, reps):
@@ -490,7 +530,7 @@ def sweep_phase(torch, records, cases, reps):
                                  lambda: hals_sweep.gs_sweep(a, gram, v, **kw),
                                  lambda: hals_sweep.gs_sweep_ref(a, gram, v, **kw),
                                  SWEEP_TOL, reps, err=scaled_err, inputs=(a, gram, v),
-                                 flops=(2.0 * k * k * v.shape[1] * nsweeps, 0.0))
+                                 flops=(2.0 * k * k * v.shape[1] * nsweeps, 0.0, 0.0))
         del w, h, frames
 
 
@@ -625,10 +665,14 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
 def masked_phase(torch, records, cases, reps):
     """masked_w_update / masked_h_update against their plain versions:
     EU and KL, lam 0 and 0.2, a 1-byte binary mask and an f32 weight
-    mask, each with a fully unobserved row and column."""
+    mask, each with a fully unobserved row and column; masked_h_update
+    also with its device time and rate, and at the last shape on bf16 X
+    (uint8 mask), where a second call on the f32 X must also give the same
+    bits."""
     from tpunmf_torch.ops import masked_fused as mf
+    from tpunmf_torch.ops import roofline
 
-    for label, x, observed, k in cases:
+    for case, (label, x, observed, k) in enumerate(cases):
         m, n = x.shape
         g = torch.Generator(device="cuda")
         g.manual_seed(10)
@@ -644,7 +688,7 @@ def masked_phase(torch, records, cases, reps):
                     kw = dict(distance_type=dist, lam=lam)
                     what = f"{dist} lam={lam} {mask_name}"
                     # S = W H and two products against a factor: 6 m n k
-                    work = dict(inputs=(x, mask, w, h), flops=(6.0 * m * n * k, 0.0))
+                    work = dict(inputs=(x, mask, w, h), flops=roofline.masked_flops(m, n, k))
                     check_kernel(torch, records, "masked_w_update", label, what,
                                  lambda: mf.masked_w_update(x, mask, w, h, **kw),
                                  lambda: mf.masked_w_update_ref(x, mask, w, h, **kw),
@@ -652,7 +696,23 @@ def masked_phase(torch, records, cases, reps):
                     check_kernel(torch, records, "masked_h_update", label, what,
                                  lambda: mf.masked_h_update(x, mask, w, h, **kw),
                                  lambda: mf.masked_h_update_ref(x, mask, w, h, **kw),
-                                 UPDATE_RTOL, reps, **work)
+                                 UPDATE_RTOL, reps, profiled=True, **work)
+        if case == len(cases) - 1:
+            xb = x.bfloat16()
+            for dist in ("eu", "kl"):
+                kw = dict(distance_type=dist, lam=0.2)
+                check_kernel(torch, records, "masked_h_update", label[:-3] + "bf16",
+                             f"{dist} lam=0.2 uint8",
+                             lambda: mf.masked_h_update(xb, binary, w, h, **kw),
+                             lambda: mf.masked_h_update_ref(xb, binary, w, h, **kw),
+                             UPDATE_RTOL, reps, inputs=(xb, binary, w, h),
+                             flops=roofline.masked_flops(m, n, k))
+                first = mf.masked_h_update(x, binary, w, h, **kw)
+                require(torch.equal(first, mf.masked_h_update(x, binary, w, h, **kw)),
+                        f"masked_h_update {label} {dist}: two calls differ")
+            print(f"  masked_h_update {label}: {mf.row_splits(m, n, k)} row splits; "
+                  f"the same bits on a second call (eu, kl)", flush=True)
+            del xb, first
         del w, h, binary, weights
 
 
@@ -674,10 +734,17 @@ def pass_phase(torch, records, cases, reps):
         w = torch.rand((m, k), generator=g, device="cuda") + 0.1
         h = torch.rand((k, n), generator=g, device="cuda") + 0.1
         kern, ref = getattr(fused, name), getattr(fused, name + "_ref")
+        # the ratio passes (tensor cores) with their device time and rate
+        # at the paths' shapes
         check_kernel(torch, records, name, label, PASS_CASE[name],
                      lambda: kern(x, w, h), lambda: ref(x, w, h),
                      UPDATE_RTOL if name == "kl_ratio" else OBJECTIVE_RTOL, reps,
-                     inputs=(x, w, h), flops=mur_flops(name, x, k))
+                     inputs=(x, w, h), flops=mur_flops(name, x, k),
+                     profiled="ratio" in name and not label.startswith("ragged"))
+        if name == "kl_ratio_and_obj":  # kl_ratio: the same body, the same ratio
+            diff = bit_err(fused.kl_ratio(x, w, h), kern(x, w, h)[0])
+            require(diff == 0.0, f"kl_ratio and kl_ratio_and_obj {label}: ratios differ "
+                                 f"by {diff:.3e}")
         del w, h
 
 
@@ -706,7 +773,7 @@ def serving_kernel_phase(torch, records, reps):
                    if n % (128 * 128) == 0 else None)
         check_kernel(torch, records, "blockmax_relayout", label, "bit for bit",
                      lambda: ts.blockmax_relayout(s), lambda: ts.blockmax_relayout_ref(s),
-                     0.0, reps, err=bit_err, inputs=(s,), flops=(float(b * n), 0.0),
+                     0.0, reps, err=bit_err, inputs=(s,), flops=(float(b * n), 0.0, 0.0),
                      library=library)
         if dtype == torch.float32 and b == SERVE_BATCH:
             scores = s
@@ -722,7 +789,7 @@ def serving_kernel_phase(torch, records, reps):
         w = torch.rand((b, r), generator=g, device="cuda").to(hdtype)
         h = torch.rand((r, n), generator=g, device="cuda").to(hdtype)
         product = 2.0 * b * r * n  # and one comparison a score
-        flops = ((b * n, product) if hdtype == torch.bfloat16 else (product + b * n, 0.0))
+        flops = ((b * n, product, 0.0) if hdtype == torch.bfloat16 else (b * n, 0.0, product))
         check_kernel(torch, records, "score_blockmax_relayout", label, "f32 accumulate",
                      lambda: ts.score_blockmax_relayout(w, h),
                      lambda: ts.score_blockmax_relayout_ref(w, h), SCORE_TOL, reps,
@@ -1636,6 +1703,13 @@ def main() -> int:
     _, launched = run_path(torch, counters, "CUDA float64 tensor path", (),
                            float64_tensor_path)
     require(sum(launched.values()) == 0, "a CUDA float64 tensor launched a kernel")
+    # where the time goes on the masked paths, both routes (after the paths'
+    # counts were read: these launches are not a path's)
+    for dist in ("eu", "kl"):
+        label = f"masked {dist.upper()} ML-10M"
+        profiles[label] = profile_run(torch, tt, label, ml10_x, 64, dist, mask=ml10_obs)
+        profiles[label + " plain"] = profile_run(torch, tt, label + " plain", ml10_x, 64, dist,
+                                                 plain=True, mask=ml10_obs)
     # the ADMM KL path holds ~10 config[3]-sized arrays (4 GB each)
     del ml10_x, ml10_obs, ml1_x, wide_x
     kept = drive("serving path", ("score_blockmax_relayout", "blockmax_relayout"),
@@ -1645,6 +1719,10 @@ def main() -> int:
     del kept
     torch.cuda.empty_cache()
     drive("ADMM path", ("eu_residual_obj", "kl_ratio_and_obj"), admm_path)
+    for label, plain in (("ADMM KL config[3]", False), ("ADMM KL config[3] plain", True)):
+        profiles[label] = profile_run(torch, tt, label, adm_x, CONFIG3["k"], "kl", plain=plain,
+                                      method="admm", distance_type="kl", rho_mode="fixed",
+                                      **ADMM_KW)
     del adm_x
     torch.cuda.empty_cache()
     # the sweep scripts' data and warm-up runs (2 iterations each), before

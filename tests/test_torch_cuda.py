@@ -185,14 +185,43 @@ def test_masked_updates_match_plain_versions(cuda_device, which, xdtype, mask_ki
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 64, 257, 513, 1024])
 def test_masked_updates_cover_the_rank_range(cuda_device, k):
-    """k = 257..512 and 513..1024 take the halved and quartered blocks."""
+    """W pass: k = 257..512 and 513..1024 take the halved and quartered
+    blocks; H pass: k above 64 takes more 64-row chunks of k, each forming
+    S again, and gives the same bits on a second call."""
     x, mask, w, h = (t(a).to(cuda_device) for a in masked_problem(15, m=130, n=70, k=k))
     for dist in ("eu", "kl"):
         for fn, ref in ((masked_fused.masked_w_update, masked_fused.masked_w_update_ref),
                         (masked_fused.masked_h_update, masked_fused.masked_h_update_ref)):
+            got = fn(x, mask.to(torch.uint8), w, h, distance_type=dist, lam=0.1)
             torch.testing.assert_close(
-                fn(x, mask.to(torch.uint8), w, h, distance_type=dist, lam=0.1),
-                ref(x, mask, w, h, distance_type=dist, lam=0.1), rtol=RTOL, atol=0)
+                got, ref(x, mask, w, h, distance_type=dist, lam=0.1), rtol=RTOL, atol=0)
+        assert torch.equal(masked_fused.masked_h_update(x, mask.to(torch.uint8), w, h,
+                                                        distance_type=dist, lam=0.1), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("m,n,k", [(300, 277, 37), (1000, 260, 64)])
+def test_masked_h_update_over_row_splits(cuda_device, m, n, k, splits, dist):
+    """The H pass over 1, 2, 3 (an uneven last split: 300 rows are 5 tiles
+    of 64) and 7 row splits (more splits than tiles: empty splits add
+    zeros) against its plain version, at ragged shapes (n % 4 == 0 and not);
+    the cold column keeps its entries under KL, and a second call gives
+    the same bits."""
+    x, mask, w, h = (t(a).to(cuda_device) for a in masked_problem(18, m=m, n=n, k=k))
+    mask = mask.to(torch.uint8)
+    kw = dict(distance_type=dist, lam=0.2)
+    before = masked_fused.masked_h_update.launches
+    got = masked_fused.masked_h_update(x, mask, w, h, splits=splits, **kw)
+    assert masked_fused.masked_h_update.launches == before + 1
+    torch.testing.assert_close(got, masked_fused.masked_h_update_ref(x, mask, w, h, **kw),
+                               rtol=RTOL, atol=0)
+    if dist == "kl":
+        assert torch.equal(got[:, 5], h[:, 5])
+    assert torch.equal(masked_fused.masked_h_update(x, mask, w, h, splits=splits, **kw), got)
+    with pytest.raises(ValueError):
+        masked_fused.masked_h_update(x, mask, w, h, splits=0, **kw)
 
 
 @pytest.mark.cuda
@@ -245,8 +274,13 @@ def test_lagged_route_is_the_exact_route_shifted_by_one(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-def test_kl_ratio_and_obj_matches_plain_version(cuda_device, xdtype):
-    x, w, h = _on(cuda_device, xdtype)
+@pytest.mark.parametrize("m,n,k", [(1000, 777, 37), (1000, 777, 1536), (300, 260, 37),
+                                   (130, 70, 1)])
+def test_kl_ratio_and_obj_matches_plain_version(cuda_device, m, n, k, xdtype):
+    """At ragged shapes of the 128 x 128 tiles: n odd (cells one by one)
+    and n % 4 == 0 (16-byte loads and stores up to the ragged edge); at
+    k = 37, 1536 (48 chunks of the tensor-core S tile) and 1."""
+    x, w, h = _on(cuda_device, xdtype, m=m, n=n, k=k)
     assert bool((x == 0).any())
     before = fused.kl_ratio_and_obj.launches
     got_r, got_o = fused.kl_ratio_and_obj(x, w, h)

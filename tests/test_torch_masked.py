@@ -185,3 +185,25 @@ def test_convert_carries_a_masked_run_and_its_mask(dtype):
 def test_movielens_like_is_tpunmf_s():
     np.testing.assert_array_equal(tsynthetic.movielens_like(30, 20, density=0.3, seed=2),
                                   jsynthetic.movielens_like(30, 20, density=0.3, seed=2))
+
+
+@pytest.mark.parametrize("m,n,k", [(69878, 10677, 64), (6040, 3706, 64), (130, 70, 1),
+                                   (130, 70, 1024), (300, 277, 37), (64, 24, 4),
+                                   (1000, 777, 513)])
+def test_row_splits_cover_every_row_once(m, n, k):
+    """The H pass's row splits: whole 64-row tiles, every row of X in
+    exactly one split, none empty; at MovieLens-10M's shape at least 4
+    blocks for each of an H100's 132 SMs."""
+    splits = tmasked.row_splits(m, n, k)
+    ranges = tmasked.split_ranges(m, splits)
+    assert len(ranges) == splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    for (a, b), (c, _) in zip(ranges, ranges[1:]):
+        assert b == c and a % tmasked.H_TILE == 0 and a < b
+    assert sum(b - a for a, b in ranges) == m
+    # any count of splits cuts the rows the same way, the last ones short or empty
+    uneven = tmasked.split_ranges(m, splits + 1)
+    assert sum(b - a for a, b in uneven) == m and uneven[-1][1] == m
+    blocks = -(-n // tmasked.H_TILE) * splits * -(-k // tmasked.H_TILE)
+    if (m, n) == (69878, 10677):
+        assert blocks >= 4 * 132

@@ -118,24 +118,54 @@ def test_roofline_bound_is_the_larger_time():
     assert roofline.bound(67e9, 0.0, 1e6) == (1.0, "operations")
     assert roofline.bound(1e6, 0.0, 3.35e9) == (1.0, "bytes")
     assert roofline.bound(0.0, 989e9, 0.0) == (1.0, "operations")
-    # EU products of a bf16 X run on both-bf16 operands; KL stays f32
+    # f32 products at 3xTF32: 495 / 3 TFLOP/s
+    assert roofline.bound(0.0, 0.0, 0.0, 165e9) == (1.0, "operations")
+    # EU products of a bf16 X run on both-bf16 operands, the Grams and the
+    # W G product are f32 products; KL's products are f32 products
     m, n, k = 64, 32, 8
-    f32, bf16 = roofline.mur_flops("mur_iteration_eu", m, n, k, True)
-    assert bf16 == 4.0 * m * n * k and f32 == 2.0 * k * k * (m + n) + 2.0 * m * k * k
-    assert roofline.mur_flops("mur_iteration_kl", m, n, k, True) == (8.0 * m * n * k, 0.0)
+    f32, bf16, product = roofline.mur_flops("mur_iteration_eu", m, n, k, True)
+    assert f32 == 0.0 and bf16 == 4.0 * m * n * k
+    assert product == 2.0 * k * k * (m + n) + 2.0 * m * k * k
+    assert roofline.mur_flops("mur_iteration_kl", m, n, k, True) == (0.0, 0.0, 8.0 * m * n * k)
     # every TPU kernel is ported; the sweep scripts' variants: v1 is the EU
     # single pass, v2 adds Gw H (2 k k n), int8 X multiplies in bf16
     assert roofline._unported() == []
-    assert roofline.mur_flops("v1_iter", m, n, k, True) == (f32, bf16)
-    assert roofline.mur_flops("v1_iter", m, n, k, False) == (f32 + bf16, 0.0)
-    assert roofline.mur_flops("v2_iter", m, n, k, True) == (f32 + 2.0 * k * k * n, bf16)
-    assert roofline.mur_flops("iter_eu_int8", m, n, k, False) == (f32, bf16)
-    assert roofline.read_probe_flops(m, n) == (2.0 * m * n, 0.0)
-    # the HALS single pass at 2 sweeps: two products against X, the Grams
-    # and 2 sweeps of k steps of 2k flops a row
+    assert roofline.mur_flops("v1_iter", m, n, k, True) == (f32, bf16, product)
+    assert roofline.mur_flops("v1_iter", m, n, k, False) == (0.0, 0.0, product + bf16)
+    assert roofline.mur_flops("v2_iter", m, n, k, True) == (f32, bf16, product + 2.0 * k * k * n)
+    assert roofline.mur_flops("iter_eu_int8", m, n, k, False) == (f32, bf16, product)
+    assert roofline.read_probe_flops(m, n) == (2.0 * m * n, 0.0, 0.0)
+    # the HALS single pass at 2 sweeps: two products against X and the
+    # Grams, and 2 sweeps of k steps of 2k flops a row (elementwise chains)
     assert roofline.hals_flops(m, n, k, False, 2) == (
-        4.0 * m * n * k + 2.0 * k * k * (m + n) + 4.0 * m * k * k, 0.0)
+        4.0 * m * k * k, 0.0, 4.0 * m * n * k + 2.0 * k * k * (m + n))
     assert roofline.hals_flops(m, n, k, True, 1)[1] == 4.0 * m * n * k
+
+
+@pytest.mark.parametrize("case,shape,want_ms,want_by", [
+    # masked_h_update at MovieLens-10M r64, f32 X and a uint8 mask:
+    # 6 m n k of f32 products against 3.75 GB
+    ("masked", (69878, 10677, 64), 1.736, "operations"),
+    # kl_ratio_and_obj at BASELINE config[3]: 2 m n k against X read and
+    # the ratio written, 8.04 GB
+    ("ratio", (50000, 20000, 128), 2.399, "bytes"),
+    # and at MUR's high rank: the products bind
+    ("ratio", (8192, 4096, 1536), 0.625, "operations"),
+])
+def test_roofline_charges_f32_products_at_three_tf32(case, shape, want_ms, want_by):
+    m, n, k = shape
+    factors = 4.0 * (m * k + k * n)
+    if case == "masked":  # X f32 and M uint8 read, W and H read, H written
+        flops, nbytes = roofline.masked_flops(m, n, k), 5.0 * m * n + factors + 4.0 * k * n
+    else:  # X f32 read, the f32 ratio written
+        flops, nbytes = roofline.mur_flops("kl_ratio_and_obj", m, n, k, False), 8.0 * m * n + factors
+    f32, bf16, product = flops
+    assert f32 == bf16 == 0.0
+    ms, by = roofline.bound(f32, bf16, nbytes, product)
+    assert (round(ms, 3), by) == (want_ms, want_by)
+    # at the f32 FMA rate the same products would take 495 / 3 / 67 = 2.46x as long
+    assert roofline.bound(product, 0.0, 0.0)[0] == pytest.approx(
+        roofline.bound(0.0, 0.0, 0.0, product)[0] * 165 / 67)
 
 
 # single-pass routes at f64 against tpunmf's plain route

@@ -64,11 +64,15 @@ _SIGNATURES = {
     "tpunmf_gs_sweep": (_P, _I, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P, _I, _I, _P),
     # x, x_is_bf16, mask, mask_is_byte, w, h, lam, m, n, k, is_kl, out, stream
     "tpunmf_masked_w_update": (_P, _I, _P, _I, _P, _P, _F, _I, _I, _I, _I, _P, _P),
-    "tpunmf_masked_h_update": (_P, _I, _P, _I, _P, _P, _F, _I, _I, _I, _I, _P, _P),
+    # x, x_is_bf16, mask, mask_is_byte, w, h, lam, m, n, k, is_kl, part
+    # (2 * splits * k * n floats), splits, out, stream
+    "tpunmf_masked_h_update": (_P, _I, _P, _I, _P, _P, _F, _I, _I, _I, _I, _P, _I, _P, _P),
     # x, x_is_bf16, w, h, m, n, k, is_kl, partials, out, stream
     "tpunmf_objective": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # m, n -> length of the partials buffer tpunmf_objective needs
     "tpunmf_objective_blocks": (_I, _I),
+    # m, n -> length of the partials buffer tpunmf_kl_ratio_obj needs
+    "tpunmf_ratio_blocks": (_I, _I),
     # x, x_is_bf16, w, h, m, n, k, eps, ratio, partials, out, stream
     "tpunmf_kl_ratio_obj": (_P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P),
     # x, x_is_bf16, w, h, m, n, k, eps, ratio, stream

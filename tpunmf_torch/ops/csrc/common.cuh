@@ -57,6 +57,16 @@ __device__ __forceinline__ float kl_term(float xv, float wh) {
   return (val - xv) + wh;
 }
 
+// a / b with a zero numerator answered first, bit for bit as IEEE
+// division gives it (+-0 with the sign of a times b's; NaN where b is 0 or
+// NaN, left to the division): the division's check sends a zero numerator
+// down its slow path, which most cells of a sparse X would take.
+__device__ __forceinline__ float div_zero_first(float a, float b) {
+  if (a == 0.f && b != 0.f && !isnan(b))
+    return __int_as_float((__float_as_int(a) ^ __float_as_int(b)) & 0x80000000);
+  return a / b;
+}
+
 // A factor value rounded to X's storage type (round to nearest even, as
 // torch's .to(bfloat16)) and back: the EU kernels cast the factor to X's
 // dtype before the product (tpunmf/ops/mur_fused.py:84, :716).
@@ -244,6 +254,11 @@ template <>
 __device__ __forceinline__ float zero_of<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() { return __float2bfloat16(0.f); }
+template <>
+__device__ __forceinline__ unsigned char zero_of<unsigned char>() { return 0; }
+
+// Whether p starts on 16 bytes (a cp.async or vector access may start there).
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // One 16-byte piece (V = 16 / sizeof(T) elements) of a staged tile:
 // dst[v] = v < valid ? src[v] : 0.  A whole piece of an aligned row goes by

@@ -5,28 +5,41 @@
 // :76, pallas_call :136, entry eu_residual_obj :233), _kl_obj_kernel (body
 // :93, pallas_call :204, entry kl_obj :220), _kl_ratio_obj_kernel (body
 // :106, pallas_call :175, entry kl_ratio_and_obj :253) and _kl_ratio_kernel
-// (body :88, pallas_call :156, entry kl_ratio :243).  The ratio variants
-// also write one f32 per cell: 4 bytes against 2k flops per cell, so they
-// stay bound by the WH tiles at every rank of their callers (50-2048).
+// (body :88, pallas_call :156, entry kl_ratio :243).
 //
-// Bound on the H100: one read of X (m*n elements) against 2*m*n*k FMA for
-// the WH tiles.  At rank 50-128 that is k/2 = 25-64 flops per f32 X byte,
-// above the card's f32 FMA ridge (~20 flop/byte at 67 TFLOP/s and 3.35 TB/s),
-// so the FMA work of WH, not the read of X, bounds it (and more so for bf16
-// X, and at MUR's high ranks, 1025-2048).  Design: each block forms a 64 x 64
-// WH tile in registers from shared-memory tiles of W and H, staged 16 deep
-// along k, so no buffer depends on the rank (never written to memory),
-// applies the epilogue and sums its tile.  The TPU added into one SMEM
-// scalar across its sequential grid; here each block writes one partial and
-// a second kernel adds the partials in a fixed order (in double), so the
-// result does not depend on block scheduling.  No float atomics.  The ratio
-// alone sums nothing: one kernel, no partials.
+// The two objectives (Pass::kEu, Pass::kKl): one read of X (m*n elements)
+// against 2*m*n*k flops of W H.  Each block forms a 64 x 64 WH tile in
+// registers with f32 FMA from shared-memory tiles of W and H, staged 16
+// deep along k (wh_tile, common.cuh), applies the epilogue and sums its
+// tile.
+//
+// The ratio passes (Pass::kKlRatio, Pass::kRatio; one body, so kl_ratio's
+// ratio is kl_ratio_and_obj's bit for bit) also write one f32 per cell.
+// Bound on the H100, with the products counted at 3xTF32 (165 TFLOP/s of
+// f32 work, tf32x3.cuh) and 3.35 TB/s: at config[3] (50000 x 20000, k 128)
+// the read of X and the write of the ratio, 8.04 GB, take 2.399 ms against
+// 1.552 ms of products, so bytes bound it; at MUR's high rank (8192 x 4096,
+// k 1536) the products do, 0.625 ms.  Design: S = W H on the tensor cores
+// (tf32x3.cuh's S tile, two-stage cp.async copies of W and H) on 128 x 128
+// output tiles, which halve the bytes of W and H each tile reads from the
+// L2 against 64 x 64; S is staged through shared memory so that X is read
+// with 16-byte loads, all of a thread's in flight at once, and the ratio
+// written with 16-byte coalesced stores, both marked streaming (evict
+// first) so that W and H stay in the L2.  A zero x takes neither the
+// division's slow path nor the log (div_zero_first, kl_term_sparse: the
+// same bits).
+//
+// Sums: the TPU added into one SMEM scalar across its sequential grid; here
+// each block writes one partial and a second kernel adds the partials in a
+// fixed order (in double), so the result does not depend on block
+// scheduling.  No float atomics.  The ratio alone sums nothing.
 //
 // KL masking follows tpunmf/core/losses.py:20-25 exactly: the log has no eps,
 // +inf is zeroed before NaN, and -x + wh is summed for every cell.  This file
 // must not be built with --use_fast_math (logf, division and denormals must
 // stay IEEE for that masking, and the ratio's division must be IEEE too).
 #include "common.cuh"
+#include "tf32x3.cuh"
 
 namespace tpunmf {
 namespace {
@@ -37,18 +50,28 @@ constexpr int kObjTM = 4, kObjTN = 4, kObjTile = 64;
 // the KL term and the ratio, or the ratio alone.
 enum class Pass { kEu, kKl, kKlRatio, kRatio };
 
-// ratio[cell] = x / (wh + eps) with the raw wh in the KL term
-// (tpunmf/ops/fused.py:88-90, 113-119).
+// A block's f32 partial (one value per thread) summed in a fixed order into
+// partials[block]; every thread of the block must call it.
+__device__ __forceinline__ void write_partial(float v, float* __restrict__ partials) {
+  __shared__ float red[kThreads];
+  const int tid = threadIdx.x;
+  red[tid] = v;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride /= 2) {
+    if (tid < stride) red[tid] += red[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+}
+
+// The two objectives: f32 FMA tiles of W H (wh_tile).
 template <typename XT, Pass P>
 __global__ void __launch_bounds__(kThreads)
     objective_kernel(const XT* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ h, int m, int n, int k, float eps,
-                     float* __restrict__ ratio, float* __restrict__ partials) {
-  constexpr bool kWritesRatio = P == Pass::kKlRatio || P == Pass::kRatio;
-  constexpr bool kSums = P != Pass::kRatio;
-  constexpr bool kKlTerm = P == Pass::kKl || P == Pass::kKlRatio;
+                     const float* __restrict__ h, int m, int n, int k,
+                     float* __restrict__ partials) {
+  static_assert(P == Pass::kEu || P == Pass::kKl, "the ratio passes take ratio_kernel");
   __shared__ WhStage<kObjTM, kObjTN> stage;
-  __shared__ float red[kThreads];
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int row0 = blockIdx.y * kObjTile, col0 = blockIdx.x * kObjTile;
 
@@ -62,28 +85,121 @@ __global__ void __launch_bounds__(kThreads)
     for (int b = 0; b < kObjTN; ++b) {
       const int gr = row0 + ty + 16 * a, gc = col0 + tx + 16 * b;
       if (gr < m && gc < n) {
-        const long long cell = (long long)gr * n + gc;
-        const float xv = to_f32(x[cell]);
+        const float xv = to_f32(x[(long long)gr * n + gc]);
         const float wh = s[a][b];
-        if constexpr (kWritesRatio) ratio[cell] = xv / (wh + eps);
-        if constexpr (kKlTerm) {
+        if constexpr (P == Pass::kKl) {
           sum += kl_term(xv, wh);
-        } else if constexpr (kSums) {
+        } else {
           const float d = xv - wh;
           sum += d * d;
         }
       }
     }
   }
-  if constexpr (kSums) {
-    red[tid] = sum;
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride /= 2) {
-      if (tid < stride) red[tid] += red[tid + stride];
-      __syncthreads();
+  write_partial(sum, partials);
+}
+
+// ------------------------------------------------------ the ratio passes
+constexpr int kRatioTile = 128;  // the block's output tile, both ways
+using RatioS = tc::STile<kRatioTile, kRatioTile, 2, 4>;  // warps 2 x 4, 64 x 32 each
+constexpr int kRatioLd = kRatioTile + 8;                 // S staged: row stride
+
+// Dynamic shared memory of a ratio block: the S tile's staging, then
+// (reused) S itself for the epilogue.
+union RatioSmem {
+  RatioS::Stage stage;
+  alignas(16) float s[kRatioTile * kRatioLd];
+};
+
+// Four cells of X from global memory (read once: streaming loads).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(q.x << 16);  // a bf16 is the high half of its float
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+// kl_term(x, wh) with x == 0 taken first: the term is then wh exactly
+// ((0 * log(0 / wh) is NaN or 0, zeroed, and (0 - 0) + wh = wh), with no
+// division or log; most cells of a sparse X take it.
+__device__ __forceinline__ float kl_term_sparse(float xv, float wh) {
+  return xv == 0.f ? wh : kl_term(xv, wh);
+}
+
+// ratio[cell] = x / (wh + eps) on a 128 x 128 tile; with SUMS the masked KL
+// term of the raw wh summed into partials[block] (tpunmf/ops/fused.py:88-90,
+// 113-119).  `vec`: n % 4 == 0 and X, ratio start on 16 bytes, so that a
+// tile inside X goes by 16-byte loads and stores; `w_aligned` /
+// `h_aligned` as tc::s_tile takes them.
+template <typename XT, bool SUMS>
+__global__ void __launch_bounds__(kThreads, 2)
+    ratio_kernel(const XT* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ h, int m, int n, int k, float eps, bool vec,
+                 bool w_aligned, bool h_aligned, float* __restrict__ ratio,
+                 float* __restrict__ partials) {
+  extern __shared__ float4 smem_raw[];
+  RatioSmem& sm = *reinterpret_cast<RatioSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.y * kRatioTile, col0 = blockIdx.x * kRatioTile;
+
+  tc::Acc<RatioS::MT, RatioS::NT> s;
+  tc::s_tile<kRatioTile, kRatioTile, 2, 4>(s, w, h, m, n, k, row0, col0, w_aligned, h_aligned,
+                                          sm.stage);  // ends with a barrier
+  tc::for_pairs<RatioS::MT, RatioS::NT>(
+      s, RatioS::warp_row(warp), RatioS::warp_col(warp), lane,
+      [&](int r, int c, float v0, float v1) {
+        *reinterpret_cast<float2*>(sm.s + r * kRatioLd + c) = make_float2(v0, v1);
+      });
+  __syncthreads();
+
+  float sum = 0.f;
+  constexpr int PIECES = kRatioTile * kRatioTile / 4, PER = PIECES / kThreads;
+  if (vec && row0 + kRatioTile <= m && col0 + kRatioTile <= n) {
+    // a whole tile: every load of X in flight at once (S is in shared
+    // memory, so the accumulators' registers are free), then the ratio
+    float xv[PER][4];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int p = tid + j * kThreads, r = p / (kRatioTile / 4), c = p % (kRatioTile / 4) * 4;
+      load4(x + (long long)(row0 + r) * n + col0 + c, xv[j]);
     }
-    if (tid == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int p = tid + j * kThreads, r = p / (kRatioTile / 4), c = p % (kRatioTile / 4) * 4;
+      const float4 sv = *reinterpret_cast<const float4*>(sm.s + r * kRatioLd + c);
+      const float4 out = make_float4(
+          div_zero_first(xv[j][0], sv.x + eps), div_zero_first(xv[j][1], sv.y + eps),
+          div_zero_first(xv[j][2], sv.z + eps), div_zero_first(xv[j][3], sv.w + eps));
+      __stcs(reinterpret_cast<float4*>(ratio + (long long)(row0 + r) * n + col0 + c), out);
+      if constexpr (SUMS)
+        sum += ((kl_term_sparse(xv[j][0], sv.x) + kl_term_sparse(xv[j][1], sv.y)) +
+                kl_term_sparse(xv[j][2], sv.z)) +
+               kl_term_sparse(xv[j][3], sv.w);
+    }
+  } else {
+    // a tile on the edge of X, or rows off 16 bytes: cell by cell
+    for (int p = tid; p < PIECES; p += kThreads) {
+      const int r = p / (kRatioTile / 4), c = p % (kRatioTile / 4) * 4;
+      const int gr = row0 + r, gc = col0 + c;
+      if (gr >= m || gc >= n) continue;
+      const float* sv = sm.s + r * kRatioLd + c;
+      const long long cell = (long long)gr * n + gc;
+      for (int v = 0; v < 4 && gc + v < n; ++v) {
+        const float xs = to_f32(x[cell + v]);
+        ratio[cell + v] = div_zero_first(xs, sv[v] + eps);
+        if constexpr (SUMS) sum += kl_term_sparse(xs, sv[v]);
+      }
+    }
   }
+  if constexpr (SUMS) write_partial(sum, partials);
 }
 
 // out[0] = scale * sum(partials), summed in double in a fixed order.
@@ -104,16 +220,28 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename XT, Pass P>
-cudaError_t launch_pass(const void* x, const float* w, const float* h, int m, int n, int k,
+cudaError_t launch_pass(const void* xv, const float* w, const float* h, int m, int n, int k,
                         float eps, float* ratio, float* partials, float* out,
                         cudaStream_t stream) {
-  const dim3 grid((n + kObjTile - 1) / kObjTile, (m + kObjTile - 1) / kObjTile);
-  objective_kernel<XT, P><<<grid, kThreads, 0, stream>>>(static_cast<const XT*>(x), w, h,
-                                                          m, n, k, eps, ratio, partials);
-  cudaError_t err = cudaGetLastError();
+  const XT* x = static_cast<const XT*>(xv);
+  cudaError_t err;
+  int blocks;
+  if constexpr (P == Pass::kEu || P == Pass::kKl) {
+    const dim3 grid(ceil_div(n, kObjTile), ceil_div(m, kObjTile));
+    objective_kernel<XT, P><<<grid, kThreads, 0, stream>>>(x, w, h, m, n, k, partials);
+    err = cudaGetLastError();
+    blocks = grid.x * grid.y;
+  } else {
+    constexpr bool kSums = P == Pass::kKlRatio;
+    const dim3 grid(ceil_div(n, kRatioTile), ceil_div(m, kRatioTile));
+    const bool vec = n % 4 == 0 && aligned16(x) && aligned16(ratio);
+    err = launch(ratio_kernel<XT, kSums>, grid, sizeof(RatioSmem), stream, x, w, h, m, n, k,
+                 eps, vec, k % 4 == 0 && aligned16(w), n % 4 == 0 && aligned16(h), ratio,
+                 partials);
+    blocks = grid.x * grid.y;
+  }
   if (err != cudaSuccess || P == Pass::kRatio) return err;
-  return reduce_partials_into(partials, grid.x * grid.y, P == Pass::kEu ? 0.5f : 1.f, out,
-                              stream);
+  return reduce_partials_into(partials, blocks, P == Pass::kEu ? 0.5f : 1.f, out, stream);
 }
 
 // The pass on X of either storage type; the C entries below call this.
@@ -149,6 +277,12 @@ int tpunmf_objective_blocks(int m, int n) {
   return ((m + kObjTile - 1) / kObjTile) * ((n + kObjTile - 1) / kObjTile);
 }
 
+// m, n -> length of the partials buffer tpunmf_kl_ratio_obj needs.
+int tpunmf_ratio_blocks(int m, int n) {
+  using tpunmf::kRatioTile;
+  return ((m + kRatioTile - 1) / kRatioTile) * ((n + kRatioTile - 1) / kRatioTile);
+}
+
 // 0.5*||X - WH||^2 (is_kl = 0) or the masked KL sum (is_kl = 1) into out[0].
 // partials holds tpunmf_objective_blocks(m, n) floats of scratch.
 int tpunmf_objective(const void* x, int x_is_bf16, const void* w, const void* h, int m,
@@ -161,7 +295,7 @@ int tpunmf_objective(const void* x, int x_is_bf16, const void* w, const void* h,
 }
 
 // ratio (m x n f32) = X / (WH + eps) and the masked KL sum into out[0], from
-// one pass; partials as for tpunmf_objective.
+// one pass; partials holds tpunmf_ratio_blocks(m, n) floats of scratch.
 int tpunmf_kl_ratio_obj(const void* x, int x_is_bf16, const void* w, const void* h, int m,
                         int n, int k, float eps, void* ratio, void* partials, void* out,
                         void* stream) {

@@ -1,0 +1,273 @@
+// f32-accurate matrix products on Hopper's tensor cores: 3xTF32 mma.sync.
+//
+// An f32 value a is split into two TF32 values: big = a rounded to TF32
+// (10 mantissa bits kept) and small = a - big, exact in f32; a product a*b
+// is then big*big + big*small + small*big, the small*small term (below
+// 2^-22 relative) left out.  Each of the three is one
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, accumulated in f32, so
+// a k-step of 8 costs three tensor-core instructions and the sums keep about
+// f32's accuracy (one TF32 product keeps about three digits, too few for the
+// kernels' 1e-4 checks and for the KL kernels' division by W H + eps).  On
+// the H100 that is 495 / 3 = 165 TFLOP/s of f32 work at the TF32 peak,
+// against 67 for f32 FMA.
+//
+// The split is integer work, not cvt.rna.tf32.f32, which runs on the
+// conversion pipe (16 results a clock an SM; the integer split made the
+// S tile 10-20% faster on an H100).  big rounds half an ulp up in
+// magnitude (add 2^12 to the bits, clear the low 13: CUTLASS's
+// round_half_ulp_truncate); small goes to the tensor cores as it is, and
+// they read a TF32 operand's top 19 bits, so its truncation costs at most
+// 2^-10 of small, about 2^-21 of a.
+//
+// Used by objective.cu (the ratio passes) and masked_update.cu (the masked H
+// pass).  Fragments follow the PTX layouts of m16n8k8 with .tf32 operands,
+// lane = 4 g + t:
+//   A (16 x 8, row):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
+//   B (8 x 8, col):   b0 (t, g)  b1 (t+4, g)
+//   C (16 x 8):       c0 (g, 2t) c1 (g, 2t+1) c2 (g+8, 2t) c3 (g+8, 2t+1)
+// Operands come from shared memory whose row strides keep every fragment
+// load free of bank conflicts: a stride = 4 (mod 32) for A read along its
+// rows, = 8 (mod 32) for A read down its columns (a transposed tile) and
+// for B.  No float atomics anywhere.
+#pragma once
+
+#include "common.cuh"
+
+namespace tpunmf {
+namespace tc {
+
+// v = big + small: big is v rounded to TF32, small = v - big exactly
+__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An operand fragment split in its TF32 parts.
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+};
+
+// Pass P of d += A B in 3xTF32: 0 small*big, 1 big*small, 2 big*big (the
+// small terms first).
+template <int P>
+__device__ __forceinline__ void mma_pass(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  if constexpr (P == 0) mma_tf32(d, a.small, b.big);
+  if constexpr (P == 1) mma_tf32(d, a.big, b.small);
+  if constexpr (P == 2) mma_tf32(d, a.big, b.big);
+}
+
+// The A fragment of rows [r0, r0+16) and depth [k0, k0+8) of a tile in
+// shared memory: A(r, kk) = s[r * ld + kk], or with TRANS s[kk * ld + r].
+template <bool TRANS>
+__device__ __forceinline__ void load_a(Frag<4>& f, const float* s, int ld, int r0, int k0,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int rows[4] = {g, g + 8, g, g + 8}, cols[4] = {t, t, t + 4, t + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + rows[i], kk = k0 + cols[i];
+    split(TRANS ? s[kk * ld + r] : s[r * ld + kk], f.big[i], f.small[i]);
+  }
+}
+
+// The B fragment of depth [k0, k0+8) and columns [c0, c0+8) of a tile in
+// shared memory stored depth-major: B(kk, c) = s[kk * ld + c].
+__device__ __forceinline__ void load_b(Frag<2>& f, const float* s, int ld, int k0, int c0,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split(s[(k0 + t) * ld + c0 + g], f.big[0], f.small[0]);
+  split(s[(k0 + t + 4) * ld + c0 + g], f.big[1], f.small[1]);
+}
+
+// A warp's MT x NT grid of 16 x 8 accumulator tiles.
+template <int MT, int NT>
+using Acc = float[MT][NT][4];
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(Acc<MT, NT>& acc) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+}
+
+// Pass P of one 8-deep step over every (i, j) of a warp's tiles.  The
+// three passes go in turn, each across all the tiles, so that the three
+// dependent products of an accumulator are MT * NT issues apart.
+template <int P, int MT, int NT>
+__device__ __forceinline__ void pass_all(Acc<MT, NT>& acc, const Frag<4> (&a)[MT],
+                                         const Frag<2> (&b)[NT]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_pass<P>(acc[i][j], a[i], b[j]);
+}
+
+// The same for one row i of tiles.
+template <int P, int MT, int NT>
+__device__ __forceinline__ void pass_row(Acc<MT, NT>& acc, int i, const Frag<4>& a,
+                                         const Frag<2> (&b)[NT]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mma_pass<P>(acc[i][j], a, b[j]);
+}
+
+// acc += A[r0 : r0+16 MT, k-range] B[k-range, c0 : c0+8 NT] over `depth`
+// (a multiple of 8) from shared tiles: A as load_a<TRANS> reads it, B
+// depth-major.  With MT <= 2 a step's A fragments are all held at once;
+// above that one row of tiles at a time (registers), its NT accumulators
+// taking each pass in turn.
+template <int MT, int NT, bool TRANS>
+__device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int lda,
+                                         const float* b, int ldb, int r0, int c0, int depth,
+                                         int lane) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < depth; k0 += 8) {
+    Frag<2> bf[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) load_b(bf[j], b, ldb, k0, c0 + 8 * j, lane);
+    if constexpr (MT <= 2) {
+      Frag<4> af[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) load_a<TRANS>(af[i], a, lda, r0 + 16 * i, k0, lane);
+      pass_all<0>(acc, af, bf);
+      pass_all<1>(acc, af, bf);
+      pass_all<2>(acc, af, bf);
+    } else {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        Frag<4> af;
+        load_a<TRANS>(af, a, lda, r0 + 16 * i, k0, lane);
+        pass_row<0>(acc, i, af, bf);
+        pass_row<1>(acc, i, af, bf);
+        pass_row<2>(acc, i, af, bf);
+      }
+    }
+  }
+}
+
+// acc0 += A B0 and acc1 += A B1 as warp_mma does, the A fragments loaded
+// and split once a step for both (MT <= 2).
+template <int MT, int NT, bool TRANS>
+__device__ __forceinline__ void warp_mma2(Acc<MT, NT>& acc0, Acc<MT, NT>& acc1, const float* a,
+                                          int lda, const float* b0, const float* b1, int ldb,
+                                          int r0, int c0, int depth, int lane) {
+  static_assert(MT <= 2, "one step's A fragments are held at once");
+#pragma unroll 2
+  for (int k0 = 0; k0 < depth; k0 += 8) {
+    Frag<2> bf0[NT], bf1[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      load_b(bf0[j], b0, ldb, k0, c0 + 8 * j, lane);
+      load_b(bf1[j], b1, ldb, k0, c0 + 8 * j, lane);
+    }
+    Frag<4> af[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) load_a<TRANS>(af[i], a, lda, r0 + 16 * i, k0, lane);
+    pass_all<0>(acc0, af, bf0);
+    pass_all<0>(acc1, af, bf1);
+    pass_all<1>(acc0, af, bf0);
+    pass_all<1>(acc1, af, bf1);
+    pass_all<2>(acc0, af, bf0);
+    pass_all<2>(acc1, af, bf1);
+  }
+}
+
+// Calls f2(row, col, v0, v1) for each pair of neighbouring accumulator
+// entries (row, col) and (row, col + 1) of a warp's tiles, the warp's
+// origin at (r0, c0).
+template <int MT, int NT, typename F2>
+__device__ __forceinline__ void for_pairs(const Acc<MT, NT>& acc, int r0, int c0, int lane,
+                                          F2 f2) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int r = r0 + 16 * i + g, c = c0 + 8 * j + 2 * t;
+      f2(r, c, acc[i][j][0], acc[i][j][1]);
+      f2(r + 8, c, acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// ------------------------------------------------------------- the S tile
+// S = W[row0 : row0+BM, :] H[:, col0 : col0+BN] over the full rank k (1 to
+// 2048), with W (m, k) and H (k, n) row-major f32; zero outside the
+// matrices.  The block's 256 threads are WM x WN warps (WM * WN = 8), each
+// owning a (BM / WM) x (BN / WN) piece of S as MT x NT accumulator tiles.
+// k is staged KC deep in two shared buffers filled by cp.async: the next
+// chunk's copies are in flight while the current one is multiplied.
+template <int BM, int BN, int WM, int WN>
+struct STile {
+  static_assert(WM * WN * 32 == kThreads, "8 warps");
+  static constexpr int KC = 32, LDW = KC + 4, LDH = BN + 8;
+  static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
+  static constexpr int WROWS = BM / WM, WCOLS = BN / WN;
+  struct Stage {
+    alignas(16) float w[2][BM * LDW];
+    alignas(16) float h[2][KC * LDH];
+  };
+  // the warp's origin in the block tile
+  __device__ static int warp_row(int warp) { return (warp / WN) * WROWS; }
+  __device__ static int warp_col(int warp) { return (warp % WN) * WCOLS; }
+};
+
+// s = the warp's piece of S.  `w_aligned` / `h_aligned`: every row of W / H
+// starts on 16 bytes (k % 4 == 0 / n % 4 == 0 and an aligned base); else
+// the copies go by plain loads.  Commits its own cp.async groups and waits
+// for all of them (and any committed before it); every thread of the block
+// must call it, and it ends with __syncthreads().
+template <int BM, int BN, int WM, int WN>
+__device__ __forceinline__ void s_tile(
+    Acc<STile<BM, BN, WM, WN>::MT, STile<BM, BN, WM, WN>::NT>& s, const float* __restrict__ w,
+    const float* __restrict__ h, int m, int n, int k, int row0, int col0, bool w_aligned,
+    bool h_aligned, typename STile<BM, BN, WM, WN>::Stage& st) {
+  using T = STile<BM, BN, WM, WN>;
+  constexpr int KC = T::KC, LDW = T::LDW, LDH = T::LDH;
+  constexpr int WP = BM * (KC / 4), HP = KC * (BN / 4);  // 16-byte pieces
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto issue = [&](int buf, int k0) {
+    for (int l = tid; l < WP + HP; l += kThreads) {
+      if (l < WP) {
+        const int r = l / (KC / 4), c = l % (KC / 4) * 4, gr = row0 + r, gk = k0 + c;
+        stage_piece(st.w[buf] + r * LDW + c, w + (long long)gr * k + gk,
+                    gr < m ? k - gk : 0, w_aligned);
+      } else {
+        const int q = l - WP, r = q / (BN / 4), c = q % (BN / 4) * 4, gk = k0 + r,
+                  gc = col0 + c;
+        stage_piece(st.h[buf] + r * LDH + c, h + (long long)gk * n + gc,
+                    gk < k ? n - gc : 0, h_aligned);
+      }
+    }
+    cp_async_commit();
+  };
+  zero(s);
+  const int r0 = T::warp_row(warp), c0 = T::warp_col(warp);
+  issue(0, 0);
+  int buf = 0;
+  for (int k0 = 0; k0 < k; k0 += KC, buf ^= 1) {
+    if (k0 + KC < k)
+      issue(buf ^ 1, k0 + KC);
+    else
+      cp_async_commit();  // an empty group: wait_one then always means "this chunk"
+    cp_async_wait_one();
+    __syncthreads();
+    warp_mma<T::MT, T::NT, false>(s, st.w[buf], LDW, st.h[buf], LDH, r0, c0, KC, lane);
+    __syncthreads();  // the chunk is read before the next issue overwrites it
+  }
+}
+
+}  // namespace tc
+}  // namespace tpunmf

@@ -52,8 +52,6 @@ inline dim3 elementwise_grid(long long len) {
   return dim3((unsigned)(blocks < kFill ? blocks : kFill));
 }
 
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // The iteration a plan is for (the `kind` of tpunmf_iteration_scratch).
 enum Wave { kWaveEu = 0, kWaveKl = 1, kWaveHals = 2 };
 

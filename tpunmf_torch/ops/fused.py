@@ -6,7 +6,15 @@
     pass (kernel: csrc/objective.cu); ADMM's KL objective, and the
     trailing pass of MUR's high-rank KL step
   * ``kl_ratio``        : X / (WH + eps) as an m x n float32 tensor
-    (kernel: csrc/objective.cu); the ratio pass of MUR's high-rank KL step
+    (kernel: csrc/objective.cu, ``kl_ratio_and_obj``'s body without the
+    sum, so the same ratio bit for bit); the ratio pass of MUR's
+    high-rank KL step
+
+The two objectives form WH with f32 FMA on 64 x 64 tiles.  The two ratio
+passes form it on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``: f32
+accuracy at 165 TFLOP/s of f32 work on the H100) on 128 x 128 tiles, and
+read X and write the ratio 16 bytes at a time: at ADMM's config[3] the
+bytes bound them, at MUR's high rank the products.
 
 A wrapper takes its plain version (``*_ref``) only for a tensor on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each wrapper counts
@@ -127,7 +135,7 @@ def kl_ratio_and_obj(x, w, h, *, eps: float = _EPS):
                              max_rank=OBJECTIVE_MAX_RANK)
     lib = _build.library()
     ratio = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partials = torch.empty(lib.tpunmf_objective_blocks(m, n),
+    partials = torch.empty(lib.tpunmf_ratio_blocks(m, n),
                            dtype=torch.float32, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     call("tpunmf_kl_ratio_obj", x.device, x.data_ptr(),

@@ -16,6 +16,15 @@ X's dtype (masked_fused.py:86-92, 182-188).  ``M`` is either 1-byte
 real-valued weight mask); X is float32 or bfloat16 on CUDA, at ranks up
 to 1024 (``masked_takes``).
 
+The W pass is f32 FMA tiling, a block over whole rows of W.  The H pass
+runs its three products on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``:
+f32 accuracy, 165 TFLOP/s of f32 work on the H100 against 67 for FMA), on
+a grid of 64-column tiles x row splits x 64-row chunks of k: each block
+adds its range of X's rows into two partial sums in a scratch buffer, and
+a second kernel adds the partials over the splits in a fixed order and
+applies the update (the same bits on every call).  :func:`row_splits`
+picks the number of splits from the shape alone.
+
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``<wrapper>.launches``
 counts the launches.
@@ -29,6 +38,14 @@ from ._launch import MAX_RANK, call, check_operands, on_cpu
 
 _EPS = 1e-9
 _BYTE_MASKS = (torch.uint8, torch.bool)
+# the H pass's tile: rows of X a step, columns of H a block, rows of k a chunk
+H_TILE = 64
+# an H100's SMs, and the blocks the H pass aims at: 16 a SM (2 resident, 8
+# waves: 12 splits at MovieLens-10M ran 4% faster than 6)
+_SMS = 132
+_TARGET_BLOCKS = 16 * _SMS
+# the most scratch the splits may take (two k x n f32 partial sums a split)
+_MAX_SCRATCH_BYTES = 1 << 30
 
 
 def masked_takes(x, k: int) -> bool:
@@ -37,6 +54,34 @@ def masked_takes(x, k: int) -> bool:
     no tile above 1024 either).  A solver asks this before it calls a
     wrapper; ``x`` is anything with ``.dtype`` (a ``meta`` tensor will do)."""
     return x.dtype in (torch.float32, torch.bfloat16) and 1 <= k <= MAX_RANK
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def row_splits(m: int, n: int, k: int) -> int:
+    """The number of row splits of the H pass on X (m, n) at rank k.
+
+    The grid is ceil(n / 64) column tiles x splits x ceil(k / 64) chunks;
+    the splits bring it near 16 blocks a SM, at most one a 64-row tile of
+    X and as many as 1 GiB of partial sums allow.  MovieLens-10M (69878 x
+    10677, k 64): 167 column tiles x 13 splits = 2171 blocks."""
+    tiles = _ceil_div(m, H_TILE)
+    per_split = _ceil_div(n, H_TILE) * _ceil_div(k, H_TILE)
+    want = round(_TARGET_BLOCKS / per_split)
+    room = _MAX_SCRATCH_BYTES // (2 * k * n * 4)
+    splits = max(1, min(want, tiles, room))
+    # the splits that whole 64-row tiles give: none empty
+    return _ceil_div(tiles, _ceil_div(tiles, splits))
+
+
+def split_ranges(m: int, splits: int) -> list[tuple[int, int]]:
+    """The rows [start, stop) of X that each split walks, as the kernel
+    cuts them: ceil(tiles / splits) whole 64-row tiles a split, the last
+    split short (or empty)."""
+    per = _ceil_div(_ceil_div(m, H_TILE), splits) * H_TILE
+    return [(min(m, s * per), min(m, (s + 1) * per)) for s in range(splits)]
 
 
 def _guarded(num2, den, old):
@@ -69,8 +114,9 @@ def masked_h_update_ref(x, mask, w, h, *, distance_type: str, lam: float):
     return _guarded(2.0 * c, d + torch.sqrt(d * d + 4.0 * lam * c), h)
 
 
-def _run_kernel(name, x, mask, w, h, distance_type, lam):
-    """Check the operands and launch C entry ``tpunmf_<name>``."""
+def _run_kernel(name, x, mask, w, h, distance_type, lam, splits=None):
+    """Check the operands and launch C entry ``tpunmf_<name>`` (the H pass
+    over ``splits`` row splits, by default :func:`row_splits`')."""
     if distance_type not in ("eu", "kl"):
         raise KeyError(f"Unknown distance type {distance_type!r}")
     m, n, k = check_operands(name, x, w, h, max_rank=MAX_RANK)
@@ -82,12 +128,19 @@ def _run_kernel(name, x, mask, w, h, distance_type, lam):
                         f"({x.dtype}), got {mask.dtype}")
     if not mask.is_contiguous():
         raise ValueError(f"{name}: operands must be contiguous")
-    out = torch.empty(h.shape if name == "masked_h_update" else w.shape,
-                      dtype=torch.float32, device=x.device)
-    call(f"tpunmf_{name}", x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
-         mask.data_ptr(), int(mask.dtype in _BYTE_MASKS), w.data_ptr(),
-         h.data_ptr(), float(lam), m, n, k, int(distance_type == "kl"),
-         out.data_ptr())
+    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), mask.data_ptr(),
+            int(mask.dtype in _BYTE_MASKS), w.data_ptr(), h.data_ptr(), float(lam),
+            m, n, k, int(distance_type == "kl"))
+    if name == "masked_w_update":
+        out = torch.empty(w.shape, dtype=torch.float32, device=x.device)
+        call("tpunmf_masked_w_update", x.device, *args, out.data_ptr())
+        return out
+    splits = row_splits(m, n, k) if splits is None else int(splits)
+    if splits < 1:
+        raise ValueError(f"{name}: splits={splits} must be at least 1")
+    part = torch.empty(2 * splits * k * n, dtype=torch.float32, device=x.device)
+    out = torch.empty(h.shape, dtype=torch.float32, device=x.device)
+    call("tpunmf_masked_h_update", x.device, *args, part.data_ptr(), splits, out.data_ptr())
     return out
 
 
@@ -103,13 +156,16 @@ def masked_w_update(x, mask, w, h, *, distance_type: str, lam: float):
 
 
 @full_f32()
-def masked_h_update(x, mask, w, h, *, distance_type: str, lam: float):
+def masked_h_update(x, mask, w, h, *, distance_type: str, lam: float, splits=None):
     """One fused pass over (X, M) producing the masked-updated H (k, n),
-    from the already-updated W (tpunmf/solvers/masked.py sequencing)."""
+    from the already-updated W (tpunmf/solvers/masked.py sequencing): two
+    launches, the tensor-core pass over ``splits`` ranges of X's rows (by
+    default :func:`row_splits`') and the fixed-order sum of its partials
+    with the update.  The plain version has no splits."""
     if on_cpu(x):
         return masked_h_update_ref(x, mask, w, h, distance_type=distance_type,
                                    lam=lam)
-    out = _run_kernel("masked_h_update", x, mask, w, h, distance_type, lam)
+    out = _run_kernel("masked_h_update", x, mask, w, h, distance_type, lam, splits)
     masked_h_update.launches += 1
     return out
 
