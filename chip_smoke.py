@@ -27,13 +27,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      blockmax_relayout at (64, 2^20) and the read probe at 8192x8192 are
      also timed in turns with the one PyTorch call that computes their
      function (torch.amax of the scores' view, torch.sum over rows), with
-     the bytes per second each reaches.  The tensor-core kernels
-     (masked_h_update at MovieLens-10M, kl_ratio_and_obj and kl_ratio at
-     config[3], config[1] and r1536) also print their profiler device time
-     and the TFLOP/s of f32 products (TB/s where bytes bind) alone, on the
-     device and at the bound; masked_h_update also runs on bf16 X and must
-     give the same bits on a second call, and kl_ratio must give
-     kl_ratio_and_obj's ratio bit for bit at every shape.
+     the bytes per second each reaches.  The tensor-core kernels (both
+     masked passes at MovieLens-1M and -10M; kl_ratio_and_obj and kl_ratio
+     at config[3], config[1] and r1536; eu_residual_obj at 8192x8192 r128,
+     r1536 and config[3]; kl_obj at config[1], 8192x4096 r128 and r1536)
+     also print their profiler device time and the TFLOP/s of f32 products
+     (TB/s where bytes bind) alone, on the device and at the bound; both
+     masked passes also run on bf16 X at MovieLens-10M and must give the
+     same bits on a second call, and kl_ratio's ratio and kl_obj's
+     objective must be kl_ratio_and_obj's bit for bit at every KL shape.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
      iterations each, the kernel route against the plain route on the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
@@ -42,7 +44,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        rule sends to the 2-pass pair; KL at its defaults (random init,
        exact objective) on BASELINE config[1], 20000x11000 r50 (tfidf_like,
        seed 1), 2-pass; KL at 8192x4096 r128 (tfidf_like, seed 4), single
-       pass, exact and objective="lagged";
+       pass, exact and objective="lagged"; after the paths, the EU and KL
+       single-pass shapes, config[1] and the high-rank step profiled on
+       both routes;
      - MUR's high-rank step (1024 < k <= 2048: plain products, the
        ratio and objective kernels): KL at 8192x4096 and EU at 8192x8192,
        both r1536; KL must launch kl_ratio 50 times and kl_ratio_and_obj
@@ -68,7 +72,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        of 10 requests on each route;
      - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
-       adaptive, and KL (profiled on both routes after the path);
+       adaptive, and KL (EU and KL profiled on both routes after the path);
      - the switched single passes (tpunmf_torch/solvers/cuda_defaults.py,
        off by default as in tpunmf, flipped by switched()): HALS at
        8192x8192 r128 f32 with hals_single_pass on, and MUR EU at the same
@@ -665,10 +669,9 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
 def masked_phase(torch, records, cases, reps):
     """masked_w_update / masked_h_update against their plain versions:
     EU and KL, lam 0 and 0.2, a 1-byte binary mask and an f32 weight
-    mask, each with a fully unobserved row and column; masked_h_update
-    also with its device time and rate, and at the last shape on bf16 X
-    (uint8 mask), where a second call on the f32 X must also give the same
-    bits."""
+    mask, each with a fully unobserved row and column, with their device
+    time and rate; at the last shape both also on bf16 X (uint8 mask),
+    where a second call of each must give the same bits (f32 and bf16 X)."""
     from tpunmf_torch.ops import masked_fused as mf
     from tpunmf_torch.ops import roofline
 
@@ -692,7 +695,7 @@ def masked_phase(torch, records, cases, reps):
                     check_kernel(torch, records, "masked_w_update", label, what,
                                  lambda: mf.masked_w_update(x, mask, w, h, **kw),
                                  lambda: mf.masked_w_update_ref(x, mask, w, h, **kw),
-                                 UPDATE_RTOL, reps, **work)
+                                 UPDATE_RTOL, reps, profiled=True, **work)
                     check_kernel(torch, records, "masked_h_update", label, what,
                                  lambda: mf.masked_h_update(x, mask, w, h, **kw),
                                  lambda: mf.masked_h_update_ref(x, mask, w, h, **kw),
@@ -701,17 +704,22 @@ def masked_phase(torch, records, cases, reps):
             xb = x.bfloat16()
             for dist in ("eu", "kl"):
                 kw = dict(distance_type=dist, lam=0.2)
-                check_kernel(torch, records, "masked_h_update", label[:-3] + "bf16",
-                             f"{dist} lam=0.2 uint8",
-                             lambda: mf.masked_h_update(xb, binary, w, h, **kw),
-                             lambda: mf.masked_h_update_ref(xb, binary, w, h, **kw),
-                             UPDATE_RTOL, reps, inputs=(xb, binary, w, h),
-                             flops=roofline.masked_flops(m, n, k))
-                first = mf.masked_h_update(x, binary, w, h, **kw)
-                require(torch.equal(first, mf.masked_h_update(x, binary, w, h, **kw)),
-                        f"masked_h_update {label} {dist}: two calls differ")
-            print(f"  masked_h_update {label}: {mf.row_splits(m, n, k)} row splits; "
-                  f"the same bits on a second call (eu, kl)", flush=True)
+                for name in ("masked_w_update", "masked_h_update"):
+                    kern, ref = getattr(mf, name), getattr(mf, name + "_ref")
+                    check_kernel(torch, records, name, label[:-3] + "bf16",
+                                 f"{dist} lam=0.2 uint8",
+                                 lambda: kern(xb, binary, w, h, **kw),
+                                 lambda: ref(xb, binary, w, h, **kw),
+                                 UPDATE_RTOL, reps, inputs=(xb, binary, w, h),
+                                 flops=roofline.masked_flops(m, n, k))
+                    for xx in (x, xb):
+                        first = kern(xx, binary, w, h, **kw)
+                        require(torch.equal(first, kern(xx, binary, w, h, **kw)),
+                                f"{name} {label} {dist} {xx.dtype}: two calls differ")
+            print(f"  masked_w_update {label}: {mf.w_block_rows(m, k)}-row blocks, H read at "
+                  f"row stride {mf.h_stride(n)}; masked_h_update: {mf.row_splits(m, n, k)} "
+                  f"row splits; both the same bits on a second call (eu, kl; f32 and bf16 X)",
+                  flush=True)
             del xb, first
         del w, h, binary, weights
 
@@ -721,10 +729,13 @@ PASS_CASE = {"kl_ratio": "ratio", "kl_ratio_and_obj": "ratio, objective",
 
 
 def pass_phase(torch, records, cases, reps):
-    """The ratio and objective passes of csrc/objective.cu against their
-    plain versions: kl_ratio elementwise within UPDATE_RTOL (W H is a sum
-    of positive terms, so the only error is f32 summation order), the
-    objectives (and kl_ratio_and_obj's ratio) within OBJECTIVE_RTOL."""
+    """The ratio and objective passes of csrc/objective.cu (one tensor-core
+    body) against their plain versions: kl_ratio elementwise within
+    UPDATE_RTOL (W H is a sum of positive terms, so the only error is f32
+    summation order), the objectives (and kl_ratio_and_obj's ratio) within
+    OBJECTIVE_RTOL, with their device time and rate at the paths' shapes;
+    and wherever a KL pass runs, kl_ratio's ratio and kl_obj's objective
+    must be kl_ratio_and_obj's bit for bit."""
     from tpunmf_torch.ops import fused
 
     for name, label, x, k in cases:
@@ -734,17 +745,20 @@ def pass_phase(torch, records, cases, reps):
         w = torch.rand((m, k), generator=g, device="cuda") + 0.1
         h = torch.rand((k, n), generator=g, device="cuda") + 0.1
         kern, ref = getattr(fused, name), getattr(fused, name + "_ref")
-        # the ratio passes (tensor cores) with their device time and rate
-        # at the paths' shapes
         check_kernel(torch, records, name, label, PASS_CASE[name],
                      lambda: kern(x, w, h), lambda: ref(x, w, h),
                      UPDATE_RTOL if name == "kl_ratio" else OBJECTIVE_RTOL, reps,
                      inputs=(x, w, h), flops=mur_flops(name, x, k),
-                     profiled="ratio" in name and not label.startswith("ragged"))
-        if name == "kl_ratio_and_obj":  # kl_ratio: the same body, the same ratio
-            diff = bit_err(fused.kl_ratio(x, w, h), kern(x, w, h)[0])
+                     profiled=not label.startswith("ragged"))
+        if name in ("kl_ratio_and_obj", "kl_obj"):  # one body: the same bits
+            ratio, obj = fused.kl_ratio_and_obj(x, w, h)
+            diff = bit_err(fused.kl_ratio(x, w, h), ratio)
             require(diff == 0.0, f"kl_ratio and kl_ratio_and_obj {label}: ratios differ "
                                  f"by {diff:.3e}")
+            diff = bit_err(fused.kl_obj(x, w, h), obj)
+            require(diff == 0.0, f"kl_obj and kl_ratio_and_obj {label}: objectives differ "
+                                 f"by {diff:.3e}")
+            del ratio, obj
         del w, h
 
 
@@ -1440,7 +1454,14 @@ def main() -> int:
         # the high-rank step's objective passes at its shapes
         ("kl_ratio_and_obj", high_kl_label, kl2_x, HIGH_RANK),
         ("kl_obj", high_kl_label, kl2_x, HIGH_RANK),
-        ("eu_residual_obj", high_eu_label, eu_x, HIGH_RANK)], reps=3)
+        ("eu_residual_obj", high_eu_label, eu_x, HIGH_RANK),
+        # the objectives at the paths' shapes: MUR EU's and HALS's, MUR KL's
+        # at config[1] and KL 8192x4096, ADMM EU's at config[3]
+        ("kl_obj", f"{rag} k37 f32", ragged, 37),
+        ("eu_residual_obj", f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k),
+        ("kl_obj", f"KL {tuple(kl_x.shape)} k{kl_k} f32", kl_x, kl_k),
+        ("kl_obj", kl2_label, kl2_x, KL_SINGLE["k"]),
+        ("eu_residual_obj", adm_label, adm_x, CONFIG3["k"])], reps=3)
     topk_line = serving_kernel_phase(torch, records, reps=5)
     dma_line = opt_in_phase(torch, records, eu_x, eu_k, ragged, reps=3)
     v1_line = variant_phase(torch, records, eu_x, eu_k, ragged, reps=3)
@@ -1674,6 +1695,10 @@ def main() -> int:
             with two_pass_route():
                 profiles[label + " 2-pass"] = profile_run(torch, tt, label + " 2-pass", x,
                                                           k, dist)
+        # MUR KL at config[1] (the pair, exact objective) on both routes
+        profiles["KL config[1]"] = profile_run(torch, tt, "KL config[1]", kl_x, kl_k, "kl")
+        profiles["KL config[1] plain"] = profile_run(torch, tt, "KL config[1] plain", kl_x,
+                                                     kl_k, "kl", plain=True)
         # and on the high-rank step and the plain route at its shapes
         for label, x, dist in ((f"KL 8192x4096 k{HIGH_RANK}", kl2_x, "kl"),
                                (f"EU 8192x8192 k{HIGH_RANK}", eu_x, "eu")):
@@ -1719,10 +1744,12 @@ def main() -> int:
     del kept
     torch.cuda.empty_cache()
     drive("ADMM path", ("eu_residual_obj", "kl_ratio_and_obj"), admm_path)
-    for label, plain in (("ADMM KL config[3]", False), ("ADMM KL config[3] plain", True)):
-        profiles[label] = profile_run(torch, tt, label, adm_x, CONFIG3["k"], "kl", plain=plain,
-                                      method="admm", distance_type="kl", rho_mode="fixed",
-                                      **ADMM_KW)
+    for dist in ("eu", "kl"):
+        for plain in (False, True):
+            label = f"ADMM {dist.upper()} config[3]" + (" plain" if plain else "")
+            profiles[label] = profile_run(torch, tt, label, adm_x, CONFIG3["k"], dist,
+                                          plain=plain, method="admm", distance_type=dist,
+                                          rho_mode="fixed", **ADMM_KW)
     del adm_x
     torch.cuda.empty_cache()
     # the sweep scripts' data and warm-up runs (2 iterations each), before

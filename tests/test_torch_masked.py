@@ -207,3 +207,20 @@ def test_row_splits_cover_every_row_once(m, n, k):
     blocks = -(-n // tmasked.H_TILE) * splits * -(-k // tmasked.H_TILE)
     if (m, n) == (69878, 10677):
         assert blocks >= 4 * 132
+
+
+@pytest.mark.parametrize("m,k,rows", [(69878, 64, 64), (6040, 64, 32), (6040, 256, 64),
+                                      (130, 1024, 32), (16833, 64, 64), (16832, 64, 32)])
+def test_w_block_rows_fill_a_wave(m, k, rows):
+    """The W pass's block rows: 64 where ceil(m / 64) x ceil(k / 64) blocks
+    fill one wave of two blocks on each of an H100's 132 SMs (264), else 32:
+    MovieLens-10M at k 64 has 1092 blocks of 64; MovieLens-1M (6040 rows)
+    95 at k 64 (so 32) and 380 at k 256; 16833 rows make 264 tiles, 16832 263."""
+    assert tmasked.w_block_rows(m, k) == rows
+
+
+@pytest.mark.parametrize("n,stride", [(10677, 10680), (3706, 3708), (277, 280), (260, 260),
+                                      (1, 4), (4, 4)])
+def test_h_stride_starts_every_row_of_h_on_16_bytes(n, stride):
+    """The row stride of the W pass's H: n rounded up to 4 floats."""
+    assert tmasked.h_stride(n) == stride

@@ -182,6 +182,31 @@ def test_streaming_matches_tpunmf(exclude):
     _assert_same(called, want)
 
 
+def test_streaming_passes_every_panel_through_as_input(monkeypatch):
+    """Each host panel goes to W's device through core/device.py::as_input
+    (which makes float64 float32 on the card and keeps it on the CPU):
+    three panels of 64, 64 and 22 columns, one call each, in order."""
+    rng = np.random.default_rng(25)
+    w, h = _dyadic(rng, (4, 8)), _dyadic(rng, (8, 150)).astype(np.float64)
+    hosts, real = [], ttopk.as_input
+
+    def counted(x, dtype=None, device=None):
+        if not isinstance(x, torch.Tensor):
+            hosts.append((x, device))
+        return real(x, dtype=dtype, device=device)
+
+    monkeypatch.setattr(ttopk, "as_input", counted)
+    got = ttopk.topk_streaming(t(w), h, 150, 5, panel_cols=64)
+    assert [(x.shape, d.type) for x, d in hosts] == [((8, 64), "cpu"), ((8, 64), "cpu"),
+                                                      ((8, 22), "cpu")]
+    for (x, _), start in zip(hosts, (0, 64, 128)):
+        np.testing.assert_array_equal(x, h[:, start:start + x.shape[1]])
+    want = ttopk.topk_scores_dense(t(w), t(h.astype(np.float32)), 5)
+    assert got[0].dtype == torch.float64  # a CPU run keeps float64
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    assert torch.equal(got[1], want[1])
+
+
 def test_quantized_streaming_matches_tpunmf():
     rng = np.random.default_rng(24)
     w, h = _dyadic(rng, (3, 8)), _dyadic(rng, (8, 150))

@@ -62,8 +62,9 @@ _SIGNATURES = {
     # a, a strides (2), g, v, v strides (2), lam, k, cols, nsweeps,
     # out, out strides (2), stream
     "tpunmf_gs_sweep": (_P, _I, _I, _P, _P, _I, _I, _F, _I, _I, _I, _P, _I, _I, _P),
-    # x, x_is_bf16, mask, mask_is_byte, w, h, lam, m, n, k, is_kl, out, stream
-    "tpunmf_masked_w_update": (_P, _I, _P, _I, _P, _P, _F, _I, _I, _I, _I, _P, _P),
+    # x, x_is_bf16, mask, mask_is_byte, w, h, ldh (h's row stride), lam, m,
+    # n, k, is_kl, block_rows (64 or 32), out, stream
+    "tpunmf_masked_w_update": (_P, _I, _P, _I, _P, _P, _I, _F, _I, _I, _I, _I, _I, _P, _P),
     # x, x_is_bf16, mask, mask_is_byte, w, h, lam, m, n, k, is_kl, part
     # (2 * splits * k * n floats), splits, out, stream
     "tpunmf_masked_h_update": (_P, _I, _P, _I, _P, _P, _F, _I, _I, _I, _I, _P, _I, _P, _P),

@@ -1,11 +1,13 @@
-// Shared building blocks of the kernels (objective.cu, mur_update.cu,
-// masked_update.cu, and through wave.cuh mur_iteration.cu and
-// hals_iteration.cu; hals_sweep.cu uses the launch helpers and the HALS
-// chain).
+// Shared building blocks of the kernels: the FMA tiles of mur_update.cu,
+// mur_variants.cu and topk_select.cu (and through wave.cuh mur_iteration.cu
+// and hals_iteration.cu); the launch helpers, the KL masking, the zero-first
+// division and the cp.async staging for every kernel, the tensor-core ones
+// of tf32x3.cuh included; the HALS chain for hals_sweep.cu.
 //
-// Every kernel runs 256 threads as a 16 x 16 grid (ty, tx).  A thread owns a
-// TM x TN micro-tile of a (16*TM) x (16*TN) block tile: rows ty + 16*a and
-// columns tx + 16*b.  Products are f32 FMA from shared-memory tiles; the
+// Every kernel runs 256 threads.  The FMA kernels see them as a 16 x 16 grid
+// (ty, tx): a thread owns a TM x TN micro-tile of a (16*TM) x (16*TN) block
+// tile, rows ty + 16*a and columns tx + 16*b, its products f32 FMA from
+// shared-memory tiles (tf32x3.cuh's kernels see 8 warps instead).  The
 // ragged edges of every operand are masked by loading zeros.  X is float or
 // __nv_bfloat16 (int8_t in the EU tile loops of mur_variants.cu) and is
 // always read through to_f32(); factors are float.

@@ -14,39 +14,47 @@
 //   entries of a fully unobserved row (column); EU has none, as on the TPU.
 //
 // Work per pass: 6*m*n*k flops of products (S = W_i H_j and two products
-// against the same factor tile) on one read of X and M.
+// against the same factor tile) on one read of X and M.  Bound on the H100,
+// with the products at 3xTF32 (165 TFLOP/s of f32 work, tf32x3.cuh): 6mnk =
+// 2.865e11 flops at MovieLens-10M's 69878 x 10677, k 64, take 1.736 ms,
+// above the 1.121 ms of reading X (f32) and a uint8 M, so the products bound
+// both passes.  Both run on the tensor cores in 3xTF32 mma.sync, with S
+// from tf32x3.cuh's S tile (over all k; W and H by 16-byte cp.async in
+// 32-deep chunks), and X and M loaded into registers before S is formed,
+// each thread loading the cells of its own S entries (a row of X starts on
+// 16 bytes only where n % 4 == 0, and MovieLens-10M's n = 10677 is odd;
+// loaded in S's layout they need no shared tile and no barrier).  Each step
+// writes P_n and P_d (EU: M*X and M*S; KL: M*X / (S + eps) and M) to shared
+// memory and adds two products against one factor tile into two 64 x 64
+// accumulators held in registers, the two sums sharing each step's
+// fragments of that tile.  A zero numerator of KL's P_n (most cells: M is
+// 98.7% zeros at MovieLens-10M) skips the division's slow path
+// (div_zero_first, the same bits).  A rank above 64 takes more 64-wide
+// chunks of k, each forming S again.
 //
-// The W pass keeps f32 FMA tiles (the structure of mur_update.cu's
-// w_kl_kernel): a block owns whole rows of W, forms S in registers per
-// 64-wide tile, writes the two masked operands (EU: M*X and M*S; KL:
-// M*X/(S+eps) and M) to shared memory, and adds both products into two
-// rows x k accumulators in dynamic shared memory, the block halved above
-// k = 256 and again above k = 512.
+// The W pass: a block owns BM rows of W (and of X) and one chunk of k, and
+// walks all of n in 64-column steps; for each it forms S = W_i H_j, copies
+// H[chunk, j-range] into shared memory (row stride 4 mod 32: it is the A
+// operand, read along its rows, and P_n, P_d are B, read column by column
+// in mma's .col layout), and adds H_j[chunk] P_n^T and H_j[chunk] P_d^T
+// (the sums transposed, chunk x rows).  The block sees all of n for its
+// rows, so the EU or KL epilogue runs in the block: no partial sums, no
+// scratch, the same bits on every call.  H is read through a row stride
+// ldh >= n whose columns past n are zero: the wrapper (ops/masked_fused.py)
+// pads a copy of H to a multiple of 4 columns where n is not one, so that
+// every copy of H goes by 16-byte cp.async.  BM is 64, or 32 where 64
+// gives the card less than a wave of blocks.
 //
-// The H pass runs on the tensor cores.  Its bound on the H100, with the
-// products at 3xTF32 (165 TFLOP/s of f32 work, tf32x3.cuh): 6mnk = 2.865e11
-// flops at MovieLens-10M's 69878 x 10677, k 64, take 1.736 ms, above the
-// 1.121 ms of reading X (f32) and a uint8 M, so the products bound it.
-// Design: kernel 1's grid is column tiles x row splits x 64-row chunks of
-// k; a block owns 64 columns of H, one range of X's rows and 64 rows of k,
-// and for each 64-row tile of its range forms S = W_i H_j with tf32x3.cuh's
-// S tile (over all k; W and H by 16-byte cp.async in 32-deep chunks), while
-// the W_i[:, chunk] tile comes into shared memory by 16-byte cp.async and X
-// and M into registers, each thread loading the cells of its own S entries
-// (a row of X starts on 16 bytes only where n % 4 == 0, and MovieLens-10M's
-// n = 10677 is odd; loaded in S's layout they need no shared tile and no
-// barrier), then writes P_n and P_d (the masked operands above) to shared
-// memory, and adds
-// W_i^T P_n and W_i^T P_d into two 64 x 64 accumulators held in registers,
-// in 3xTF32 mma.sync, the two sums sharing each step's W_i fragments.  A
-// zero numerator of KL's P_n (most cells: M is 98.7% zeros at
-// MovieLens-10M) skips the division's slow path (div_zero_first, the same
-// bits).  A rank above 64 takes more chunks, each forming S again.  Each block writes its two partial sums to a scratch buffer; kernel
-// 2 adds the partials of each entry over the splits in a fixed order and
-// applies the EU or KL epilogue: the same bits on every call, no float
-// atomics.  The row splits (chosen by the wrapper, ops/masked_fused.py)
-// give MovieLens-10M's 167 column tiles several blocks for each of the
-// card's 132 SMs, where one block over all rows left the card idle.
+// The H pass: kernel 1's grid is column tiles x row splits x 64-row chunks
+// of k; a block owns 64 columns of H, one range of X's rows and 64 rows of
+// k, and for each 64-row tile of its range forms S, copies the W_i[:, chunk]
+// tile by 16-byte cp.async, and adds W_i^T P_n and W_i^T P_d.  Each block
+// writes its two partial sums to a scratch buffer; kernel 2 adds the
+// partials of each entry over the splits in a fixed order and applies the
+// EU or KL epilogue: the same bits on every call, no float atomics.  The
+// row splits (chosen by the wrapper, ops/masked_fused.py) give
+// MovieLens-10M's 167 column tiles several blocks for each of the card's
+// 132 SMs, where one block over all rows left the card idle.
 //
 // X is f32 or bf16 and M is 1-byte (binary) or X's type (weights); both are
 // upcast to f32 and the factors are not rounded to X's type
@@ -57,94 +65,6 @@
 
 namespace tpunmf {
 namespace {
-
-// Dynamic shared memory of a masked block: two accumulators of `acc` floats
-// each, two masked operand tiles of `p` floats, one factor tile of `t`
-// floats, and the S staging.
-template <int TM, int TN>
-size_t masked_smem(int acc, int p, int t) {
-  return (2 * (size_t)acc + 2 * (size_t)p + (size_t)t) * sizeof(float) +
-         sizeof(WhStage<TM, TN>);
-}
-
-// ------------------------------------------------------------------ W pass
-// A block owns rows [row0, row0 + 16*TM) and all k; grid ceil(m / (16*TM)).
-template <typename XT, typename MT, int TM>
-__global__ void __launch_bounds__(kThreads)
-    masked_w_kernel(const XT* __restrict__ x, const MT* __restrict__ mask,
-                    const float* __restrict__ w, const float* __restrict__ h, float lam,
-                    int m, int n, int k, int kpad, bool kl, float* __restrict__ out) {
-  constexpr int TN = 4, BM = 16 * TM, BN = kTile, LDP = BM + 1, LDT = BN + 1;
-  extern __shared__ float smem[];
-  const int lda = kpad + 1;
-  float* acc_n = smem;              // numerator     acc[r][c], row stride kpad + 1
-  float* acc_d = acc_n + BM * lda;  // denominator (EU) or M H^T (KL)
-  float* pn = acc_d + BM * lda;     // transposed: pn[t][r] = P[row0 + r][j0 + t]
-  float* pd = pn + BN * LDP;
-  float* ts = pd + BN * LDP;        // ts[t][c] = H[c0 + c][j0 + t]
-  WhStage<TM, TN>& stage = *reinterpret_cast<WhStage<TM, TN>*>(ts + BN * LDT);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int row0 = blockIdx.x * BM;
-
-  for (int l = tid; l < 2 * BM * lda; l += kThreads) smem[l] = 0.f;
-  for (int j0 = 0; j0 < n; j0 += BN) {
-    float s[TM][TN];
-    wh_tile<TM, TN>(s, w, h, m, n, k, row0, j0, stage);  // ends with a barrier
-#pragma unroll
-    for (int a = 0; a < TM; ++a) {
-#pragma unroll
-      for (int b = 0; b < TN; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b, gr = row0 + r, gc = j0 + c;
-        float vn = 0.f, vd = 0.f;
-        if (gr < m && gc < n) {
-          const long long o = (long long)gr * n + gc;
-          const float mv = to_f32(mask[o]), xv = to_f32(x[o]);
-          vn = kl ? mv * xv / (s[a][b] + kEps) : xv * mv;
-          vd = kl ? mv : mv * s[a][b];
-        }
-        pn[c * LDP + r] = vn;
-        pd[c * LDP + r] = vd;
-      }
-    }
-    for (int c0 = 0; c0 < kpad; c0 += BN) {
-      for (int l = tid; l < BN * BN; l += kThreads) {
-        const int cc = l / BN, t = l % BN, gk = c0 + cc, gc = j0 + t;
-        ts[t * LDT + cc] = (gk < k && gc < n) ? h[(long long)gk * n + gc] : 0.f;
-      }
-      __syncthreads();
-      float part_n[TM][TN], part_d[TM][TN];
-      zero(part_n);
-      zero(part_d);
-      micro_gemm<TM, TN>(part_n, pn, LDP, ts, LDT, BN, ty, tx);
-      micro_gemm<TM, TN>(part_d, pd, LDP, ts, LDT, BN, ty, tx);
-#pragma unroll
-      for (int a = 0; a < TM; ++a) {
-#pragma unroll
-        for (int b = 0; b < TN; ++b) {
-          const int o = (ty + 16 * a) * lda + c0 + tx + 16 * b;
-          acc_n[o] += part_n[a][b];
-          acc_d[o] += part_d[a][b];
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int l = tid; l < BM * k; l += kThreads) {
-    const int r = l / k, c = l % k, gr = row0 + r;
-    if (gr < m) {
-      const long long o = (long long)gr * k + c;
-      const float wv = w[o], nu = acc_n[r * lda + c], de = acc_d[r * lda + c];
-      if (kl) {
-        const float a = wv * nu;
-        const float den = de + sqrtf(de * de + 4.f * lam * a);
-        out[o] = den > 0.f ? 2.f * a / den : wv;
-      } else {
-        out[o] = wv * nu / (de + lam * wv + kEps);
-      }
-    }
-  }
-}
 
 // ------------------------------------------------------------------ H pass
 constexpr int kHTile = 64;    // rows of X a step, columns of H a block, rows of k a chunk
@@ -263,6 +183,136 @@ __global__ void __launch_bounds__(kThreads, 2)
   store(out_n + plane, acc_d);
 }
 
+// ------------------------------------------------------------------ W pass
+constexpr int kWLd = kHTile + 4;  // P_n, P_d and the H chunk: row stride = 4 (mod 32)
+
+// A W block of BM rows: S = W_i H_j as BM x 64 (warps 2 x 4), and the sums
+// transposed, acc[c][r] for the chunk's 64 columns c of k and the block's
+// rows r, as 64 x BM (warps 2 x 4, 32 x BM/4 each).
+template <int BM>
+struct WPass {
+  using S = tc::STile<BM, kHTile, 2, 4>;
+  static constexpr int MT = kHTile / 2 / 16, NT = BM / 4 / 8;
+  static constexpr int WROWS = kHTile / 2, WCOLS = BM / 4;
+  // Dynamic shared memory: the S tile's staging, reused for P_n and P_d
+  // (pn[r][j] = P_n[row0 + r][j0 + j]); the H chunk (hc[c][j] = H[c0 + c][j0 + j]).
+  struct Smem {
+    union {
+      typename S::Stage stage;
+      struct {
+        alignas(16) float pn[BM * kWLd];
+        alignas(16) float pd[BM * kWLd];
+      } p;
+    } u;
+    alignas(16) float hc[kHTile * kWLd];
+  };
+};
+
+// Block (row tile, k chunk) writes out[r][c0 + c] for its BM rows r of W and
+// the chunk's 64 columns c.  H is read at row stride ldh (>= n; columns n..ldh
+// zero).  `w_aligned` / `h_aligned`: the rows of W / H start on 16 bytes.
+template <typename XT, typename MT, int BM>
+__global__ void __launch_bounds__(kThreads, 2)
+    masked_w_tc_kernel(const XT* __restrict__ x, const MT* __restrict__ mask,
+                       const float* __restrict__ w, const float* __restrict__ h, int ldh,
+                       float lam, int m, int n, int k, bool kl, bool w_aligned, bool h_aligned,
+                       float* __restrict__ out) {
+  using WP = WPass<BM>;
+  using ST = typename WP::S;
+  constexpr int SMT = ST::MT, SNT = ST::NT;
+  extern __shared__ float4 smem_raw[];
+  typename WP::Smem& sm = *reinterpret_cast<typename WP::Smem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * BM, c0 = blockIdx.y * kHTile;
+  const int rows = min(BM, m - row0);
+  // the warp's piece of S: rows [sr, sr + BM/2), columns [sc, sc + 16) of
+  // the step; of the sums: chunk columns [ar, ar + 32), rows [acol, acol + BM/4)
+  const int sr = ST::warp_row(warp), sc = ST::warp_col(warp);
+  const int ar = (warp / 4) * WP::WROWS, acol = (warp % 4) * WP::WCOLS;
+  const int g = lane >> 2, t = lane & 3;
+
+  tc::Acc<WP::MT, WP::NT> acc_n, acc_d;
+  tc::zero(acc_n);
+  tc::zero(acc_d);
+  for (int j0 = 0; j0 < n; j0 += kHTile) {
+    // the H chunk: one cp.async group, complete by the S tile's first wait
+    for (int l = tid; l < kHTile * kHTile / 4; l += kThreads) {
+      const int r = l / (kHTile / 4), c = l % (kHTile / 4) * 4;
+      stage_piece(sm.hc + r * kWLd + c, h + (long long)(c0 + r) * ldh + j0 + c,
+                  c0 + r < k ? ldh - j0 - c : 0, h_aligned);
+    }
+    cp_async_commit();
+    // X and M at the cells of this thread's S entries, in flight while the
+    // tensor cores form S (zero outside X)
+    XT xr[SMT][SNT][4];
+    MT mr[SMT][SNT][4];
+#pragma unroll
+    for (int i = 0; i < SMT; ++i)
+#pragma unroll
+      for (int j = 0; j < SNT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = sr + 16 * i + g + (q >> 1) * 8, c = j0 + sc + 8 * j + 2 * t + (q & 1);
+          const bool in = r < rows && c < n;
+          const long long o = (long long)(row0 + r) * n + c;
+          xr[i][j][q] = in ? x[o] : zero_of<XT>();
+          mr[i][j][q] = in ? mask[o] : zero_of<MT>();
+        }
+
+    tc::Acc<SMT, SNT> s;
+    tc::s_tile<BM, kHTile, 2, 4>(s, w, h, m, ldh, k, row0, j0, w_aligned, h_aligned,
+                                 sm.u.stage);  // ends with a barrier
+    // P_n, P_d (zero outside X, where X and M are 0)
+#pragma unroll
+    for (int i = 0; i < SMT; ++i)
+#pragma unroll
+      for (int j = 0; j < SNT; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float pn[2], pd[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int q = 2 * half + v;
+            const float xv = to_f32(xr[i][j][q]), mv = to_f32(mr[i][j][q]), sv = s[i][j][q];
+            pn[v] = kl ? div_zero_first(mv * xv, sv + kEps) : xv * mv;
+            pd[v] = kl ? mv : mv * sv;
+          }
+          const int o = (sr + 16 * i + g + 8 * half) * kWLd + sc + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(sm.u.p.pn + o) = make_float2(pn[0], pn[1]);
+          *reinterpret_cast<float2*>(sm.u.p.pd + o) = make_float2(pd[0], pd[1]);
+        }
+    __syncthreads();
+    // acc[c][r] += sum_j H[c0 + c][j0 + j] P[r][j] (the H chunk's fragments
+    // once for both sums; P read in .col layout)
+    tc::warp_mma2<WP::MT, WP::NT, false, true>(acc_n, acc_d, sm.hc, kWLd, sm.u.p.pn,
+                                              sm.u.p.pd, kWLd, ar, acol, kHTile, lane);
+    __syncthreads();  // the tiles are read before the next step's copies land
+  }
+
+  // the epilogue, each entry from both sums: rows ar + 16 i + g (+8) of the
+  // accumulator tiles are columns of the chunk, columns acol + 8 j + 2 t (+1)
+  // rows of W
+#pragma unroll
+  for (int i = 0; i < WP::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < WP::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int gk = c0 + ar + 16 * i + g + (q >> 1) * 8;
+        const int gr = row0 + acol + 8 * j + 2 * t + (q & 1);
+        if (gk >= k || gr >= m) continue;
+        const long long o = (long long)gr * k + gk;
+        const float wv = w[o], nu = acc_n[i][j][q], de = acc_d[i][j][q];
+        if (kl) {
+          const float a = wv * nu;
+          const float den = de + sqrtf(de * de + 4.f * lam * a);
+          out[o] = den > 0.f ? 2.f * a / den : wv;
+        } else {
+          out[o] = wv * nu / (de + lam * wv + kEps);
+        }
+      }
+}
+
 // Kernel 2: nu, de = the sums of the partials over the splits, in split
 // order; then the epilogue into out (k, n).
 __global__ void __launch_bounds__(kThreads)
@@ -286,39 +336,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// k above these halves the block along the axis that holds all of k.
-constexpr int kHalfRank = 256, kQuarterRank = 512;
-
-template <typename XT, typename MT>
-cudaError_t w_update(const void* xv, const void* mv, const float* w, const float* h,
+template <int BM, typename XT, typename MT>
+cudaError_t w_update(const XT* x, const MT* mk, const float* w, const float* h, int ldh,
                      float lam, int m, int n, int k, bool kl, float* out, cudaStream_t s) {
-  const XT* x = static_cast<const XT*>(xv);
-  const MT* mk = static_cast<const MT*>(mv);
-  const int kpad = ceil_div(k, kTile) * kTile;
-  if (k <= kHalfRank) {
-    constexpr int BM = 64;
-    return launch(masked_w_kernel<XT, MT, 4>, dim3(ceil_div(m, BM)),
-                  masked_smem<4, 4>(BM * (kpad + 1), kTile * (BM + 1), kTile * (kTile + 1)),
-                  s, x, mk, w, h, lam, m, n, k, kpad, kl, out);
-  }
-  if (k <= kQuarterRank) {
-    constexpr int BM = 32;
-    return launch(masked_w_kernel<XT, MT, 2>, dim3(ceil_div(m, BM)),
-                  masked_smem<2, 4>(BM * (kpad + 1), kTile * (BM + 1), kTile * (kTile + 1)),
-                  s, x, mk, w, h, lam, m, n, k, kpad, kl, out);
-  }
-  constexpr int BM = 16;
-  return launch(masked_w_kernel<XT, MT, 1>, dim3(ceil_div(m, BM)),
-                masked_smem<1, 4>(BM * (kpad + 1), kTile * (BM + 1), kTile * (kTile + 1)), s,
-                x, mk, w, h, lam, m, n, k, kpad, kl, out);
+  const dim3 grid(ceil_div(m, BM), ceil_div(k, kHTile));
+  return launch(masked_w_tc_kernel<XT, MT, BM>, grid, sizeof(typename WPass<BM>::Smem), s, x,
+                mk, w, h, ldh, lam, m, n, k, kl, k % 4 == 0 && aligned16(w),
+                ldh % 4 == 0 && aligned16(h), out);
 }
 
 template <typename XT, typename MT>
-cudaError_t h_update(const void* xv, const void* mv, const float* w, const float* h,
-                     float lam, int m, int n, int k, bool kl, float* part, int splits,
-                     float* out, cudaStream_t s) {
-  const XT* x = static_cast<const XT*>(xv);
-  const MT* mk = static_cast<const MT*>(mv);
+cudaError_t h_update(const XT* x, const MT* mk, const float* w, const float* h, float lam,
+                     int m, int n, int k, bool kl, float* part, int splits, float* out,
+                     cudaStream_t s) {
   const int tiles_per = ceil_div(ceil_div(m, kHTile), splits);
   const dim3 grid(ceil_div(n, kHTile), splits, ceil_div(k, kHTile));
   cudaError_t err = launch(masked_h_tc_kernel<XT, MT>, grid, sizeof(HSmem), s, x, mk, w, h, m,
@@ -331,27 +361,20 @@ cudaError_t h_update(const void* xv, const void* mv, const float* w, const float
   return cudaGetLastError();
 }
 
-// One half-update for the (X type, mask type) pair of a call: mask_is_byte
-// selects 1-byte masks, else the mask has X's type.
-// part / splits: the H pass's scratch and row splits (unused by the W pass).
-cudaError_t masked_update(bool h_pass, int x_is_bf16, int mask_is_byte, const void* x,
-                          const void* mask, const float* w, const float* h, float lam,
-                          int m, int n, int k, bool kl, float* part, int splits, float* out,
-                          cudaStream_t s) {
+// f(x, mask) with X and M cast to the (X type, mask type) pair of a call:
+// mask_is_byte selects 1-byte masks, else the mask has X's type.
+template <typename F>
+cudaError_t with_types(int x_is_bf16, int mask_is_byte, const void* x, const void* mask, F f) {
   using bf16 = __nv_bfloat16;
   using byte = unsigned char;
   if (x_is_bf16) {
-    if (mask_is_byte)
-      return h_pass ? h_update<bf16, byte>(x, mask, w, h, lam, m, n, k, kl, part, splits, out, s)
-                    : w_update<bf16, byte>(x, mask, w, h, lam, m, n, k, kl, out, s);
-    return h_pass ? h_update<bf16, bf16>(x, mask, w, h, lam, m, n, k, kl, part, splits, out, s)
-                  : w_update<bf16, bf16>(x, mask, w, h, lam, m, n, k, kl, out, s);
+    const bf16* xb = static_cast<const bf16*>(x);
+    return mask_is_byte ? f(xb, static_cast<const byte*>(mask))
+                        : f(xb, static_cast<const bf16*>(mask));
   }
-  if (mask_is_byte)
-    return h_pass ? h_update<float, byte>(x, mask, w, h, lam, m, n, k, kl, part, splits, out, s)
-                  : w_update<float, byte>(x, mask, w, h, lam, m, n, k, kl, out, s);
-  return h_pass ? h_update<float, float>(x, mask, w, h, lam, m, n, k, kl, part, splits, out, s)
-                : w_update<float, float>(x, mask, w, h, lam, m, n, k, kl, out, s);
+  const float* xf = static_cast<const float*>(x);
+  return mask_is_byte ? f(xf, static_cast<const byte*>(mask))
+                      : f(xf, static_cast<const float*>(mask));
 }
 
 }  // namespace
@@ -360,14 +383,23 @@ cudaError_t masked_update(bool h_pass, int x_is_bf16, int mask_is_byte, const vo
 extern "C" {
 
 // Masked W half-update: out (m, k).  x (m, n) is f32 or bf16 (x_is_bf16);
-// mask (m, n) is 1-byte 0/1 (mask_is_byte) or of x's type.
+// mask (m, n) is 1-byte 0/1 (mask_is_byte) or of x's type.  h is read at
+// row stride ldh >= n, its columns n..ldh zero; block_rows (64 or 32) is BM.
 int tpunmf_masked_w_update(const void* x, int x_is_bf16, const void* mask, int mask_is_byte,
-                           const void* w, const void* h, float lam, int m, int n, int k,
-                           int is_kl, void* out, void* stream) {
-  return static_cast<int>(tpunmf::masked_update(
-      false, x_is_bf16, mask_is_byte, x, mask, static_cast<const float*>(w),
-      static_cast<const float*>(h), lam, m, n, k, is_kl != 0, nullptr, 0,
-      static_cast<float*>(out), static_cast<cudaStream_t>(stream)));
+                           const void* w, const void* h, int ldh, float lam, int m, int n,
+                           int k, int is_kl, int block_rows, void* out, void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  const float* hf = static_cast<const float*>(h);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ldh < n || (block_rows != 64 && block_rows != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      tpunmf::with_types(x_is_bf16, mask_is_byte, x, mask, [&](auto xt, auto mt) {
+        return block_rows == 64
+                   ? tpunmf::w_update<64>(xt, mt, wf, hf, ldh, lam, m, n, k, is_kl != 0, o, s)
+                   : tpunmf::w_update<32>(xt, mt, wf, hf, ldh, lam, m, n, k, is_kl != 0, o, s);
+      }));
 }
 
 // Masked H half-update: out (k, n), with the already-updated W.  X's rows
@@ -376,10 +408,14 @@ int tpunmf_masked_w_update(const void* x, int x_is_bf16, const void* mask, int m
 int tpunmf_masked_h_update(const void* x, int x_is_bf16, const void* mask, int mask_is_byte,
                            const void* w, const void* h, float lam, int m, int n, int k,
                            int is_kl, void* part, int splits, void* out, void* stream) {
-  return static_cast<int>(tpunmf::masked_update(
-      true, x_is_bf16, mask_is_byte, x, mask, static_cast<const float*>(w),
-      static_cast<const float*>(h), lam, m, n, k, is_kl != 0, static_cast<float*>(part),
-      splits, static_cast<float*>(out), static_cast<cudaStream_t>(stream)));
+  const float* wf = static_cast<const float*>(w);
+  const float* hf = static_cast<const float*>(h);
+  return static_cast<int>(
+      tpunmf::with_types(x_is_bf16, mask_is_byte, x, mask, [&](auto xt, auto mt) {
+        return tpunmf::h_update(xt, mt, wf, hf, lam, m, n, k, is_kl != 0,
+                                static_cast<float*>(part), splits, static_cast<float*>(out),
+                                static_cast<cudaStream_t>(stream));
+      }));
 }
 
 }  // extern "C"

@@ -7,27 +7,30 @@
 // :106, pallas_call :175, entry kl_ratio_and_obj :253) and _kl_ratio_kernel
 // (body :88, pallas_call :156, entry kl_ratio :243).
 //
-// The two objectives (Pass::kEu, Pass::kKl): one read of X (m*n elements)
-// against 2*m*n*k flops of W H.  Each block forms a 64 x 64 WH tile in
-// registers with f32 FMA from shared-memory tiles of W and H, staged 16
-// deep along k (wh_tile, common.cuh), applies the epilogue and sums its
-// tile.
-//
-// The ratio passes (Pass::kKlRatio, Pass::kRatio; one body, so kl_ratio's
-// ratio is kl_ratio_and_obj's bit for bit) also write one f32 per cell.
-// Bound on the H100, with the products counted at 3xTF32 (165 TFLOP/s of
-// f32 work, tf32x3.cuh) and 3.35 TB/s: at config[3] (50000 x 20000, k 128)
-// the read of X and the write of the ratio, 8.04 GB, take 2.399 ms against
-// 1.552 ms of products, so bytes bound it; at MUR's high rank (8192 x 4096,
-// k 1536) the products do, 0.625 ms.  Design: S = W H on the tensor cores
-// (tf32x3.cuh's S tile, two-stage cp.async copies of W and H) on 128 x 128
-// output tiles, which halve the bytes of W and H each tile reads from the
-// L2 against 64 x 64; S is staged through shared memory so that X is read
-// with 16-byte loads, all of a thread's in flight at once, and the ratio
-// written with 16-byte coalesced stores, both marked streaming (evict
-// first) so that W and H stay in the L2.  A zero x takes neither the
+// All four passes run one body, pass_kernel: S = W H on the tensor cores
+// (tf32x3.cuh's S tile in 3xTF32, two-stage cp.async copies of W and H) on
+// 128 x 128 output tiles, which halve the bytes of W and H each tile reads
+// from the L2 against 64 x 64; S is staged through shared memory so that X
+// is read with 16-byte loads, all of a thread's in flight at once, and the
+// ratio written with 16-byte coalesced stores, both marked streaming (evict
+// first) so that W and H stay in the L2.  The objectives (Pass::kEu,
+// Pass::kKl) store no ratio and sum their terms; the ratio passes
+// (Pass::kKlRatio, Pass::kRatio) also write one f32 per cell.  One body
+// means kl_ratio's ratio is kl_ratio_and_obj's bit for bit, and kl_obj's
+// sum is kl_ratio_and_obj's bit for bit: the same tiles, the same order of
+// terms in each thread (four cells of a row, then the thread's next four),
+// the same partials and fixed-order sum.  A zero x takes neither the
 // division's slow path nor the log (div_zero_first, kl_term_sparse: the
 // same bits).
+//
+// Bound on the H100, with the products counted at 3xTF32 (165 TFLOP/s of
+// f32 work) and 3.35 TB/s: an objective reads X (m*n elements) against
+// 2*m*n*k flops of W H, so the products bind at k 128 (8192 x 8192: 0.104
+// ms against 0.080 of reading X; config[3]'s 50000 x 20000: 1.552 ms) and
+// bytes at config[1]'s k 50 (20000 x 11000: 0.265 ms); the ratio passes
+// also write the ratio, so at config[3] the read of X and the write, 8.04
+// GB, take 2.399 ms against 1.552 ms of products, and at MUR's high rank
+// (8192 x 4096, k 1536) the products bind, 0.625 ms.
 //
 // Sums: the TPU added into one SMEM scalar across its sequential grid; here
 // each block writes one partial and a second kernel adds the partials in a
@@ -43,8 +46,6 @@
 
 namespace tpunmf {
 namespace {
-
-constexpr int kObjTM = 4, kObjTN = 4, kObjTile = 64;
 
 // What a pass computes per cell: the EU or KL term summed into a partial,
 // the KL term and the ratio, or the ratio alone.
@@ -64,51 +65,16 @@ __device__ __forceinline__ void write_partial(float v, float* __restrict__ parti
   if (tid == 0) partials[(long long)blockIdx.y * gridDim.x + blockIdx.x] = red[0];
 }
 
-// The two objectives: f32 FMA tiles of W H (wh_tile).
-template <typename XT, Pass P>
-__global__ void __launch_bounds__(kThreads)
-    objective_kernel(const XT* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ h, int m, int n, int k,
-                     float* __restrict__ partials) {
-  static_assert(P == Pass::kEu || P == Pass::kKl, "the ratio passes take ratio_kernel");
-  __shared__ WhStage<kObjTM, kObjTN> stage;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int row0 = blockIdx.y * kObjTile, col0 = blockIdx.x * kObjTile;
+// -------------------------------------------------------------- the passes
+constexpr int kPassTile = 128;  // the block's output tile, both ways
+using PassS = tc::STile<kPassTile, kPassTile, 2, 4>;  // warps 2 x 4, 64 x 32 each
+constexpr int kPassLd = kPassTile + 8;                 // S staged: row stride
 
-  float s[kObjTM][kObjTN];
-  wh_tile<kObjTM, kObjTN>(s, w, h, m, n, k, row0, col0, stage);
-
-  float sum = 0.f;
-#pragma unroll
-  for (int a = 0; a < kObjTM; ++a) {
-#pragma unroll
-    for (int b = 0; b < kObjTN; ++b) {
-      const int gr = row0 + ty + 16 * a, gc = col0 + tx + 16 * b;
-      if (gr < m && gc < n) {
-        const float xv = to_f32(x[(long long)gr * n + gc]);
-        const float wh = s[a][b];
-        if constexpr (P == Pass::kKl) {
-          sum += kl_term(xv, wh);
-        } else {
-          const float d = xv - wh;
-          sum += d * d;
-        }
-      }
-    }
-  }
-  write_partial(sum, partials);
-}
-
-// ------------------------------------------------------ the ratio passes
-constexpr int kRatioTile = 128;  // the block's output tile, both ways
-using RatioS = tc::STile<kRatioTile, kRatioTile, 2, 4>;  // warps 2 x 4, 64 x 32 each
-constexpr int kRatioLd = kRatioTile + 8;                 // S staged: row stride
-
-// Dynamic shared memory of a ratio block: the S tile's staging, then
-// (reused) S itself for the epilogue.
-union RatioSmem {
-  RatioS::Stage stage;
-  alignas(16) float s[kRatioTile * kRatioLd];
+// Dynamic shared memory of a block: the S tile's staging, then (reused) S
+// itself for the epilogue.
+union PassSmem {
+  PassS::Stage stage;
+  alignas(16) float s[kPassTile * kPassLd];
 };
 
 // Four cells of X from global memory (read once: streaming loads).
@@ -134,72 +100,94 @@ __device__ __forceinline__ float kl_term_sparse(float xv, float wh) {
   return xv == 0.f ? wh : kl_term(xv, wh);
 }
 
-// ratio[cell] = x / (wh + eps) on a 128 x 128 tile; with SUMS the masked KL
-// term of the raw wh summed into partials[block] (tpunmf/ops/fused.py:88-90,
-// 113-119).  `vec`: n % 4 == 0 and X, ratio start on 16 bytes, so that a
+// The term a summing pass adds for one cell: (x - wh)^2, or the masked KL
+// term of the raw wh (tpunmf/ops/fused.py:76-80, 88-90, 113-119).
+template <Pass P>
+__device__ __forceinline__ float cell_term(float xv, float wh) {
+  if constexpr (P == Pass::kEu) {
+    const float d = xv - wh;
+    return d * d;
+  } else {
+    return kl_term_sparse(xv, wh);
+  }
+}
+
+// One 128 x 128 tile of pass P: ratio[cell] = x / (wh + eps) where it
+// stores, and its cells' terms summed into partials[block] where it sums,
+// four cells at a time as ((t0 + t1) + t2) + t3 (cells past n add 0).
+// `vec`: n % 4 == 0 and X (and the ratio) start on 16 bytes, so that a
 // tile inside X goes by 16-byte loads and stores; `w_aligned` /
 // `h_aligned` as tc::s_tile takes them.
-template <typename XT, bool SUMS>
+template <typename XT, Pass P>
 __global__ void __launch_bounds__(kThreads, 2)
-    ratio_kernel(const XT* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ h, int m, int n, int k, float eps, bool vec,
-                 bool w_aligned, bool h_aligned, float* __restrict__ ratio,
-                 float* __restrict__ partials) {
+    pass_kernel(const XT* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ h, int m, int n, int k, float eps, bool vec,
+                bool w_aligned, bool h_aligned, float* __restrict__ ratio,
+                float* __restrict__ partials) {
+  constexpr bool kStore = P == Pass::kKlRatio || P == Pass::kRatio, kSums = P != Pass::kRatio;
   extern __shared__ float4 smem_raw[];
-  RatioSmem& sm = *reinterpret_cast<RatioSmem*>(smem_raw);
+  PassSmem& sm = *reinterpret_cast<PassSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.y * kRatioTile, col0 = blockIdx.x * kRatioTile;
+  const int row0 = blockIdx.y * kPassTile, col0 = blockIdx.x * kPassTile;
 
-  tc::Acc<RatioS::MT, RatioS::NT> s;
-  tc::s_tile<kRatioTile, kRatioTile, 2, 4>(s, w, h, m, n, k, row0, col0, w_aligned, h_aligned,
-                                          sm.stage);  // ends with a barrier
-  tc::for_pairs<RatioS::MT, RatioS::NT>(
-      s, RatioS::warp_row(warp), RatioS::warp_col(warp), lane,
+  // EU's S rounded at every step: 0.5 ||X - W H||^2 cancels near
+  // convergence, where the tensor cores' own accumulation would cost it
+  // digits
+  tc::Acc<PassS::MT, PassS::NT> s;
+  tc::s_tile<kPassTile, kPassTile, 2, 4, P == Pass::kEu>(s, w, h, m, n, k, row0, col0,
+                                                        w_aligned, h_aligned,
+                                                        sm.stage);  // ends with a barrier
+  tc::for_pairs<PassS::MT, PassS::NT>(
+      s, PassS::warp_row(warp), PassS::warp_col(warp), lane,
       [&](int r, int c, float v0, float v1) {
-        *reinterpret_cast<float2*>(sm.s + r * kRatioLd + c) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(sm.s + r * kPassLd + c) = make_float2(v0, v1);
       });
   __syncthreads();
 
   float sum = 0.f;
-  constexpr int PIECES = kRatioTile * kRatioTile / 4, PER = PIECES / kThreads;
-  if (vec && row0 + kRatioTile <= m && col0 + kRatioTile <= n) {
+  constexpr int PIECES = kPassTile * kPassTile / 4, PER = PIECES / kThreads;
+  if (vec && row0 + kPassTile <= m && col0 + kPassTile <= n) {
     // a whole tile: every load of X in flight at once (S is in shared
-    // memory, so the accumulators' registers are free), then the ratio
+    // memory, so the accumulators' registers are free), then the epilogue
     float xv[PER][4];
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int p = tid + j * kThreads, r = p / (kRatioTile / 4), c = p % (kRatioTile / 4) * 4;
+      const int p = tid + j * kThreads, r = p / (kPassTile / 4), c = p % (kPassTile / 4) * 4;
       load4(x + (long long)(row0 + r) * n + col0 + c, xv[j]);
     }
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int p = tid + j * kThreads, r = p / (kRatioTile / 4), c = p % (kRatioTile / 4) * 4;
-      const float4 sv = *reinterpret_cast<const float4*>(sm.s + r * kRatioLd + c);
-      const float4 out = make_float4(
-          div_zero_first(xv[j][0], sv.x + eps), div_zero_first(xv[j][1], sv.y + eps),
-          div_zero_first(xv[j][2], sv.z + eps), div_zero_first(xv[j][3], sv.w + eps));
-      __stcs(reinterpret_cast<float4*>(ratio + (long long)(row0 + r) * n + col0 + c), out);
-      if constexpr (SUMS)
-        sum += ((kl_term_sparse(xv[j][0], sv.x) + kl_term_sparse(xv[j][1], sv.y)) +
-                kl_term_sparse(xv[j][2], sv.z)) +
-               kl_term_sparse(xv[j][3], sv.w);
+      const int p = tid + j * kThreads, r = p / (kPassTile / 4), c = p % (kPassTile / 4) * 4;
+      const float4 sv = *reinterpret_cast<const float4*>(sm.s + r * kPassLd + c);
+      if constexpr (kStore)
+        __stcs(reinterpret_cast<float4*>(ratio + (long long)(row0 + r) * n + col0 + c),
+               make_float4(div_zero_first(xv[j][0], sv.x + eps),
+                           div_zero_first(xv[j][1], sv.y + eps),
+                           div_zero_first(xv[j][2], sv.z + eps),
+                           div_zero_first(xv[j][3], sv.w + eps)));
+      if constexpr (kSums)
+        sum += ((cell_term<P>(xv[j][0], sv.x) + cell_term<P>(xv[j][1], sv.y)) +
+                cell_term<P>(xv[j][2], sv.z)) +
+               cell_term<P>(xv[j][3], sv.w);
     }
   } else {
     // a tile on the edge of X, or rows off 16 bytes: cell by cell
     for (int p = tid; p < PIECES; p += kThreads) {
-      const int r = p / (kRatioTile / 4), c = p % (kRatioTile / 4) * 4;
+      const int r = p / (kPassTile / 4), c = p % (kPassTile / 4) * 4;
       const int gr = row0 + r, gc = col0 + c;
       if (gr >= m || gc >= n) continue;
-      const float* sv = sm.s + r * kRatioLd + c;
+      const float* sv = sm.s + r * kPassLd + c;
       const long long cell = (long long)gr * n + gc;
+      float tv[4] = {0.f, 0.f, 0.f, 0.f};
       for (int v = 0; v < 4 && gc + v < n; ++v) {
         const float xs = to_f32(x[cell + v]);
-        ratio[cell + v] = div_zero_first(xs, sv[v] + eps);
-        if constexpr (SUMS) sum += kl_term_sparse(xs, sv[v]);
+        if constexpr (kStore) ratio[cell + v] = div_zero_first(xs, sv[v] + eps);
+        if constexpr (kSums) tv[v] = cell_term<P>(xs, sv[v]);
       }
+      if constexpr (kSums) sum += ((tv[0] + tv[1]) + tv[2]) + tv[3];
     }
   }
-  if constexpr (SUMS) write_partial(sum, partials);
+  if constexpr (kSums) write_partial(sum, partials);
 }
 
 // out[0] = scale * sum(partials), summed in double in a fixed order.
@@ -223,25 +211,16 @@ template <typename XT, Pass P>
 cudaError_t launch_pass(const void* xv, const float* w, const float* h, int m, int n, int k,
                         float eps, float* ratio, float* partials, float* out,
                         cudaStream_t stream) {
+  constexpr bool kStore = P == Pass::kKlRatio || P == Pass::kRatio;
   const XT* x = static_cast<const XT*>(xv);
-  cudaError_t err;
-  int blocks;
-  if constexpr (P == Pass::kEu || P == Pass::kKl) {
-    const dim3 grid(ceil_div(n, kObjTile), ceil_div(m, kObjTile));
-    objective_kernel<XT, P><<<grid, kThreads, 0, stream>>>(x, w, h, m, n, k, partials);
-    err = cudaGetLastError();
-    blocks = grid.x * grid.y;
-  } else {
-    constexpr bool kSums = P == Pass::kKlRatio;
-    const dim3 grid(ceil_div(n, kRatioTile), ceil_div(m, kRatioTile));
-    const bool vec = n % 4 == 0 && aligned16(x) && aligned16(ratio);
-    err = launch(ratio_kernel<XT, kSums>, grid, sizeof(RatioSmem), stream, x, w, h, m, n, k,
-                 eps, vec, k % 4 == 0 && aligned16(w), n % 4 == 0 && aligned16(h), ratio,
-                 partials);
-    blocks = grid.x * grid.y;
-  }
+  const dim3 grid(ceil_div(n, kPassTile), ceil_div(m, kPassTile));
+  const bool vec = n % 4 == 0 && aligned16(x) && (!kStore || aligned16(ratio));
+  const cudaError_t err =
+      launch(pass_kernel<XT, P>, grid, sizeof(PassSmem), stream, x, w, h, m, n, k, eps, vec,
+             k % 4 == 0 && aligned16(w), n % 4 == 0 && aligned16(h), ratio, partials);
   if (err != cudaSuccess || P == Pass::kRatio) return err;
-  return reduce_partials_into(partials, blocks, P == Pass::kEu ? 0.5f : 1.f, out, stream);
+  return reduce_partials_into(partials, grid.x * grid.y, P == Pass::kEu ? 0.5f : 1.f, out,
+                              stream);
 }
 
 // The pass on X of either storage type; the C entries below call this.
@@ -272,16 +251,16 @@ cudaError_t reduce_partials_into(const float* partials, int count, float scale, 
 
 extern "C" {
 
-int tpunmf_objective_blocks(int m, int n) {
-  using tpunmf::kObjTile;
-  return ((m + kObjTile - 1) / kObjTile) * ((n + kObjTile - 1) / kObjTile);
+// m, n -> length of the partials buffer tpunmf_kl_ratio_obj needs: one a
+// 128 x 128 tile.
+int tpunmf_ratio_blocks(int m, int n) {
+  using tpunmf::kPassTile;
+  return ((m + kPassTile - 1) / kPassTile) * ((n + kPassTile - 1) / kPassTile);
 }
 
-// m, n -> length of the partials buffer tpunmf_kl_ratio_obj needs.
-int tpunmf_ratio_blocks(int m, int n) {
-  using tpunmf::kRatioTile;
-  return ((m + kRatioTile - 1) / kRatioTile) * ((n + kRatioTile - 1) / kRatioTile);
-}
+// m, n -> length of the partials buffer tpunmf_objective needs: the same
+// tiles.
+int tpunmf_objective_blocks(int m, int n) { return tpunmf_ratio_blocks(m, n); }
 
 // 0.5*||X - WH||^2 (is_kl = 0) or the masked KL sum (is_kl = 1) into out[0].
 // partials holds tpunmf_objective_blocks(m, n) floats of scratch.

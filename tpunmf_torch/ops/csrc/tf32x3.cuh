@@ -19,16 +19,17 @@
 // they read a TF32 operand's top 19 bits, so its truncation costs at most
 // 2^-10 of small, about 2^-21 of a.
 //
-// Used by objective.cu (the ratio passes) and masked_update.cu (the masked H
-// pass).  Fragments follow the PTX layouts of m16n8k8 with .tf32 operands,
-// lane = 4 g + t:
+// Used by objective.cu (the objective and ratio passes) and masked_update.cu
+// (both masked passes).  Fragments follow the PTX layouts of m16n8k8 with
+// .tf32 operands, lane = 4 g + t:
 //   A (16 x 8, row):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   B (8 x 8, col):   b0 (t, g)  b1 (t+4, g)
 //   C (16 x 8):       c0 (g, 2t) c1 (g, 2t+1) c2 (g+8, 2t) c3 (g+8, 2t+1)
 // Operands come from shared memory whose row strides keep every fragment
 // load free of bank conflicts: a stride = 4 (mod 32) for A read along its
-// rows, = 8 (mod 32) for A read down its columns (a transposed tile) and
-// for B.  No float atomics anywhere.
+// rows and for B stored column by column (each column a row of the tile),
+// = 8 (mod 32) for A read down its columns (a transposed tile) and for B
+// stored depth-major.  No float atomics anywhere.
 #pragma once
 
 #include "common.cuh"
@@ -50,6 +51,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = A B with a zero accumulator (warp_mma's ROUNDED steps).
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  const float zero = 0.f;
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(zero));
 }
 
 // An operand fragment split in its TF32 parts.
@@ -82,12 +94,15 @@ __device__ __forceinline__ void load_a(Frag<4>& f, const float* s, int ld, int r
 }
 
 // The B fragment of depth [k0, k0+8) and columns [c0, c0+8) of a tile in
-// shared memory stored depth-major: B(kk, c) = s[kk * ld + c].
+// shared memory stored depth-major: B(kk, c) = s[kk * ld + c], or with COL
+// column by column (mma's own .col layout): B(kk, c) = s[c * ld + kk].
+template <bool COL = false>
 __device__ __forceinline__ void load_b(Frag<2>& f, const float* s, int ld, int k0, int c0,
                                        int lane) {
   const int g = lane >> 2, t = lane & 3;
-  split(s[(k0 + t) * ld + c0 + g], f.big[0], f.small[0]);
-  split(s[(k0 + t + 4) * ld + c0 + g], f.big[1], f.small[1]);
+  const int c = c0 + g, k1 = k0 + t, k2 = k0 + t + 4;
+  split(COL ? s[c * ld + k1] : s[k1 * ld + c], f.big[0], f.small[0]);
+  split(COL ? s[c * ld + k2] : s[k2 * ld + c], f.big[1], f.small[1]);
 }
 
 // A warp's MT x NT grid of 16 x 8 accumulator tiles.
@@ -129,7 +144,18 @@ __device__ __forceinline__ void pass_row(Acc<MT, NT>& acc, int i, const Frag<4>&
 // depth-major.  With MT <= 2 a step's A fragments are all held at once;
 // above that one row of tiles at a time (registers), its NT accumulators
 // taking each pass in turn.
-template <int MT, int NT, bool TRANS>
+//
+// The tensor cores truncate a sum they accumulate, so the three passes'
+// additions into acc leave S short by a few ulps a step, all one way.
+// Where S is subtracted from X (0.5 ||X - W H||^2 near convergence) that
+// costs digits: on an H100, at k 64 and a residual of 1e-3 of X, the
+// objective was 1.0e-6 off (relative) against 8.6e-8 for f32 products
+// (tests/test_torch_cuda.py, near convergence).  With ROUNDED, each step's
+// three products go into a fresh accumulator, added to acc in f32 with
+// round to nearest: the objective then is as close as f32 products', for
+// 16 more registers a row of tiles and one add an entry a step (the EU
+// objective 17-22% slower on an H100).
+template <int MT, int NT, bool TRANS, bool ROUNDED = false>
 __device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int lda,
                                          const float* b, int ldb, int r0, int c0, int depth,
                                          int lane) {
@@ -138,7 +164,28 @@ __device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int l
     Frag<2> bf[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) load_b(bf[j], b, ldb, k0, c0 + 8 * j, lane);
-    if constexpr (MT <= 2) {
+    if constexpr (ROUNDED) {
+      constexpr int RT = MT <= 2 ? MT : 1;  // rows of tiles a round
+#pragma unroll
+      for (int i0 = 0; i0 < MT; i0 += RT) {
+        Frag<4> af[RT];
+        Acc<RT, NT> t;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) load_a<TRANS>(af[i], a, lda, r0 + 16 * (i0 + i), k0, lane);
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_tf32_fresh(t[i][j], af[i].small, bf[j].big);
+        pass_all<1>(t, af, bf);
+        pass_all<2>(t, af, bf);
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i0 + i][j][q] += t[i][j][q];
+      }
+    } else if constexpr (MT <= 2) {
       Frag<4> af[MT];
 #pragma unroll
       for (int i = 0; i < MT; ++i) load_a<TRANS>(af[i], a, lda, r0 + 16 * i, k0, lane);
@@ -159,8 +206,9 @@ __device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int l
 }
 
 // acc0 += A B0 and acc1 += A B1 as warp_mma does, the A fragments loaded
-// and split once a step for both (MT <= 2).
-template <int MT, int NT, bool TRANS>
+// and split once a step for both (MT <= 2); B0 and B1 as load_b<BCOL>
+// reads them.
+template <int MT, int NT, bool TRANS, bool BCOL = false>
 __device__ __forceinline__ void warp_mma2(Acc<MT, NT>& acc0, Acc<MT, NT>& acc1, const float* a,
                                           int lda, const float* b0, const float* b1, int ldb,
                                           int r0, int c0, int depth, int lane) {
@@ -170,8 +218,8 @@ __device__ __forceinline__ void warp_mma2(Acc<MT, NT>& acc0, Acc<MT, NT>& acc1, 
     Frag<2> bf0[NT], bf1[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      load_b(bf0[j], b0, ldb, k0, c0 + 8 * j, lane);
-      load_b(bf1[j], b1, ldb, k0, c0 + 8 * j, lane);
+      load_b<BCOL>(bf0[j], b0, ldb, k0, c0 + 8 * j, lane);
+      load_b<BCOL>(bf1[j], b1, ldb, k0, c0 + 8 * j, lane);
     }
     Frag<4> af[MT];
 #pragma unroll
@@ -226,10 +274,11 @@ struct STile {
 
 // s = the warp's piece of S.  `w_aligned` / `h_aligned`: every row of W / H
 // starts on 16 bytes (k % 4 == 0 / n % 4 == 0 and an aligned base); else
-// the copies go by plain loads.  Commits its own cp.async groups and waits
-// for all of them (and any committed before it); every thread of the block
-// must call it, and it ends with __syncthreads().
-template <int BM, int BN, int WM, int WN>
+// the copies go by plain loads.  ROUNDED: warp_mma's accumulation rounded
+// to nearest at every 8-deep step.  Commits its own cp.async groups and
+// waits for all of them (and any committed before it); every thread of the
+// block must call it, and it ends with __syncthreads().
+template <int BM, int BN, int WM, int WN, bool ROUNDED = false>
 __device__ __forceinline__ void s_tile(
     Acc<STile<BM, BN, WM, WN>::MT, STile<BM, BN, WM, WN>::NT>& s, const float* __restrict__ w,
     const float* __restrict__ h, int m, int n, int k, int row0, int col0, bool w_aligned,
@@ -264,7 +313,8 @@ __device__ __forceinline__ void s_tile(
       cp_async_commit();  // an empty group: wait_one then always means "this chunk"
     cp_async_wait_one();
     __syncthreads();
-    warp_mma<T::MT, T::NT, false>(s, st.w[buf], LDW, st.h[buf], LDH, r0, c0, KC, lane);
+    warp_mma<T::MT, T::NT, false, ROUNDED>(s, st.w[buf], LDW, st.h[buf], LDH, r0, c0, KC,
+                                           lane);
     __syncthreads();  // the chunk is read before the next issue overwrites it
   }
 }

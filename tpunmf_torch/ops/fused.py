@@ -10,17 +10,20 @@
     sum, so the same ratio bit for bit); the ratio pass of MUR's
     high-rank KL step
 
-The two objectives form WH with f32 FMA on 64 x 64 tiles.  The two ratio
-passes form it on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``: f32
-accuracy at 165 TFLOP/s of f32 work on the H100) on 128 x 128 tiles, and
-read X and write the ratio 16 bytes at a time: at ADMM's config[3] the
-bytes bound them, at MUR's high rank the products.
+All four run one kernel body: WH on the tensor cores in 3xTF32
+(``csrc/tf32x3.cuh``: f32 accuracy at 165 TFLOP/s of f32 work on the
+H100) on 128 x 128 tiles, X read 16 bytes at a time, and per-tile partial
+sums added in a fixed order.  The objectives store no ratio; ``kl_obj``
+gives ``kl_ratio_and_obj``'s objective bit for bit.  Products bound the
+objectives at k 128 and above, bytes at ``tpunmf``'s config[1] (k 50);
+the ratio passes also write the ratio, so at ADMM's config[3] bytes bound
+them, at MUR's high rank the products.
 
 A wrapper takes its plain version (``*_ref``) only for a tensor on the CPU;
 for a CUDA tensor it launches its kernel or raises.  Each wrapper counts
 its launches in ``<wrapper>.launches``.  ``objective_takes`` says which X
 and ranks the kernels take: float32 or bfloat16 X at 1 <= k <= 2048 (the
-kernels stage k in chunks of 16 and hold nothing sized by it; 2048 is
+kernels stage k in chunks of 32 and hold nothing sized by it; 2048 is
 ``tpunmf``'s own cut, tpunmf/ops/fused.py:52).  A solver asks it before it
 calls a wrapper.
 

@@ -16,14 +16,18 @@ X's dtype (masked_fused.py:86-92, 182-188).  ``M`` is either 1-byte
 real-valued weight mask); X is float32 or bfloat16 on CUDA, at ranks up
 to 1024 (``masked_takes``).
 
-The W pass is f32 FMA tiling, a block over whole rows of W.  The H pass
-runs its three products on the tensor cores in 3xTF32 (``csrc/tf32x3.cuh``:
-f32 accuracy, 165 TFLOP/s of f32 work on the H100 against 67 for FMA), on
-a grid of 64-column tiles x row splits x 64-row chunks of k: each block
-adds its range of X's rows into two partial sums in a scratch buffer, and
-a second kernel adds the partials over the splits in a fixed order and
-applies the update (the same bits on every call).  :func:`row_splits`
-picks the number of splits from the shape alone.
+Both passes run their three products on the tensor cores in 3xTF32
+(``csrc/tf32x3.cuh``: f32 accuracy, 165 TFLOP/s of f32 work on the H100
+against 67 for FMA).  The W pass runs a grid of row tiles x 64-wide chunks
+of k: a block walks all of n for its rows and applies the update itself
+(:func:`w_block_rows` picks its rows; H is read at the row stride
+:func:`h_stride`, through a zero-padded copy where n % 4 != 0, so that
+every copy of H goes 16 bytes at a time).  The H pass runs a grid of
+64-column tiles x row splits x 64-row chunks of k: each block adds its
+range of X's rows into two partial sums in a scratch buffer, and a second
+kernel adds the partials over the splits in a fixed order and applies the
+update.  Both give the same bits on every call.  :func:`row_splits` picks
+the number of splits from the shape alone.
 
 A wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises.  ``<wrapper>.launches``
@@ -74,6 +78,21 @@ def row_splits(m: int, n: int, k: int) -> int:
     splits = max(1, min(want, tiles, room))
     # the splits that whole 64-row tiles give: none empty
     return _ceil_div(tiles, _ceil_div(tiles, splits))
+
+
+def w_block_rows(m: int, k: int) -> int:
+    """Rows of W (and of X) a block of the W pass owns: 64, or 32 where
+    64-row blocks, ceil(m / 64) x ceil(k / 64) of them, would not fill one
+    wave of the card (two blocks on each of its 132 SMs).  MovieLens-10M
+    at k 64: 1092 blocks of 64 rows; MovieLens-1M (6040 rows): 189 of 32."""
+    return 64 if _ceil_div(m, 64) * _ceil_div(k, H_TILE) >= 2 * _SMS else 32
+
+
+def h_stride(n: int) -> int:
+    """The row stride at which the W pass reads H (k, n): n rounded up to
+    a multiple of 4 floats, so that every row starts on 16 bytes
+    (MovieLens-10M: 10677 -> 10680)."""
+    return _ceil_div(n, 4) * 4
 
 
 def split_ranges(m: int, splits: int) -> list[tuple[int, int]]:
@@ -128,19 +147,23 @@ def _run_kernel(name, x, mask, w, h, distance_type, lam, splits=None):
                         f"({x.dtype}), got {mask.dtype}")
     if not mask.is_contiguous():
         raise ValueError(f"{name}: operands must be contiguous")
-    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), mask.data_ptr(),
-            int(mask.dtype in _BYTE_MASKS), w.data_ptr(), h.data_ptr(), float(lam),
-            m, n, k, int(distance_type == "kl"))
+    xmw = (x.data_ptr(), int(x.dtype == torch.bfloat16), mask.data_ptr(),
+           int(mask.dtype in _BYTE_MASKS), w.data_ptr())
+    kl = int(distance_type == "kl")
     if name == "masked_w_update":
+        ldh = h_stride(n)
+        hp = h if ldh == n else torch.nn.functional.pad(h, (0, ldh - n))
         out = torch.empty(w.shape, dtype=torch.float32, device=x.device)
-        call("tpunmf_masked_w_update", x.device, *args, out.data_ptr())
+        call("tpunmf_masked_w_update", x.device, *xmw, hp.data_ptr(), ldh, float(lam), m, n,
+             k, kl, w_block_rows(m, k), out.data_ptr())
         return out
     splits = row_splits(m, n, k) if splits is None else int(splits)
     if splits < 1:
         raise ValueError(f"{name}: splits={splits} must be at least 1")
     part = torch.empty(2 * splits * k * n, dtype=torch.float32, device=x.device)
     out = torch.empty(h.shape, dtype=torch.float32, device=x.device)
-    call("tpunmf_masked_h_update", x.device, *args, part.data_ptr(), splits, out.data_ptr())
+    call("tpunmf_masked_h_update", x.device, *xmw, h.data_ptr(), float(lam), m, n, k, kl,
+         part.data_ptr(), splits, out.data_ptr())
     return out
 
 

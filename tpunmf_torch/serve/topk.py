@@ -319,7 +319,8 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
 
     Column panels of H, ``h_source[:, start:stop]`` (a numpy array or
     memmap) or ``h_source(start, stop)``, are copied from the host to
-    ``w_batch``'s device one at a time, ranked by :func:`topk_retrieval`,
+    ``w_batch``'s device one at a time (through ``as_input``: a float64
+    panel as float32 on the card), ranked by :func:`topk_retrieval`,
     and merged into a running (b, k) candidate set.  A ragged last panel is
     ranked at its own width (on one device it needs no padding).  Where
     fewer than k items remain after ``exclude`` (a (b, n) bool host
@@ -343,7 +344,9 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
     idx = torch.full((b, k), -1, dtype=torch.int64, device=device)
     for start in range(0, n, take):
         stop = min(start + take, n)
-        panel = torch.as_tensor(np.asarray(slicer(start, stop)), device=device)
+        # as_input: a float64 host panel is scored in float32 on the card, as
+        # topk_retrieval's own H is (tpunmf/serve/topk.py:590, 607)
+        panel = as_input(np.asarray(slicer(start, stop)), device=device)
         excl = None if exclude is None else np.asarray(exclude[:, start:stop])
         p_vals, p_idx = topk_retrieval(
             None, w_batch, panel, min(k, stop - start), exclude=excl,
