@@ -21,6 +21,15 @@ from tpunmf_torch.sweeps import sweep_int8, sweep_iter2
 
 # f32 sums of positive terms in another order (see chip_smoke.py)
 RTOL = 1e-4
+# two kernels of one function whose sums come in another order (the tensor
+# cores' against FMA tiles): f32 X as RTOL; at bf16 X the order can move the
+# rounding of W' to bf16 by one bf16 ulp (2^-8) in a term of wtx
+ROUTE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+# the Gram objective near convergence: the kernels against cuBLAS's f32
+# products, in units in the last place of ||X||^2 (on an H100 with the
+# sums that feed it rounded at every step: within 1.0; with the tensor
+# cores' own sums 4-13 off)
+GRAM_ULPS = 2
 
 
 def _on(device, xdtype, m=1000, n=777, k=37):
@@ -532,6 +541,118 @@ def test_iteration_kl_objective_is_the_lagged_w_pass_s(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 128, 512, 1024])
+@pytest.mark.parametrize("n", [776, 777])  # rows on 16 bytes (f32 and bf16), or not
+def test_mur_iteration_eu_on_the_tensor_cores_at_ragged_shapes(cuda_device, n, k, xdtype):
+    """m = 1000: the last 128-row tile of the wave is short; k up to 1024
+    (8 tiles of 128); lam_w 0 and 0.2.  Every output within RTOL of the
+    plain version, one launch a call, the same bits on a second call."""
+    x, w, h = _on(cuda_device, xdtype, m=1000, n=n, k=k)
+    for lam in (0.0, 0.2):
+        before = mur_fused.mur_iteration_eu.launches
+        got = mur_fused.mur_iteration_eu(x, w, h, lam_w=lam, bm=1000)
+        assert mur_fused.mur_iteration_eu.launches == before + 1
+        for a, b in zip(got, mur_fused.mur_iteration_eu_ref(x, w, h, lam_w=lam)):
+            assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+        again = mur_fused.mur_iteration_eu(x, w, h, lam_w=lam, bm=1000)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 128, 512, 1024])
+@pytest.mark.parametrize("n", [776, 777])  # rows on 16 bytes (f32 and bf16), or not
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_mur_h_update_over_row_splits(cuda_device, dist, n, k, xdtype):
+    """m = 300, five 64-row tiles (the last short): the H pass over 1 split,
+    2, 5 (one a tile), 7 (two of them empty) and the default count, lam 0
+    and 0.2.  Each within RTOL of the plain version and of the others, one
+    launch a call, the same bits on a second call with the same splits."""
+    x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
+    for lam in (0.0, 0.2):
+        kw = dict(distance_type=dist, lam=lam)
+        want = mur_fused.mur_h_update_ref(x, w, h, **kw)
+        first = None
+        for splits in (1, 2, 5, 7, None):
+            before = mur_fused.mur_h_update.launches
+            got = mur_fused.mur_h_update(x, w, h, splits=splits, **kw)
+            assert mur_fused.mur_h_update.launches == before + 1
+            for a, b in zip(got, want):
+                assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+                assert torch.isfinite(a).all()
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+            first = first or got
+            for a, b in zip(got, first):
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+            again = mur_fused.mur_h_update(x, w, h, splits=splits, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="splits=0"):
+        mur_fused.mur_h_update(x, w, h, distance_type=dist, lam=0.0, splits=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [mur_fused.KL_H_TC_RANK, mur_fused.KL_H_TC_RANK + 1])
+def test_kl_h_update_on_both_sides_of_the_tensor_core_rank(cuda_device, k, xdtype):
+    """At KL_H_TC_RANK the KL H pass runs on the tensor cores over row
+    splits; one above it, the FMA body over all rows, which ignores the
+    split count (the same bits for any)."""
+    x, w, h = _on(cuda_device, xdtype, m=300, n=277, k=k)
+    want = mur_fused.mur_h_update_ref(x, w, h, distance_type="kl", lam=0.2)
+    got = {sp: mur_fused.mur_h_update(x, w, h, distance_type="kl", lam=0.2, splits=sp)
+           for sp in (1, 3)}
+    for out in got.values():
+        for a, b in zip(out, want):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+    if k > mur_fused.KL_H_TC_RANK:
+        assert all(torch.equal(a, b) for a, b in zip(got[1], got[3]))
+        assert mur_fused.h_splits(300, 277, k, "kl") == 1
+    else:  # one split a 64-row tile of X
+        assert mur_fused.h_splits(300, 277, k, "kl") == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mur_iteration_eu", "mur_h_update"])
+@pytest.mark.parametrize("seed", range(31, 37))
+def test_gram_objective_near_convergence_holds_f32_accuracy(cuda_device, seed, which):
+    """The Gram objective 0.5 (||X||^2 - 2 <W^T X, H> + <W^T W, H H^T>)
+    from the kernels' W^T X (mur_iteration_eu's wtx and gram; mur_h_update's
+    numerator) at X = W0 H0 plus noise of about 1e-3 of X, W and H within
+    1e-4 of W0, H0: its three terms cancel to about 1e-6 of ||X||^2.
+    Against the value in float64 on the same float32 factors, the kernels
+    are no worse than cuBLAS's f32 products (TF32 off) up to GRAM_ULPS
+    units in the last place of ||X||^2 in float32, the scale at which each
+    term is rounded."""
+    from tpunmf_torch.core.losses import eu_objective_gram
+    from tpunmf_torch.core.precision import full_f32
+
+    rng = np.random.default_rng(seed)
+    m, n, k = 2000, 1500, 64
+    w0, h0 = rng.random((m, k)), rng.random((k, n))
+    x = (w0 @ h0) * (1.0 + 1e-3 * rng.standard_normal((m, n)))
+    w = w0 * (1.0 + 1e-4 * rng.standard_normal((m, k)))
+    h = h0 * (1.0 + 1e-4 * rng.standard_normal((k, n)))
+    x, w, h = (a.astype(np.float32) for a in (x, w, h))
+    xt, wt, ht = (t(a).to(cuda_device) for a in (x, w, h))
+    with full_f32():
+        if which == "mur_iteration_eu":
+            wf, wtx, gram = mur_fused.mur_iteration_eu(xt, wt, ht, lam_w=0.0, bm=m)
+        else:
+            wf, wtx, gram = wt, mur_fused.mur_h_update(xt, wt, ht, distance_type="eu",
+                                                       lam=0.0)[1], wt.T @ wt
+        xsq = torch.sum(xt * xt)
+        got = float(eu_objective_gram(xsq, wtx, gram, ht))
+        plain = float(eu_objective_gram(xsq, wf.T @ xt, wf.T @ wf, ht))
+    d = x.astype(np.float64) - wf.double().cpu().numpy() @ h.astype(np.float64)
+    want = 0.5 * float(np.sum(d * d))
+    ulp = float(np.spacing(np.float32(xsq.item())))
+    assert abs(got - want) <= abs(plain - want) + GRAM_ULPS * ulp, (got, plain, want, ulp)
+
+
+
+@pytest.mark.cuda
 def test_iteration_wrappers_raise_instead_of_falling_back(cuda_device):
     x, w, h = _on(cuda_device, torch.float32)
     with pytest.raises(TypeError):
@@ -720,8 +841,11 @@ def test_hals_iteration_matches_plain_version(cuda_device, n, k, xdtype):
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 37, 128, 512])
 @pytest.mark.parametrize("n", [776, 777, 50001])  # rows on 16 bytes (f32 and bf16), or not
-def test_mur_iteration_eu_dma_matches_plain_version_and_auto_bit_for_bit(cuda_device, n, k,
-                                                                         xdtype):
+def test_mur_iteration_eu_dma_matches_plain_version_v1_iter_and_auto(cuda_device, n, k,
+                                                                     xdtype):
+    """The dma variant keeps the FMA tiles: at lam_w = 0 it is v1_iter bit
+    for bit (the same FMAs in the same order); mur_iteration_eu takes its
+    products on the tensor cores, so the two agree within ROUTE_RTOL."""
     x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
     before = (mur_fused.mur_iteration_eu_dma.launches, mur_fused.mur_iteration_eu.launches)
     got = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.2, bm=150)
@@ -732,7 +856,9 @@ def test_mur_iteration_eu_dma_matches_plain_version_and_auto_bit_for_bit(cuda_de
     for a, b, c in zip(got, want, auto):
         assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
-        assert torch.equal(a, c)  # the same FMAs in the same order
+        torch.testing.assert_close(a, c, rtol=ROUTE_RTOL[xdtype], atol=0)
+    dma0 = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.0, bm=150)
+    assert all(torch.equal(a, b) for a, b in zip(dma0, mur_variants.v1_iter(x, w, h, bm=150)))
 
 
 @pytest.mark.cuda
@@ -782,8 +908,11 @@ def test_switches_route_the_single_passes_and_default_off(cuda_device, monkeypat
     dma_run, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 5).factorize(**mur_kw))
     assert launched == {(mur_fused.mur_iteration_eu_dma, "launches"): 5,
                         (fused.eu_residual_obj, "launches"): 6}
-    np.testing.assert_array_equal(dma_run.obj_history, auto_run.obj_history)
-    np.testing.assert_array_equal(dma_run.w, auto_run.w)
+    # FMA tiles against the tensor cores: the same function, f32 sums in
+    # another order
+    np.testing.assert_allclose(dma_run.obj_history, auto_run.obj_history,
+                               rtol=ROUTE_RTOL[torch.float32])
+    np.testing.assert_allclose(dma_run.w, auto_run.w, rtol=ROUTE_RTOL[torch.float32])
 
 
 # --------------------------- the sweep scripts' variants and the read probe
@@ -804,9 +933,11 @@ def test_v_iters_match_plain_versions_and_mur_iteration_eu(cuda_device, n, k, xd
         for a, b in zip(got, want):
             assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
             torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
-    # v1 is mur_iteration_eu at lam_w = 0: the same FMAs in the same order
+    # v1 is mur_iteration_eu's function at lam_w = 0; mur_iteration_eu
+    # takes its products on the tensor cores, v1 on FMA tiles
     auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=150)
-    assert all(torch.equal(a, b) for a, b in zip(v1, auto))
+    for a, b in zip(v1, auto):
+        torch.testing.assert_close(a, b, rtol=ROUTE_RTOL[xdtype], atol=0)
     assert all(torch.equal(a, b) for a, b in zip((v2[0], v2[2], v2[3]), v1))
 
 

@@ -310,6 +310,50 @@ def test_gram_objective_matches_tpunmf():
     np.testing.assert_allclose(got, 0.5 * ((x - w @ h) ** 2).sum(), rtol=1e-10)
 
 
+# the H pass's row splits (ops/mur_fused.py: h_splits): EU 128 x 128 tiles
+# of (k, n) near 4 blocks a SM, KL 64 x 64 near 16, whole 64-row tiles of X
+@pytest.mark.parametrize("m,n,k,dist,splits", [
+    (8192, 8192, 128, "eu", 8), (8192, 16384, 128, "eu", 4), (8192, 8192, 1024, "eu", 1),
+    (20000, 11000, 50, "kl", 12), (8192, 4096, 128, "kl", 16), (8192, 4096, 512, "kl", 4),
+    (8192, 4096, 640, "kl", 3), (8192, 4096, 641, "kl", 1), (300, 777, 37, "eu", 5),
+    (300, 777, 37, "kl", 5), (64, 48, 5, "eu", 1), (1000, 777, 1024, "kl", 1),
+    (100000, 200000, 1024, "eu", 1)])
+def test_h_splits_cut_whole_tiles_from_the_shape(m, n, k, dist, splits):
+    """The count depends on the shape alone; every row of X is in exactly
+    one split (masked_fused.split_ranges is the same cut), none empty, and
+    the partial sums stay within 1 GiB (100000 x 200000 at k 1024 would
+    want more than one split of 819 MB).  Above KL_H_TC_RANK (640) the KL
+    pass runs its FMA body, which takes no splits."""
+    from tpunmf_torch.ops import masked_fused as tmasked
+
+    got = tmur_fused.h_splits(m, n, k, dist)
+    assert got == splits
+    ranges = tmasked.split_ranges(m, got)
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    assert all(a < b and a % tmasked.H_TILE == 0 for a, b in ranges)
+    assert sum(b - a for a, b in ranges) == m
+    assert 4 * tmur_fused.h_scratch_floats(got, n, k) <= 1 << 30
+
+
+@pytest.mark.parametrize("splits,want", [(1, 0), (2, 2 * 37 * 777), (12, 12 * 37 * 777)])
+def test_h_scratch_is_a_partial_sum_a_split(splits, want):
+    """One split sums into the numerator itself: no scratch."""
+    assert tmur_fused.h_scratch_floats(splits, 777, 37) == want
+
+
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_h_update_splits_on_cpu_take_the_plain_version(dist):
+    """On a CPU tensor splits= changes nothing: the plain version runs,
+    bit for bit, and no launch is counted."""
+    x, w, h = (t(a) for a in kernel_problem(19, zeros=dist == "kl"))
+    before = tmur_fused.mur_h_update.launches
+    want = tmur_fused.mur_h_update_ref(x, w, h, distance_type=dist, lam=0.1)
+    for splits in (None, 1, 3, 7):
+        got = tmur_fused.mur_h_update(x, w, h, distance_type=dist, lam=0.1, splits=splits)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tmur_fused.mur_h_update.launches == before
+
+
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     x, w, h = kernel_problem(9)
     wrappers = (tmur_fused.mur_w_update, tmur_fused.mur_h_update,

@@ -151,17 +151,36 @@ def test_roofline_bound_is_the_larger_time():
     ("ratio", (50000, 20000, 128), 2.399, "bytes"),
     # and at MUR's high rank: the products bind
     ("ratio", (8192, 4096, 1536), 0.625, "operations"),
+    # mur_h_update's KL body at BASELINE config[1]: S and one product, 4 m n
+    # k, against X (880 MB) and W, H read and H', the numerator written:
+    # the two are within 0.4% (0.2667 ms of products, 0.2658 of bytes)
+    ("kl_h", (20000, 11000, 50), 0.267, "operations"),
+    # its EU body at 8192 x 8192 r128, f32 X: W^T X and the Grams
+    ("eu_h", (8192, 8192, 128), 0.107, "operations"),
+    # mur_iteration_eu there: two products against X, the Grams and W Gh
+    ("eu_iter", (8192, 8192, 128), 0.213, "operations"),
 ])
 def test_roofline_charges_f32_products_at_three_tf32(case, shape, want_ms, want_by):
     m, n, k = shape
     factors = 4.0 * (m * k + k * n)
     if case == "masked":  # X f32 and M uint8 read, W and H read, H written
         flops, nbytes = roofline.masked_flops(m, n, k), 5.0 * m * n + factors + 4.0 * k * n
+    elif case in ("kl_h", "eu_h"):  # X f32, W, H read; H' and the numerator written
+        flops = roofline.mur_flops("mur_h_update", m, n, k, False, case[:2])
+        nbytes = 4.0 * m * n + factors + 8.0 * k * n
+        if case == "kl_h":
+            assert roofline.bound(*flops[:2], nbytes)[1] == "bytes"  # without the products
+    elif case == "eu_iter":  # X, W, H read; W', W'^T X and the Gram written
+        flops = roofline.mur_flops("mur_iteration_eu", m, n, k, False)
+        nbytes = 4.0 * m * n + 2 * factors + 4.0 * k * k
     else:  # X f32 read, the f32 ratio written
         flops, nbytes = roofline.mur_flops("kl_ratio_and_obj", m, n, k, False), 8.0 * m * n + factors
     f32, bf16, product = flops
     assert f32 == bf16 == 0.0
     ms, by = roofline.bound(f32, bf16, nbytes, product)
+    if case == "kl_h":
+        assert 4.0 * m * n * k == product
+        assert abs(1e3 * nbytes / roofline.PEAK_BYTES - ms) < 0.004 * ms
     assert (round(ms, 3), by) == (want_ms, want_by)
     # at the f32 FMA rate the same products would take 495 / 3 / 67 = 2.46x as long
     assert roofline.bound(product, 0.0, 0.0)[0] == pytest.approx(

@@ -34,9 +34,10 @@ _SIGNATURES = {
     "tpunmf_mur_w_update_lagged": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P),
     # m, k -> length of the partials buffer tpunmf_mur_w_update_lagged needs
     "tpunmf_mur_w_lagged_blocks": (_I, _I),
-    # x, x_is_bf16, w, h, aux (Gw or colsum W), lam, m, n, k, is_kl,
-    # h_out, numer_out, stream
-    "tpunmf_mur_h_update": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P),
+    # x, x_is_bf16, w, h, aux (Gw or colsum W), lam, m, n, k, is_kl, part
+    # (splits * k * n floats where splits > 1), splits, h_out, numer_out,
+    # stream
+    "tpunmf_mur_h_update": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _I, _P, _P, _P),
     # x, x_is_bf16, w, hc (H in X's type), gh, lam, m, n, k, w_out, wtx,
     # gram, scratch, dma, stream
     "tpunmf_mur_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _I, _P),

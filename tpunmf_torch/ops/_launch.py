@@ -64,8 +64,10 @@ def check_strips(x, bm, bs=None):
         raise ValueError(f"bs={bs} must divide n={n} (grid would truncate)")
 
 
-# the single-pass iterations of csrc/wave.cuh, as tpunmf_iteration_scratch counts them
-WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS = 0, 1, 2
+# the single-pass iterations of csrc/wave.cuh, as tpunmf_iteration_scratch counts them:
+# MUR EU on FMA tiles (the "dma" variant, the sweep scripts'), MUR KL, HALS EU,
+# MUR EU on the tensor cores (mur_iteration_eu)
+WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS, WAVE_MUR_EU_TC = 0, 1, 2, 3
 
 
 def wave_scratch(x, k: int, kind: int) -> torch.Tensor:

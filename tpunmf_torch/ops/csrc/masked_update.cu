@@ -56,6 +56,11 @@
 // MovieLens-10M's 167 column tiles several blocks for each of the card's
 // 132 SMs, where one block over all rows left the card idle.
 //
+// MUR's KL H pass (mur_update.cu) is the H pass with M = 1 (NoMask): kernel
+// 1 sums P_n = X / (S + eps) alone, one partial sum a split, and
+// kl_h_finish adds them and applies MUR's KL update (d = colsum(W), no
+// guard); masked_h_update's instantiations keep their code and bits.
+//
 // X is f32 or bf16 and M is 1-byte (binary) or X's type (weights); both are
 // upcast to f32 and the factors are not rounded to X's type
 // (masked_fused.py:86-92, 182-188).  Ragged edges load zeros and bound their
@@ -85,10 +90,16 @@ struct HSmem {
   alignas(16) float wc[kHTile * kLdp];
 };
 
+// The mask of MUR's KL H pass (mur_update.cu): M = 1, so the pass sums
+// P_n = X / (S + eps) alone; its W^T M is colsum(W), a k-vector formed
+// outside.
+struct NoMask {};
+
 // Kernel 1: block (column tile, split, k chunk) writes its partial sums
 // part[(split * 2 + q) * k * n + c * n + j], q = 0 numerator, 1 denominator
-// (EU) or W^T M (KL), for its 64 columns j and 64 rows c of k.  Its rows of
-// X are the tiles [split * tiles_per, (split + 1) * tiles_per) of 64.
+// (EU) or W^T M (KL), for its 64 columns j and 64 rows c of k; with NoMask
+// (KL only) the numerator alone, part[split * k * n + c * n + j].  Its rows
+// of X are the tiles [split * tiles_per, (split + 1) * tiles_per) of 64.
 // `w_aligned` / `h_aligned`: the rows of W / H start on 16 bytes.
 template <typename XT, typename MT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -96,6 +107,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const float* __restrict__ w, const float* __restrict__ h, int m, int n,
                        int k, int tiles_per, bool kl, bool w_aligned, bool h_aligned,
                        float* __restrict__ part) {
+  constexpr bool kMasked = !std::is_same_v<MT, NoMask>;
+  using MR = std::conditional_t<kMasked, MT, unsigned char>;  // no mask: unused
   constexpr int MTL = HS::MT, NTL = HS::NT;
   extern __shared__ float4 smem_raw[];
   HSmem& sm = *reinterpret_cast<HSmem*>(smem_raw);
@@ -125,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // of X starts on 16 bytes only where n % 4 == 0; MovieLens-10M's
     // n = 10677 is odd, so the cells come one by one, zero outside X.)
     XT xr[MTL][NTL][4];
-    MT mr[MTL][NTL][4];
+    MR mr[MTL][NTL][4];
 #pragma unroll
     for (int i = 0; i < MTL; ++i)
 #pragma unroll
@@ -136,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const bool in = r < rows && c < n;
           const long long o = (i0 + r) * n + c;
           xr[i][j][q] = in ? x[o] : zero_of<XT>();
-          mr[i][j][q] = in ? mask[o] : zero_of<MT>();
+          if constexpr (kMasked) mr[i][j][q] = in ? mask[o] : zero_of<MT>();
         }
 
     tc::Acc<MTL, NTL> s;
@@ -153,24 +166,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
             const int q = 2 * half + v;
-            const float xv = to_f32(xr[i][j][q]), mv = to_f32(mr[i][j][q]), sv = s[i][j][q];
-            pn[v] = kl ? div_zero_first(mv * xv, sv + kEps) : xv * mv;
-            pd[v] = kl ? mv : mv * sv;
+            const float xv = to_f32(xr[i][j][q]), sv = s[i][j][q];
+            if constexpr (kMasked) {
+              const float mv = to_f32(mr[i][j][q]);
+              pn[v] = kl ? div_zero_first(mv * xv, sv + kEps) : xv * mv;
+              pd[v] = kl ? mv : mv * sv;
+            } else {
+              pn[v] = div_zero_first(xv, sv + kEps);
+            }
           }
           const int o = (wr + 16 * i + g + 8 * half) * kLdp + wcol + 8 * j + 2 * t;
           *reinterpret_cast<float2*>(sm.u.p.pn + o) = make_float2(pn[0], pn[1]);
-          *reinterpret_cast<float2*>(sm.u.p.pd + o) = make_float2(pd[0], pd[1]);
+          if constexpr (kMasked)
+            *reinterpret_cast<float2*>(sm.u.p.pd + o) = make_float2(pd[0], pd[1]);
         }
     __syncthreads();
     // acc += W_i[:, chunk]^T P over the tile's 64 rows (A read transposed,
     // once for both sums)
-    tc::warp_mma2<MTL, NTL, true>(acc_n, acc_d, sm.wc, kLdp, sm.u.p.pn, sm.u.p.pd, kLdp, wr,
-                                  wcol, kHTile, lane);
+    if constexpr (kMasked)
+      tc::warp_mma2<MTL, NTL, true>(acc_n, acc_d, sm.wc, kLdp, sm.u.p.pn, sm.u.p.pd, kLdp, wr,
+                                    wcol, kHTile, lane);
+    else
+      tc::warp_mma<MTL, NTL, true>(acc_n, sm.wc, kLdp, sm.u.p.pn, kLdp, wr, wcol, kHTile,
+                                   lane);
     __syncthreads();  // the tiles are read before the next step's copies land
   }
 
   const long long plane = (long long)k * n;
-  float* out_n = part + 2 * split * plane;
+  float* out_n = part + (kMasked ? 2 : 1) * split * plane;
   auto store = [&](float* out, const tc::Acc<MTL, NTL>& acc) {
     tc::for_pairs<MTL, NTL>(acc, wr, wcol, lane, [&](int r, int c, float v0, float v1) {
       const int gk = c0 + r, gc = col0 + c;
@@ -180,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     });
   };
   store(out_n, acc_n);
-  store(out_n + plane, acc_d);
+  if constexpr (kMasked) store(out_n + plane, acc_d);
 }
 
 // ------------------------------------------------------------------ W pass
@@ -336,6 +359,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// MUR's KL H pass, kernel 2: numer = the splits' partials added in split
+// order (one plane a split), c = H * numer, d = colsum(W) (k,);
+// h_out = 2c / (d + sqrt(d^2 + 4 lam c)), with no guard, as mur_update.cu's
+// FMA body.  Where splits == 1, part may be numer itself.
+__global__ void __launch_bounds__(kThreads)
+    kl_h_finish(const float* part, const float* __restrict__ h,
+                const float* __restrict__ wsum, float lam, int n, int k, int splits,
+                float* __restrict__ h_out, float* numer) {
+  const long long plane = (long long)k * n;
+  const long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (o >= plane) return;
+  float nu = 0.f;
+  for (int sp = 0; sp < splits; ++sp) nu += part[sp * plane + o];
+  numer[o] = nu;
+  const float cv = h[o] * nu, d = wsum[o / n];
+  h_out[o] = 2.f * cv / (d + sqrtf(d * d + 4.f * lam * cv));
+}
+
 template <int BM, typename XT, typename MT>
 cudaError_t w_update(const XT* x, const MT* mk, const float* w, const float* h, int ldh,
                      float lam, int m, int n, int k, bool kl, float* out, cudaStream_t s) {
@@ -378,6 +419,31 @@ cudaError_t with_types(int x_is_bf16, int mask_is_byte, const void* x, const voi
 }
 
 }  // namespace
+
+// MUR's KL H half-update (mur_update.cu) on the tensor cores: kernel 1 of
+// the masked H pass with M = 1 over `splits` row ranges, then kl_h_finish.
+// part holds splits * k * n floats, or is numer where splits == 1.
+cudaError_t kl_h_pass(const void* x, int x_is_bf16, const float* w, const float* h,
+                      const float* wsum, float lam, int m, int n, int k, float* part,
+                      int splits, float* h_out, float* numer, cudaStream_t s) {
+  const int tiles_per = ceil_div(ceil_div(m, kHTile), splits);
+  const dim3 grid(ceil_div(n, kHTile), splits, ceil_div(k, kHTile));
+  const bool w_aligned = k % 4 == 0 && aligned16(w), h_aligned = n % 4 == 0 && aligned16(h);
+  const NoMask* none = nullptr;
+  cudaError_t err =
+      x_is_bf16 ? launch(masked_h_tc_kernel<__nv_bfloat16, NoMask>, grid, sizeof(HSmem), s,
+                         static_cast<const __nv_bfloat16*>(x), none, w, h, m, n, k, tiles_per,
+                         true, w_aligned, h_aligned, part)
+                : launch(masked_h_tc_kernel<float, NoMask>, grid, sizeof(HSmem), s,
+                         static_cast<const float*>(x), none, w, h, m, n, k, tiles_per, true,
+                         w_aligned, h_aligned, part);
+  if (err != cudaSuccess) return err;
+  const long long plane = (long long)k * n;
+  kl_h_finish<<<(unsigned)((plane + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, h, wsum, lam, n, k, splits, h_out, numer);
+  return cudaGetLastError();
+}
+
 }  // namespace tpunmf
 
 extern "C" {

@@ -15,33 +15,37 @@
 //       W' = 2a / (b + sqrt(b^2 + 4 lam a)), wtr = W'^T (X / (W' H + eps)),
 //       obj = masked KL of the incoming (W, H), from the first W H tiles
 //
-// What bounds them on the H100: EU does 4*m*n*k f32 FMA flops and KL 8*m*n*k
-// on one read of X, k to 2k flops per X byte at f32 (twice that at bf16):
-// above the f32 FMA ridge (67 TFLOP/s over 3.35 TB/s, 20 flop/byte) at the
-// ranks these kernels serve, so FMA throughput bounds them.  The TPU kernels
-// exist to read X once instead of twice; that is what this design keeps,
-// with the same plain FMA tiling as mur_update.cu (common.cuh): the gain is
-// in bytes, the cost in flops is that of the 2-pass pair.  Tensor cores,
-// TMA and a persistent kernel that keeps the k x n accumulator on chip are
-// later work.
+// What bounds them on the H100: EU does 4*m*n*k flops of products and KL
+// 8*m*n*k on one read of X, k to 2k flops per X byte at f32 (twice that at
+// bf16).  With the products at 3xTF32 on the tensor cores (165 TFLOP/s of
+// f32 work, tf32x3.cuh) the ridge is 49 flops a byte, so at the ranks these
+// kernels serve the products bound them: EU at 8192 x 8192 r128 f32, 3.44e10
+// flops, takes 0.208 ms against 0.080 ms of reading X.  The TPU kernels
+// exist to read X once instead of twice; that is what this design keeps.
 //
 // Design: the wave schedule of wave.cuh, which lets the 50 MB L2 stand in
-// for the TPU's VMEM.  Per wave: (A) x_ft_tile for EU, kl_rows (with the
-// lagged objective) for KL; (A2) EU's elementwise W update with the
+// for the TPU's VMEM.  Per wave: (A) X round(H)^T, or for KL kl_rows (with
+// the lagged objective); (A2) EU's elementwise W update with the
 // denominator W Gh, formed for all rows before the first wave by w_g_tile
 // (the product mur_update.cu's w_eu_kernel forms), or KL's closed form;
-// (B) ft_x_tile for EU, kl_cols (which recomputes W' H) for KL.  KL's
+// (B) round(W')^T X, or for KL kl_cols (which recomputes W' H).  KL's
 // objective is summed by reduce_partials_into (objective.cu).  The EU pass
 // is mur_eu_waves (wave.cuh), which the sweep scripts' variants
 // (mur_variants.cu) share.
 //
-// The "dma" EU variant is the same schedule with (A) and (B) on the
-// two-stage cp.async tile loops (x_ft_tile_async, ft_x_tile_async): the
-// next slab of X and of the factor is in flight while the FMAs run on the
-// current one, as the TPU kernel double-buffers its strips by hand.  The
-// FMAs and their order are those of the plain EU variant, so its outputs
-// are the same bits.  While FMA throughput bounds both, hiding copy latency
-// can buy little.
+// mur_iteration_eu runs (A) and (B) on the tensor cores (wave.cuh's
+// TcStages: 128 x 128 tiles of 3xTF32 mma.sync, one TF32 product a step at
+// bf16 X, every step's sum rounded to nearest, all of X in one wave); the
+// denominator W Gh
+// and the Gram W'^T W' (2 m k^2 flops each, 1% of the products at r128)
+// stay on FMA tiles.  The "dma" EU variant and KL keep FMA tiles: the
+// "dma" variant runs (A) and (B) on the two-stage cp.async tile loops
+// (x_ft_tile_async, ft_x_tile_async: the next slab of X and of the factor
+// in flight while the FMAs run on the current one, as the TPU kernel
+// double-buffers its strips by hand), the FMAs and their order those of the
+// sweep scripts' v1_iter, so at lam_w = 0 it gives v1_iter's bits; against
+// mur_iteration_eu it differs by f32 summation order (and where that moves
+// a bf16 rounding of W', by a bf16 ulp of a term of wtx).
 //
 // Ragged edges load zeros and bound their stores; any (m, n) and k <= 1024
 // work.  Built without --use_fast_math: division, sqrtf and logf stay IEEE.
@@ -53,14 +57,17 @@ namespace tpunmf {
 namespace {
 
 // ------------------------------------------------------------------------ EU
-// mur_eu_waves (wave.cuh) with H (k, n) pre-cast to X's type.
+// mur_eu_waves (wave.cuh) with H (k, n) pre-cast to X's type: on the tensor
+// cores, or with ASYNC (the "dma" variant) on the two-stage FMA tile loops.
 template <typename XT, bool ASYNC>
 cudaError_t iteration_eu(const void* xv, const void* hv, const float* w, const float* gh,
                          float lam, int m, int n, int k, float* w_out, float* wtx, float* gram,
                          float* scratch, cudaStream_t s) {
-  return mur_eu_waves<XT, XT, false, ASYNC>(static_cast<const XT*>(xv),
-                                            static_cast<const XT*>(hv), w, gh, lam, nullptr, m,
-                                            n, k, w_out, wtx, gram, scratch, s);
+  using Stages = std::conditional_t<ASYNC, FmaStages<XT, XT, false, true>, TcStages<XT>>;
+  return mur_eu_waves<XT, XT, false, ASYNC, Stages>(static_cast<const XT*>(xv),
+                                                    static_cast<const XT*>(hv), w, gh, lam,
+                                                    nullptr, m, n, k, w_out, wtx, gram,
+                                                    scratch, s);
 }
 
 // ------------------------------------------------------------------------ KL
@@ -184,18 +191,19 @@ cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const f
 
 extern "C" {
 
-// Floats of scratch the single-pass iteration of `kind` (0: MUR EU and the
-// sweep scripts' variants, 1: MUR KL, 2: HALS EU) needs at (m, n, k) for X
-// of x_bytes (4 f32, 2 bf16, 1 int8) an element; -1 if that is more than an
-// int can count.
+// Floats of scratch the single-pass iteration of `kind` (0: MUR EU's "dma"
+// variant and the sweep scripts' variants, 1: MUR KL, 2: HALS EU, 3: MUR EU
+// on the tensor cores) needs at (m, n, k) for X of x_bytes (4 f32, 2 bf16,
+// 1 int8) an element; -1 if that is more than an int can count.
 int tpunmf_iteration_scratch(int m, int n, int k, int x_bytes, int kind) {
   const long long s = tpunmf::make_plan(m, n, k, x_bytes, kind).scratch;
   return s <= INT_MAX ? (int)s : -1;
 }
 
 // EU iteration.  hc is H (k, n) in X's type, gh = H H^T (k, k); writes W'
-// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).  dma = 1:
-// the tile loops with two-stage cp.async copies (the same bits).
+// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).  dma = 0:
+// the tensor cores, scratch of kind 3; dma = 1: the FMA tile loops with
+// two-stage cp.async copies, scratch of kind 0.
 int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const void* hc,
                             const void* gh, float lam, int m, int n, int k, void* w_out,
                             void* wtx, void* gram, void* scratch, int dma, void* stream) {

@@ -21,8 +21,10 @@
 // mur_iteration_eu: mur_eu_waves (wave.cuh) with the plain tile loops of
 // common.cuh, whose (A) reads the (n, k) H^T (v1, v2) or rounds f32 H to
 // bf16 as it stages it (int8), and whose (B) rounds W' to X's type (bf16
-// for int8).  v1 is mur_iteration_eu at lam_w = 0: the same staged values,
-// FMAs and order, so the same bits.
+// for int8).  v1 is mur_iteration_eu's function at lam_w = 0, on FMA tiles
+// where mur_iteration_eu takes the tensor cores: its staged values, FMAs
+// and their order are those of mur_iteration_eu_dma, so at lam_w = 0 the
+// two give the same bits.
 //
 // On the card no block is "last": v2's H update is one more launch after the
 // Gram, in stream order (a 64 x 64 FMA tile of gw H per block, k deep, with

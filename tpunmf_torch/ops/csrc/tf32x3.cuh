@@ -19,8 +19,10 @@
 // they read a TF32 operand's top 19 bits, so its truncation costs at most
 // 2^-10 of small, about 2^-21 of a.
 //
-// Used by objective.cu (the objective and ratio passes) and masked_update.cu
-// (both masked passes).  Fragments follow the PTX layouts of m16n8k8 with
+// Used by objective.cu (the objective and ratio passes), masked_update.cu
+// (both masked passes and MUR's KL H pass) and, through tile_mma, the MUR EU
+// products (wave.cuh: mur_iteration_eu's stages; mur_update.cu's EU H
+// pass).  Fragments follow the PTX layouts of m16n8k8 with
 // .tf32 operands, lane = 4 g + t:
 //   A (16 x 8, row):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   B (8 x 8, col):   b0 (t, g)  b1 (t+4, g)
@@ -81,28 +83,30 @@ __device__ __forceinline__ void mma_pass(float (&d)[4], const Frag<4>& a, const 
 
 // The A fragment of rows [r0, r0+16) and depth [k0, k0+8) of a tile in
 // shared memory: A(r, kk) = s[r * ld + kk], or with TRANS s[kk * ld + r].
-template <bool TRANS>
-__device__ __forceinline__ void load_a(Frag<4>& f, const float* s, int ld, int r0, int k0,
+// T: the staged type, float or bf16 (a bf16 value is exact in TF32, so its
+// small part is 0).
+template <bool TRANS, typename T = float>
+__device__ __forceinline__ void load_a(Frag<4>& f, const T* s, int ld, int r0, int k0,
                                        int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int rows[4] = {g, g + 8, g, g + 8}, cols[4] = {t, t, t + 4, t + 4};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + rows[i], kk = k0 + cols[i];
-    split(TRANS ? s[kk * ld + r] : s[r * ld + kk], f.big[i], f.small[i]);
+    split(to_f32(TRANS ? s[kk * ld + r] : s[r * ld + kk]), f.big[i], f.small[i]);
   }
 }
 
 // The B fragment of depth [k0, k0+8) and columns [c0, c0+8) of a tile in
 // shared memory stored depth-major: B(kk, c) = s[kk * ld + c], or with COL
 // column by column (mma's own .col layout): B(kk, c) = s[c * ld + kk].
-template <bool COL = false>
-__device__ __forceinline__ void load_b(Frag<2>& f, const float* s, int ld, int k0, int c0,
+template <bool COL = false, typename T = float>
+__device__ __forceinline__ void load_b(Frag<2>& f, const T* s, int ld, int k0, int c0,
                                        int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int c = c0 + g, k1 = k0 + t, k2 = k0 + t + 4;
-  split(COL ? s[c * ld + k1] : s[k1 * ld + c], f.big[0], f.small[0]);
-  split(COL ? s[c * ld + k2] : s[k2 * ld + c], f.big[1], f.small[1]);
+  split(to_f32(COL ? s[c * ld + k1] : s[k1 * ld + c]), f.big[0], f.small[0]);
+  split(to_f32(COL ? s[c * ld + k2] : s[k2 * ld + c]), f.big[1], f.small[1]);
 }
 
 // A warp's MT x NT grid of 16 x 8 accumulator tiles.
@@ -139,6 +143,20 @@ __device__ __forceinline__ void pass_row(Acc<MT, NT>& acc, int i, const Frag<4>&
   for (int j = 0; j < NT; ++j) mma_pass<P>(acc[i][j], a, b[j]);
 }
 
+// One 8-deep step of d += A B over the warp's tiles: the three passes in
+// turn, or with EXACT (every operand value exact in TF32, as bf16 values
+// are: their small parts are 0) the big*big pass alone, which gives the
+// same products.
+template <bool EXACT, int MT, int NT>
+__device__ __forceinline__ void step_all(Acc<MT, NT>& acc, const Frag<4> (&a)[MT],
+                                         const Frag<2> (&b)[NT]) {
+  if constexpr (!EXACT) {
+    pass_all<0>(acc, a, b);
+    pass_all<1>(acc, a, b);
+  }
+  pass_all<2>(acc, a, b);
+}
+
 // acc += A[r0 : r0+16 MT, k-range] B[k-range, c0 : c0+8 NT] over `depth`
 // (a multiple of 8) from shared tiles: A as load_a<TRANS> reads it, B
 // depth-major.  With MT <= 2 a step's A fragments are all held at once;
@@ -155,15 +173,20 @@ __device__ __forceinline__ void pass_row(Acc<MT, NT>& acc, int i, const Frag<4>&
 // round to nearest: the objective then is as close as f32 products', for
 // 16 more registers a row of tiles and one add an entry a step (the EU
 // objective 17-22% slower on an H100).
-template <int MT, int NT, bool TRANS, bool ROUNDED = false>
-__device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int lda,
-                                         const float* b, int ldb, int r0, int c0, int depth,
-                                         int lane) {
+//
+// BCOL: B is read column by column as load_b<true> does; EXACT: every
+// operand value is exact in TF32 (bf16 operands), so one TF32 product a
+// step gives the 3xTF32 products (step_all).  The staged types TA, TB are
+// float or bf16.
+template <int MT, int NT, bool TRANS, bool ROUNDED = false, bool BCOL = false,
+          bool EXACT = false, typename TA, typename TB>
+__device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const TA* a, int lda, const TB* b,
+                                         int ldb, int r0, int c0, int depth, int lane) {
 #pragma unroll 2
   for (int k0 = 0; k0 < depth; k0 += 8) {
     Frag<2> bf[NT];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) load_b(bf[j], b, ldb, k0, c0 + 8 * j, lane);
+    for (int j = 0; j < NT; ++j) load_b<BCOL>(bf[j], b, ldb, k0, c0 + 8 * j, lane);
     if constexpr (ROUNDED) {
       constexpr int RT = MT <= 2 ? MT : 1;  // rows of tiles a round
 #pragma unroll
@@ -175,9 +198,16 @@ __device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int l
 #pragma unroll
         for (int i = 0; i < RT; ++i)
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_tf32_fresh(t[i][j], af[i].small, bf[j].big);
-        pass_all<1>(t, af, bf);
-        pass_all<2>(t, af, bf);
+          for (int j = 0; j < NT; ++j) {
+            if constexpr (EXACT)
+              mma_tf32_fresh(t[i][j], af[i].big, bf[j].big);
+            else
+              mma_tf32_fresh(t[i][j], af[i].small, bf[j].big);
+          }
+        if constexpr (!EXACT) {
+          pass_all<1>(t, af, bf);
+          pass_all<2>(t, af, bf);
+        }
 #pragma unroll
         for (int i = 0; i < RT; ++i)
 #pragma unroll
@@ -189,16 +219,16 @@ __device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const float* a, int l
       Frag<4> af[MT];
 #pragma unroll
       for (int i = 0; i < MT; ++i) load_a<TRANS>(af[i], a, lda, r0 + 16 * i, k0, lane);
-      pass_all<0>(acc, af, bf);
-      pass_all<1>(acc, af, bf);
-      pass_all<2>(acc, af, bf);
+      step_all<EXACT>(acc, af, bf);
     } else {
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         Frag<4> af;
         load_a<TRANS>(af, a, lda, r0 + 16 * i, k0, lane);
-        pass_row<0>(acc, i, af, bf);
-        pass_row<1>(acc, i, af, bf);
+        if constexpr (!EXACT) {
+          pass_row<0>(acc, i, af, bf);
+          pass_row<1>(acc, i, af, bf);
+        }
         pass_row<2>(acc, i, af, bf);
       }
     }
@@ -315,6 +345,111 @@ __device__ __forceinline__ void s_tile(
     __syncthreads();
     warp_mma<T::MT, T::NT, false, ROUNDED>(s, st.w[buf], LDW, st.h[buf], LDH, r0, c0, KC,
                                            lane);
+    __syncthreads();  // the chunk is read before the next issue overwrites it
+  }
+}
+
+// ------------------------------------------------------ the product tile
+// acc += A B for a block's BM x BN tile over a depth range, both operands
+// staged from device memory KC deep in two shared buffers by cp.async: the
+// next chunk's copies are in flight while the current one is multiplied.
+// The operands keep their layout and type (float or bf16) in shared memory:
+//   A (BM x depth): read along its rows, A(r, d) = a[r * lda + d] (X's rows
+//       against H in the EU single pass's stage A), or with A_DEPTH down
+//       its columns, A(r, d) = a[d * lda + r] (a factor's rows against X);
+//   B (depth x BN): column by column with B_COLS, B(d, c) = b[c * ldb + d]
+//       (H's rows), else depth-major, B(d, c) = b[d * ldb + c] (X's rows).
+// A staged row is padded by 16 bytes where the depth runs along it and by
+// 32 where it runs across rows: line strides of 4 (f32) or 8 (bf16) times
+// an odd number of elements, and 8 or 16 times an odd number, which keep
+// every fragment load free of bank conflicts (a bf16 pair shares a word).
+template <int BM, int BN, int WM, int WN, typename TA_, typename TB_, bool A_DEPTH_,
+          bool B_COLS_>
+struct Tile {
+  static_assert(WM * WN * 32 == kThreads, "8 warps");
+  using TA = TA_;
+  using TB = TB_;
+  static constexpr bool A_DEPTH = A_DEPTH_, B_COLS = B_COLS_;
+  static constexpr int KC = 32;
+  static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
+  static constexpr int WROWS = BM / WM, WCOLS = BN / WN;
+  static constexpr int VA = 16 / sizeof(TA), VB = 16 / sizeof(TB);  // a 16-byte piece
+  static constexpr int LDA = A_DEPTH ? BM + 2 * VA : KC + VA;
+  static constexpr int LDB = B_COLS ? KC + VB : BN + 2 * VB;
+  static constexpr int A_LINES = A_DEPTH ? KC : BM, A_WIDTH = A_DEPTH ? BM : KC;
+  static constexpr int B_LINES = B_COLS ? BN : KC, B_WIDTH = B_COLS ? KC : BN;
+  static constexpr int PA = A_LINES * A_WIDTH / VA, PB = B_LINES * B_WIDTH / VB;  // pieces
+  struct Stage {
+    alignas(16) TA a[2][A_LINES * LDA];
+    alignas(16) TB b[2][B_LINES * LDB];
+  };
+  // the warp's origin in the block tile
+  __device__ static int warp_row(int warp) { return (warp / WN) * WROWS; }
+  __device__ static int warp_col(int warp) { return (warp % WN) * WCOLS; }
+};
+
+// acc (the warp's piece of the tile) += A B over depth [0, depth), reading
+// only rows r < a_rows of A, columns c < b_cols of B and d < depth (zeros
+// beyond; nothing at all where depth <= 0).  a and b point at the tile's
+// origin, with line strides lda, ldb; `a_aligned` / `b_aligned`: every line
+// starts on 16 bytes, else the copies go by plain loads.  EXACT and
+// ROUNDED as warp_mma.  RA: A's staged f32 values are rounded to RA's type
+// (round to nearest even, as torch's .to) as they land, where the product
+// takes an f32 factor in X's type (bf16 X); float leaves them.  Commits its
+// own cp.async groups and waits for all of them; every thread of the block
+// calls it, and where depth > 0 it ends with __syncthreads().
+template <class T, bool EXACT, bool ROUNDED, typename RA = float>
+__device__ __forceinline__ void tile_mma(Acc<T::MT, T::NT>& acc, const typename T::TA* a,
+                                         int lda, int a_rows, const typename T::TB* b, int ldb,
+                                         int b_cols, int depth, bool a_aligned, bool b_aligned,
+                                         typename T::Stage& st) {
+  constexpr int KC = T::KC, VA = T::VA, VB = T::VB;
+  constexpr int AW = T::A_WIDTH / VA, BW = T::B_WIDTH / VB;  // pieces a staged line
+  constexpr bool kRound = !std::is_same_v<RA, float>;
+  static_assert(!kRound || std::is_same_v<typename T::TA, float>, "rounds f32 values");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (depth <= 0) return;
+  auto issue = [&](int buf, int d0) {
+    for (int l = tid; l < T::PA + T::PB; l += kThreads) {
+      if (l < T::PA) {
+        const int line = l / AW, c = l % AW * VA;
+        // A_DEPTH: line d0 + line of the depth, columns c.. of A's rows;
+        // else row `line` of A, depth d0 + c..
+        const long long at = T::A_DEPTH ? (long long)(d0 + line) * lda + c
+                                        : (long long)line * lda + d0 + c;
+        const int valid = T::A_DEPTH ? (d0 + line < depth ? a_rows - c : 0)
+                                     : (line < a_rows ? depth - d0 - c : 0);
+        stage_piece(st.a[buf] + line * T::LDA + c, a + at, valid, a_aligned);
+      } else {
+        const int q = l - T::PA, line = q / BW, c = q % BW * VB;
+        const long long at = T::B_COLS ? (long long)line * ldb + d0 + c
+                                       : (long long)(d0 + line) * ldb + c;
+        const int valid = T::B_COLS ? (line < b_cols ? depth - d0 - c : 0)
+                                    : (d0 + line < depth ? b_cols - c : 0);
+        stage_piece(st.b[buf] + line * T::LDB + c, b + at, valid, b_aligned);
+      }
+    }
+    cp_async_commit();
+  };
+  const int r0 = T::warp_row(warp), c0 = T::warp_col(warp);
+  issue(0, 0);
+  int buf = 0;
+  for (int d0 = 0; d0 < depth; d0 += KC, buf ^= 1) {
+    if (d0 + KC < depth)
+      issue(buf ^ 1, d0 + KC);
+    else
+      cp_async_commit();  // an empty group: wait_one then always means "this chunk"
+    cp_async_wait_one();
+    if constexpr (kRound) {  // this thread's own pieces, landed
+      for (int l = tid; l < T::PA; l += kThreads) {
+        float* p = st.a[buf] + l / AW * T::LDA + l % AW * VA;
+#pragma unroll
+        for (int v = 0; v < VA; ++v) p[v] = round_as_x<RA>(p[v]);
+      }
+    }
+    __syncthreads();
+    warp_mma<T::MT, T::NT, T::A_DEPTH, ROUNDED, T::B_COLS, EXACT>(
+        acc, st.a[buf], T::LDA, st.b[buf], T::LDB, r0, c0, KC, lane);
     __syncthreads();  // the chunk is read before the next issue overwrites it
   }
 }

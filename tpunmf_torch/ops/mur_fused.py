@@ -12,15 +12,21 @@
       KL: numer = W^T (X / (W H + eps)), c = H * numer, d = colsum(W),
           H <- 2c / (d + sqrt(d^2 + 4 lh c))
       and emits the raw numerator too (the Gram objective needs W^T X).
+      Its products run on the tensor cores (3xTF32 ``mma.sync``) over
+      ``splits`` ranges of X's rows, each into a partial sum that a second
+      kernel adds in a fixed order (:func:`h_splits` picks the count from
+      the shape alone); the KL pass above rank ``KL_H_TC_RANK`` runs an FMA
+      body over all rows instead.
 
   Single pass (``mur_iteration_eu`` / ``mur_iteration_kl``,
   csrc/mur_iteration.cu): the W update and the H numerator of a whole
   iteration from one read of X in device memory; the caller finishes the
   k-sized H update.  ``iter_eu_tileable`` / ``iter_kl_tileable`` are
-  ``tpunmf``'s route rule for it.  ``mur_iteration_eu_dma`` is the EU pass
-  with its copies overlapped with the products (``tpunmf``'s manual-DMA
-  variant, which its ``mur_single_pass_variant`` switch selects;
-  ``iter_eu_dma_tileable`` is its rule).
+  ``tpunmf``'s route rule for it.  ``mur_iteration_eu`` takes its two
+  products against X on the tensor cores; ``mur_iteration_eu_dma`` is the
+  EU pass on FMA tiles with its copies overlapped with the products
+  (``tpunmf``'s manual-DMA variant, which its ``mur_single_pass_variant``
+  switch selects; ``iter_eu_dma_tileable`` is its rule).
 
 ``updates_take`` says which X and ranks the kernels take (float32 or
 bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
@@ -46,11 +52,21 @@ import torch
 from ..core.losses import kl_elementwise_sum
 from ..core.precision import full_f32
 from . import _build
-from ._launch import (MAX_RANK, WAVE_MUR_EU, WAVE_MUR_KL, call, check_operands,
-                      check_strips, factor_as_x, on_cpu, wave_scratch)
+from ._launch import (MAX_RANK, WAVE_MUR_EU, WAVE_MUR_EU_TC, WAVE_MUR_KL, call,
+                      check_operands, check_strips, factor_as_x, on_cpu, wave_scratch)
+from .masked_fused import H_TILE, row_splits
 
 _EPS = 1e-9
 _X_DTYPES = (torch.float32, torch.bfloat16)
+# The EU H pass's blocks (csrc/mur_update.cu): 128 x 128 tiles of (k, n),
+# two resident an SM; its row splits bring the grid near 4 a SM of an
+# H100's 132, within 1 GiB of partial sums (a k x n f32 sum a split).
+_EU_H_TILE, _EU_H_BLOCKS = 128, 4 * 132
+_MAX_SCRATCH_BYTES = 1 << 30
+# the highest rank at which the KL H pass runs on the tensor cores: each
+# 64-row chunk of k forms W H anew there, and above it the FMA body, which
+# forms it once, is faster (csrc/mur_update.cu, kKlTcRank)
+KL_H_TC_RANK = 640
 
 
 def updates_take(x, k: int) -> bool:
@@ -60,6 +76,36 @@ def updates_take(x, k: int) -> bool:
     what they refuse.  ``x`` is anything with ``.dtype`` (a ``meta``
     tensor will do)."""
     return x.dtype in _X_DTYPES and 1 <= k <= MAX_RANK
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def h_splits(m: int, n: int, k: int, distance_type: str) -> int:
+    """The number of row splits of the H pass on X (m, n) at rank k, in
+    whole 64-row tiles of X (``masked_fused.split_ranges`` cuts them).
+
+    KL: the masked H pass's kernel with M = 1, so its count,
+    ``masked_fused.row_splits`` (BASELINE config[1], 20000 x 11000 r50:
+    172 column tiles x 12 splits), or 1 where the pass takes its FMA body
+    (k > ``KL_H_TC_RANK``).  EU: a grid of ceil(n / 128) x ceil(k / 128)
+    tiles x splits brought near 4 blocks a SM (8192 x 8192 r128: 64 tiles
+    x 8 splits), at most one split a tile of X and as many as 1 GiB of
+    partial sums allow, none empty."""
+    if distance_type == "kl":
+        return 1 if k > KL_H_TC_RANK else row_splits(m, n, k)
+    tiles = _ceil_div(m, H_TILE)
+    want = round(_EU_H_BLOCKS / (_ceil_div(n, _EU_H_TILE) * _ceil_div(k, _EU_H_TILE)))
+    room = _MAX_SCRATCH_BYTES // (k * n * 4)
+    splits = max(1, min(want, tiles, room))
+    return _ceil_div(tiles, _ceil_div(tiles, splits))
+
+
+def h_scratch_floats(splits: int, n: int, k: int) -> int:
+    """Floats of scratch the H pass needs over ``splits`` row splits: a
+    k x n partial sum a split, none for one (it sums into its output)."""
+    return splits * k * n if splits > 1 else 0
 
 
 @full_f32()
@@ -144,24 +190,31 @@ def mur_w_update(x, w, h, *, distance_type: str, lam: float,
 
 
 @full_f32()
-def mur_h_update(x, w, h, *, distance_type: str, lam: float):
+def mur_h_update(x, w, h, *, distance_type: str, lam: float, splits=None):
     """One fused pass over X producing (updated H (k, n), raw numerator).
 
     The numerator is W^T X (EU) / W^T (X / (W H + eps)) (KL) with the
-    *updated* W; for EU it feeds the Gram-trick objective."""
+    *updated* W; for EU it feeds the Gram-trick objective.  The kernel
+    sums over ``splits`` ranges of X's rows (by default
+    :func:`h_splits`'), each into a partial sum, and adds the partials in
+    a fixed order; the plain version, which serves CPU tensors, has no
+    splits."""
     is_kl = _check_distance(distance_type)
     if on_cpu(x):
         return mur_h_update_ref(x, w, h, distance_type=distance_type, lam=lam)
-    check_operands("mur_h_update", x, w, h, max_rank=MAX_RANK)
+    m, n, k = check_operands("mur_h_update", x, w, h, max_rank=MAX_RANK)
+    splits = h_splits(m, n, k, distance_type) if splits is None else int(splits)
+    if splits < 1:
+        raise ValueError(f"mur_h_update: splits={splits} must be at least 1")
     aux = torch.sum(w, dim=0) if is_kl else w.T @ w
-    m, n = x.shape
-    k = w.shape[1]
     h_out = torch.empty((k, n), dtype=torch.float32, device=x.device)
     numer = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    part = torch.empty(max(h_scratch_floats(splits, n, k), 1), dtype=torch.float32,
+                       device=x.device)
     call("tpunmf_mur_h_update", x.device, x.data_ptr(),
          int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(),
-         aux.data_ptr(), float(lam), m, n, k, int(is_kl), h_out.data_ptr(),
-         numer.data_ptr())
+         aux.data_ptr(), float(lam), m, n, k, int(is_kl), part.data_ptr(), splits,
+         h_out.data_ptr(), numer.data_ptr())
     mur_h_update.launches += 1
     return h_out, numer
 
@@ -278,7 +331,7 @@ def _launch_iteration_eu(name, x, w, h, lam_w, dma):
     w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
     wtx = torch.empty((k, n), dtype=torch.float32, device=x.device)
     gram = torch.empty((k, k), dtype=torch.float32, device=x.device)
-    scratch = wave_scratch(x, k, WAVE_MUR_EU)
+    scratch = wave_scratch(x, k, WAVE_MUR_EU if dma else WAVE_MUR_EU_TC)
     call("tpunmf_mur_iteration_eu", x.device, x.data_ptr(),
          int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(), gh.data_ptr(),
          float(lam_w), m, n, k, w_new.data_ptr(), wtx.data_ptr(), gram.data_ptr(),
@@ -293,8 +346,9 @@ def mur_iteration_eu(x, w, h, *, lam_w: float, bm: int):
     Returns (w_new (m, k), wtx = round(w_new)^T X (k, n), gram_w =
     w_new^T w_new (k, k)), all f32; the caller finishes with
     ``h * wtx / (gram_w @ h + lam_h h + eps)`` (tpunmf/ops/mur_fused.py:
-    314-362).  ``bm`` is ``iter_eu_tileable``'s strip height and must
-    divide m, as in ``tpunmf``."""
+    314-362).  Its two products against X run on the tensor cores.
+    ``bm`` is ``iter_eu_tileable``'s strip height and must divide m, as in
+    ``tpunmf``."""
     check_strips(x, bm)
     if on_cpu(x):
         return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
@@ -305,12 +359,15 @@ def mur_iteration_eu(x, w, h, *, lam_w: float, bm: int):
 
 @full_f32()
 def mur_iteration_eu_dma(x, w, h, *, lam_w: float, bm: int):
-    """:func:`mur_iteration_eu` with its copies of X and the factors
-    overlapped with the products (tpunmf/ops/mur_fused.py:465-512): the
-    kernel stages each slab in two shared-memory buffers with ``cp.async``.
-    The same FMAs in the same order, so the same outputs, bit for bit.
-    ``bm`` is ``iter_eu_dma_tileable``'s strip height: it must divide m
-    and give at least 2 strips, as in ``tpunmf``."""
+    """The function of :func:`mur_iteration_eu` on FMA tiles, with its
+    copies of X and the factors overlapped with the products
+    (tpunmf/ops/mur_fused.py:465-512): the kernel stages each slab in two
+    shared-memory buffers with ``cp.async``.  At ``lam_w=0`` its FMAs and
+    their order are those of ``mur_variants.v1_iter``, so it gives v1's
+    bits; against :func:`mur_iteration_eu`, whose products run on the
+    tensor cores, it differs by the order of f32 sums.  ``bm`` is
+    ``iter_eu_dma_tileable``'s strip height: it must divide m and give at
+    least 2 strips, as in ``tpunmf``."""
     check_strips(x, bm)
     if x.shape[0] // bm < 2:
         raise ValueError("need at least 2 strips to double-buffer")
