@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      timed against the 2-pass pair, in turns.  The ratio and objective
      passes also run at MUR's high rank, 8192x4096 / 8192x8192 r1536,
      and kl_ratio at ragged 1000x777 k37 and k1100 and at KL config[1];
-     mur_h_update also at KL 8192x4096 r128.
+     mur_h_update, mur_w_update and the lagged W pass also at KL
+     8192x4096 r128; the lagged W must be the plain KL W bit for bit, and
+     masked_w_update must give the bits it gave before MUR's KL W pass
+     came to share its kernel (masked_w_bits).
      The two single passes behind the port's switches: hals_iteration_eu
      at 8192x8192 r128 (f32 at 2 and 1 sweeps, bf16) and ragged 1000x777
      k40, and mur_iteration_eu_dma at 8192x8192 r128 (f32, bf16) and
@@ -31,10 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      also timed in turns with the one PyTorch call that computes their
      function (torch.amax of the scores' view, torch.sum over rows), with
      the bytes per second each reaches.  The tensor-core kernels
-     (mur_iteration_eu and mur_h_update at their shapes above, both
-     masked passes at MovieLens-1M and -10M; kl_ratio_and_obj and kl_ratio
-     at config[3], config[1] and r1536; eu_residual_obj at 8192x8192 r128,
-     r1536 and config[3]; kl_obj at config[1], 8192x4096 r128 and r1536)
+     (mur_iteration_eu, mur_w_update, the lagged W pass and mur_h_update
+     at their shapes above, both masked passes at MovieLens-1M and -10M;
+     kl_ratio_and_obj and kl_ratio at config[3], config[1] and r1536;
+     eu_residual_obj at 8192x8192 r128, r1536 and config[3]; kl_obj at
+     config[1], 8192x4096 r128 and r1536)
      also print their profiler device time and the TFLOP/s of f32 products
      (TB/s where bytes bind) alone, on the device and at the bound; both
      masked passes also run on bf16 X at MovieLens-10M and must give the
@@ -160,6 +164,9 @@ SERVE_BATCH, SERVE_BATCHES, SERVE_K = 64, 20, 100
 # calls of a kernel and of its library call that the profiler times
 PROFILED_CALLS = 20
 
+# masked_w_bits as the masked W pass gave them on an H100 before MUR's KL W
+# pass came to share its kernel: the bits it must keep
+MASKED_W_BITS = "7cdbaf0dd25264455ec0e6c7d08771d51db7fed38144b35f800e60027f0d8e97"
 # the single-pass shapes: tpunmf's own route test (tests/test_ops.py:265-277)
 KL_SINGLE = dict(m=8192, n=4096, k=128, seed=4)
 EU_WIDE = dict(m=8192, n=16384, k=128, seed=0)
@@ -418,9 +425,9 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
 
 def kernel_phase(torch, cases, reps, records=None):
     """Compare every kernel of the MUR path with its plain version (a case
-    may name the kernels it takes); returns per-kernel records, with
-    mur_h_update's device time and rate (a tensor-core kernel).  Launches
-    here do not count toward a path's."""
+    may name the kernels it takes); returns per-kernel records, with the
+    pair's device times and rates (tensor-core kernels).  Launches here do
+    not count toward a path's."""
     from tpunmf_torch.ops import fused, mur_fused
 
     records = {} if records is None else records
@@ -454,7 +461,7 @@ def kernel_phase(torch, cases, reps, records=None):
                 continue
             check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
                          inputs=(x, w, h), flops=mur_flops(name, x, k, dist),
-                         profiled=name == "mur_h_update")
+                         profiled=name in PAIR)
         del w, h
     return records
 
@@ -462,7 +469,8 @@ def kernel_phase(torch, cases, reps, records=None):
 def lagged_phase(torch, records, x, k, label, reps):
     """The lagged W pass against its plain version: the new W, and the
     objective against the plain masked KL of the incoming (W, H) (the
-    formula of fused.kl_obj_ref)."""
+    formula of fused.kl_obj_ref), with its device time; its W must be the
+    plain KL W pass's bit for bit."""
     from tpunmf_torch.ops import mur_fused
 
     m, n = x.shape
@@ -476,7 +484,34 @@ def lagged_phase(torch, records, x, k, label, reps):
                      lambda: mur_fused.mur_w_update(x, w, h, **kw),
                      lambda: mur_fused.mur_w_update_ref(x, w, h, **kw),
                      UPDATE_RTOL, reps, inputs=(x, w, h),
-                     flops=mur_flops("mur_w_update_lagged", x, k, "kl"))
+                     flops=mur_flops("mur_w_update_lagged", x, k, "kl"), profiled=True)
+        got = mur_fused.mur_w_update(x, w, h, **kw)[0]
+        require(torch.equal(got, mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=lam)),
+                f"mur_w_update_lagged {label}: its W is not the plain KL W pass's")
+
+
+def masked_w_bits(torch, mf):
+    """sha256 of masked_w_update's outputs on fixed inputs made from a seed:
+    EU and KL, lam 0.2, f32 and bf16 X, a uint8 mask with a cold row and
+    column, at 300x277 k37 (32-row blocks, H through its padded copy) and
+    17000x260 k64 (64-row blocks, H in place)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for m, n, k in ((300, 277, 37), (17000, 260, 64)):
+        rng = np.random.default_rng(m + n + k)
+        x = rng.random((m, n), dtype=np.float32)
+        mask = (rng.random((m, n)) < 0.3).astype(np.uint8)
+        mask[3, :] = 0
+        mask[:, 5] = 0
+        w = (rng.random((m, k)) + 0.1).astype(np.float32)
+        h = (rng.random((k, n)) + 0.1).astype(np.float32)
+        xc, mc, wc, hc = (torch.from_numpy(a).cuda() for a in (x, mask, w, h))
+        for xx in (xc, xc.bfloat16()):
+            for dist in ("eu", "kl"):
+                out = mf.masked_w_update(xx, mc, wc, hc, distance_type=dist, lam=0.2)
+                digest.update(out.cpu().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def iteration_phase(torch, records, cases, reps):
@@ -1447,10 +1482,11 @@ def main() -> int:
     records = kernel_phase(torch, cases, reps=5)
     # mur_h_update's KL body where the pair runs KL 8192x4096 (the 2-pass
     # route and the lagged path)
-    kernel_phase(torch, [(kl2_label, kl2_x, KL_SINGLE["k"], ("kl",), ("mur_h_update",))],
-                 reps=5, records=records)
+    kernel_phase(torch, [(kl2_label, kl2_x, KL_SINGLE["k"], ("kl",),
+                          ("mur_w_update", "mur_h_update"))], reps=5, records=records)
     lagged_phase(torch, records, ragged, 37, f"ragged {tuple(ragged.shape)} k37 f32", 5)
     lagged_phase(torch, records, kl_x, kl_k, f"KL {tuple(kl_x.shape)} k{kl_k} f32", 5)
+    lagged_phase(torch, records, kl2_x, KL_SINGLE["k"], kl2_label, 3)
     route_line = iteration_phase(torch, records, [
         (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37, "eu", False),
         (f"ragged {tuple(ragged.shape)} k37 bf16", ragged.bfloat16(), 37, "eu", False),
@@ -1465,6 +1501,11 @@ def main() -> int:
     masked_phase(torch, records, [
         (f"ML-1M {tuple(ml1_x.shape)} k64 f32", ml1_x, ml1_x > 0, 64),
         (f"ML-10M {tuple(ml10_x.shape)} k64 f32", ml10_x, ml10_obs, 64)], reps=3)
+    bits = masked_w_bits(torch, masked_fused)
+    print(f"  masked_w_update: sha256 of its outputs on the fixed inputs {bits[:16]}, "
+          f"{'as' if bits == MASKED_W_BITS else 'NOT as'} before MUR's KL W pass shared "
+          f"its kernel", flush=True)
+    require(bits == MASKED_W_BITS, "masked_w_update: its bits moved")
     rag = f"ragged {tuple(ragged.shape)}"
     pass_phase(torch, records, [
         ("kl_ratio_and_obj", f"{rag} k37 f32", ragged, 37),

@@ -12,8 +12,8 @@ import torch
 import tpunmf_torch
 from _torch_parity import (cuda_device, kernel_problem, lowrank,  # noqa: F401
                            masked_problem, t)
-from tpunmf_torch.ops import (fused, hals_sweep, masked_fused, mur_fused, mur_variants,
-                              read_probe, topk_select)
+from tpunmf_torch.ops import (_build, fused, hals_sweep, masked_fused, mur_fused,
+                              mur_variants, read_probe, topk_select)
 from tpunmf_torch.serve import topk
 from tpunmf_torch.solvers import cuda_defaults
 from tpunmf_torch.solvers.mur import mur_route
@@ -74,15 +74,27 @@ def test_objectives_match_plain_versions(cuda_device, dist, xdtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 64, 513, 1024])
-def test_kl_updates_cover_the_rank_range(cuda_device, k):
-    """k = 513..1024 takes the halved KL blocks (kWideRank in mur_update.cu)."""
-    x, w, h = _on(cuda_device, torch.float32, m=130, n=70, k=k)
+@pytest.mark.parametrize("n", [70, 71])
+@pytest.mark.parametrize("k", [1, 37, 64, 65, 130, 513, mur_fused.KL_W_TC_RANK,
+                               mur_fused.KL_W_TC_RANK + 1, 1024])
+def test_kl_updates_cover_the_rank_range(cuda_device, k, n):
+    """k = 513..1024 takes the halved KL blocks (kWideRank in mur_update.cu)
+    of the FMA bodies; the W pass runs on the tensor cores up to
+    KL_W_TC_RANK (one 64-wide chunk of k a block: k 65 and 130 end in a
+    short chunk) and its FMA body above.  m = 130 is ragged; H's rows are
+    padded to 16 bytes for the tensor cores (n % 4 != 0).  The lagged W
+    pass gives the plain W bit for bit and the objective of the incoming
+    (W, H)."""
+    x, w, h = _on(cuda_device, torch.float32, m=130, n=n, k=k)
     for fn, ref in ((mur_fused.mur_w_update, mur_fused.mur_w_update_ref),
                     (mur_fused.mur_h_update, mur_fused.mur_h_update_ref)):
         for a, b in _pairs(fn(x, w, h, distance_type="kl", lam=0.1),
                            ref(x, w, h, distance_type="kl", lam=0.1)):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+    got_w, got_obj = mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.1,
+                                            with_lagged_obj=True)
+    assert torch.equal(got_w, mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.1))
+    torch.testing.assert_close(got_obj, fused.kl_obj_ref(x, w, h), rtol=RTOL, atol=0)
 
 
 @pytest.mark.cuda
@@ -128,6 +140,115 @@ def test_lagged_w_pass_matches_plain_version(cuda_device, k, lam, xdtype):
     assert torch.equal(got_w, mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=lam))
     assert torch.equal(mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=lam,
                                               with_lagged_obj=True)[1], got_obj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(17000, 77, 37), (2000, 777, 130), (300, 277, 130),
+                                   (300, 277, mur_fused.KL_W_TC_RANK),
+                                   (300, 277, mur_fused.KL_W_TC_RANK + 1), (300, 277, 600)])
+def test_lagged_objective_counts_each_cell_once(cuda_device, m, n, k):
+    """On the tensor cores every 64-wide chunk of k forms the same S; only
+    the first chunk's blocks add the objective, one partial a 64-row tile
+    and column split.  A chunk (or a split) counted twice would double
+    part of the objective; above KL_W_TC_RANK the FMA body writes one
+    partial a block of 64 rows, 32 above k 512 (kWideRank)."""
+    x, w, h = _on(cuda_device, torch.float32, m=m, n=n, k=k)
+    want_obj = fused.kl_obj_ref(x, w, h)
+    want_w = mur_fused.mur_w_update_ref(x, w, h, distance_type="kl", lam=0.0)
+    splits = mur_fused.w_splits(m, n, k)
+    for sp in {None, 1, 2, splits}:
+        got_w, got_obj = mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.0,
+                                                with_lagged_obj=True, splits=sp)
+        torch.testing.assert_close(got_obj, want_obj, rtol=RTOL, atol=0)
+        torch.testing.assert_close(got_w, want_w, rtol=RTOL, atol=0)
+    lib = _build.library()
+    fma_rows = 64 if k <= 512 else 32
+    want_blocks = (-(-m // 64) * splits if k <= mur_fused.KL_W_TC_RANK
+                   else -(-m // fma_rows))
+    assert lib.tpunmf_mur_w_lagged_blocks(m, k, splits) == want_blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 37, 130])
+@pytest.mark.parametrize("n", [776, 777])  # rows of H on 16 bytes, or padded
+def test_kl_w_update_over_column_splits(cuda_device, n, k, xdtype):
+    """m = 300 (the last 64-row tile short): the KL W pass over 1 split,
+    2, 5, 13 (one a 64-column tile) and 20 (more than the tiles: the last
+    splits empty) and the default count, lam 0 and 0.2.  Each within RTOL
+    of the plain version, one launch a call, the same bits on a second
+    call with the same splits, and the lagged pass's W its bit for bit."""
+    x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
+    for lam in (0.0, 0.2):
+        kw = dict(distance_type="kl", lam=lam)
+        want = mur_fused.mur_w_update_ref(x, w, h, **kw)
+        for splits in (1, 2, 5, 13, 20, None):
+            before = mur_fused.mur_w_update.launches
+            got = mur_fused.mur_w_update(x, w, h, splits=splits, **kw)
+            assert mur_fused.mur_w_update.launches == before + 1
+            assert got.dtype == torch.float32 and torch.isfinite(got).all()
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=0)
+            assert torch.equal(mur_fused.mur_w_update(x, w, h, splits=splits, **kw), got)
+            lagged = mur_fused.mur_w_update(x, w, h, splits=splits, with_lagged_obj=True, **kw)
+            assert torch.equal(lagged[0], got)
+    with pytest.raises(ValueError, match="splits=0"):
+        mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.0, splits=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lam", [0.0, 0.2])
+@pytest.mark.parametrize("m,n,k", [(1000, 777, 37), (1000, 776, 130)])
+def test_eu_w_pass_is_the_single_pass_w_bit_for_bit(cuda_device, m, n, k, lam, xdtype):
+    """The EU W pass is mur_iteration_eu's W side on the same plan (stage
+    (A) on the tensor cores over the same column chunks, the same
+    fixed-order sum and update): the same W' bits, within RTOL of the
+    plain version, one launch a call."""
+    x, w, h = _on(cuda_device, xdtype, m=m, n=n, k=k)
+    before = mur_fused.mur_w_update.launches
+    got = mur_fused.mur_w_update(x, w, h, distance_type="eu", lam=lam)
+    assert mur_fused.mur_w_update.launches == before + 1
+    assert torch.equal(got, mur_fused.mur_iteration_eu(x, w, h, lam_w=lam, bm=m)[0])
+    torch.testing.assert_close(got, mur_fused.mur_w_update_ref(x, w, h, distance_type="eu",
+                                                               lam=lam), rtol=RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_eu_w_pass_refuses_a_short_scratch(cuda_device):
+    """The C entry checks the wrapper's scratch against its own plan:
+    tpunmf_mur_w_eu_scratch's length is exactly what it needs."""
+    x, w, h = _on(cuda_device, torch.float32, m=1000, n=777, k=37)
+    m, n, k = 1000, 777, 37
+    lib = _build.library()
+    floats = lib.tpunmf_mur_w_eu_scratch(m, n, k, 4)
+    scratch = torch.empty(floats, device=cuda_device)
+    out = torch.empty_like(w)
+    gh = h @ h.T
+    stream = torch.cuda.current_stream().cuda_stream
+    for length, status in ((floats, 0), (floats - 1, 1)):  # 1: cudaErrorInvalidValue
+        assert lib.tpunmf_mur_w_update(x.data_ptr(), 0, w.data_ptr(), h.data_ptr(), n,
+                                       gh.data_ptr(), 0.0, m, n, k, 0, 1,
+                                       scratch.data_ptr(), length, out.data_ptr(),
+                                       stream) == status
+    torch.testing.assert_close(out, mur_fused.mur_w_update_ref(x, w, h, distance_type="eu",
+                                                               lam=0.0), rtol=RTOL, atol=0)
+
+
+# the EU W pass's scratch (csrc/mur_update.cu: tpunmf_mur_w_eu_scratch):
+# one partial a column chunk of the tensor-core plan (rows rounded up to
+# 128), then m x k for W Gh, counted in 64 bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,chunks,rows", [
+    (8192, 8192, 128, 4, 8192),      # 64 blocks: 4 chunks of 2048 columns
+    (8192, 16384, 128, 4, 8192),     # 4 chunks of 4096
+    (1000, 777, 37, 13, 1024),       # 8 blocks: 33 wanted, 13 tiles of 64 columns
+    (20000, 11000, 1024, 1, 20096),  # 1256 blocks fill the card alone
+    (64, 48, 5, 1, 128),             # one tile
+    (2**21 + 1, 64, 1024, 1, 2**21 + 128)])  # past INT_MAX floats
+def test_eu_w_scratch_holds_the_plan_s_partials_and_den(cuda_device, m, n, k, chunks, rows):
+    lib = _build.library()
+    for x_bytes in (4, 2):  # the tensor-core plan takes all of X at either type
+        assert lib.tpunmf_mur_w_eu_scratch(m, n, k, x_bytes) == chunks * rows * k + m * k
 
 
 def _sweep_problem(device, frame, cols, k, seed=13):

@@ -5,6 +5,7 @@ The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 compares them with their plain versions there.
 """
 import ctypes
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -341,6 +342,42 @@ def test_h_scratch_is_a_partial_sum_a_split(splits, want):
     assert tmur_fused.h_scratch_floats(splits, 777, 37) == want
 
 
+@pytest.mark.parametrize("k,tensor_cores", [
+    (1, True), (50, True), (tmur_fused.KL_W_TC_RANK, True),
+    (tmur_fused.KL_W_TC_RANK + 1, False), (1024, False)])
+def test_kl_w_pass_takes_the_tensor_cores_up_to_its_rank_line(k, tensor_cores):
+    """The KL W pass (plain and lagged) runs on the tensor cores up to
+    KL_W_TC_RANK and its FMA body above; the line is the rank alone, within
+    the update kernels' bound, and a CPU call takes the plain version on
+    either side of it."""
+    assert tmur_fused.kl_w_on_tensor_cores(k) is tensor_cores
+    assert tmur_fused.KL_W_TC_RANK < _launch.MAX_RANK
+    x, w, h = (t(a) for a in kernel_problem(20, m=9, n=7, k=k, zeros=True))
+    kw = dict(distance_type="kl", lam=0.1, with_lagged_obj=True)
+    got = tmur_fused.mur_w_update(x, w, h, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, tmur_fused.mur_w_update_ref(x, w, h,
+                                                                                  **kw)))
+
+
+# the KL W pass's column splits (ops/mur_fused.py: w_splits): 64-row tiles
+# x 64-wide chunks of k near 16 blocks a SM, whole 64-column tiles of X
+@pytest.mark.parametrize("m,n,k,splits", [
+    (20000, 11000, 50, 7), (8192, 4096, 128, 8), (8192, 4096, 256, 4), (300, 777, 37, 13),
+    (17000, 77, 37, 2), (130, 70, 1, 2), (8192, 4096, tmur_fused.KL_W_TC_RANK + 1, 1),
+    (100000, 20000, 64, 1)])
+def test_w_splits_cut_whole_column_tiles_from_the_shape(m, n, k, splits):
+    """The count depends on the shape alone, none empty, the partial sums
+    within 1 GiB; above KL_W_TC_RANK the FMA body takes no splits, and one
+    split needs no scratch."""
+    got = tmur_fused.w_splits(m, n, k)
+    assert got == splits
+    tiles = -(-n // 64)
+    per = -(-tiles // got)
+    assert (got - 1) * per < tiles <= got * per
+    assert 4 * tmur_fused.w_scratch_floats(got, m, k) <= 1 << 30
+    assert tmur_fused.w_scratch_floats(got, m, k) == (got * m * k if got > 1 else 0)
+
+
 @pytest.mark.parametrize("dist", ["eu", "kl"])
 def test_h_update_splits_on_cpu_take_the_plain_version(dist):
     """On a CPU tensor splits= changes nothing: the plain version runs,
@@ -424,7 +461,41 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 def test_c_signatures_pass_pointers_as_void_p():
     for name, argtypes in _build._SIGNATURES.items():
         assert name.startswith("tpunmf_")
-        assert all(a in (ctypes.c_void_p, ctypes.c_int, ctypes.c_float)
+        assert all(a in (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float)
                    for a in argtypes)
     with pytest.raises(RuntimeError, match="CUDA error 2"):
         _build.check(2, "tpunmf_objective")
+
+
+def _c_prototypes():
+    """{name: (result type, [parameter declarations])} of the extern "C"
+    entries of ops/csrc."""
+    protos = {}
+    for src in sorted(_build._CSRC.glob("*.cu")):
+        for ret, name, params in re.findall(r"^(int|long long) (tpunmf_\w+)\(([^)]*)\)\s*\{",
+                                            src.read_text(), re.M):
+            protos[name] = (ret, [p.strip() for p in params.split(",")])
+    return protos
+
+
+def _ctype(decl):
+    if "*" in decl:
+        return ctypes.c_void_p
+    for prefix, ctype in (("long long", ctypes.c_longlong), ("int", ctypes.c_int),
+                          ("float", ctypes.c_float)):
+        if decl.startswith(prefix):
+            return ctype
+    raise ValueError(decl)
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_c_signatures_follow_the_c_prototypes(name):
+    """Each ctypes signature is its C entry's, parameter by parameter and
+    in its result: a 64-bit length (the W pass's scratch, which passes
+    INT_MAX floats near m * k = 1e9) crosses as c_longlong, and every C
+    entry has a signature."""
+    protos = _c_prototypes()
+    assert sorted(protos) == sorted(_build._SIGNATURES)
+    ret, params = protos[name]
+    assert _build._SIGNATURES[name] == tuple(_ctype(p) for p in params)
+    assert _build._RESULTS.get(name, ctypes.c_int) == _ctype(ret)

@@ -2,7 +2,7 @@
 """Time the MUR passes, the masked passes and the objective passes on one
 CUDA card, alone and in turns with the same kernels of another checkout.
 
-    python3 tools/kernel_turns.py [--parent DIR] [--only mur|masked|objectives|gram]
+    python3 tools/kernel_turns.py [--parent DIR] [--only mur|w|masked|objectives|gram]
 
 DIR is a checkout of another commit (for instance the parent, unpacked
 with ``git archive`` into a git-ignored directory); its kernels are built
@@ -10,10 +10,23 @@ from its own ``tpunmf_torch/ops/csrc`` and called through its own C
 entries.  Each case prints the ms of one call (CUDA events, the mean of
 ``reps`` calls back to back after a warm-up call, host launch path
 included, as chip_smoke.py times a kernel alone), and with DIR the other
-checkout's ms in turns (other, this, this, other) and their ratio, on the
-card named by nvidia-smi.
+checkout's ms in turns (other, this, this, other; each sample at least
+20 ms of calls, so that a few tens of microseconds of host jitter do not
+decide the ratio of a call well under a millisecond) and their ratio, on
+the card named by nvidia-smi.  For the W passes (mur_w_update,
+masked_w_update) the turns call this checkout's C entry just as the
+other's is called, so that the wrapper's host time, a tenth of a call
+at MovieLens-1M's shape, does not count against one side alone.  With DIR,
+``--only masked`` also compares the machine code (cuobjdump's SASS) of
+each instantiation of the masked W kernel in the two libraries.
 
 Cases, on chip_smoke.py's data recipes:
+  - mur_w_update (``--only w`` runs these alone): EU at 8192 x 8192 r128
+    (f32 and bf16 X) and 8192 x 16384 r128 (lowrank_dense, seed 0); KL
+    and lagged KL at BASELINE config[1]; KL at 8192 x 4096 (tfidf_like
+    seed 4) at k 128, 256, 320, 384, 448, 512, 640 and 768, across the
+    tensor-core rank line; each also with its profiler device time (and
+    the other's);
   - mur_iteration_eu at 8192 x 8192 r128 (lowrank_dense, seed 0), f32 and
     bf16 X, and at 8192 x 32768 r32, 8192 x 16384 r64 and 16384 x 4096
     r256 (lowrank_dense of rank min(k, 64)); mur_h_update's EU body at
@@ -26,7 +39,8 @@ Cases, on chip_smoke.py's data recipes:
   - masked_h_update at MovieLens-10M's shape, EU and KL at k 64, also held
     to the other checkout's bits;
   - masked_w_update at MovieLens-10M's shape (69878 x 10677, 1.34%
-    observed, uint8 mask): EU and KL at k 64; EU at k 256 and 1024; and at
+    observed, uint8 mask): EU and KL at k 64, also held to the other
+    checkout's bits; EU at k 256 and 1024; and at
     MovieLens-1M's (6040 x 3706, 20% observed) EU and KL at k 64.  At k 64
     also the variants of this checkout's kernel through its C entry: 64-
     and 32-row blocks, H in place (4-byte copies, as n % 4 != 0) and
@@ -44,8 +58,13 @@ Needs the card; without one it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import difflib
 import importlib.util
+import math
 import os
+import re
+import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -64,6 +83,31 @@ def other_library(checkout):
     return mod.library()
 
 
+def sass_of(lib_path, kernel):
+    """{mangled template arguments: SASS lines} of each instantiation of
+    ``kernel`` in the library at lib_path, from cuobjdump: two lines an
+    instruction (its text and encoding, then the rest of the encoding,
+    with the scheduling bits), runs of blanks made one; None where
+    cuobjdump is missing.  The keys leave out the namespace, whose
+    anonymous part differs between builds."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, key = {}, None
+    for line in dump.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            key = name[name.index(kernel):] if kernel in name else None
+            if key is not None:
+                funcs[key] = []
+        elif key is not None and "/*" in line:
+            funcs[key].append(" ".join(line.split()))
+    return funcs
+
+
 def main() -> int:
     import torch
 
@@ -72,8 +116,9 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout whose kernels to time in turns")
-    ap.add_argument("--only", choices=("mur", "masked", "objectives", "gram"),
-                    help="time one family of cases (gram: accuracy, no times)")
+    ap.add_argument("--only", choices=("mur", "w", "masked", "objectives", "gram"),
+                    help="time one family of cases (w: the MUR W pass alone, a part of "
+                         "mur; gram: accuracy, no times)")
     args = ap.parse_args()
 
     import chip_smoke as cs
@@ -91,12 +136,18 @@ def main() -> int:
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def report(label, this_fn, other_fn, reps):
+    def report(label, this_fn, other_fn, reps, this_entry=None):
+        """this_fn alone; with other_fn, in turns with this_entry (this
+        checkout's C entry, called as other_fn calls the other's) or, where
+        there is none, with this_fn."""
         ms = cs.time_pair(torch, this_fn, this_fn, reps)[0]
         line = f"  {label:44s} this {ms:9.4f} ms"
         if other_fn is not None:
-            this_ms, other_ms = cs.time_pair(torch, other_fn, this_fn, reps)
-            line += (f"   in turns: this {this_ms:9.4f} ms, other {other_ms:9.4f} ms, "
+            turns_reps = max(reps, math.ceil(20.0 / ms))
+            this_ms, other_ms = cs.time_pair(torch, other_fn, this_entry or this_fn,
+                                             turns_reps)
+            turns = "in turns, C entries" if this_entry else "in turns"
+            line += (f"   {turns}: this {this_ms:9.4f} ms, other {other_ms:9.4f} ms, "
                      f"other / this {other_ms / this_ms:.3f}")
         print(line, flush=True)
 
@@ -154,6 +205,70 @@ def main() -> int:
             stream()), "other")
         return h_out, numer
 
+    def w_entry(lib_, x, w, h, dist, lagged=False):
+        """mur_w_update through the C entries of ``lib_``, as the wrapper
+        calls them; before the tensor-core W pass the entries took no H
+        stride, splits or scratch, and EU took H in f32."""
+        m, n = x.shape
+        k = w.shape[1]
+        is_bf16, is_kl = int(x.dtype == torch.bfloat16), dist == "kl"
+        aux = torch.sum(h, dim=1) if is_kl else h @ h.T
+        out = torch.empty_like(w)
+        if len(lib_.tpunmf_mur_w_update.argtypes) == 12:
+            head = (x.data_ptr(), is_bf16, w.data_ptr(), h.data_ptr(), aux.data_ptr(), 0.0,
+                    m, n, k)
+            if lagged:
+                parts = torch.empty(lib_.tpunmf_mur_w_lagged_blocks(m, k), device="cuda")
+                obj = torch.empty((), device="cuda")
+                _build.check(lib_.tpunmf_mur_w_update_lagged(
+                    *head, out.data_ptr(), parts.data_ptr(), obj.data_ptr(), stream()), "w")
+                return out, obj
+            _build.check(lib_.tpunmf_mur_w_update(*head, int(is_kl), out.data_ptr(),
+                                                  stream()), "w")
+            return out
+        tc = is_kl and mur_fused.kl_w_on_tensor_cores(k)
+        splits = mur_fused.w_splits(m, n, k) if tc else 1
+        ldh = mf.h_stride(n) if tc else n
+        hh = (h.to(x.dtype) if not is_kl else
+              torch.nn.functional.pad(h, (0, ldh - n)) if ldh != n else h)
+        floats = (mur_fused.w_scratch_floats(splits, m, k) if is_kl
+                  else lib_.tpunmf_mur_w_eu_scratch(m, n, k, x.element_size()))
+        buf = torch.empty(max(floats, 1), device="cuda")
+        head = (x.data_ptr(), is_bf16, w.data_ptr(), hh.data_ptr(), ldh, aux.data_ptr(), 0.0,
+                m, n, k)
+        tail = (splits, buf.data_ptr(), floats, out.data_ptr())
+        if lagged:
+            parts = torch.empty(lib_.tpunmf_mur_w_lagged_blocks(m, k, splits), device="cuda")
+            obj = torch.empty((), device="cuda")
+            _build.check(lib_.tpunmf_mur_w_update_lagged(
+                *head, *tail, parts.data_ptr(), obj.data_ptr(), stream()), "w")
+            return out, obj
+        _build.check(lib_.tpunmf_mur_w_update(*head, int(is_kl), *tail, stream()), "w")
+        return out
+
+    def w_case(label, x, k, dist, reps=3, lagged=False):
+        m, n = x.shape
+        w, h = factors(m, n, k, 14)
+
+        def this_fn():
+            return mur_fused.mur_w_update(x, w, h, distance_type=dist, lam=0.0,
+                                          with_lagged_obj=lagged)
+
+        other_fn = None
+        if other is not None:
+            def other_fn():
+                return w_entry(other, x, w, h, dist, lagged)
+        tc = dist == "kl" and mur_fused.kl_w_on_tensor_cores(k)
+        shape = (f", 64-row blocks, {mur_fused.w_splits(m, n, k)} splits" if tc
+                 else "" if dist == "eu" else ", FMA")
+        report(f"mur_w_update {dist}{' lagged' if lagged else ''} {label} k{k}{shape}",
+               this_fn, other_fn, reps, lambda: w_entry(lib, x, w, h, dist, lagged))
+        device = cs.device_ms(torch, this_fn, 10)
+        line = f"    device time (profiler, 10 calls): this {device:.4f} ms"
+        if other_fn is not None:
+            line += f", other {cs.device_ms(torch, other_fn, 10):.4f} ms"
+        print(line, flush=True)
+
     def h_case(label, x, k, dist, reps=3, splits=(None,)):
         m, n = x.shape
         w, h = factors(m, n, k, 14)
@@ -169,7 +284,29 @@ def main() -> int:
                    f"{' (wrapper)' if sp is None else ''}", this_fn,
                    other_fn if sp is None else None, reps)
 
+    def w_cases():
+        """The W pass: EU at 8192^2 r128 (f32, bf16) and 8192 x 16384 r128;
+        KL and lagged KL at config[1]; KL at 8192 x 4096 r128 and, for the
+        rank line, at k 256 to 768."""
+        print(f"MUR W pass ({card})", flush=True)
+        x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
+        w_case("EU 8192x8192 f32", x, 128, "eu")
+        w_case("EU 8192x8192 bf16", x.bfloat16(), 128, "eu")
+        del x
+        x = torch.from_numpy(lowrank_dense(8192, 16384, 128, seed=0)).cuda()
+        w_case("EU 8192x16384 f32", x, 128, "eu")
+        del x
+        x = torch.from_numpy(tfidf_like(20000, 11000, n_topics=50, seed=1)).cuda()
+        w_case("config[1] 20000x11000 f32", x, 50, "kl")
+        w_case("config[1] 20000x11000 f32", x, 50, "kl", lagged=True)
+        x = torch.from_numpy(tfidf_like(8192, 4096, n_topics=128, seed=4)).cuda()
+        for k in (128, 256, 320, 384, 448, 512, 640, 768):
+            w_case("KL 8192x4096 f32", x, k, "kl", reps=3 if k <= 256 else 2)
+        del x
+        torch.cuda.empty_cache()
+
     def mur_cases():
+        w_cases()
         print(f"MUR passes ({card})", flush=True)
         x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
         for xx, name in ((x, "EU 8192x8192 f32"), (x.bfloat16(), "EU 8192x8192 bf16")):
@@ -259,9 +396,11 @@ def main() -> int:
                 print(f"  masked_h_update {dist}: {bits} the other checkout's", flush=True)
             report(f"masked_h_update {dist} k{k} ({splits} splits)", this_fn, other_fn, 3)
 
+    if args.only == "w":
+        w_cases()
     if args.only in (None, "mur"):
         mur_cases()
-    if args.only == "mur":
+    if args.only in ("mur", "w"):
         print(card)
         return 0
 
@@ -281,24 +420,31 @@ def main() -> int:
                 def this_fn(d=dist):
                     return mf.masked_w_update(x, mask, w, h, distance_type=d, lam=0.0)
 
-                other_fn = None
-                if other is not None:
+                def entry(lib_, kl=kl):
                     # since the tensor-core W pass the entry takes H's row
                     # stride and the block rows
-                    strided = len(other.tpunmf_masked_w_update.argtypes) == 15
+                    strided = len(lib_.tpunmf_masked_w_update.argtypes) == 15
+                    out = torch.empty_like(w)
+                    hp = torch.nn.functional.pad(h, (0, mf.h_stride(n) - n))
+                    args = ((hp.data_ptr(), mf.h_stride(n), 0.0, m, n, k, kl,
+                             mf.w_block_rows(m, k)) if strided else
+                            (h.data_ptr(), 0.0, m, n, k, kl))
+                    _build.check(lib_.tpunmf_masked_w_update(
+                        x.data_ptr(), 0, mask.data_ptr(), 1, w.data_ptr(), *args,
+                        out.data_ptr(), stream()), "masked_w_update")
+                    return out
 
-                    def other_fn(kl=kl):
-                        out = torch.empty_like(w)
-                        hp = torch.nn.functional.pad(h, (0, mf.h_stride(n) - n))
-                        args = ((hp.data_ptr(), mf.h_stride(n), 0.0, m, n, k, kl,
-                                 mf.w_block_rows(m, k)) if strided else
-                                (h.data_ptr(), 0.0, m, n, k, kl))
-                        _build.check(other.tpunmf_masked_w_update(
-                            x.data_ptr(), 0, mask.data_ptr(), 1, w.data_ptr(), *args,
-                            out.data_ptr(), stream()), "other")
-                        return out
+                other_fn = None
+                if other is not None:
+                    def other_fn():
+                        return entry(other)
+                    same = torch.equal(this_fn(), other_fn())
+                    bits = "the same bits as" if same else "OTHER BITS than"
+                    print(f"  masked_w_update k{k} {dist}: {bits} the other checkout's",
+                          flush=True)
                 report(f"k{k} {dist} (wrapper: {mf.w_block_rows(m, k)}-row blocks, "
-                       f"stride {mf.h_stride(n)})", this_fn, other_fn, reps)
+                       f"stride {mf.h_stride(n)})", this_fn, other_fn, reps,
+                       lambda: entry(lib))
                 if k != 64:
                     continue
                 want = this_fn()
@@ -320,6 +466,23 @@ def main() -> int:
             del w, h
 
     if args.only in (None, "masked"):
+        if other is not None:
+            mine, theirs = (sass_of(lib_._name, "masked_w_tc_kernel") for lib_ in (lib, other))
+            if mine is None:
+                print("masked_w_tc_kernel: no cuobjdump, machine code not compared")
+            for key in sorted(mine or {}):
+                a, b = mine[key], theirs.get(key)
+                if b is None:
+                    verdict = "not in the other checkout"
+                elif a == b:
+                    verdict = "the same SASS as the other checkout's"
+                else:
+                    ops = difflib.SequenceMatcher(None, b, a, autojunk=False).get_opcodes()
+                    moved = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in ops
+                                if tag != "equal")
+                    verdict = f"OTHER SASS: {moved} lines differ from the other's {len(b)}"
+                print(f"masked_w_tc_kernel {key[:40]}: {len(a) // 2} instructions, {verdict}",
+                      flush=True)
         x, observed = cs.movielens_on_card(torch, *cs.ML10M, seed=3)
         masked_h_cases(x, observed.to(torch.uint8))
         masked_w_cases("MovieLens-10M", x, observed.to(torch.uint8),

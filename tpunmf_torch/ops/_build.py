@@ -25,15 +25,23 @@ _BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each entry point (all return cudaGetLastError() as int)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C signature of each entry point (each returns cudaGetLastError() or a
+# count as int, or the type _RESULTS gives)
 _SIGNATURES = {
-    # x, x_is_bf16, w, h, aux (Gh or rowsum H), lam, m, n, k, is_kl, out, stream
-    "tpunmf_mur_w_update": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P),
-    # x, x_is_bf16, w, h, hsum, lam, m, n, k, out, partials, obj, stream
-    "tpunmf_mur_w_update_lagged": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P),
-    # m, k -> length of the partials buffer tpunmf_mur_w_update_lagged needs
-    "tpunmf_mur_w_lagged_blocks": (_I, _I),
+    # x, x_is_bf16, w, h (EU: in X's type), ldh (h's row stride), aux (Gh or
+    # rowsum H), lam, m, n, k, is_kl, splits (KL), scratch, scratch_len
+    # (floats, 64-bit), out, stream
+    "tpunmf_mur_w_update": (_P, _I, _P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P, _L, _P, _P),
+    # x, x_is_bf16, w, h, ldh, hsum, lam, m, n, k, splits, scratch,
+    # scratch_len, out, partials, obj, stream
+    "tpunmf_mur_w_update_lagged": (_P, _I, _P, _P, _I, _P, _F, _I, _I, _I, _I, _P, _L, _P, _P,
+                                   _P, _P),
+    # m, k, splits -> length of the partials buffer
+    # tpunmf_mur_w_update_lagged needs
+    "tpunmf_mur_w_lagged_blocks": (_I, _I, _I),
+    # m, n, k, x_bytes -> floats of scratch the EU W pass needs (64-bit)
+    "tpunmf_mur_w_eu_scratch": (_I, _I, _I, _I),
     # x, x_is_bf16, w, h, aux (Gw or colsum W), lam, m, n, k, is_kl, part
     # (splits * k * n floats where splits > 1), splits, h_out, numer_out,
     # stream
@@ -86,6 +94,8 @@ _SIGNATURES = {
     # s3, stream
     "tpunmf_score_blockmax": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
+# entry points whose result is not an int
+_RESULTS = {"tpunmf_mur_w_eu_scratch": _L}
 
 
 def _nvcc() -> str:
@@ -142,7 +152,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESULTS.get(name, _I)
     return lib
 
 

@@ -59,6 +59,14 @@ __device__ __forceinline__ float kl_term(float xv, float wh) {
   return (val - xv) + wh;
 }
 
+// kl_term(x, wh) with x == 0 taken first: the term is then wh exactly
+// ((0 * log(0 / wh) is NaN or 0, zeroed, and (0 - 0) + wh = wh), with no
+// division or log; most cells of a sparse X take it (objective.cu, the
+// lagged KL W pass of masked_update.cu).
+__device__ __forceinline__ float kl_term_sparse(float xv, float wh) {
+  return xv == 0.f ? wh : kl_term(xv, wh);
+}
+
 // a / b with a zero numerator answered first, bit for bit as IEEE
 // division gives it (+-0 with the sign of a times b's; NaN where b is 0 or
 // NaN, left to the division): the division's check sends a zero numerator

@@ -56,10 +56,23 @@
 // MovieLens-10M's 167 column tiles several blocks for each of the card's
 // 132 SMs, where one block over all rows left the card idle.
 //
-// MUR's KL H pass (mur_update.cu) is the H pass with M = 1 (NoMask): kernel
-// 1 sums P_n = X / (S + eps) alone, one partial sum a split, and
-// kl_h_finish adds them and applies MUR's KL update (d = colsum(W), no
-// guard); masked_h_update's instantiations keep their code and bits.
+// MUR's KL passes (mur_update.cu) are these passes with M = 1 (NoMask): each
+// step sums P = X / (S + eps) alone, one product a step.  The H pass writes
+// one partial sum a split, and kl_h_finish adds them and applies MUR's KL
+// update (d = colsum(W), no guard).  The W pass also splits X's columns
+// into `splits` ranges of whole 64-column tiles (a grid axis; the wrapper
+// picks the count from the shape, ops/mur_fused.py), so that BASELINE
+// config[1]'s 313 row tiles make eight waves of the card instead of 1.2;
+// with one split it applies MUR's KL update in its epilogue (b = rowsum(H),
+// a k-vector formed outside; no guard), with more each block writes its
+// raw sums to a partial and kl_w_finish adds the partials in split order
+// and applies the update.  Its lagged form also sums the masked KL of the
+// incoming (W, H) over its S entries, with the raw S in the log
+// (tpunmf/core/losses.py:20-25): only the blocks of the first chunk of k
+// add (every chunk forms the same S), each writing one partial that
+// reduce_partials_into (objective.cu) adds in a fixed order.
+// masked_w_update's and masked_h_update's instantiations keep their code
+// and bits.
 //
 // X is f32 or bf16 and M is 1-byte (binary) or X's type (weights); both are
 // upcast to f32 and the factors are not rounded to X's type
@@ -90,9 +103,9 @@ struct HSmem {
   alignas(16) float wc[kHTile * kLdp];
 };
 
-// The mask of MUR's KL H pass (mur_update.cu): M = 1, so the pass sums
-// P_n = X / (S + eps) alone; its W^T M is colsum(W), a k-vector formed
-// outside.
+// The mask of MUR's KL passes (mur_update.cu): M = 1, so a pass sums
+// P_n = X / (S + eps) alone; its W^T M (M H^T) is colsum(W) (rowsum(H)), a
+// k-vector formed outside.
 struct NoMask {};
 
 // Kernel 1: block (column tile, split, k chunk) writes its partial sums
@@ -231,15 +244,26 @@ struct WPass {
   };
 };
 
-// Block (row tile, k chunk) writes out[r][c0 + c] for its BM rows r of W and
-// the chunk's 64 columns c.  H is read at row stride ldh (>= n; columns n..ldh
+// The W pass's body: block (row tile, k chunk) writes out[r][c0 + c] for
+// its BM rows r of W and the chunk's 64 columns c, from X's columns
+// [j_begin, j_end).  H is read at row stride ldh (>= n; columns n..ldh
 // zero).  `w_aligned` / `h_aligned`: the rows of W / H start on 16 bytes.
-template <typename XT, typename MT, int BM>
-__global__ void __launch_bounds__(kThreads, 2)
-    masked_w_tc_kernel(const XT* __restrict__ x, const MT* __restrict__ mask,
-                       const float* __restrict__ w, const float* __restrict__ h, int ldh,
-                       float lam, int m, int n, int k, bool kl, bool w_aligned, bool h_aligned,
-                       float* __restrict__ out) {
+// The masked pass (masked_w_tc_kernel) walks all of n and reads neither
+// hsum, part nor partials.  With NoMask (MUR's KL pass, kl_w_tc_kernel,
+// split z = blockIdx.z of X's columns): one split applies MUR's KL update
+// with b = hsum[c]; more write the raw sums to part[z][r][c] (m x k a
+// split) for kl_w_finish.  LAGGED: the blocks of chunk 0 also write
+// partials[z * gridDim.x + blockIdx.x], the masked KL of (X, S) over their
+// cells.
+template <typename XT, typename MT, int BM, bool LAGGED>
+__device__ __forceinline__ void w_tc_body(
+    const XT* __restrict__ x, const MT* __restrict__ mask, const float* __restrict__ w,
+    const float* __restrict__ h, int ldh, const float* __restrict__ hsum, float lam, int m,
+    int n, int k, int j_begin, int j_end, bool kl, bool w_aligned, bool h_aligned,
+    float* __restrict__ out, float* __restrict__ part, float* __restrict__ partials) {
+  constexpr bool kMasked = !std::is_same_v<MT, NoMask>;
+  static_assert(kMasked ? !LAGGED : true, "the lagged objective is MUR's (M = 1)");
+  using MR = std::conditional_t<kMasked, MT, unsigned char>;  // no mask: unused
   using WP = WPass<BM>;
   using ST = typename WP::S;
   constexpr int SMT = ST::MT, SNT = ST::NT;
@@ -253,11 +277,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int sr = ST::warp_row(warp), sc = ST::warp_col(warp);
   const int ar = (warp / 4) * WP::WROWS, acol = (warp % 4) * WP::WCOLS;
   const int g = lane >> 2, t = lane & 3;
+  // LAGGED: this thread's cells of the objective (chunk 0 only)
+  const bool sums_obj = LAGGED && blockIdx.y == 0;
+  double obj = 0.0;
 
   tc::Acc<WP::MT, WP::NT> acc_n, acc_d;
   tc::zero(acc_n);
   tc::zero(acc_d);
-  for (int j0 = 0; j0 < n; j0 += kHTile) {
+  for (int j0 = j_begin; j0 < j_end; j0 += kHTile) {
     // the H chunk: one cp.async group, complete by the S tile's first wait
     for (int l = tid; l < kHTile * kHTile / 4; l += kThreads) {
       const int r = l / (kHTile / 4), c = l % (kHTile / 4) * 4;
@@ -268,7 +295,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // X and M at the cells of this thread's S entries, in flight while the
     // tensor cores form S (zero outside X)
     XT xr[SMT][SNT][4];
-    MT mr[SMT][SNT][4];
+    MR mr[SMT][SNT][4];
 #pragma unroll
     for (int i = 0; i < SMT; ++i)
 #pragma unroll
@@ -276,16 +303,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int r = sr + 16 * i + g + (q >> 1) * 8, c = j0 + sc + 8 * j + 2 * t + (q & 1);
-          const bool in = r < rows && c < n;
+          const bool in = r < rows && c < j_end;
           const long long o = (long long)(row0 + r) * n + c;
           xr[i][j][q] = in ? x[o] : zero_of<XT>();
-          mr[i][j][q] = in ? mask[o] : zero_of<MT>();
+          if constexpr (kMasked) mr[i][j][q] = in ? mask[o] : zero_of<MT>();
         }
 
     tc::Acc<SMT, SNT> s;
     tc::s_tile<BM, kHTile, 2, 4>(s, w, h, m, ldh, k, row0, j0, w_aligned, h_aligned,
                                  sm.u.stage);  // ends with a barrier
     // P_n, P_d (zero outside X, where X and M are 0)
+    float tile_obj = 0.f;
 #pragma unroll
     for (int i = 0; i < SMT; ++i)
 #pragma unroll
@@ -296,19 +324,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
             const int q = 2 * half + v;
-            const float xv = to_f32(xr[i][j][q]), mv = to_f32(mr[i][j][q]), sv = s[i][j][q];
-            pn[v] = kl ? div_zero_first(mv * xv, sv + kEps) : xv * mv;
-            pd[v] = kl ? mv : mv * sv;
+            if constexpr (kMasked) {  // this order fixes masked_w_update's machine code
+              const float xv = to_f32(xr[i][j][q]), mv = to_f32(mr[i][j][q]), sv = s[i][j][q];
+              pn[v] = kl ? div_zero_first(mv * xv, sv + kEps) : xv * mv;
+              pd[v] = kl ? mv : mv * sv;
+            } else {
+              const float xv = to_f32(xr[i][j][q]), sv = s[i][j][q];
+              pn[v] = div_zero_first(xv, sv + kEps);
+              if constexpr (LAGGED)  // the raw S, cells inside X only
+                if (sums_obj && sr + 16 * i + g + 8 * half < rows &&
+                    j0 + sc + 8 * j + 2 * t + v < j_end)
+                  tile_obj += kl_term_sparse(xv, sv);
+            }
           }
           const int o = (sr + 16 * i + g + 8 * half) * kWLd + sc + 8 * j + 2 * t;
           *reinterpret_cast<float2*>(sm.u.p.pn + o) = make_float2(pn[0], pn[1]);
-          *reinterpret_cast<float2*>(sm.u.p.pd + o) = make_float2(pd[0], pd[1]);
+          if constexpr (kMasked)
+            *reinterpret_cast<float2*>(sm.u.p.pd + o) = make_float2(pd[0], pd[1]);
         }
+    if constexpr (LAGGED) obj += tile_obj;  // zero outside chunk 0
     __syncthreads();
     // acc[c][r] += sum_j H[c0 + c][j0 + j] P[r][j] (the H chunk's fragments
     // once for both sums; P read in .col layout)
-    tc::warp_mma2<WP::MT, WP::NT, false, true>(acc_n, acc_d, sm.hc, kWLd, sm.u.p.pn,
-                                              sm.u.p.pd, kWLd, ar, acol, kHTile, lane);
+    if constexpr (kMasked)
+      tc::warp_mma2<WP::MT, WP::NT, false, true>(acc_n, acc_d, sm.hc, kWLd, sm.u.p.pn,
+                                                sm.u.p.pd, kWLd, ar, acol, kHTile, lane);
+    else
+      tc::warp_mma<WP::MT, WP::NT, false, false, true>(acc_n, sm.hc, kWLd, sm.u.p.pn, kWLd,
+                                                       ar, acol, kHTile, lane);
     __syncthreads();  // the tiles are read before the next step's copies land
   }
 
@@ -325,15 +368,61 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int gr = row0 + acol + 8 * j + 2 * t + (q & 1);
         if (gk >= k || gr >= m) continue;
         const long long o = (long long)gr * k + gk;
-        const float wv = w[o], nu = acc_n[i][j][q], de = acc_d[i][j][q];
-        if (kl) {
-          const float a = wv * nu;
-          const float den = de + sqrtf(de * de + 4.f * lam * a);
-          out[o] = den > 0.f ? 2.f * a / den : wv;
-        } else {
-          out[o] = wv * nu / (de + lam * wv + kEps);
+        if constexpr (kMasked) {
+          const float wv = w[o], nu = acc_n[i][j][q], de = acc_d[i][j][q];
+          if (kl) {
+            const float a = wv * nu;
+            const float den = de + sqrtf(de * de + 4.f * lam * a);
+            out[o] = den > 0.f ? 2.f * a / den : wv;
+          } else {
+            out[o] = wv * nu / (de + lam * wv + kEps);
+          }
+        } else {  // MUR's KL update, no guard (or the raw sums)
+          const float wv = w[o], nu = acc_n[i][j][q];
+          if (gridDim.z > 1) {
+            part[blockIdx.z * (long long)m * k + o] = nu;
+          } else {
+            const float a = wv * nu, b = hsum[gk];
+            out[o] = 2.f * a / (b + sqrtf(b * b + 4.f * lam * a));
+          }
         }
       }
+  if constexpr (LAGGED) {
+    if (sums_obj) {  // uniform over the block
+      const double sum = block_sum(obj);
+      if (tid == 0) partials[blockIdx.z * gridDim.x + blockIdx.x] = (float)sum;
+    }
+  }
+}
+
+// Block (row tile, k chunk) of the masked W pass, over all of X's columns.
+template <typename XT, typename MT, int BM>
+__global__ void __launch_bounds__(kThreads, 2)
+    masked_w_tc_kernel(const XT* __restrict__ x, const MT* __restrict__ mask,
+                       const float* __restrict__ w, const float* __restrict__ h, int ldh,
+                       float lam, int m, int n, int k, bool kl, bool w_aligned, bool h_aligned,
+                       float* __restrict__ out) {
+  w_tc_body<XT, MT, BM, false>(x, mask, w, h, ldh, nullptr, lam, m, n, k, 0, n, kl, w_aligned,
+                               h_aligned, out, nullptr, nullptr);
+}
+
+// Rows of W a block of MUR's KL W pass owns (32-row blocks lost at BASELINE
+// config[1] and at 8192 x 4096 r128 on an H100: PERF.md).
+constexpr int kKlWRows = 64;
+
+// Block (row tile, k chunk, split z) of MUR's KL W pass: the body with M = 1
+// over X's columns [z * cols, (z + 1) * cols).
+template <typename XT, bool LAGGED>
+__global__ void __launch_bounds__(kThreads, 2)
+    kl_w_tc_kernel(const XT* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ h, int ldh, const float* __restrict__ hsum,
+                   float lam, int m, int n, int k, int cols, bool w_aligned, bool h_aligned,
+                   float* __restrict__ out, float* __restrict__ part,
+                   float* __restrict__ partials) {
+  const int j_begin = blockIdx.z * cols;
+  w_tc_body<XT, NoMask, kKlWRows, LAGGED>(x, static_cast<const NoMask*>(nullptr), w, h, ldh,
+                                          hsum, lam, m, n, k, j_begin, min(n, j_begin + cols),
+                                          true, w_aligned, h_aligned, out, part, partials);
 }
 
 // Kernel 2: nu, de = the sums of the partials over the splits, in split
@@ -375,6 +464,22 @@ __global__ void __launch_bounds__(kThreads)
   numer[o] = nu;
   const float cv = h[o] * nu, d = wsum[o / n];
   h_out[o] = 2.f * cv / (d + sqrtf(d * d + 4.f * lam * cv));
+}
+
+// MUR's KL W pass, after the kernel where it split X's columns: the
+// splits' partial sums added in split order, a = W * numer, b = hsum (k,);
+// out = 2a / (b + sqrt(b^2 + 4 lam a)), with no guard.
+__global__ void __launch_bounds__(kThreads)
+    kl_w_finish(const float* __restrict__ part, const float* __restrict__ w,
+                const float* __restrict__ hsum, float lam, int m, int k, int splits,
+                float* __restrict__ out) {
+  const long long plane = (long long)m * k;
+  const long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (o >= plane) return;
+  float nu = 0.f;
+  for (int sp = 0; sp < splits; ++sp) nu += part[sp * plane + o];
+  const float a = w[o] * nu, b = hsum[o % k];
+  out[o] = 2.f * a / (b + sqrtf(b * b + 4.f * lam * a));
 }
 
 template <int BM, typename XT, typename MT>
@@ -441,6 +546,50 @@ cudaError_t kl_h_pass(const void* x, int x_is_bf16, const float* w, const float*
   const long long plane = (long long)k * n;
   kl_h_finish<<<(unsigned)((plane + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       part, h, wsum, lam, n, k, splits, h_out, numer);
+  return cudaGetLastError();
+}
+
+// The columns a split of MUR's KL W pass walks: whole 64-column tiles,
+// ceil(tiles / splits) of them (the last split short).
+static int kl_w_cols(int n, int splits) { return ceil_div(ceil_div(n, kHTile), splits) * kHTile; }
+
+// Partials the lagged KL W pass on the tensor cores writes at (m, splits):
+// one a row tile and split.
+int kl_w_partials(int m, int splits) { return ceil_div(m, kKlWRows) * splits; }
+
+// MUR's KL W half-update (mur_update.cu) on the tensor cores: the masked W
+// pass with M = 1, kKlWRows rows a block, H read at row stride ldh, X's
+// columns in `splits` ranges of kl_w_cols(n, splits) (where splits > 1,
+// part holds splits * m * k floats and kl_w_finish applies the update).
+// Where partials is not null (the lagged pass) the blocks of the first
+// chunk of k also write kl_w_partials(m, splits) partials of the masked KL
+// of the incoming (W, H); the caller adds them.
+cudaError_t kl_w_pass(const void* x, int x_is_bf16, const float* w, const float* h, int ldh,
+                      const float* hsum, float lam, int m, int n, int k, int splits,
+                      float* part, float* out, float* partials, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const dim3 grid(ceil_div(m, kKlWRows), ceil_div(k, kHTile), splits);
+  const size_t smem = sizeof(WPass<kKlWRows>::Smem);
+  const int cols = kl_w_cols(n, splits);
+  const bool w_aligned = k % 4 == 0 && aligned16(w), h_aligned = ldh % 4 == 0 && aligned16(h);
+  auto run = [&](auto xt, auto lagged) {
+    using XT = std::remove_const_t<std::remove_pointer_t<decltype(xt)>>;
+    return launch(kl_w_tc_kernel<XT, decltype(lagged)::value>, grid, smem, s, xt, w, h, ldh,
+                  hsum, lam, m, n, k, cols, w_aligned, h_aligned, out, part, partials);
+  };
+  const bool lag = partials != nullptr;
+  cudaError_t err;
+  if (x_is_bf16) {
+    const bf16* xb = static_cast<const bf16*>(x);
+    err = lag ? run(xb, std::true_type{}) : run(xb, std::false_type{});
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    err = lag ? run(xf, std::true_type{}) : run(xf, std::false_type{});
+  }
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long plane = (long long)m * k;
+  kl_w_finish<<<(unsigned)((plane + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, w, hsum, lam, m, k, splits, out);
   return cudaGetLastError();
 }
 

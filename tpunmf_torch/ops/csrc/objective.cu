@@ -93,13 +93,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
-// kl_term(x, wh) with x == 0 taken first: the term is then wh exactly
-// ((0 * log(0 / wh) is NaN or 0, zeroed, and (0 - 0) + wh = wh), with no
-// division or log; most cells of a sparse X take it.
-__device__ __forceinline__ float kl_term_sparse(float xv, float wh) {
-  return xv == 0.f ? wh : kl_term(xv, wh);
-}
-
 // The term a summing pass adds for one cell: (x - wh)^2, or the masked KL
 // term of the raw wh (tpunmf/ops/fused.py:76-80, 88-90, 113-119).
 template <Pass P>

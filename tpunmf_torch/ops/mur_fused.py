@@ -7,6 +7,13 @@
       KL with ``with_lagged_obj``: also the masked KL objective of the
           INCOMING (W, H), summed from the same W H tiles (the lagged
           objective, tpunmf/ops/mur_fused.py:114-141)
+      Its products run on the tensor cores: EU as the single pass's W side
+      (X H^T over column chunks into partials, in a scratch whose length
+      the C entry's plan gives, then the update: the single pass's W' bit
+      for bit), KL up to rank ``KL_W_TC_RANK`` as the masked W pass with
+      M = 1 over ``splits`` ranges of X's columns (H read through a copy
+      padded to ``masked_fused.h_stride(n)`` columns), above it an FMA
+      body.
   H pass (``mur_h_update``, csrc/mur_update.cu):
       EU: numer = W^T X, H <- H * numer / (Gw H + lh H + eps)
       KL: numer = W^T (X / (W H + eps)), c = H * numer, d = colsum(W),
@@ -32,8 +39,9 @@
 bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
 
 Only the k x k Grams ``Gh = H H^T`` / ``Gw = W^T W``, the row/column sums
-and the single pass's cast of H to X's dtype are formed outside the
-kernels, as ``tpunmf`` forms them outside its Pallas bodies.  Outputs are
+and the EU W passes' cast of H to X's dtype are formed outside the
+kernels, as ``tpunmf`` forms them outside its Pallas bodies (and the KL W
+pass's copy of H padded to 16-byte rows).  Outputs are
 new tensors: nothing is updated in place (the EU epilogue of a row block
 reads all of W_i).
 
@@ -54,7 +62,7 @@ from ..core.precision import full_f32
 from . import _build
 from ._launch import (MAX_RANK, WAVE_MUR_EU, WAVE_MUR_EU_TC, WAVE_MUR_KL, call,
                       check_operands, check_strips, factor_as_x, on_cpu, wave_scratch)
-from .masked_fused import H_TILE, row_splits
+from .masked_fused import H_TILE, h_stride, row_splits
 
 _EPS = 1e-9
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -67,6 +75,15 @@ _MAX_SCRATCH_BYTES = 1 << 30
 # 64-row chunk of k forms W H anew there, and above it the FMA body, which
 # forms it once, is faster (csrc/mur_update.cu, kKlTcRank)
 KL_H_TC_RANK = 640
+# the same line for the KL W pass (csrc/mur_update.cu, kKlWTcRank): on an
+# H100 it won at k 320 and lost at k 384
+KL_W_TC_RANK = 320
+# the KL W pass on the tensor cores: blocks of 64 rows of W
+# (csrc/masked_update.cu, kKlWRows) and a 64-wide chunk of k over column
+# splits of X, the grid brought near 16 blocks a SM of an H100's 132 (2
+# resident, 8 waves).  On an H100 at BASELINE config[1] 64-row blocks over
+# 7 splits took 1.73 ms, over 1 split 2.35 (tools/kernel_turns.py, PERF.md)
+_KL_W_ROWS, _KL_W_BLOCKS = 64, 16 * 132
 
 
 def updates_take(x, k: int) -> bool:
@@ -106,6 +123,38 @@ def h_scratch_floats(splits: int, n: int, k: int) -> int:
     """Floats of scratch the H pass needs over ``splits`` row splits: a
     k x n partial sum a split, none for one (it sums into its output)."""
     return splits * k * n if splits > 1 else 0
+
+
+def kl_w_on_tensor_cores(k: int) -> bool:
+    """Whether the KL W pass (plain and lagged) runs on the tensor cores at
+    rank k, rather than its FMA body: up to ``KL_W_TC_RANK``."""
+    return k <= KL_W_TC_RANK
+
+
+def w_splits(m: int, n: int, k: int) -> int:
+    """The number of column splits of the KL W pass on X (m, n) at rank k,
+    in whole 64-column tiles of X.
+
+    The grid is ceil(m / 64) row tiles x ceil(k / 64) chunks of k x
+    splits; the splits bring it near 16 blocks a SM, at most one a
+    64-column tile of X and as many as 1 GiB of partial sums (an m x k f32
+    sum a split) allow, none empty (BASELINE config[1], 20000 x 11000 r50:
+    313 row tiles x 7 splits; 8192 x 4096 r128: 256 x 8).  1 where the
+    pass takes its FMA body (k > ``KL_W_TC_RANK``)."""
+    if not kl_w_on_tensor_cores(k):
+        return 1
+    tiles = _ceil_div(n, H_TILE)
+    want = round(_KL_W_BLOCKS / (_ceil_div(m, _KL_W_ROWS) * _ceil_div(k, H_TILE)))
+    room = _MAX_SCRATCH_BYTES // (m * k * 4)
+    splits = max(1, min(want, tiles, room))
+    return _ceil_div(tiles, _ceil_div(tiles, splits))
+
+
+def w_scratch_floats(splits: int, m: int, k: int) -> int:
+    """Floats of scratch the KL W pass needs over ``splits`` column
+    splits: an m x k partial sum a split, none for one (the blocks apply
+    the update themselves)."""
+    return splits * m * k if splits > 1 else 0
 
 
 @full_f32()
@@ -156,35 +205,56 @@ def _check_lagged(distance_type, with_lagged_obj):
 
 @full_f32()
 def mur_w_update(x, w, h, *, distance_type: str, lam: float,
-                 with_lagged_obj: bool = False):
+                 with_lagged_obj: bool = False, splits=None):
     """One fused pass over X producing the updated W (m, k).
 
     With ``with_lagged_obj`` (KL only) returns ``(w_new, obj)``, obj the
     masked KL of the INCOMING (w, h) as a 0-d tensor: free, since the pass
-    forms those W H tiles anyway."""
+    forms those W H tiles anyway.  The KL pass on the tensor cores sums
+    over ``splits`` ranges of X's columns (by default :func:`w_splits`'),
+    each into a partial sum, and adds the partials in a fixed order; EU,
+    the FMA body and the plain version, which serves CPU tensors, have no
+    splits."""
     is_kl = _check_distance(distance_type)
     _check_lagged(distance_type, with_lagged_obj)
     if on_cpu(x):
         return mur_w_update_ref(x, w, h, distance_type=distance_type, lam=lam,
                                 with_lagged_obj=with_lagged_obj)
-    check_operands("mur_w_update", x, w, h, max_rank=MAX_RANK)
-    aux = torch.sum(h, dim=1) if is_kl else h @ h.T
-    m, n = x.shape
-    k = w.shape[1]
+    m, n, k = check_operands("mur_w_update", x, w, h, max_rank=MAX_RANK)
+    splits = w_splits(m, n, k) if splits is None else int(splits)
+    if splits < 1:
+        raise ValueError(f"mur_w_update: splits={splits} must be at least 1")
     is_bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    if not is_kl:
+        gh = h @ h.T
+        hc = h.to(x.dtype)  # pre-cast, as _launch_iteration_eu does
+        floats = _build.library().tpunmf_mur_w_eu_scratch(m, n, k, x.element_size())
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+        call("tpunmf_mur_w_update", x.device, x.data_ptr(), is_bf16, w.data_ptr(),
+             hc.data_ptr(), n, gh.data_ptr(), float(lam), m, n, k, 0, 1,
+             scratch.data_ptr(), floats, out.data_ptr())
+        mur_w_update.launches += 1
+        return out
+    hsum = torch.sum(h, dim=1)
+    tensor_cores = kl_w_on_tensor_cores(k)
+    splits = splits if tensor_cores else 1
+    ldh = h_stride(n) if tensor_cores else n
+    hp = h if ldh == n else torch.nn.functional.pad(h, (0, ldh - n))
+    floats = w_scratch_floats(splits, m, k)
+    part = torch.empty(max(floats, 1), dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), is_bf16, w.data_ptr(), hp.data_ptr(), ldh, hsum.data_ptr(),
+            float(lam), m, n, k)
+    kl_args = (splits, part.data_ptr(), floats, out.data_ptr())
     if with_lagged_obj:
-        partials = torch.empty(_build.library().tpunmf_mur_w_lagged_blocks(m, k),
+        partials = torch.empty(_build.library().tpunmf_mur_w_lagged_blocks(m, k, splits),
                                dtype=torch.float32, device=x.device)
         obj = torch.empty((), dtype=torch.float32, device=x.device)
-        call("tpunmf_mur_w_update_lagged", x.device, x.data_ptr(), is_bf16,
-             w.data_ptr(), h.data_ptr(), aux.data_ptr(), float(lam), m, n, k,
-             out.data_ptr(), partials.data_ptr(), obj.data_ptr())
+        call("tpunmf_mur_w_update_lagged", x.device, *args, *kl_args, partials.data_ptr(),
+             obj.data_ptr())
         mur_w_update.lagged_launches += 1
         return out, obj
-    call("tpunmf_mur_w_update", x.device, x.data_ptr(), is_bf16,
-         w.data_ptr(), h.data_ptr(), aux.data_ptr(), float(lam), m, n, k,
-         int(is_kl), out.data_ptr())
+    call("tpunmf_mur_w_update", x.device, *args, 1, *kl_args)
     mur_w_update.launches += 1
     return out
 
