@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      mur_h_update, mur_w_update and the lagged W pass also at KL
      8192x4096 r128; the lagged W must be the plain KL W bit for bit, and
      masked_w_update must give the bits it gave before MUR's KL W pass
-     came to share its kernel (masked_w_bits).
+     came to share its kernel (masked_w_bits).  mur_iteration_kl also at
+     KL 8192x4096 r128 on bf16 X and at 8192x1024 k 256-1024 (across the
+     KL rank lines), where up to KL_ITER_PAIR_RANK its W', objective and
+     wtr must be the lagged W pass's and the KL H pass's numerator bit for
+     bit, above it within UPDATE_RTOL (kl_bits_phase, with ragged k37).
      The two single passes behind the port's switches: hals_iteration_eu
      at 8192x8192 r128 (f32 at 2 and 1 sweeps, bf16) and ragged 1000x777
      k40, and mur_iteration_eu_dma at 8192x8192 r128 (f32, bf16) and
@@ -34,9 +38,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      also timed in turns with the one PyTorch call that computes their
      function (torch.amax of the scores' view, torch.sum over rows), with
      the bytes per second each reaches.  The tensor-core kernels
-     (mur_iteration_eu, mur_w_update, the lagged W pass and mur_h_update
-     at their shapes above, both masked passes at MovieLens-1M and -10M;
-     kl_ratio_and_obj and kl_ratio at config[3], config[1] and r1536;
+     (mur_iteration_eu, mur_iteration_kl, hals_iteration_eu, mur_w_update,
+     the lagged W pass and mur_h_update at their shapes above, both masked
+     passes at MovieLens-1M and -10M; kl_ratio_and_obj and kl_ratio at config[3], config[1] and r1536;
      eu_residual_obj at 8192x8192 r128, r1536 and config[3]; kl_obj at
      config[1], 8192x4096 r128 and r1536)
      also print their profiler device time and the TFLOP/s of f32 products
@@ -139,10 +143,11 @@ EU_MONOTONE_RTOL = 1e-5
 # near a clamp: the sweep is held to max|got - want| / max|want|
 SWEEP_TOL = 1e-4
 # hals_iteration_eu against its plain version, on the same scale: the kernel
-# forms X round(H)^T itself (FMA tiles) where the plain version takes cuBLAS's,
-# another f32 summation order, and each Gauss-Seidel step subtracts sums up
-# to k times larger than their difference, so that rounding comes out
-# amplified (1.6e-4 measured at 8192x8192 r128 with random factors)
+# forms X round(H)^T itself (the tensor cores, each step's sum rounded) where
+# the plain version takes cuBLAS's, another f32 summation order, and each
+# Gauss-Seidel step subtracts sums up to k times larger than their
+# difference, so that rounding comes out amplified (1.6e-4 measured at
+# 8192x8192 r128 with random factors on FMA tiles)
 HALS_ITER_TOL = 1e-3
 # lagged[i+1] against the exact route's exact[i]: the same KL sums, one
 # from the W pass's tiles and one from the objective kernel's
@@ -170,6 +175,10 @@ MASKED_W_BITS = "7cdbaf0dd25264455ec0e6c7d08771d51db7fed38144b35f800e60027f0d8e9
 # the single-pass shapes: tpunmf's own route test (tests/test_ops.py:265-277)
 KL_SINGLE = dict(m=8192, n=4096, k=128, seed=4)
 EU_WIDE = dict(m=8192, n=16384, k=128, seed=0)
+# mur_iteration_kl across the KL passes' rank lines (tensor cores to k 320
+# for W, 640 for H) and its own (the pair's bodies to k 448): 8192 x 1024,
+# where tpunmf's rule takes the single pass up to k 1024
+KL_NARROW, KL_RANKS = 1024, (256, 384, 448, 512, 768, 1024)
 SINGLE_EU = ("mur_iteration_eu", "eu_residual_obj")
 PAIR = ("mur_w_update", "mur_h_update")
 UPDATES = PAIR + ("mur_iteration_eu", "mur_iteration_kl")
@@ -540,8 +549,7 @@ def iteration_phase(torch, records, cases, reps):
             check_kernel(torch, records, name, label, f"{dist} lam={lam} bm={bm}",
                          lambda l=lam: kern(x, w, h, lam_w=l, bm=bm),
                          lambda l=lam: ref(x, w, h, lam_w=l), UPDATE_RTOL, reps,
-                         inputs=(x, w, h), flops=mur_flops(name, x, k),
-                         profiled=dist == "eu")
+                         inputs=(x, w, h), flops=mur_flops(name, x, k), profiled=True)
         if pair:
             def two_pass():
                 w1 = mur_fused.mur_w_update(x, w, h, distance_type=dist, lam=0.0)
@@ -554,6 +562,42 @@ def iteration_phase(torch, records, cases, reps):
                   f"{pair_ms:.4f} ms (mur_w_update + mur_h_update, in turns)", flush=True)
         del w, h
     return routes
+
+
+def kl_bits_phase(torch, cases):
+    """Up to KL_ITER_PAIR_RANK mur_iteration_kl runs the 2-pass pair's KL
+    bodies: its W' and objective must be the lagged KL W pass's, its wtr
+    the KL H pass's numerator at that W', bit for bit; above it (its FMA
+    waves) within UPDATE_RTOL of them (launches here count toward no
+    path)."""
+    from tpunmf_torch.ops import mur_fused
+
+    def bits(a):
+        return a.contiguous().view(torch.int32).cpu().numpy().tobytes()
+
+    for label, x, k in cases:
+        m, n = x.shape
+        g = torch.Generator(device="cuda")
+        g.manual_seed(16)
+        w = torch.rand((m, k), generator=g, device="cuda") + 0.1
+        h = torch.rand((k, n), generator=g, device="cuda") + 0.1
+        w_new, wtr, obj = mur_fused.mur_iteration_kl(x, w, h, lam_w=0.2, bm=m)
+        w_pair, obj_pair = mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.2,
+                                                  with_lagged_obj=True)
+        numer = mur_fused.mur_h_update(x, w_new, h, distance_type="kl", lam=0.2)[1]
+        outs = {"W'": (w_new, w_pair), "obj": (obj, obj_pair), "wtr": (wtr, numer)}
+        if mur_fused.iteration_kl_on_pair(k):
+            same = {name: bits(a) == bits(b) for name, (a, b) in outs.items()}
+            print(f"  mur_iteration_kl {label}: the pair's bits in "
+                  f"{', '.join(n for n, ok in same.items() if ok) or 'nothing'}", flush=True)
+            require(all(same.values()), f"mur_iteration_kl {label}: not the pair's bits in "
+                                        f"{[n for n, ok in same.items() if not ok]}")
+        else:
+            rel = max(max_rel_err(a, b) for a, b in outs.values())
+            print(f"  mur_iteration_kl {label} (FMA waves): max relative |single - pair| "
+                  f"{rel:.3e} (tol {UPDATE_RTOL:.0e})", flush=True)
+            require(rel <= UPDATE_RTOL, f"mur_iteration_kl {label}: {rel:.3e} off the pair")
+        del w, h, w_new, wtr, w_pair, numer
 
 
 def sweep_phase(torch, records, cases, reps):
@@ -615,7 +659,8 @@ def opt_in_phase(torch, records, eu_x, k, ragged, reps):
                      lambda: hals_sweep.hals_iteration_eu(x, w, h, bm=bm, **kw),
                      lambda: hals_sweep.hals_iteration_eu_ref(x, w, h, **kw),
                      HALS_ITER_TOL, reps, err=scaled_err, inputs=(x, w, h),
-                     flops=roofline.hals_flops(m, n, kk, x.dtype == torch.bfloat16, nsweeps))
+                     flops=roofline.hals_flops(m, n, kk, x.dtype == torch.bfloat16, nsweeps),
+                     profiled=True)
         del w, h
     line = {}
     for label, x, kk in ((f"{eu} f32", eu_x, k), (f"{eu} bf16", eu_x.bfloat16(), k),
@@ -1447,6 +1492,8 @@ def main() -> int:
     kl2_x = torch.from_numpy(tfidf_like(KL_SINGLE["m"], KL_SINGLE["n"],
                                         n_topics=KL_SINGLE["k"], seed=KL_SINGLE["seed"])).cuda()
     kl2_label = f"KL {tuple(kl2_x.shape)} k{KL_SINGLE['k']} f32"
+    kl3_x = torch.from_numpy(tfidf_like(KL_SINGLE["m"], KL_NARROW, n_topics=KL_SINGLE["k"],
+                                        seed=KL_SINGLE["seed"])).cuda()
     high_kl_label = f"high-rank KL {tuple(kl2_x.shape)} k{HIGH_RANK} f32"
     high_eu_label = f"high-rank EU {tuple(eu_x.shape)} k{HIGH_RANK} f32"
     ragged_np = tfidf_like(1000, 777, n_topics=37, seed=2) + 0.05
@@ -1494,7 +1541,17 @@ def main() -> int:
         (f"ragged {tuple(ragged.shape)} k37 bf16", ragged.bfloat16(), 37, "kl", False),
         (f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k, "eu", True),
         (f"EU {tuple(eu_x.shape)} k{eu_k} bf16", eu_x.bfloat16(), eu_k, "eu", True),
-        (kl2_label, kl2_x, KL_SINGLE["k"], "kl", True)], reps=5)
+        (kl2_label, kl2_x, KL_SINGLE["k"], "kl", True),
+        (kl2_label[:-3] + "bf16", kl2_x.bfloat16(), KL_SINGLE["k"], "kl", False)]
+        # across the KL rank lines (W 320, H 640), where tpunmf's rule admits k 1024
+        + [(f"KL {tuple(kl3_x.shape)} k{k} f32", kl3_x, k, "kl", False)
+           for k in KL_RANKS], reps=5)
+    kl_bits_phase(torch, [
+        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37),
+        (kl2_label, kl2_x, KL_SINGLE["k"]),
+        (kl2_label[:-3] + "bf16", kl2_x.bfloat16(), KL_SINGLE["k"])]
+        + [(f"KL {tuple(kl3_x.shape)} k{k} f32", kl3_x, k) for k in KL_RANKS])
+    del kl3_x
     sweep_phase(torch, records, [
         (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37),
         (f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k)], reps=3)

@@ -12,7 +12,7 @@ import torch
 import tpunmf_torch
 from _torch_parity import (cuda_device, kernel_problem, lowrank,  # noqa: F401
                            masked_problem, t)
-from tpunmf_torch.ops import (_build, fused, hals_sweep, masked_fused, mur_fused,
+from tpunmf_torch.ops import (_build, _launch, fused, hals_sweep, masked_fused, mur_fused,
                               mur_variants, read_probe, topk_select)
 from tpunmf_torch.serve import topk
 from tpunmf_torch.solvers import cuda_defaults
@@ -633,8 +633,9 @@ def _iteration(which, x, w, h, lam):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 37, 128, 512])
-@pytest.mark.parametrize("n", [777, 50001])  # one wave of rows; five, the last ragged
+# across both KL rank lines (the W pass's 320, the H pass's 640)
+@pytest.mark.parametrize("k", [1, 37, 128, 320, 512, 768])
+@pytest.mark.parametrize("n", [777, 50001])
 @pytest.mark.parametrize("which", ["eu", "kl"])
 def test_iteration_kernels_match_plain_versions(cuda_device, which, n, k, xdtype):
     x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
@@ -658,7 +659,39 @@ def test_iteration_kl_objective_is_the_lagged_w_pass_s(cuda_device):
     torch.testing.assert_close(obj, fused.kl_obj_ref(x, w, h), rtol=RTOL, atol=0)
     lagged = mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.0,
                                     with_lagged_obj=True)[1]
-    torch.testing.assert_close(obj, lagged, rtol=RTOL, atol=0)
+    assert _bits(obj) == _bits(lagged)
+
+
+def _bits(a):
+    """The bits of a float32 tensor, to compare two results bit for bit."""
+    return a.contiguous().view(torch.int32).cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [37, mur_fused.KL_W_TC_RANK, 384, mur_fused.KL_ITER_PAIR_RANK, 768])
+def test_iteration_kl_is_the_pair_s_passes(cuda_device, k, xdtype):
+    """Up to KL_ITER_PAIR_RANK mur_iteration_kl runs the pair's KL bodies
+    with their default splits: its W' and objective are the lagged KL W
+    pass's, its wtr the KL H pass's numerator at that W', bit for bit (k 37
+    and 320 on the tensor cores on both sides, 384 and 448 the W pass's FMA
+    body and the H pass's tensor cores).  Above it (768) its FMA waves sum in
+    another order: within RTOL of the pair's.  One launch, counted as
+    mur_iteration_kl's alone; m = 1000 is ragged (not a multiple of 64)
+    and n = 777 odd (H padded for the W pass, not for the H pass)."""
+    x, w, h = _on(cuda_device, xdtype, m=1000, n=777, k=k)
+    before = _launches()
+    w_new, wtr, obj = mur_fused.mur_iteration_kl(x, w, h, lam_w=0.2, bm=1000)
+    assert [a - b for a, b in zip(_launches(), before)] == \
+        [int(c == (mur_fused.mur_iteration_kl, "launches")) for c in COUNTERS]
+    w_pair, obj_pair = mur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.2,
+                                              with_lagged_obj=True)
+    numer = mur_fused.mur_h_update(x, w_new, h, distance_type="kl", lam=0.2)[1]
+    for got, pair in ((w_new, w_pair), (obj, obj_pair), (wtr, numer)):
+        if mur_fused.iteration_kl_on_pair(k):
+            assert _bits(got) == _bits(pair)
+        else:
+            torch.testing.assert_close(got, pair, rtol=RTOL, atol=0)
 
 
 @pytest.mark.cuda
@@ -940,7 +973,7 @@ def test_high_rank_step_matches_plain_route(cuda_device, dist):
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 40, 128, 513])
-@pytest.mark.parametrize("n", [777, 50001])  # one wave of rows; five, the last ragged
+@pytest.mark.parametrize("n", [777, 50001])  # 50001: (A) over 88 column chunks of X
 def test_hals_iteration_matches_plain_version(cuda_device, n, k, xdtype):
     x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
     for nsweeps, lam in ((1, 0.0), (2, 0.3)):
@@ -956,6 +989,61 @@ def test_hals_iteration_matches_plain_version(cuda_device, n, k, xdtype):
         assert (got[0] >= 0).all()
         again = hals_sweep.hals_iteration_eu(x, w, h, lam_w=lam, nsweeps=nsweeps, bm=300)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_hals_iteration_in_one_wave_above_rank_256(cuda_device, xdtype):
+    """4096 x 3000 f32 is 48 MB, two L2-sized waves of rows (24 MB each);
+    on the tensor cores all of X is one wave, and k = 264 ends in a short
+    128-wide tile of k: within the plain version's scale, W' non-negative,
+    the same bits again."""
+    x, w, h = _on(cuda_device, xdtype, m=4096, n=3000, k=264)
+    got = hals_sweep.hals_iteration_eu(x, w, h, lam_w=0.3, nsweeps=2, bm=4096)
+    want = hals_sweep.hals_iteration_eu_ref(x, w, h, lam_w=0.3, nsweeps=2)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        assert _scaled_err(a, b) <= RTOL
+    assert (got[0] >= 0).all()
+    again = hals_sweep.hals_iteration_eu(x, w, h, lam_w=0.3, nsweeps=2, bm=4096)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# HALS's single pass on the tensor cores: mur_iteration_eu's plan without
+# its den block (m x k), counted in 64 bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8192, 8192, 128), (1000, 777, 40), (4096, 3000, 264),
+                                   (2**23 + 1, 16, 256)])  # one wave of partials past INT_MAX
+def test_hals_scratch_is_the_eu_plan_without_den(cuda_device, m, n, k):
+    lib = _build.library()
+    for x_bytes in (4, 2):
+        hals = lib.tpunmf_iteration_scratch(m, n, k, x_bytes, _launch.WAVE_HALS)
+        eu = lib.tpunmf_iteration_scratch(m, n, k, x_bytes, _launch.WAVE_MUR_EU_TC)
+        assert eu - hals == m * k
+        assert hals >= -(-m // 128) * 128 * k  # one partial of all of X's rows
+    assert lib.tpunmf_iteration_scratch(2**23 + 1, 16, 256, 4, _launch.WAVE_HALS) > 2**31 - 1
+    assert lib.tpunmf_iteration_scratch(m, n, k, 4, 4) == -1  # no such kind
+    with pytest.raises(ValueError, match="no single-pass iteration"):
+        _launch.wave_scratch(torch.empty((m, n), device="meta"), k, 4)
+
+
+@pytest.mark.cuda
+def test_hals_iteration_refuses_a_short_scratch(cuda_device):
+    x, w, h = _on(cuda_device, torch.float32, m=1000, n=777, k=40)
+    m, n, k = 1000, 777, 40
+    lib = _build.library()
+    floats = lib.tpunmf_iteration_scratch(m, n, k, 4, _launch.WAVE_HALS)
+    scratch = torch.empty(floats, device=cuda_device)
+    outs = (torch.empty_like(w), torch.empty_like(h), torch.empty((k, k), device=cuda_device))
+    hht = h @ h.T
+    stream = torch.cuda.current_stream().cuda_stream
+    for length, status in ((floats, 0), (floats - 1, 1)):  # 1: cudaErrorInvalidValue
+        assert lib.tpunmf_hals_iteration_eu(
+            x.data_ptr(), 0, w.data_ptr(), h.data_ptr(), hht.data_ptr(), 0.0, m, n, k, 1,
+            *(o.data_ptr() for o in outs), scratch.data_ptr(), length, stream) == status
+    want = hals_sweep.hals_iteration_eu_ref(x, w, h, lam_w=0.0, nsweeps=1)
+    assert all(_scaled_err(a, b) <= RTOL for a, b in zip(outs, want))
 
 
 @pytest.mark.cuda

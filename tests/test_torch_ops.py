@@ -488,6 +488,22 @@ def _ctype(decl):
     raise ValueError(decl)
 
 
+def _c_enum(source, name):
+    """{enumerator: value} of ``enum name { ... }`` in a source of ops/csrc."""
+    body = re.search(r"enum %s \{([^}]*)\}" % name, (_build._CSRC / source).read_text()).group(1)
+    return {key.strip(): int(value) for key, value in
+            (item.split("=") for item in body.split(","))}
+
+
+def test_wave_kinds_are_the_c_plan_s():
+    """The scratch kinds the wrappers ask tpunmf_iteration_scratch for are
+    wave.cuh's plan kinds: MUR EU on FMA tiles, MUR KL's FMA waves, HALS
+    and MUR EU on the tensor cores."""
+    assert _c_enum("wave.cuh", "Wave") == {
+        "kWaveEu": _launch.WAVE_MUR_EU, "kWaveKl": _launch.WAVE_MUR_KL,
+        "kWaveHals": _launch.WAVE_HALS, "kWaveEuTc": _launch.WAVE_MUR_EU_TC}
+
+
 @pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
 def test_c_signatures_follow_the_c_prototypes(name):
     """Each ctypes signature is its C entry's, parameter by parameter and

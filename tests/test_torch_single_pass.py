@@ -70,6 +70,28 @@ def test_iteration_kl_matches_pallas_kernel_with_zeros(lam, bs):
     assert torch.equal(got_o, lagged)
 
 
+@pytest.mark.parametrize("k,pair", [(1, True), (37, True), (tmur_fused.KL_W_TC_RANK, True),
+                                    (tmur_fused.KL_ITER_PAIR_RANK, True),
+                                    (tmur_fused.KL_ITER_PAIR_RANK + 1, False), (1024, False)])
+def test_iteration_kl_is_the_pair_s_plain_passes_composed(k, pair):
+    """On the card mur_iteration_kl runs the pair's KL bodies up to
+    KL_ITER_PAIR_RANK (between the W pass's tensor-core line and the H
+    pass's) and its own FMA waves above it; on the CPU, on either side of
+    the line, its plain version is the pair's plain passes composed, bit
+    for bit: the lagged W pass, then the H pass's numerator at its W."""
+    assert tmur_fused.iteration_kl_on_pair(k) is pair
+    assert tmur_fused.KL_W_TC_RANK <= tmur_fused.KL_ITER_PAIR_RANK < tmur_fused.KL_H_TC_RANK
+    x, w, h = (t(a) for a in kernel_problem(23, m=9, n=7, k=k, zeros=True))
+    before = tmur_fused.mur_iteration_kl.launches
+    w_new, wtr, obj = tmur_fused.mur_iteration_kl(x, w, h, lam_w=0.1, bm=9)
+    w_pair, obj_pair = tmur_fused.mur_w_update(x, w, h, distance_type="kl", lam=0.1,
+                                               with_lagged_obj=True)
+    numer = tmur_fused.mur_h_update(x, w_new, h, distance_type="kl", lam=0.1)[1]
+    assert torch.equal(w_new, w_pair) and torch.equal(obj, obj_pair)
+    assert torch.equal(wtr, numer)
+    assert tmur_fused.mur_iteration_kl.launches == before
+
+
 def test_iteration_wrappers_check_the_strips_as_tpunmf():
     x, w, h = (t(a) for a in kernel_problem(22))
     with pytest.raises(ValueError, match="bm=48 must divide m=64"):

@@ -2,7 +2,7 @@
 """Time the MUR passes, the masked passes and the objective passes on one
 CUDA card, alone and in turns with the same kernels of another checkout.
 
-    python3 tools/kernel_turns.py [--parent DIR] [--only mur|w|masked|objectives|gram]
+    python3 tools/kernel_turns.py [--parent DIR] [--only mur|w|single|masked|objectives|gram]
 
 DIR is a checkout of another commit (for instance the parent, unpacked
 with ``git archive`` into a git-ignored directory); its kernels are built
@@ -48,6 +48,15 @@ Cases, on chip_smoke.py's data recipes:
   - eu_residual_obj at 8192 x 8192 r128 and r1536 and at BASELINE
     config[3] (50000 x 20000 r128); kl_obj at config[1] (20000 x 11000
     r50) and 8192 x 4096 r1536.
+With --only single, the two single passes alone, each side through its
+own C entry with its buffers made once: mur_iteration_kl at 8192 x 4096
+r128 (tfidf_like seed 4, f32 and bf16 X) and at 8192 x 1024 (tfidf_like
+seed 4) at k 256, 384, 448, 512, 768 and 1024, across the KL rank lines
+(this checkout's entry of the pair's bodies at every k, which the wrapper
+takes up to mur_fused.KL_ITER_PAIR_RANK);
+hals_iteration_eu at 8192 x 8192 r128 (lowrank_dense seed 0) f32 at 2
+and 1 sweeps and bf16 at 2; each also with its profiler device time (and
+the other's).
 With --only gram, no times: the Gram objective near convergence of
 tests/test_torch_cuda.py (2000 x 1500 r64, six seeds) from this
 checkout's mur_iteration_eu and mur_h_update and, with DIR, the other's,
@@ -116,9 +125,10 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout whose kernels to time in turns")
-    ap.add_argument("--only", choices=("mur", "w", "masked", "objectives", "gram"),
+    ap.add_argument("--only", choices=("mur", "w", "single", "masked", "objectives", "gram"),
                     help="time one family of cases (w: the MUR W pass alone, a part of "
-                         "mur; gram: accuracy, no times)")
+                         "mur; single: mur_iteration_kl and hals_iteration_eu; gram: "
+                         "accuracy, no times)")
     args = ap.parse_args()
 
     import chip_smoke as cs
@@ -367,6 +377,106 @@ def main() -> int:
 
     if args.only == "gram":
         gram_cases()
+        print(card)
+        return 0
+
+    # ------------------------------------------------- the two single passes
+    def device_line(this_fn, other_fn):
+        line = (f"    device time (profiler, 10 calls): this "
+                f"{cs.device_ms(torch, this_fn, 10):.4f} ms")
+        if other_fn is not None:
+            line += f", other {cs.device_ms(torch, other_fn, 10):.4f} ms"
+        print(line, flush=True)
+
+    def kl_entry(lib_, x, w, h):
+        """A call of mur_iteration_kl through the C entry of ``lib_``, its
+        buffers made once: since the pair's bodies, the pair's splits and
+        scratch; before, the wave plan's scratch (kind 1)."""
+        m, n = x.shape
+        k = w.shape[1]
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        hsum = torch.sum(h, dim=1)
+        outs = (torch.empty_like(w), torch.empty_like(h), torch.empty((), device="cuda"))
+        if len(lib_.tpunmf_mur_iteration_kl.argtypes) == 14:
+            scratch = torch.empty(max(lib_.tpunmf_iteration_scratch(m, n, k, x.element_size(),
+                                                                      1), 1), device="cuda")
+            args = (x.data_ptr(), is_bf16, w.data_ptr(), h.data_ptr(), hsum.data_ptr(), 0.0,
+                    m, n, k, *(o.data_ptr() for o in outs), scratch.data_ptr(), stream())
+        else:
+            tc = mur_fused.kl_w_on_tensor_cores(k)
+            splits = mur_fused.w_splits(m, n, k)
+            ldh = mf.h_stride(n) if tc else n
+            hp = torch.nn.functional.pad(h, (0, ldh - n)) if ldh != n else h
+            w_floats = mur_fused.w_scratch_floats(splits, m, k)
+            rows = mur_fused.h_splits(m, n, k, "kl")
+            h_floats = mur_fused.h_scratch_floats(rows, n, k)
+            bufs = (torch.empty(max(w_floats, 1), device="cuda"),
+                    torch.empty(lib_.tpunmf_mur_w_lagged_blocks(m, k, splits), device="cuda"),
+                    torch.empty(max(h_floats, 1), device="cuda"))
+            scratch = (hp, *bufs)
+            args = (x.data_ptr(), is_bf16, w.data_ptr(), h.data_ptr(), hp.data_ptr(), ldh,
+                    hsum.data_ptr(), 0.0, m, n, k, splits, bufs[0].data_ptr(), w_floats,
+                    bufs[1].data_ptr(), rows, bufs[2].data_ptr(), h_floats,
+                    *(o.data_ptr() for o in outs), stream())
+
+        def fn(keep=(hsum, scratch)):  # keep: the tensors behind args' pointers
+            _build.check(lib_.tpunmf_mur_iteration_kl(*args), "mur_iteration_kl")
+            return outs
+        return fn
+
+    def hals_entry(lib_, x, w, h, nsweeps):
+        """A call of hals_iteration_eu through the C entry of ``lib_``, its
+        buffers made once (the entries before the tensor cores took no
+        scratch length)."""
+        m, n = x.shape
+        k = w.shape[1]
+        hc, hht = h.to(x.dtype), h @ h.T
+        outs = (torch.empty_like(w), torch.empty_like(h), torch.empty_like(hht))
+        floats = lib_.tpunmf_iteration_scratch(m, n, k, x.element_size(), 2)
+        scratch = torch.empty(max(floats, 1), device="cuda")
+        head = (x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(),
+                hht.data_ptr(), 0.0, m, n, k, nsweeps)
+        ptrs = tuple(o.data_ptr() for o in outs)
+        args = ((*head, *ptrs, scratch.data_ptr(), stream())
+                if len(lib_.tpunmf_hals_iteration_eu.argtypes) == 15 else
+                (*head, *ptrs, scratch.data_ptr(), floats, stream()))
+
+        def fn(keep=(hc, hht, scratch)):  # keep: the tensors behind args' pointers
+            _build.check(lib_.tpunmf_hals_iteration_eu(*args), "hals_iteration_eu")
+            return outs
+        return fn
+
+    def single_cases():
+        print(f"single passes, through the C entries ({card})", flush=True)
+        x = torch.from_numpy(tfidf_like(8192, 4096, n_topics=128, seed=4)).cuda()
+        cases = [(f"8192x4096 {dt}", xx, 128) for xx, dt in ((x, "f32"), (x.bfloat16(), "bf16"))]
+        x1 = torch.from_numpy(tfidf_like(8192, 1024, n_topics=128, seed=4)).cuda()
+        cases += [("8192x1024 f32", x1, k) for k in (256, 384, 448, 512, 768, 1024)]
+        for label, xx, k in cases:
+            w, h = factors(*xx.shape, k, 14)
+            this_fn = kl_entry(lib, xx, w, h)
+            other_fn = kl_entry(other, xx, w, h) if other is not None else None
+            tc = (f"W {'tensor cores' if mur_fused.kl_w_on_tensor_cores(k) else 'FMA'}, H "
+                  f"{'tensor cores' if k <= mur_fused.KL_H_TC_RANK else 'FMA'}")
+            report(f"mur_iteration_kl {label} k{k} ({tc})", this_fn, other_fn,
+                   3 if k <= 256 else 2)
+            device_line(this_fn, other_fn)
+            del w, h
+        del x, x1, cases
+        x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
+        for xx, dt, nsweeps in ((x, "f32", 2), (x, "f32", 1), (x.bfloat16(), "bf16", 2)):
+            w, h = factors(8192, 8192, 128, 15)
+            this_fn = hals_entry(lib, xx, w, h, nsweeps)
+            other_fn = hals_entry(other, xx, w, h, nsweeps) if other is not None else None
+            report(f"hals_iteration_eu 8192x8192 {dt} k128 sweeps={nsweeps}", this_fn, other_fn,
+                   3)
+            device_line(this_fn, other_fn)
+            del w, h
+        del x
+        torch.cuda.empty_cache()
+
+    if args.only == "single":
+        single_cases()
         print(card)
         return 0
 

@@ -49,13 +49,19 @@ _SIGNATURES = {
     # x, x_is_bf16, w, hc (H in X's type), gh, lam, m, n, k, w_out, wtx,
     # gram, scratch, dma, stream
     "tpunmf_mur_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _I, _P),
+    # x, x_is_bf16, w, h, hp (H at row stride ldh), ldh, hsum, lam, m, n, k,
+    # w_splits, w_part, w_part_len (floats, 64-bit), partials, h_splits,
+    # h_part, h_part_len, w_out, wtr, obj, stream
+    "tpunmf_mur_iteration_kl": (_P, _I, _P, _P, _P, _I, _P, _F, _I, _I, _I, _I, _P, _L, _P, _I,
+                                _P, _L, _P, _P, _P, _P),
     # x, x_is_bf16, w, h, hsum, lam, m, n, k, w_out, wtr, obj, scratch, stream
-    "tpunmf_mur_iteration_kl": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P),
+    "tpunmf_mur_iteration_kl_waves": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P),
     # x, x_is_bf16, w, hc (H in X's type), hht, lam, m, n, k, nsweeps,
-    # w_out, wtx, gram, scratch, stream
-    "tpunmf_hals_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # m, n, k, x_bytes (X's element size), kind (0 MUR EU and its variants,
-    # 1 MUR KL, 2 HALS) -> floats of scratch the single-pass iteration needs
+    # w_out, wtx, gram, scratch, scratch_len (floats, 64-bit), stream
+    "tpunmf_hals_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P),
+    # m, n, k, x_bytes (X's element size), kind (0 MUR EU's FMA variants,
+    # 1 MUR KL's FMA waves, 2 HALS, 3 MUR EU) -> floats of scratch the
+    # single-pass iteration needs (64-bit; -1 for another kind)
     "tpunmf_iteration_scratch": (_I, _I, _I, _I, _I),
     # x, x_is_bf16, ht (H^T (n, k) in X's type), w, gh, m, n, k, w_out,
     # wtx, gram, scratch, stream
@@ -95,7 +101,7 @@ _SIGNATURES = {
     "tpunmf_score_blockmax": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 # entry points whose result is not an int
-_RESULTS = {"tpunmf_mur_w_eu_scratch": _L}
+_RESULTS = {"tpunmf_mur_w_eu_scratch": _L, "tpunmf_iteration_scratch": _L}
 
 
 def _nvcc() -> str:

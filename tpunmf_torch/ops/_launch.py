@@ -65,18 +65,19 @@ def check_strips(x, bm, bs=None):
 
 
 # the single-pass iterations of csrc/wave.cuh, as tpunmf_iteration_scratch counts them:
-# MUR EU on FMA tiles (the "dma" variant, the sweep scripts'), MUR KL, HALS EU,
-# MUR EU on the tensor cores (mur_iteration_eu)
+# MUR EU on FMA tiles (the "dma" variant, the sweep scripts'), MUR KL's FMA waves
+# (above mur_fused.KL_ITER_PAIR_RANK), HALS EU and MUR EU (mur_iteration_eu), both
+# on the tensor cores
 WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS, WAVE_MUR_EU_TC = 0, 1, 2, 3
 
 
 def wave_scratch(x, k: int, kind: int) -> torch.Tensor:
-    """The float32 scratch a single-pass iteration of ``kind`` needs."""
+    """The float32 scratch a single-pass iteration of ``kind`` needs (its
+    length, counted in 64 bits by the C entry, is ``numel()``)."""
     m, n = x.shape
     count = _build.library().tpunmf_iteration_scratch(m, n, k, x.element_size(), kind)
     if count < 0:
-        raise ValueError(f"shape {tuple(x.shape)} at k={k} needs more scratch "
-                         "than the kernel can index")
+        raise ValueError(f"no single-pass iteration of kind {kind}")
     return torch.empty(max(count, 1), dtype=torch.float32, device=x.device)
 
 

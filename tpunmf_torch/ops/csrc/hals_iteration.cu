@@ -8,21 +8,28 @@
 //   of W against G = H H^T (eps 1e-16, tpunmf/solvers/hals.py:54-69),
 //   wtx = round(W')^T X, gram = W'^T W'                 (round: to X's type)
 //
-// The TPU kernel keeps p = W G as a running rank-1 update inside its strip;
-// the chain here recomputes each step's dot product (gs_chain, as gs_sweep
-// does): the same function with another rounding.
+// What bounds it on the H100: the two products against X, 4*m*n*k flops on
+// one read of X, as mur_iteration.cu's EU iteration (0.208 ms at 8192 x
+// 8192 r128 f32 with the products at 3xTF32); the sweeps add 2*nsweeps*m*k^2
+// flops, a serial chain of k steps a row whose steps are bound by their
+// latency, so the rows' chains have to run side by side to fill the card.
 //
-// What bounds it on the H100: the two products against X, 4*m*n*k f32 FMA
-// flops on one read of X, as mur_iteration.cu's EU iteration; the sweeps
-// add 2*nsweeps*m*k^2 flops, a serial chain along k whose steps are bound
-// by the latency of a warp's dot product and butterfly.  Design: the EU
-// wave schedule of wave.cuh (MUR's single pass) with the elementwise W
-// update replaced by a sweep epilogue: for each wave, after the row kernel
-// (A) has written X round(H)^T in column-chunk partials, one warp owns one
-// row of W, adds the row's partials in a fixed order (the launch after (A)
-// in stream order, so every partial is written before a sweep reads it),
-// and runs the chain against G in registers; the column kernel (B) then
-// reads the wave's W' with X still in L2.  No W Gh denominator is formed.
+// Design: mur_iteration_eu's stages on the tensor cores (wave.cuh's
+// TcStages: 128 x 128 tiles of 3xTF32 mma.sync, one TF32 product a step at
+// bf16 X, every step's sum rounded to nearest), all of X in one wave (plan
+// kind kWaveHals), with the elementwise W update replaced by a sweep
+// epilogue: after (A) has written X round(H)^T in column-chunk partials,
+// one warp owns one row of W, adds the row's partials in a fixed order
+// (the launch after (A) in stream order, so every partial is written
+// before a sweep reads it) and runs the chain against G; one wave puts all
+// m rows' chains in flight at once (8192 warps at 8192 x 8192, 62 an SM).
+// (B) then reads W'.  The Gram W'^T W' stays on FMA tiles.  No W Gh
+// denominator is formed.  The chain is gs_sweep's (gs_chain, common.cuh:
+// each step recomputes G[l, :] . W[r] with a butterfly), not the TPU
+// kernel's running p = W G with a rank-1 update a step: that one was
+// slower on an H100 (1.014 against 0.954 ms a pass at 8192 x 8192 r128)
+// and its p drifted past the card test's 1e-4 (6.4e-4 at 4096 x 3000
+// k 264; PERF.md).
 // Built without --use_fast_math: the division stays IEEE.
 #include "wave.cuh"
 
@@ -31,8 +38,8 @@ namespace {
 
 constexpr int kWarps = kThreads / 32;
 
-// (A2) W' for the wave's rows [r0, r1): xht[r] = the chunks' partials added
-// in order, then nsweeps sweeps of W[r] against g = H H^T (k, k); one warp a
+// (A2) W' for the rows [r0, r1): xht[r] = the chunks' partials added in
+// order, then nsweeps sweeps of W[r] against g = H H^T (k, k); one warp a
 // row, lane t holding columns t + 32 i.
 template <int KPT>
 __global__ void __launch_bounds__(kThreads)
@@ -62,17 +69,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename XT, int KPT>
-cudaError_t iteration_hals(const void* xv, const void* hv, const float* w, const float* g,
-                           float lam, int m, int n, int k, int nsweeps, float* w_out, float* wtx,
-                           float* gram, float* scratch, cudaStream_t s) {
-  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveHals);
+cudaError_t iteration_hals(const Plan& p, const void* xv, const void* hv, const float* w,
+                           const float* g, float lam, int m, int n, int k, int nsweeps,
+                           float* w_out, float* wtx, float* gram, float* scratch,
+                           cudaStream_t s) {
   const float* part = scratch + p.a_part;
   auto sweeps = [&](int r0, int r1) {
     return launch(hals_w_kernel<KPT>, dim3(ceil_div(r1 - r0, kWarps)), 0, s, w, g, part,
                   p.nsplit, lam, k, r0, r1, p.rows, nsweeps, w_out);
   };
-  return eu_waves<XT, XT, false, false>(p, static_cast<const XT*>(xv), static_cast<const XT*>(hv),
-                                        m, n, k, sweeps, w_out, wtx, gram, scratch, s);
+  return eu_waves<XT, XT, false, false, TcStages<XT>>(
+      p, static_cast<const XT*>(xv), static_cast<const XT*>(hv), m, n, k, sweeps, w_out, wtx,
+      gram, scratch, s);
 }
 
 }  // namespace
@@ -82,11 +90,15 @@ extern "C" {
 
 // HALS iteration.  hc is H (k, n) in X's type, hht = H H^T (k, k); writes
 // W' (m, k) after nsweeps sweeps, wtx = round(W')^T X (k, n) and gram =
-// W'^T W' (k, k).  k <= 1024; scratch: tpunmf_iteration_scratch(kind 2).
+// W'^T W' (k, k).  k <= 1024; scratch holds scratch_len floats, at least
+// tpunmf_iteration_scratch's of kind 2 (fewer: cudaErrorInvalidValue).
 int tpunmf_hals_iteration_eu(const void* x, int x_is_bf16, const void* w, const void* hc,
                              const void* hht, float lam, int m, int n, int k, int nsweeps,
-                             void* w_out, void* wtx, void* gram, void* scratch, void* stream) {
+                             void* w_out, void* wtx, void* gram, void* scratch,
+                             long long scratch_len, void* stream) {
   using namespace tpunmf;
+  const Plan p = make_plan(m, n, k, x_is_bf16 ? 2 : 4, kWaveHals);
+  if (scratch_len < p.scratch) return static_cast<int>(cudaErrorInvalidValue);
   const float* wf = static_cast<const float*>(w);
   const float* gf = static_cast<const float*>(hht);
   float* wo = static_cast<float*>(w_out);
@@ -96,10 +108,10 @@ int tpunmf_hals_iteration_eu(const void* x, int x_is_bf16, const void* w, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_kpt(k, [&](auto kpt) {
     constexpr int KPT = decltype(kpt)::value;
-    return x_is_bf16 ? iteration_hals<__nv_bfloat16, KPT>(x, hc, wf, gf, lam, m, n, k, nsweeps,
-                                                          wo, tx, gr, sc, s)
-                     : iteration_hals<float, KPT>(x, hc, wf, gf, lam, m, n, k, nsweeps, wo, tx,
-                                                  gr, sc, s);
+    return x_is_bf16 ? iteration_hals<__nv_bfloat16, KPT>(p, x, hc, wf, gf, lam, m, n, k,
+                                                          nsweeps, wo, tx, gr, sc, s)
+                     : iteration_hals<float, KPT>(p, x, hc, wf, gf, lam, m, n, k, nsweeps, wo,
+                                                  tx, gr, sc, s);
   }));
 }
 

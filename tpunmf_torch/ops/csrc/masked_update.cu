@@ -58,15 +58,16 @@
 //
 // MUR's KL passes (mur_update.cu) are these passes with M = 1 (NoMask): each
 // step sums P = X / (S + eps) alone, one product a step.  The H pass writes
-// one partial sum a split, and kl_h_finish adds them and applies MUR's KL
-// update (d = colsum(W), no guard).  The W pass also splits X's columns
-// into `splits` ranges of whole 64-column tiles (a grid axis; the wrapper
-// picks the count from the shape, ops/mur_fused.py), so that BASELINE
-// config[1]'s 313 row tiles make eight waves of the card instead of 1.2;
-// with one split it applies MUR's KL update in its epilogue (b = rowsum(H),
-// a k-vector formed outside; no guard), with more each block writes its
-// raw sums to a partial and kl_w_finish adds the partials in split order
-// and applies the update.  Its lagged form also sums the masked KL of the
+// one partial sum a split (kl_h_sums), and kl_h_finish adds them and
+// applies MUR's KL update (d = colsum(W), no guard); the single-pass KL
+// iteration (mur_iteration.cu) adds them into its numerator instead.  The
+// W pass also splits X's columns into `splits` ranges of whole 64-column
+// tiles (a grid axis; the wrapper picks the count from the shape,
+// ops/mur_fused.py), so that BASELINE config[1]'s 313 row tiles make eight
+// waves of the card instead of 1.2; with one split it applies MUR's KL
+// update in its epilogue (b = rowsum(H), a k-vector formed outside; no
+// guard), with more each block writes its raw sums to a partial and
+// kl_w_finish adds the partials in split order and applies the update.  Its lagged form also sums the masked KL of the
 // incoming (W, H) over its S entries, with the raw S in the log
 // (tpunmf/core/losses.py:20-25): only the blocks of the first chunk of k
 // add (every chunk forms the same S), each writing one partial that
@@ -525,23 +526,31 @@ cudaError_t with_types(int x_is_bf16, int mask_is_byte, const void* x, const voi
 
 }  // namespace
 
-// MUR's KL H half-update (mur_update.cu) on the tensor cores: kernel 1 of
-// the masked H pass with M = 1 over `splits` row ranges, then kl_h_finish.
-// part holds splits * k * n floats, or is numer where splits == 1.
-cudaError_t kl_h_pass(const void* x, int x_is_bf16, const float* w, const float* h,
-                      const float* wsum, float lam, int m, int n, int k, float* part,
-                      int splits, float* h_out, float* numer, cudaStream_t s) {
+// MUR's KL H numerator W^T (X / (W H + eps)) on the tensor cores: kernel 1
+// of the masked H pass with M = 1 over `splits` row ranges, one k x n
+// partial sum a split in part (splits * k * n floats; where splits == 1,
+// part may be the numerator itself).
+cudaError_t kl_h_sums(const void* x, int x_is_bf16, const float* w, const float* h, int m,
+                      int n, int k, float* part, int splits, cudaStream_t s) {
   const int tiles_per = ceil_div(ceil_div(m, kHTile), splits);
   const dim3 grid(ceil_div(n, kHTile), splits, ceil_div(k, kHTile));
   const bool w_aligned = k % 4 == 0 && aligned16(w), h_aligned = n % 4 == 0 && aligned16(h);
   const NoMask* none = nullptr;
-  cudaError_t err =
-      x_is_bf16 ? launch(masked_h_tc_kernel<__nv_bfloat16, NoMask>, grid, sizeof(HSmem), s,
-                         static_cast<const __nv_bfloat16*>(x), none, w, h, m, n, k, tiles_per,
-                         true, w_aligned, h_aligned, part)
-                : launch(masked_h_tc_kernel<float, NoMask>, grid, sizeof(HSmem), s,
-                         static_cast<const float*>(x), none, w, h, m, n, k, tiles_per, true,
-                         w_aligned, h_aligned, part);
+  return x_is_bf16 ? launch(masked_h_tc_kernel<__nv_bfloat16, NoMask>, grid, sizeof(HSmem), s,
+                            static_cast<const __nv_bfloat16*>(x), none, w, h, m, n, k,
+                            tiles_per, true, w_aligned, h_aligned, part)
+                   : launch(masked_h_tc_kernel<float, NoMask>, grid, sizeof(HSmem), s,
+                            static_cast<const float*>(x), none, w, h, m, n, k, tiles_per, true,
+                            w_aligned, h_aligned, part);
+}
+
+// MUR's KL H half-update (mur_update.cu) on the tensor cores: kl_h_sums,
+// then kl_h_finish.  part holds splits * k * n floats, or is numer where
+// splits == 1.
+cudaError_t kl_h_pass(const void* x, int x_is_bf16, const float* w, const float* h,
+                      const float* wsum, float lam, int m, int n, int k, float* part,
+                      int splits, float* h_out, float* numer, cudaStream_t s) {
+  cudaError_t err = kl_h_sums(x, x_is_bf16, w, h, m, n, k, part, splits, s);
   if (err != cudaSuccess) return err;
   const long long plane = (long long)k * n;
   kl_h_finish<<<(unsigned)((plane + kThreads - 1) / kThreads), kThreads, 0, s>>>(

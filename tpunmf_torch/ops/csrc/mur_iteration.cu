@@ -6,14 +6,13 @@
 //   mur_iteration_eu_dma (:465, pallas_call :484): _iter_eu_dma_kernel (:368)
 //   mur_iteration_kl (:652, pallas_call :679): _iter_kl_kernel (:522) and
 //       _iter_kl_blocked_kernel (:595); the latter's column sub-blocks (bs)
-//       were a VMEM tiling of the TPU, and the kernels here stream over
-//       columns anyway, so one design serves both bodies.
+//       were a VMEM tiling of the TPU, so one design serves both bodies.
 //
 //   EU: numer = X round(H)^T, W' = W * numer / (W Gh + lam W + eps),
 //       wtx = round(W')^T X, gram = W'^T W'          (round: to X's type)
 //   KL: a = W * ((X / (W H + eps)) H^T), b = rowsum(H),
 //       W' = 2a / (b + sqrt(b^2 + 4 lam a)), wtr = W'^T (X / (W' H + eps)),
-//       obj = masked KL of the incoming (W, H), from the first W H tiles
+//       obj = masked KL of the incoming (W, H), from the W pass's W H tiles
 //
 // What bounds them on the H100: EU does 4*m*n*k flops of products and KL
 // 8*m*n*k on one read of X, k to 2k flops per X byte at f32 (twice that at
@@ -21,25 +20,20 @@
 // f32 work, tf32x3.cuh) the ridge is 49 flops a byte, so at the ranks these
 // kernels serve the products bound them: EU at 8192 x 8192 r128 f32, 3.44e10
 // flops, takes 0.208 ms against 0.080 ms of reading X.  The TPU kernels
-// exist to read X once instead of twice; that is what this design keeps.
+// exist to read X once instead of twice; on this card a second read costs
+// a fraction of the products' bound (0.047 ms of the f32 X at 8192 x 4096,
+// at the 2.873 TB/s measured, against KL's 0.208 ms of products).
 //
-// Design: the wave schedule of wave.cuh, which lets the 50 MB L2 stand in
-// for the TPU's VMEM.  Per wave: (A) X round(H)^T, or for KL kl_rows (with
-// the lagged objective); (A2) EU's elementwise W update with the
-// denominator W Gh, formed for all rows before the first wave by w_g_tile
-// (the product mur_update.cu's w_eu_kernel forms), or KL's closed form;
-// (B) round(W')^T X, or for KL kl_cols (which recomputes W' H).  KL's
-// objective is summed by reduce_partials_into (objective.cu).  The EU pass
-// is mur_eu_waves (wave.cuh), which the sweep scripts' variants
-// (mur_variants.cu) share.
-//
-// mur_iteration_eu runs (A) and (B) on the tensor cores (wave.cuh's
-// TcStages: 128 x 128 tiles of 3xTF32 mma.sync, one TF32 product a step at
-// bf16 X, every step's sum rounded to nearest, all of X in one wave); the
-// denominator W Gh
-// and the Gram W'^T W' (2 m k^2 flops each, 1% of the products at r128)
-// stay on FMA tiles.  The "dma" EU variant and KL keep FMA tiles: the
-// "dma" variant runs (A) and (B) on the two-stage cp.async tile loops
+// EU: the wave schedule of wave.cuh.  (A) X round(H)^T; (A2) the
+// elementwise W update with the denominator W Gh, formed for all rows
+// before the first wave (eu_den_kernel); (B) round(W')^T X; then the Gram.
+// The pass is mur_eu_waves (wave.cuh), which the sweep scripts' variants
+// (mur_variants.cu) share.  mur_iteration_eu runs (A) and (B) on the tensor
+// cores (wave.cuh's TcStages: 128 x 128 tiles of 3xTF32 mma.sync, one TF32
+// product a step at bf16 X, every step's sum rounded to nearest, all of X
+// in one wave); the denominator W Gh and the Gram W'^T W' (2 m k^2 flops
+// each, 1% of the products at r128) stay on FMA tiles.  The "dma" variant
+// runs (A) and (B) on the two-stage cp.async FMA tile loops
 // (x_ft_tile_async, ft_x_tile_async: the next slab of X and of the factor
 // in flight while the FMAs run on the current one, as the TPU kernel
 // double-buffers its strips by hand), the FMAs and their order those of the
@@ -47,13 +41,35 @@
 // mur_iteration_eu it differs by f32 summation order (and where that moves
 // a bf16 rounding of W', by a bf16 ulp of a term of wtx).
 //
+// KL up to its own rank line (ops/mur_fused.py's KL_ITER_PAIR_RANK): the
+// 2-pass pair's bodies, over all of X each (mur_update.cu's kl_w_lagged,
+// then kl_h_numer at W'), so W' and obj are the lagged KL W pass's bit for
+// bit and wtr is the KL H pass's numerator at W' bit for bit.  Each stage
+// takes the pair's body for its rank: the W pass on the tensor cores up to
+// kKlWTcRank (320) over column splits, the H numerator up to kKlTcRank
+// (640) over row splits.  Above the line the pair's FMA bodies lose to the
+// FMA waves below (8192 x 1024 on an H100, PERF.md: their blocks own whole
+// rows or columns with no splits, 32 blocks of H at k 768), which split
+// each L2-sized wave of rows (kl_rows_kernel: the lagged objective from
+// the first W H tiles; kl_w_kernel: the closed form; kl_cols_kernel, which
+// forms W' H again) over column and row chunks.  Every sum across blocks
+// is partials added in a fixed order, no float atomics.
+//
 // Ragged edges load zeros and bound their stores; any (m, n) and k <= 1024
 // work.  Built without --use_fast_math: division, sqrtf and logf stay IEEE.
-#include <climits>
-
 #include "wave.cuh"
 
 namespace tpunmf {
+
+// MUR's KL passes, shared with the pair (mur_update.cu).
+cudaError_t kl_w_lagged(const void* x, int x_is_bf16, const float* w, const float* h, int ldh,
+                        const float* hsum, float lam, int m, int n, int k, int splits,
+                        float* scratch, long long scratch_len, float* out, float* partials,
+                        float* obj, cudaStream_t s);
+cudaError_t kl_h_numer(const void* x, int x_is_bf16, const float* w, const float* h, int m,
+                       int n, int k, int splits, float* part, long long part_len, float* numer,
+                       cudaStream_t s);
+
 namespace {
 
 // ------------------------------------------------------------------------ EU
@@ -70,7 +86,10 @@ cudaError_t iteration_eu(const void* xv, const void* hv, const float* w, const f
                                                     scratch, s);
 }
 
-// ------------------------------------------------------------------------ KL
+// ------------------------------------------------------------ KL, FMA waves
+// Above KL_ITER_PAIR_RANK (ops/mur_fused.py): the wave schedule with
+// FMA tiles, blocks owning whole rows (columns) and all of k in shared
+// memory, the column (row) chunks splitting each wave to fill the card.
 // (A) for the rows [row0, row0 + 16 TM) and column chunk y:
 // part[y][r - r0][c] = sum_j P[r][j] H[c][j], P = X / (W H + eps), and the
 // block's masked KL of (X, W H) into obj_part[blockIdx.y * gridDim.x +
@@ -192,12 +211,14 @@ cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const f
 extern "C" {
 
 // Floats of scratch the single-pass iteration of `kind` (0: MUR EU's "dma"
-// variant and the sweep scripts' variants, 1: MUR KL, 2: HALS EU, 3: MUR EU
-// on the tensor cores) needs at (m, n, k) for X of x_bytes (4 f32, 2 bf16,
-// 1 int8) an element; -1 if that is more than an int can count.
-int tpunmf_iteration_scratch(int m, int n, int k, int x_bytes, int kind) {
-  const long long s = tpunmf::make_plan(m, n, k, x_bytes, kind).scratch;
-  return s <= INT_MAX ? (int)s : -1;
+// variant and the sweep scripts' variants, 1: MUR KL's FMA waves, 2: HALS
+// EU, 3: MUR EU; 2 and 3 on the tensor cores) needs at (m, n, k) for X of
+// x_bytes (4 f32, 2 bf16, 1 int8) an element, in 64 bits; -1 for another
+// kind.
+long long tpunmf_iteration_scratch(int m, int n, int k, int x_bytes, int kind) {
+  using namespace tpunmf;
+  if (kind < kWaveEu || kind > kWaveEuTc) return -1;
+  return make_plan(m, n, k, x_bytes, kind).scratch;
 }
 
 // EU iteration.  hc is H (k, n) in X's type, gh = H H^T (k, k); writes W'
@@ -226,11 +247,37 @@ int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const v
   return static_cast<int>(err);
 }
 
-// KL iteration.  hsum = rowsum(H) (k,); writes W' (m, k), wtr = W'^T (X /
-// (W' H + eps)) (k, n) and obj[0] = the masked KL of the incoming (W, H).
+// KL iteration: W' (m, k), wtr = W'^T (X / (W' H + eps)) (k, n) and obj[0]
+// = the masked KL of the incoming (W, H).  The lagged KL W pass (h at row
+// stride ldh, hp; hsum = rowsum(H); w_splits column splits, w_part of
+// w_part_len floats, partials) and then the KL H pass's numerator at W' (h
+// at row stride n; h_splits row splits, h_part of h_part_len floats), as
+// tpunmf_mur_w_update_lagged and tpunmf_mur_h_update take them.
 int tpunmf_mur_iteration_kl(const void* x, int x_is_bf16, const void* w, const void* h,
-                            const void* hsum, float lam, int m, int n, int k, void* w_out,
-                            void* wtr, void* obj, void* scratch, void* stream) {
+                            const void* hp, int ldh, const void* hsum, float lam, int m, int n,
+                            int k, int w_splits, void* w_part, long long w_part_len,
+                            void* partials, int h_splits, void* h_part, long long h_part_len,
+                            void* w_out, void* wtr, void* obj, void* stream) {
+  const float* hf = static_cast<const float*>(h);
+  float* wo = static_cast<float*>(w_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = tpunmf::kl_w_lagged(
+      x, x_is_bf16, static_cast<const float*>(w), static_cast<const float*>(hp), ldh,
+      static_cast<const float*>(hsum), lam, m, n, k, w_splits, static_cast<float*>(w_part),
+      w_part_len, wo, static_cast<float*>(partials), static_cast<float*>(obj), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tpunmf::kl_h_numer(x, x_is_bf16, wo, hf, m, n, k, h_splits,
+                                             static_cast<float*>(h_part), h_part_len,
+                                             static_cast<float*>(wtr), s));
+}
+
+// KL iteration above KL_ITER_PAIR_RANK: the FMA waves.  hsum =
+// rowsum(H) (k,); writes W' (m, k), wtr = W'^T (X / (W' H + eps)) (k, n)
+// and obj[0] = the masked KL of the incoming (W, H); scratch of kind 1.
+int tpunmf_mur_iteration_kl_waves(const void* x, int x_is_bf16, const void* w, const void* h,
+                                  const void* hsum, float lam, int m, int n, int k,
+                                  void* w_out, void* wtr, void* obj, void* scratch,
+                                  void* stream) {
   const float* wf = static_cast<const float*>(w);
   const float* hf = static_cast<const float*>(h);
   const float* hs = static_cast<const float*>(hsum);

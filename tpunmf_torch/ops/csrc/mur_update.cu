@@ -70,6 +70,10 @@
 //    cores only the blocks of the first chunk of k, one a row tile and
 //    split) and reduce_partials_into (objective.cu) adds them in a fixed
 //    order, so the sum is bit-reproducible run to run.  No float atomics.
+//  * The single-pass KL iteration (mur_iteration.cu) is kl_w_lagged (the
+//    lagged W pass) and then kl_h_numer at W' (the KL H pass's numerator,
+//    without its update): both exported below, so the pair and the single
+//    pass run the same host code and kernels.
 //  * Ragged edges are masked by zero loads and bounds-checked stores, so any
 //    (m, n, k <= 1024) works; the TPU needed dividing blocks.
 //  * Nothing is written in place: the wrapper allocates fresh outputs.
@@ -82,6 +86,8 @@ namespace tpunmf {
 cudaError_t kl_h_pass(const void* x, int x_is_bf16, const float* w, const float* h,
                       const float* wsum, float lam, int m, int n, int k, float* part,
                       int splits, float* h_out, float* numer, cudaStream_t s);
+cudaError_t kl_h_sums(const void* x, int x_is_bf16, const float* w, const float* h, int m,
+                      int n, int k, float* part, int splits, cudaStream_t s);
 cudaError_t kl_w_pass(const void* x, int x_is_bf16, const float* w, const float* h, int ldh,
                       const float* hsum, float lam, int m, int n, int k, int splits,
                       float* part, float* out, float* partials, cudaStream_t s);
@@ -222,10 +228,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // ----------------------------------------------------------------- KL, H pass
 // numer = W^T (X / (W H + eps)), c = H * numer, d = wsum;
-// h_out = 2c / (d + sqrt(d^2 + 4 lam c)).
+// h_out = 2c / (d + sqrt(d^2 + 4 lam c)); without FINISH (the single-pass
+// KL iteration's numerator) numer alone: wsum and h_out are not read.
 // A block owns columns [col0, col0 + 16*TN) and all k; grid ceil(n / (16*TN)).
 // Dynamic shared memory: the kpad x (16*TN + 1) accumulator.
-template <typename XT, int TN>
+template <typename XT, int TN, bool FINISH = true>
 __global__ void __launch_bounds__(kThreads)
     h_kl_kernel(const XT* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ h, const float* __restrict__ wsum, float lam,
@@ -246,9 +253,11 @@ __global__ void __launch_bounds__(kThreads)
       const long long o = (long long)ck * n + gc;
       const float nu = acc[ck * ldc + c];
       numer_out[o] = nu;
-      const float cv = h[o] * nu;
-      const float d = wsum[ck];
-      h_out[o] = 2.f * cv / (d + sqrtf(d * d + 4.f * lam * cv));
+      if constexpr (FINISH) {
+        const float cv = h[o] * nu;
+        const float d = wsum[ck];
+        h_out[o] = 2.f * cv / (d + sqrtf(d * d + 4.f * lam * cv));
+      }
     }
   }
 }
@@ -280,6 +289,24 @@ cudaError_t w_kl_update(const XT* x, const float* w, const float* h, int ldh,
                            k, kpad, out, partials);
 }
 
+// The FMA KL H body (above kKlTcRank; ldh == n): with FINISH the H update
+// and its numerator, without it the numerator alone.
+template <typename XT, bool FINISH>
+cudaError_t h_kl_fma(const XT* x, const float* w, const float* h, const float* wsum, float lam,
+                     int m, int n, int k, float* h_out, float* numer, cudaStream_t s) {
+  const int kpad = ceil_div(k, kTile) * kTile;
+  if (k <= kWideRank) {
+    constexpr int BN = 64;
+    return launch(h_kl_kernel<XT, 4, FINISH>, dim3(ceil_div(n, BN)),
+                  kpad * (BN + 1) * sizeof(float), s, x, w, h, wsum, lam, m, n, k, kpad, h_out,
+                  numer);
+  }
+  constexpr int BN = 32;
+  return launch(h_kl_kernel<XT, 2, FINISH>, dim3(ceil_div(n, BN)),
+                kpad * (BN + 1) * sizeof(float), s, x, w, h, wsum, lam, m, n, k, kpad, h_out,
+                numer);
+}
+
 // Whether the scratch of the KL W pass on the tensor cores holds its
 // partial sums (none for one split).
 inline bool kl_w_fits(int m, int k, int splits, long long scratch_len) {
@@ -307,18 +334,53 @@ cudaError_t h_update(const void* xv, const float* w, const float* h, const float
   if (k <= kKlTcRank)
     return kl_h_pass(xv, std::is_same_v<XT, __nv_bfloat16>, w, h, aux, lam, m, n, k, sums,
                      splits, h_out, numer, s);
-  const int kpad = ceil_div(k, kTile) * kTile;
-  if (k <= kWideRank) {
-    constexpr int BN = 64;
-    return launch(h_kl_kernel<XT, 4>, dim3(ceil_div(n, BN)), kpad * (BN + 1) * sizeof(float),
-                  s, x, w, h, aux, lam, m, n, k, kpad, h_out, numer);
-  }
-  constexpr int BN = 32;
-  return launch(h_kl_kernel<XT, 2>, dim3(ceil_div(n, BN)), kpad * (BN + 1) * sizeof(float), s,
-                x, w, h, aux, lam, m, n, k, kpad, h_out, numer);
+  return h_kl_fma<XT, true>(x, w, h, aux, lam, m, n, k, h_out, numer, s);
 }
 
 }  // namespace
+
+// ----------------------------------------- shared with the single-pass KL
+// mur_iteration.cu's KL iteration is these two functions in turn, so that
+// its W', objective and numerator are the pair's bit for bit.
+
+// The lagged KL W pass: W' into out and the masked KL of the incoming
+// (W, H) into obj[0].  h, ldh, splits and scratch as tpunmf_mur_w_update's
+// KL pass; partials holds w_lagged_blocks(m, k, splits) floats.
+cudaError_t kl_w_lagged(const void* x, int x_is_bf16, const float* w, const float* h, int ldh,
+                        const float* hsum, float lam, int m, int n, int k, int splits,
+                        float* scratch, long long scratch_len, float* out, float* partials,
+                        float* obj, cudaStream_t s) {
+  if (ldh < n || !kl_w_fits(m, k, splits, scratch_len)) return cudaErrorInvalidValue;
+  cudaError_t err =
+      x_is_bf16 ? w_kl_update(static_cast<const __nv_bfloat16*>(x), w, h, ldh, hsum, lam, m, n,
+                              k, splits, scratch, out, partials, s)
+                : w_kl_update(static_cast<const float*>(x), w, h, ldh, hsum, lam, m, n, k,
+                              splits, scratch, out, partials, s);
+  if (err != cudaSuccess) return err;
+  return reduce_partials_into(partials, w_lagged_blocks(m, k, splits), 1.f, obj, s);
+}
+
+// The KL H pass's numerator W^T (X / (W H + eps)) alone, into numer (k, n),
+// with no update.  Up to kKlTcRank kl_h_sums over `splits` row ranges, part
+// holding splits * k * n floats where splits > 1, added in split order by
+// sum_slices (kl_h_finish's order); above it the FMA body without its
+// update.
+cudaError_t kl_h_numer(const void* x, int x_is_bf16, const float* w, const float* h, int m,
+                       int n, int k, int splits, float* part, long long part_len, float* numer,
+                       cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (k > kKlTcRank)
+    return x_is_bf16 ? h_kl_fma<bf16, false>(static_cast<const bf16*>(x), w, h, nullptr, 0.f,
+                                             m, n, k, nullptr, numer, s)
+                     : h_kl_fma<float, false>(static_cast<const float*>(x), w, h, nullptr, 0.f,
+                                              m, n, k, nullptr, numer, s);
+  const long long plane = (long long)k * n;
+  if (splits < 1 || (splits > 1 && part_len < splits * plane)) return cudaErrorInvalidValue;
+  cudaError_t err = kl_h_sums(x, x_is_bf16, w, h, m, n, k, splits > 1 ? part : numer, splits, s);
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_slices(numer, part, splits, plane, false, s);
+}
+
 }  // namespace tpunmf
 
 extern "C" {
@@ -380,24 +442,11 @@ int tpunmf_mur_w_update_lagged(const void* x, int x_is_bf16, const void* w, cons
                                int ldh, const void* hsum, float lam, int m, int n, int k,
                                int splits, void* scratch, long long scratch_len, void* out,
                                void* partials, void* obj, void* stream) {
-  using namespace tpunmf;
-  const float* wf = static_cast<const float*>(w);
-  const float* hf = static_cast<const float*>(h);
-  const float* hs = static_cast<const float*>(hsum);
-  float* sc = static_cast<float*>(scratch);
-  float* o = static_cast<float*>(out);
-  float* p = static_cast<float*>(partials);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ldh < n || !kl_w_fits(m, k, splits, scratch_len))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      x_is_bf16 ? w_kl_update(static_cast<const __nv_bfloat16*>(x), wf, hf, ldh, hs, lam, m, n,
-                              k, splits, sc, o, p, s)
-                : w_kl_update(static_cast<const float*>(x), wf, hf, ldh, hs, lam, m, n, k,
-                              splits, sc, o, p, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_partials_into(
-      p, w_lagged_blocks(m, k, splits), 1.f, static_cast<float*>(obj), s));
+  return static_cast<int>(tpunmf::kl_w_lagged(
+      x, x_is_bf16, static_cast<const float*>(w), static_cast<const float*>(h), ldh,
+      static_cast<const float*>(hsum), lam, m, n, k, splits, static_cast<float*>(scratch),
+      scratch_len, static_cast<float*>(out), static_cast<float*>(partials),
+      static_cast<float*>(obj), static_cast<cudaStream_t>(stream)));
 }
 
 // H half-update.  aux is Gw = W^T W (k, k) for EU, colsum(W) (k,) for KL.

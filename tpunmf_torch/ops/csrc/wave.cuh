@@ -1,12 +1,13 @@
-// The wave schedule of the single-pass iterations: MUR's EU and KL
-// (mur_iteration.cu), the sweep scripts' EU variants (mur_variants.cu) and
-// HALS's EU (hals_iteration.cu).
+// The wave schedule of the single-pass iterations: MUR's EU and, above its
+// own rank line, KL (mur_iteration.cu; below it KL runs the 2-pass pair's
+// bodies), the sweep scripts' EU variants (mur_variants.cu) and HALS's EU
+// (hals_iteration.cu).
 //
 // The TPU kernels run their grid in order on one core and keep the k x n
-// accumulator (wtx / wtr) resident across the row strips; on the card blocks
-// run in parallel and a block has 227 KB of shared memory, so the rows of X
-// are taken in waves of R rows, R * n * sizeof(X) <= kWaveBytes (24 MB, well
-// under the 50 MB L2), and for each wave, in stream order:
+// accumulator (wtx / wtr) resident across the row strips; on the card
+// blocks run in parallel and a block has 227 KB of shared memory, so the
+// rows of X are taken in waves of R rows, and for each wave, in stream
+// order:
 //   (A) a row kernel forms the W side over column chunks of the wave: one
 //       partial per chunk, so the wave fills the card;
 //   (A2) an epilogue adds the chunks' partials in a fixed order and forms W'
@@ -16,13 +17,15 @@
 //       Where the wave has too few column tiles to fill the card, B splits
 //       the wave's rows too, writes partials, and sum_slices adds them in
 //       order.
-// The wave's X is still in L2 when B reads it, so X crosses device memory
-// about once per iteration.  mur_iteration_eu's stages run on the tensor
-// cores (TcStages below), whose products bind them: they take all of X in
-// one wave.  EU's gram = W'^T W' is formed after the last wave, over row
-// chunks of W' with per-chunk partials.  Every cross-block sum is
-// per-block partials added in a fixed order: no float atomics, and the
-// same inputs give the same bits.
+// On FMA tiles (KL, the "dma" variant, the sweep scripts' variants) a wave is
+// R * n * sizeof(X) <= kWaveBytes (24 MB, well under the 50 MB L2), so the
+// wave's X is still in L2 when B reads it and X crosses device memory
+// about once per iteration.  The stages on the tensor cores (TcStages
+// below: mur_iteration_eu, hals_iteration_eu), whose products bind them,
+// take all of X in one wave.  EU's gram = W'^T W' is formed after the last
+// wave, over row chunks of W' with per-chunk partials.  Every cross-block
+// sum is per-block partials added in a fixed order: no float atomics, and
+// the same inputs give the same bits.
 #pragma once
 
 #include <algorithm>
@@ -73,8 +76,11 @@ inline dim3 elementwise_grid(long long len) {
 }
 
 // The iteration a plan is for (the `kind` of tpunmf_iteration_scratch):
-// kWaveEu the EU stages on FMA tiles (the "dma" variant, the sweep scripts'
-// variants), kWaveEuTc on the tensor cores (mur_iteration_eu).
+// kWaveEu the MUR EU stages on FMA tiles (the "dma" variant, the sweep
+// scripts' variants), kWaveEuTc on the tensor cores (mur_iteration_eu),
+// kWaveHals HALS's on the tensor cores (hals_iteration_eu: kWaveEuTc's
+// layout without the den block), kWaveKl MUR KL's FMA waves
+// (mur_iteration_kl above its own rank line, mur_iteration.cu).
 enum Wave { kWaveEu = 0, kWaveKl = 1, kWaveHals = 2, kWaveEuTc = 3 };
 
 struct Plan {
@@ -86,7 +92,7 @@ struct Plan {
 };
 
 inline Plan make_plan(int m, int n, int k, int x_bytes, int kind) {
-  const bool kl = kind == kWaveKl, tc = kind == kWaveEuTc;
+  const bool kl = kind == kWaveKl, tc = kind == kWaveEuTc || kind == kWaveHals;
   Plan p{};
   // a wave is whole row tiles of its stages; the tensor-core stages take
   // all of X in one (see kTcTile)
@@ -113,12 +119,14 @@ inline Plan make_plan(int m, int n, int k, int x_bytes, int kind) {
   p.g_rows = round_up(ceil_div(m, split_for(ktiles * ktiles, ceil_div(m, kTile))), kTile);
   p.gsplit = kl ? 0 : ceil_div(m, p.g_rows);
 
+  // float offsets in 64 bits: one wave's partials pass INT_MAX floats near
+  // nsplit * m * k = 2^31 (a tall X at k 256)
   p.a_part = 0;
   p.b_part = p.a_part + (long long)p.nsplit * p.rows * k;
   p.g_part = p.b_part + (p.msplit > 1 ? (long long)p.msplit * k * n : 0);
   p.obj_part = p.g_part + (long long)p.gsplit * k * k;
   p.den = p.obj_part + (kl ? (long long)p.waves * ceil_div(p.rows, tile) * p.nsplit : 0);
-  p.scratch = p.den + (kind == kWaveEu || tc ? (long long)m * k : 0);
+  p.scratch = p.den + (kind == kWaveEu || kind == kWaveEuTc ? (long long)m * k : 0);
   return p;
 }
 
@@ -336,7 +344,7 @@ cudaError_t tc_cols(const XT* x, const float* w_new, int n, int k, int r0, int r
 // --------------------------------------------------------- the EU waves
 // The pair of stage kernels a wave runs, (A) into part and (B) into wtx
 // (or part), and the plan kind that sizes them: FMA tiles (the "dma"
-// variant with ASYNC, the sweep scripts' variants, HALS) ...
+// variant with ASYNC, the sweep scripts' variants) ...
 template <typename XT, typename FT, bool NK, bool ASYNC>
 struct FmaStages {
   static constexpr int kKind = kWaveEu;
@@ -356,7 +364,8 @@ struct FmaStages {
   }
 };
 
-// ... or the tensor cores (mur_iteration_eu; H in X's type).
+// ... or the tensor cores (mur_iteration_eu, and hals_iteration_eu on its
+// own plan kind; H in X's type).
 template <typename XT>
 struct TcStages {
   static constexpr int kKind = kWaveEuTc;
@@ -376,7 +385,7 @@ struct TcStages {
 // The EU waves: per wave (A), epilogue(r0, r1) (which writes W' for the
 // wave's rows [r0, r1) into w_out from the partials at scratch + p.a_part),
 // (B); then gram = W'^T W'.  f is H as Stages::rows takes it; p was made
-// for Stages::kKind (or HALS's).
+// for Stages::kKind (or kWaveHals, on the tensor cores' stages).
 template <typename XT, typename FT, bool NK, bool ASYNC,
           class Stages = FmaStages<XT, FT, NK, ASYNC>, typename Epilogue>
 cudaError_t eu_waves(const Plan& p, const XT* x, const FT* f, int m, int n, int k,

@@ -26,6 +26,10 @@ H numerator from one read of X (tpunmf/ops/hals_sweep.py:120-229):
     xht = X round(H)^T,  W' = gs_sweep(xht^T, H H^T, W^T)^T,
     wtx = round(W')^T X,  gram_w = W'^T W'          (round: to X's dtype)
 
+Its two products against X run on the tensor cores (``mur_iteration_eu``'s
+stages, all of X in one wave), and every row's sweep chain (``gs_sweep``'s)
+runs in one launch between them.
+
 ``hals_iter_tileable`` is ``tpunmf``'s rule for it; HALS takes it only
 where the port's ``hals_single_pass`` switch is on (off, as in ``tpunmf``).
 
@@ -168,7 +172,7 @@ def hals_iteration_eu(x, w, h, *, lam_w: float, nsweeps: int, bm: int):
     call("tpunmf_hals_iteration_eu", x.device, x.data_ptr(),
          int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(), hht.data_ptr(),
          float(lam_w), m, n, k, int(nsweeps), w_new.data_ptr(), wtx.data_ptr(),
-         gram.data_ptr(), scratch.data_ptr())
+         gram.data_ptr(), scratch.data_ptr(), scratch.numel())
     hals_iteration_eu.launches += 1
     return w_new, wtx, gram
 

@@ -27,13 +27,17 @@
 
   Single pass (``mur_iteration_eu`` / ``mur_iteration_kl``,
   csrc/mur_iteration.cu): the W update and the H numerator of a whole
-  iteration from one read of X in device memory; the caller finishes the
-  k-sized H update.  ``iter_eu_tileable`` / ``iter_kl_tileable`` are
-  ``tpunmf``'s route rule for it.  ``mur_iteration_eu`` takes its two
-  products against X on the tensor cores; ``mur_iteration_eu_dma`` is the
-  EU pass on FMA tiles with its copies overlapped with the products
-  (``tpunmf``'s manual-DMA variant, which its ``mur_single_pass_variant``
-  switch selects; ``iter_eu_dma_tileable`` is its rule).
+  iteration in one call; the caller finishes the k-sized H update.
+  ``iter_eu_tileable`` / ``iter_kl_tileable`` are ``tpunmf``'s route rule
+  for it.  ``mur_iteration_eu`` reads X once and takes its two products
+  against it on the tensor cores; ``mur_iteration_kl`` runs the pair's KL
+  bodies (the lagged W pass, then the H pass's numerator at the new W),
+  each over all of X, so its outputs are theirs bit for bit, up to
+  ``KL_ITER_PAIR_RANK`` and FMA waves of rows of X above it;
+  ``mur_iteration_eu_dma`` is the EU pass on FMA tiles with its copies
+  overlapped with the products (``tpunmf``'s manual-DMA variant, which its
+  ``mur_single_pass_variant`` switch selects; ``iter_eu_dma_tileable`` is
+  its rule).
 
 ``updates_take`` says which X and ranks the kernels take (float32 or
 bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
@@ -78,6 +82,12 @@ KL_H_TC_RANK = 640
 # the same line for the KL W pass (csrc/mur_update.cu, kKlWTcRank): on an
 # H100 it won at k 320 and lost at k 384
 KL_W_TC_RANK = 320
+# the highest rank at which mur_iteration_kl runs the pair's bodies (W up
+# to KL_W_TC_RANK on the tensor cores, H up to KL_H_TC_RANK); above it the
+# pair's FMA bodies, with no splits, lose to the single pass's own FMA
+# waves (on an H100 at 8192 x 1024 the pair's bodies won at k 448, 3.124
+# against 3.197 ms, and lost at k 512, 3.744 against 3.626: PERF.md)
+KL_ITER_PAIR_RANK = 448
 # the KL W pass on the tensor cores: blocks of 64 rows of W
 # (csrc/masked_update.cu, kKlWRows) and a 64-wide chunk of k over column
 # splits of X, the grid brought near 16 blocks a SM of an H100's 132 (2
@@ -129,6 +139,12 @@ def kl_w_on_tensor_cores(k: int) -> bool:
     """Whether the KL W pass (plain and lagged) runs on the tensor cores at
     rank k, rather than its FMA body: up to ``KL_W_TC_RANK``."""
     return k <= KL_W_TC_RANK
+
+
+def iteration_kl_on_pair(k: int) -> bool:
+    """Whether ``mur_iteration_kl`` runs the 2-pass pair's KL bodies at
+    rank k (up to ``KL_ITER_PAIR_RANK``), rather than its own FMA waves."""
+    return k <= KL_ITER_PAIR_RANK
 
 
 def w_splits(m: int, n: int, k: int) -> int:
@@ -237,18 +253,12 @@ def mur_w_update(x, w, h, *, distance_type: str, lam: float,
         mur_w_update.launches += 1
         return out
     hsum = torch.sum(h, dim=1)
-    tensor_cores = kl_w_on_tensor_cores(k)
-    splits = splits if tensor_cores else 1
-    ldh = h_stride(n) if tensor_cores else n
-    hp = h if ldh == n else torch.nn.functional.pad(h, (0, ldh - n))
-    floats = w_scratch_floats(splits, m, k)
-    part = torch.empty(max(floats, 1), dtype=torch.float32, device=x.device)
+    hp, ldh, splits, part, floats = _kl_w_operands(x, h, k, splits)
     args = (x.data_ptr(), is_bf16, w.data_ptr(), hp.data_ptr(), ldh, hsum.data_ptr(),
             float(lam), m, n, k)
     kl_args = (splits, part.data_ptr(), floats, out.data_ptr())
     if with_lagged_obj:
-        partials = torch.empty(_build.library().tpunmf_mur_w_lagged_blocks(m, k, splits),
-                               dtype=torch.float32, device=x.device)
+        partials = _lagged_partials(x, k, splits)
         obj = torch.empty((), dtype=torch.float32, device=x.device)
         call("tpunmf_mur_w_update_lagged", x.device, *args, *kl_args, partials.data_ptr(),
              obj.data_ptr())
@@ -257,6 +267,28 @@ def mur_w_update(x, w, h, *, distance_type: str, lam: float,
     call("tpunmf_mur_w_update", x.device, *args, 1, *kl_args)
     mur_w_update.launches += 1
     return out
+
+
+def _kl_w_operands(x, h, k: int, splits: int):
+    """The KL W pass's H and scratch: (H at its row stride, the stride,
+    the splits, the partial sums' buffer, its length in floats).  On the
+    tensor cores H goes through a copy padded to ``h_stride(n)`` columns
+    where n % 4 != 0, over ``splits`` column splits; the FMA body takes H
+    as it is and one split."""
+    m, n = x.shape
+    tensor_cores = kl_w_on_tensor_cores(k)
+    splits = splits if tensor_cores else 1
+    ldh = h_stride(n) if tensor_cores else n
+    hp = h if ldh == n else torch.nn.functional.pad(h, (0, ldh - n))
+    floats = w_scratch_floats(splits, m, k)
+    part = torch.empty(max(floats, 1), dtype=torch.float32, device=x.device)
+    return hp, ldh, splits, part, floats
+
+
+def _lagged_partials(x, k: int, splits: int):
+    """The lagged KL W pass's buffer of per-block objective partials."""
+    count = _build.library().tpunmf_mur_w_lagged_blocks(x.shape[0], k, splits)
+    return torch.empty(count, dtype=torch.float32, device=x.device)
 
 
 @full_f32()
@@ -279,14 +311,19 @@ def mur_h_update(x, w, h, *, distance_type: str, lam: float, splits=None):
     aux = torch.sum(w, dim=0) if is_kl else w.T @ w
     h_out = torch.empty((k, n), dtype=torch.float32, device=x.device)
     numer = torch.empty((k, n), dtype=torch.float32, device=x.device)
-    part = torch.empty(max(h_scratch_floats(splits, n, k), 1), dtype=torch.float32,
-                       device=x.device)
+    part = _h_partials(x, k, splits)
     call("tpunmf_mur_h_update", x.device, x.data_ptr(),
          int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(),
          aux.data_ptr(), float(lam), m, n, k, int(is_kl), part.data_ptr(), splits,
          h_out.data_ptr(), numer.data_ptr())
     mur_h_update.launches += 1
     return h_out, numer
+
+
+def _h_partials(x, k: int, splits: int):
+    """The H pass's buffer of partial sums over ``splits`` row splits."""
+    floats = h_scratch_floats(splits, x.shape[1], k)
+    return torch.empty(max(floats, 1), dtype=torch.float32, device=x.device)
 
 
 # ------------------------------------------------- the single-pass iteration
@@ -450,13 +487,20 @@ def mur_iteration_eu_dma(x, w, h, *, lam_w: float, bm: int):
 
 @full_f32()
 def mur_iteration_kl(x, w, h, *, lam_w: float, bm: int, bs: int | None = None):
-    """The KL W half-update, H numerator and lagged objective in one pass.
+    """The KL W half-update, H numerator and lagged objective in one call.
 
     Returns (w_new (m, k), wtr = w_new^T (X / (w_new H + eps)) (k, n),
     obj 0-d), obj the masked KL of the INCOMING (w, h); the caller finishes
-    with the H closed form (tpunmf/ops/mur_fused.py:652-702).  ``bm`` and
-    ``bs`` must divide m and n, as in ``tpunmf``; ``bs`` chose a TPU
-    tiling of the same function and changes nothing here."""
+    with the H closed form (tpunmf/ops/mur_fused.py:652-702).  On the card,
+    up to ``KL_ITER_PAIR_RANK``, it runs the 2-pass pair's KL bodies, each
+    over all of X: the lagged W pass (so w_new and obj are
+    ``mur_w_update(..., with_lagged_obj=True)``'s bit for bit) and then the
+    H pass's numerator at w_new (so wtr is ``mur_h_update(x, w_new, h,
+    distance_type="kl", lam=...)[1]``'s), with their default splits; above
+    it, FMA waves of rows of X that fit the L2 (the same function, its sums
+    in another order).  ``bm`` and ``bs`` must divide m and n, as in
+    ``tpunmf``; ``bs`` chose a TPU tiling of the same function and changes
+    nothing here."""
     check_strips(x, bm, bs)
     if on_cpu(x):
         return mur_iteration_kl_ref(x, w, h, lam_w=lam_w)
@@ -465,11 +509,21 @@ def mur_iteration_kl(x, w, h, *, lam_w: float, bm: int, bs: int | None = None):
     w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
     wtr = torch.empty((k, n), dtype=torch.float32, device=x.device)
     obj = torch.empty((), dtype=torch.float32, device=x.device)
-    scratch = wave_scratch(x, k, WAVE_MUR_KL)
-    call("tpunmf_mur_iteration_kl", x.device, x.data_ptr(),
-         int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(), hsum.data_ptr(),
-         float(lam_w), m, n, k, w_new.data_ptr(), wtr.data_ptr(), obj.data_ptr(),
-         scratch.data_ptr())
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr())
+    outs = (w_new.data_ptr(), wtr.data_ptr(), obj.data_ptr())
+    if iteration_kl_on_pair(k):
+        hp, ldh, splits, w_part, w_floats = _kl_w_operands(x, h, k, w_splits(m, n, k))
+        partials = _lagged_partials(x, k, splits)
+        rows = h_splits(m, n, k, "kl")
+        h_part = _h_partials(x, k, rows)
+        call("tpunmf_mur_iteration_kl", x.device, *head, hp.data_ptr(), ldh,
+             hsum.data_ptr(), float(lam_w), m, n, k, splits, w_part.data_ptr(), w_floats,
+             partials.data_ptr(), rows, h_part.data_ptr(), h_scratch_floats(rows, n, k),
+             *outs)
+    else:
+        scratch = wave_scratch(x, k, WAVE_MUR_KL)
+        call("tpunmf_mur_iteration_kl_waves", x.device, *head, hsum.data_ptr(),
+             float(lam_w), m, n, k, *outs, scratch.data_ptr())
     mur_iteration_kl.launches += 1
     return w_new, wtr, obj
 
