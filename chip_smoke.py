@@ -26,12 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      The two single passes behind the port's switches: hals_iteration_eu
      at 8192x8192 r128 (f32 at 2 and 1 sweeps, bf16) and ragged 1000x777
      k40, and mur_iteration_eu_dma at 8192x8192 r128 (f32, bf16) and
-     ragged k37, which keeps the FMA tiles: at lam_w=0 it is held to
-     v1_iter bit for bit, and to mur_iteration_eu (the tensor cores) within
-     ROUTE_RTOL, timed against it in turns.  The sweep scripts' kernels:
-     v1_iter and v2_iter at 8192x8192 r128 (bf16 and f32 X) and ragged k37,
-     v1 held to mur_iteration_eu(lam_w=0) within ROUTE_RTOL and timed
-     against it in turns;
+     ragged k37 (TMA and wgmma; the ragged X's rows are off 16 bytes, so
+     its tiles take the kernel's own load path, which the line names): at
+     lam_w=0 it is held to v1_iter bit for bit, and to mur_iteration_eu
+     (mma.sync) within ROUTE_RTOL, timed against it in turns, with its
+     device time and TFLOP/s.  The sweep scripts' kernels: v1_iter and
+     v2_iter at 8192x8192 r128 (bf16 and f32 X) and ragged k37 (the dma
+     variant's stages), v1 held to mur_iteration_eu(lam_w=0) within
+     ROUTE_RTOL and timed against it in turns, with device times;
      iter_eu_int8 at 8192x8192 r128 (X + 0.05 quantised) and ragged k37;
      the read probe at 8192x8192 f32 and a ragged 896x777, with its rate.
      blockmax_relayout at (64, 2^20) and the read probe at 8192x8192 are
@@ -627,13 +629,27 @@ def sweep_phase(torch, records, cases, reps):
         del w, h, frames
 
 
+def x_load_path(x):
+    """How the EU pass on TMA and wgmma (csrc/wave.cuh, TmaStages) loads
+    X's tiles: by TMA where X's rows start on 16 bytes, else by the producer
+    warpgroup's own 4-byte cp.async copies where they start on 4, else by
+    its plain loads."""
+    row, base = x.shape[1] * x.element_size(), x.data_ptr()
+    if base % 16 == 0 and row % 16 == 0:
+        return "TMA"
+    if base % 4 == 0 and row % 4 == 0:
+        return "4-byte cp.async (rows off 16 bytes)"
+    return "plain loads (rows off 4 bytes)"
+
+
 def opt_in_phase(torch, records, eu_x, k, ragged, reps):
     """hals_iteration_eu (HALS_ITER_TOL, scaled: the sweeps clamp) and
-    mur_iteration_eu_dma (UPDATE_RTOL) against their plain versions; the
-    dma variant (FMA tiles) at lam_w=0 against v1_iter (the same FMAs in
-    the same order): the same outputs bit for bit; and against
-    mur_iteration_eu (the tensor cores): within ROUTE_RTOL, timed in turns
-    (auto, dma, dma, auto).  Returns those times."""
+    mur_iteration_eu_dma (UPDATE_RTOL, with device times) against their
+    plain versions; the dma variant (TMA and wgmma) at lam_w=0 against
+    v1_iter (the same stages on the same operands): the same outputs bit
+    for bit; and against mur_iteration_eu (mma.sync): within ROUTE_RTOL,
+    timed in turns (auto, dma, dma, auto).  Returns those times, with the
+    load path of X's tiles."""
     from tpunmf_torch.ops import hals_sweep, mur_fused, mur_variants, roofline
 
     g = torch.Generator(device="cuda")
@@ -676,7 +692,7 @@ def opt_in_phase(torch, records, eu_x, k, ragged, reps):
                          lambda l=lam: mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=l, bm=bm),
                          lambda l=lam: mur_fused.mur_iteration_eu_dma_ref(x, w, h, lam_w=l),
                          UPDATE_RTOL, reps, inputs=(x, w, h),
-                         flops=mur_flops("mur_iteration_eu_dma", x, kk))
+                         flops=mur_flops("mur_iteration_eu_dma", x, kk), profiled=True)
         dma = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.2, bm=bm)
         auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.2, bm=auto_bm)
         rel = max(max_rel_err(a, b) for a, b in zip(dma, auto))
@@ -688,11 +704,13 @@ def opt_in_phase(torch, records, eu_x, k, ragged, reps):
         dma_ms, auto_ms = time_pair(
             torch, lambda: mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=auto_bm),
             lambda: mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.0, bm=bm), reps)
+        path = x_load_path(x)
         line[label] = {"dma_ms": dma_ms, "auto_ms": auto_ms, "max_rel_diff": rel,
-                       "max_abs_diff_v1": diff}
+                       "max_abs_diff_v1": diff, "x_loads": path}
         print(f"  {label}: mur_iteration_eu_dma {dma_ms:.4f} ms, mur_iteration_eu "
               f"{auto_ms:.4f} ms (in turns); max relative |dma - auto| {rel:.3e} "
-              f"(tol {rtol:.0e}); max |dma - v1_iter| at lam_w=0 {diff:.3e}", flush=True)
+              f"(tol {rtol:.0e}); max |dma - v1_iter| at lam_w=0 {diff:.3e}; X's tiles by "
+              f"{path}", flush=True)
         require(rel <= rtol, f"{label}: the dma variant and mur_iteration_eu differ by "
                              f"{rel:.3e}")
         require(diff == 0.0, f"{label}: the dma variant (lam_w=0) and v1_iter differ")
@@ -703,10 +721,10 @@ def opt_in_phase(torch, records, eu_x, k, ragged, reps):
 def variant_phase(torch, records, eu_x, k, ragged, reps):
     """The sweep scripts' kernels against their plain versions (UPDATE_RTOL:
     sums of positive terms in another order): v1_iter and v2_iter at the
-    scripts' 8192x8192 r128 on bf16 X and on f32 X and at ragged k37, v1
-    also against mur_iteration_eu(lam_w=0) on the same inputs (FMA tiles
-    against the tensor cores) within ROUTE_RTOL, timed in turns (auto, v1,
-    v1, auto); iter_eu_int8 on X + 0.05 quantised
+    scripts' 8192x8192 r128 on bf16 X and on f32 X and at ragged k37 (with
+    device times), v1 also against mur_iteration_eu(lam_w=0) on the same
+    inputs (wgmma against mma.sync) within ROUTE_RTOL, timed in turns
+    (auto, v1, v1, auto); iter_eu_int8 on X + 0.05 quantised
     as sweep_int8.py does and on the ragged X; and the read probe at 8192x8192
     f32 (268 MB, past the 50 MB L2) with torch.sum(x, 0) as its library call,
     and at a ragged 896x777 (n % 4 != 0).  Returns the v1 / auto times."""
@@ -731,7 +749,7 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
             kern, ref = getattr(mur_variants, name), getattr(mur_variants, name + "_ref")
             check_kernel(torch, records, name, label, f"eu lam=0 bm={bm}",
                          lambda: kern(x, w, h, bm), lambda: ref(x, w, h), UPDATE_RTOL, reps,
-                         inputs=(x, w, h), flops=mur_flops(name, x, kk))
+                         inputs=(x, w, h), flops=mur_flops(name, x, kk), profiled=True)
         auto_bm = mur_fused.iter_eu_tileable(x, kk) or m
         v1 = mur_variants.v1_iter(x, w, h, bm)
         auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=auto_bm)
@@ -740,9 +758,11 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
         v1_ms, auto_ms = time_pair(
             torch, lambda: mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=auto_bm),
             lambda: mur_variants.v1_iter(x, w, h, bm), reps)
-        line[label] = {"v1_ms": v1_ms, "auto_ms": auto_ms, "max_rel_diff": rel}
+        path = x_load_path(x)
+        line[label] = {"v1_ms": v1_ms, "auto_ms": auto_ms, "max_rel_diff": rel, "x_loads": path}
         print(f"  {label}: v1_iter {v1_ms:.4f} ms, mur_iteration_eu(lam_w=0) {auto_ms:.4f} ms "
-              f"(in turns); max relative |v1 - auto| {rel:.3e} (tol {rtol:.0e})", flush=True)
+              f"(in turns); max relative |v1 - auto| {rel:.3e} (tol {rtol:.0e}); X's tiles by "
+              f"{path}", flush=True)
         require(rel <= rtol, f"{label}: v1_iter and mur_iteration_eu(lam_w=0) differ by "
                              f"{rel:.3e}")
         del w, h, v1, auto

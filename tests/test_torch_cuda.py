@@ -1048,13 +1048,15 @@ def test_hals_iteration_refuses_a_short_scratch(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 37, 128, 512])
-@pytest.mark.parametrize("n", [776, 777, 50001])  # rows on 16 bytes (f32 and bf16), or not
+@pytest.mark.parametrize("k", [1, 37, 128, 512, 1024])  # 1024: the wrappers' MAX_RANK
+# rows on 16 bytes (f32 and bf16), on 4 (f32; bf16 at 778), or neither (bf16 at 777, 50001)
+@pytest.mark.parametrize("n", [776, 777, 778, 50001])
 def test_mur_iteration_eu_dma_matches_plain_version_v1_iter_and_auto(cuda_device, n, k,
                                                                      xdtype):
-    """The dma variant keeps the FMA tiles: at lam_w = 0 it is v1_iter bit
-    for bit (the same FMAs in the same order); mur_iteration_eu takes its
-    products on the tensor cores, so the two agree within ROUTE_RTOL."""
+    """The dma variant runs TMA and wgmma: at lam_w = 0 it is v1_iter bit
+    for bit (the same stages on the same operands); mur_iteration_eu takes
+    its products on mma.sync, its sums in another order, so the two agree
+    within ROUTE_RTOL."""
     x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
     before = (mur_fused.mur_iteration_eu_dma.launches, mur_fused.mur_iteration_eu.launches)
     got = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.2, bm=150)
@@ -1068,6 +1070,56 @@ def test_mur_iteration_eu_dma_matches_plain_version_v1_iter_and_auto(cuda_device
         torch.testing.assert_close(a, c, rtol=ROUTE_RTOL[xdtype], atol=0)
     dma0 = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.0, bm=150)
     assert all(torch.equal(a, b) for a, b in zip(dma0, mur_variants.v1_iter(x, w, h, bm=150)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [776, 777, 778])  # X's three load paths at bf16
+@pytest.mark.parametrize("m,bm", [(129, 43), (1000, 500)])  # not whole 128-row tiles
+def test_tma_passes_at_a_ragged_m(cuda_device, m, bm, n, xdtype):
+    """m past a whole number of the 128-row tiles (and of (B)'s 32- or
+    64-row stages): the dma variant within RTOL of its plain version, v1_iter
+    and v2_iter its bits at lam_w = 0."""
+    x, w, h = _on(cuda_device, xdtype, m=m, n=n, k=128)
+    for lam in (0.0, 0.2):
+        got = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=lam, bm=bm)
+        for a, b in zip(got, mur_fused.mur_iteration_eu_dma_ref(x, w, h, lam_w=lam)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+    dma0 = mur_fused.mur_iteration_eu_dma(x, w, h, lam_w=0.0, bm=bm)
+    v1, v2 = mur_variants.v1_iter(x, w, h, bm), mur_variants.v2_iter(x, w, h, bm)
+    assert all(torch.equal(a, b) for a, b in zip(dma0, v1))
+    assert all(torch.equal(a, b) for a, b in zip((v2[0], v2[2], v2[3]), v1))
+
+
+@pytest.mark.cuda
+def test_tma_passes_refuse_a_short_scratch(cuda_device):
+    """Both C entries of the pass on TMA and wgmma check the scratch
+    against tpunmf_eu_tma_scratch's count (one float short: a nonzero
+    status, nothing launched); with enough, within RTOL of the plain
+    version."""
+    m, n, k = 300, 50001, 40
+    x, w, h = _on(cuda_device, torch.float32, m=m, n=n, k=k)
+    lib = _build.library()
+    floats = lib.tpunmf_eu_tma_scratch(m, n, k, 4)
+    assert floats > 0
+    scratch = torch.empty(floats, device=cuda_device)
+    f0, f1, ldh = _launch.eu_tma_operands(x, h)
+    gh = h @ h.T
+    stream = torch.cuda.current_stream().cuda_stream
+    want = mur_variants.v1_iter_ref(x, w, h)
+    for length, status in ((floats, 0), (floats - 1, 1)):  # 1: cudaErrorInvalidValue
+        outs = (torch.zeros_like(w), torch.zeros_like(h), torch.zeros((k, k), device=cuda_device))
+        ptrs = tuple(o.data_ptr() for o in outs)
+        assert lib.tpunmf_mur_iteration_eu_dma(
+            x.data_ptr(), 0, w.data_ptr(), f0.data_ptr(), f1.data_ptr(), ldh, gh.data_ptr(), 0.0,
+            m, n, k, *ptrs, scratch.data_ptr(), length, stream) == status
+        if status == 0:
+            for a, b in zip(outs, want):
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+        assert lib.tpunmf_v1_iter(
+            x.data_ptr(), 0, f0.data_ptr(), f1.data_ptr(), ldh, w.data_ptr(), gh.data_ptr(), m,
+            n, k, *ptrs, scratch.data_ptr(), length, stream) == status
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -1117,8 +1169,7 @@ def test_switches_route_the_single_passes_and_default_off(cuda_device, monkeypat
     dma_run, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 5).factorize(**mur_kw))
     assert launched == {(mur_fused.mur_iteration_eu_dma, "launches"): 5,
                         (fused.eu_residual_obj, "launches"): 6}
-    # FMA tiles against the tensor cores: the same function, f32 sums in
-    # another order
+    # wgmma against mma.sync: the same function, f32 sums in another order
     np.testing.assert_allclose(dma_run.obj_history, auto_run.obj_history,
                                rtol=ROUTE_RTOL[torch.float32])
     np.testing.assert_allclose(dma_run.w, auto_run.w, rtol=ROUTE_RTOL[torch.float32])
@@ -1128,8 +1179,8 @@ def test_switches_route_the_single_passes_and_default_off(cuda_device, monkeypat
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 37, 128, 512])
-@pytest.mark.parametrize("n", [777, 50001])  # one wave of rows; several, the last ragged
+@pytest.mark.parametrize("k", [1, 37, 128, 512, 1024])
+@pytest.mark.parametrize("n", [777, 50001])  # X's rows off 16 bytes; wide
 def test_v_iters_match_plain_versions_and_mur_iteration_eu(cuda_device, n, k, xdtype):
     x, w, h = _on(cuda_device, xdtype, m=300, n=n, k=k)
     before = (mur_variants.v1_iter.launches, mur_variants.v2_iter.launches)
@@ -1143,7 +1194,7 @@ def test_v_iters_match_plain_versions_and_mur_iteration_eu(cuda_device, n, k, xd
             assert a.dtype == torch.float32 and a.is_cuda and a.shape == b.shape
             torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
     # v1 is mur_iteration_eu's function at lam_w = 0; mur_iteration_eu
-    # takes its products on the tensor cores, v1 on FMA tiles
+    # takes its products on mma.sync, v1 on wgmma
     auto = mur_fused.mur_iteration_eu(x, w, h, lam_w=0.0, bm=150)
     for a, b in zip(v1, auto):
         torch.testing.assert_close(a, b, rtol=ROUTE_RTOL[xdtype], atol=0)

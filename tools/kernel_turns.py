@@ -2,7 +2,8 @@
 """Time the MUR passes, the masked passes and the objective passes on one
 CUDA card, alone and in turns with the same kernels of another checkout.
 
-    python3 tools/kernel_turns.py [--parent DIR] [--only mur|w|single|masked|objectives|gram]
+    python3 tools/kernel_turns.py [--parent DIR]
+        [--only mur|w|single|dma|masked|objectives|gram]
 
 DIR is a checkout of another commit (for instance the parent, unpacked
 with ``git archive`` into a git-ignored directory); its kernels are built
@@ -57,6 +58,15 @@ takes up to mur_fused.KL_ITER_PAIR_RANK);
 hals_iteration_eu at 8192 x 8192 r128 (lowrank_dense seed 0) f32 at 2
 and 1 sweeps and bf16 at 2; each also with its profiler device time (and
 the other's).
+With --only dma, the EU pass on TMA and wgmma: mur_iteration_eu_dma and
+v1_iter, each side through its own C entry with its buffers made once
+(before the TMA stages the other checkout's entries took H in X's type,
+or H^T, and the FMA plan's scratch), and mur_iteration_eu (this
+checkout's wrapper, the other's C entry), at 8192 x 8192 r128
+(lowrank_dense seed 0) and 8192 x 16384 r128, 8192 x 32768 r32, 16384 x
+4096 r256 and 8192 x 8190 r128 (rows off 16 bytes: the kernel's own loads
+of X; lowrank_dense of rank min(k, 64)), f32 and bf16 X, with the
+profiler's device times of the dma variant.
 With --only gram, no times: the Gram objective near convergence of
 tests/test_torch_cuda.py (2000 x 1500 r64, six seeds) from this
 checkout's mur_iteration_eu and mur_h_update and, with DIR, the other's,
@@ -125,17 +135,18 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout whose kernels to time in turns")
-    ap.add_argument("--only", choices=("mur", "w", "single", "masked", "objectives", "gram"),
+    ap.add_argument("--only",
+                    choices=("mur", "w", "single", "dma", "masked", "objectives", "gram"),
                     help="time one family of cases (w: the MUR W pass alone, a part of "
-                         "mur; single: mur_iteration_kl and hals_iteration_eu; gram: "
+                         "mur; single: mur_iteration_kl and hals_iteration_eu; dma: "
+                         "mur_iteration_eu_dma, v1_iter and mur_iteration_eu; gram: "
                          "accuracy, no times)")
     args = ap.parse_args()
 
     import chip_smoke as cs
     from tpunmf_torch.data import lowrank_dense, movielens_like, tfidf_like
-    from tpunmf_torch.ops import _build, fused
+    from tpunmf_torch.ops import _build, _launch, fused, mur_fused, mur_variants
     from tpunmf_torch.ops import masked_fused as mf
-    from tpunmf_torch.ops import mur_fused
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.nvidia_smi_line()
@@ -193,10 +204,12 @@ def main() -> int:
         count = max(other.tpunmf_iteration_scratch(m, n, k, x.element_size(), kind)
                     for kind in (0, 3))
         scratch = torch.empty(max(count, 1), device="cuda")
+        # before the TMA stages the entry took a dma flag (0: the tensor cores)
+        dma = (0,) if len(other.tpunmf_mur_iteration_eu.argtypes) == 15 else ()
         _build.check(other.tpunmf_mur_iteration_eu(
             x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(),
-            gh.data_ptr(), 0.0, m, n, k, *(o.data_ptr() for o in outs), scratch.data_ptr(), 0,
-            stream()), "other")
+            gh.data_ptr(), 0.0, m, n, k, *(o.data_ptr() for o in outs), scratch.data_ptr(),
+            *dma, stream()), "other")
         return outs
 
     def other_h_update(x, w, h, dist):
@@ -477,6 +490,86 @@ def main() -> int:
 
     if args.only == "single":
         single_cases()
+        print(card)
+        return 0
+
+    # ------------------------------------------- the EU pass on TMA and wgmma
+    def tma_entry(lib_, name, x, w, h):
+        """A call of mur_iteration_eu_dma (name "dma") or v1_iter ("v1")
+        through the C entry of ``lib_``, its buffers made once: with the TMA
+        stages H's factor operands and tpunmf_eu_tma_scratch's scratch;
+        before them H in X's type (dma: the dma flag of
+        tpunmf_mur_iteration_eu) or H^T (v1) and the FMA plan's (kind 0)."""
+        m, n = x.shape
+        k = w.shape[1]
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        gh = h @ h.T
+        outs = (torch.empty_like(w), torch.empty_like(h), torch.empty_like(gh))
+        ptrs = tuple(o.data_ptr() for o in outs)
+        if hasattr(lib_, "tpunmf_eu_tma_scratch"):
+            f0, f1, ldh = (_launch.eu_tma_operands(x, h) if name == "dma"
+                           else mur_variants.v_operands(x, h))
+            floats = lib_.tpunmf_eu_tma_scratch(m, n, k, x.element_size())
+            scratch = torch.empty(floats, device="cuda")
+            keep = (gh, f0, f1, scratch)
+            tail = (*ptrs, scratch.data_ptr(), floats, stream())
+            if name == "dma":
+                entry = lib_.tpunmf_mur_iteration_eu_dma
+                args = (x.data_ptr(), is_bf16, w.data_ptr(), f0.data_ptr(), f1.data_ptr(), ldh,
+                        gh.data_ptr(), 0.0, m, n, k, *tail)
+            else:
+                entry = lib_.tpunmf_v1_iter
+                args = (x.data_ptr(), is_bf16, f0.data_ptr(), f1.data_ptr(), ldh, w.data_ptr(),
+                        gh.data_ptr(), m, n, k, *tail)
+        else:
+            floats = lib_.tpunmf_iteration_scratch(m, n, k, x.element_size(), 0)
+            scratch = torch.empty(max(floats, 1), device="cuda")
+            if name == "dma":
+                hc = h.to(x.dtype)
+                entry = lib_.tpunmf_mur_iteration_eu
+                args = (x.data_ptr(), is_bf16, w.data_ptr(), hc.data_ptr(), gh.data_ptr(), 0.0,
+                        m, n, k, *ptrs, scratch.data_ptr(), 1, stream())
+            else:
+                hc = h.T.to(x.dtype).contiguous()
+                entry = lib_.tpunmf_v1_iter
+                args = (x.data_ptr(), is_bf16, hc.data_ptr(), w.data_ptr(), gh.data_ptr(), m,
+                        n, k, *ptrs, scratch.data_ptr(), stream())
+            keep = (gh, hc, scratch)
+
+        def fn(keep=keep):  # keep: the tensors behind args' pointers
+            _build.check(entry(*args), name)
+            return outs
+        return fn
+
+    def dma_cases():
+        print(f"the EU pass on TMA and wgmma, through the C entries ({card})", flush=True)
+        for m, n, k in ((8192, 8192, 128), (8192, 16384, 128), (8192, 32768, 32),
+                        (16384, 4096, 256), (8192, 8190, 128)):
+            x = torch.from_numpy(lowrank_dense(m, n, min(k, 64), seed=0)).cuda()
+            for xx, dt in ((x, "f32"), (x.bfloat16(), "bf16")):
+                w, h = factors(m, n, k, 14)
+                label = f"{m}x{n} {dt} k{k}" + (
+                    "" if n * xx.element_size() % 16 == 0 else " (rows off 16 bytes)")
+                for name in ("dma", "v1"):
+                    this_fn = tma_entry(lib, name, xx, w, h)
+                    other_fn = tma_entry(other, name, xx, w, h) if other is not None else None
+                    report(f"{'mur_iteration_eu_dma' if name == 'dma' else 'v1_iter'} {label}",
+                           this_fn, other_fn, 3)
+                    if name == "dma":
+                        device_line(this_fn, other_fn)
+                auto_other = None
+                if other is not None:
+                    def auto_other():
+                        return other_iteration_eu(xx, w, h)
+                report(f"mur_iteration_eu {label}",
+                       lambda: mur_fused.mur_iteration_eu(xx, w, h, lam_w=0.0, bm=m), auto_other,
+                       3)
+                del w, h
+            del x
+        torch.cuda.empty_cache()
+
+    if args.only == "dma":
+        dma_cases()
         print(card)
         return 0
 

@@ -47,8 +47,16 @@ _SIGNATURES = {
     # stream
     "tpunmf_mur_h_update": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _I, _P, _P, _P),
     # x, x_is_bf16, w, hc (H in X's type), gh, lam, m, n, k, w_out, wtx,
-    # gram, scratch, dma, stream
-    "tpunmf_mur_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _I, _P),
+    # gram, scratch, stream
+    "tpunmf_mur_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P),
+    # x, x_is_bf16, w, f0, f1 (H's factor operands, _launch.eu_tma_operands),
+    # ldh, gh, lam, m, n, k, w_out, wtx, gram, scratch, scratch_len
+    # (floats, 64-bit), stream
+    "tpunmf_mur_iteration_eu_dma": (_P, _I, _P, _P, _P, _I, _P, _F, _I, _I, _I, _P, _P, _P, _P,
+                                    _L, _P),
+    # m, n, k, x_bytes -> floats of scratch the EU single pass on TMA and
+    # wgmma needs (64-bit)
+    "tpunmf_eu_tma_scratch": (_I, _I, _I, _I),
     # x, x_is_bf16, w, h, hp (H at row stride ldh), ldh, hsum, lam, m, n, k,
     # w_splits, w_part, w_part_len (floats, 64-bit), partials, h_splits,
     # h_part, h_part_len, w_out, wtr, obj, stream
@@ -59,16 +67,16 @@ _SIGNATURES = {
     # x, x_is_bf16, w, hc (H in X's type), hht, lam, m, n, k, nsweeps,
     # w_out, wtx, gram, scratch, scratch_len (floats, 64-bit), stream
     "tpunmf_hals_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P),
-    # m, n, k, x_bytes (X's element size), kind (0 MUR EU's FMA variants,
-    # 1 MUR KL's FMA waves, 2 HALS, 3 MUR EU) -> floats of scratch the
-    # single-pass iteration needs (64-bit; -1 for another kind)
+    # m, n, k, x_bytes (X's element size), kind (0 the sweep scripts'
+    # iter_eu_int8, 1 MUR KL's FMA waves, 2 HALS, 3 MUR EU) -> floats of
+    # scratch the single-pass iteration needs (64-bit; -1 for another kind)
     "tpunmf_iteration_scratch": (_I, _I, _I, _I, _I),
-    # x, x_is_bf16, ht (H^T (n, k) in X's type), w, gh, m, n, k, w_out,
-    # wtx, gram, scratch, stream
-    "tpunmf_v1_iter": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    # x, x_is_bf16, ht, h, w, gh, m, n, k, w_out, h_out, wtx, gram,
-    # scratch, stream
-    "tpunmf_v2_iter": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # x, x_is_bf16, f0, f1, ldh (H's factor operands, from H^T), w, gh, m,
+    # n, k, w_out, wtx, gram, scratch, scratch_len, stream
+    "tpunmf_v1_iter": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _P),
+    # x, x_is_bf16, f0, f1, ldh, h, w, gh, m, n, k, w_out, h_out, wtx, gram,
+    # scratch, scratch_len, stream
+    "tpunmf_v2_iter": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P),
     # xq (int8), h, w, gh, scale (device float), m, n, k, w_out, wtx, gram,
     # scratch, stream
     "tpunmf_iter_eu_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
@@ -101,7 +109,8 @@ _SIGNATURES = {
     "tpunmf_score_blockmax": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 # entry points whose result is not an int
-_RESULTS = {"tpunmf_mur_w_eu_scratch": _L, "tpunmf_iteration_scratch": _L}
+_RESULTS = {"tpunmf_mur_w_eu_scratch": _L, "tpunmf_iteration_scratch": _L,
+            "tpunmf_eu_tma_scratch": _L}
 
 
 def _nvcc() -> str:

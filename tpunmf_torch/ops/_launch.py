@@ -65,9 +65,10 @@ def check_strips(x, bm, bs=None):
 
 
 # the single-pass iterations of csrc/wave.cuh, as tpunmf_iteration_scratch counts them:
-# MUR EU on FMA tiles (the "dma" variant, the sweep scripts'), MUR KL's FMA waves
-# (above mur_fused.KL_ITER_PAIR_RANK), HALS EU and MUR EU (mur_iteration_eu), both
-# on the tensor cores
+# MUR EU on FMA tiles (the sweep script's iter_eu_int8), MUR KL's FMA waves (above
+# mur_fused.KL_ITER_PAIR_RANK), HALS EU and MUR EU (mur_iteration_eu), both on the
+# tensor cores.  The EU pass on TMA and wgmma (the "dma" variant, v1_iter and
+# v2_iter) has a query of its own (eu_tma_scratch).
 WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS, WAVE_MUR_EU_TC = 0, 1, 2, 3
 
 
@@ -87,3 +88,35 @@ def call(name: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.check(getattr(lib, name)(*args, stream), name)
+
+
+def tf32_split(f: torch.Tensor):
+    """(big, small) of a float32 tensor: big is f rounded to TF32 by
+    csrc/tf32x3.cuh's integer rule (add 2^12 to the bits, clear the low 13)
+    and small = f - big, exact in f32, so big + small == f."""
+    big = ((f.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return big, f - big
+
+
+def eu_tma_operands(x: torch.Tensor, h: torch.Tensor):
+    """H's factor operands for the EU pass on TMA and wgmma
+    (csrc/wave.cuh's TmaStages) from H (k, n), f32 or already in X's dtype,
+    any strides: (f0, f1, ldh), (k, ldh) arrays with rows padded by zeros
+    to ldh = n rounded up to 8 (16-byte rows for TMA).  f32 X: f0 and f1
+    are H's TF32 big and small parts (:func:`tf32_split`); bf16 X: f0 is H
+    in bf16 and f1 is f0 (unused by the kernel)."""
+    n = h.shape[1]
+    ldh = -(-n // 8) * 8
+    hp = torch.nn.functional.pad(h.to(x.dtype), (0, ldh - n)).contiguous()
+    if x.dtype == torch.bfloat16:
+        return hp, hp, ldh
+    big, small = tf32_split(hp)
+    return big, small, ldh
+
+
+def eu_tma_scratch(x, k: int) -> torch.Tensor:
+    """The float32 scratch of the EU pass on TMA and wgmma (its length,
+    counted in 64 bits by the C entry, is ``numel()``)."""
+    m, n = x.shape
+    count = _build.library().tpunmf_eu_tma_scratch(m, n, k, x.element_size())
+    return torch.empty(count, dtype=torch.float32, device=x.device)

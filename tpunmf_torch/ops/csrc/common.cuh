@@ -4,7 +4,8 @@
 // division and the cp.async staging for every kernel, the tensor-core ones
 // of tf32x3.cuh included; the HALS chain for hals_sweep.cu.
 //
-// Every kernel runs 256 threads.  The FMA kernels see them as a 16 x 16 grid
+// Every kernel runs 256 threads (wave.cuh's TMA stages: 288, launched by
+// their own helper).  The FMA kernels see them as a 16 x 16 grid
 // (ty, tx): a thread owns a TM x TN micro-tile of a (16*TM) x (16*TN) block
 // tile, rows ty + 16*a and columns tx + 16*b, its products f32 FMA from
 // shared-memory tiles (tf32x3.cuh's kernels see 8 warps instead).  The
@@ -169,14 +170,6 @@ constexpr int kWideRank = 512;
 // Rows of W (columns of H) a KL block owns at rank k.
 inline int kl_block(int k) { return k <= kWideRank ? 64 : 32; }
 
-// A factor element as an EU product takes it: a float factor rounded to X's
-// storage type (tpunmf/ops/mur_fused.py:84, :716), or one that the wrapper
-// already cast to X's type (tpunmf/ops/mur_fused.py:330).
-template <typename XT>
-__device__ __forceinline__ float factor_as_x(float v) { return round_as_x<XT>(v); }
-template <typename XT>
-__device__ __forceinline__ float factor_as_x(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 // Staging of the 64 x 64 EU tiles: a[kChunk][kTile + 1], b[kChunk][kTile + 1].
 struct EuStage {
   float a[kChunk * (kTile + 1)];
@@ -184,12 +177,12 @@ struct EuStage {
 };
 
 // acc[a][b] += sum_{j0 <= j < j1} X[row0 + ty + 16a][j] * F[c0 + tx + 16b][j]
-// with X (m, n) and F (k, n) row-major, F taken by factor_as_x: a 64 x 64
-// tile of X F^T over the columns [j0, j1) of X (j1 <= n).  NK: F is stored
-// as F^T, (n, k) row-major (the sweep scripts' pre-cast H^T).
-template <typename XT, typename FT, bool NK = false>
+// with X (m, n) and F (k, n) row-major, F float rounded to X's product type
+// (round_as_x): a 64 x 64 tile of X F^T over the columns [j0, j1) of X
+// (j1 <= n).
+template <typename XT>
 __device__ __forceinline__ void x_ft_tile(float (&acc)[4][4], const XT* __restrict__ x,
-                                          const FT* __restrict__ f, int m, int n, int k,
+                                          const float* __restrict__ f, int m, int n, int k,
                                           int row0, int c0, int j0, int j1, EuStage& st) {
   constexpr int LD = kTile + 1;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -199,11 +192,9 @@ __device__ __forceinline__ void x_ft_tile(float (&acc)[4][4], const XT* __restri
       st.a[kk * LD + r] = (gr < m && gj < j1) ? to_f32(x[(long long)gr * n + gj]) : 0.f;
     }
     for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      // neighbouring threads on neighbouring addresses of F in either layout
-      const int c = NK ? l % kTile : l / kChunk, kk = NK ? l / kTile : l % kChunk;
-      const int gc = c0 + c, gj = jb + kk;
-      const long long at = NK ? (long long)gj * k + gc : (long long)gc * n + gj;
-      st.b[kk * LD + c] = (gc < k && gj < j1) ? factor_as_x<XT>(f[at]) : 0.f;
+      const int c = l / kChunk, kk = l % kChunk, gc = c0 + c, gj = jb + kk;
+      st.b[kk * LD + c] =
+          (gc < k && gj < j1) ? round_as_x<XT>(f[(long long)gc * n + gj]) : 0.f;
     }
     __syncthreads();
     micro_gemm<4, 4>(acc, st.a, LD, st.b, LD, kChunk, ty, tx);
@@ -235,16 +226,10 @@ __device__ __forceinline__ void ft_x_tile(float (&acc)[4][4], const XT* __restri
   }
 }
 
-// ------------------------------- the same two tile loops, copies overlapped
-// x_ft_tile_async / ft_x_tile_async compute what x_ft_tile / ft_x_tile do,
-// with the same FMAs in the same order (so the same bits), but stage each
-// kChunk slab in two shared-memory buffers: the next slab's copies are
-// issued with cp.async before the FMAs on the current one, so the copy of
-// X and of the factor overlaps the products (the counterpart of the TPU
-// kernel's double-buffered strip DMA, tpunmf/ops/mur_fused.py:368-442).
-// cp.async copies 16 bytes without passing through registers, so the
-// staged rows keep X's layout and type: rows padded by 16 bytes (not by one
-// float) so that each starts on 16 bytes, read back as 16-byte vectors.
+// --------------------------------------------------- cp.async staging
+// Shared tiles of the tensor-core kernels (tf32x3.cuh, masked_update.cu)
+// are filled by 16-byte cp.async copies, which do not pass through
+// registers, so a staged row keeps X's layout and type.
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -282,146 +267,6 @@ __device__ __forceinline__ void stage_piece(T* dst, const T* src, int valid, boo
   } else {
 #pragma unroll
     for (int v = 0; v < V; ++v) dst[v] = v < valid ? src[v] : zero_of<T>();
-  }
-}
-
-// The 16 bytes at p (shared memory, 16-byte aligned) as floats.
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&out)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned words[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {  // a bf16 is the high half of its float, exactly
-    out[2 * q] = __uint_as_float(words[q] << 16);
-    out[2 * q + 1] = __uint_as_float(words[q] & 0xffff0000u);
-  }
-}
-
-// Two buffers of x_ft_tile_async: kTile rows of X and of the factor, kChunk
-// columns each, in X's type; element (r, j) at r * LD + j.
-template <typename XT>
-struct XftStage {
-  static constexpr int V = 16 / sizeof(XT), LD = kChunk + V;
-  alignas(16) XT x[2][kTile * LD];
-  alignas(16) XT f[2][kTile * LD];
-};
-
-// x_ft_tile with the factor F already in X's type (the wrapper's pre-cast
-// H); `aligned`: every row of X and F starts on 16 bytes.  Reading 16-byte
-// vectors along the contraction keeps the FMA order of micro_gemm and is
-// free of bank conflicts (8 threads of a phase, rows 16 * LD bytes apart).
-template <typename XT>
-__device__ __forceinline__ void x_ft_tile_async(float (&acc)[4][4], const XT* __restrict__ x,
-                                                const XT* __restrict__ f, int m, int n, int k,
-                                                int row0, int c0, int j0, int j1, bool aligned,
-                                                XftStage<XT>& st) {
-  constexpr int V = XftStage<XT>::V, LD = XftStage<XT>::LD, ROW = kChunk / V;
-  constexpr int PIECES = kTile * ROW;  // of each operand
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  auto issue = [&](int buf, int jb) {
-    for (int l = tid; l < 2 * PIECES; l += kThreads) {
-      const bool is_x = l < PIECES;
-      const int q = is_x ? l : l - PIECES, r = q / ROW, j = q % ROW * V, gj = jb + j;
-      const int g = (is_x ? row0 : c0) + r;
-      const bool in = g < (is_x ? m : k);
-      stage_piece((is_x ? st.x[buf] : st.f[buf]) + r * LD + j,
-                  (is_x ? x : f) + (long long)g * n + gj, in ? j1 - gj : 0, aligned);
-    }
-    cp_async_commit();
-  };
-  issue(0, j0);
-  int buf = 0;
-  for (int jb = j0; jb < j1; jb += kChunk, buf ^= 1) {
-    if (jb + kChunk < j1)
-      issue(buf ^ 1, jb + kChunk);
-    else
-      cp_async_commit();  // an empty group: wait_one then always means "this slab"
-    cp_async_wait_one();
-    __syncthreads();
-    const XT* xs = st.x[buf];
-    const XT* fs = st.f[buf];
-#pragma unroll
-    for (int t0 = 0; t0 < kChunk; t0 += V) {
-      float a[4][V];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load_vec(xs + (ty + 16 * i) * LD + t0, a[i]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float b[V];
-        load_vec(fs + (tx + 16 * jj) * LD + t0, b);
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(a[i][v], b[v], acc[i][jj]);
-      }
-    }
-    __syncthreads();  // the slab is read before the next issue overwrites it
-  }
-}
-
-// Two buffers of ft_x_tile_async: kChunk rows of F (float, kTile columns)
-// and of X (X's type, kTile columns); element (t, c) at t * LD + c.
-template <typename XT>
-struct FtxStage {
-  static constexpr int V = 16 / sizeof(XT), LDX = kTile + V, LDF = kTile + 4;
-  alignas(16) float f[2][kChunk * LDF];
-  alignas(16) XT x[2][kChunk * LDX];
-};
-
-// ft_x_tile from two-stage copies; `x_aligned` / `f_aligned`: every row of
-// X / F starts on 16 bytes.  F is rounded to X's type as it is read.
-template <typename XT>
-__device__ __forceinline__ void ft_x_tile_async(float (&acc)[4][4], const XT* __restrict__ x,
-                                                const float* __restrict__ f, int n, int k,
-                                                int col0, int c0, int i0, int i1, bool x_aligned,
-                                                bool f_aligned, FtxStage<XT>& st) {
-  constexpr int V = FtxStage<XT>::V, LDX = FtxStage<XT>::LDX, LDF = FtxStage<XT>::LDF;
-  constexpr int XROW = kTile / V, FROW = kTile / 4, XP = kChunk * XROW, FP = kChunk * FROW;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  auto issue = [&](int buf, int ib) {
-    for (int l = tid; l < XP + FP; l += kThreads) {
-      if (l < XP) {
-        const int t = l / XROW, c = l % XROW * V, gi = ib + t, gj = col0 + c;
-        stage_piece(st.x[buf] + t * LDX + c, x + (long long)gi * n + gj,
-                    gi < i1 ? n - gj : 0, x_aligned);
-      } else {
-        const int q = l - XP, t = q / FROW, c = q % FROW * 4, gi = ib + t, gc = c0 + c;
-        stage_piece(st.f[buf] + t * LDF + c, f + (long long)gi * k + gc,
-                    gi < i1 ? k - gc : 0, f_aligned);
-      }
-    }
-    cp_async_commit();
-  };
-  issue(0, i0);
-  int buf = 0;
-  for (int ib = i0; ib < i1; ib += kChunk, buf ^= 1) {
-    if (ib + kChunk < i1)
-      issue(buf ^ 1, ib + kChunk);
-    else
-      cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const float* fs = st.f[buf];
-    const XT* xs = st.x[buf];
-#pragma unroll 4
-    for (int t = 0; t < kChunk; ++t) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = round_as_x<XT>(fs[t * LDF + ty + 16 * i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = to_f32(xs[t * LDX + tx + 16 * j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 }
 

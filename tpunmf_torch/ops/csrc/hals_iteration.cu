@@ -78,9 +78,8 @@ cudaError_t iteration_hals(const Plan& p, const void* xv, const void* hv, const 
     return launch(hals_w_kernel<KPT>, dim3(ceil_div(r1 - r0, kWarps)), 0, s, w, g, part,
                   p.nsplit, lam, k, r0, r1, p.rows, nsweeps, w_out);
   };
-  return eu_waves<XT, XT, false, false, TcStages<XT>>(
-      p, static_cast<const XT*>(xv), static_cast<const XT*>(hv), m, n, k, sweeps, w_out, wtx,
-      gram, scratch, s);
+  const TcStages<XT> stages{static_cast<const XT*>(xv), static_cast<const XT*>(hv), n, k};
+  return eu_waves(p, stages, m, n, k, sweeps, w_out, wtx, gram, scratch, s);
 }
 
 }  // namespace

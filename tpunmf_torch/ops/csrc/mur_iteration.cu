@@ -31,15 +31,18 @@
 // (mur_variants.cu) share.  mur_iteration_eu runs (A) and (B) on the tensor
 // cores (wave.cuh's TcStages: 128 x 128 tiles of 3xTF32 mma.sync, one TF32
 // product a step at bf16 X, every step's sum rounded to nearest, all of X
-// in one wave); the denominator W Gh and the Gram W'^T W' (2 m k^2 flops
-// each, 1% of the products at r128) stay on FMA tiles.  The "dma" variant
-// runs (A) and (B) on the two-stage cp.async FMA tile loops
-// (x_ft_tile_async, ft_x_tile_async: the next slab of X and of the factor
-// in flight while the FMAs run on the current one, as the TPU kernel
-// double-buffers its strips by hand), the FMAs and their order those of the
-// sweep scripts' v1_iter, so at lam_w = 0 it gives v1_iter's bits; against
-// mur_iteration_eu it differs by f32 summation order (and where that moves
-// a bf16 rounding of W', by a bf16 ulp of a term of wtx).
+// in one wave; plan kind kWaveEuTc); the denominator W Gh and the Gram
+// W'^T W' (2 m k^2 flops each, 1% of the products at r128) stay on FMA
+// tiles.  The "dma" variant runs (A) and (B) on TMA and wgmma (wave.cuh's
+// TmaStages, on kWaveEuTc's plan at their own fill: a ring of shared-memory
+// stages that a producer fills with TMA copies while two warpgroups
+// multiply, the card's counterpart of the TPU kernel's double-buffered
+// strip DMA; 3xTF32 wgmma at f32 X, bf16 wgmma at bf16 X, every stage's
+// sum rounded to nearest, all of X in one wave).  Its stages are those of
+// the sweep scripts' v1_iter on the same operands, so at lam_w = 0 it gives
+// v1_iter's bits; against mur_iteration_eu it differs by f32 summation
+// order (and where that moves a bf16 rounding of W', by a bf16 ulp of a
+// term of wtx).
 //
 // KL up to its own rank line (ops/mur_fused.py's KL_ITER_PAIR_RANK): the
 // 2-pass pair's bodies, over all of X each (mur_update.cu's kl_w_lagged,
@@ -73,17 +76,15 @@ cudaError_t kl_h_numer(const void* x, int x_is_bf16, const float* w, const float
 namespace {
 
 // ------------------------------------------------------------------------ EU
-// mur_eu_waves (wave.cuh) with H (k, n) pre-cast to X's type: on the tensor
-// cores, or with ASYNC (the "dma" variant) on the two-stage FMA tile loops.
-template <typename XT, bool ASYNC>
+// mur_eu_waves (wave.cuh) on the tensor cores with H (k, n) pre-cast to X's
+// type.
+template <typename XT>
 cudaError_t iteration_eu(const void* xv, const void* hv, const float* w, const float* gh,
                          float lam, int m, int n, int k, float* w_out, float* wtx, float* gram,
                          float* scratch, cudaStream_t s) {
-  using Stages = std::conditional_t<ASYNC, FmaStages<XT, XT, false, true>, TcStages<XT>>;
-  return mur_eu_waves<XT, XT, false, ASYNC, Stages>(static_cast<const XT*>(xv),
-                                                    static_cast<const XT*>(hv), w, gh, lam,
-                                                    nullptr, m, n, k, w_out, wtx, gram,
-                                                    scratch, s);
+  const Plan p = make_plan(m, n, k, sizeof(XT), kWaveEuTc);
+  const TcStages<XT> stages{static_cast<const XT*>(xv), static_cast<const XT*>(hv), n, k};
+  return mur_eu_waves(p, stages, w, gh, lam, nullptr, m, n, k, w_out, wtx, gram, scratch, s);
 }
 
 // ------------------------------------------------------------ KL, FMA waves
@@ -210,24 +211,30 @@ cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const f
 
 extern "C" {
 
-// Floats of scratch the single-pass iteration of `kind` (0: MUR EU's "dma"
-// variant and the sweep scripts' variants, 1: MUR KL's FMA waves, 2: HALS
-// EU, 3: MUR EU; 2 and 3 on the tensor cores) needs at (m, n, k) for X of
-// x_bytes (4 f32, 2 bf16, 1 int8) an element, in 64 bits; -1 for another
-// kind.
+// Floats of scratch the single-pass iteration of `kind` (0: the sweep
+// scripts' iter_eu_int8, 1: MUR KL's FMA waves, 2: HALS EU, 3: MUR EU; 2
+// and 3 on the tensor cores) needs at (m, n, k) for X of x_bytes (4 f32, 2
+// bf16, 1 int8) an element, in 64 bits; -1 for another kind (the TMA
+// stages' scratch is tpunmf_eu_tma_scratch's).
 long long tpunmf_iteration_scratch(int m, int n, int k, int x_bytes, int kind) {
   using namespace tpunmf;
   if (kind < kWaveEu || kind > kWaveEuTc) return -1;
   return make_plan(m, n, k, x_bytes, kind).scratch;
 }
 
-// EU iteration.  hc is H (k, n) in X's type, gh = H H^T (k, k); writes W'
-// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).  dma = 0:
-// the tensor cores, scratch of kind 3; dma = 1: the FMA tile loops with
-// two-stage cp.async copies, scratch of kind 0.
+// Floats of scratch the EU single pass on TMA and wgmma (the "dma" variant,
+// v1_iter, v2_iter) needs at (m, n, k) for X of x_bytes (4 or 2) an
+// element, in 64 bits: the plan's partials and den, then stage (B)'s factor.
+long long tpunmf_eu_tma_scratch(int m, int n, int k, int x_bytes) {
+  return tpunmf::tma_scratch(m, n, k, x_bytes).total;
+}
+
+// EU iteration on the tensor cores.  hc is H (k, n) in X's type, gh = H
+// H^T (k, k); writes W' (m, k), wtx = round(W')^T X (k, n) and gram = W'^T
+// W' (k, k); scratch of kind 3.
 int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const void* hc,
                             const void* gh, float lam, int m, int n, int k, void* w_out,
-                            void* wtx, void* gram, void* scratch, int dma, void* stream) {
+                            void* wtx, void* gram, void* scratch, void* stream) {
   const float* wf = static_cast<const float*>(w);
   const float* gf = static_cast<const float*>(gh);
   float* wo = static_cast<float*>(w_out);
@@ -236,15 +243,35 @@ int tpunmf_mur_iteration_eu(const void* x, int x_is_bf16, const void* w, const v
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using tpunmf::iteration_eu;
-  using bf16 = __nv_bfloat16;
-  cudaError_t err;
-  if (x_is_bf16)
-    err = dma ? iteration_eu<bf16, true>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
-              : iteration_eu<bf16, false>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s);
-  else
-    err = dma ? iteration_eu<float, true>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
-              : iteration_eu<float, false>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      x_is_bf16 ? iteration_eu<__nv_bfloat16>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s)
+                : iteration_eu<float>(x, hc, wf, gf, lam, m, n, k, wo, tx, gr, sc, s));
+}
+
+// The "dma" variant of the EU iteration, on TMA and wgmma.  H comes as the
+// factor operands of wave.cuh's TmaStages, (k, n) at row stride ldh (a
+// multiple of 16 bytes): f32 X: f0 its TF32 big part and f1 its small part
+// (tf32x3.cuh's split), bf16 X: f0 H in bf16 (f1 unused); gh = H H^T (k,
+// k).  Writes W' (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k,
+// k).  scratch holds scratch_len floats, at least tpunmf_eu_tma_scratch's
+// (fewer: cudaErrorInvalidValue).
+int tpunmf_mur_iteration_eu_dma(const void* x, int x_is_bf16, const void* w, const void* f0,
+                                const void* f1, int ldh, const void* gh, float lam, int m,
+                                int n, int k, void* w_out, void* wtx, void* gram, void* scratch,
+                                long long scratch_len, void* stream) {
+  using namespace tpunmf;
+  const float* wf = static_cast<const float*>(w);
+  const float* gf = static_cast<const float*>(gh);
+  float* wo = static_cast<float*>(w_out);
+  float* tx = static_cast<float*>(wtx);
+  float* gr = static_cast<float*>(gram);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      x_is_bf16 ? mur_eu_tma<__nv_bfloat16>(x, f0, f1, ldh, wf, gf, lam, m, n, k, wo, tx, gr,
+                                            sc, scratch_len, s)
+                : mur_eu_tma<float>(x, f0, f1, ldh, wf, gf, lam, m, n, k, wo, tx, gr, sc,
+                                    scratch_len, s));
 }
 
 // KL iteration: W' (m, k), wtr = W'^T (X / (W' H + eps)) (k, n) and obj[0]

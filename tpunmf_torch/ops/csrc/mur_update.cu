@@ -132,9 +132,7 @@ cudaError_t w_eu_pass(const XT* x, const XT* hc, const float* w, const float* gh
   cudaError_t err =
       launch(eu_den_kernel, dim3(ceil_div(m, kTile), ceil_div(k, kTile)), 0, s, w, gh, m, k, den);
   if (err != cudaSuccess) return err;
-  constexpr int V = 16 / sizeof(XT);
-  const bool aligned = n % V == 0 && aligned16(x) && aligned16(hc);
-  err = TcStages<XT>::rows(p, x, hc, m, n, k, 0, m, aligned, part, s);
+  err = TcStages<XT>{x, hc, n, k}.rows(p, 0, m, part, s);
   if (err != cudaSuccess) return err;
   return launch(eu_w_kernel, elementwise_grid((long long)m * k), 0, s, w,
                 static_cast<const float*>(den), static_cast<const float*>(part), p.nsplit, lam,

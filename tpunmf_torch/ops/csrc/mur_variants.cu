@@ -14,17 +14,18 @@
 //   wtx = round(W')^T X (int8: times s), gram = W'^T W'   (round: to X's
 //   type, bf16 for int8)
 //
-// What bounds them on the H100: the 4*m*n*k FMA flops of mur_iteration_eu
-// (k to 2k flops per X byte at f32, 4k at int8), above the f32 FMA ridge
-// (20 flop/byte), so FMA throughput; int8 X's 4x fewer bytes buy nothing
-// while the products run on plain FMA tiles.  The design is that of
-// mur_iteration_eu: mur_eu_waves (wave.cuh) with the plain tile loops of
-// common.cuh, whose (A) reads the (n, k) H^T (v1, v2) or rounds f32 H to
-// bf16 as it stages it (int8), and whose (B) rounds W' to X's type (bf16
-// for int8).  v1 is mur_iteration_eu's function at lam_w = 0, on FMA tiles
-// where mur_iteration_eu takes the tensor cores: its staged values, FMAs
-// and their order are those of mur_iteration_eu_dma, so at lam_w = 0 the
-// two give the same bits.
+// What bounds them on the H100: the 4*m*n*k flops of products of
+// mur_iteration_eu on one read of X (k to 2k flops per X byte at f32, 4k
+// at int8).  v1 and v2 run mur_iteration_eu's "dma" variant's stages
+// (wave.cuh's TmaStages: TMA copies feeding wgmma, 3xTF32 at f32 X, bf16
+// products at bf16 X; kWaveEuTc's plan at their fill, all of X in one
+// wave), where f32 X is bound by its products (165 TFLOP/s of f32 work)
+// and bf16 X by its bytes; the wrapper prepares H^T into the same (k, n)
+// factor operands as the dma variant's from H, so v1 is that variant at
+// lam_w = 0 bit for bit.  int8 stays on FMA tiles (wave.cuh's FmaStages, plan kind kWaveEu:
+// L2-sized waves; its (A) rounds f32 H to bf16 as it stages it, its (B) W'
+// to bf16), bound by FMA throughput (67 TFLOP/s): int8 X's 4x fewer bytes
+// buy nothing there.
 //
 // On the card no block is "last": v2's H update is one more launch after the
 // Gram, in stream order (a 64 x 64 FMA tile of gw H per block, k deep, with
@@ -70,20 +71,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // v1 and, where h_out is not null, v2's H update after it.
 template <typename XT>
-cudaError_t v_iter(const void* xv, const void* htv, const float* h, const float* w,
-                   const float* gh, int m, int n, int k, float* w_out, float* h_out, float* wtx,
-                   float* gram, float* scratch, cudaStream_t s) {
-  cudaError_t err = mur_eu_waves<XT, XT, true, false>(
-      static_cast<const XT*>(xv), static_cast<const XT*>(htv), w, gh, 0.f, nullptr, m, n, k,
-      w_out, wtx, gram, scratch, s);
+cudaError_t v_iter(const void* x, const void* f0, const void* f1, int ldh, const float* h,
+                   const float* w, const float* gh, int m, int n, int k, float* w_out,
+                   float* h_out, float* wtx, float* gram, float* scratch, long long scratch_len,
+                   cudaStream_t s) {
+  cudaError_t err = mur_eu_tma<XT>(x, f0, f1, ldh, w, gh, 0.f, m, n, k, w_out, wtx, gram,
+                                   scratch, scratch_len, s);
   if (err != cudaSuccess || h_out == nullptr) return err;
   return launch(h_update_kernel, dim3(ceil_div(n, kTile), ceil_div(k, kTile)), 0, s,
                 static_cast<const float*>(gram), h, static_cast<const float*>(wtx), n, k, h_out);
 }
 
-cudaError_t v_iter_any(const void* x, int x_is_bf16, const void* ht, const void* h,
-                       const void* w, const void* gh, int m, int n, int k, void* w_out,
-                       void* h_out, void* wtx, void* gram, void* scratch, void* stream) {
+int v_iter_any(const void* x, int x_is_bf16, const void* f0, const void* f1, int ldh,
+               const void* h, const void* w, const void* gh, int m, int n, int k, void* w_out,
+               void* h_out, void* wtx, void* gram, void* scratch, long long scratch_len,
+               void* stream) {
   const float* hf = static_cast<const float*>(h);
   const float* wf = static_cast<const float*>(w);
   const float* gf = static_cast<const float*>(gh);
@@ -93,8 +95,11 @@ cudaError_t v_iter_any(const void* x, int x_is_bf16, const void* ht, const void*
   float* gr = static_cast<float*>(gram);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16 ? v_iter<__nv_bfloat16>(x, ht, hf, wf, gf, m, n, k, wo, ho, tx, gr, sc, s)
-                   : v_iter<float>(x, ht, hf, wf, gf, m, n, k, wo, ho, tx, gr, sc, s);
+  return static_cast<int>(
+      x_is_bf16 ? v_iter<__nv_bfloat16>(x, f0, f1, ldh, hf, wf, gf, m, n, k, wo, ho, tx, gr, sc,
+                                        scratch_len, s)
+                : v_iter<float>(x, f0, f1, ldh, hf, wf, gf, m, n, k, wo, ho, tx, gr, sc,
+                                scratch_len, s));
 }
 
 }  // namespace
@@ -102,22 +107,25 @@ cudaError_t v_iter_any(const void* x, int x_is_bf16, const void* ht, const void*
 
 extern "C" {
 
-// v1_iter.  ht is H^T (n, k) in X's type, gh = H H^T (k, k); writes W'
-// (m, k), wtx = round(W')^T X (k, n) and gram = W'^T W' (k, k).  scratch:
-// tpunmf_iteration_scratch(kind 0).
-int tpunmf_v1_iter(const void* x, int x_is_bf16, const void* ht, const void* w, const void* gh,
-                   int m, int n, int k, void* w_out, void* wtx, void* gram, void* scratch,
-                   void* stream) {
-  return static_cast<int>(tpunmf::v_iter_any(x, x_is_bf16, ht, nullptr, w, gh, m, n, k, w_out,
-                                             nullptr, wtx, gram, scratch, stream));
+// v1_iter.  f0, f1 and ldh: H's factor operands as
+// tpunmf_mur_iteration_eu_dma takes them (the wrapper makes them from the
+// pre-cast H^T); gh = H H^T (k, k); writes W' (m, k), wtx = round(W')^T X
+// (k, n) and gram = W'^T W' (k, k).  scratch: scratch_len floats, at least
+// tpunmf_eu_tma_scratch's (fewer: cudaErrorInvalidValue).
+int tpunmf_v1_iter(const void* x, int x_is_bf16, const void* f0, const void* f1, int ldh,
+                   const void* w, const void* gh, int m, int n, int k, void* w_out, void* wtx,
+                   void* gram, void* scratch, long long scratch_len, void* stream) {
+  return tpunmf::v_iter_any(x, x_is_bf16, f0, f1, ldh, nullptr, w, gh, m, n, k, w_out, nullptr,
+                            wtx, gram, scratch, scratch_len, stream);
 }
 
 // v2_iter: v1_iter, then H' = H * wtx / (gram H + eps) (k, n) from H (k, n) f32.
-int tpunmf_v2_iter(const void* x, int x_is_bf16, const void* ht, const void* h, const void* w,
-                   const void* gh, int m, int n, int k, void* w_out, void* h_out, void* wtx,
-                   void* gram, void* scratch, void* stream) {
-  return static_cast<int>(tpunmf::v_iter_any(x, x_is_bf16, ht, h, w, gh, m, n, k, w_out, h_out,
-                                             wtx, gram, scratch, stream));
+int tpunmf_v2_iter(const void* x, int x_is_bf16, const void* f0, const void* f1, int ldh,
+                   const void* h, const void* w, const void* gh, int m, int n, int k,
+                   void* w_out, void* h_out, void* wtx, void* gram, void* scratch,
+                   long long scratch_len, void* stream) {
+  return tpunmf::v_iter_any(x, x_is_bf16, f0, f1, ldh, h, w, gh, m, n, k, w_out, h_out, wtx,
+                            gram, scratch, scratch_len, stream);
 }
 
 // iter_eu_int8.  xq int8 (m, n), h f32 (k, n) (rounded to bf16 as it is
@@ -130,11 +138,13 @@ int tpunmf_iter_eu_int8(const void* xq, const void* h, const void* w, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sv = static_cast<const float*>(scale);
   float* tx = static_cast<float*>(wtx);
-  cudaError_t err = mur_eu_waves<int8_t, float, false, false>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(h),
-      static_cast<const float*>(w), static_cast<const float*>(gh), 0.f, sv, m, n, k,
-      static_cast<float*>(w_out), tx, static_cast<float*>(gram), static_cast<float*>(scratch),
-      s);
+  const Plan p = make_plan(m, n, k, 1, kWaveEu);
+  const FmaStages<int8_t> stages{static_cast<const int8_t*>(xq), static_cast<const float*>(h), m,
+                                 n, k};
+  cudaError_t err = mur_eu_waves(p, stages, static_cast<const float*>(w),
+                                 static_cast<const float*>(gh), 0.f, sv, m, n, k,
+                                 static_cast<float*>(w_out), tx, static_cast<float*>(gram),
+                                 static_cast<float*>(scratch), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = (long long)k * n;
   return static_cast<int>(launch(scale_kernel, elementwise_grid(len), 0, s, tx, sv, len));

@@ -22,7 +22,7 @@
 // Used by objective.cu (the objective and ratio passes), masked_update.cu
 // (both masked passes and MUR's KL H pass) and, through tile_mma, the MUR EU
 // products (wave.cuh: mur_iteration_eu's stages; mur_update.cu's EU H
-// pass).  Fragments follow the PTX layouts of m16n8k8 with
+// pass); wave.cuh's TMA stages take its split for their 3xTF32 wgmma.  Fragments follow the PTX layouts of m16n8k8 with
 // .tf32 operands, lane = 4 g + t:
 //   A (16 x 8, row):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
 //   B (8 x 8, col):   b0 (t, g)  b1 (t+4, g)

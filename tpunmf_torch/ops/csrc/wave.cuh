@@ -17,21 +17,27 @@
 //       Where the wave has too few column tiles to fill the card, B splits
 //       the wave's rows too, writes partials, and sum_slices adds them in
 //       order.
-// On FMA tiles (KL, the "dma" variant, the sweep scripts' variants) a wave is
-// R * n * sizeof(X) <= kWaveBytes (24 MB, well under the 50 MB L2), so the
-// wave's X is still in L2 when B reads it and X crosses device memory
-// about once per iteration.  The stages on the tensor cores (TcStages
-// below: mur_iteration_eu, hals_iteration_eu), whose products bind them,
-// take all of X in one wave.  EU's gram = W'^T W' is formed after the last
-// wave, over row chunks of W' with per-chunk partials.  Every cross-block
-// sum is per-block partials added in a fixed order: no float atomics, and
-// the same inputs give the same bits.
+// Three kinds of stages run (A) and (B), each with its plan kind (Wave):
+//   - TcStages, 3xTF32 mma.sync on the tensor cores (tf32x3.cuh):
+//     mur_iteration_eu and hals_iteration_eu;
+//   - TmaStages, wgmma fed by TMA copies (hopper.cuh): the "dma" variant of
+//     mur_iteration_eu and the sweep scripts' v1_iter and v2_iter;
+//   - FmaStages, FMA tiles: the sweep script's iter_eu_int8.
+// The stages on the tensor cores, whose products bind them, take all of X
+// in one wave; FMA tiles take waves of R * n * sizeof(X) <= kWaveBytes (24
+// MB, well under the 50 MB L2), so the wave's X is still in L2 when (B)
+// reads it and X crosses device memory about once per iteration.  EU's
+// gram = W'^T W' is formed after the last wave, over row chunks of W' with
+// per-chunk partials.  Every cross-block sum is per-block partials added in
+// a fixed order: no float atomics, and the same inputs give the same bits.
 #pragma once
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace tpunmf {
@@ -52,6 +58,11 @@ constexpr int kFill = 4 * 132;
 // faster at every shape timed, k 32 to 256 (PERF.md, tools/kernel_turns.py).
 constexpr int kTcTile = 128;
 constexpr int kTcFill = 2 * 132;
+// TmaStages: 128 x 128 tiles too, one block an SM (192 KB of shared
+// memory), so a stage splits down to at most 132 blocks.  They too take
+// all of X in one wave: L2-sized waves were 1.2-3.1x slower on an H100 at
+// every shape timed (PERF.md).
+constexpr int kTmaFill = 132;
 
 inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
 
@@ -63,9 +74,9 @@ inline int split_for(int blocks, int extent) {
   return s < extent ? s : extent;
 }
 
-// The same for the tensor-core stages: at most kTcFill blocks.
-inline int tc_split_for(int blocks, int extent) {
-  const int s = kTcFill / blocks;
+// The same for the tensor-core stages: at most `fill` blocks.
+inline int tc_split_for(int blocks, int extent, int fill = kTcFill) {
+  const int s = fill / blocks;
   return s < 1 ? 1 : (s < extent ? s : extent);
 }
 
@@ -75,12 +86,14 @@ inline dim3 elementwise_grid(long long len) {
   return dim3((unsigned)(blocks < kFill ? blocks : kFill));
 }
 
-// The iteration a plan is for (the `kind` of tpunmf_iteration_scratch):
-// kWaveEu the MUR EU stages on FMA tiles (the "dma" variant, the sweep
-// scripts' variants), kWaveEuTc on the tensor cores (mur_iteration_eu),
-// kWaveHals HALS's on the tensor cores (hals_iteration_eu: kWaveEuTc's
-// layout without the den block), kWaveKl MUR KL's FMA waves
-// (mur_iteration_kl above its own rank line, mur_iteration.cu).
+// The iteration a plan is for (the `kind` of tpunmf_iteration_scratch, 0-3):
+// kWaveEu the MUR EU stages on FMA tiles (iter_eu_int8), kWaveEuTc on the
+// tensor cores (mur_iteration_eu), kWaveHals HALS's on the tensor cores
+// (hals_iteration_eu: kWaveEuTc's layout without the den block), kWaveKl
+// MUR KL's FMA waves (mur_iteration_kl above its own rank line,
+// mur_iteration.cu).  TmaStages (the "dma" variant, v1_iter, v2_iter)
+// take kWaveEuTc's plan at their own fill, kTmaFill, and their scratch
+// from tpunmf_eu_tma_scratch, which adds stage (B)'s factor operand.
 enum Wave { kWaveEu = 0, kWaveKl = 1, kWaveHals = 2, kWaveEuTc = 3 };
 
 struct Plan {
@@ -91,7 +104,8 @@ struct Plan {
   long long a_part, b_part, g_part, obj_part, den, scratch;  // float offsets, total
 };
 
-inline Plan make_plan(int m, int n, int k, int x_bytes, int kind) {
+// tc_fill: the blocks a stage on the tensor cores splits down to.
+inline Plan make_plan(int m, int n, int k, int x_bytes, int kind, int tc_fill = kTcFill) {
   const bool kl = kind == kWaveKl, tc = kind == kWaveEuTc || kind == kWaveHals;
   Plan p{};
   // a wave is whole row tiles of its stages; the tensor-core stages take
@@ -107,7 +121,9 @@ inline Plan make_plan(int m, int n, int k, int x_bytes, int kind) {
   // tiles, or 128 x 128 on the tensor cores
   const int tile = kl ? kl_block(k) : tc ? kTcTile : kTile;
   const int tiles_k = kl ? 1 : ceil_div(k, tile);
-  auto split = tc ? tc_split_for : split_for;
+  auto split = [&](int blocks, int extent) {
+    return tc ? tc_split_for(blocks, extent, tc_fill) : split_for(blocks, extent);
+  };
   const int a_blocks = ceil_div(p.rows, tile) * tiles_k;
   p.a_cols = round_up(ceil_div(n, split(a_blocks, ceil_div(n, kTile))), kTile);
   p.nsplit = ceil_div(n, p.a_cols);
@@ -147,29 +163,21 @@ inline cudaError_t sum_slices(float* out, const float* parts, int count, long lo
   return launch(sum_slices_kernel, elementwise_grid(len), 0, s, out, parts, count, len, add);
 }
 
-// ----------------------------------------------------- the EU wave kernels
-// ASYNC: the tile loops with two-stage cp.async copies (common.cuh), the
-// same FMAs in the same order.
-
-// (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]);
-// grid (ceil(wave rows / 64), ceil(k / 64), nsplit).  f is H (k, n) of type
-// FT, or with NK H^T (n, k), taken by factor_as_x; the two-stage loops take
-// H (k, n) in X's type only.  `aligned`: the rows of X and f start on 16 bytes.
-template <typename XT, typename FT, bool NK, bool ASYNC>
+// --------------------------------------------- the EU stages on FMA tiles
+// (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]),
+// H (k, n) f32 rounded to X's product type as it is staged; grid
+// (ceil(wave rows / 64), ceil(k / 64), nsplit).
+template <typename XT>
 __global__ void __launch_bounds__(kThreads)
-    eu_rows_kernel(const XT* __restrict__ x, const FT* __restrict__ f, int m, int n, int k,
-                   int r0, int rows, int a_cols, bool aligned, float* __restrict__ part) {
-  static_assert(!ASYNC || (std::is_same_v<FT, XT> && !NK), "cp.async stages H (k, n) as X");
-  __shared__ std::conditional_t<ASYNC, XftStage<XT>, EuStage> st;
+    eu_rows_kernel(const XT* __restrict__ x, const float* __restrict__ f, int m, int n, int k,
+                   int r0, int rows, int a_cols, float* __restrict__ part) {
+  __shared__ EuStage st;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int row0 = r0 + blockIdx.x * kTile, c0 = blockIdx.y * kTile;
   const int j0 = blockIdx.z * a_cols, j1 = min(j0 + a_cols, n);
   float numer[4][4];
   zero(numer);
-  if constexpr (ASYNC)
-    x_ft_tile_async<XT>(numer, x, f, m, n, k, row0, c0, j0, j1, aligned, st);
-  else
-    x_ft_tile<XT, FT, NK>(numer, x, f, m, n, k, row0, c0, j0, j1, st);
+  x_ft_tile<XT>(numer, x, f, m, n, k, row0, c0, j0, j1, st);
   float* out = part + (long long)blockIdx.z * rows * k;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -182,23 +190,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // (B) the wave's rows of round(W')^T X into wtx; grid (ceil(n / 64),
 // ceil(k / 64), msplit).  msplit == 1: wtx = (first ? 0 : wtx) + tile;
-// otherwise part[z] = the tile of row chunk z.  x_aligned / w_aligned: the
-// rows of X / W' start on 16 bytes.
-template <typename XT, bool ASYNC>
+// otherwise part[z] = the tile of row chunk z.
+template <typename XT>
 __global__ void __launch_bounds__(kThreads)
     eu_cols_kernel(const XT* __restrict__ x, const float* __restrict__ w_new, int n, int k,
-                   int r0, int r1, int b_rows, bool first, bool x_aligned, bool w_aligned,
-                   float* __restrict__ wtx, float* __restrict__ part) {
-  __shared__ std::conditional_t<ASYNC, FtxStage<XT>, EuStage> st;
+                   int r0, int r1, int b_rows, bool first, float* __restrict__ wtx,
+                   float* __restrict__ part) {
+  __shared__ EuStage st;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
   const int i0 = r0 + blockIdx.z * b_rows, i1 = min(i0 + b_rows, r1);
   float acc[4][4];
   zero(acc);
-  if constexpr (ASYNC)
-    ft_x_tile_async<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, x_aligned, w_aligned, st);
-  else
-    ft_x_tile<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, st);
+  ft_x_tile<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, st);
   const bool direct = gridDim.z == 1;
   float* out = direct ? wtx : part + (long long)blockIdx.z * k * n;
 #pragma unroll
@@ -341,68 +345,417 @@ cudaError_t tc_cols(const XT* x, const float* w_new, int n, int k, int r0, int r
                 n % V == 0 && aligned16(x), k % 4 == 0 && aligned16(w_new), wtx, part);
 }
 
-// --------------------------------------------------------- the EU waves
-// The pair of stage kernels a wave runs, (A) into part and (B) into wtx
-// (or part), and the plan kind that sizes them: FMA tiles (the "dma"
-// variant with ASYNC, the sweep scripts' variants) ...
-template <typename XT, typename FT, bool NK, bool ASYNC>
-struct FmaStages {
-  static constexpr int kKind = kWaveEu;
-  static cudaError_t rows(const Plan& p, const XT* x, const FT* f, int m, int n, int k, int r0,
-                          int r1, bool aligned, float* part, cudaStream_t s) {
-    return launch(eu_rows_kernel<XT, FT, NK, ASYNC>,
-                  dim3(ceil_div(r1 - r0, kTile), ceil_div(k, kTile), p.nsplit), 0, s, x, f, m,
-                  n, k, r0, p.rows, p.a_cols, aligned, part);
+// ------------------------------------------- the EU stages on TMA and wgmma
+// (A) and (B) as 128 x 128 tiles of wgmma products fed by TMA, for the
+// "dma" variant of mur_iteration_eu and the sweep scripts' v1_iter and
+// v2_iter (the TPU kernels overlap the copies of X's strips with the
+// products by hand, tpunmf/ops/mur_fused.py:368-437; on this card that is
+// the Tensor Memory Accelerator's job).  A block is two consumer
+// warpgroups, each 64 rows of the output tile, and a producer warpgroup,
+// one thread of which keeps a ring of STAGES shared-memory stages filled:
+// a stage is the X tile and the factor tile(s) of KC depth (one 128-byte
+// swizzled row), a full and an empty mbarrier each.  The producer gives
+// its registers to the consumers (setmaxnreg: 56 and 224 a thread; at the
+// 168 a thread that fit every warp, ptxas spilled at f32).
+//
+// TF32 operands of wgmma in shared memory must be K-major, and neither
+// stage has both operands contiguous along the depth ((B)'s depth runs
+// down X's and W's columns).  So X is wgmma's A operand from registers in
+// both stages, read from its swizzled tile in the fragment layout ((A) along
+// X's rows, (B) down its columns, so that (B) forms wtx^T tiles), and the
+// factor is the B operand from shared memory, K-major: (A) H (k, n) as the
+// wrapper prepared it, (B) W'^T (k, m), written by wt_operand_kernel after
+// the W update.  f32 X: 3xTF32 (tf32x3.cuh: the integer split, and the
+// small*big, big*small, big*big passes in that order), X split in
+// registers, the factor split in device memory (H by the wrapper, W'^T by
+// wt_operand_kernel, with tc::split's rule); bf16 X: one bf16 wgmma, W'
+// rounded to bf16 by wt_operand_kernel as the FMA and mma.sync stages
+// round it.  The tensor cores truncate what they accumulate, so each
+// stage's products go into a temporary (its first wgmma with scale-d = 0),
+// added to the block's running sum in f32 with round to nearest once they
+// have landed: a rounded step of KC depth (32 at f32, 64 at bf16), where
+// TcStages rounds every 8-deep step.  A warpgroup waits for its stage's
+// products before that add; the other warpgroup's products keep the
+// tensor cores busy meanwhile.
+//
+// X's rows on 16 bytes (its base, and n * sizeof(X) a multiple of 16) go
+// by TMA; otherwise TMA cannot describe X, and the producer warpgroup
+// copies its tile itself into the same swizzled layout, zeros outside
+// (kLoadCopies: 4-byte cp.async copies, one element at f32, a pair at bf16,
+// each thread's landing counted on the stage's full barrier; kLoadPlain,
+// bf16 rows that start off 4 bytes (odd n): plain loads and stores).  TMA
+// fills reads past the arrays' edges with zeros; every chunk of depth
+// starts and ends on a stage, but at X's own edge.
+
+constexpr int kTmaThreads = 3 * 128;  // two consumer warpgroups, one producer warpgroup
+// How the producer loads X's tiles.
+enum XLoad { kLoadTma = 0, kLoadCopies = 1, kLoadPlain = 2 };
+
+template <typename XT>
+struct TmaTile {
+  static constexpr bool kF32 = std::is_same_v<XT, float>;
+  static constexpr int ES = sizeof(XT);
+  static constexpr int BM = kTcTile, BN = kTcTile;  // output rows, columns of k
+  static constexpr int KC = 128 / ES;               // depth of a stage
+  static constexpr int STEPS = 4;                   // wgmmas of 32 bytes of depth a stage
+  static constexpr int TILE = BM * 128;             // bytes of a 128-row tile
+  static constexpr int FACTORS = kF32 ? 2 : 1;      // factor tiles: big and small, or bf16
+  static constexpr int STAGE = TILE * (1 + FACTORS);
+  static constexpr int STAGES = kF32 ? 4 : 6;
+  static constexpr int XBOX = KC * 128;  // bytes of one of (B)'s X boxes (KC x KC)
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+// Byte offsets of X's elements in a stage's swizzled X tile: (A) element
+// (r, d) of 128 rows by KC of depth; (B) element (d, j) of KC depth rows
+// by 128 columns, in BM / KC boxes of KC columns.
+template <typename XT>
+__device__ __forceinline__ int x_rows_at(int r, int d) {
+  const int b = d * (int)sizeof(XT);
+  return r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+}
+template <typename XT>
+__device__ __forceinline__ int x_cols_at(int d, int j) {
+  using T = TmaTile<XT>;
+  const int b = (j % T::KC) * (int)sizeof(XT);
+  return j / T::KC * T::XBOX + d * 128 + (((b >> 4) ^ (d & 7)) << 4) + (b & 15);
+}
+
+// COLS = false, (A): part[z][r - r0][c] = sum over the columns [z chunk,
+// (z + 1) chunk) of X[r] F[c], F the factor (k, n) of maps f0 (f32: TF32
+// big part) and f1 (small part); grid (ceil((r1 - r0) / 128), ceil(k /
+// 128), nsplit), `rows` the partials' row count.  COLS = true, (B): the
+// rows [r0 + z chunk, ...) clipped to r1 of F^T X, F = W' (m, k) given
+// transposed by f0 / f1 (k, m); grid (ceil(n / 128), ceil(k / 128),
+// msplit); gridDim.z == 1: out (wtx) = (first ? 0 : out) + tile, else
+// out[z] = the tile (partials).  load (XLoad) says how the producer loads
+// X's tiles: with load == kLoadTma through xmap (X in the stage's boxes),
+// otherwise from x.
+template <typename XT, bool COLS>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    eu_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap f0, const __grid_constant__ CUtensorMap f1,
+                  const XT* __restrict__ x, int m, int n, int k, int r0, int r1, int rows,
+                  int chunk, int load, bool first, float* __restrict__ out) {
+  using T = TmaTile<XT>;
+  extern __shared__ float4 smem_raw[];  // the declaration of the TC kernels
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the output tile's first row (X's rows in (A), its columns in (B)),
+  // first column of k, and the depth [d0, d1)
+  const int o0 = (COLS ? 0 : r0) + blockIdx.x * T::BM, c0 = blockIdx.y * T::BN;
+  const int d0 = (COLS ? r0 : 0) + blockIdx.z * chunk;
+  const int d1 = min(d0 + chunk, COLS ? r1 : n);
+  const int nst = d1 > d0 ? (d1 - d0 + T::KC - 1) / T::KC : 0;
+  const bool tma = load == kLoadTma;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      hop::mbar_init(&full[s], tma ? 1 : 129);  // else: and each producer thread
+      hop::mbar_init(&empty[s], 256);              // every consumer thread
+    }
+    hop::mbar_fence_init();
   }
-  static cudaError_t cols(const Plan& p, const XT* x, const float* w_new, int n, int k, int r0,
-                          int r1, bool first, float* wtx, float* part, cudaStream_t s) {
-    constexpr int V = 16 / sizeof(XT);
-    return launch(eu_cols_kernel<XT, ASYNC>,
-                  dim3(ceil_div(n, kTile), ceil_div(k, kTile), p.msplit), 0, s, x, w_new, n, k,
-                  r0, r1, p.b_rows, first, n % V == 0 && aligned16(x),
-                  k % 4 == 0 && aligned16(w_new), wtx, part);
+  __syncthreads();
+
+  if (warp >= 8) {  // ------------------------------------------- producer
+    hop::setmaxnreg_dec<56>();
+    const int p = threadIdx.x - 256;
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % T::STAGES;
+      uint8_t* st = smem + slot * T::STAGE;
+      const int d = d0 + s * T::KC;
+      if (p == 0 || !tma) hop::mbar_wait(&empty[slot], ((s / T::STAGES) & 1) ^ 1);
+      if (p == 0) {
+        hop::mbar_arrive_expect_tx(&full[slot], T::TILE * (T::FACTORS + (tma ? 1 : 0)));
+        hop::tma_load(st + T::TILE, &f0, &full[slot], d, c0);
+        if constexpr (T::kF32) hop::tma_load(st + 2 * T::TILE, &f1, &full[slot], d, c0);
+        if (tma) {
+          if constexpr (COLS) {
+#pragma unroll
+            for (int q = 0; q < T::BM / T::KC; ++q)
+              hop::tma_load(st + q * T::XBOX, &xmap, &full[slot], o0 + q * T::KC, d);
+          } else {
+            hop::tma_load(st, &xmap, &full[slot], d, o0);
+          }
+        }
+      }
+      if (!tma) {
+        // A copy is 4 bytes along X's row: an f32, or a bf16 pair.  Thread
+        // p keeps tile column cb and walks the tile's rows ra0 + STEP i:
+        // (A) rows of X by depth columns, (B) depth rows by X's columns.
+        constexpr int E = 4 / T::ES, W = COLS ? T::BM : T::KC, STEP = 128 * E / W;
+        const int cb = p * E % W, ra0 = p * E / W;
+        const int gj = (COLS ? o0 : d) + cb, rows_end = COLS ? d1 : m;
+        const int valid = min(max((COLS ? n : d1) - gj, 0), E);
+        const XT* src = x + (long long)((COLS ? d : o0) + ra0) * n + gj;
+#pragma unroll 4
+        for (int ra = ra0; ra < (COLS ? T::KC : T::BM); ra += STEP, src += (long long)STEP * n) {
+          const int v = (COLS ? d : o0) + ra < rows_end ? valid : 0;
+          const int at = COLS ? x_cols_at<XT>(ra, cb) : x_rows_at<XT>(ra, cb);
+          XT* dst = reinterpret_cast<XT*>(st + at);
+          if (load == kLoadCopies) {
+            hop::cp_async4(dst, v > 0 ? src : x, v * T::ES);
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) dst[e] = e < v ? src[e] : zero_of<XT>();
+          }
+        }
+        if (load == kLoadCopies)
+          hop::cp_async_arrive(&full[slot]);
+        else
+          hop::mbar_arrive(&full[slot]);
+      }
+    }
+  } else {  // ---------------------------------------------------- consumers
+    hop::setmaxnreg_inc<224>();
+    const int g = lane >> 2, t = lane & 3;
+    const int row = 64 * (warp >> 2) + 16 * (warp & 3) + g;  // the thread's first fragment row
+    float acc[64], tmp[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % T::STAGES;
+      hop::mbar_wait(&full[slot], (s / T::STAGES) & 1);
+      const uint8_t* st = smem + slot * T::STAGE;
+      const uint64_t big = hop::desc_sw128(st + T::TILE);
+      if constexpr (T::kF32) {
+        const uint64_t small = hop::desc_sw128(st + 2 * T::TILE);
+        uint32_t ab[T::STEPS][4], as[T::STEPS][4];
+#pragma unroll
+        for (int q = 0; q < T::STEPS; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+            const int r = row + 8 * (e & 1), d = 8 * q + t + 4 * (e >> 1);
+            const float v = *reinterpret_cast<const float*>(
+                st + (COLS ? x_cols_at<XT>(d, r) : x_rows_at<XT>(r, d)));
+            tc::split(v, ab[q][e], as[q][e]);
+          }
+        hop::wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < T::STEPS; ++q) {
+          hop::wgmma_tf32(tmp, as[q], big + 2 * q, q > 0);
+          hop::wgmma_tf32(tmp, ab[q], small + 2 * q, 1);
+          hop::wgmma_tf32(tmp, ab[q], big + 2 * q, 1);
+        }
+      } else {
+        uint32_t a[T::STEPS][4];
+#pragma unroll
+        for (int q = 0; q < T::STEPS; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // pairs (g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8)
+            const int r = row + 8 * (e & 1), d = 16 * q + 2 * t + 8 * (e >> 1);
+            if constexpr (COLS) {
+              const uint32_t lo = *reinterpret_cast<const uint16_t*>(st + x_cols_at<XT>(d, r));
+              const uint32_t hi = *reinterpret_cast<const uint16_t*>(st + x_cols_at<XT>(d + 1, r));
+              a[q][e] = lo | hi << 16;
+            } else {
+              a[q][e] = *reinterpret_cast<const uint32_t*>(st + x_rows_at<XT>(r, d));
+            }
+          }
+        hop::wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < T::STEPS; ++q) hop::wgmma_bf16(tmp, a[q], big + 2 * q, q > 0);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait_all();
+      hop::pin(tmp);
+      hop::mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += tmp[i];
+    }
+
+    const bool direct = gridDim.z == 1;
+    float* dst = COLS ? (direct ? out : out + (long long)blockIdx.z * k * n)
+                      : out + (long long)blockIdx.z * rows * k;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int go = o0 + row + 8 * ((i >> 1) & 1), gc = c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (gc >= k) continue;
+      if constexpr (COLS) {
+        if (go >= n) continue;
+        float* o = dst + (long long)gc * n + go;
+        *o = (direct && !first ? *o : 0.f) + acc[i];
+      } else {
+        if (go >= r1) continue;
+        dst[(long long)(go - r0) * k + gc] = acc[i];
+      }
+    }
+  }
+}
+
+// Stage (B)'s factor from W' (m, k) for the rows [r0, r1): W'^T (k, ldm),
+// f32: its TF32 big and small parts (tc::split), bf16: rounded to bf16 (as
+// torch's .to); grid (ceil((r1 - r0) / 32), ceil(k / 32)).
+template <typename XT>
+__global__ void __launch_bounds__(kThreads)
+    wt_operand_kernel(const float* __restrict__ w, int k, int r0, int r1, int ldm,
+                      XT* __restrict__ big, XT* __restrict__ small) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int i0 = r0 + blockIdx.x * 32, c0 = blockIdx.y * 32;
+  for (int r = ty; r < 32; r += 8) {
+    const int gi = i0 + r, gc = c0 + tx;
+    tile[r][tx] = gi < r1 && gc < k ? w[(long long)gi * k + gc] : 0.f;
+  }
+  __syncthreads();
+  for (int c = ty; c < 32; c += 8) {
+    const int gc = c0 + c, gi = i0 + tx;
+    if (gc >= k || gi >= r1) continue;
+    const long long o = (long long)gc * ldm + gi;
+    if constexpr (std::is_same_v<XT, float>) {
+      uint32_t b, sm;
+      tc::split(tile[tx][c], b, sm);
+      big[o] = __uint_as_float(b);
+      small[o] = __uint_as_float(sm);
+    } else {
+      big[o] = __float2bfloat16(tile[tx][c]);
+    }
+  }
+}
+
+// The scratch of the TMA stages: the plan's (partials, den), then (B)'s
+// factor W'^T (k, ldm) in X's type, f32: big then small.
+struct TmaScratch {
+  Plan p;
+  int ldm;
+  long long wt, total;  // float offsets, in 64 bits
+};
+
+inline TmaScratch tma_scratch(int m, int n, int k, int x_bytes) {
+  TmaScratch sc;
+  sc.p = make_plan(m, n, k, x_bytes, kWaveEuTc, kTmaFill);
+  sc.ldm = round_up(m, 8);  // 16-byte rows for TMA
+  sc.wt = (sc.p.scratch + 3) / 4 * 4;
+  const long long elems = (long long)k * sc.ldm * (x_bytes == 4 ? 2 : 1);
+  sc.total = sc.wt + (elems * x_bytes + 3) / 4;
+  return sc;
+}
+
+// ----------------------------------------------------------- the stages
+// The pair of stage kernels a wave runs: rows(p, r0, r1, part, s) (A) into
+// part, cols(p, w_new, r0, r1, first, wtx, part, s) (B) into wtx (or part).
+
+// FMA tiles (iter_eu_int8): f is H (k, n) f32, rounded to bf16 as staged.
+template <typename XT>
+struct FmaStages {
+  const XT* x;
+  const float* f;
+  int m, n, k;
+  cudaError_t rows(const Plan& p, int r0, int r1, float* part, cudaStream_t s) const {
+    return launch(eu_rows_kernel<XT>,
+                  dim3(ceil_div(r1 - r0, kTile), ceil_div(k, kTile), p.nsplit), 0, s, x, f, m,
+                  n, k, r0, p.rows, p.a_cols, part);
+  }
+  cudaError_t cols(const Plan& p, const float* w_new, int r0, int r1, bool first, float* wtx,
+                   float* part, cudaStream_t s) const {
+    return launch(eu_cols_kernel<XT>, dim3(ceil_div(n, kTile), ceil_div(k, kTile), p.msplit),
+                  0, s, x, w_new, n, k, r0, r1, p.b_rows, first, wtx, part);
   }
 };
 
-// ... or the tensor cores (mur_iteration_eu, and hals_iteration_eu on its
-// own plan kind; H in X's type).
+// mma.sync on the tensor cores (mur_iteration_eu, hals_iteration_eu): f is
+// H (k, n) in X's type.
 template <typename XT>
 struct TcStages {
-  static constexpr int kKind = kWaveEuTc;
-  static cudaError_t rows(const Plan& p, const XT* x, const XT* f, int m, int n, int k, int r0,
-                          int r1, bool aligned, float* part, cudaStream_t s) {
+  const XT* x;
+  const XT* f;
+  int n, k;
+  cudaError_t rows(const Plan& p, int r0, int r1, float* part, cudaStream_t s) const {
+    constexpr int V = 16 / sizeof(XT);
+    const bool aligned = n % V == 0 && aligned16(x) && aligned16(f);
     return launch(eu_rows_tc_kernel<XT>,
                   dim3(ceil_div(r1 - r0, kTcTile), ceil_div(k, kTcTile), p.nsplit),
                   sizeof(typename RowsTile<XT>::Stage), s, x, f, n, k, r0, r1, p.rows,
                   p.a_cols, aligned, part);
   }
-  static cudaError_t cols(const Plan& p, const XT* x, const float* w_new, int n, int k, int r0,
-                          int r1, bool first, float* wtx, float* part, cudaStream_t s) {
+  cudaError_t cols(const Plan& p, const float* w_new, int r0, int r1, bool first, float* wtx,
+                   float* part, cudaStream_t s) const {
     return tc_cols(x, w_new, n, k, r0, r1, p.b_rows, p.msplit, first, wtx, part, s);
+  }
+};
+
+// TMA and wgmma (the "dma" variant, v1_iter, v2_iter): the factor of (A) is
+// H (k, n) at row stride ldh (f32: f0 its TF32 big part, f1 its small part;
+// bf16: f0 in bf16), of (B) W'^T in `wt` (tma_scratch's layout).  make()
+// encodes the tensor maps.
+template <typename XT>
+struct TmaStages {
+  using T = TmaTile<XT>;
+  CUtensorMap xrows, xcols, h0, h1, w0, w1;
+  const XT* x;
+  XT* wt;
+  int m, n, k, ldm, load;
+
+  cudaError_t make(const XT* x_, const XT* f0, const XT* f1, int ldh, int m_, int n_, int k_,
+                   XT* wt_, int ldm_) {
+    x = x_, wt = wt_, m = m_, n = n_, k = k_, ldm = ldm_;
+    std::memset(&xrows, 0, sizeof(xrows));
+    std::memset(&xcols, 0, sizeof(xcols));
+    // TMA where X's rows start on 16 bytes; 4-byte copies where they start
+    // on 4 (f32, or bf16 at even n); plain loads else
+    const bool rows4 = reinterpret_cast<uintptr_t>(x) % 4 == 0 && ((long long)n * T::ES) % 4 == 0;
+    load = aligned16(x) && ((long long)n * T::ES) % 16 == 0 ? kLoadTma
+           : rows4                                           ? kLoadCopies
+                                                             : kLoadPlain;
+    cudaError_t err = cudaSuccess;
+    if (load == kLoadTma) {
+      err = hop::make_map(&xrows, x, m, n, n, T::BM, T::KC);
+      if (err == cudaSuccess) err = hop::make_map(&xcols, x, m, n, n, T::KC, T::KC);
+    }
+    XT* small = wt + (long long)k * ldm;
+    if (err == cudaSuccess) err = hop::make_map(&h0, f0, k, n, ldh, T::BN, T::KC);
+    if (err == cudaSuccess) err = hop::make_map(&h1, T::kF32 ? f1 : f0, k, n, ldh, T::BN, T::KC);
+    if (err == cudaSuccess) err = hop::make_map(&w0, wt, k, m, ldm, T::BN, T::KC);
+    if (err == cudaSuccess) err = hop::make_map(&w1, T::kF32 ? small : wt, k, m, ldm, T::BN, T::KC);
+    return err;
+  }
+
+  template <bool COLS>
+  cudaError_t run(dim3 grid, const CUtensorMap& xm, const CUtensorMap& a, const CUtensorMap& b,
+                  int r0, int r1, int rows, int chunk, bool first, float* out,
+                  cudaStream_t s) const {
+    auto kernel = eu_tma_kernel<XT, COLS>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kTmaThreads, T::SMEM, s>>>(xm, a, b, x, m, n, k, r0, r1, rows, chunk, load,
+                                               first, out);
+    return cudaGetLastError();
+  }
+  cudaError_t rows(const Plan& p, int r0, int r1, float* part, cudaStream_t s) const {
+    return run<false>(dim3(ceil_div(r1 - r0, T::BM), ceil_div(k, T::BN), p.nsplit), xrows, h0,
+                      h1, r0, r1, p.rows, p.a_cols, true, part, s);
+  }
+  cudaError_t cols(const Plan& p, const float* w_new, int r0, int r1, bool first, float* wtx,
+                   float* part, cudaStream_t s) const {
+    cudaError_t err = launch(wt_operand_kernel<XT>, dim3(ceil_div(r1 - r0, 32), ceil_div(k, 32)),
+                             0, s, w_new, k, r0, r1, ldm, wt, wt + (long long)k * ldm);
+    if (err != cudaSuccess) return err;
+    return run<true>(dim3(ceil_div(n, T::BM), ceil_div(k, T::BN), p.msplit), xcols, w0, w1, r0,
+                     r1, p.rows, p.b_rows, first, p.msplit == 1 ? wtx : part, s);
   }
 };
 
 // The EU waves: per wave (A), epilogue(r0, r1) (which writes W' for the
 // wave's rows [r0, r1) into w_out from the partials at scratch + p.a_part),
-// (B); then gram = W'^T W'.  f is H as Stages::rows takes it; p was made
-// for Stages::kKind (or kWaveHals, on the tensor cores' stages).
-template <typename XT, typename FT, bool NK, bool ASYNC,
-          class Stages = FmaStages<XT, FT, NK, ASYNC>, typename Epilogue>
-cudaError_t eu_waves(const Plan& p, const XT* x, const FT* f, int m, int n, int k,
+// (B); then gram = W'^T W'.  p was made for the stages' plan kind.
+template <class Stages, typename Epilogue>
+cudaError_t eu_waves(const Plan& p, const Stages& stages, int m, int n, int k,
                      Epilogue epilogue, float* w_out, float* wtx, float* gram, float* scratch,
                      cudaStream_t s) {
-  constexpr int V = 16 / sizeof(XT);
-  const bool h_aligned = n % V == 0 && aligned16(x) && aligned16(f);
   const int ktiles = ceil_div(k, kTile);
   cudaError_t err = cudaSuccess;
   for (int wave = 0; wave < p.waves && err == cudaSuccess; ++wave) {
     const int r0 = wave * p.rows, r1 = std::min(r0 + p.rows, m);
-    err = Stages::rows(p, x, f, m, n, k, r0, r1, h_aligned, scratch + p.a_part, s);
+    err = stages.rows(p, r0, r1, scratch + p.a_part, s);
     if (err != cudaSuccess) break;
     err = epilogue(r0, r1);
     if (err != cudaSuccess) break;
     const int msplit = ceil_div(r1 - r0, p.b_rows);
-    err = Stages::cols(p, x, w_out, n, k, r0, r1, wave == 0, wtx, scratch + p.b_part, s);
+    err = stages.cols(p, w_out, r0, r1, wave == 0, wtx, scratch + p.b_part, s);
     if (err == cudaSuccess && p.msplit > 1)
       err = sum_slices(wtx, scratch + p.b_part, msplit, (long long)k * n, wave > 0, s);
   }
@@ -456,14 +809,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The MUR EU single pass: den = W Gh, then the EU waves with the W update
-// as epilogue.  f is H as Stages::rows takes it (FT, NK).
-template <typename XT, typename FT, bool NK, bool ASYNC,
-          class Stages = FmaStages<XT, FT, NK, ASYNC>>
-cudaError_t mur_eu_waves(const XT* x, const FT* f, const float* w, const float* gh, float lam,
-                         const float* scale, int m, int n, int k, float* w_out, float* wtx,
-                         float* gram, float* scratch, cudaStream_t s) {
-  const Plan p = make_plan(m, n, k, sizeof(XT), Stages::kKind);
+// The MUR EU single pass: den = W Gh, then the EU waves of `stages` (on
+// plan p) with the W update as epilogue.
+template <class Stages>
+cudaError_t mur_eu_waves(const Plan& p, const Stages& stages, const float* w, const float* gh,
+                         float lam, const float* scale, int m, int n, int k, float* w_out,
+                         float* wtx, float* gram, float* scratch, cudaStream_t s) {
   const float* den = scratch + p.den;
   const float* part = scratch + p.a_part;
   cudaError_t err = launch(eu_den_kernel, dim3(ceil_div(m, kTile), ceil_div(k, kTile)), 0, s, w,
@@ -473,8 +824,25 @@ cudaError_t mur_eu_waves(const XT* x, const FT* f, const float* w, const float* 
     return launch(eu_w_kernel, elementwise_grid((long long)(r1 - r0) * k), 0, s, w, den, part,
                   p.nsplit, lam, scale, k, r0, r1, p.rows, w_out);
   };
-  return eu_waves<XT, FT, NK, ASYNC, Stages>(p, x, f, m, n, k, w_update, w_out, wtx, gram,
-                                            scratch, s);
+  return eu_waves(p, stages, m, n, k, w_update, w_out, wtx, gram, scratch, s);
+}
+
+// The MUR EU single pass on TMA and wgmma: f0, f1 and ldh as TmaStages takes
+// them; scratch holds scratch_len floats, at least tma_scratch's total
+// (fewer: cudaErrorInvalidValue).
+template <typename XT>
+cudaError_t mur_eu_tma(const void* x, const void* f0, const void* f1, int ldh, const float* w,
+                       const float* gh, float lam, int m, int n, int k, float* w_out,
+                       float* wtx, float* gram, float* scratch, long long scratch_len,
+                       cudaStream_t s) {
+  const TmaScratch sc = tma_scratch(m, n, k, sizeof(XT));
+  if (scratch_len < sc.total) return cudaErrorInvalidValue;
+  TmaStages<XT> stages;
+  cudaError_t err = stages.make(static_cast<const XT*>(x), static_cast<const XT*>(f0),
+                                static_cast<const XT*>(f1), ldh, m, n, k,
+                                reinterpret_cast<XT*>(scratch + sc.wt), sc.ldm);
+  if (err != cudaSuccess) return err;
+  return mur_eu_waves(sc.p, stages, w, gh, lam, nullptr, m, n, k, w_out, wtx, gram, scratch, s);
 }
 
 }  // namespace

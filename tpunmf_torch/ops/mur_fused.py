@@ -34,10 +34,10 @@
   bodies (the lagged W pass, then the H pass's numerator at the new W),
   each over all of X, so its outputs are theirs bit for bit, up to
   ``KL_ITER_PAIR_RANK`` and FMA waves of rows of X above it;
-  ``mur_iteration_eu_dma`` is the EU pass on FMA tiles with its copies
-  overlapped with the products (``tpunmf``'s manual-DMA variant, which its
+  ``mur_iteration_eu_dma`` is the EU pass with its copies overlapped with
+  the products (``tpunmf``'s manual-DMA variant, which its
   ``mur_single_pass_variant`` switch selects; ``iter_eu_dma_tileable`` is
-  its rule).
+  its rule): on the card TMA copies feed ``wgmma`` products.
 
 ``updates_take`` says which X and ranks the kernels take (float32 or
 bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
@@ -45,7 +45,8 @@ bfloat16 X, k <= 1024); a solver asks it before it calls a wrapper.
 Only the k x k Grams ``Gh = H H^T`` / ``Gw = W^T W``, the row/column sums
 and the EU W passes' cast of H to X's dtype are formed outside the
 kernels, as ``tpunmf`` forms them outside its Pallas bodies (and the KL W
-pass's copy of H padded to 16-byte rows).  Outputs are
+pass's copy of H padded to 16-byte rows, and the "dma" variant's H split
+in TF32 parts, ``_launch.eu_tma_operands``).  Outputs are
 new tensors: nothing is updated in place (the EU epilogue of a row block
 reads all of W_i).
 
@@ -64,8 +65,9 @@ import torch
 from ..core.losses import kl_elementwise_sum
 from ..core.precision import full_f32
 from . import _build
-from ._launch import (MAX_RANK, WAVE_MUR_EU, WAVE_MUR_EU_TC, WAVE_MUR_KL, call,
-                      check_operands, check_strips, factor_as_x, on_cpu, wave_scratch)
+from ._launch import (MAX_RANK, WAVE_MUR_EU_TC, WAVE_MUR_KL, call, check_operands,
+                      check_strips, eu_tma_operands, eu_tma_scratch, factor_as_x, on_cpu,
+                      wave_scratch)
 from .masked_fused import H_TILE, h_stride, row_splits
 
 _EPS = 1e-9
@@ -244,7 +246,7 @@ def mur_w_update(x, w, h, *, distance_type: str, lam: float,
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
     if not is_kl:
         gh = h @ h.T
-        hc = h.to(x.dtype)  # pre-cast, as _launch_iteration_eu does
+        hc = h.to(x.dtype)  # pre-cast, as mur_iteration_eu does
         floats = _build.library().tpunmf_mur_w_eu_scratch(m, n, k, x.element_size())
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
         call("tpunmf_mur_w_update", x.device, x.data_ptr(), is_bf16, w.data_ptr(),
@@ -431,19 +433,9 @@ def mur_iteration_eu_dma_ref(x, w, h, *, lam_w: float):
     return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
 
 
-def _launch_iteration_eu(name, x, w, h, lam_w, dma):
-    m, n, k = check_operands(name, x, w, h, max_rank=MAX_RANK)
-    gh = h @ h.T
-    hc = h.to(x.dtype)  # pre-cast, as tpunmf/ops/mur_fused.py:330, :481
-    w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    wtx = torch.empty((k, n), dtype=torch.float32, device=x.device)
-    gram = torch.empty((k, k), dtype=torch.float32, device=x.device)
-    scratch = wave_scratch(x, k, WAVE_MUR_EU if dma else WAVE_MUR_EU_TC)
-    call("tpunmf_mur_iteration_eu", x.device, x.data_ptr(),
-         int(x.dtype == torch.bfloat16), w.data_ptr(), hc.data_ptr(), gh.data_ptr(),
-         float(lam_w), m, n, k, w_new.data_ptr(), wtx.data_ptr(), gram.data_ptr(),
-         scratch.data_ptr(), int(dma))
-    return w_new, wtx, gram
+def _iteration_outputs(x, m: int, n: int, k: int):
+    return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                 for shape in ((m, k), (k, n), (k, k)))
 
 
 @full_f32()
@@ -459,20 +451,29 @@ def mur_iteration_eu(x, w, h, *, lam_w: float, bm: int):
     check_strips(x, bm)
     if on_cpu(x):
         return mur_iteration_eu_ref(x, w, h, lam_w=lam_w)
-    out = _launch_iteration_eu("mur_iteration_eu", x, w, h, lam_w, dma=False)
+    m, n, k = check_operands("mur_iteration_eu", x, w, h, max_rank=MAX_RANK)
+    gh = h @ h.T
+    hc = h.to(x.dtype)  # pre-cast, as tpunmf/ops/mur_fused.py:330
+    out = _iteration_outputs(x, m, n, k)
+    scratch = wave_scratch(x, k, WAVE_MUR_EU_TC)
+    call("tpunmf_mur_iteration_eu", x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
+         w.data_ptr(), hc.data_ptr(), gh.data_ptr(), float(lam_w), m, n, k,
+         *(o.data_ptr() for o in out), scratch.data_ptr())
     mur_iteration_eu.launches += 1
     return out
 
 
 @full_f32()
 def mur_iteration_eu_dma(x, w, h, *, lam_w: float, bm: int):
-    """The function of :func:`mur_iteration_eu` on FMA tiles, with its
-    copies of X and the factors overlapped with the products
-    (tpunmf/ops/mur_fused.py:465-512): the kernel stages each slab in two
-    shared-memory buffers with ``cp.async``.  At ``lam_w=0`` its FMAs and
-    their order are those of ``mur_variants.v1_iter``, so it gives v1's
-    bits; against :func:`mur_iteration_eu`, whose products run on the
-    tensor cores, it differs by the order of f32 sums.  ``bm`` is
+    """The function of :func:`mur_iteration_eu` with its copies of X and
+    the factors overlapped with the products (tpunmf/ops/mur_fused.py:
+    465-512): on the card a producer warp keeps a ring of shared-memory
+    stages filled by TMA while two warpgroups multiply with ``wgmma``
+    (csrc/wave.cuh, TmaStages; 3xTF32 at f32 X, H split in TF32 parts by
+    ``_launch.eu_tma_operands``).  Its stages and operands are those of
+    ``mur_variants.v1_iter``, so at ``lam_w=0`` it gives v1's bits; against
+    :func:`mur_iteration_eu`, whose products run on ``mma.sync``, it
+    differs by the order of f32 sums.  ``bm`` is
     ``iter_eu_dma_tileable``'s strip height: it must divide m and give at
     least 2 strips, as in ``tpunmf``."""
     check_strips(x, bm)
@@ -480,7 +481,14 @@ def mur_iteration_eu_dma(x, w, h, *, lam_w: float, bm: int):
         raise ValueError("need at least 2 strips to double-buffer")
     if on_cpu(x):
         return mur_iteration_eu_dma_ref(x, w, h, lam_w=lam_w)
-    out = _launch_iteration_eu("mur_iteration_eu_dma", x, w, h, lam_w, dma=True)
+    m, n, k = check_operands("mur_iteration_eu_dma", x, w, h, max_rank=MAX_RANK)
+    gh = h @ h.T
+    f0, f1, ldh = eu_tma_operands(x, h)  # H pre-cast (tpunmf/ops/mur_fused.py:481) and split
+    out = _iteration_outputs(x, m, n, k)
+    scratch = eu_tma_scratch(x, k)
+    call("tpunmf_mur_iteration_eu_dma", x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
+         w.data_ptr(), f0.data_ptr(), f1.data_ptr(), ldh, gh.data_ptr(), float(lam_w), m, n, k,
+         *(o.data_ptr() for o in out), scratch.data_ptr(), scratch.numel())
     mur_iteration_eu_dma.launches += 1
     return out
 

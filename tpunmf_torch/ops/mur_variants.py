@@ -13,9 +13,13 @@ pass at lam_w = 0:
 
 (round: to X's dtype.)  Gh = H H^T and the transposed ht are formed in
 torch outside the kernels, as the scripts form them outside their Pallas
-bodies (sweep_iter2.py:41-42).  ``bm`` is the scripts' strip height and
-must divide m: their grids ``m // bm`` silently drop the last m % bm
-rows, where these wrappers raise.  The kernels choose their own tiling.
+bodies (sweep_iter2.py:41-42).  On the card v1 and v2 run the stages of
+``mur_fused.mur_iteration_eu_dma`` (TMA copies feeding ``wgmma``): ht is
+made into that pass's (k, n) factor operands (``_launch.eu_tma_operands``,
+the same arrays the dma variant makes from H), so v1 is the dma variant at
+lam_w = 0 bit for bit.  ``bm`` is the scripts' strip height and must
+divide m: their grids ``m // bm`` silently drop the last m % bm rows,
+where these wrappers raise.  The kernels choose their own tiling.
 
 A wrapper takes its plain version (``*_ref``) only for a tensor on the
 CPU; for a CUDA tensor it launches its kernel or raises.  Each wrapper
@@ -28,7 +32,7 @@ import torch
 
 from ..core.precision import full_f32
 from ._launch import (MAX_RANK, WAVE_MUR_EU, call, check_operands, check_strips,
-                      factor_as_x, on_cpu, wave_scratch)
+                      eu_tma_operands, eu_tma_scratch, factor_as_x, on_cpu, wave_scratch)
 
 _EPS = 1e-9
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -71,24 +75,32 @@ def iter_eu_int8_ref(xq, scale, w, h):
     return w_new, wtx * s, w_new.T @ w_new
 
 
+def v_operands(x, h):
+    """v1's and v2's H operands: H^T pre-cast to X's dtype and laid out (n,
+    k), as sweep_iter2.py:42 makes it, then made into the (k, n) factor
+    operands of the pass on TMA and wgmma (``_launch.eu_tma_operands``):
+    the same arrays as ``mur_iteration_eu_dma`` makes from H."""
+    ht = h.T.to(x.dtype).contiguous()
+    return eu_tma_operands(x, ht.T)
+
+
 def _launch_v(name, x, w, h, with_h):
     m, n, k = check_operands(name, x, w, h, max_rank=MAX_RANK)
     gh = h @ h.T
-    ht = h.T.to(x.dtype).contiguous()  # as sweep_iter2.py:42, laid out (n, k)
+    f0, f1, ldh = v_operands(x, h)
     w_new = torch.empty((m, k), dtype=torch.float32, device=x.device)
     wtx = torch.empty((k, n), dtype=torch.float32, device=x.device)
     gw = torch.empty((k, k), dtype=torch.float32, device=x.device)
-    scratch = wave_scratch(x, k, WAVE_MUR_EU)
-    is_bf16 = int(x.dtype == torch.bfloat16)
+    scratch = eu_tma_scratch(x, k)
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), f0.data_ptr(), f1.data_ptr(), ldh)
+    tail = (scratch.data_ptr(), scratch.numel())
     if not with_h:
-        call("tpunmf_v1_iter", x.device, x.data_ptr(), is_bf16, ht.data_ptr(), w.data_ptr(),
-             gh.data_ptr(), m, n, k, w_new.data_ptr(), wtx.data_ptr(), gw.data_ptr(),
-             scratch.data_ptr())
+        call("tpunmf_v1_iter", x.device, *head, w.data_ptr(), gh.data_ptr(), m, n, k,
+             w_new.data_ptr(), wtx.data_ptr(), gw.data_ptr(), *tail)
         return w_new, wtx, gw
     h_new = torch.empty((k, n), dtype=torch.float32, device=x.device)
-    call("tpunmf_v2_iter", x.device, x.data_ptr(), is_bf16, ht.data_ptr(), h.data_ptr(),
-         w.data_ptr(), gh.data_ptr(), m, n, k, w_new.data_ptr(), h_new.data_ptr(),
-         wtx.data_ptr(), gw.data_ptr(), scratch.data_ptr())
+    call("tpunmf_v2_iter", x.device, *head, h.data_ptr(), w.data_ptr(), gh.data_ptr(), m, n, k,
+         w_new.data_ptr(), h_new.data_ptr(), wtx.data_ptr(), gw.data_ptr(), *tail)
     return w_new, h_new, wtx, gw
 
 
@@ -97,7 +109,7 @@ def v1_iter(x, w, h, bm):
     """One EU single pass at lam_w = 0 with H^T pre-cast to X's dtype
     (benchmarks/sweep_iter2.py:38-62): (w_new (m, k), wtx = round(w_new)^T X
     (k, n), gw = w_new^T w_new (k, k)), all f32.  The same function, and on
-    the card the same bits, as ``mur_fused.mur_iteration_eu(lam_w=0)``."""
+    the card the same bits, as ``mur_fused.mur_iteration_eu_dma(lam_w=0)``."""
     check_strips(x, bm)
     _check_dtypes("v1_iter", x, w, h, _X_DTYPES)
     if on_cpu(x):
