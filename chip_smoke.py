@@ -34,8 +34,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      v2_iter at 8192x8192 r128 (bf16 and f32 X) and ragged k37 (the dma
      variant's stages), v1 held to mur_iteration_eu(lam_w=0) within
      ROUTE_RTOL and timed against it in turns, with device times;
-     iter_eu_int8 at 8192x8192 r128 (X + 0.05 quantised) and ragged k37;
-     the read probe at 8192x8192 f32 and a ragged 896x777, with its rate.
+     iter_eu_int8 at 8192x8192 r128 (X + 0.05 quantised) and ragged k37
+     (the same stages on int8 X, widened to bf16 in registers), with its
+     device time, TFLOP/s and the load path of X's tiles, held at scale 1 to
+     v1_iter on xq.to(bfloat16) bit for bit; the read probe at 8192x8192
+     f32 and a ragged 896x777, with its rate.  score_blockmax_relayout (TMA
+     and wgmma) at the serving shapes and ragged ones (H's rows off 16 bytes,
+     f32 and bf16), with its device time, TB/s or TFLOP/s and the load path
+     of H's tiles; its maxima must be torch.amax of its s3 bit for bit.
      blockmax_relayout at (64, 2^20) and the read probe at 8192x8192 are
      also timed in turns with the one PyTorch call that computes their
      function (torch.amax of the scores' view, torch.sum over rows), with
@@ -411,16 +417,18 @@ def check_kernel(torch, records, name, label, what, kern, plain, rtol, reps,
               f"({moved / lib_dev / 1e9:.3f} TB/s)", flush=True)
     rates = None
     if profiled:
-        # TFLOP/s of f32 products (or of all flops) where operations bind,
-        # TB/s where bytes do; both per ms: work / 1e9 / ms
-        work, unit = ((product_flops or f32_flops + bf16_flops, "TFLOP/s")
+        # TFLOP/s of the products (bf16 and f32; or of all flops where
+        # there are none) where operations bind, TB/s where bytes do; both
+        # per ms: work / 1e9 / ms
+        work, unit = ((bf16_flops + product_flops or f32_flops, "TFLOP/s")
                       if bound_by == "operations" else (moved, "TB/s"))
         rates = {"unit": unit, "alone": work / ms / 1e9, "device": work / kern_dev / 1e9,
                  "bound": work / bound_ms / 1e9}
         print(f"  {name:19s} {label:36s} device time (profiler, {PROFILED_CALLS} calls) "
               f"{kern_dev:.4f} ms; {unit} alone {rates['alone']:.3f}, on the device "
               f"{rates['device']:.3f}, at the bound {rates['bound']:.3f} "
-              f"({product_flops / 1e9:.1f} GFLOP of f32 products, {moved / 1e6:.1f} MB)",
+              f"({product_flops / 1e9:.1f} GFLOP of f32 products, {bf16_flops / 1e9:.1f} of "
+              f"bf16, {moved / 1e6:.1f} MB)",
               flush=True)
     require(finite, f"{name} {label} {what}: non-finite output")
     require(rel <= rtol, f"{name} {label} {what}: error {rel:.3e} above {rtol:.0e}")
@@ -630,16 +638,15 @@ def sweep_phase(torch, records, cases, reps):
 
 
 def x_load_path(x):
-    """How the EU pass on TMA and wgmma (csrc/wave.cuh, TmaStages) loads
-    X's tiles: by TMA where X's rows start on 16 bytes, else by the producer
-    warpgroup's own 4-byte cp.async copies where they start on 4, else by
-    its plain loads."""
+    """How the kernels on TMA and wgmma (csrc/wave.cuh's TmaStages, the
+    scoring kernel of csrc/topk_select.cu) load the tiles of X (of H): by
+    TMA where its rows start on 16 bytes, else by the producer warpgroup's
+    16-byte cp.async copies of the chunks that cover each row
+    (hop::copy_rows)."""
     row, base = x.shape[1] * x.element_size(), x.data_ptr()
     if base % 16 == 0 and row % 16 == 0:
         return "TMA"
-    if base % 4 == 0 and row % 4 == 0:
-        return "4-byte cp.async (rows off 16 bytes)"
-    return "plain loads (rows off 4 bytes)"
+    return "16-byte cp.async of the rows' covering chunks (rows off 16 bytes)"
 
 
 def opt_in_phase(torch, records, eu_x, k, ragged, reps):
@@ -725,9 +732,12 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
     device times), v1 also against mur_iteration_eu(lam_w=0) on the same
     inputs (wgmma against mma.sync) within ROUTE_RTOL, timed in turns
     (auto, v1, v1, auto); iter_eu_int8 on X + 0.05 quantised
-    as sweep_int8.py does and on the ragged X; and the read probe at 8192x8192
-    f32 (268 MB, past the 50 MB L2) with torch.sum(x, 0) as its library call,
-    and at a ragged 896x777 (n % 4 != 0).  Returns the v1 / auto times."""
+    as sweep_int8.py does and on the ragged X (rows off 16 bytes),
+    with device times, held at scale 1 to v1_iter on xq.to(bfloat16) bit for
+    bit (the same stages on the same values); and the read probe at
+    8192x8192 f32 (268 MB, past the 50 MB L2) with torch.sum(x, 0) as its
+    library call, and at a ragged 896x777 (n % 4 != 0).  Returns the v1 /
+    auto times and int8's checks."""
     from tpunmf_torch.ops import mur_fused, mur_variants, read_probe, roofline
     from tpunmf_torch.sweeps import sweep_int8
 
@@ -773,8 +783,20 @@ def variant_phase(torch, records, eu_x, k, ragged, reps):
         check_kernel(torch, records, "iter_eu_int8", label, f"eu lam=0 bm={bm}",
                      lambda: mur_variants.iter_eu_int8(xq, scale, w, h, bm),
                      lambda: mur_variants.iter_eu_int8_ref(xq, scale, w, h), UPDATE_RTOL, reps,
-                     inputs=(xq, scale, w, h), flops=mur_flops("iter_eu_int8", xq, kk))
-        del w, h, xq
+                     inputs=(xq, scale, w, h), flops=mur_flops("iter_eu_int8", xq, kk),
+                     profiled=True)
+        one = torch.tensor(1.0, device="cuda")
+        q1 = mur_variants.iter_eu_int8(xq, one, w, h, bm)
+        v1 = mur_variants.v1_iter(xq.to(torch.bfloat16), w, h, bm)
+        diff = max(bit_err(a, b) for a, b in zip(q1, v1))
+        path = x_load_path(xq)
+        line[label] = {"max_abs_diff_v1": diff, "x_loads": path,
+                       "device_ms": records["iter_eu_int8"]["cases"][-1]["device_ms"]}
+        print(f"  {label}: iter_eu_int8 at scale 1 against v1_iter on xq.to(bfloat16): max "
+              f"|diff| {diff:.3e}; X's tiles by {path}", flush=True)
+        require(diff == 0.0, f"{label}: iter_eu_int8 at scale 1 and v1_iter on the widened X "
+                             f"differ by {diff:.3e}")
+        del w, h, xq, q1, v1
     s = torch.tensor(0.5, device="cuda")
     for label, x in ((f"EU {tuple(eu_x.shape)} f32", eu_x),
                      ("ragged (896, 777) f32", ragged[:896].contiguous())):
@@ -887,13 +909,17 @@ def pass_phase(torch, records, cases, reps):
 
 def serving_kernel_phase(torch, records, reps):
     """blockmax_relayout (bit for bit) and score_blockmax_relayout
-    (SCORE_TOL) against their plain versions at the serving shapes, and
-    torch.topk on the full (64, 2^20) scores beside the block-max route."""
+    (SCORE_TOL, with device times) against their plain versions at the
+    serving shapes and ragged ones (H's rows off 16 bytes), its
+    maxima held to torch.amax of its s3 bit for bit, with the load path of
+    H's tiles; and torch.topk on the full (64, 2^20) scores beside the
+    block-max route."""
     from tpunmf_torch.ops import topk_select as ts
     from tpunmf_torch.serve import topk
 
     g = torch.Generator(device="cuda")
     g.manual_seed(13)
+    scoring = {}
     for label, b, n, dtype in ((f"serve ({SERVE_BATCH}, {1 << 20}) f32", SERVE_BATCH,
                                 1 << 20, torch.float32),
                                (f"serve ({SERVE_BATCH}, {1 << 20}) bf16", SERVE_BATCH,
@@ -922,7 +948,11 @@ def serving_kernel_phase(torch, records, reps):
              1 << 20, torch.bfloat16),
             (f"serve ({SERVE_BATCH}, 512)x(512, {1 << 19}) f32", SERVE_BATCH, 512,
              1 << 19, torch.float32),
-            ("ragged (96, 128)x(128, 40000) f32", 96, 128, 40000, torch.float32)):
+            ("ragged (96, 128)x(128, 40000) f32", 96, 128, 40000, torch.float32),
+            (f"serve ({SERVE_BATCH}, 128)x(128, {(1 << 20) + 2}) f32", SERVE_BATCH, 128,
+             (1 << 20) + 2, torch.float32),
+            ("ragged (8, 64)x(64, 40001) f32", 8, 64, 40001, torch.float32),
+            ("ragged (8, 64)x(64, 40001) bf16 H", 8, 64, 40001, torch.bfloat16)):
         w = torch.rand((b, r), generator=g, device="cuda").to(hdtype)
         h = torch.rand((r, n), generator=g, device="cuda").to(hdtype)
         product = 2.0 * b * r * n  # and one comparison a score
@@ -930,8 +960,16 @@ def serving_kernel_phase(torch, records, reps):
         check_kernel(torch, records, "score_blockmax_relayout", label, "f32 accumulate",
                      lambda: ts.score_blockmax_relayout(w, h),
                      lambda: ts.score_blockmax_relayout_ref(w, h), SCORE_TOL, reps,
-                     err=close_err, inputs=(w, h), flops=flops)
-        del w, h
+                     err=close_err, inputs=(w, h), flops=flops, profiled=True)
+        bmax, s3 = ts.score_blockmax_relayout(w, h)
+        diff = bit_err(bmax, torch.amax(s3, dim=2))
+        path = x_load_path(h)
+        scoring[label] = {"bmax_vs_amax_s3": diff, "h_loads": path,
+                          "device_ms": records["score_blockmax_relayout"]["cases"][-1][
+                              "device_ms"]}
+        print(f"  {label}: max |bmax - amax(s3)| {diff:.3e}; H's tiles by {path}", flush=True)
+        require(diff == 0.0, f"score_blockmax_relayout {label}: bmax is not amax(s3)")
+        del w, h, bmax, s3
 
     # torch.topk of the whole score matrix against the block-max route
     # (blockmax_relayout + the gathered sort) on the same scores
@@ -942,7 +980,7 @@ def serving_kernel_phase(torch, records, reps):
     route_ms, topk_ms = time_pair(torch, lambda: torch.topk(scores, SERVE_K),
                                   lambda: topk._exact_topk(scores, SERVE_K), reps)
     line = {"scores": [SERVE_BATCH, 1 << 20], "k": SERVE_K, "torch_topk_ms": topk_ms,
-            "blockmax_route_ms": route_ms}
+            "blockmax_route_ms": route_ms, "scoring": scoring}
     print(f"  torch.topk of ({SERVE_BATCH}, {1 << 20}) f32 at k={SERVE_K}: "
           f"{topk_ms:.4f} ms; block-max route on the same scores {route_ms:.4f} ms "
           f"(same values)", flush=True)

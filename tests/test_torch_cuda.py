@@ -546,6 +546,39 @@ def test_score_blockmax_relayout_matches_plain_version(cuda_device, b, r, n, hdt
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wdtype,hdtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("b,r,n,sel_block,offset", [
+    (8, 64, 777, 128, 1),       # H's rows off 4 bytes (16-bit), and its base
+    (8, 64, 776, 128, 2),       # off 16 bytes (base off 16 too): the rows' covering chunks
+    (200, 128, 40000, 128, 0),  # four user tiles; padding past n
+    (64, 128, 40000, 256, 0),   # a block spans two column tiles
+    (64, 1024, 20000, 128, 0)])  # depth 1024
+def test_score_blockmax_relayout_on_its_load_paths(cuda_device, offset, sel_block, n, r, b,
+                                                   hdtype, wdtype):
+    """Within the scoring tolerance of the plain version on each of H's
+    load paths; bmax is torch.amax of the stored s3 bit for bit, the
+    columns past n hold finfo.min, and a second call gives the same bits."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(b + r + n + offset)
+    w = torch.rand((b, r), generator=g, device=cuda_device).to(wdtype)
+    buf = torch.rand(r * n + offset, generator=g, device=cuda_device).to(hdtype)
+    h = buf[offset:].view(r, n)
+    got_m, got_s3 = topk_select.score_blockmax_relayout(w, h, sel_block)
+    want_m, want_s3 = topk_select.score_blockmax_relayout_ref(w, h, sel_block)
+    torch.testing.assert_close(got_m, want_m, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_s3, want_s3, rtol=2e-5, atol=2e-5)
+    _same_bits(got_m, torch.amax(got_s3, dim=2))
+    tail = got_s3.reshape(b, -1)[:, n:]
+    assert tail.numel() > 0 or n % (128 * sel_block) == 0
+    assert bool((tail == torch.finfo(torch.float32).min).all())
+    again = topk_select.score_blockmax_relayout(w, h, sel_block)
+    _same_bits(again[0], got_m)
+    _same_bits(again[1], got_s3)
+
+
+@pytest.mark.cuda
 def test_score_blockmax_relayout_propagates_nan(cuda_device):
     w = torch.rand((5, 16), device=cuda_device)
     h = torch.rand((16, 40000), device=cuda_device)
@@ -1074,7 +1107,7 @@ def test_mur_iteration_eu_dma_matches_plain_version_v1_iter_and_auto(cuda_device
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [776, 777, 778])  # X's three load paths at bf16
+@pytest.mark.parametrize("n", [776, 777, 778])  # bf16 rows on 16, off 4 and on 4 bytes
 @pytest.mark.parametrize("m,bm", [(129, 43), (1000, 500)])  # not whole 128-row tiles
 def test_tma_passes_at_a_ragged_m(cuda_device, m, bm, n, xdtype):
     """m past a whole number of the 128-row tiles (and of (B)'s 32- or
@@ -1204,7 +1237,8 @@ def test_v_iters_match_plain_versions_and_mur_iteration_eu(cuda_device, n, k, xd
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [0.0, 0.5])  # X >= 0; X with negative values
 @pytest.mark.parametrize("k", [1, 37, 128])
-@pytest.mark.parametrize("n", [777, 50001])
+# X's rows off 16 bytes (on 4, and off 4: the copies of their covering chunks), on 16 (TMA)
+@pytest.mark.parametrize("n", [776, 777, 4096, 50001])
 def test_iter_eu_int8_matches_plain_version(cuda_device, n, k, shift):
     x, w, h = _on(cuda_device, torch.float32, m=300, n=n, k=k)
     xq, scale = sweep_int8.quantize(x - shift)
@@ -1220,6 +1254,57 @@ def test_iter_eu_int8_matches_plain_version(cuda_device, n, k, shift):
             assert _scaled_err(a, b) <= RTOL
     again = mur_variants.iter_eu_int8(xq, scale, w, h, bm=150)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 37, 128, 1024])
+@pytest.mark.parametrize("n", [776, 777, 4096])  # rows off 16 bytes (on 4, off 4), on 16
+def test_iter_eu_int8_at_scale_one_is_v1_iter_on_widened_x(cuda_device, n, k):
+    """int8 X widens to bf16 exactly in the consumers' registers and meets
+    H in bf16 on the bf16 pass's stages, so at scale 1 its W', wtx and Gram
+    are v1_iter's on xq.to(bfloat16), bit for bit (X with negative values);
+    at the sweep script's scale, on X >= 0, within RTOL of the plain
+    version.  (On signed X at k 1024 a W' one f32 ulp off the plain
+    version's can round to the other bf16 for wtx: 2e-4 of max |wtx|
+    measured on an H100, the one-bf16-ulp moves that ROUTE_RTOL covers; the
+    k <= 128 cases of test_iter_eu_int8_matches_plain_version hold signed X
+    to RTOL.)"""
+    x, w, h = _on(cuda_device, torch.float32, m=300, n=n, k=k)
+    xq, _ = sweep_int8.quantize(x - 0.5)
+    one = torch.tensor(1.0, device=cuda_device)
+    got = mur_variants.iter_eu_int8(xq, one, w, h, bm=150)
+    v1 = mur_variants.v1_iter(xq.to(torch.bfloat16), w, h, bm=150)
+    assert all(torch.equal(a, b) for a, b in zip(got, v1))
+    xq, scale = sweep_int8.quantize(x)
+    scaled = mur_variants.iter_eu_int8(xq, scale, w, h, bm=150)
+    for a, b in zip(scaled, mur_variants.iter_eu_int8_ref(xq, scale, w, h)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_iter_eu_int8_refuses_a_short_scratch(cuda_device):
+    """The C entry checks its scratch against tpunmf_eu_tma_scratch's count
+    at 1-byte X (one float short: a nonzero status, nothing launched); with
+    enough, the wrapper's outputs bit for bit."""
+    m, n, k = 300, 4096, 40
+    x, w, h = _on(cuda_device, torch.float32, m=m, n=n, k=k)
+    xq, scale = sweep_int8.quantize(x)
+    s = torch.as_tensor(scale, dtype=torch.float32, device=cuda_device).reshape(())
+    lib = _build.library()
+    floats = lib.tpunmf_eu_tma_scratch(m, n, k, 1)
+    assert floats > 0
+    scratch = torch.empty(floats, device=cuda_device)
+    hb, _, ldh = _launch.eu_tma_operands(xq, h)
+    gh = h @ h.T
+    stream = torch.cuda.current_stream().cuda_stream
+    want = mur_variants.iter_eu_int8(xq, scale, w, h, bm=150)
+    for length, status in ((floats, 0), (floats - 1, 1)):  # 1: cudaErrorInvalidValue
+        outs = (torch.zeros_like(w), torch.zeros_like(h), torch.zeros((k, k), device=cuda_device))
+        assert lib.tpunmf_iter_eu_int8(
+            xq.data_ptr(), hb.data_ptr(), ldh, w.data_ptr(), gh.data_ptr(), s.data_ptr(), m, n,
+            k, *(o.data_ptr() for o in outs), scratch.data_ptr(), length, stream) == status
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, want)) == (status == 0)
 
 
 @pytest.mark.cuda

@@ -497,11 +497,11 @@ def _c_enum(source, name):
 
 def test_wave_kinds_are_the_c_plan_s():
     """The scratch kinds the wrappers ask tpunmf_iteration_scratch for are
-    wave.cuh's plan kinds: MUR EU on FMA tiles, MUR KL's FMA waves, HALS
-    and MUR EU on the tensor cores."""
+    wave.cuh's plan kinds: MUR KL's FMA waves, HALS and MUR EU on the
+    tensor cores (the EU pass on TMA and wgmma has a query of its own)."""
     assert _c_enum("wave.cuh", "Wave") == {
-        "kWaveEu": _launch.WAVE_MUR_EU, "kWaveKl": _launch.WAVE_MUR_KL,
-        "kWaveHals": _launch.WAVE_HALS, "kWaveEuTc": _launch.WAVE_MUR_EU_TC}
+        "kWaveKl": _launch.WAVE_MUR_KL, "kWaveHals": _launch.WAVE_HALS,
+        "kWaveEuTc": _launch.WAVE_MUR_EU_TC}
 
 
 @pytest.mark.parametrize("name", sorted(_build._SIGNATURES))

@@ -3,7 +3,7 @@
 CUDA card, alone and in turns with the same kernels of another checkout.
 
     python3 tools/kernel_turns.py [--parent DIR]
-        [--only mur|w|single|dma|masked|objectives|gram]
+        [--only mur|w|single|dma|int8|score|masked|objectives|gram]
 
 DIR is a checkout of another commit (for instance the parent, unpacked
 with ``git archive`` into a git-ignored directory); its kernels are built
@@ -67,6 +67,24 @@ checkout's wrapper, the other's C entry), at 8192 x 8192 r128
 4096 r256 and 8192 x 8190 r128 (rows off 16 bytes: the kernel's own loads
 of X; lowrank_dense of rank min(k, 64)), f32 and bf16 X, with the
 profiler's device times of the dma variant.
+With --only int8, iter_eu_int8, each side through its own C entry with
+its buffers made once (before the TMA stages the other checkout's entry
+took H in f32 and the FMA plan's scratch, kind 0, and no scratch length),
+at 8192 x 8192 r128 and 8192 x 16384 r128 (lowrank_dense seed 0, + 0.05,
+quantised as sweep_int8.py does), 8192 x 8188 r128 and 8192 x 8190 r128
+(X's rows off 16 and off 4 bytes: the producer's copies of their covering
+chunks; before this tree, 4-byte copies and plain loads), with the
+profiler's device times and the largest relative difference of the two
+sides' outputs.
+With --only score, score_blockmax_relayout the same way (before TMA and
+wgmma the other checkout's entry took W in f32 and no W operands), at
+chip_smoke.py's phase-2 scoring shapes: (64, 128) x (128, 2^20) f32 and
+bf16 (W and H both bf16: serving's quantized first stage), (64, 512) x
+(512, 2^19) f32, (96, 128) x (128, 40000) f32, (8, 64) x (64, 40001)
+f32 and bf16 and (64, 128) x (128, 2^20 + 2) f32 (H's rows off 16 bytes:
+the producer's copies of their covering chunks), with the profiler's device
+times and the largest difference of the two sides' scores, relative to 1
++ |score|.
 With --only gram, no times: the Gram objective near convergence of
 tests/test_torch_cuda.py (2000 x 1500 r64, six seeds) from this
 checkout's mur_iteration_eu and mur_h_update and, with DIR, the other's,
@@ -136,17 +154,20 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout whose kernels to time in turns")
     ap.add_argument("--only",
-                    choices=("mur", "w", "single", "dma", "masked", "objectives", "gram"),
+                    choices=("mur", "w", "single", "dma", "int8", "score", "masked",
+                             "objectives", "gram"),
                     help="time one family of cases (w: the MUR W pass alone, a part of "
                          "mur; single: mur_iteration_kl and hals_iteration_eu; dma: "
-                         "mur_iteration_eu_dma, v1_iter and mur_iteration_eu; gram: "
-                         "accuracy, no times)")
+                         "mur_iteration_eu_dma, v1_iter and mur_iteration_eu; int8: "
+                         "iter_eu_int8; score: score_blockmax_relayout; gram: accuracy, "
+                         "no times)")
     args = ap.parse_args()
 
     import chip_smoke as cs
     from tpunmf_torch.data import lowrank_dense, movielens_like, tfidf_like
-    from tpunmf_torch.ops import _build, _launch, fused, mur_fused, mur_variants
+    from tpunmf_torch.ops import _build, _launch, fused, mur_fused, mur_variants, topk_select
     from tpunmf_torch.ops import masked_fused as mf
+    from tpunmf_torch.sweeps import sweep_int8
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.nvidia_smi_line()
@@ -570,6 +591,111 @@ def main() -> int:
 
     if args.only == "dma":
         dma_cases()
+        print(card)
+        return 0
+
+    # ------------------------------------ iter_eu_int8 and the scoring kernel
+    def entry_fn(entry, args, outs, keep, name):
+        def fn(keep=keep):  # keep: the tensors behind args' pointers
+            _build.check(entry(*args), name)
+            return outs
+        return fn
+
+    def int8_entry(lib_, xq, scale, w, h):
+        """iter_eu_int8 through the C entry of ``lib_``, its buffers made
+        once: on the TMA stages H in bf16 and tpunmf_eu_tma_scratch's
+        scratch at 1-byte X with its length; before them H in f32 and the
+        FMA plan's (kind 0)."""
+        m, n = xq.shape
+        k = w.shape[1]
+        s = torch.as_tensor(scale, dtype=torch.float32, device="cuda").reshape(())
+        gh = h @ h.T
+        outs = (torch.empty_like(w), torch.empty_like(h), torch.empty_like(gh))
+        ptrs = tuple(o.data_ptr() for o in outs)
+        head = (s.data_ptr(), m, n, k, *ptrs)
+        if len(lib_.tpunmf_iter_eu_int8.argtypes) == 15:
+            hb, _, ldh = _launch.eu_tma_operands(xq, h)
+            floats = lib_.tpunmf_eu_tma_scratch(m, n, k, 1)
+            scratch = torch.empty(floats, device="cuda")
+            args = (xq.data_ptr(), hb.data_ptr(), ldh, w.data_ptr(), gh.data_ptr(), *head,
+                    scratch.data_ptr(), floats, stream())
+            keep = (s, gh, hb, scratch)
+        else:
+            floats = lib_.tpunmf_iteration_scratch(m, n, k, 1, 0)
+            scratch = torch.empty(max(floats, 1), device="cuda")
+            args = (xq.data_ptr(), h.data_ptr(), w.data_ptr(), gh.data_ptr(), *head,
+                    scratch.data_ptr(), stream())
+            keep = (s, gh, scratch)
+        return entry_fn(lib_.tpunmf_iter_eu_int8, args, outs, keep, "int8")
+
+    def int8_cases():
+        print(f"iter_eu_int8, through the C entries ({card})", flush=True)
+        for m, n in ((8192, 8192), (8192, 16384), (8192, 8188), (8192, 8190)):
+            x = torch.from_numpy(lowrank_dense(m, n, 64, seed=0)).cuda() + 0.05
+            xq, scale = sweep_int8.quantize(x)
+            del x
+            w, h = factors(m, n, 128, 16)
+            this_fn = int8_entry(lib, xq, scale, w, h)
+            other_fn = int8_entry(other, xq, scale, w, h) if other is not None else None
+            path = cs.x_load_path(xq)
+            report(f"iter_eu_int8 {m}x{n} k128 ({path.split(' (')[0]})", this_fn, other_fn, 3)
+            device_line(this_fn, other_fn)
+            if other_fn is not None:
+                diff = max(cs.max_rel_err(a, b) for a, b in zip(this_fn(), other_fn()))
+                print(f"    largest relative difference of the two sides' outputs {diff:.3e}",
+                      flush=True)
+            del xq, w, h
+        torch.cuda.empty_cache()
+
+    def score_entry(lib_, w, h, sel=128):
+        """score_blockmax_relayout through the C entry of ``lib_``, its
+        buffers made once: W's operands (topk_select.score_operands) on TMA
+        and wgmma; before them W in f32."""
+        b, r = w.shape
+        n = h.shape[1]
+        nbp = topk_select._blocks(n, sel)
+        outs = (torch.empty((b, nbp), device="cuda"), torch.empty((b, nbp, sel), device="cuda"))
+        tail = (b, r, n, nbp, sel, *(o.data_ptr() for o in outs), stream())
+        hd = topk_select._H_DTYPES[h.dtype]
+        if len(lib_.tpunmf_score_blockmax.argtypes) == 14:
+            w0, w1, ldw, w16 = topk_select.score_operands(w, h)
+            args = (w0.data_ptr(), w1.data_ptr(), ldw, h.data_ptr(), hd, int(w16), *tail)
+            keep = (w0, w1)
+        else:
+            w32 = w.to(torch.float32).contiguous()
+            args = (w32.data_ptr(), h.data_ptr(), hd, *tail)
+            keep = (w32,)
+        return entry_fn(lib_.tpunmf_score_blockmax, args, outs, keep, "score")
+
+    def score_cases():
+        print(f"score_blockmax_relayout, through the C entries ({card})", flush=True)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13)
+        for b, r, n, dt in ((64, 128, 1 << 20, torch.float32), (64, 128, 1 << 20, torch.bfloat16),
+                            (64, 512, 1 << 19, torch.float32), (96, 128, 40000, torch.float32),
+                            (8, 64, 40001, torch.float32), (8, 64, 40001, torch.bfloat16),
+                            (64, 128, (1 << 20) + 2, torch.float32)):
+            w = torch.rand((b, r), generator=g, device="cuda").to(dt)
+            h = torch.rand((r, n), generator=g, device="cuda").to(dt)
+            this_fn = score_entry(lib, w, h)
+            other_fn = score_entry(other, w, h) if other is not None else None
+            label = (f"score ({b}, {r})x({r}, {n}) {'f32' if dt == torch.float32 else 'bf16'} "
+                     f"({cs.x_load_path(h).split(' (')[0]})")
+            report(label, this_fn, other_fn, 5)
+            device_line(this_fn, other_fn)
+            if other_fn is not None:
+                diff = max(cs.close_err(a, b_) for a, b_ in zip(this_fn(), other_fn()))
+                print(f"    largest difference of the two sides' outputs, relative to 1 + "
+                      f"|score|: {diff:.3e}", flush=True)
+            del w, h
+        torch.cuda.empty_cache()
+
+    if args.only == "int8":
+        int8_cases()
+        print(card)
+        return 0
+    if args.only == "score":
+        score_cases()
         print(card)
         return 0
 

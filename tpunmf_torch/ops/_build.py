@@ -67,9 +67,9 @@ _SIGNATURES = {
     # x, x_is_bf16, w, hc (H in X's type), hht, lam, m, n, k, nsweeps,
     # w_out, wtx, gram, scratch, scratch_len (floats, 64-bit), stream
     "tpunmf_hals_iteration_eu": (_P, _I, _P, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P),
-    # m, n, k, x_bytes (X's element size), kind (0 the sweep scripts'
-    # iter_eu_int8, 1 MUR KL's FMA waves, 2 HALS, 3 MUR EU) -> floats of
-    # scratch the single-pass iteration needs (64-bit; -1 for another kind)
+    # m, n, k, x_bytes (X's element size), kind (1 MUR KL's FMA waves, 2
+    # HALS, 3 MUR EU) -> floats of scratch the single-pass iteration needs
+    # (64-bit; -1 for another kind)
     "tpunmf_iteration_scratch": (_I, _I, _I, _I, _I),
     # x, x_is_bf16, f0, f1, ldh (H's factor operands, from H^T), w, gh, m,
     # n, k, w_out, wtx, gram, scratch, scratch_len, stream
@@ -77,9 +77,10 @@ _SIGNATURES = {
     # x, x_is_bf16, f0, f1, ldh, h, w, gh, m, n, k, w_out, h_out, wtx, gram,
     # scratch, scratch_len, stream
     "tpunmf_v2_iter": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P),
-    # xq (int8), h, w, gh, scale (device float), m, n, k, w_out, wtx, gram,
-    # scratch, stream
-    "tpunmf_iter_eu_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # xq (int8), hb (H in bf16, _launch.eu_tma_operands), ldh, w, gh, scale
+    # (device float), m, n, k, w_out, wtx, gram, scratch, scratch_len
+    # (floats, 64-bit), stream
+    "tpunmf_iter_eu_int8": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _L, _P),
     # x, s (device float), m, n, out, stream
     "tpunmf_read_probe": (_P, _P, _I, _I, _P, _P),
     # a, a strides (2), g, v, v strides (2), lam, k, cols, nsweeps,
@@ -104,9 +105,10 @@ _SIGNATURES = {
     # scores, dtype (0 f32, 1 bf16, 2 f64), b, n, nbp, sel, bmax, s3 (NULL
     # where s3 is a view of the scores), stream
     "tpunmf_blockmax_relayout": (_P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # w (f32), h, h dtype (0 f32, 1 bf16, 2 f16), b, r, n, nbp, sel, bmax,
-    # s3, stream
-    "tpunmf_score_blockmax": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # w0, w1, ldw (W's operands, topk_select.score_operands), h, h dtype (0
+    # f32, 1 bf16, 2 f16), w16 (w0 in H's 16-bit type), b, r, n, nbp, sel,
+    # bmax, s3, stream
+    "tpunmf_score_blockmax": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 # entry points whose result is not an int
 _RESULTS = {"tpunmf_mur_w_eu_scratch": _L, "tpunmf_iteration_scratch": _L,

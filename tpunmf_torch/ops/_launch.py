@@ -65,11 +65,11 @@ def check_strips(x, bm, bs=None):
 
 
 # the single-pass iterations of csrc/wave.cuh, as tpunmf_iteration_scratch counts them:
-# MUR EU on FMA tiles (the sweep script's iter_eu_int8), MUR KL's FMA waves (above
-# mur_fused.KL_ITER_PAIR_RANK), HALS EU and MUR EU (mur_iteration_eu), both on the
-# tensor cores.  The EU pass on TMA and wgmma (the "dma" variant, v1_iter and
-# v2_iter) has a query of its own (eu_tma_scratch).
-WAVE_MUR_EU, WAVE_MUR_KL, WAVE_HALS, WAVE_MUR_EU_TC = 0, 1, 2, 3
+# MUR KL's FMA waves (above mur_fused.KL_ITER_PAIR_RANK), HALS EU and MUR EU
+# (mur_iteration_eu), both on the tensor cores.  The EU pass on TMA and wgmma (the
+# "dma" variant, v1_iter, v2_iter and iter_eu_int8) has a query of its own
+# (eu_tma_scratch).
+WAVE_MUR_KL, WAVE_HALS, WAVE_MUR_EU_TC = 1, 2, 3
 
 
 def wave_scratch(x, k: int, kind: int) -> torch.Tensor:
@@ -98,17 +98,24 @@ def tf32_split(f: torch.Tensor):
     return big, f - big
 
 
+def factor_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the EU passes' products take the factors in: X's own, and
+    bfloat16 for int8 X (benchmarks/sweep_int8.py:37-45 multiplies in bf16)."""
+    return torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+
+
 def eu_tma_operands(x: torch.Tensor, h: torch.Tensor):
     """H's factor operands for the EU pass on TMA and wgmma
-    (csrc/wave.cuh's TmaStages) from H (k, n), f32 or already in X's dtype,
-    any strides: (f0, f1, ldh), (k, ldh) arrays with rows padded by zeros
-    to ldh = n rounded up to 8 (16-byte rows for TMA).  f32 X: f0 and f1
-    are H's TF32 big and small parts (:func:`tf32_split`); bf16 X: f0 is H
-    in bf16 and f1 is f0 (unused by the kernel)."""
+    (csrc/wave.cuh's TmaStages) from H (k, n), f32 or already in the
+    factors' dtype (:func:`factor_dtype`), any strides: (f0, f1, ldh),
+    (k, ldh) arrays with rows padded by zeros to ldh = n rounded up to 8
+    (16-byte rows for TMA).  f32 X: f0 and f1 are H's TF32 big and small
+    parts (:func:`tf32_split`); bf16 and int8 X: f0 is H in bf16 and f1 is
+    f0 (unused by the kernel)."""
     n = h.shape[1]
     ldh = -(-n // 8) * 8
-    hp = torch.nn.functional.pad(h.to(x.dtype), (0, ldh - n)).contiguous()
-    if x.dtype == torch.bfloat16:
+    hp = torch.nn.functional.pad(h.to(factor_dtype(x)), (0, ldh - n)).contiguous()
+    if hp.dtype == torch.bfloat16:
         return hp, hp, ldh
     big, small = tf32_split(hp)
     return big, small, ldh

@@ -1,17 +1,16 @@
-// Shared building blocks of the kernels: the FMA tiles of mur_update.cu,
-// mur_variants.cu and topk_select.cu (and through wave.cuh mur_iteration.cu
-// and hals_iteration.cu); the launch helpers, the KL masking, the zero-first
+// Shared building blocks of the kernels: the FMA tiles of mur_update.cu
+// and mur_variants.cu (and through wave.cuh mur_iteration.cu and
+// hals_iteration.cu); the launch helpers, the KL masking, the zero-first
 // division and the cp.async staging for every kernel, the tensor-core ones
 // of tf32x3.cuh included; the HALS chain for hals_sweep.cu.
 //
-// Every kernel runs 256 threads (wave.cuh's TMA stages: 288, launched by
-// their own helper).  The FMA kernels see them as a 16 x 16 grid
-// (ty, tx): a thread owns a TM x TN micro-tile of a (16*TM) x (16*TN) block
+// Every kernel runs 256 threads (wave.cuh's TMA stages and topk_select.cu's
+// scoring kernel: 384, launched by their own helpers).  The FMA kernels see
+// them as a 16 x 16 grid (ty, tx): a thread owns a TM x TN micro-tile of a (16*TM) x (16*TN) block
 // tile, rows ty + 16*a and columns tx + 16*b, its products f32 FMA from
 // shared-memory tiles (tf32x3.cuh's kernels see 8 warps instead).  The
 // ragged edges of every operand are masked by loading zeros.  X is float or
-// __nv_bfloat16 (int8_t in the EU tile loops of mur_variants.cu) and is
-// always read through to_f32(); factors are float.
+// __nv_bfloat16 and is always read through to_f32(); factors are float.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,7 +47,6 @@ cudaError_t reduce_partials_into(const float* partials, int count, float scale, 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(unsigned char v) { return (float)v; }
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }  // exact, as in bf16
 
 // One cell of the masked KL objective (tpunmf/core/losses.py:20-25): the log
 // has no eps, +inf is zeroed before NaN, and -x + wh is added for every cell.
@@ -88,12 +86,6 @@ __device__ __forceinline__ float round_as_x<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float round_as_x<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-// int8 X is multiplied in bf16 (benchmarks/sweep_int8.py:37-45): the factor
-// meets it rounded to bf16
-template <>
-__device__ __forceinline__ float round_as_x<int8_t>(float v) {
-  return round_as_x<__nv_bfloat16>(v);
 }
 
 // acc[a][b] += sum_{t < depth} A[t*lda + ty + 16a] * B[t*ldb + tx + 16b]
@@ -175,32 +167,6 @@ struct EuStage {
   float a[kChunk * (kTile + 1)];
   float b[kChunk * (kTile + 1)];
 };
-
-// acc[a][b] += sum_{j0 <= j < j1} X[row0 + ty + 16a][j] * F[c0 + tx + 16b][j]
-// with X (m, n) and F (k, n) row-major, F float rounded to X's product type
-// (round_as_x): a 64 x 64 tile of X F^T over the columns [j0, j1) of X
-// (j1 <= n).
-template <typename XT>
-__device__ __forceinline__ void x_ft_tile(float (&acc)[4][4], const XT* __restrict__ x,
-                                          const float* __restrict__ f, int m, int n, int k,
-                                          int row0, int c0, int j0, int j1, EuStage& st) {
-  constexpr int LD = kTile + 1;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int jb = j0; jb < j1; jb += kChunk) {
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int r = l / kChunk, kk = l % kChunk, gr = row0 + r, gj = jb + kk;
-      st.a[kk * LD + r] = (gr < m && gj < j1) ? to_f32(x[(long long)gr * n + gj]) : 0.f;
-    }
-    for (int l = tid; l < kChunk * kTile; l += kThreads) {
-      const int c = l / kChunk, kk = l % kChunk, gc = c0 + c, gj = jb + kk;
-      st.b[kk * LD + c] =
-          (gc < k && gj < j1) ? round_as_x<XT>(f[(long long)gc * n + gj]) : 0.f;
-    }
-    __syncthreads();
-    micro_gemm<4, 4>(acc, st.a, LD, st.b, LD, kChunk, ty, tx);
-    __syncthreads();
-  }
-}
 
 // acc[a][b] += sum_{i0 <= i < i1} F[i][c0 + ty + 16a] * X[i][col0 + tx + 16b]
 // with F (m, k) float rounded to X's type and X (m, n): a 64 x 64 tile of

@@ -1,16 +1,18 @@
 // Hopper's asynchronous copies and warpgroup products, for the stages of
-// wave.cuh's TmaStages: the Tensor Memory Accelerator (TMA) copies a tile
-// of a 2-D array described by a tensor map from device memory into shared
-// memory and reports the bytes to an mbarrier; wgmma multiplies a 64-row
-// tile of A (here from registers) by a tile of B read from shared memory,
+// wave.cuh's TmaStages and topk_select.cu's scoring kernel: the Tensor
+// Memory Accelerator (TMA) copies a tile of a 2-D array described by a
+// tensor map from device memory into shared memory and reports the bytes
+// to an mbarrier; wgmma multiplies a 64-row tile of A (here from
+// registers) by a tile of B read from shared memory,
 // asynchronously, into accumulator registers of a warpgroup (4 warps).
 //
 // Shared tiles are written by TMA with the 128-byte swizzle: a tile row of
 // 128 bytes holds eight 16-byte chunks, and chunk c of row r sits at chunk
-// c ^ (r % 8), so the eight rows of a fragment load hit distinct banks.  B
-// tiles are K-major (a row of B's tile is 128 bytes of depth), which is the
-// only layout wgmma takes for TF32 operands in shared memory; each tile
-// starts on 1024 bytes (the swizzle's period).
+// c ^ (r % 8), so the eight rows of a fragment load hit distinct banks
+// (int8 X's 64-byte rows: the 64-byte swizzle, chunk c of row r at c ^ ((r
+// / 2) % 4)).  B tiles are K-major (a row of B's tile is 128 bytes of
+// depth), which is the only layout wgmma takes for TF32 operands in shared
+// memory; each tile starts on 1024 bytes (the swizzle's period).
 //
 // The tensor maps are encoded on the host for each call
 // (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint: the
@@ -19,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda link
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -45,25 +48,33 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A map of the row-major (rows, cols) array at p, row stride ld elements of
-// T (float or bf16), copied in boxes of box_rows x box_cols with the
-// 128-byte swizzle (box_cols * sizeof(T) == 128).  Reads past the array's
-// edges give zeros.  cudaErrorInvalidValue where TMA cannot describe the
-// array (a base or row stride off 16 bytes).
+// T (float, bf16, f16 or a byte), copied in boxes of box_rows x box_cols
+// with the swizzle of the box's row (box_cols * sizeof(T): 128 or 64
+// bytes).  Reads past the array's edges give zeros.  cudaErrorInvalidValue
+// where TMA cannot describe the array (a base or row stride off 16 bytes).
 template <typename T>
 cudaError_t make_map(CUtensorMap* map, const T* p, long long rows, long long cols, long long ld,
                      int box_rows, int box_cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(p) % 16 != 0 || (ld * (long long)sizeof(T)) % 16 != 0)
+  const int row_bytes = box_cols * (int)sizeof(T);
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0 || (ld * (long long)sizeof(T)) % 16 != 0 ||
+      (row_bytes != 128 && row_bytes != 64))
     return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)(ld * (long long)sizeof(T))};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUtensorMapDataType type = std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static_assert(sizeof(T) == 4 || sizeof(T) == 2 || sizeof(T) == 1, "a 4-, 2- or 1-byte type");
+  const CUtensorMapDataType type =
+      std::is_same_v<T, float>           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : std::is_same_v<T, __nv_bfloat16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+      : std::is_same_v<T, __half>        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   const CUresult r = encode(map, type, 2, const_cast<T*>(p), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -116,12 +127,11 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// 4 bytes from src (4-byte aligned) to dst, of which the first `bytes` (0,
-// 2 or 4) are read and the rest zero-filled: an asynchronous copy that
-// spends no registers.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes)
+// 16 bytes from src (16-byte aligned) to dst (16-byte aligned), of which
+// the first `bytes` (0-16) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 // One arrival on bar once this thread's earlier cp.async copies have landed
@@ -129,6 +139,90 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
+}
+
+// ------------------------------------------------------- tiles in shared memory
+// The byte offset of byte b (< ROW) of row r in a tile of ROW-byte rows
+// (128 or 64) that TMA writes with the ROW-byte swizzle: the 16-byte chunk
+// b / 16 XORed with the 128-byte line's index, 3 bits at 128 (r % 8), 2 at
+// 64 ((r / 2) % 4).
+// (Written out for each width: the TF32 consumers issue it for every
+// fragment value, and a general form of it cost the f32 EU pass 5-11% on
+// an H100 80GB HBM3 at 700 W.)
+template <int ROW>
+__device__ __forceinline__ int swizzled(int r, int b) {
+  static_assert(ROW == 128 || ROW == 64, "the 128- or 64-byte swizzle");
+  if constexpr (ROW == 128)
+    return r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+  else
+    return r * 64 + (((b >> 4) ^ ((r >> 1) & 3)) << 4) + (b & 15);
+}
+
+// A tile of depth rows by 128 columns of a row-major array whose rows run
+// along the columns (wave.cuh's stage (B) X, the scoring kernel's H), as
+// TMA writes it in boxes of KC rows by 128 bytes of columns: the byte
+// offset of element (d, j), ES bytes an element.
+template <int ES, int KC>
+__device__ __forceinline__ int cols_at(int d, int j) {
+  constexpr int XC = 128 / ES;  // columns of a box
+  return j / XC * (KC * 128) + swizzled<128>(d, (j % XC) * ES);
+}
+
+// The producer warpgroup's copy of a tile of an array that TMA cannot
+// describe (rows that do not start on 16 bytes): tile rows [r0, r0 + R) of
+// the row-major array x (ld elements of ES bytes a row), each as the NCH
+// 16-byte chunks that cover its elements from c0 on, chunk c of tile row ra
+// at st + ra * RB + 16 c, so that the row's first element lies
+// shifted_at's delta bytes into the row.  Bytes at or past the row's
+// element c_end, and rows at or past r_end, are zeros (src-size); a first
+// chunk may start up to 15 bytes before x (inside its allocation, whose
+// start is aligned).  The thread's copies are counted on bar as they land.
+// Whole 16-byte copies (cp.async), where 4-byte copies of the elements ran
+// at about a third of TMA's rate on an H100 80GB HBM3 at 700 W.
+template <int ES, int R, int NCH, int RB>
+__device__ __forceinline__ void copy_rows(uint8_t* st, const void* x, long long ld, int r0,
+                                          int r_end, long long c0, long long c_end, int p,
+                                          uint64_t* bar) {
+  const char* base = static_cast<const char*>(x);
+  const char* any = reinterpret_cast<const char*>(reinterpret_cast<uintptr_t>(base) &
+                                                  ~static_cast<uintptr_t>(15));
+  for (int l = p; l < R * NCH; l += 128) {
+    const int ra = l / NCH, c = l % NCH, gr = r0 + ra;
+    const char* row = base + (long long)gr * ld * ES;
+    const char* src = reinterpret_cast<const char*>(
+                          reinterpret_cast<uintptr_t>(row + c0 * ES) & ~static_cast<uintptr_t>(15)) +
+                      16 * c;
+    const long long left = gr < r_end ? row + c_end * ES - src : 0;
+    const int bytes = left <= 0 ? 0 : left < 16 ? (int)left : 16;
+    cp_async16(st + ra * RB + 16 * c, bytes > 0 ? src : any, bytes);
+  }
+  cp_async_arrive(bar);
+}
+
+// The byte offset of element e of tile row ra in a copy_rows tile, the
+// row's first element at address `first` (mod 16 is all that counts, so
+// 32-bit sums of addresses do).
+template <int ES, int RB>
+__device__ __forceinline__ int shifted_at(int ra, uint32_t first, int e) {
+  return ra * RB + (int)(first & 15u) + e * ES;
+}
+
+// Two int8 values (the low two bytes of v, the first in the low byte) as a
+// bf16 pair, exactly (|x| <= 128 has at most 8 significant bits): x + 128
+// as an unsigned byte is put under the exponent of 2^23 and 2^23 + 128 is
+// taken away in f32; the bf16 is the f32's upper half.  Integer and f32
+// work only, none on the conversion pipe.
+__device__ __forceinline__ uint32_t bf16x2_of_s8x2(uint32_t v) {
+  const uint32_t y = v ^ 0x8080u;
+  const float lo = __uint_as_float(__byte_perm(y, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(y, 0x4B000000u, 0x7651)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// The `threads` threads that reach barrier `id` (1-15; 0 is __syncthreads)
+// wait for each other.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The descriptor of a K-major B tile at p (1024-byte aligned) with the
@@ -203,6 +297,43 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
 }
 
+// The same at m64n64 (d: 32 accumulators, d[i] at row 16w + g + 8((i >>
+// 1) & 1), column 8(i >> 2) + 2t + (i & 1)): TF32 (k8) and 16-bit (k16,
+// bf16 or, with F16, f16) operands.
+#define TPUNMF_D32 TPUNMF_D8(0), TPUNMF_D8(8), TPUNMF_D8(16), TPUNMF_D8(24)
+#define TPUNMF_R32                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "    \
+  "{%32, %33, %34, %35}, %37, p, 1, 1"
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " TPUNMF_R32 ";\n}\n"
+      : TPUNMF_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+}
+
+template <bool F16>
+__device__ __forceinline__ void wgmma_16_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  if constexpr (F16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " TPUNMF_R32 ", 0;\n}\n"
+        : TPUNMF_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TPUNMF_R32 ", 0;\n}\n"
+        : TPUNMF_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+}
+
+#undef TPUNMF_R32
+#undef TPUNMF_D32
 #undef TPUNMF_R64
 #undef TPUNMF_D64
 #undef TPUNMF_D8

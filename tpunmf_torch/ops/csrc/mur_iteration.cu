@@ -211,20 +211,20 @@ cudaError_t iteration_kl(const void* xv, const float* w, const float* h, const f
 
 extern "C" {
 
-// Floats of scratch the single-pass iteration of `kind` (0: the sweep
-// scripts' iter_eu_int8, 1: MUR KL's FMA waves, 2: HALS EU, 3: MUR EU; 2
-// and 3 on the tensor cores) needs at (m, n, k) for X of x_bytes (4 f32, 2
-// bf16, 1 int8) an element, in 64 bits; -1 for another kind (the TMA
-// stages' scratch is tpunmf_eu_tma_scratch's).
+// Floats of scratch the single-pass iteration of `kind` (1: MUR KL's FMA
+// waves, 2: HALS EU, 3: MUR EU; 2 and 3 on the tensor cores) needs at (m,
+// n, k) for X of x_bytes (4 f32, 2 bf16) an element, in 64 bits; -1 for
+// another kind (the TMA stages' scratch is tpunmf_eu_tma_scratch's).
 long long tpunmf_iteration_scratch(int m, int n, int k, int x_bytes, int kind) {
   using namespace tpunmf;
-  if (kind < kWaveEu || kind > kWaveEuTc) return -1;
+  if (kind < kWaveKl || kind > kWaveEuTc) return -1;
   return make_plan(m, n, k, x_bytes, kind).scratch;
 }
 
 // Floats of scratch the EU single pass on TMA and wgmma (the "dma" variant,
-// v1_iter, v2_iter) needs at (m, n, k) for X of x_bytes (4 or 2) an
-// element, in 64 bits: the plan's partials and den, then stage (B)'s factor.
+// v1_iter, v2_iter, iter_eu_int8) needs at (m, n, k) for X of x_bytes (4,
+// 2 or 1) an element, in 64 bits: the plan's partials and den, then stage
+// (B)'s factor.
 long long tpunmf_eu_tma_scratch(int m, int n, int k, int x_bytes) {
   return tpunmf::tma_scratch(m, n, k, x_bytes).total;
 }
@@ -268,10 +268,10 @@ int tpunmf_mur_iteration_eu_dma(const void* x, int x_is_bf16, const void* w, con
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      x_is_bf16 ? mur_eu_tma<__nv_bfloat16>(x, f0, f1, ldh, wf, gf, lam, m, n, k, wo, tx, gr,
-                                            sc, scratch_len, s)
-                : mur_eu_tma<float>(x, f0, f1, ldh, wf, gf, lam, m, n, k, wo, tx, gr, sc,
-                                    scratch_len, s));
+      x_is_bf16 ? mur_eu_tma<__nv_bfloat16>(x, f0, f1, ldh, wf, gf, lam, nullptr, m, n, k, wo,
+                                            tx, gr, sc, scratch_len, s)
+                : mur_eu_tma<float>(x, f0, f1, ldh, wf, gf, lam, nullptr, m, n, k, wo, tx, gr,
+                                    sc, scratch_len, s));
 }
 
 // KL iteration: W' (m, k), wtr = W'^T (X / (W' H + eps)) (k, n) and obj[0]

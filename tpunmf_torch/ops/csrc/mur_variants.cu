@@ -15,17 +15,17 @@
 //   type, bf16 for int8)
 //
 // What bounds them on the H100: the 4*m*n*k flops of products of
-// mur_iteration_eu on one read of X (k to 2k flops per X byte at f32, 4k
-// at int8).  v1 and v2 run mur_iteration_eu's "dma" variant's stages
-// (wave.cuh's TmaStages: TMA copies feeding wgmma, 3xTF32 at f32 X, bf16
-// products at bf16 X; kWaveEuTc's plan at their fill, all of X in one
-// wave), where f32 X is bound by its products (165 TFLOP/s of f32 work)
-// and bf16 X by its bytes; the wrapper prepares H^T into the same (k, n)
-// factor operands as the dma variant's from H, so v1 is that variant at
-// lam_w = 0 bit for bit.  int8 stays on FMA tiles (wave.cuh's FmaStages, plan kind kWaveEu:
-// L2-sized waves; its (A) rounds f32 H to bf16 as it stages it, its (B) W'
-// to bf16), bound by FMA throughput (67 TFLOP/s): int8 X's 4x fewer bytes
-// buy nothing there.
+// mur_iteration_eu on one read of X (k to 2k flops per X byte at f32, 2k
+// at bf16, 4k at int8).  All three run mur_iteration_eu's "dma" variant's
+// stages (wave.cuh's TmaStages: TMA copies feeding wgmma, 3xTF32 at f32 X,
+// bf16 products at bf16 and int8 X; kWaveEuTc's plan at their fill, all of
+// X in one wave), where f32 X is bound by its products (165 TFLOP/s of f32
+// work) and bf16 and int8 X by their bytes, X read twice (at 8192^2 r128,
+// 134 and 67 MB a read).  The wrappers prepare H^T (v1, v2) or H (int8)
+// into the same (k, n) factor operands as the dma variant's from H, so v1
+// is that variant at lam_w = 0 bit for bit; int8 X widens to bf16 in
+// registers (exact for |x| <= 127), so at s = 1 int8 is v1 on
+// xq.to(bfloat16) bit for bit.
 //
 // On the card no block is "last": v2's H update is one more launch after the
 // Gram, in stream order (a 64 x 64 FMA tile of gw H per block, k deep, with
@@ -75,8 +75,8 @@ cudaError_t v_iter(const void* x, const void* f0, const void* f1, int ldh, const
                    const float* w, const float* gh, int m, int n, int k, float* w_out,
                    float* h_out, float* wtx, float* gram, float* scratch, long long scratch_len,
                    cudaStream_t s) {
-  cudaError_t err = mur_eu_tma<XT>(x, f0, f1, ldh, w, gh, 0.f, m, n, k, w_out, wtx, gram,
-                                   scratch, scratch_len, s);
+  cudaError_t err = mur_eu_tma<XT>(x, f0, f1, ldh, w, gh, 0.f, nullptr, m, n, k, w_out, wtx,
+                                   gram, scratch, scratch_len, s);
   if (err != cudaSuccess || h_out == nullptr) return err;
   return launch(h_update_kernel, dim3(ceil_div(n, kTile), ceil_div(k, kTile)), 0, s,
                 static_cast<const float*>(gram), h, static_cast<const float*>(wtx), n, k, h_out);
@@ -128,23 +128,22 @@ int tpunmf_v2_iter(const void* x, int x_is_bf16, const void* f0, const void* f1,
                             gram, scratch, scratch_len, stream);
 }
 
-// iter_eu_int8.  xq int8 (m, n), h f32 (k, n) (rounded to bf16 as it is
-// staged), gh = H H^T, scale a device float; writes W' (m, k), wtx = s *
-// bf16(W')^T xq (k, n) and gram = W'^T W'.  scratch: kind 0 at 1-byte X.
-int tpunmf_iter_eu_int8(const void* xq, const void* h, const void* w, const void* gh,
+// iter_eu_int8.  xq int8 (m, n); hb H rounded to bf16, (k, n) at row
+// stride ldh (a multiple of 8: the factor operand of the bf16 dma variant);
+// gh = H H^T; scale a device float.  Writes W' (m, k), wtx = s * bf16(W')^T
+// xq (k, n) and gram = W'^T W'.  scratch holds scratch_len floats, at least
+// tpunmf_eu_tma_scratch's at 1-byte X (fewer: cudaErrorInvalidValue).
+int tpunmf_iter_eu_int8(const void* xq, const void* hb, int ldh, const void* w, const void* gh,
                         const void* scale, int m, int n, int k, void* w_out, void* wtx,
-                        void* gram, void* scratch, void* stream) {
+                        void* gram, void* scratch, long long scratch_len, void* stream) {
   using namespace tpunmf;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sv = static_cast<const float*>(scale);
   float* tx = static_cast<float*>(wtx);
-  const Plan p = make_plan(m, n, k, 1, kWaveEu);
-  const FmaStages<int8_t> stages{static_cast<const int8_t*>(xq), static_cast<const float*>(h), m,
-                                 n, k};
-  cudaError_t err = mur_eu_waves(p, stages, static_cast<const float*>(w),
-                                 static_cast<const float*>(gh), 0.f, sv, m, n, k,
-                                 static_cast<float*>(w_out), tx, static_cast<float*>(gram),
-                                 static_cast<float*>(scratch), s);
+  cudaError_t err = mur_eu_tma<int8_t>(
+      xq, hb, hb, ldh, static_cast<const float*>(w), static_cast<const float*>(gh), 0.f, sv, m,
+      n, k, static_cast<float*>(w_out), tx, static_cast<float*>(gram),
+      static_cast<float*>(scratch), scratch_len, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = (long long)k * n;
   return static_cast<int>(launch(scale_kernel, elementwise_grid(len), 0, s, tx, sv, len));

@@ -17,17 +17,17 @@
 //       Where the wave has too few column tiles to fill the card, B splits
 //       the wave's rows too, writes partials, and sum_slices adds them in
 //       order.
-// Three kinds of stages run (A) and (B), each with its plan kind (Wave):
+// Two kinds of stages run EU's (A) and (B), each with its plan kind (Wave):
 //   - TcStages, 3xTF32 mma.sync on the tensor cores (tf32x3.cuh):
 //     mur_iteration_eu and hals_iteration_eu;
 //   - TmaStages, wgmma fed by TMA copies (hopper.cuh): the "dma" variant of
-//     mur_iteration_eu and the sweep scripts' v1_iter and v2_iter;
-//   - FmaStages, FMA tiles: the sweep script's iter_eu_int8.
-// The stages on the tensor cores, whose products bind them, take all of X
-// in one wave; FMA tiles take waves of R * n * sizeof(X) <= kWaveBytes (24
-// MB, well under the 50 MB L2), so the wave's X is still in L2 when (B)
-// reads it and X crosses device memory about once per iteration.  EU's
-// gram = W'^T W' is formed after the last wave, over row chunks of W' with
+//     mur_iteration_eu and the sweep scripts' v1_iter, v2_iter and
+//     iter_eu_int8.
+// Both, whose products bind them, take all of X in one wave; MUR KL's FMA
+// waves (mur_iteration.cu) take R * n * sizeof(X) <= kWaveBytes (24 MB,
+// well under the 50 MB L2), so the wave's X is still in L2 when (B) reads
+// it and X crosses device memory about once per iteration.  EU's gram =
+// W'^T W' is formed after the last wave, over row chunks of W' with
 // per-chunk partials.  Every cross-block sum is per-block partials added in
 // a fixed order: no float atomics, and the same inputs give the same bits.
 #pragma once
@@ -86,15 +86,16 @@ inline dim3 elementwise_grid(long long len) {
   return dim3((unsigned)(blocks < kFill ? blocks : kFill));
 }
 
-// The iteration a plan is for (the `kind` of tpunmf_iteration_scratch, 0-3):
-// kWaveEu the MUR EU stages on FMA tiles (iter_eu_int8), kWaveEuTc on the
-// tensor cores (mur_iteration_eu), kWaveHals HALS's on the tensor cores
-// (hals_iteration_eu: kWaveEuTc's layout without the den block), kWaveKl
-// MUR KL's FMA waves (mur_iteration_kl above its own rank line,
-// mur_iteration.cu).  TmaStages (the "dma" variant, v1_iter, v2_iter)
-// take kWaveEuTc's plan at their own fill, kTmaFill, and their scratch
-// from tpunmf_eu_tma_scratch, which adds stage (B)'s factor operand.
-enum Wave { kWaveEu = 0, kWaveKl = 1, kWaveHals = 2, kWaveEuTc = 3 };
+// The iteration a plan is for (the `kind` of tpunmf_iteration_scratch, 1-3):
+// kWaveEuTc the MUR EU stages on the tensor cores (mur_iteration_eu),
+// kWaveHals HALS's (hals_iteration_eu: kWaveEuTc's layout without the den
+// block), kWaveKl MUR KL's FMA waves (mur_iteration_kl above its own rank
+// line, mur_iteration.cu).  TmaStages (the "dma" variant, v1_iter,
+// v2_iter, iter_eu_int8) take kWaveEuTc's plan at their own fill,
+// kTmaFill, and their scratch from tpunmf_eu_tma_scratch, which adds stage
+// (B)'s factor operand.  (Kind 0, the EU stages on FMA tiles, is gone; the
+// others keep their numbers, which the wrappers pass.)
+enum Wave { kWaveKl = 1, kWaveHals = 2, kWaveEuTc = 3 };
 
 struct Plan {
   int rows, waves;             // R rows of X per wave (a multiple of kTile)
@@ -142,7 +143,7 @@ inline Plan make_plan(int m, int n, int k, int x_bytes, int kind, int tc_fill = 
   p.g_part = p.b_part + (p.msplit > 1 ? (long long)p.msplit * k * n : 0);
   p.obj_part = p.g_part + (long long)p.gsplit * k * k;
   p.den = p.obj_part + (kl ? (long long)p.waves * ceil_div(p.rows, tile) * p.nsplit : 0);
-  p.scratch = p.den + (kind == kWaveEu || kind == kWaveEuTc ? (long long)m * k : 0);
+  p.scratch = p.den + (kind == kWaveEuTc ? (long long)m * k : 0);
   return p;
 }
 
@@ -163,60 +164,7 @@ inline cudaError_t sum_slices(float* out, const float* parts, int count, long lo
   return launch(sum_slices_kernel, elementwise_grid(len), 0, s, out, parts, count, len, add);
 }
 
-// --------------------------------------------- the EU stages on FMA tiles
-// (A) part[z][r - r0][c] = sum over the columns of chunk z of X[r] round(H[c]),
-// H (k, n) f32 rounded to X's product type as it is staged; grid
-// (ceil(wave rows / 64), ceil(k / 64), nsplit).
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-    eu_rows_kernel(const XT* __restrict__ x, const float* __restrict__ f, int m, int n, int k,
-                   int r0, int rows, int a_cols, float* __restrict__ part) {
-  __shared__ EuStage st;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int row0 = r0 + blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.z * a_cols, j1 = min(j0 + a_cols, n);
-  float numer[4][4];
-  zero(numer);
-  x_ft_tile<XT>(numer, x, f, m, n, k, row0, c0, j0, j1, st);
-  float* out = part + (long long)blockIdx.z * rows * k;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gr = row0 + ty + 16 * a, gc = c0 + tx + 16 * b;
-      if (gr < m && gc < k) out[(long long)(gr - r0) * k + gc] = numer[a][b];
-    }
-}
-
-// (B) the wave's rows of round(W')^T X into wtx; grid (ceil(n / 64),
-// ceil(k / 64), msplit).  msplit == 1: wtx = (first ? 0 : wtx) + tile;
-// otherwise part[z] = the tile of row chunk z.
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-    eu_cols_kernel(const XT* __restrict__ x, const float* __restrict__ w_new, int n, int k,
-                   int r0, int r1, int b_rows, bool first, float* __restrict__ wtx,
-                   float* __restrict__ part) {
-  __shared__ EuStage st;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int col0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const int i0 = r0 + blockIdx.z * b_rows, i1 = min(i0 + b_rows, r1);
-  float acc[4][4];
-  zero(acc);
-  ft_x_tile<XT>(acc, x, w_new, n, k, col0, c0, i0, i1, st);
-  const bool direct = gridDim.z == 1;
-  float* out = direct ? wtx : part + (long long)blockIdx.z * k * n;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int gr = c0 + ty + 16 * a, gj = col0 + tx + 16 * b;
-      if (gr < k && gj < n) {
-        const long long o = (long long)gr * n + gj;
-        out[o] = (direct && !first ? out[o] : 0.f) + acc[a][b];
-      }
-    }
-}
-
+// ------------------------------------------------------------ the Gram
 // gram partial of row chunk z: part[z] = W'[chunk]^T W'[chunk];
 // grid (ceil(k / 64), ceil(k / 64), gsplit).
 __global__ void __launch_bounds__(kThreads)
@@ -347,16 +295,16 @@ cudaError_t tc_cols(const XT* x, const float* w_new, int n, int k, int r0, int r
 
 // ------------------------------------------- the EU stages on TMA and wgmma
 // (A) and (B) as 128 x 128 tiles of wgmma products fed by TMA, for the
-// "dma" variant of mur_iteration_eu and the sweep scripts' v1_iter and
-// v2_iter (the TPU kernels overlap the copies of X's strips with the
-// products by hand, tpunmf/ops/mur_fused.py:368-437; on this card that is
-// the Tensor Memory Accelerator's job).  A block is two consumer
-// warpgroups, each 64 rows of the output tile, and a producer warpgroup,
-// one thread of which keeps a ring of STAGES shared-memory stages filled:
-// a stage is the X tile and the factor tile(s) of KC depth (one 128-byte
-// swizzled row), a full and an empty mbarrier each.  The producer gives
-// its registers to the consumers (setmaxnreg: 56 and 224 a thread; at the
-// 168 a thread that fit every warp, ptxas spilled at f32).
+// "dma" variant of mur_iteration_eu and the sweep scripts' v1_iter,
+// v2_iter and iter_eu_int8 (the TPU kernels overlap the copies of X's
+// strips with the products by hand, tpunmf/ops/mur_fused.py:368-437; on
+// this card that is the Tensor Memory Accelerator's job).  A block is two
+// consumer warpgroups, each 64 rows of the output tile, and a producer
+// warpgroup, one thread of which keeps a ring of STAGES shared-memory
+// stages filled: a stage is the X tile and the factor tile(s) of KC depth
+// (one 128-byte swizzled factor row), a full and an empty mbarrier each.
+// The producer gives its registers to the consumers (setmaxnreg: 56 and 224
+// a thread; at the 168 a thread that fit every warp, ptxas spilled at f32).
 //
 // TF32 operands of wgmma in shared memory must be K-major, and neither
 // stage has both operands contiguous along the depth ((B)'s depth runs
@@ -370,55 +318,69 @@ cudaError_t tc_cols(const XT* x, const float* w_new, int n, int k, int r0, int r
 // registers, the factor split in device memory (H by the wrapper, W'^T by
 // wt_operand_kernel, with tc::split's rule); bf16 X: one bf16 wgmma, W'
 // rounded to bf16 by wt_operand_kernel as the FMA and mma.sync stages
-// round it.  The tensor cores truncate what they accumulate, so each
-// stage's products go into a temporary (its first wgmma with scale-d = 0),
-// added to the block's running sum in f32 with round to nearest once they
-// have landed: a rounded step of KC depth (32 at f32, 64 at bf16), where
+// round it; int8 X (iter_eu_int8, benchmarks/sweep_int8.py:27-46): bf16's
+// products, X widened to bf16 exactly in registers as the consumers build
+// its fragments (hop::bf16x2_of_s8x2), against the bf16 factors; a stage
+// stays 64 deep (the factor's 128-byte row), so X's (A) tile has 64-byte
+// rows (TMA's 64-byte swizzle) and its (B) tile one 128-column box.  The
+// tensor cores truncate what they accumulate, so each stage's products go
+// into a temporary (its first wgmma with scale-d = 0), added to the
+// block's running sum in f32 with round to nearest once they have landed:
+// a rounded step of KC depth (32 at f32, 64 at bf16 and int8), where
 // TcStages rounds every 8-deep step.  A warpgroup waits for its stage's
 // products before that add; the other warpgroup's products keep the
-// tensor cores busy meanwhile.
+// tensor cores busy meanwhile.  int8 X and bf16 X of the same values give
+// the same products, stages and sums: the same bits.
 //
 // X's rows on 16 bytes (its base, and n * sizeof(X) a multiple of 16) go
 // by TMA; otherwise TMA cannot describe X, and the producer warpgroup
-// copies its tile itself into the same swizzled layout, zeros outside
-// (kLoadCopies: 4-byte cp.async copies, one element at f32, a pair at bf16,
-// each thread's landing counted on the stage's full barrier; kLoadPlain,
-// bf16 rows that start off 4 bytes (odd n): plain loads and stores).  TMA
-// fills reads past the arrays' edges with zeros; every chunk of depth
-// starts and ends on a stage, but at X's own edge.
+// copies each row of its tile as the 16-byte chunks that cover it
+// (hop::copy_rows: cp.async, each thread's landing counted on the stage's
+// full barrier; zeros past X's edges and the depth chunk's), a row's first
+// element some 0-15 bytes into it, and the consumers read there
+// (hop::shifted_at).  TMA fills reads past the arrays' edges with zeros;
+// every chunk of depth starts and ends on a stage, but at X's own edge.
 
 constexpr int kTmaThreads = 3 * 128;  // two consumer warpgroups, one producer warpgroup
-// How the producer loads X's tiles.
-enum XLoad { kLoadTma = 0, kLoadCopies = 1, kLoadPlain = 2 };
 
-template <typename XT>
+// TMA = false: X's tiles by hop::copy_rows, in a larger X tile.
+template <typename XT, bool TMA = true>
 struct TmaTile {
   static constexpr bool kF32 = std::is_same_v<XT, float>;
+  static constexpr bool kInt8 = std::is_same_v<XT, int8_t>;
+  using FT = std::conditional_t<kInt8, __nv_bfloat16, XT>;  // the factors' type
   static constexpr int ES = sizeof(XT);
   static constexpr int BM = kTcTile, BN = kTcTile;  // output rows, columns of k
-  static constexpr int KC = 128 / ES;               // depth of a stage
-  static constexpr int STEPS = 4;                   // wgmmas of 32 bytes of depth a stage
-  static constexpr int TILE = BM * 128;             // bytes of a 128-row tile
+  static constexpr int KC = 128 / sizeof(FT);       // depth of a stage
+  static constexpr int XROW = KC * ES;              // bytes of an (A) X tile's row
+  static constexpr int STEPS = 4;                   // wgmmas of 32 bytes of factor depth a stage
+  static constexpr int TILE = BN * 128;             // bytes of a factor tile
+  static constexpr int XBYTES = BM * XROW;          // bytes of TMA's boxes of an X tile
+  static constexpr int XC = 128 / ES;    // X's columns in one of (B)'s boxes
+  static constexpr int XBOX = KC * 128;  // bytes of one of (B)'s X boxes (KC x XC)
+  // X's rows off 16 bytes (hop::copy_rows): the chunks covering an (A)
+  // row of KC elements and a (B) row of BM, and the bytes each row takes
+  // ((B) f32: 544, so that the 4 rows of a fragment load sit 8 banks apart)
+  static constexpr int NCHA = XROW / 16 + 1, RA = NCHA * 16;
+  static constexpr int NCHB = BM * ES / 16 + 1, RB = kF32 ? 544 : NCHB * 16;
+  static constexpr int XTILE =  // bytes of an X tile, on 1024 bytes
+      TMA ? XBYTES : (std::max(BM * RA, KC * RB) + 1023) / 1024 * 1024;
   static constexpr int FACTORS = kF32 ? 2 : 1;      // factor tiles: big and small, or bf16
-  static constexpr int STAGE = TILE * (1 + FACTORS);
-  static constexpr int STAGES = kF32 ? 4 : 6;
-  static constexpr int XBOX = KC * 128;  // bytes of one of (B)'s X boxes (KC x KC)
+  static constexpr int STAGE = XTILE + TILE * FACTORS;
+  static constexpr int STAGES = kF32 ? 4 : kInt8 ? 8 : 6;
   static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 };
 
 // Byte offsets of X's elements in a stage's swizzled X tile: (A) element
 // (r, d) of 128 rows by KC of depth; (B) element (d, j) of KC depth rows
-// by 128 columns, in BM / KC boxes of KC columns.
+// by 128 columns, in BM / XC boxes of XC columns.
 template <typename XT>
 __device__ __forceinline__ int x_rows_at(int r, int d) {
-  const int b = d * (int)sizeof(XT);
-  return r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+  return hop::swizzled<TmaTile<XT>::XROW>(r, d * (int)sizeof(XT));
 }
 template <typename XT>
 __device__ __forceinline__ int x_cols_at(int d, int j) {
-  using T = TmaTile<XT>;
-  const int b = (j % T::KC) * (int)sizeof(XT);
-  return j / T::KC * T::XBOX + d * 128 + (((b >> 4) ^ (d & 7)) << 4) + (b & 15);
+  return hop::cols_at<sizeof(XT), TmaTile<XT>::KC>(d, j);
 }
 
 // COLS = false, (A): part[z][r - r0][c] = sum over the columns [z chunk,
@@ -428,16 +390,18 @@ __device__ __forceinline__ int x_cols_at(int d, int j) {
 // rows [r0 + z chunk, ...) clipped to r1 of F^T X, F = W' (m, k) given
 // transposed by f0 / f1 (k, m); grid (ceil(n / 128), ceil(k / 128),
 // msplit); gridDim.z == 1: out (wtx) = (first ? 0 : out) + tile, else
-// out[z] = the tile (partials).  load (XLoad) says how the producer loads
-// X's tiles: with load == kLoadTma through xmap (X in the stage's boxes),
-// otherwise from x.
-template <typename XT, bool COLS>
+// out[z] = the tile (partials).  TMA: the producer loads X's tiles through
+// xmap (X in the stage's boxes), else copies their rows from x; two
+// kernels, so that TMA's consumers carry none of the copies' addressing
+// (one kernel choosing at run time was 4-14% slower on TMA's tiles on an
+// H100 80GB HBM3 at 700 W).
+template <typename XT, bool COLS, bool TMA>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     eu_tma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap f0, const __grid_constant__ CUtensorMap f1,
                   const XT* __restrict__ x, int m, int n, int k, int r0, int r1, int rows,
-                  int chunk, int load, bool first, float* __restrict__ out) {
-  using T = TmaTile<XT>;
+                  int chunk, bool first, float* __restrict__ out) {
+  using T = TmaTile<XT, TMA>;
   extern __shared__ float4 smem_raw[];  // the declaration of the TC kernels
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -450,7 +414,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   const int d0 = (COLS ? r0 : 0) + blockIdx.z * chunk;
   const int d1 = min(d0 + chunk, COLS ? r1 : n);
   const int nst = d1 > d0 ? (d1 - d0 + T::KC - 1) / T::KC : 0;
-  const bool tma = load == kLoadTma;
+  constexpr bool tma = TMA;
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
       hop::mbar_init(&full[s], tma ? 1 : 129);  // else: and each producer thread
@@ -469,60 +433,54 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       const int d = d0 + s * T::KC;
       if (p == 0 || !tma) hop::mbar_wait(&empty[slot], ((s / T::STAGES) & 1) ^ 1);
       if (p == 0) {
-        hop::mbar_arrive_expect_tx(&full[slot], T::TILE * (T::FACTORS + (tma ? 1 : 0)));
-        hop::tma_load(st + T::TILE, &f0, &full[slot], d, c0);
-        if constexpr (T::kF32) hop::tma_load(st + 2 * T::TILE, &f1, &full[slot], d, c0);
+        hop::mbar_arrive_expect_tx(&full[slot], T::TILE * T::FACTORS + (tma ? T::XBYTES : 0));
+        hop::tma_load(st + T::XTILE, &f0, &full[slot], d, c0);
+        if constexpr (T::kF32) hop::tma_load(st + T::XTILE + T::TILE, &f1, &full[slot], d, c0);
         if (tma) {
           if constexpr (COLS) {
 #pragma unroll
-            for (int q = 0; q < T::BM / T::KC; ++q)
-              hop::tma_load(st + q * T::XBOX, &xmap, &full[slot], o0 + q * T::KC, d);
+            for (int q = 0; q < T::BM / T::XC; ++q)
+              hop::tma_load(st + q * T::XBOX, &xmap, &full[slot], o0 + q * T::XC, d);
           } else {
             hop::tma_load(st, &xmap, &full[slot], d, o0);
           }
         }
       }
       if (!tma) {
-        // A copy is 4 bytes along X's row: an f32, or a bf16 pair.  Thread
-        // p keeps tile column cb and walks the tile's rows ra0 + STEP i:
-        // (A) rows of X by depth columns, (B) depth rows by X's columns.
-        constexpr int E = 4 / T::ES, W = COLS ? T::BM : T::KC, STEP = 128 * E / W;
-        const int cb = p * E % W, ra0 = p * E / W;
-        const int gj = (COLS ? o0 : d) + cb, rows_end = COLS ? d1 : m;
-        const int valid = min(max((COLS ? n : d1) - gj, 0), E);
-        const XT* src = x + (long long)((COLS ? d : o0) + ra0) * n + gj;
-#pragma unroll 4
-        for (int ra = ra0; ra < (COLS ? T::KC : T::BM); ra += STEP, src += (long long)STEP * n) {
-          const int v = (COLS ? d : o0) + ra < rows_end ? valid : 0;
-          const int at = COLS ? x_cols_at<XT>(ra, cb) : x_rows_at<XT>(ra, cb);
-          XT* dst = reinterpret_cast<XT*>(st + at);
-          if (load == kLoadCopies) {
-            hop::cp_async4(dst, v > 0 ? src : x, v * T::ES);
-          } else {
-#pragma unroll
-            for (int e = 0; e < E; ++e) dst[e] = e < v ? src[e] : zero_of<XT>();
-          }
-        }
-        if (load == kLoadCopies)
-          hop::cp_async_arrive(&full[slot]);
+        // (A): rows of X by depth columns; (B): depth rows by X's columns
+        if constexpr (COLS)
+          hop::copy_rows<T::ES, T::KC, T::NCHB, T::RB>(st, x, n, d, d1, o0, n, p, &full[slot]);
         else
-          hop::mbar_arrive(&full[slot]);
+          hop::copy_rows<T::ES, T::BM, T::NCHA, T::RA>(st, x, n, o0, m, d, d1, p, &full[slot]);
       }
     }
   } else {  // ---------------------------------------------------- consumers
     hop::setmaxnreg_inc<224>();
     const int g = lane >> 2, t = lane & 3;
     const int row = 64 * (warp >> 2) + 16 * (warp & 3) + g;  // the thread's first fragment row
+    // X's rows off 16 bytes: element (i, j) lies at xb + (i n + j) ES
+    const uint32_t xb = (uint32_t)reinterpret_cast<uintptr_t>(x), row_bytes = (uint32_t)n * T::ES;
     float acc[64], tmp[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     for (int s = 0; s < nst; ++s) {
-      const int slot = s % T::STAGES;
+      const int slot = s % T::STAGES, ds = d0 + s * T::KC;
       hop::mbar_wait(&full[slot], (s / T::STAGES) & 1);
       const uint8_t* st = smem + slot * T::STAGE;
-      const uint64_t big = hop::desc_sw128(st + T::TILE);
+      // byte offset of X's element (A) (r, d) / (B) (d, j) of the stage
+      auto xat = [&](int a, int b) {
+        if constexpr (TMA)
+          return COLS ? x_cols_at<XT>(a, b) : x_rows_at<XT>(a, b);
+        else if constexpr (COLS)
+          return hop::shifted_at<T::ES, T::RB>(
+              a, xb + (uint32_t)(ds + a) * row_bytes + (uint32_t)o0 * T::ES, b);
+        else
+          return hop::shifted_at<T::ES, T::RA>(
+              a, xb + (uint32_t)(o0 + a) * row_bytes + (uint32_t)ds * T::ES, b);
+      };
+      const uint64_t big = hop::desc_sw128(st + T::XTILE);
       if constexpr (T::kF32) {
-        const uint64_t small = hop::desc_sw128(st + 2 * T::TILE);
+        const uint64_t small = hop::desc_sw128(st + T::XTILE + T::TILE);
         uint32_t ab[T::STEPS][4], as[T::STEPS][4];
 #pragma unroll
         for (int q = 0; q < T::STEPS; ++q)
@@ -530,7 +488,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
           for (int e = 0; e < 4; ++e) {  // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
             const int r = row + 8 * (e & 1), d = 8 * q + t + 4 * (e >> 1);
             const float v = *reinterpret_cast<const float*>(
-                st + (COLS ? x_cols_at<XT>(d, r) : x_rows_at<XT>(r, d)));
+                st + (TMA ? (COLS ? x_cols_at<XT>(d, r) : x_rows_at<XT>(r, d))
+                          : (COLS ? xat(d, r) : xat(r, d))));
             tc::split(v, ab[q][e], as[q][e]);
           }
         hop::wgmma_fence();
@@ -547,12 +506,22 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {  // pairs (g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8)
             const int r = row + 8 * (e & 1), d = 16 * q + 2 * t + 8 * (e >> 1);
-            if constexpr (COLS) {
-              const uint32_t lo = *reinterpret_cast<const uint16_t*>(st + x_cols_at<XT>(d, r));
-              const uint32_t hi = *reinterpret_cast<const uint16_t*>(st + x_cols_at<XT>(d + 1, r));
+            if constexpr (COLS && T::kInt8) {
+              const uint32_t lo = st[xat(d, r)], hi = st[xat(d + 1, r)];
+              a[q][e] = hop::bf16x2_of_s8x2(lo | hi << 8);
+            } else if constexpr (COLS) {
+              const uint32_t lo = *reinterpret_cast<const uint16_t*>(st + xat(d, r));
+              const uint32_t hi = *reinterpret_cast<const uint16_t*>(st + xat(d + 1, r));
               a[q][e] = lo | hi << 16;
-            } else {
-              a[q][e] = *reinterpret_cast<const uint32_t*>(st + x_rows_at<XT>(r, d));
+            } else {  // a pair along the row: on 2 (int8) or 4 bytes only in TMA's tiles
+              const uint8_t* at = st + xat(r, d);
+              if constexpr (T::kInt8)
+                a[q][e] = hop::bf16x2_of_s8x2(tma ? *reinterpret_cast<const uint16_t*>(at)
+                                                  : at[0] | (uint32_t)at[1] << 8);
+              else
+                a[q][e] = tma ? *reinterpret_cast<const uint32_t*>(at)
+                              : *reinterpret_cast<const uint16_t*>(at) |
+                                    (uint32_t)*reinterpret_cast<const uint16_t*>(at + 2) << 16;
             }
           }
         hop::wgmma_fence();
@@ -587,12 +556,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 }
 
 // Stage (B)'s factor from W' (m, k) for the rows [r0, r1): W'^T (k, ldm),
-// f32: its TF32 big and small parts (tc::split), bf16: rounded to bf16 (as
-// torch's .to); grid (ceil((r1 - r0) / 32), ceil(k / 32)).
-template <typename XT>
+// FT f32: its TF32 big and small parts (tc::split), bf16: rounded to bf16
+// (as torch's .to); grid (ceil((r1 - r0) / 32), ceil(k / 32)).
+template <typename FT>
 __global__ void __launch_bounds__(kThreads)
     wt_operand_kernel(const float* __restrict__ w, int k, int r0, int r1, int ldm,
-                      XT* __restrict__ big, XT* __restrict__ small) {
+                      FT* __restrict__ big, FT* __restrict__ small) {
   __shared__ float tile[32][33];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int i0 = r0 + blockIdx.x * 32, c0 = blockIdx.y * 32;
@@ -605,7 +574,7 @@ __global__ void __launch_bounds__(kThreads)
     const int gc = c0 + c, gi = i0 + tx;
     if (gc >= k || gi >= r1) continue;
     const long long o = (long long)gc * ldm + gi;
-    if constexpr (std::is_same_v<XT, float>) {
+    if constexpr (std::is_same_v<FT, float>) {
       uint32_t b, sm;
       tc::split(tile[tx][c], b, sm);
       big[o] = __uint_as_float(b);
@@ -617,7 +586,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The scratch of the TMA stages: the plan's (partials, den), then (B)'s
-// factor W'^T (k, ldm) in X's type, f32: big then small.
+// factor W'^T (k, ldm) in the factors' type (TmaTile::FT), f32: big then
+// small.
 struct TmaScratch {
   Plan p;
   int ldm;
@@ -629,32 +599,15 @@ inline TmaScratch tma_scratch(int m, int n, int k, int x_bytes) {
   sc.p = make_plan(m, n, k, x_bytes, kWaveEuTc, kTmaFill);
   sc.ldm = round_up(m, 8);  // 16-byte rows for TMA
   sc.wt = (sc.p.scratch + 3) / 4 * 4;
-  const long long elems = (long long)k * sc.ldm * (x_bytes == 4 ? 2 : 1);
-  sc.total = sc.wt + (elems * x_bytes + 3) / 4;
+  // f32 X: two f32 parts; bf16 and int8 X: one bf16
+  const long long bytes = (long long)k * sc.ldm * (x_bytes == 4 ? 8 : 2);
+  sc.total = sc.wt + (bytes + 3) / 4;
   return sc;
 }
 
 // ----------------------------------------------------------- the stages
 // The pair of stage kernels a wave runs: rows(p, r0, r1, part, s) (A) into
 // part, cols(p, w_new, r0, r1, first, wtx, part, s) (B) into wtx (or part).
-
-// FMA tiles (iter_eu_int8): f is H (k, n) f32, rounded to bf16 as staged.
-template <typename XT>
-struct FmaStages {
-  const XT* x;
-  const float* f;
-  int m, n, k;
-  cudaError_t rows(const Plan& p, int r0, int r1, float* part, cudaStream_t s) const {
-    return launch(eu_rows_kernel<XT>,
-                  dim3(ceil_div(r1 - r0, kTile), ceil_div(k, kTile), p.nsplit), 0, s, x, f, m,
-                  n, k, r0, p.rows, p.a_cols, part);
-  }
-  cudaError_t cols(const Plan& p, const float* w_new, int r0, int r1, bool first, float* wtx,
-                   float* part, cudaStream_t s) const {
-    return launch(eu_cols_kernel<XT>, dim3(ceil_div(n, kTile), ceil_div(k, kTile), p.msplit),
-                  0, s, x, w_new, n, k, r0, r1, p.b_rows, first, wtx, part);
-  }
-};
 
 // mma.sync on the tensor cores (mur_iteration_eu, hals_iteration_eu): f is
 // H (k, n) in X's type.
@@ -677,35 +630,32 @@ struct TcStages {
   }
 };
 
-// TMA and wgmma (the "dma" variant, v1_iter, v2_iter): the factor of (A) is
-// H (k, n) at row stride ldh (f32: f0 its TF32 big part, f1 its small part;
-// bf16: f0 in bf16), of (B) W'^T in `wt` (tma_scratch's layout).  make()
-// encodes the tensor maps.
+// TMA and wgmma (the "dma" variant, v1_iter, v2_iter, iter_eu_int8): the
+// factor of (A) is H (k, n) at row stride ldh (f32 X: f0 its TF32 big part,
+// f1 its small part; bf16 and int8 X: f0 in bf16), of (B) W'^T in `wt`
+// (tma_scratch's layout).  make() encodes the tensor maps.
 template <typename XT>
 struct TmaStages {
   using T = TmaTile<XT>;
+  using FT = typename T::FT;
   CUtensorMap xrows, xcols, h0, h1, w0, w1;
   const XT* x;
-  XT* wt;
-  int m, n, k, ldm, load;
+  FT* wt;
+  int m, n, k, ldm;
+  bool tma;  // X's rows start on 16 bytes: its tiles by TMA, else by hop::copy_rows
 
-  cudaError_t make(const XT* x_, const XT* f0, const XT* f1, int ldh, int m_, int n_, int k_,
-                   XT* wt_, int ldm_) {
+  cudaError_t make(const XT* x_, const FT* f0, const FT* f1, int ldh, int m_, int n_, int k_,
+                   FT* wt_, int ldm_) {
     x = x_, wt = wt_, m = m_, n = n_, k = k_, ldm = ldm_;
     std::memset(&xrows, 0, sizeof(xrows));
     std::memset(&xcols, 0, sizeof(xcols));
-    // TMA where X's rows start on 16 bytes; 4-byte copies where they start
-    // on 4 (f32, or bf16 at even n); plain loads else
-    const bool rows4 = reinterpret_cast<uintptr_t>(x) % 4 == 0 && ((long long)n * T::ES) % 4 == 0;
-    load = aligned16(x) && ((long long)n * T::ES) % 16 == 0 ? kLoadTma
-           : rows4                                           ? kLoadCopies
-                                                             : kLoadPlain;
+    tma = aligned16(x) && ((long long)n * T::ES) % 16 == 0;
     cudaError_t err = cudaSuccess;
-    if (load == kLoadTma) {
+    if (tma) {
       err = hop::make_map(&xrows, x, m, n, n, T::BM, T::KC);
-      if (err == cudaSuccess) err = hop::make_map(&xcols, x, m, n, n, T::KC, T::KC);
+      if (err == cudaSuccess) err = hop::make_map(&xcols, x, m, n, n, T::KC, T::XC);
     }
-    XT* small = wt + (long long)k * ldm;
+    FT* small = wt + (long long)k * ldm;
     if (err == cudaSuccess) err = hop::make_map(&h0, f0, k, n, ldh, T::BN, T::KC);
     if (err == cudaSuccess) err = hop::make_map(&h1, T::kF32 ? f1 : f0, k, n, ldh, T::BN, T::KC);
     if (err == cudaSuccess) err = hop::make_map(&w0, wt, k, m, ldm, T::BN, T::KC);
@@ -717,12 +667,13 @@ struct TmaStages {
   cudaError_t run(dim3 grid, const CUtensorMap& xm, const CUtensorMap& a, const CUtensorMap& b,
                   int r0, int r1, int rows, int chunk, bool first, float* out,
                   cudaStream_t s) const {
-    auto kernel = eu_tma_kernel<XT, COLS>;
+    auto kernel = tma ? eu_tma_kernel<XT, COLS, true> : eu_tma_kernel<XT, COLS, false>;
+    const int smem = tma ? T::SMEM : TmaTile<XT, false>::SMEM;
     cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kTmaThreads, T::SMEM, s>>>(xm, a, b, x, m, n, k, r0, r1, rows, chunk, load,
-                                               first, out);
+    kernel<<<grid, kTmaThreads, smem, s>>>(xm, a, b, x, m, n, k, r0, r1, rows, chunk, first,
+                                           out);
     return cudaGetLastError();
   }
   cudaError_t rows(const Plan& p, int r0, int r1, float* part, cudaStream_t s) const {
@@ -731,7 +682,7 @@ struct TmaStages {
   }
   cudaError_t cols(const Plan& p, const float* w_new, int r0, int r1, bool first, float* wtx,
                    float* part, cudaStream_t s) const {
-    cudaError_t err = launch(wt_operand_kernel<XT>, dim3(ceil_div(r1 - r0, 32), ceil_div(k, 32)),
+    cudaError_t err = launch(wt_operand_kernel<FT>, dim3(ceil_div(r1 - r0, 32), ceil_div(k, 32)),
                              0, s, w_new, k, r0, r1, ldm, wt, wt + (long long)k * ldm);
     if (err != cudaSuccess) return err;
     return run<true>(dim3(ceil_div(n, T::BM), ceil_div(k, T::BN), p.msplit), xcols, w0, w1, r0,
@@ -828,21 +779,22 @@ cudaError_t mur_eu_waves(const Plan& p, const Stages& stages, const float* w, co
 }
 
 // The MUR EU single pass on TMA and wgmma: f0, f1 and ldh as TmaStages takes
-// them; scratch holds scratch_len floats, at least tma_scratch's total
-// (fewer: cudaErrorInvalidValue).
+// them, scale as mur_eu_waves; scratch holds scratch_len floats, at least
+// tma_scratch's total (fewer: cudaErrorInvalidValue).
 template <typename XT>
 cudaError_t mur_eu_tma(const void* x, const void* f0, const void* f1, int ldh, const float* w,
-                       const float* gh, float lam, int m, int n, int k, float* w_out,
-                       float* wtx, float* gram, float* scratch, long long scratch_len,
-                       cudaStream_t s) {
+                       const float* gh, float lam, const float* scale, int m, int n, int k,
+                       float* w_out, float* wtx, float* gram, float* scratch,
+                       long long scratch_len, cudaStream_t s) {
+  using FT = typename TmaTile<XT>::FT;
   const TmaScratch sc = tma_scratch(m, n, k, sizeof(XT));
   if (scratch_len < sc.total) return cudaErrorInvalidValue;
   TmaStages<XT> stages;
-  cudaError_t err = stages.make(static_cast<const XT*>(x), static_cast<const XT*>(f0),
-                                static_cast<const XT*>(f1), ldh, m, n, k,
-                                reinterpret_cast<XT*>(scratch + sc.wt), sc.ldm);
+  cudaError_t err = stages.make(static_cast<const XT*>(x), static_cast<const FT*>(f0),
+                                static_cast<const FT*>(f1), ldh, m, n, k,
+                                reinterpret_cast<FT*>(scratch + sc.wt), sc.ldm);
   if (err != cudaSuccess) return err;
-  return mur_eu_waves(sc.p, stages, w, gh, lam, nullptr, m, n, k, w_out, wtx, gram, scratch, s);
+  return mur_eu_waves(sc.p, stages, w, gh, lam, scale, m, n, k, w_out, wtx, gram, scratch, s);
 }
 
 }  // namespace

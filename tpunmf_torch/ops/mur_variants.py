@@ -13,11 +13,13 @@ pass at lam_w = 0:
 
 (round: to X's dtype.)  Gh = H H^T and the transposed ht are formed in
 torch outside the kernels, as the scripts form them outside their Pallas
-bodies (sweep_iter2.py:41-42).  On the card v1 and v2 run the stages of
+bodies (sweep_iter2.py:41-42).  On the card all three run the stages of
 ``mur_fused.mur_iteration_eu_dma`` (TMA copies feeding ``wgmma``): ht is
 made into that pass's (k, n) factor operands (``_launch.eu_tma_operands``,
 the same arrays the dma variant makes from H), so v1 is the dma variant at
-lam_w = 0 bit for bit.  ``bm`` is the scripts' strip height and must
+lam_w = 0 bit for bit; int8 takes H in bf16 the same way and widens X to
+bf16 in registers, so at scale 1 it is v1 on ``xq.to(torch.bfloat16)``
+bit for bit.  ``bm`` is the scripts' strip height and must
 divide m: their grids ``m // bm`` silently drop the last m % bm rows,
 where these wrappers raise.  The kernels choose their own tiling.
 
@@ -31,8 +33,8 @@ from __future__ import annotations
 import torch
 
 from ..core.precision import full_f32
-from ._launch import (MAX_RANK, WAVE_MUR_EU, call, check_operands, check_strips,
-                      eu_tma_operands, eu_tma_scratch, factor_as_x, on_cpu, wave_scratch)
+from ._launch import (MAX_RANK, call, check_operands, check_strips, eu_tma_operands,
+                      eu_tma_scratch, factor_as_x, on_cpu)
 
 _EPS = 1e-9
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -149,13 +151,14 @@ def iter_eu_int8(xq, scale, w, h, bm):
                              x_dtypes=(torch.int8,))
     s = torch.as_tensor(scale, dtype=torch.float32, device=xq.device).reshape(())
     gh = h @ h.T
+    hb, _, ldh = eu_tma_operands(xq, h)
     w_new = torch.empty((m, k), dtype=torch.float32, device=xq.device)
     wtx = torch.empty((k, n), dtype=torch.float32, device=xq.device)
     gw = torch.empty((k, k), dtype=torch.float32, device=xq.device)
-    scratch = wave_scratch(xq, k, WAVE_MUR_EU)
-    call("tpunmf_iter_eu_int8", xq.device, xq.data_ptr(), h.data_ptr(), w.data_ptr(),
+    scratch = eu_tma_scratch(xq, k)
+    call("tpunmf_iter_eu_int8", xq.device, xq.data_ptr(), hb.data_ptr(), ldh, w.data_ptr(),
          gh.data_ptr(), s.data_ptr(), m, n, k, w_new.data_ptr(), wtx.data_ptr(),
-         gw.data_ptr(), scratch.data_ptr())
+         gw.data_ptr(), scratch.data_ptr(), scratch.numel())
     iter_eu_int8.launches += 1
     return w_new, wtx, gw
 

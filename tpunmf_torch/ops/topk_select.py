@@ -14,7 +14,8 @@
   * ``score_blockmax_relayout(w_batch, h)``: the same pair for
     ``w_batch @ h`` with float32 accumulation and output whatever the
     inputs' dtype (float32, bfloat16, float16), without writing the b x n
-    scores; kernel: csrc/topk_select.cu
+    scores; kernel: csrc/topk_select.cu (TMA copies feeding ``wgmma``;
+    W's operands from :func:`score_operands`)
 
 nbp = ceil(n / (128 * sel_block)) * 128; the columns past n hold
 ``finfo(dtype).min`` (not -inf: a consumer may feed the blocks through
@@ -30,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..core.precision import full_f32
-from ._launch import MAX_RANK, call, on_cpu
+from ._launch import MAX_RANK, call, on_cpu, tf32_split
 
 # blocks per output row are padded to a multiple of this (the TPU kernel's
 # lane count; kept so that nbp and s3 have tpunmf's shapes)
@@ -92,11 +93,12 @@ def score_blockmax_fits(b: int, r: int, h_itemsize: int, sel_block: int = 128) -
     """Whether :func:`score_blockmax_relayout`'s kernel takes this shape.
 
     ``tpunmf``'s check is a VMEM budget for a resident W tile and whole
-    H strips.  The kernel here stages W and H through fixed shared-memory
-    tiles, padded to 64 rows x 16 deep and 16 deep x 128 columns (12.4 KB,
+    H strips.  The kernel here streams W and H through a ring of fixed
+    shared-memory stages (128 columns of H by 64 users, 32 or 64 deep,
     whatever b, r and the dtype), so its only limits are the rank bound
     that every wrapper shares and a ``sel_block`` that is a multiple of its
-    128-column step.  A batch of b rows reads H ceil(b / 64) times."""
+    128-column tile.  Users past 64 take further tiles of the same columns
+    of H, read while the first tile's are still in L2."""
     return 1 <= r <= MAX_RANK and sel_block > 0 and sel_block % 128 == 0
 
 
@@ -108,6 +110,24 @@ def score_blockmax_relayout_ref(w_batch, h, sel_block: int = 128):
     (tpunmf/serve/topk.py:319-326)."""
     scores = torch.matmul(w_batch.to(torch.float32), h.to(torch.float32))
     return blockmax_relayout_ref(scores, sel_block)
+
+
+def score_operands(w_batch, h):
+    """W's operands for the scoring kernel: (w0, w1, ldw, w16), (b, ldw)
+    arrays with rows padded by zeros to 16 bytes.  Where W and H are both
+    bfloat16 or both float16, w16 is True and w0 is W itself (w1 is w0):
+    one 16-bit product.  Else w0 and w1 are the TF32 big and small parts
+    of W in float32 (:func:`_launch.tf32_split`; exact for 16-bit W)."""
+    r = w_batch.shape[1]
+    w16 = w_batch.dtype == h.dtype and h.dtype in (torch.bfloat16, torch.float16)
+    per = 8 if w16 else 4  # elements in 16 bytes
+    ldw = -(-r // per) * per
+    wp = torch.nn.functional.pad(w_batch if w16 else w_batch.to(torch.float32),
+                                 (0, ldw - r)).contiguous()
+    if w16:
+        return wp, wp, ldw, True
+    big, small = tf32_split(wp)
+    return big, small, ldw, False
 
 
 def score_blockmax_relayout(w_batch, h, sel_block: int = 128):
@@ -132,11 +152,12 @@ def score_blockmax_relayout(w_batch, h, sel_block: int = 128):
         raise ValueError(f"score_blockmax_relayout: rank {r} or sel_block "
                          f"{sel_block} outside the kernel's range")
     nbp = _blocks(n, sel_block)
-    w32 = w_batch.to(torch.float32).contiguous()  # exact for 16-bit inputs
+    w0, w1, ldw, w16 = score_operands(w_batch, h)
     bmax = torch.empty((b, nbp), dtype=torch.float32, device=h.device)
     s3 = torch.empty((b, nbp, sel_block), dtype=torch.float32, device=h.device)
-    call("tpunmf_score_blockmax", h.device, w32.data_ptr(), h.data_ptr(),
-         _H_DTYPES[h.dtype], b, r, n, nbp, sel_block, bmax.data_ptr(), s3.data_ptr())
+    call("tpunmf_score_blockmax", h.device, w0.data_ptr(), w1.data_ptr(), ldw, h.data_ptr(),
+         _H_DTYPES[h.dtype], int(w16), b, r, n, nbp, sel_block, bmax.data_ptr(),
+         s3.data_ptr())
     score_blockmax_relayout.launches += 1
     return bmax, s3
 
