@@ -612,10 +612,11 @@ def kl_bits_phase(torch, cases):
 
 def sweep_phase(torch, records, cases, reps):
     """gs_sweep against its plain version in the W frame (transposed
-    views) and the H frame."""
-    from tpunmf_torch.ops import hals_sweep
+    views) and the H frame; at the shapes marked ``timed``, each frame's
+    device ms at 1 and 2 sweeps beside the bound and its share of it."""
+    from tpunmf_torch.ops import hals_sweep, roofline
 
-    for label, x, k in cases:
+    for label, x, k, timed in cases:
         m, n = x.shape
         g = torch.Generator(device="cuda")
         g.manual_seed(9)
@@ -633,7 +634,14 @@ def sweep_phase(torch, records, cases, reps):
                                  lambda: hals_sweep.gs_sweep(a, gram, v, **kw),
                                  lambda: hals_sweep.gs_sweep_ref(a, gram, v, **kw),
                                  SWEEP_TOL, reps, err=scaled_err, inputs=(a, gram, v),
-                                 flops=(2.0 * k * k * v.shape[1] * nsweeps, 0.0, 0.0))
+                                 flops=roofline.sweep_flops(k, v.shape[1], nsweeps),
+                                 profiled=timed and lam == 0.0)
+                    if timed and lam == 0.0:
+                        c = records["gs_sweep"]["cases"][-1]
+                        print(f"  gs_sweep {frame} {v.shape[1]} columns k{k} sweeps={nsweeps}: "
+                              f"device {c['device_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                              f"({c['bound_by']}), {c['bound_ms'] / c['device_ms']:.1%} of the "
+                              f"bound", flush=True)
         del w, h, frames
 
 
@@ -1611,8 +1619,8 @@ def main() -> int:
         + [(f"KL {tuple(kl3_x.shape)} k{k} f32", kl3_x, k) for k in KL_RANKS])
     del kl3_x
     sweep_phase(torch, records, [
-        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37),
-        (f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k)], reps=3)
+        (f"ragged {tuple(ragged.shape)} k37 f32", ragged, 37, False),
+        (f"EU {tuple(eu_x.shape)} k{eu_k} f32", eu_x, eu_k, True)], reps=3)
     masked_phase(torch, records, [
         (f"ML-1M {tuple(ml1_x.shape)} k64 f32", ml1_x, ml1_x > 0, 64),
         (f"ML-10M {tuple(ml10_x.shape)} k64 f32", ml10_x, ml10_obs, 64)], reps=3)

@@ -271,9 +271,12 @@ def _scaled_err(got, want):
 @pytest.mark.parametrize("frame", ["w", "h"])
 @pytest.mark.parametrize("lam", [0.0, 0.3])
 @pytest.mark.parametrize("nsweeps", [1, 2])
-@pytest.mark.parametrize("k", [1, 37, 128, 513, 1024])
-def test_gs_sweep_matches_plain_version(cuda_device, k, nsweeps, lam, frame):
-    a, g, v = _sweep_problem(cuda_device, frame, 1000 if k < 500 else 70, k)
+# 264 and 1024: 32- and 16-column blocks, ragged last panels; 8192 columns
+# at k 128: the HALS path's shape, 128 blocks of 64 columns
+@pytest.mark.parametrize("k,cols", [(1, 1000), (37, 1000), (128, 1000), (264, 1000),
+                                    (513, 70), (1024, 70), (128, 8192)])
+def test_gs_sweep_matches_plain_version(cuda_device, k, cols, nsweeps, lam, frame):
+    a, g, v = _sweep_problem(cuda_device, frame, cols, k)
     assert v.is_contiguous() == (frame == "h" or k == 1)
     before = hals_sweep.gs_sweep.launches
     got = hals_sweep.gs_sweep(a, g, v, lam=lam, nsweeps=nsweeps)
@@ -282,6 +285,37 @@ def test_gs_sweep_matches_plain_version(cuda_device, k, nsweeps, lam, frame):
     want = hals_sweep.gs_sweep_ref(a, g, v, lam=lam, nsweeps=nsweeps)
     assert torch.isfinite(got).all() and (got >= 0).all()
     assert _scaled_err(got, want) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["w", "h"])
+@pytest.mark.parametrize("k", [5, 128, 1024])
+def test_gs_sweep_repeat_calls_give_the_same_bits(cuda_device, k, frame):
+    """No atomics and a fixed order of sums: the same inputs give the same
+    bits, call after call."""
+    a, g, v = _sweep_problem(cuda_device, frame, 1000 if k < 500 else 70, k)
+    first = hals_sweep.gs_sweep(a, g, v, lam=0.3, nsweeps=2)
+    for _ in range(3):
+        assert torch.equal(hals_sweep.gs_sweep(a, g, v, lam=0.3, nsweeps=2), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [37, 128, 513])
+def test_gs_sweep_takes_transposed_views_and_a_strided_a(cuda_device, k):
+    """The W frame's A and V as transposed views of row-major (m, k)
+    tensors, the same made contiguous, and an A with neither stride 1 (every
+    other column of a wider tensor): the kernel reads each through its
+    strides, and its output keeps V's layout."""
+    cols = 1000 if k < 500 else 70
+    a, g, v = _sweep_problem(cuda_device, "w", cols, k)
+    wide = torch.zeros((k, 2 * cols), device=cuda_device)
+    wide[:, ::2] = a
+    want = hals_sweep.gs_sweep_ref(a.contiguous(), g, v.contiguous(), lam=0.3, nsweeps=2)
+    for aa in (a, a.contiguous(), wide[:, ::2]):
+        for vv in (v, v.contiguous()):
+            got = hals_sweep.gs_sweep(aa, g, vv, lam=0.3, nsweeps=2)
+            assert got.stride() == vv.stride()
+            assert _scaled_err(got, want) <= RTOL
 
 
 @pytest.mark.cuda

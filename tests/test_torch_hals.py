@@ -18,6 +18,8 @@ from tpunmf_torch.io import convert
 from tpunmf_torch.ops import hals_sweep as tsweep
 from tpunmf_torch.solvers import hals as thals
 
+_JHALS = importlib.import_module("tpunmf.solvers.hals")  # the module: jhals is its solver
+
 # tpunmf's own tolerance for its sweep kernel against the XLA chain
 # (tests/test_ops.py:305): f32 sums of k terms in another order
 SWEEP_TOL = 2e-5
@@ -52,6 +54,85 @@ def test_sweep_plain_version_matches_pallas_kernel(lam, nsweeps, frame):
     assert got.dtype == torch.float32 and got.shape == v.shape
     assert got.T.is_contiguous() == (frame == "w")
     np.testing.assert_allclose(got.numpy(), want, rtol=SWEEP_TOL, atol=SWEEP_TOL)
+
+
+def _blocked_sweeps(a, g, v, lam, nsweeps, b):
+    """The CUDA sweep's order of work (tpunmf_torch/ops/csrc/gs_panel.cuh)
+    written out in numpy: for each panel of b rows, P = G[panel, :] V from
+    V as it stands, then the panel's steps, numer = (A - P + G_ll V_old) -
+    corr and V = max(numer / d, 0) with d = (G_ll + lam) + eps formed once,
+    each step adding G[r, l] delta into corr for the panel's later rows r."""
+    v = v.copy()
+    k = v.shape[0]
+    diag = np.diag(g).copy()
+    d = (diag + lam) + 1e-16
+    for _ in range(nsweeps):
+        for l0 in range(0, k, b):
+            l1 = min(l0 + b, k)
+            base = (a[l0:l1] - g[l0:l1] @ v) + diag[l0:l1, None] * v[l0:l1]
+            corr = np.zeros_like(base)
+            for i, l in enumerate(range(l0, l1)):
+                new = np.maximum((base[i] - corr[i]) / d[l], 0.0)
+                delta = new - v[l]
+                v[l] = new
+                corr[i + 1:] += g[l + 1:l1, l, None] * delta[None, :]
+    return v
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_sweeps(frame, k, lam, nsweeps):
+    """(a, g, v) of a float64 sweep problem in the transposed frame, and
+    tpunmf's sweeps on it (_hals_sweep_w on W, or _hals_sweep_h on H)."""
+    rng = np.random.default_rng(100 + k)
+    m, n, r = 30, 23, 4
+    x = rng.random((m, r)) @ rng.random((r, n)) + 0.05
+    w, h = rng.random((m, k)) + 0.1, rng.random((k, n)) + 0.1
+    if frame == "w":
+        a, g, v = (x @ h.T).T, h @ h.T, w.T
+        sweep, state, args = _JHALS._hals_sweep_w, w, (x @ h.T, h @ h.T)
+    else:
+        a, g, v = w.T @ x, w.T @ w, h
+        sweep, state, args = _JHALS._hals_sweep_h, h, (w.T @ x, w.T @ w)
+    state = jnp.asarray(state)
+    for _ in range(nsweeps):
+        state = sweep(state, *(jnp.asarray(t_) for t_ in args), lam)
+    want = np.asarray(state)
+    return a, g, v, want.T if frame == "w" else want
+
+
+@pytest.mark.parametrize("frame", ["w", "h"])
+@pytest.mark.parametrize("nsweeps", [1, 2])
+@pytest.mark.parametrize("lam", [0.0, 0.3])
+@pytest.mark.parametrize("k", [5, 37, 64])  # 37: a ragged last panel
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_blocked_sweep_order_matches_tpunmf_at_f64(b, k, lam, nsweeps, frame):
+    """The kernel's blocked Gauss-Seidel (panel products, in-panel
+    corrections, d formed once) is the same function as tpunmf's chain:
+    at float64 within 1e-12, in both frames."""
+    a, g, v, want = _plain_sweeps(frame, k, lam, nsweeps)
+    assert want.dtype == np.float64
+    got = _blocked_sweeps(a, g, v, lam, nsweeps, b)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert (got >= 0).all()
+
+
+def test_sweep_bounds_count_the_sweeps_as_f32_products():
+    """ops/roofline.py: the sweeps' 2 k^2 flops a column a sweep are
+    products of G's panels with V (f32 products, 3xTF32), in gs_sweep and
+    inside hals_iteration_eu; at the HALS path's shape the bytes bind."""
+    from tpunmf_torch.ops import roofline
+
+    assert roofline.sweep_flops(128, 8192, 2) == (0.0, 0.0, 4.0 * 8192 * 128 * 128)
+    assert roofline.sweep_flops(37, 1000, 0) == (0.0, 0.0, 0.0)
+    m, n, k = 300, 777, 40
+    sweeps = roofline.sweep_flops(k, m, 2)[2]
+    grams = 2.0 * k * k * (m + n)
+    assert roofline.hals_flops(m, n, k, False, 2) == (0.0, 0.0, 4.0 * m * n * k + grams + sweeps)
+    assert roofline.hals_flops(m, n, k, True, 2) == (0.0, 4.0 * m * n * k, grams + sweeps)
+    nbytes = 4.0 * (128 * 128 + 3 * 128 * 8192)
+    f32, bf16, product = roofline.sweep_flops(128, 8192, 2)
+    ms, by = roofline.bound(f32, bf16, nbytes, product)
+    assert by == "bytes" and ms == pytest.approx(1e3 * nbytes / roofline.PEAK_BYTES)
 
 
 _BASE = dict(min_iter=4, max_iter=25, tol1=1e-12, tol2=1e-12)

@@ -157,10 +157,11 @@ def test_roofline_bound_is_the_larger_time():
     assert roofline.mur_flops("v2_iter", m, n, k, True) == (f32, bf16, product + 2.0 * k * k * n)
     assert roofline.mur_flops("iter_eu_int8", m, n, k, False) == (f32, bf16, product)
     assert roofline.read_probe_flops(m, n) == (2.0 * m * n, 0.0, 0.0)
-    # the HALS single pass at 2 sweeps: two products against X and the
-    # Grams, and 2 sweeps of k steps of 2k flops a row (elementwise chains)
+    # the HALS single pass at 2 sweeps: two products against X, the Grams
+    # and 2 sweeps of k steps of 2k flops a row, G's panels times the rows
+    # of W (f32 products, csrc/gs_panel.cuh)
     assert roofline.hals_flops(m, n, k, False, 2) == (
-        4.0 * m * k * k, 0.0, 4.0 * m * n * k + 2.0 * k * k * (m + n))
+        0.0, 0.0, 4.0 * m * n * k + 2.0 * k * k * (m + n) + 4.0 * m * k * k)
     assert roofline.hals_flops(m, n, k, True, 1)[1] == 4.0 * m * n * k
 
 

@@ -3,7 +3,7 @@
 CUDA card, alone and in turns with the same kernels of another checkout.
 
     python3 tools/kernel_turns.py [--parent DIR]
-        [--only mur|w|single|dma|int8|score|masked|objectives|gram]
+        [--only mur|w|single|dma|int8|score|sweep|masked|objectives|gram]
 
 DIR is a checkout of another commit (for instance the parent, unpacked
 with ``git archive`` into a git-ignored directory); its kernels are built
@@ -85,6 +85,13 @@ f32 and bf16 and (64, 128) x (128, 2^20 + 2) f32 (H's rows off 16 bytes:
 the producer's copies of their covering chunks), with the profiler's device
 times and the largest difference of the two sides' scores, relative to 1
 + |score|.
+With --only sweep, gs_sweep through both sides' C entries over 8192
+columns (lowrank_dense seed 0 at rank 64, random factors) in the W frame
+(transposed views) and the H frame, at 0, 1 and 2 sweeps and k 37, 128,
+264, 513 and 1024, with the profiler's device times, the bound and its
+share, and the largest difference of the two sides' outputs; then
+hals_iteration_eu at 8192 x 8192 r128 f32 (lowrank_dense seed 0) with 2
+and 1 sweeps the same way.
 With --only gram, no times: the Gram objective near convergence of
 tests/test_torch_cuda.py (2000 x 1500 r64, six seeds) from this
 checkout's mur_iteration_eu and mur_h_update and, with DIR, the other's,
@@ -154,13 +161,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout whose kernels to time in turns")
     ap.add_argument("--only",
-                    choices=("mur", "w", "single", "dma", "int8", "score", "masked",
+                    choices=("mur", "w", "single", "dma", "int8", "score", "sweep", "masked",
                              "objectives", "gram"),
                     help="time one family of cases (w: the MUR W pass alone, a part of "
                          "mur; single: mur_iteration_kl and hals_iteration_eu; dma: "
                          "mur_iteration_eu_dma, v1_iter and mur_iteration_eu; int8: "
-                         "iter_eu_int8; score: score_blockmax_relayout; gram: accuracy, "
-                         "no times)")
+                         "iter_eu_int8; score: score_blockmax_relayout; sweep: gs_sweep "
+                         "and hals_iteration_eu; gram: accuracy, no times)")
     args = ap.parse_args()
 
     import chip_smoke as cs
@@ -415,12 +422,15 @@ def main() -> int:
         return 0
 
     # ------------------------------------------------- the two single passes
-    def device_line(this_fn, other_fn):
-        line = (f"    device time (profiler, 10 calls): this "
-                f"{cs.device_ms(torch, this_fn, 10):.4f} ms")
+    def device_line(this_fn, other_fn, tail=""):
+        """Prints the profiler's device ms of a call of each side (and
+        ``tail``); returns this side's."""
+        this_ms = cs.device_ms(torch, this_fn, 10)
+        line = f"    device time (profiler, 10 calls): this {this_ms:.4f} ms"
         if other_fn is not None:
             line += f", other {cs.device_ms(torch, other_fn, 10):.4f} ms"
-        print(line, flush=True)
+        print(line + tail, flush=True)
+        return this_ms
 
     def kl_entry(lib_, x, w, h):
         """A call of mur_iteration_kl through the C entry of ``lib_``, its
@@ -690,12 +700,73 @@ def main() -> int:
             del w, h
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------- the HALS sweeps
+    def sweep_entry(lib_, a, g, v, nsweeps):
+        """gs_sweep (lam 0) through the C entry of ``lib_``, its output made
+        once (the entry's signature is the same on both sides)."""
+        k, cols = v.shape
+        out = torch.empty_like(v)
+        args = (a.data_ptr(), *a.stride(), g.data_ptr(), v.data_ptr(), *v.stride(), 0.0, k, cols,
+                nsweeps, out.data_ptr(), *out.stride(), stream())
+        return entry_fn(lib_.tpunmf_gs_sweep, args, out, (a, g, v), "gs_sweep")
+
+    def sweep_cases():
+        """gs_sweep over 8192 columns in both frames at 0, 1 and 2 sweeps
+        and k 37 to 1024, with its bound (roofline.sweep_flops) and the
+        largest difference of the two sides' outputs (scaled as
+        chip_smoke.py's SWEEP_TOL); then hals_iteration_eu at 8192^2 r128
+        f32 with 2 and 1 sweeps."""
+        from tpunmf_torch.ops import roofline
+
+        print(f"HALS sweeps, through the C entries ({card})", flush=True)
+        x = torch.from_numpy(lowrank_dense(8192, 8192, 64, seed=0)).cuda()
+        cols = x.shape[1]
+        for k in (37, 128, 264, 513, 1024):
+            w, h = factors(*x.shape, k, 9)
+            frames = {"W frame": ((x @ h.T).T, h @ h.T, w.T), "H frame": (w.T @ x, w.T @ w, h)}
+            for frame, (a, g, v) in frames.items():
+                for nsweeps in (0, 1, 2):
+                    this_fn = sweep_entry(lib, a, g, v, nsweeps)
+                    other_fn = (sweep_entry(other, a, g, v, nsweeps) if other is not None
+                                else None)
+                    report(f"gs_sweep {frame} {cols} columns k{k} sweeps={nsweeps}", this_fn,
+                           other_fn, 5)
+                    nbytes = 4.0 * (k * k + 3 * k * cols if nsweeps else 2 * k * cols)
+                    f32, bf16, product = roofline.sweep_flops(k, cols, nsweeps)
+                    bound, by = roofline.bound(f32, bf16, nbytes, product)
+                    dev = device_line(this_fn, other_fn)
+                    line = f"    bound {bound:.4f} ms ({by}), {bound / dev:.1%} of it on the device"
+                    if other_fn is not None and nsweeps:
+                        line += (f"; largest difference of the two sides, of max |out|: "
+                                 f"{cs.scaled_err(this_fn(), other_fn()):.3e}")
+                    print(line, flush=True)
+            del w, h, frames, a, g, v
+        del x
+        x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
+        for nsweeps in (2, 1):
+            w, h = factors(8192, 8192, 128, 15)
+            this_fn = hals_entry(lib, x, w, h, nsweeps)
+            other_fn = hals_entry(other, x, w, h, nsweeps) if other is not None else None
+            report(f"hals_iteration_eu 8192x8192 f32 k128 sweeps={nsweeps}", this_fn, other_fn, 3)
+            device_line(this_fn, other_fn)
+            if other_fn is not None:
+                diff = max(cs.scaled_err(a, b) for a, b in zip(this_fn(), other_fn()))
+                print(f"    largest difference of the two sides' outputs, of max |out|: "
+                      f"{diff:.3e}", flush=True)
+            del w, h
+        del x
+        torch.cuda.empty_cache()
+
     if args.only == "int8":
         int8_cases()
         print(card)
         return 0
     if args.only == "score":
         score_cases()
+        print(card)
+        return 0
+    if args.only == "sweep":
+        sweep_cases()
         print(card)
         return 0
 

@@ -2,7 +2,7 @@
 // and mur_variants.cu (and through wave.cuh mur_iteration.cu and
 // hals_iteration.cu); the launch helpers, the KL masking, the zero-first
 // division and the cp.async staging for every kernel, the tensor-core ones
-// of tf32x3.cuh included; the HALS chain for hals_sweep.cu.
+// of tf32x3.cuh included.
 //
 // Every kernel runs 256 threads (wave.cuh's TMA stages and topk_select.cu's
 // scoring kernel: 384, launched by their own helpers).  The FMA kernels see
@@ -208,6 +208,17 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+// Wait until every committed group of this thread has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// A 4-byte copy: *smem = valid ? *gmem : 0, gmem not read where !valid.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ T zero_of();
@@ -373,64 +384,6 @@ __device__ __forceinline__ double block_sum(double v) {
     __syncthreads();
   }
   return red[0];
-}
-
-// ------------------------------------------ the HALS Gauss-Seidel chain
-// Shared by gs_sweep (hals_sweep.cu) and the single-pass HALS iteration's
-// sweep epilogue (hals_iteration.cu).
-
-constexpr float kHalsEps = 1e-16f;  // tpunmf/ops/hals_sweep.py:38
-
-// nsweeps passes of the k-step rank-1 closed-form chain over one column c of
-// V (W frame: one row of W), held by one warp: lane t holds V[t + 32 i, c]
-// in vr[i] and the numerator A[t + 32 i, c] in ar[i] (zero past k).
-//   numer = A[l, c] - G[l, :] . V[:, c] + G[l, l] V[l, c]
-//   V[l, c] = max(numer / (G[l, l] + lam + eps), 0)
-// A step is KPT FMAs of G's row l against the lane's V, a 5-level butterfly
-// (__shfl_xor_sync) and the update by the lane that owns row l; G (k, k,
-// row-major) is read through the read-only cache.  The whole warp calls it;
-// no block-wide barrier inside.
-template <int KPT>
-__device__ __forceinline__ void gs_chain(float (&vr)[KPT], const float (&ar)[KPT],
-                                         const float* __restrict__ g, float lam, int k,
-                                         int nsweeps, int lane) {
-  for (int sweep = 0; sweep < nsweeps; ++sweep) {
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      for (int t = 0; t < 32; ++t) {
-        const int l = 32 * i + t;
-        if (l >= k) break;  // uniform across the warp
-        const float* grow = g + (long long)l * k;
-        float dot = 0.f;
-#pragma unroll
-        for (int ii = 0; ii < KPT; ++ii) {
-          const int j = lane + 32 * ii;
-          if (j < k) dot = fmaf(__ldg(grow + j), vr[ii], dot);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (lane == t) {
-          const float gll = __ldg(grow + l);
-          const float numer = ar[i] - dot + gll * vr[i];
-          const float q = numer / (gll + lam + kHalsEps);
-          vr[i] = q < 0.f ? 0.f : q;  // max(q, 0) that keeps a NaN, as jnp.maximum
-        }
-      }
-    }
-  }
-}
-
-// f(std::integral_constant<int, KPT>()) for the values per lane KPT of a
-// warp that holds a column of k <= 1024 (the smallest power of two with
-// 32 * KPT >= k).
-template <typename F>
-cudaError_t with_kpt(int k, F f) {
-  if (k <= 32) return f(std::integral_constant<int, 1>());
-  if (k <= 64) return f(std::integral_constant<int, 2>());
-  if (k <= 128) return f(std::integral_constant<int, 4>());
-  if (k <= 256) return f(std::integral_constant<int, 8>());
-  if (k <= 512) return f(std::integral_constant<int, 16>());
-  return f(std::integral_constant<int, 32>());
 }
 
 }  // namespace tpunmf

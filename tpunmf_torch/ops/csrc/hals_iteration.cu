@@ -19,64 +19,34 @@
 // bf16 X, every step's sum rounded to nearest), all of X in one wave (plan
 // kind kWaveHals), with the elementwise W update replaced by a sweep
 // epilogue: after (A) has written X round(H)^T in column-chunk partials,
-// one warp owns one row of W, adds the row's partials in a fixed order
-// (the launch after (A) in stream order, so every partial is written
-// before a sweep reads it) and runs the chain against G; one wave puts all
-// m rows' chains in flight at once (8192 warps at 8192 x 8192, 62 an SM).
-// (B) then reads W'.  The Gram W'^T W' stays on FMA tiles.  No W Gh
-// denominator is formed.  The chain is gs_sweep's (gs_chain, common.cuh:
-// each step recomputes G[l, :] . W[r] with a butterfly), not the TPU
-// kernel's running p = W G with a rank-1 update a step: that one was
-// slower on an H100 (1.014 against 0.954 ms a pass at 8192 x 8192 r128)
-// and its p drifted past the card test's 1e-4 (6.4e-4 at 4096 x 3000
-// k 264; PERF.md).
+// the launch after it in stream order (so every partial is written before
+// a sweep reads it) runs gs_sweep's body (gs_panel.cuh: a block owns 64
+// rows of W up to k 256, the k^2 work of each panel of 16 steps one
+// tensor-core product against G, then a short chain of corrections, one
+// thread a row) with A the rows' partials, added in a fixed order into the
+// block's rows of W' before the sweeps, which overwrite them.  (B) then
+// reads W'.  The Gram W'^T W' stays on FMA tiles.  No W Gh denominator is
+// formed.  Not the TPU kernel's running p = W G with a rank-1 update a
+// step: that one was slower on an H100 (1.014 against 0.954 ms a pass at
+// 8192 x 8192 r128) and its p drifted past the card test's 1e-4 (6.4e-4
+// at 4096 x 3000 k 264; PERF.md).
 // Built without --use_fast_math: the division stays IEEE.
+#include "gs_panel.cuh"
 #include "wave.cuh"
 
 namespace tpunmf {
 namespace {
 
-constexpr int kWarps = kThreads / 32;
-
-// (A2) W' for the rows [r0, r1): xht[r] = the chunks' partials added in
-// order, then nsweeps sweeps of W[r] against g = H H^T (k, k); one warp a
-// row, lane t holding columns t + 32 i.
-template <int KPT>
-__global__ void __launch_bounds__(kThreads)
-    hals_w_kernel(const float* __restrict__ w, const float* __restrict__ g,
-                  const float* __restrict__ part, int nsplit, float lam, int k, int r0, int r1,
-                  int rows, int nsweeps, float* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  const int r = r0 + blockIdx.x * kWarps + threadIdx.x / 32;
-  if (r >= r1) return;  // the whole warp: no barrier follows
-  const long long o = (long long)r * k, po = (long long)(r - r0) * k;
-  float vr[KPT], ar[KPT];
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int j = lane + 32 * i;
-    float xht = 0.f;
-    if (j < k)
-      for (int z = 0; z < nsplit; ++z) xht += part[(long long)z * rows * k + po + j];
-    ar[i] = xht;
-    vr[i] = j < k ? w[o + j] : 0.f;
-  }
-  gs_chain<KPT>(vr, ar, g, lam, k, nsweeps, lane);
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int j = lane + 32 * i;
-    if (j < k) out[o + j] = vr[i];
-  }
-}
-
-template <typename XT, int KPT>
+// (A2) W' for the rows [r0, r1) of each wave: nsweeps sweeps of W's rows
+// against g = H H^T (k, k) from the wave's partials of X round(H)^T.
+template <typename XT>
 cudaError_t iteration_hals(const Plan& p, const void* xv, const void* hv, const float* w,
                            const float* g, float lam, int m, int n, int k, int nsweeps,
                            float* w_out, float* wtx, float* gram, float* scratch,
                            cudaStream_t s) {
-  const float* part = scratch + p.a_part;
   auto sweeps = [&](int r0, int r1) {
-    return launch(hals_w_kernel<KPT>, dim3(ceil_div(r1 - r0, kWarps)), 0, s, w, g, part,
-                  p.nsplit, lam, k, r0, r1, p.rows, nsweeps, w_out);
+    const RowsFrame f{w, scratch + p.a_part, (long long)p.rows * k, p.nsplit, k, r0, w_out};
+    return gs_sweeps(f, g, lam, k, r1 - r0, nsweeps, s);
   };
   const TcStages<XT> stages{static_cast<const XT*>(xv), static_cast<const XT*>(hv), n, k};
   return eu_waves(p, stages, m, n, k, sweeps, w_out, wtx, gram, scratch, s);
@@ -105,13 +75,11 @@ int tpunmf_hals_iteration_eu(const void* x, int x_is_bf16, const void* w, const 
   float* gr = static_cast<float*>(gram);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_kpt(k, [&](auto kpt) {
-    constexpr int KPT = decltype(kpt)::value;
-    return x_is_bf16 ? iteration_hals<__nv_bfloat16, KPT>(p, x, hc, wf, gf, lam, m, n, k,
-                                                          nsweeps, wo, tx, gr, sc, s)
-                     : iteration_hals<float, KPT>(p, x, hc, wf, gf, lam, m, n, k, nsweeps, wo,
-                                                  tx, gr, sc, s);
-  }));
+  return static_cast<int>(
+      x_is_bf16 ? iteration_hals<__nv_bfloat16>(p, x, hc, wf, gf, lam, m, n, k, nsweeps, wo, tx,
+                                                gr, sc, s)
+                : iteration_hals<float>(p, x, hc, wf, gf, lam, m, n, k, nsweeps, wo, tx, gr, sc,
+                                        s));
 }
 
 }  // extern "C"

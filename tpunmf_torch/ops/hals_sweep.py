@@ -11,9 +11,12 @@ dependent rank-1 closed forms over the rows of ``v`` (k, M), in
   W half: ``gs_sweep((X H^T)^T, H H^T, W^T)``;  H half: ``gs_sweep(W^T X,
   W^T W, H)`` (tpunmf/solvers/hals.py:125-150).
 
-The kernel (csrc/hals_sweep.cu) gives each column of the M axis a warp
-of its own and reads ``a``, ``v`` and the output through the strides of
-both axes, so the W half's transposed views go in without a copy.  The
+The kernel (csrc/hals_sweep.cu, its body csrc/gs_panel.cuh) keeps a tile
+of 64 columns of ``v`` (32 or 16 above rank 256) in shared memory and
+sweeps it in panels of 16 rows, each one tensor-core product against
+``g`` and then a short chain of steps, one thread a column; it reads
+``a``, ``v`` and the output through the strides of both axes, so the W
+half's transposed views go in without a copy.  The
 plain version (``gs_sweep_ref``) is the loop of ``tpunmf``'s
 ``_hals_sweep_h`` (the column form of ``_hals_sweep_w``), a few PyTorch
 ops per step.  ``tpunmf``'s ``bm`` (strip width) and ``unrolled`` are
@@ -27,8 +30,8 @@ H numerator from one read of X (tpunmf/ops/hals_sweep.py:120-229):
     wtx = round(W')^T X,  gram_w = W'^T W'          (round: to X's dtype)
 
 Its two products against X run on the tensor cores (``mur_iteration_eu``'s
-stages, all of X in one wave), and every row's sweep chain (``gs_sweep``'s)
-runs in one launch between them.
+stages, all of X in one wave), and the sweeps of every row (``gs_sweep``'s
+body) run in one launch between them.
 
 ``hals_iter_tileable`` is ``tpunmf``'s rule for it; HALS takes it only
 where the port's ``hals_single_pass`` switch is on (off, as in ``tpunmf``).

@@ -6,14 +6,16 @@ read once, each output written once) over the memory rate.  The peaks
 are those of one H100 SXM at 700 W (NVIDIA's data sheet, dense rates).
 Operations come in three classes:
 
-- f32 elementwise work (adds, comparisons, the HALS sweeps' k-step
-  chains) at the f32 FMA rate, 67 TFLOP/s;
+- f32 elementwise work (adds, comparisons) at the f32 FMA rate, 67
+  TFLOP/s;
 - bf16 products, on the tensor cores at 989 TFLOP/s, where both operands
   already are bf16;
 - f32 products: the least time for an f32-accurate product is on the
   tensor cores as three TF32 products (big*big + big*small + small*big,
   ``csrc/tf32x3.cuh``), 495 / 3 = 165 TFLOP/s of f32 work, whichever unit
-  a kernel uses, so that every bound is like for like.
+  a kernel uses, so that every bound is like for like.  The HALS sweeps'
+  k^2 work a column is such a product too: blocked (``csrc/gs_panel.cuh``)
+  it is all in the products of G's panels with V.
 
 ``chip_smoke.py`` computes each ported kernel's bound from the tensors of
 its run.  Run as a script, this module prints the bounds of the TPU
@@ -70,17 +72,25 @@ def masked_flops(m: int, n: int, k: int) -> tuple[float, float, float]:
     return 0.0, 0.0, 6.0 * m * n * k
 
 
+def sweep_flops(k: int, cols: int, nsweeps: int) -> tuple[float, float, float]:
+    """(f32 elementwise, bf16 product, f32 product) flops of one
+    ``gs_sweep`` call over ``cols`` columns at rank k: ``nsweeps`` sweeps
+    of k steps of 2k flops a column, G[l, :] . V, all of them f32 products
+    (the chain's divisions and clamps, k a column a sweep, left out)."""
+    return 0.0, 0.0, 2.0 * nsweeps * cols * k * k
+
+
 def hals_flops(m: int, n: int, k: int, x_bf16: bool,
                nsweeps: int) -> tuple[float, float, float]:
     """(f32 elementwise, bf16 product, f32 product) flops of one
     ``hals_iteration_eu`` call on X (m, n) at rank k: X round(H)^T and
     round(W')^T X (both-bf16 operands at bf16 X), the Grams H H^T and
-    W'^T W', and ``nsweeps`` sweeps of k steps of 2k flops a row of W (a
-    chain of dependent steps: elementwise work)."""
+    W'^T W', and ``nsweeps`` sweeps over the m rows of W
+    (``sweep_flops``)."""
     mnk = 2.0 * m * n * k
-    sweeps = 2.0 * nsweeps * m * k * k
+    sweeps = sweep_flops(k, m, nsweeps)[2]
     grams = 2.0 * k * k * (m + n)
-    return (sweeps, 2 * mnk, grams) if x_bf16 else (sweeps, 0.0, 2 * mnk + grams)
+    return (0.0, 2 * mnk, grams + sweeps) if x_bf16 else (0.0, 0.0, 2 * mnk + grams + sweeps)
 
 
 def read_probe_flops(m: int, n: int) -> tuple[float, float, float]:
