@@ -57,7 +57,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      same bits on a second call, and kl_ratio's ratio and kl_obj's
      objective must be kl_ratio_and_obj's bit for bit at every KL shape.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
-     iterations each, the kernel route against the plain route on the card:
+     iterations each (ANLS 20), the kernel route against the plain route on
+     the card:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
        tpunmf's route rule sends to the single pass, and the same runs on
        the 2-pass pair for comparison; EU f32 at 8192x16384 r128, which the
@@ -90,6 +91,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        answer held against a stable sort of its own scores, and after
        the path, each mode's device and wall ms per request from a profile
        of 10 requests on each route;
+     - ANLS (method="anls") at BASELINE config[2]'s stand-in, 6040x3706
+       (movielens_like, density 0.2, seed 2) at r64 from one NNDSVD 'zero'
+       init, 20 iterations each on both routes: EU with use_fcnnls and
+       'chol', EU 'cg', EU 'bpp', KL 'chol', each with its it/s over
+       factorize(), ms an iteration, NNLS trips per half-step and final
+       objective; the kernel route launches its objective kernel
+       (eu_residual_obj, or kl_obj and no kl_ratio_and_obj) once an
+       iteration and nothing else, the plain route nothing; W and H the
+       same bits on both routes, traces within 1e-4, the EU 'chol' trace
+       non-increasing within 1e-6; NMF.transform with the trained EU W fits
+       X at least as well as the fit (within 1e-5), KL transform of 256
+       columns is finite and >= 0, inverse_transform gives X's shape, and
+       no transform launches a kernel; then EU 'chol' at 8192x8192 r128,
+       10 iterations on the kernel route; after the path, EU 'chol' at
+       config[2] profiled on both routes, with the host and device ms
+       inside the NNLS calls;
      - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
        adaptive, and KL (EU and KL profiled on both routes after the path);
@@ -166,6 +183,23 @@ ML10M = (69878, 10677, 0.0134)
 CONFIG3 = dict(m=50000, n=20000, k=128, density=0.02, seed=3)
 ADMM_KW = dict(rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n"),
                nndsvd_init=(True, "zero"))
+# BASELINE config[2] (benchmarks/run_configs.py:136-158): ANLS + FCNNLS on
+# the MovieLens-1M stand-in at r64, from one NNDSVD 'zero' init; each NNLS
+# configuration 20 iterations on each route, EU 'chol' also 10 at 8192^2 r128
+ANLS_K, ANLS_ITERS, ANLS_EU_ITERS = 64, 20, 10
+ANLS_RUNS = (("ANLS EU chol config[2]", dict(distance_type="eu", use_fcnnls=True)),
+             ("ANLS EU cg config[2]", dict(distance_type="eu", masked_solver="cg")),
+             ("ANLS EU bpp config[2]", dict(distance_type="eu", nnls_solver="bpp")),
+             ("ANLS KL chol config[2]", dict(distance_type="kl")))
+# ANLS's routes share every step but the objective pass, so their factors are
+# the same bits and their traces differ by the objective's summation order
+ANLS_TRACE_RTOL = 1e-4
+# exact NNLS half-steps: the EU 'chol' trace may rise by f32 rounding only
+ANLS_MONOTONE_RTOL = 1e-6
+# EU transform of X with the trained W solves the fit's last H update again
+TRANSFORM_RTOL = 1e-5
+# the profiler range that nnls_ranges() puts around each NNLS call
+NNLS_RANGE = "nnls"
 # the fused scoring kernel against its plain version: both accumulate the
 # same f32 products in another order; |got - want| <= 2e-5 (1 + |want|),
 # tpunmf's tolerance against interpret mode (tests/test_serve.py:456-459)
@@ -1162,6 +1196,138 @@ def switched_run(torch, tt, wrappers, label, x, k, ref_trace, rtol, exact, card,
     return {"fused_it_s": iters / secs, "route_err": err, "trace_err": whole}
 
 
+def anls_run(torch, tt, counters, label, x, k, iters, card, w0, h0, plain=True, **kw):
+    """ANLS, `iters` iterations from (w0, h0), on the kernel route and, with
+    ``plain``, the plain route: it/s over factorize() (host clock with a
+    synchronize, the init given), ms an iteration (from the ends of
+    one-iteration blocks, the first iteration left out), the NNLS's trips
+    per half-step and the final objective.  The kernel route launches its
+    objective kernel once an iteration and nothing else, the plain route
+    nothing; both give the same bits of W and H and the same trips."""
+    from tpunmf_torch.nnls import trips
+
+    dist = kw["distance_type"]
+    obj = "kl_obj" if dist == "kl" else "eu_residual_obj"
+    kw = dict(method="anls", min_iter=iters, max_iter=iters, w_init=w0, h_init=h0, **kw)
+    if plain:  # warm-up: first-call costs stay out of timing
+        for route in (True, False):
+            tt.NMF(x, k).factorize(use_pallas=route, **{**kw, "min_iter": 2, "max_iter": 2})
+
+    def one(route):
+        model, stamps = tt.NMF(x, k), []
+        trips.reset()
+        before = counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.factorize(use_pallas=route, block_size=1,
+                              on_block_end=lambda c: stamps.append(time.perf_counter()), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {n: c - before[n] for n, c in counts(counters).items()}
+        per = {name: n / max(trips.calls, 1) for name, n in trips.as_dict().items()
+               if name != "calls"}
+        return {"model": model, "res": res, "it_s": iters / secs,
+                "ms_per_it": 1e3 * (stamps[-1] - stamps[0]) / (iters - 1),
+                "trips": trips.as_dict(), "trips_per_half_step": per, "launched": launched}
+
+    kern = one(True)
+    res, hist = kern["res"], np.asarray(kern["res"].obj_history, dtype=np.float64)
+    rises = np.diff(hist) / hist[:-1]
+    out = {"it_s": kern["it_s"], "ms_per_it": kern["ms_per_it"],
+           "trips_per_half_step": kern["trips_per_half_step"], "obj": float(hist[-1]),
+           "max_rise": float(rises.max())}
+    print(f"  {label}: i={res.i} obj[0]={hist[0]:.6e} obj[{iters}]={hist[-1]:.6e}; "
+          f"{kern['it_s']:.2f} it/s over factorize(), {kern['ms_per_it']:.3f} ms an "
+          f"iteration; NNLS trips per half-step "
+          + ", ".join(f"{n} {v:.2f}" for n, v in kern["trips_per_half_step"].items())
+          + f"; max rise {rises.max():.2e} ({card})", flush=True)
+    require(res.i == iters - 1 and len(hist) == iters + 1,
+            f"{label}: ran {res.i + 1} iterations, expected {iters}")
+    require(np.all(np.isfinite(hist)) and np.all(np.isfinite(res.w))
+            and np.all(np.isfinite(res.h)), f"{label}: non-finite factors or trace")
+    require(res.w.min() >= 0 and res.h.min() >= 0, f"{label}: a negative factor")
+    require(res.w.shape == (x.shape[0], k) and res.h.shape == (k, x.shape[1]),
+            f"{label}: factor shapes {res.w.shape} {res.h.shape}")
+    require(kern["launched"] == {n: iters if n == obj else 0 for n in counters},
+            f"{label}: launches { {n: c for n, c in kern['launched'].items() if c} }, "
+            f"not {iters} of {obj} alone")
+    if dist == "eu" and kw.get("masked_solver", "chol") == "chol" and "nnls_solver" not in kw:
+        require(rises.max() <= ANLS_MONOTONE_RTOL,
+                f"{label}: EU objective rose by {rises.max():.3e}")
+    if plain:
+        pl = one(False)
+        plain_hist = np.asarray(pl["res"].obj_history, dtype=np.float64)
+        err = float(np.max(np.abs(hist - plain_hist) / np.abs(plain_hist)))
+        same = (np.array_equal(res.w, pl["res"].w) and np.array_equal(res.h, pl["res"].h))
+        out.update(plain_it_s=pl["it_s"], plain_ms_per_it=pl["ms_per_it"], route_err=err)
+        print(f"  {label}: plain route {pl['it_s']:.2f} it/s, {pl['ms_per_it']:.3f} ms an "
+              f"iteration; W, H {'the same bits' if same else 'DIFFER'}; traces max rel "
+              f"{err:.3e} (tol {ANLS_TRACE_RTOL:.0e})", flush=True)
+        require(not any(pl["launched"].values()), f"{label}: the plain route launched a kernel")
+        require(same, f"{label}: the routes' factors differ")
+        require(pl["trips"] == kern["trips"], f"{label}: the routes' NNLS trips differ")
+        require(err <= ANLS_TRACE_RTOL, f"{label}: the routes' traces disagree ({err:.3e})")
+    return out, kern["model"]
+
+
+def anls_transforms(torch, tt, eu_model, kl_model, x, card):
+    """NMF.transform with the trained W: EU on all of X fits at least as well
+    as the fit (TRANSFORM_RTOL), KL on 256 columns is finite and >= 0, and
+    inverse_transform gives X's shape."""
+    from tpunmf_torch.core.precision import full_f32
+
+    t0 = time.perf_counter()
+    h_t = eu_model.transform(x)
+    torch.cuda.synchronize()
+    eu_s = time.perf_counter() - t0
+    w = torch.as_tensor(eu_model.w, device=x.device)
+    with full_f32():
+        fit = 0.5 * float(torch.sum((x - w @ torch.as_tensor(eu_model.h, device=x.device))
+                                    .double() ** 2))
+        enc = 0.5 * float(torch.sum((x - w @ h_t).double() ** 2))
+    t0 = time.perf_counter()
+    h_kl = kl_model.transform(x[:, :256])
+    torch.cuda.synchronize()
+    kl_s = time.perf_counter() - t0
+    rec = eu_model.inverse_transform(h_t)
+    print(f"  ANLS transform: EU {tuple(h_t.shape)} in {1e3 * eu_s:.1f} ms, 0.5||X - W H_t||^2 "
+          f"= {enc:.6e} against the fit's {fit:.6e} (rel {enc / fit - 1:+.2e}, tol "
+          f"{TRANSFORM_RTOL:.0e}); KL on 256 columns in {1e3 * kl_s:.1f} ms; "
+          f"inverse_transform {tuple(rec.shape)} ({card})", flush=True)
+    require(h_t.is_cuda and h_t.shape == (eu_model.factors, x.shape[1])
+            and bool(torch.isfinite(h_t).all()) and bool((h_t >= 0).all()),
+            "ANLS transform: EU coefficients not finite, >= 0 and on the card")
+    require(enc <= fit * (1 + TRANSFORM_RTOL), f"ANLS transform: EU {enc} > fit {fit}")
+    require(h_kl.shape == (kl_model.factors, 256) and bool(torch.isfinite(h_kl).all())
+            and bool((h_kl >= 0).all()), "ANLS transform: KL coefficients not finite, >= 0")
+    require(rec.shape == x.shape, f"inverse_transform: shape {tuple(rec.shape)}")
+    return {"eu_ms": 1e3 * eu_s, "kl_ms": 1e3 * kl_s, "rel_gap": enc / fit - 1}
+
+
+@contextlib.contextmanager
+def nnls_ranges():
+    """Profiler ranges named 'nnls' around ANLS's NNLS calls (this script's
+    instrumentation: the solver has none)."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    mod = importlib.import_module("tpunmf_torch.solvers.anls")
+    saved = mod.nnls_activeset, mod.nnls_bpp
+
+    def ranged(fn):
+        def run(*a, **kw):
+            with record_function(NNLS_RANGE):
+                return fn(*a, **kw)
+        return run
+
+    mod.nnls_activeset, mod.nnls_bpp = ranged(saved[0]), ranged(saved[1])
+    try:
+        yield
+    finally:
+        mod.nnls_activeset, mod.nnls_bpp = saved
+
+
 def device_ms_by_kernel(prof, per):
     """Device ms by kernel in a profile, over ``per`` iterations or
     requests; cuBLAS's products under one name."""
@@ -1172,7 +1338,8 @@ def device_ms_by_kernel(prof, per):
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and us > 0:
+        # a range of nnls_ranges() shows on the device's track too: not a kernel
+        if e.device_type == DeviceType.CUDA and us > 0 and e.key != NNLS_RANGE:
             name = re.sub(r"^(void )?([\w:]+::)?(\(anonymous namespace\)::)?", "", e.key)
             name = re.split(r"[<(]", name)[0]
             if "gemm" in e.key.lower() or "splitK" in e.key:
@@ -1187,6 +1354,7 @@ def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False, method=
     (torch.profiler; the kernels run on one stream, so their sum is their
     union), it/s in that window, and the device's idle share of its host
     wall time (an upper bound: the profiler's own overhead is inside)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
@@ -1206,9 +1374,21 @@ def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False, method=
     out = {"device_ms_per_it": device, "wall_ms_per_it": 1e3 * wall / iters,
            "it_s": iters / wall, "idle_share": 1.0 - device * iters / (1e3 * wall),
            "kernels_ms_per_it": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:8])}
+    ranges = [e for e in prof.key_averages()
+              if e.key == NNLS_RANGE and e.device_type != DeviceType.CUDA]
+    nnls = ""
+    if ranges:  # nnls_ranges(): host and device ms inside the NNLS calls
+        e = ranges[0]
+        out["nnls_wall_ms_per_it"] = e.cpu_time_total / 1e3 / iters
+        out["nnls_device_ms_per_it"] = getattr(e, "device_time_total", 0) / 1e3 / iters
+        out["nnls_share"] = out["nnls_wall_ms_per_it"] / out["wall_ms_per_it"]
+        nnls = (f"; NNLS {out['nnls_wall_ms_per_it']:.3f} ms/it on the host clock "
+                f"({out['nnls_share']:.3f} of the wall), "
+                f"{out['nnls_device_ms_per_it']:.3f} on the device")
     print(f"  profile {label}: {out['device_ms_per_it']:.3f} ms/it on the device, "
           f"{out['it_s']:.1f} it/s, idle share {out['idle_share']:.3f}; "
-          + ", ".join(f"{n} {v:.3f}" for n, v in out["kernels_ms_per_it"].items()), flush=True)
+          + ", ".join(f"{n} {v:.3f}" for n, v in out["kernels_ms_per_it"].items()) + nnls,
+          flush=True)
     return out
 
 
@@ -1743,6 +1923,7 @@ def main() -> int:
         # NNDSVD 'zero' once for both routes, nudged to 1e-16 as hals()
         # nudges the inits it makes (tpunmf/solvers/hals.py:221-225)
         w0, h0 = nndsvd(eu_x, eu_k, variant="zero")
+        eu_nndsvd[:] = [w0, h0]  # ANLS's own init at this X
         w0, h0 = w0.clamp(min=1e-16).contiguous(), h0.clamp(min=1e-16).contiguous()
         hals_init[:] = [w0, h0]
         torch.cuda.synchronize()
@@ -1897,7 +2078,27 @@ def main() -> int:
             profiles[label + " plain"] = profile_run(torch, tt, label + " plain", x,
                                                      HIGH_RANK, dist, plain=True)
 
-    profiles, hals_init = {}, []
+    def anls_path():
+        # BASELINE config[2]'s stand-in from one NNDSVD 'zero' init, each
+        # NNLS configuration on both routes; then the transforms with the
+        # trained W, and EU 'chol' at the EU headline X on the kernel route
+        t0 = time.perf_counter()
+        w0, h0 = nndsvd(ml1_x, ANLS_K, variant="zero")
+        torch.cuda.synchronize()
+        anls_init[:] = [w0, h0]
+        print(f"  ANLS: NNDSVD 'zero' init of {tuple(ml1_x.shape)} k{ANLS_K} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        models = {}
+        for label, kw in ANLS_RUNS:
+            runs[label], models[label] = anls_run(torch, tt, counters, label, ml1_x, ANLS_K,
+                                                  ANLS_ITERS, card, w0, h0, **kw)
+        runs["ANLS transform config[2]"] = anls_transforms(
+            torch, tt, models[ANLS_RUNS[0][0]], models[ANLS_RUNS[-1][0]], ml1_x, card)
+        label = f"ANLS EU chol {tuple(eu_x.shape)} k{eu_k}"
+        runs[label], _ = anls_run(torch, tt, counters, label, eu_x, eu_k, ANLS_EU_ITERS,
+                                  card, *eu_nndsvd, plain=False, distance_type="eu")
+
+    profiles, hals_init, eu_nndsvd, anls_init = {}, [], [], []
     for label, needed, body in (
             ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj",
                           "mur_iteration_eu", "mur_iteration_kl"), mur_path),
@@ -1926,8 +2127,21 @@ def main() -> int:
         profiles[label] = profile_run(torch, tt, label, ml10_x, 64, dist, mask=ml10_obs)
         profiles[label + " plain"] = profile_run(torch, tt, label + " plain", ml10_x, 64, dist,
                                                  plain=True, mask=ml10_obs)
+    # ANLS at config[2]: each EU run (3, with 2 warm-up iterations) and the KL
+    # run launch their objective kernel once an iteration, the transforms none
+    drive("ANLS path", ("eu_residual_obj", "kl_obj"), anls_path,
+          exact={"eu_residual_obj": 3 * (ANLS_ITERS + 2) + ANLS_EU_ITERS,
+                 "kl_obj": ANLS_ITERS + 2})
+    t0 = time.perf_counter()
+    with nnls_ranges():
+        for plain in (False, True):
+            label = "ANLS EU chol config[2]" + (" plain" if plain else "")
+            profiles[label] = profile_run(torch, tt, label, ml1_x, ANLS_K, "eu", plain=plain,
+                                          method="anls", distance_type="eu", use_fcnnls=True,
+                                          w_init=anls_init[0], h_init=anls_init[1])
+    print(f"  ANLS profiles took {time.perf_counter() - t0:.1f} s", flush=True)
     # the ADMM KL path holds ~10 config[3]-sized arrays (4 GB each)
-    del ml10_x, ml10_obs, ml1_x, wide_x
+    del ml10_x, ml10_obs, ml1_x, wide_x, anls_init
     kept = drive("serving path", ("score_blockmax_relayout", "blockmax_relayout"),
                  lambda: serving_path(torch, runs))
     check_serving(torch, runs, kept)

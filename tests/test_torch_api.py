@@ -75,9 +75,10 @@ def test_facade_properties_and_save_guard(tmp_path):
 
 @pytest.mark.parametrize("method", ["anls", "admm", "ao_admm", "hals", "ntf"])
 def test_unported_methods_raise(method):
-    # hals is ported, its multilevel= warm start is not; admm is ported,
-    # its checkpoints are not
+    # hals is ported, its multilevel= warm start is not; anls and admm are
+    # ported, their checkpoints are not
     kw = {"hals": {"multilevel": {"levels": 2}},
+          "anls": {"checkpoint_path": "ckpt"},
           "admm": {"checkpoint_path": "ckpt"}}.get(method, {})
     with pytest.raises(NotImplementedError, match="not ported"):
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, **kw)

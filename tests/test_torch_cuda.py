@@ -971,7 +971,7 @@ def test_kernel_families_raise_past_their_rank_bounds(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm"])
+@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm", "anls"])
 def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
     """NMF(float64 numpy) runs on the card as float32 through the kernels
     its route takes, with finite factors and trace."""
@@ -980,7 +980,8 @@ def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
           "mur kl": dict(method="mur", distance_type="kl"),
           "mask": dict(method="mur", distance_type="kl", mask=x > 0.5),
           "hals": dict(method="hals"),
-          "admm": dict(method="admm", distance_type="eu")}[entry]
+          "admm": dict(method="admm", distance_type="eu"),
+          "anls": dict(method="anls", distance_type="kl")}[entry]
     if entry.startswith("mur "):
         route, _ = mur_route(torch.empty(x.shape, dtype=torch.float32, device="meta"), 5,
                              kw["distance_type"])
@@ -990,7 +991,8 @@ def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
     else:
         expect = {"mask": {masked_fused.masked_w_update: 5, masked_fused.masked_h_update: 5},
                   "hals": {hals_sweep.gs_sweep: 10, fused.eu_residual_obj: 6},
-                  "admm": {fused.eu_residual_obj: 5}}[entry]
+                  "admm": {fused.eu_residual_obj: 5},
+                  "anls": {fused.kl_obj: 5}}[entry]
     before = {fn: fn.launches for fn in expect}
     res = tpunmf_torch.NMF(x, 5).factorize(min_iter=5, max_iter=5, **kw)
     assert {fn: fn.launches - before[fn] for fn in expect} == expect
@@ -1000,14 +1002,15 @@ def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm"])
+@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm", "anls"])
 def test_a_cuda_float64_tensor_launches_no_kernel(cuda_device, entry):
     x = t(lowrank(m=64)).to(cuda_device)
     kw = {"mur eu": dict(method="mur", distance_type="eu"),
           "mur kl": dict(method="mur", distance_type="kl"),
           "mask": dict(method="mur", distance_type="kl", mask=x > 0.5),
           "hals": dict(method="hals"),
-          "admm": dict(method="admm", distance_type="kl")}[entry]
+          "admm": dict(method="admm", distance_type="kl"),
+          "anls": dict(method="anls", distance_type="kl")}[entry]
     before = _launches()
     res = tpunmf_torch.NMF(x, 5).factorize(min_iter=5, max_iter=5, **kw)
     assert _launches() == before
@@ -1417,3 +1420,75 @@ def test_sweep_loops_launch_their_kernels_on_the_card(cuda_device):
     (wq, hq, _), launched = _launched_by(lambda: sweep_int8.make_run(64)(xq, scale, w, h, 5))
     assert launched == {(mur_variants.iter_eu_int8, "launches"): 5}
     assert torch.isfinite(wq).all() and torch.isfinite(hq).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["chol", "cg", "bpp"])
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_anls_launches_its_objective_once_an_iteration_and_keeps_the_plain_bits(
+        cuda_device, dist, solver):
+    """ANLS's routes differ only in the objective: the kernel route launches
+    eu_residual_obj or kl_obj once an iteration and nothing else, the plain
+    route nothing, and the factors are the same bits."""
+    x = t(lowrank()).float().to(cuda_device)
+    kw = dict(method="anls", distance_type=dist, min_iter=10, max_iter=10,
+              **{"chol": {}, "cg": dict(masked_solver="cg"),
+                 "bpp": dict(nnls_solver="bpp")}[solver])
+    obj = fused.kl_obj if dist == "kl" else fused.eu_residual_obj
+    kern, launched = _launched_by(lambda: tpunmf_torch.NMF(x, 5).factorize(**kw))
+    assert launched == {(obj, "launches"): 10}
+    plain, launched = _launched_by(
+        lambda: tpunmf_torch.NMF(x, 5).factorize(use_pallas=False, **kw))
+    assert launched == {}
+    np.testing.assert_array_equal(kern.w, plain.w)
+    np.testing.assert_array_equal(kern.h, plain.h)
+    np.testing.assert_allclose(kern.obj_history, plain.obj_history, rtol=1e-4)
+    assert np.all(np.isfinite(kern.obj_history)) and kern.w.dtype == np.float32
+    assert kern.w.min() >= 0 and kern.h.min() >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_anls_numpy_input_runs_on_the_card(cuda_device, dtype):
+    res, launched = _launched_by(lambda: tpunmf_torch.NMF(lowrank(m=64).astype(dtype), 5)
+                                 .factorize(method="anls", min_iter=5, max_iter=5))
+    assert launched == {(fused.eu_residual_obj, "launches"): 5}
+    assert res.w.dtype == np.float32 and np.all(np.isfinite(res.obj_history))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["chol", "cg", "bpp"])
+def test_nnls_on_the_card_matches_the_cpu(cuda_device, solver):
+    """The same exchanges on the card at float64 (first index on ties,
+    cholesky_ex's NaN flag, no host check), a dead component included."""
+    from tpunmf_torch.nnls import nnls_activeset, nnls_bpp
+
+    rng = np.random.default_rng(0)
+    c = rng.random((40, 10))
+    c[:, 3] = 0.0
+    a = c @ rng.random((10, 300)) + 0.5 * rng.standard_normal((40, 300))
+    fn, kw = {"chol": (nnls_activeset, {}), "cg": (nnls_activeset, dict(solve_method="cg")),
+              "bpp": (nnls_bpp, {})}[solver]
+    cpu = fn(t(c.T @ c), t(c.T @ a), **kw)
+    card = fn(t(c.T @ c).to(cuda_device), t(c.T @ a).to(cuda_device), **kw)
+    assert card.is_cuda and torch.all(card[3] == 0)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_transform_follows_x_new_s_device(cuda_device):
+    """A model trained on the card (numpy W in its Results) encodes a CUDA
+    x_new on the card and a CPU one on the CPU, with no kernel launched."""
+    x = t(lowrank()).float()
+    eu = tpunmf_torch.NMF(x.to(cuda_device), 5).fit(method="anls", min_iter=5, max_iter=5)
+    kl = tpunmf_torch.NMF(x.to(cuda_device), 5).fit(method="anls", distance_type="kl",
+                                                    min_iter=5, max_iter=5)
+    for model in (eu, kl):
+        (on_card, on_cpu, from_numpy), launched = _launched_by(lambda: (
+            model.transform(x.to(cuda_device)), model.transform(x),
+            model.transform(x.numpy())))
+        assert launched == {}
+        assert on_card.is_cuda and from_numpy.is_cuda and on_cpu.device.type == "cpu"
+        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-5)
+        rec = model.inverse_transform(on_card)
+        assert rec.is_cuda and rec.shape == x.shape

@@ -1,13 +1,15 @@
 """Public facade: the ``NMF`` class, as in ``tpunmf.api``.
 
 Same surface as ``tpunmf.NMF`` for what is ported: ``NMF(data, factors,
-saving=True, param_file=None)``, ``.w`` / ``.h``, ``factorize``,
+saving=True, param_file=None)``, ``.w`` / ``.h``, the sklearn-style
+``components_``, ``reconstruction_err_``, ``fit``, ``fit_transform``,
+``transform`` and ``inverse_transform``, ``factorize``,
 ``default_save_name`` (the reference's file-name grammar,
 nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
 Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR),
-``method="hals"`` and ``method="admm"``; the other known methods and the routing extensions
-``schedule=``, ``beta=``, ``multilevel=`` and ``mesh=`` raise
-``NotImplementedError``.
+``method="anls"``, ``method="hals"`` and ``method="admm"``; the other known
+methods and the routing extensions ``schedule=``, ``beta=``,
+``multilevel=`` and ``mesh=`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,13 +23,13 @@ from .io.npz import load_results, save_results
 # tpunmf's dispatch list, kept whole so an unknown method fails the same way
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
-_PORTED = ("mur", "hals", "admm")
+_PORTED = ("mur", "anls", "hals", "admm")
 _UNPORTED_OPTIONS = ("schedule", "beta", "multilevel", "mesh")
 
 
 class NMF:
-    """Non-negative matrix factorization (MUR, masked MUR, HALS and ADMM
-    ported).
+    """Non-negative matrix factorization (MUR, masked MUR, ANLS, HALS and
+    ADMM ported).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -63,6 +65,19 @@ class NMF:
     def h(self):
         return None if self.results is None else self.results.h
 
+    # sklearn-style aliases
+    @property
+    def components_(self):
+        """sklearn alias: the (k, n) coefficient matrix H."""
+        return self.h
+
+    @property
+    def reconstruction_err_(self):
+        """sklearn alias: the final recorded objective value."""
+        if self.results is None:
+            return None
+        return float(self.results.obj_history[-1])
+
     def factorize(self, method: str = "mur", saving: bool = False, **method_params):
         """Compute the factorization; keyword parameters go to the solver
         (param-file values first, overridden by explicit kwargs)."""
@@ -89,7 +104,9 @@ class NMF:
 
         from . import solvers
 
-        if method == "hals":
+        if method == "anls":
+            self.results = solvers.anls(self.data, self.factors, **params)
+        elif method == "hals":
             self.results = solvers.hals(self.data, self.factors, **params)
         elif method == "admm":
             self.results = solvers.admm(self.data, self.factors, **params)
@@ -102,6 +119,37 @@ class NMF:
         if saving:
             self.save_factorization()
         return self.results
+
+    def fit(self, method: str = "mur", **method_params) -> "NMF":
+        """sklearn-style convenience: factorize and return self."""
+        self.factorize(method=method, **method_params)
+        return self
+
+    def fit_transform(self, method: str = "mur", **method_params):
+        """sklearn-style convenience: factorize and return W (the
+        sample-by-component representation, as sklearn's NMF)."""
+        self.factorize(method=method, **method_params)
+        return self.w
+
+    def transform(self, data, **opts):
+        """Encode new data against the trained basis W (k x n_new), on
+        ``data``'s device: EU exact batched NNLS, KL fixed-W MUR.  Defaults
+        to the distance the model was trained with."""
+        if self.results is None:
+            raise RuntimeError("Nothing trained: call factorize() first.")
+        from .solvers import transform as _transform
+
+        trained = getattr(self.results.experiment, "distance_type", "eu")
+        opts.setdefault("distance_type", trained if trained in ("eu", "kl") else "eu")
+        return _transform(self.results.w, data, **opts)
+
+    def inverse_transform(self, h):
+        """Reconstruct data from coefficients: W @ h."""
+        if self.results is None:
+            raise RuntimeError("Nothing trained: call factorize() first.")
+        from .solvers import inverse_transform as _inv
+
+        return _inv(self.results.w, h)
 
     def default_save_name(self) -> str:
         """Parameter-encoded save name, grammar-identical to nmf/nmf.py:95-126."""

@@ -1,6 +1,6 @@
 from .convergence import converged, convergence_check
 from .losses import distance, eu_elementwise_sum, eu_objective_gram, kl_elementwise_sum
-from .types import MurExperiment, Results
+from .types import AdmmExperiment, AnlsExperiment, MurExperiment, Results
 
 __all__ = [
     "converged",
@@ -10,5 +10,7 @@ __all__ = [
     "kl_elementwise_sum",
     "eu_elementwise_sum",
     "MurExperiment",
+    "AnlsExperiment",
+    "AdmmExperiment",
     "Results",
 ]

@@ -1,14 +1,18 @@
 """Small shared linear algebra: ``spd_solve`` for (k x k SPD) @ X = B.
 
 Same contract as ``tpunmf.core.linalg.spd_solve``, with two methods:
-  'chol' — ``torch.linalg.cholesky`` + ``torch.cholesky_solve``: exact, and
-           the default on the CPU and on CUDA alike (a k x k factorization
-           is cheap on the card).
+  'chol' — ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``: exact,
+           and the default on the CPU and on CUDA alike (a k x k
+           factorization is cheap on the card).  A matrix that is not
+           positive definite gives NaN, as JAX's Cholesky does, and
+           nothing is read to the host.
   'cg'   — Jacobi-preconditioned CG, one (k, k) @ (k, p) product per step,
            ``k + 8`` steps unless ``cg_iters`` is given, with ``tpunmf``'s
            guards against a zero diagonal and zero denominators.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,7 +20,8 @@ import torch
 def spd_solve(a, b, *, method: str = "chol", cg_iters: int = 0):
     """Solve a @ x = b with a (k, k) SPD and b (k, p)."""
     if method == "chol":
-        return torch.cholesky_solve(b, torch.linalg.cholesky(a))
+        chol, info = torch.linalg.cholesky_ex(a)
+        return torch.where(info != 0, math.nan, torch.cholesky_solve(b, chol))
 
     k = a.shape[0]
     iters = cg_iters or (k + 8)

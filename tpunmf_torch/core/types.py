@@ -1,8 +1,9 @@
 """Result / experiment record types (same names and fields as ``tpunmf``).
 
-``MurExperiment`` and ``AdmmExperiment`` carry exactly the fields the
-reference encodes into its save-file name grammar (reference:
-nmf/nmf.py:95-126, nmf/mur.py:77, nmf/admm.py:262), so persistence stays
+``MurExperiment``, ``AnlsExperiment`` and ``AdmmExperiment`` carry exactly
+the fields the reference encodes into its save-file name grammar
+(reference: nmf/nmf.py:95-126, nmf/mur.py:77, nmf/anls.py:81,
+nmf/admm.py:262), so persistence stays
 drop-in compatible.  ``Results`` matches the reference's
 ``Results(w, h, i, obj_history, experiment)``.
 """
@@ -13,6 +14,11 @@ from collections import namedtuple
 MurExperiment = namedtuple(
     "Experiment",
     "method components distance_type nndsvd_init max_iter tol1 tol2 lambda_w lambda_h",
+)
+
+AnlsExperiment = namedtuple(
+    "Experiment",
+    "method components distance_type nndsvd_init max_iter tol1 tol2 lambda_w lambda_h fcnnls",
 )
 
 AdmmExperiment = namedtuple(

@@ -1,6 +1,8 @@
 from .admm import admm
+from .anls import anls
 from .hals import hals
 from .masked import mur_masked
 from .mur import mur
+from .transform import inverse_transform, transform
 
-__all__ = ["admm", "hals", "mur", "mur_masked"]
+__all__ = ["admm", "anls", "hals", "inverse_transform", "mur", "mur_masked", "transform"]
