@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about three minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about six minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -74,7 +74,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        51, EU eu_residual_obj 51, and neither an update kernel;
      - NMF given float64 numpy arrays (they run on the card as float32,
        through their routes' kernels): MUR EU and KL at 8192x8192 r128,
-       and mask=, HALS and ADMM at 1000x777 r37; and a CUDA float64 tensor
+       and mask=, HALS, ADMM and AO-ADMM at 1000x777 r37; and a CUDA float64 tensor
        (the plain route: no kernel launched);
      - HALS (method="hals"): EU 8192x8192 r128 f32, inner_sweeps=2, from
        one NNDSVD 'zero' init given to both routes;
@@ -110,6 +110,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      - ADMM (method="admm") at BASELINE config[3], 50000x20000 r128
        (sparse_csr(density=0.02, seed=3) densified), EU with rho fixed and
        adaptive, and KL (EU and KL profiled on both routes after the path);
+     - AO-ADMM (method="ao_admm"), after the ADMM path freed config[3]: KL
+       at one card's cut of BASELINE config[4], 50000x20000 r256
+       (lowrank_dense's recipe, seed 4, formed on the card; L1 on W, l2n
+       on H, admm_iter 10), 10 iterations; at the bench's 8192x8192 r128,
+       the defaults and the local-sparsity variant (rho_mode adaptive,
+       l1inf on W, an l1 budget of 256), 50 iterations, and 'cg' on the
+       kernel route, 10; each from its X's NNDSVD 'zero' init on both
+       routes (one warm-up iteration a route first), with its it/s over
+       factorize(), ms an outer iteration, inner trips per H and per W
+       subproblem, final objective and peak memory; the kernel route
+       launches eu_residual_obj or kl_obj (never kl_ratio_and_obj) once an
+       iteration and nothing else, the plain route nothing; W and H the
+       same bits, the same inner trips and traces within 1e-4 on both
+       routes, and each route's final objective within 1e-4 of the final
+       iterate's in float64; KL config[4] (3 iterations) and EU 8192x8192
+       profiled on both routes after the path;
      - the switched single passes (tpunmf_torch/solvers/cuda_defaults.py,
        off by default as in tpunmf, flipped by switched()): HALS at
        8192x8192 r128 f32 with hals_single_pass on, and MUR EU at the same
@@ -129,7 +145,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      HALS EU; ADMM's is not monotone).  The paths with the switches at their
      defaults must launch neither switched kernel, and no NMF.factorize
      path may launch a sweep script's kernel or the read probe.
-  4. a save_factorization / load_factorization round trip.
+  4. a save_factorization / load_factorization round trip of a MUR and of
+     an AO-ADMM model.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -183,6 +200,26 @@ ML10M = (69878, 10677, 0.0134)
 CONFIG3 = dict(m=50000, n=20000, k=128, density=0.02, seed=3)
 ADMM_KW = dict(rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n"),
                nndsvd_init=(True, "zero"))
+# BASELINE config[4] (benchmarks/run_configs.py:229-244): AO-ADMM KL with L1
+# on W and Tikhonov smoothing on H at rank 256, lowrank_dense's recipe at
+# seed 4; one card's cut of its 1M x 100k (400 GB a copy) keeps all but m, n
+CONFIG4 = dict(m=50000, n=20000, k=256, seed=4)
+AO_KL_KW = dict(distance_type="kl", reg_w=(0.05, "l1n"), reg_h=(0.05, "l2n"),
+                admm_iter=10)
+# AO-ADMM's runs at the bench's 8192^2 r128 (bench.py:717-719): (label,
+# iterations, options, plain route too); the defaults, the local-sparsity
+# variant, and 'cg' on the kernel route alone.  The local-sparsity run's l1
+# budget, 256, is above every row of W on this X (under 90): where the
+# budget binds (tpunmf's default 1, or 64) the variant's iterates blow up
+# here, in float64 as in float32 (tools/ao_admm_budget.py), as tpunmf's do
+# at rank 32 (tests/test_torch_ao_admm.py)
+AO_KL_ITERS, AO_EU_ITERS, AO_CG_ITERS = 10, 50, 10
+AO_EU_RUNS = (("AO-ADMM EU 8192^2", AO_EU_ITERS, dict(distance_type="eu"), True),
+              ("AO-ADMM EU local sparsity 8192^2", AO_EU_ITERS,
+               dict(distance_type="eu", rho_mode="adaptive", reg_w=(0.1, "l1inf"),
+                    upper_bound=256.0), True),
+              ("AO-ADMM EU cg 8192^2", AO_CG_ITERS,
+               dict(distance_type="eu", spd_solver="cg"), False))
 # BASELINE config[2] (benchmarks/run_configs.py:136-158): ANLS + FCNNLS on
 # the MovieLens-1M stand-in at r64, from one NNDSVD 'zero' init; each NNLS
 # configuration 20 iterations on each route, EU 'chol' also 10 at 8192^2 r128
@@ -1304,6 +1341,121 @@ def anls_transforms(torch, tt, eu_model, kl_model, x, card):
     return {"eu_ms": 1e3 * eu_s, "kl_ms": 1e3 * kl_s, "rel_gap": enc / fit - 1}
 
 
+def ao_admm_run(torch, tt, counters, label, x, k, iters, card, w0, h0, plain=True, **kw):
+    """AO-ADMM, `iters` outer iterations from (w0, h0), on the kernel route
+    and, with ``plain``, the plain route: it/s over factorize() (host clock
+    with a synchronize, the init given), ms an outer iteration (from the
+    ends of one-iteration blocks, the first left out), inner ADMM trips per
+    H and per W subproblem (each one host read), the final objective and
+    the peak device memory.  The kernel route launches its objective kernel
+    once an iteration and nothing else, the plain route nothing; both give
+    the same bits of W and H and the same trips, traces within
+    OBJECTIVE_RTOL, and each route's final objective within OBJECTIVE_RTOL
+    of the final (W, H)'s in float64.  One warm-up iteration a route comes
+    first."""
+    from tpunmf_torch.solvers.ao_admm import trips
+
+    dist = kw["distance_type"]
+    obj = "kl_obj" if dist == "kl" else "eu_residual_obj"
+    kw = dict(method="ao_admm", min_iter=iters, max_iter=iters, w_init=w0, h_init=h0, **kw)
+    routes = (True, False) if plain else (True,)
+    for route in routes:
+        tt.NMF(x, k).factorize(use_pallas=route, **{**kw, "min_iter": 1, "max_iter": 1})
+
+    def one(route):
+        stamps = []
+        trips.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts(counters)
+        t0 = time.perf_counter()
+        res = tt.NMF(x, k).factorize(use_pallas=route, block_size=1,
+                                     on_block_end=lambda c: stamps.append(time.perf_counter()),
+                                     **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return {"res": res, "it_s": iters / secs,
+                "ms_per_it": 1e3 * (stamps[-1] - stamps[0]) / (iters - 1),
+                "trips": trips.as_dict(), "trips_per_subproblem": trips.per_subproblem(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launched": {n: c - before[n] for n, c in counts(counters).items()}}
+
+    kern = one(True)
+    res, hist = kern["res"], np.asarray(kern["res"].obj_history, dtype=np.float64)
+    per = kern["trips_per_subproblem"]
+    ref = objective_f64(torch, x, *(torch.from_numpy(np.ascontiguousarray(f)).to(x.device)
+                                    for f in (res.w, res.h)), dist)
+    ref_err = abs(hist[-1] / ref - 1)
+    out = {"it_s": kern["it_s"], "ms_per_it": kern["ms_per_it"], "trips_per_subproblem": per,
+           "obj": float(hist[-1]), "obj_f64": ref, "f64_err": ref_err,
+           "peak_gib": kern["peak_gib"]}
+    print(f"  {label}: i={res.i} obj[0]={hist[0]:.6e} obj[{iters}]={hist[-1]:.9e} (float64 "
+          f"{ref:.9e}, rel {ref_err:.3e}); {kern['it_s']:.3f} it/s over factorize(), "
+          f"{kern['ms_per_it']:.3f} ms an outer iteration; inner trips per H subproblem "
+          f"{per['h']:.2f}, per W {per['w']:.2f}; peak {kern['peak_gib']:.2f} GiB allocated "
+          f"({card})", flush=True)
+    require(res.i == iters - 1 and len(hist) == iters + 1,
+            f"{label}: ran {res.i + 1} iterations, expected {iters}")
+    require(np.all(np.isfinite(hist)) and np.all(np.isfinite(res.w))
+            and np.all(np.isfinite(res.h)), f"{label}: non-finite factors or trace")
+    require(res.w.min() >= 0 and res.h.min() >= 0, f"{label}: a negative factor")
+    require(res.w.shape == (x.shape[0], k) and res.h.shape == (k, x.shape[1]),
+            f"{label}: factor shapes {res.w.shape} {res.h.shape}")
+    require(kern["launched"] == {n: iters if n == obj else 0 for n in counters},
+            f"{label}: launches { {n: c for n, c in kern['launched'].items() if c} }, "
+            f"not {iters} of {obj} alone")
+    require(ref_err <= OBJECTIVE_RTOL, f"{label}: the final objective is {ref_err:.3e} "
+                                       f"off its float64 value")
+    if plain:
+        pl = one(False)
+        plain_hist = np.asarray(pl["res"].obj_history, dtype=np.float64)
+        err = float(np.max(np.abs(hist - plain_hist) / np.abs(plain_hist)))
+        plain_ref_err = abs(plain_hist[-1] / ref - 1)
+        same = (np.array_equal(res.w, pl["res"].w) and np.array_equal(res.h, pl["res"].h))
+        out.update(plain_it_s=pl["it_s"], plain_ms_per_it=pl["ms_per_it"], route_err=err,
+                   plain_f64_err=plain_ref_err, plain_peak_gib=pl["peak_gib"])
+        print(f"  {label}: plain route {pl['it_s']:.3f} it/s, {pl['ms_per_it']:.3f} ms an "
+              f"outer iteration, peak {pl['peak_gib']:.2f} GiB; W, H "
+              f"{'the same bits' if same else 'DIFFER'}; traces max rel {err:.3e} "
+              f"(tol {OBJECTIVE_RTOL:.0e}); final objective against float64 "
+              f"{plain_ref_err:.3e}", flush=True)
+        require(not any(pl["launched"].values()), f"{label}: the plain route launched a kernel")
+        require(same, f"{label}: the routes' factors differ")
+        require(pl["trips"] == kern["trips"], f"{label}: the routes' inner trips differ")
+        require(err <= OBJECTIVE_RTOL, f"{label}: the routes' traces disagree ({err:.3e})")
+        require(plain_ref_err <= OBJECTIVE_RTOL,
+                f"{label}: the plain route's final objective is {plain_ref_err:.3e} off "
+                f"its float64 value")
+    return out
+
+
+def objective_f64(torch, x, w, h, dist, rows=4096):
+    """The objective of (W, H) on X in float64 on the card (core/losses.py's
+    formulas), a block of rows at a time."""
+    from tpunmf_torch.core.losses import distance
+
+    hd = h.double()
+    return sum(float(distance(x[r:r + rows].double(), w[r:r + rows].double() @ hd, dist))
+               for r in range(0, x.shape[0], rows))
+
+
+def config4_on_card(torch):
+    """One card's cut of BASELINE config[4]'s matrix: lowrank_dense's recipe
+    at seed 4 (the planted factors drawn from numpy's default_rng(4)), with
+    X = W H + 0.01 U formed in float32 on the card and U from a seeded CUDA
+    generator, where lowrank_dense forms it in float64 on the host (8 GB at
+    this shape): not lowrank_dense's bits."""
+    m, n, k = CONFIG4["m"], CONFIG4["n"], CONFIG4["k"]
+    rng = np.random.default_rng(CONFIG4["seed"])
+    w = torch.from_numpy(rng.random((m, k))).cuda().float()
+    h = torch.from_numpy(rng.random((k, n))).cuda().float()
+    x = w @ h  # TF32 is off in this script
+    del w, h
+    gen = torch.Generator(device="cuda").manual_seed(CONFIG4["seed"])
+    x.add_(torch.rand((m, n), generator=gen, device="cuda"), alpha=0.01)
+    return x
+
+
 @contextlib.contextmanager
 def nnls_ranges():
     """Profiler ranges named 'nnls' around ANLS's NNLS calls (this script's
@@ -1660,9 +1812,9 @@ def config3_on_card(torch):
     return x, csr.nnz
 
 
-def roundtrip_phase(tt, x, k):
+def roundtrip_phase(tt, x, k, **kw):
     model = tt.NMF(x, k)
-    model.factorize(method="mur", distance_type="eu", min_iter=3, max_iter=3)
+    model.factorize(min_iter=3, max_iter=3, **kw)
     with tempfile.TemporaryDirectory() as d:
         path = model.save_factorization(save_dir=d)
         loaded = tt.NMF.load_factorization(path)
@@ -1889,7 +2041,9 @@ def main() -> int:
             ("HALS", ragged_np.astype(np.float64), 37, dict(method="hals"),
              {"gs_sweep": 10, "eu_residual_obj": 6}),
             ("ADMM", ragged_np.astype(np.float64), 37, dict(method="admm", distance_type="eu"),
-             {"eu_residual_obj": 5}))
+             {"eu_residual_obj": 5}),
+            ("AO-ADMM", ragged_np.astype(np.float64), 37,
+             dict(method="ao_admm", distance_type="eu"), {"eu_residual_obj": 5}))
         for label, data, k, kw, exact in runs_np:
             t0 = time.perf_counter()
             before = counts(counters)
@@ -1990,6 +2144,23 @@ def main() -> int:
                 RUN_ITERS, method="admm",
                 needed=("eu_residual_obj" if dist == "eu" else "kl_ratio_and_obj",),
                 rho_mode=mode, **ADMM_KW)
+
+    def ao_admm_path():
+        # one card's cut of BASELINE config[4], then the bench's 8192^2 r128;
+        # each X's NNDSVD 'zero' once, given to both routes
+        t0 = time.perf_counter()
+        w0, h0 = nndsvd(ao_x, CONFIG4["k"], variant="zero")
+        torch.cuda.synchronize()
+        ao_init[:] = [w0, h0]
+        print(f"  AO-ADMM: NNDSVD 'zero' init of {tuple(ao_x.shape)} k{CONFIG4['k']} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        label = f"AO-ADMM KL config[4] {tuple(ao_x.shape)} k{CONFIG4['k']}"
+        runs["AO-ADMM KL config[4]"] = ao_admm_run(torch, tt, counters, label, ao_x,
+                                                   CONFIG4["k"], AO_KL_ITERS, card, w0, h0,
+                                                   **AO_KL_KW)
+        for label, iters, kw, plain in AO_EU_RUNS:
+            runs[label] = ao_admm_run(torch, tt, counters, label, eu_x, eu_k, iters, card,
+                                      *eu_nndsvd, plain=plain, **kw)
 
     def sweep_path():
         # the sweep scripts' loops at their shape, 30 iterations each from
@@ -2098,7 +2269,7 @@ def main() -> int:
         runs[label], _ = anls_run(torch, tt, counters, label, eu_x, eu_k, ANLS_EU_ITERS,
                                   card, *eu_nndsvd, plain=False, distance_type="eu")
 
-    profiles, hals_init, eu_nndsvd, anls_init = {}, [], [], []
+    profiles, hals_init, eu_nndsvd, anls_init, ao_init = {}, [], [], [], []
     for label, needed, body in (
             ("MUR path", ("mur_w_update", "mur_h_update", "eu_residual_obj", "kl_obj",
                           "mur_iteration_eu", "mur_iteration_kl"), mur_path),
@@ -2157,6 +2328,27 @@ def main() -> int:
                                           rho_mode="fixed", **ADMM_KW)
     del adm_x
     torch.cuda.empty_cache()
+    # AO-ADMM after the ADMM KL path freed config[3]: config[4]'s cut holds
+    # V, v_aux, dual_v and the split's temporaries (4 GB each)
+    t0 = time.perf_counter()
+    ao_x = config4_on_card(torch)
+    torch.cuda.synchronize()
+    print(f"  BASELINE config[4]'s cut made in {time.perf_counter() - t0:.1f} s: "
+          f"{tuple(ao_x.shape)} f32", flush=True)
+    # each run's warm-up launches its objective once on the kernel route
+    drive("AO-ADMM path", ("eu_residual_obj", "kl_obj"), ao_admm_path,
+          exact={"kl_obj": AO_KL_ITERS + 1,
+                 "eu_residual_obj": sum(iters + 1 for _, iters, _, _ in AO_EU_RUNS)})
+    for plain in (False, True):
+        tag = " plain" if plain else ""
+        profiles["AO-ADMM KL config[4]" + tag] = profile_run(
+            torch, tt, "AO-ADMM KL config[4]" + tag, ao_x, CONFIG4["k"], "kl", iters=3,
+            plain=plain, method="ao_admm", w_init=ao_init[0], h_init=ao_init[1], **AO_KL_KW)
+        profiles["AO-ADMM EU 8192^2" + tag] = profile_run(
+            torch, tt, "AO-ADMM EU 8192^2" + tag, eu_x, eu_k, "eu", plain=plain,
+            method="ao_admm", distance_type="eu", w_init=eu_nndsvd[0], h_init=eu_nndsvd[1])
+    del ao_x, ao_init
+    torch.cuda.empty_cache()
     # the sweep scripts' data and warm-up runs (2 iterations each), before
     # their paths' counts are reset
     x2, w2, h2 = sweep_iter2.problem(0)
@@ -2178,7 +2370,8 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     print("phase 4: save/load", flush=True)
-    roundtrip_phase(tt, ragged, 8)
+    roundtrip_phase(tt, ragged, 8, method="mur", distance_type="eu")
+    roundtrip_phase(tt, ragged, 8, method="ao_admm", **AO_KL_KW)
     print(f"  phase 4 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -75,11 +75,12 @@ def test_facade_properties_and_save_guard(tmp_path):
 
 @pytest.mark.parametrize("method", ["anls", "admm", "ao_admm", "hals", "ntf"])
 def test_unported_methods_raise(method):
-    # hals is ported, its multilevel= warm start is not; anls and admm are
-    # ported, their checkpoints are not
+    # hals is ported, its multilevel= warm start is not; anls, admm and
+    # ao_admm are ported, their checkpoints are not
     kw = {"hals": {"multilevel": {"levels": 2}},
           "anls": {"checkpoint_path": "ckpt"},
-          "admm": {"checkpoint_path": "ckpt"}}.get(method, {})
+          "admm": {"checkpoint_path": "ckpt"},
+          "ao_admm": {"checkpoint_path": "ckpt"}}.get(method, {})
     with pytest.raises(NotImplementedError, match="not ported"):
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, **kw)
 

@@ -30,6 +30,8 @@ ROUTE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 # sums that feed it rounded at every step: within 1.0; with the tensor
 # cores' own sums 4-13 off)
 GRAM_ULPS = 2
+# the KL objective near a fit against float64: chip_smoke.py's OBJECTIVE_RTOL
+KL_FIT_RTOL = 1e-4
 
 
 def _on(device, xdtype, m=1000, n=777, k=37):
@@ -477,6 +479,30 @@ def test_kl_ratio_and_obj_matches_plain_version(cuda_device, m, n, k, xdtype):
     # kl_obj's kernel is the same body without the ratio: the same bits
     assert torch.equal(fused.kl_obj(x, w, h), got_o)
     assert torch.equal(fused.kl_ratio_and_obj(x, w, h)[1], got_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(41, 44))
+def test_kl_objective_near_a_fit_holds_f32_accuracy(cuda_device, seed):
+    """X = W0 H0 with noise of 1e-3 of X, H 1% above H0, at k 256: the KL
+    sum is about 5e-5 of sum(X) where sum(W H - X) is 1e-2 of it, so a
+    bias of S reaches the objective two hundredfold.  Against its value in
+    float64 on the same float32 inputs, the kernel (the KL passes' S
+    rounded at every step) holds KL_FIT_RTOL, as the plain float32 route
+    does; S accumulated in the tensor cores alone did not."""
+    rng = np.random.default_rng(seed)
+    m, n, k = 2000, 1500, 256
+    w0, h0 = rng.random((m, k)), rng.random((k, n))
+    x = (w0 @ h0) * (1.0 + 1e-3 * rng.standard_normal((m, n)))
+    x, w, h = (a.astype(np.float32) for a in (x, w0, 1.01 * h0))
+    xd, wh = x.astype(np.float64), w.astype(np.float64) @ h.astype(np.float64)
+    want = float(np.sum(xd * np.log(xd / wh) - xd + wh))
+    xt, wt, ht = (t(a).to(cuda_device) for a in (x, w, h))
+    got = float(fused.kl_obj(xt, wt, ht))
+    plain = float(fused.kl_obj_ref(xt, wt, ht))
+    assert abs(plain / want - 1) <= KL_FIT_RTOL, (plain, want)
+    assert abs(got / want - 1) <= KL_FIT_RTOL, (got, plain, want)
+    assert torch.equal(fused.kl_ratio_and_obj(xt, wt, ht)[1], torch.tensor(got).to(xt))
 
 
 @pytest.mark.cuda
@@ -971,7 +997,8 @@ def test_kernel_families_raise_past_their_rank_bounds(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm", "anls"])
+@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm", "anls",
+                                   "ao_admm"])
 def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
     """NMF(float64 numpy) runs on the card as float32 through the kernels
     its route takes, with finite factors and trace."""
@@ -981,7 +1008,8 @@ def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
           "mask": dict(method="mur", distance_type="kl", mask=x > 0.5),
           "hals": dict(method="hals"),
           "admm": dict(method="admm", distance_type="eu"),
-          "anls": dict(method="anls", distance_type="kl")}[entry]
+          "anls": dict(method="anls", distance_type="kl"),
+          "ao_admm": dict(method="ao_admm", distance_type="eu")}[entry]
     if entry.startswith("mur "):
         route, _ = mur_route(torch.empty(x.shape, dtype=torch.float32, device="meta"), 5,
                              kw["distance_type"])
@@ -992,7 +1020,8 @@ def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
         expect = {"mask": {masked_fused.masked_w_update: 5, masked_fused.masked_h_update: 5},
                   "hals": {hals_sweep.gs_sweep: 10, fused.eu_residual_obj: 6},
                   "admm": {fused.eu_residual_obj: 5},
-                  "anls": {fused.kl_obj: 5}}[entry]
+                  "anls": {fused.kl_obj: 5},
+                  "ao_admm": {fused.eu_residual_obj: 5}}[entry]
     before = {fn: fn.launches for fn in expect}
     res = tpunmf_torch.NMF(x, 5).factorize(min_iter=5, max_iter=5, **kw)
     assert {fn: fn.launches - before[fn] for fn in expect} == expect
@@ -1002,7 +1031,8 @@ def test_float64_numpy_takes_its_route_s_kernels(cuda_device, entry):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm", "anls"])
+@pytest.mark.parametrize("entry", ["mur eu", "mur kl", "mask", "hals", "admm", "anls",
+                                   "ao_admm", "ao_admm local"])
 def test_a_cuda_float64_tensor_launches_no_kernel(cuda_device, entry):
     x = t(lowrank(m=64)).to(cuda_device)
     kw = {"mur eu": dict(method="mur", distance_type="eu"),
@@ -1010,7 +1040,10 @@ def test_a_cuda_float64_tensor_launches_no_kernel(cuda_device, entry):
           "mask": dict(method="mur", distance_type="kl", mask=x > 0.5),
           "hals": dict(method="hals"),
           "admm": dict(method="admm", distance_type="kl"),
-          "anls": dict(method="anls", distance_type="kl")}[entry]
+          "anls": dict(method="anls", distance_type="kl"),
+          "ao_admm": dict(method="ao_admm", distance_type="kl"),
+          "ao_admm local": dict(method="ao_admm", distance_type="kl", rho_mode="adaptive",
+                                reg_w=(0.1, "l1inf"))}[entry]
     before = _launches()
     res = tpunmf_torch.NMF(x, 5).factorize(min_iter=5, max_iter=5, **kw)
     assert _launches() == before
@@ -1492,3 +1525,51 @@ def test_transform_follows_x_new_s_device(cuda_device):
         torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-3, atol=1e-5)
         rec = model.inverse_transform(on_card)
         assert rec.is_cuda and rec.shape == x.shape
+
+
+@pytest.mark.cuda
+def test_a_diverging_local_sparsity_run_raises_nothing(cuda_device):
+    """An l1 budget of 1, far below lowrank_dense's scale at rank 32: the
+    iterates blow up, as tpunmf's do (tests/test_torch_ao_admm.py), and the
+    run returns its trace, inf or NaN included, where torch.linalg.solve
+    would raise on the card."""
+    from tpunmf_torch.data import lowrank_dense
+
+    x = torch.from_numpy(lowrank_dense(96, 80, 32, seed=0)).to(cuda_device)
+    res = tpunmf_torch.NMF(x, 32).factorize(method="ao_admm", min_iter=40, max_iter=40,
+                                            rho_mode="adaptive", reg_w=(0.1, "l1inf"))
+    trace = np.asarray(res.obj_history, dtype=np.float64)
+    assert len(trace) == 41 and np.nanmax(trace) > 1e6 * trace[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fixed", "local"])
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_ao_admm_launches_its_objective_once_an_iteration_and_keeps_the_plain_bits(
+        cuda_device, dist, variant):
+    """AO-ADMM's routes differ only in the objective: the kernel route
+    launches eu_residual_obj or kl_obj (never kl_ratio_and_obj) once an
+    iteration and nothing else, the plain route nothing; the factors are the
+    same bits and the inner loops take the same trips."""
+    from tpunmf_torch.solvers.ao_admm import trips
+
+    x, _, _ = _on(cuda_device, torch.float32)
+    kw = dict(method="ao_admm", distance_type=dist, min_iter=5, max_iter=5,
+              reg_h=(0.05, "l1n"),
+              **({} if variant == "fixed" else dict(rho_mode="adaptive",
+                                                    reg_w=(0.1, "l1inf"))))
+    obj = fused.kl_obj if dist == "kl" else fused.eu_residual_obj
+    runs = []
+    for route in (True, False):
+        trips.reset()
+        res, launched = _launched_by(
+            lambda: tpunmf_torch.NMF(x, 37).factorize(use_pallas=route, **kw))
+        runs.append((res, launched, trips.as_dict()))
+    (kern, k_launched, k_trips), (plain, p_launched, p_trips) = runs
+    assert k_launched == {(obj, "launches"): 5} and p_launched == {}
+    assert k_trips == p_trips and k_trips["h_calls"] == k_trips["w_calls"] == 5
+    np.testing.assert_array_equal(kern.w, plain.w)
+    np.testing.assert_array_equal(kern.h, plain.h)
+    np.testing.assert_allclose(kern.obj_history, plain.obj_history, rtol=1e-4)
+    assert np.all(np.isfinite(kern.obj_history)) and kern.w.dtype == np.float32
+    assert kern.w.min() >= 0 and kern.h.min() >= 0

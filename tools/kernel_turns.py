@@ -48,7 +48,9 @@ Cases, on chip_smoke.py's data recipes:
     through a padded copy made once;
   - eu_residual_obj at 8192 x 8192 r128 and r1536 and at BASELINE
     config[3] (50000 x 20000 r128); kl_obj at config[1] (20000 x 11000
-    r50) and 8192 x 4096 r1536.
+    r50), 8192 x 4096 r1536 and one card's cut of BASELINE config[4]
+    (50000 x 20000 r256, chip_smoke.config4_on_card); kl_ratio_and_obj
+    at config[3].
 With --only single, the two single passes alone, each side through its
 own C entry with its buffers made once: mur_iteration_kl at 8192 x 4096
 r128 (tfidf_like seed 4, f32 and bf16 X) and at 8192 x 1024 (tfidf_like
@@ -898,26 +900,34 @@ def main() -> int:
         return 0
 
     # -------------------------------------------------------- the objectives
-    def objective_case(label, x, k, is_kl, reps=3):
+    def objective_case(label, x, k, is_kl, reps=3, ratio=False):
         m, n = x.shape
         g = torch.Generator(device="cuda")
         g.manual_seed(12)
         w = torch.rand((m, k), generator=g, device="cuda") + 0.1
         h = torch.rand((k, n), generator=g, device="cuda") + 0.1
-        fn = fused.kl_obj if is_kl else fused.eu_residual_obj
+        fn = (fused.kl_ratio_and_obj if ratio else fused.kl_obj) if is_kl \
+            else fused.eu_residual_obj
+        xb = int(x.dtype == torch.bfloat16)
 
         other_fn = None
         if other is not None:
             parts = torch.empty(other.tpunmf_objective_blocks(m, n), device="cuda")
+            out_ratio = torch.empty((m, n), device="cuda") if ratio else None
 
             def other_fn():
                 out = torch.empty((), device="cuda")
-                _build.check(other.tpunmf_objective(
-                    x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(),
-                    m, n, k, int(is_kl), parts.data_ptr(), out.data_ptr(), stream()), "other")
+                if ratio:
+                    rc = other.tpunmf_kl_ratio_obj(
+                        x.data_ptr(), xb, w.data_ptr(), h.data_ptr(), m, n, k, 1e-9,
+                        out_ratio.data_ptr(), parts.data_ptr(), out.data_ptr(), stream())
+                else:
+                    rc = other.tpunmf_objective(
+                        x.data_ptr(), xb, w.data_ptr(), h.data_ptr(), m, n, k, int(is_kl),
+                        parts.data_ptr(), out.data_ptr(), stream())
+                _build.check(rc, "other")
                 return out
-        report(f"{'kl_obj' if is_kl else 'eu_residual_obj'} {label} k{k}",
-               lambda: fn(x, w, h), other_fn, reps)
+        report(f"{fn.__name__} {label} k{k}", lambda: fn(x, w, h), other_fn, reps)
 
     print(f"objectives ({card})", flush=True)
     x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
@@ -931,6 +941,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     x, _ = cs.config3_on_card(torch)
     objective_case("config[3] 50000x20000 f32", x, 128, False)
+    objective_case("config[3] 50000x20000 f32", x, 128, True, ratio=True)
+    del x
+    torch.cuda.empty_cache()
+    objective_case("config[4] cut 50000x20000 f32", cs.config4_on_card(torch), 256, True)
     print(card)
     return 0
 

@@ -7,9 +7,10 @@ saving=True, param_file=None)``, ``.w`` / ``.h``, the sklearn-style
 ``default_save_name`` (the reference's file-name grammar,
 nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
 Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR),
-``method="anls"``, ``method="hals"`` and ``method="admm"``; the other known
-methods and the routing extensions ``schedule=``, ``beta=``,
-``multilevel=`` and ``mesh=`` raise ``NotImplementedError``.
+``method="anls"``, ``method="hals"``, ``method="admm"`` and
+``method="ao_admm"``; the other known methods and the routing extensions
+``schedule=``, ``beta=``, ``multilevel=`` and ``mesh=`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,13 +24,13 @@ from .io.npz import load_results, save_results
 # tpunmf's dispatch list, kept whole so an unknown method fails the same way
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
-_PORTED = ("mur", "anls", "hals", "admm")
+_PORTED = ("mur", "anls", "hals", "admm", "ao_admm")
 _UNPORTED_OPTIONS = ("schedule", "beta", "multilevel", "mesh")
 
 
 class NMF:
-    """Non-negative matrix factorization (MUR, masked MUR, ANLS, HALS and
-    ADMM ported).
+    """Non-negative matrix factorization (MUR, masked MUR, ANLS, HALS, ADMM
+    and AO-ADMM ported).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -110,6 +111,8 @@ class NMF:
             self.results = solvers.hals(self.data, self.factors, **params)
         elif method == "admm":
             self.results = solvers.admm(self.data, self.factors, **params)
+        elif method == "ao_admm":
+            self.results = solvers.ao_admm(self.data, self.factors, **params)
         elif mask is not None:
             self.results = solvers.mur_masked(self.data, mask, self.factors,
                                               **params)

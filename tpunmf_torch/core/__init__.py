@@ -1,6 +1,6 @@
 from .convergence import converged, convergence_check
 from .losses import distance, eu_elementwise_sum, eu_objective_gram, kl_elementwise_sum
-from .types import AdmmExperiment, AnlsExperiment, MurExperiment, Results
+from .types import AdmmExperiment, AnlsExperiment, AoAdmmExperiment, MurExperiment, Results
 
 __all__ = [
     "converged",
@@ -12,5 +12,6 @@ __all__ = [
     "MurExperiment",
     "AnlsExperiment",
     "AdmmExperiment",
+    "AoAdmmExperiment",
     "Results",
 ]

@@ -5,7 +5,8 @@ Same contract as ``tpunmf.core.linalg.spd_solve``, with two methods:
            and the default on the CPU and on CUDA alike (a k x k
            factorization is cheap on the card).  A matrix that is not
            positive definite gives NaN, as JAX's Cholesky does, and
-           nothing is read to the host.
+           nothing is read to the host.  ``cho_factor`` / ``cho_solve``
+           split it, for a factor reused over several right-hand sides.
   'cg'   — Jacobi-preconditioned CG, one (k, k) @ (k, p) product per step,
            ``k + 8`` steps unless ``cg_iters`` is given, with ``tpunmf``'s
            guards against a zero diagonal and zero denominators.
@@ -17,11 +18,22 @@ import math
 import torch
 
 
+def cho_factor(a):
+    """The lower Cholesky factor of a (k, k) SPD ``a`` and its status
+    (``torch.linalg.cholesky_ex``: nothing is read to the host)."""
+    return torch.linalg.cholesky_ex(a)
+
+
+def cho_solve(cho, b):
+    """Solve with :func:`cho_factor`'s output; NaN where it failed."""
+    chol, info = cho
+    return torch.where(info != 0, math.nan, torch.cholesky_solve(b, chol))
+
+
 def spd_solve(a, b, *, method: str = "chol", cg_iters: int = 0):
     """Solve a @ x = b with a (k, k) SPD and b (k, p)."""
     if method == "chol":
-        chol, info = torch.linalg.cholesky_ex(a)
-        return torch.where(info != 0, math.nan, torch.cholesky_solve(b, chol))
+        return cho_solve(cho_factor(a), b)
 
     k = a.shape[0]
     iters = cg_iters or (k + 8)

@@ -8,12 +8,13 @@
 // (body :88, pallas_call :156, entry kl_ratio :243).
 //
 // All four passes run one body, pass_kernel: S = W H on the tensor cores
-// (tf32x3.cuh's S tile in 3xTF32, two-stage cp.async copies of W and H) on
-// 128 x 128 output tiles, which halve the bytes of W and H each tile reads
-// from the L2 against 64 x 64; S is staged through shared memory so that X
-// is read with 16-byte loads, all of a thread's in flight at once, and the
-// ratio written with 16-byte coalesced stores, both marked streaming (evict
-// first) so that W and H stay in the L2.  The objectives (Pass::kEu,
+// (tf32x3.cuh's S tile in 3xTF32, each step's sum rounded to nearest,
+// two-stage cp.async copies of W and H) on 128 x 128 output tiles, which
+// halve the bytes of W and H each tile reads from the L2 against 64 x 64;
+// S is staged through shared memory so that X is read with 16-byte loads,
+// all of a thread's in flight at once, and the ratio written with 16-byte
+// coalesced stores, both marked streaming (evict first) so that W and H
+// stay in the L2.  The objectives (Pass::kEu,
 // Pass::kKl) store no ratio and sum their terms; the ratio passes
 // (Pass::kKlRatio, Pass::kRatio) also write one f32 per cell.  One body
 // means kl_ratio's ratio is kl_ratio_and_obj's bit for bit, and kl_obj's
@@ -123,13 +124,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.y * kPassTile, col0 = blockIdx.x * kPassTile;
 
-  // EU's S rounded at every step: 0.5 ||X - W H||^2 cancels near
-  // convergence, where the tensor cores' own accumulation would cost it
-  // digits
+  // S rounded at every step in every pass.  The tensor cores' own
+  // accumulation leaves S short by a few ulps a step, all one way, and
+  // both objectives cancel near a fit: 0.5 ||X - W H||^2 lost digits, and
+  // the KL sum moved by that bias times sum(W H - X), 2.5e-4 of the
+  // objective against float64 at 50000 x 20000 r256 (3.7e-6 rounded).
+  // The ratio passes round too, so that the four passes keep one S.
   tc::Acc<PassS::MT, PassS::NT> s;
-  tc::s_tile<kPassTile, kPassTile, 2, 4, P == Pass::kEu>(s, w, h, m, n, k, row0, col0,
-                                                        w_aligned, h_aligned,
-                                                        sm.stage);  // ends with a barrier
+  tc::s_tile<kPassTile, kPassTile, 2, 4, true>(s, w, h, m, n, k, row0, col0, w_aligned,
+                                              h_aligned, sm.stage);  // ends with a barrier
   tc::for_pairs<PassS::MT, PassS::NT>(
       s, PassS::warp_row(warp), PassS::warp_col(warp), lane,
       [&](int r, int c, float v0, float v1) {

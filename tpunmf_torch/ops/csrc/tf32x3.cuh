@@ -172,7 +172,9 @@ __device__ __forceinline__ void step_all(Acc<MT, NT>& acc, const Frag<4> (&a)[MT
 // three products go into a fresh accumulator, added to acc in f32 with
 // round to nearest: the objective then is as close as f32 products', for
 // 16 more registers a row of tiles and one add an entry a step (the EU
-// objective 17-22% slower on an H100).
+// objective 17-22% slower on an H100).  The KL objective needs it too: it
+// moves by S's bias times sum(W H - X), which near a fit can be a hundred
+// times the objective (objective.cu).
 //
 // BCOL: B is read column by column as load_b<true> does; EXACT: every
 // operand value is exact in TF32 (bf16 operands), so one TF32 product a

@@ -45,7 +45,10 @@ def prox_l2n(mat_aux, dual, *, rho, lambda_):
         - torch.diag(torch.ones(n - 1, dtype=mat_aux.dtype,
                                 device=mat_aux.device), -1)
     a = (lambda_ * (t.T @ t) + rho * eye) / rho
-    return _clamp0(torch.linalg.solve(a, mat_aux - dual))
+    # solve_ex: a singular or non-finite system gives inf / NaN, as JAX's
+    # solve does, where torch.linalg.solve would raise (on CUDA, after a
+    # host read)
+    return _clamp0(torch.linalg.solve_ex(a, mat_aux - dual)[0])
 
 
 def _l1inf_rows(mat_aux, dual, *, rho, lambda_, upper_bound, clamp_theta):

@@ -45,6 +45,26 @@ from .common import (LoopCarry, finalize_history, host_array, init_carry, run_lo
                      verbose_precision, while_block)
 
 
+def kl_data_split(v, wh_aux, dual_v):
+    """The KL data-term split of ADMM and AO-ADMM (nmf/admm.py:312-315,
+    nmf/ao_admm.py:92-97): ``v_aux = 0.5*((v_bar-1) + sqrt((v_bar-1)^2 +
+    4v))`` with ``v_bar = wh_aux - dual_v``, and the dual ascent
+    ``dual_v + v_aux - wh_aux``.  Returns ``(v_aux, dual_v)``.
+
+    In place on fresh temporaries (each m x n array is 4 GB at BASELINE
+    config[3]) with the roundings of those expressions.  The outputs take
+    the layout of ``wh_aux`` and ``dual_v``: elementwise ops keep a
+    transposed view's layout."""
+    t = wh_aux - dual_v
+    t -= 1.0
+    v_aux = t * t
+    v_aux.add_(v, alpha=4.0).sqrt_().add_(t).mul_(0.5)
+    del t
+    dual_v = dual_v + v_aux
+    dual_v -= wh_aux
+    return v_aux, dual_v
+
+
 def _spd_solve(g, rho, b, method="chol"):
     """Solve (g + rho*I) x = b; g is k x k PSD."""
     k = g.shape[0]
@@ -128,16 +148,9 @@ def _admm_block(
         w_prev, h_prev, w_aux, h_aux, dual_w, dual_h, v_aux, dual_v, rho = inner
         w, h, w_aux, h_aux = solve_and_prox(v_aux + dual_v, w_prev, h_prev, w_aux,
                                             dual_w, dual_h, rho)
-        # KL data-term closed form (nmf/admm.py:312-315), in place on fresh
-        # temporaries (each m x n array is 4 GB at BASELINE config[3]) with
-        # the roundings of 0.5 * ((v_bar - 1) + sqrt((v_bar - 1)^2 + 4 v))
+        # KL data-term closed form (nmf/admm.py:312-315)
         wh_aux = w_aux @ h_aux
-        t = wh_aux - dual_v
-        t -= 1.0
-        v_aux = t * t
-        v_aux.add_(v, alpha=4.0).sqrt_().add_(t).mul_(0.5)
-        del t
-        dual_v = dual_v + v_aux - wh_aux
+        v_aux, dual_v = kl_data_split(v, wh_aux, dual_v)
         del wh_aux
         dual_h = dual_h + h - h_aux
         dual_w = dual_w + w - w_aux
