@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about six minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about eight minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -147,6 +147,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      path may launch a sweep script's kernel or the read probe.
   4. a save_factorization / load_factorization round trip of a MUR and of
      an AO-ADMM model.
+  5. the tooling, each path's launches counted as in phase 3, every time
+     printed beside the card's name and power limit:
+     - checkpoint/resume at 8192x8192 r128 from NNDSVD 'zero': MUR EU on
+       its default route (60 iterations, a save every 20) and ADMM EU with
+       adaptive rho (30, every 10), each stopped after two blocks by an
+       on_block_end that raises, then resumed: W, H, i and the trace must
+       be the uninterrupted run's bit for bit; each save's ms and bytes;
+     - experiments.mur_lambda_grid: EU at 8192x8192 r128, lambda_w x
+       lambda_h = {0, 0.1, 1}^2, 50 iterations, and KL at 8192x4096 r128,
+       {0, 0.1}^2, 20 iterations, each combination's trace within 1e-4 of
+       a sequential kernel-route mur run from the same init; combination-
+       iterations a second for both;
+     - experiments.rank_scan on a planted 8192x4096 X (16 components), ks
+       8, 16, 24, 8 seeds, 100 iterations: dispersions in [0, 1], finite
+       objectives, seconds a rank;
+     - mur_beta at 8192x8192 r128 from NNDSVD 'zero' (nudged as mur_beta
+       nudges it), 50 iterations: beta 0 and 0.5 finite and decreasing,
+       beta 1 and 2 within 1e-4 of mur KL and EU on the plain route (the
+       kernel route's distance printed beside it); it/s;
+     - the sklearn estimator at config[2]'s stand-in (6040x3706 r64):
+       'cd' and 'mu' with KL from 'nndsvd', 50 iterations, transform of
+       512 new rows finite and >= 0;
+     - python -m tpunmf_torch in subprocesses on the 8192x8192 X (.npy):
+       factorize with --checkpoint (iterations 49, its save file), the
+       same command again (it resumes at the end: the same line), and a
+       grid of 4 rows beside them;
+     - utils: MetricsLogger over 100 MUR EU iterations in blocks of 25 (4
+       records, its mean it/s beside the wall rate), trace() around 5
+       iterations (names the route's kernels), determinism_check of 10
+       iterations of MUR EU and of HALS on the kernel routes.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -1829,6 +1859,382 @@ def roundtrip_phase(tt, x, k, **kw):
     print(f"  save/load round trip ok: {os.path.basename(path)}", flush=True)
 
 
+# Phase 5: the tooling's paths on the card.  Checkpoint/resume at full width
+# must give the uninterrupted run's bits (the kernels sum in a fixed order)
+CKPT_RUNS = (("MUR EU", dict(method="mur", distance_type="eu"), 60, 20),
+             ("ADMM EU adaptive", dict(method="admm", distance_type="eu",
+                                       rho_mode="adaptive", **ADMM_KW), 30, 10))
+# the lambda grid against sequential kernel-route runs from the same init:
+# the grid's products are cuBLAS's (TF32 off), the runs' the kernels'
+GRID_RTOL = 1e-4
+GRID_LAMBDAS = (0.0, 0.1, 1.0)
+GRID_ITERS, GRID_KL_ITERS = 50, 20
+# rank_scan's planted problem: each of X's 4096 columns dominated by one of
+# 16 components
+SCAN = dict(m=8192, n=4096, k=16, ks=(8, 16, 24), seeds=8, iters=100)
+# the sklearn estimator at BASELINE config[2]'s stand-in (movielens_like,
+# density 0.2, seed 2), and 512 new rows to transform
+SKLEARN = dict(m=6040, n=3706, k=64, new=512, iters=50)
+# beta = 1 and 2 against MUR KL and EU from one init on MUR's plain route:
+# the same f32 products on cuBLAS, the eps guards in other places
+# (tpunmf/solvers/beta.py:15-18).  The kernel route's distance is printed
+# beside it: its KL passes keep the tensor cores' truncated sums, 1.29e-4
+# off beta = 1 after 50 iterations here (PERF.md §6-7)
+BETA_RTOL = 1e-4
+BETA_ITERS = 50
+
+
+class _Stop(Exception):
+    pass
+
+
+@contextlib.contextmanager
+def timed_saves(torch, log):
+    """Time each checkpoint save of the runs inside (the device is
+    synchronised first, so the time is the copy to the host and the
+    write), with the bytes written."""
+    from tpunmf_torch.io import checkpoint
+
+    save = checkpoint.save_state
+
+    def timed(path, carry, meta=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = save(path, carry, meta=meta)
+        log.append((1e3 * (time.perf_counter() - t0), os.path.getsize(final)))
+        return final
+
+    checkpoint.save_state = timed
+    try:
+        yield log
+    finally:
+        checkpoint.save_state = save
+
+
+def same_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def checkpoint_path_run(torch, tt, card, x, k, init, d):
+    """Each run of CKPT_RUNS uninterrupted, then stopped after two blocks
+    and resumed: the resumed run's W, H, i and trace are the uninterrupted
+    run's bits."""
+    out = {}
+    for label, kw, iters, every in CKPT_RUNS:
+        kw = dict(kw, min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0,
+                  w_init=init[0], h_init=init[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = tt.NMF(x, k).factorize(**kw)
+        full_s = time.perf_counter() - t0
+        path = os.path.join(d, label.replace(" ", "_"))
+        blocks = []
+
+        def stop(carry):
+            blocks.append(carry.i)
+            if len(blocks) == 2:
+                raise _Stop
+
+        saves = []
+        with timed_saves(torch, saves):
+            try:
+                tt.NMF(x, k).factorize(checkpoint_path=path, checkpoint_every=every,
+                                       on_block_end=stop, **kw)
+            except _Stop:
+                pass
+            require(blocks == [every, 2 * every], f"{label}: blocks ended at {blocks}")
+            res = tt.NMF(x, k).factorize(checkpoint_path=path, checkpoint_every=every,
+                                         resume=True, **kw)
+        require(res.i == full.i == iters - 1, f"{label}: i {res.i} / {full.i}")
+        for name in ("w", "h", "obj_history"):
+            require(same_bits(getattr(res, name), getattr(full, name)),
+                    f"{label}: the resumed run's {name} is not the uninterrupted run's")
+        ms = [s for s, _ in saves]
+        out[label] = {"iterations": iters, "checkpoint_every": every, "saves": len(saves),
+                      "save_ms": ms, "save_bytes": saves[0][1],
+                      "uninterrupted_s": full_s,
+                      "final_objective": float(full.obj_history[-1])}
+        print(f"  checkpoint {label} {tuple(x.shape)} k{k}: resumed after 2 blocks of "
+              f"{every} = the uninterrupted {iters} iterations bit for bit (W, H, i, "
+              f"trace); {len(saves)} saves of {saves[0][1]} bytes, "
+              f"{min(ms):.2f}-{max(ms):.2f} ms each (mean {np.mean(ms):.2f}) [{card}]",
+              flush=True)
+    return out
+
+
+def lambda_grid_run(torch, tt, card, label, x, k, dist, lambdas, iters, init):
+    """mur_lambda_grid against one sequential kernel-route run of each
+    combination from the same init; combination-iterations a second."""
+    from tpunmf_torch.experiments import mur_lambda_grid
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    combos, ws, hs, objs = mur_lambda_grid(x, k, lambda_w=lambdas, lambda_h=lambdas,
+                                           distance_type=dist, n_iter=iters,
+                                           w_init=init[0], h_init=init[1])
+    objs = objs.cpu().numpy().astype(np.float64)
+    grid_s = time.perf_counter() - t0
+    require(np.all(np.isfinite(objs)), f"{label}: non-finite grid objective")
+    seq_s, worst = 0.0, 0.0
+    for b, (lw, lh) in enumerate(combos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = tt.NMF(x, k).factorize(method="mur", distance_type=dist, lambda_w=lw,
+                                     lambda_h=lh, w_init=init[0], h_init=init[1],
+                                     min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0,
+                                     objective="exact")
+        seq_s += time.perf_counter() - t0
+        want = np.asarray(ref.obj_history[1:], dtype=np.float64)
+        err = float(np.max(np.abs(objs[b] - want) / np.abs(want)))
+        worst = max(worst, err)
+        require(err <= GRID_RTOL, f"{label} ({lw}, {lh}): trace off the sequential run "
+                                  f"by {err:.3e} > {GRID_RTOL}")
+    n = len(combos) * iters
+    line = {"combinations": len(combos), "iterations": iters, "grid_s": grid_s,
+            "sequential_s": seq_s, "grid_comb_it_s": n / grid_s,
+            "sequential_comb_it_s": n / seq_s, "max_rel_err": worst}
+    print(f"  {label}: {len(combos)} combinations x {iters} iterations, traces within "
+          f"{worst:.3e} of the sequential kernel-route runs; grid "
+          f"{line['grid_comb_it_s']:.1f} combination-iterations/s, sequential "
+          f"{line['sequential_comb_it_s']:.1f} [{card}]", flush=True)
+    return line
+
+
+def planted_x(torch, m, n, k, seed, device):
+    """X = W H with column j of H dominated by component j % k."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    w = torch.rand((m, k), generator=g, device=device) + 0.1
+    h = 0.02 * torch.rand((k, n), generator=g, device=device)
+    cols = torch.arange(n, device=device)
+    h[cols % k, cols] += 1.0
+    return w @ h
+
+
+def tooling_phase(torch, tt, drive, card, eu_np, eu_x, eu_init, hals_init, kl2_x):
+    """Phase 5: checkpoint/resume, the lambda grid, the rank scan, the
+    beta-divergence MUR, the sklearn estimator, the CLI in a subprocess,
+    and the profiling aids, each path's kernel launches counted."""
+    from tpunmf_torch.data import movielens_like
+    from tpunmf_torch.experiments import rank_scan
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.sklearn_api import NMF as SkNMF
+    from tpunmf_torch.solvers import hals, mur, mur_beta
+    from tpunmf_torch.utils import MetricsLogger, determinism_check, trace
+
+    k, dev = eu_init[0].shape[1], eu_x.device
+    line = {}
+    with tempfile.TemporaryDirectory() as d:
+        line["checkpoint"] = drive(
+            "checkpoint/resume path", SINGLE_EU,
+            lambda: checkpoint_path_run(torch, tt, card, eu_x, k, eu_init, d))
+
+        def grid_path():
+            eu = lambda_grid_run(torch, tt, card, f"lambda grid EU {tuple(eu_x.shape)} k{k}",
+                                 eu_x, k, "eu", GRID_LAMBDAS, GRID_ITERS, eu_init)
+            init = random_init(0, *kl2_x.shape, k, device=kl2_x.device)
+            kl = lambda_grid_run(torch, tt, card, f"lambda grid KL {tuple(kl2_x.shape)} k{k}",
+                                 kl2_x, k, "kl", GRID_LAMBDAS[:2], GRID_KL_ITERS, init)
+            return {"EU": eu, "KL": kl}
+
+        line["lambda_grid"] = drive("lambda grid path", SINGLE_EU + (
+            "kl_ratio", "kl_obj", "mur_iteration_kl"), grid_path)
+
+        def scan_path():
+            x = planted_x(torch, SCAN["m"], SCAN["n"], SCAN["k"], seed=6, device=dev)
+            out = []
+            for kk in SCAN["ks"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = rank_scan(x, (kk,), n_seeds=SCAN["seeds"], n_iter=SCAN["iters"])[0]
+                r["seconds"] = time.perf_counter() - t0
+                require(0.0 <= r["dispersion"] <= 1.0 + 1e-6
+                        and np.isfinite(r["mean_final_obj"]),
+                        f"rank_scan k{kk}: dispersion {r['dispersion']}, "
+                        f"objective {r['mean_final_obj']}")
+                out.append(r)
+            print(f"  rank_scan planted {tuple(x.shape)} ({SCAN['k']} components), "
+                  f"{SCAN['seeds']} "
+                  f"seeds x {SCAN['iters']} iterations: " + ", ".join(
+                      f"k{r['k']} dispersion {r['dispersion']:.4f} in {r['seconds']:.2f} s"
+                      for r in out) + f" [{card}]", flush=True)
+            return out
+
+        line["rank_scan"] = drive("rank_scan path", ("eu_residual_obj",), scan_path)
+
+        def beta_path():
+            nudged = [f.clamp(min=1e-6).contiguous() for f in eu_init]  # mur_beta's nudge
+            out = {}
+            for beta in (0.0, 0.5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = mur_beta(eu_x, k, beta=beta, w_init=nudged[0], h_init=nudged[1],
+                               min_iter=BETA_ITERS, max_iter=BETA_ITERS, tol1=0.0, tol2=0.0)
+                secs = time.perf_counter() - t0
+                hist = np.asarray(res.obj_history, dtype=np.float64)
+                require(np.all(np.isfinite(hist)) and hist[-1] < hist[0],
+                        f"mur_beta {beta}: trace {hist[0]} -> {hist[-1]}")
+                out[f"beta={beta:g}"] = {"it_s": BETA_ITERS / secs, "first": hist[0],
+                                         "final": hist[-1]}
+            for beta, dist in ((1.0, "kl"), (2.0, "eu")):
+                kw = dict(w_init=eu_init[0], h_init=eu_init[1], min_iter=BETA_ITERS,
+                          max_iter=BETA_ITERS, tol1=0.0, tol2=0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = mur_beta(eu_x, k, beta=beta, **kw)
+                secs = time.perf_counter() - t0
+                a = np.asarray(res.obj_history, dtype=np.float64)
+                errs = []
+                for plain in (True, False):
+                    ref = mur(eu_x, k, distance_type=dist, use_pallas=not plain, **kw)
+                    b = np.asarray(ref.obj_history, dtype=np.float64)
+                    errs.append(float(np.max(np.abs(a - b) / np.abs(b))))
+                require(errs[0] <= BETA_RTOL,
+                        f"mur_beta {beta} off MUR {dist}'s plain route by {errs[0]:.3e}")
+                out[f"beta={beta:g}"] = {"it_s": BETA_ITERS / secs, "first": a[0],
+                                         "final": a[-1], "max_rel_err_vs_mur_plain": errs[0],
+                                         "max_rel_err_vs_mur_kernels": errs[1]}
+            print(f"  mur_beta {tuple(eu_x.shape)} k{k}, {BETA_ITERS} iterations: " + "; ".join(
+                f"{b} {r['it_s']:.1f} it/s, objective {r['first']:.6e} -> {r['final']:.6e}"
+                + (f", {r['max_rel_err_vs_mur_plain']:.2e} off MUR's plain route "
+                   f"({r['max_rel_err_vs_mur_kernels']:.2e} off its kernel route)"
+                   if "max_rel_err_vs_mur_plain" in r else "")
+                for b, r in out.items()) + f" [{card}]", flush=True)
+            return out
+
+        line["mur_beta"] = drive("mur_beta path", ("eu_residual_obj", "kl_obj"), beta_path)
+
+        def sklearn_path():
+            m, n, kk, iters = SKLEARN["m"], SKLEARN["n"], SKLEARN["k"], SKLEARN["iters"]
+            x = torch.from_numpy(movielens_like(m, n, density=0.2, seed=2)).to(dev)
+            new = torch.from_numpy(movielens_like(SKLEARN["new"], n, density=0.2,
+                                                  seed=7)).to(dev)
+            out = {}
+            for label, kw in (("cd", dict(solver="cd")),
+                              ("mu KL", dict(solver="mu", beta_loss="kullback-leibler"))):
+                est = SkNMF(n_components=kk, init="nndsvd", max_iter=iters, tol=0.0,
+                            min_iter=iters, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                est.fit(x)
+                secs = time.perf_counter() - t0
+                enc = est.transform(new)
+                require(est.n_iter_ == iters - 1 and np.isfinite(est.reconstruction_err_),
+                        f"sklearn {label}: n_iter_ {est.n_iter_}, "
+                        f"err {est.reconstruction_err_}")
+                require(enc.shape == (SKLEARN["new"], kk) and np.all(np.isfinite(enc))
+                        and enc.min() >= 0, f"sklearn {label}: transform of new rows")
+                out[label] = {"n_iter_": est.n_iter_,
+                              "reconstruction_err_": est.reconstruction_err_,
+                              "fit_s": secs}
+                print(f"  sklearn NMF {label} {tuple(x.shape)} k{kk}: n_iter_ {est.n_iter_}, "
+                      f"reconstruction_err_ {est.reconstruction_err_:.6e}, fit {secs:.2f} s "
+                      f"(NNDSVD included); transform of {SKLEARN['new']} new rows finite, "
+                      f">= 0 "
+                      f"[{card}]", flush=True)
+            return out
+
+        line["sklearn"] = drive("sklearn path", ("gs_sweep", "eu_residual_obj", "kl_obj"),
+                                sklearn_path)
+        line["cli"] = cli_path(card, eu_np, k, d, dev.type)
+
+        def profiling_path():
+            kw = dict(distance_type="eu", w_init=eu_init[0], h_init=eu_init[1], tol1=0.0,
+                      tol2=0.0)
+            logger = MetricsLogger(flops_per_iter=6.0 * eu_x.numel() * k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mur(eu_x, k, min_iter=100, max_iter=100, block_size=25, on_block_end=logger,
+                **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s = logger.summary()
+            require(len(logger.records) == 4 and s["iterations"] == 100,
+                    f"MetricsLogger: {len(logger.records)} records, {s['iterations']}")
+            tdir = os.path.join(d, "trace")
+            with trace(tdir):
+                mur(eu_x, k, min_iter=5, max_iter=5, **kw)
+                torch.cuda.synchronize()
+            with open(os.path.join(tdir, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+            require(any("pass_kernel" in n for n in names)
+                    and any(s_ in n for n in names for s_ in ("eu_rows_tc_kernel",
+                                                             "eu_cols_tc_kernel")),
+                    f"trace: the route's kernels are not named in {names[:12]}")
+
+            def run(fn, **extra):
+                return lambda: (lambda r: (r.w, r.h, r.obj_history))(
+                    fn(eu_x, k, min_iter=10, max_iter=10, **{**kw, **extra}))
+
+            require(determinism_check(run(mur), runs=2), "MUR EU not deterministic")
+            require(determinism_check(run(hals, w_init=hals_init[0], h_init=hals_init[1]),
+                                      runs=2), "HALS not deterministic")
+            out = {"records": len(logger.records),
+                   "logger_mean_it_s": s["mean_iters_per_sec"], "wall_it_s": 100 / wall,
+                   "trace_kernels": len(names)}
+            print(f"  MetricsLogger on 100 MUR EU iterations (blocks of 25): 4 records, "
+                  f"mean {s['mean_iters_per_sec']:.1f} it/s, wall {100 / wall:.1f} it/s; "
+                  f"trace() of 5 iterations names {len(names)} kernels; determinism_check "
+                  f"passes for MUR EU and HALS (10 iterations, kernel routes) [{card}]",
+                  flush=True)
+            return out
+
+        line["profiling"] = drive("profiling path", SINGLE_EU + ("gs_sweep",),
+                                  profiling_path)
+    return line
+
+
+def cli_path(card, eu_np, k, d, device):
+    """python -m tpunmf_torch in subprocesses on the card: factorize with a
+    checkpoint, the same command again (it resumes at the saved end), and a
+    grid beside them."""
+    data = os.path.join(d, "x.npy")
+    np.save(data, eu_np)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m", "tpunmf_torch"]
+    grid = subprocess.Popen(cli + ["grid", data, "-k", str(k), "--features", f"{k // 2},{k}",
+                                   "--lambda-w", "0,0.1", "--max-iter", "20", "--no-save",
+                                   "--device", device],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=d)
+    fact = cli + ["factorize", data, "-k", str(k), "--distance-type", "eu", "--nndsvd",
+                  "zero", "--min-iter", "50", "--max-iter", "50", "--checkpoint",
+                  os.path.join(d, "cli_state"), "--save-dir", os.path.join(d, "out"),
+                  "--device", device]
+    rows, secs = [], []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = subprocess.run(fact, capture_output=True, text=True, env=env, cwd=d,
+                               timeout=300)
+            secs.append(time.perf_counter() - t0)
+            require(r.returncode == 0, f"CLI factorize exited {r.returncode}: "
+                                       f"{r.stderr[-2000:]}")
+            rows.append([json.loads(s) for s in r.stdout.splitlines() if s.startswith("{")])
+        g_out, g_err = grid.communicate(timeout=300)
+    finally:
+        if grid.poll() is None:
+            grid.kill()
+            grid.communicate()
+    require(grid.returncode == 0, f"CLI grid exited {grid.returncode}: {g_err[-2000:]}")
+    first, again = rows[0][0], rows[1][0]
+    saved = os.listdir(os.path.join(d, "out"))
+    require(first["iterations"] == 49 and again == first,
+            f"CLI factorize: {first} then {again}")
+    require(any(s.startswith(f"nmf_mur_{k}_eu") for s in saved), f"CLI saved {saved}")
+    grid_rows = [json.loads(s) for s in g_out.splitlines() if s.startswith("{")]
+    require(len(grid_rows) == 4 and all(np.isfinite(r["final_objective"]) for r in grid_rows),
+            f"CLI grid printed {grid_rows}")
+    print(f"  CLI factorize {eu_np.shape} k{k} --checkpoint: iterations 49, objective "
+          f"{first['final_objective']:.6e}, saved {saved[0]}, {secs[0]:.1f} s; the same "
+          f"command resumed at the end with the same line in {secs[1]:.1f} s; grid printed "
+          f"4 rows (subprocesses, NNDSVD included) [{card}]", flush=True)
+    return {"factorize_s": secs[0], "resume_s": secs[1],
+            "final_objective": first["final_objective"], "grid_rows": len(grid_rows)}
+
+
 def main() -> int:
     import torch
 
@@ -2372,7 +2778,13 @@ def main() -> int:
     print("phase 4: save/load", flush=True)
     roundtrip_phase(tt, ragged, 8, method="mur", distance_type="eu")
     roundtrip_phase(tt, ragged, 8, method="ao_admm", **AO_KL_KW)
-    print(f"  phase 4 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 4 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 5: tooling [{card}]", flush=True)
+    torch.cuda.empty_cache()  # room for the CLI's processes beside this one
+    tooling = tooling_phase(torch, tt, drive, card, eu_np, eu_x, eu_nndsvd, hals_init, kl2_x)
+    print(f"  phase 5 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -2402,7 +2814,7 @@ def main() -> int:
                  for label, r in runs.items()},
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
-        "profiles": profiles}))
+        "profiles": profiles, "tooling": tooling}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -153,9 +153,13 @@ def test_facade_admm_save_name_and_round_trip(tmp_path):
     (dict(spd_solver="lu"), ValueError),
     (dict(distance_type="is"), TypeError),
     (dict(w_init=np.ones((60, 5))), ValueError),
-    (dict(checkpoint_path="ckpt"), NotImplementedError),
+    # checkpoints are ported: a checkpoint of another configuration is refused
+    (dict(checkpoint_path="ckpt"), ValueError),
 ])
-def test_admm_errors(kw, exc):
+def test_admm_errors(kw, exc, tmp_path):
+    if "checkpoint_path" in kw:
+        kw = dict(checkpoint_path=str(tmp_path / "ckpt"), resume=True)
+        tadmm(t(lowrank()), 5, max_iter=3, rho=2.0, **kw)
     with pytest.raises(exc):
         tadmm(t(lowrank()), 5, max_iter=3, **kw)
 

@@ -129,11 +129,15 @@ def test_random_init_is_uniform_and_seeded():
     (dict(w_init=np.ones((60, 5))), ValueError, True),
     (dict(h_init=np.ones((5, 48))), ValueError, True),
     (dict(nnls_opts=dict(unknown=1)), TypeError, True),
-    # the port's own: no checkpoints yet, and no bf16 matmul precision
-    (dict(checkpoint_path="ckpt"), NotImplementedError, False),
+    # the port's own: a checkpoint of another NNLS configuration is refused,
+    # and there is no bf16 matmul precision
+    (dict(checkpoint_path="ckpt"), ValueError, False),
     (dict(nnls_opts=dict(precision="bfloat16")), ValueError, False),
 ])
-def test_anls_errors(kw, exc, as_tpunmf):
+def test_anls_errors(kw, exc, as_tpunmf, tmp_path):
+    if "checkpoint_path" in kw:
+        kw = dict(checkpoint_path=str(tmp_path / "ckpt"), resume=True)
+        tanls(t(lowrank()), 5, max_iter=2, nnls_solver="bpp", **kw)
     with pytest.raises(exc):
         tanls(t(lowrank()), 5, max_iter=2, **kw)
     if as_tpunmf:

@@ -267,13 +267,22 @@ def test_ao_admm_errors_are_tpunmf_s(kw):
     assert str(got.value) == str(want.value)
 
 
-def test_bfloat16_and_checkpoints_raise():
+def test_bfloat16_and_checkpoints_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="bfloat16"):
         jao_admm(jnp.asarray(lowrank(), dtype=jnp.bfloat16), 5, max_iter=3)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tao_admm(t(lowrank()).bfloat16(), 5, max_iter=3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tao_admm(t(lowrank()), 5, max_iter=3, checkpoint_path="ckpt")
+    # checkpoints are ported: a saved run resumes at its end, and a fixed-rho
+    # checkpoint is refused by an adaptive run (rho_mode is in the tag)
+    ck = str(tmp_path / "ckpt")
+    done = tao_admm(t(lowrank()), 5, min_iter=3, max_iter=3, checkpoint_path=ck)
+    again = tao_admm(t(lowrank()), 5, min_iter=3, max_iter=3, checkpoint_path=ck,
+                     resume=True)
+    np.testing.assert_array_equal(again.w, done.w)
+    assert again.obj_history == done.obj_history
+    with pytest.raises(ValueError, match="configuration mismatch"):
+        tao_admm(t(lowrank()), 5, min_iter=3, max_iter=3, checkpoint_path=ck,
+                 resume=True, rho_mode="adaptive")
 
 
 def test_facade_ao_admm_save_name_and_round_trip(tmp_path):

@@ -74,13 +74,16 @@ def test_facade_properties_and_save_guard(tmp_path):
 
 
 @pytest.mark.parametrize("method", ["anls", "admm", "ao_admm", "hals", "ntf"])
-def test_unported_methods_raise(method):
+def test_unported_methods_raise(method, tmp_path):
     # hals is ported, its multilevel= warm start is not; anls, admm and
-    # ao_admm are ported, their checkpoints are not
-    kw = {"hals": {"multilevel": {"levels": 2}},
-          "anls": {"checkpoint_path": "ckpt"},
-          "admm": {"checkpoint_path": "ckpt"},
-          "ao_admm": {"checkpoint_path": "ckpt"}}.get(method, {})
+    # ao_admm are ported and so are their checkpoints: the run saves its state
+    if method in ("anls", "admm", "ao_admm"):
+        ck = str(tmp_path / "ckpt")
+        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, max_iter=3,
+                                                    checkpoint_path=ck)
+        assert os.path.exists(ck + ".npz")
+        return
+    kw = {"hals": {"multilevel": {"levels": 2}}}.get(method, {})
     with pytest.raises(NotImplementedError, match="not ported"):
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, **kw)
 
@@ -95,6 +98,12 @@ def test_unknown_method_fails_as_tpunmf_does():
 
 @pytest.mark.parametrize("option", ["schedule", "beta", "mask", "multilevel", "mesh"])
 def test_unported_routes_raise(option):
+    if option == "beta":
+        # beta= is ported: the beta-divergence MUR, beta=1 tagged as KL
+        res = tpunmf_torch.NMF(t(lowrank()), 5).factorize(
+            method="mur", beta=1, min_iter=3, max_iter=3)
+        assert res.experiment.distance_type == "kl" and res.i == 2
+        return
     if option == "mask":
         # mask= is ported; with an unported route it fails tpunmf's
         # mutual-exclusion check first (tpunmf/api.py:122-129)
@@ -107,13 +116,17 @@ def test_unported_routes_raise(option):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(checkpoint_path="ckpt"), NotImplementedError),
+    # a checkpoint of another configuration (max_iter 5) is refused
+    (dict(checkpoint_path="ckpt"), ValueError),
     (dict(multilevel={"levels": 2}), NotImplementedError),
     (dict(w_init=np.ones((60, 5))), ValueError),
     (dict(distance_type="is"), KeyError),
     (dict(objective_every=0), ValueError),
 ])
-def test_solver_errors(kw, exc):
+def test_solver_errors(kw, exc, tmp_path):
+    if "checkpoint_path" in kw:
+        kw = dict(checkpoint_path=str(tmp_path / "ckpt"), resume=True)
+        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", max_iter=5, **kw)
     with pytest.raises(exc):
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", max_iter=3, **kw)
 

@@ -235,15 +235,19 @@ def test_generated_inits_are_nudged_and_explicit_ones_are_not():
     np.testing.assert_allclose(got.h, np.asarray(want.h), rtol=1e-9, atol=0)
 
 
-def test_hals_errors_and_inert_sweep_unroll():
+def test_hals_errors_and_inert_sweep_unroll(tmp_path):
     with pytest.raises(KeyError):
         thals(t(lowrank()), 4, distance_type="kl")
     with pytest.raises(ValueError):
         thals(t(lowrank()), 4, inner_sweeps=0)
     with pytest.raises(ValueError):
         thals(t(lowrank()), 4, w_init=_W0)
-    with pytest.raises(NotImplementedError):
-        thals(t(lowrank()), 5, max_iter=3, checkpoint_path="ckpt")
+    # checkpoints are ported: a checkpoint of other sweeps is refused
+    ck = str(tmp_path / "ckpt")
+    thals(t(lowrank()), 5, max_iter=3, checkpoint_path=ck)
+    with pytest.raises(ValueError, match="configuration mismatch"):
+        thals(t(lowrank()), 5, max_iter=3, checkpoint_path=ck, resume=True,
+              inner_sweeps=1)
     a = thals(t(lowrank()), 5, max_iter=5, sweep_unroll=1)
     b = thals(t(lowrank()), 5, max_iter=5, sweep_unroll=8)
     np.testing.assert_array_equal(a.obj_history, b.obj_history)

@@ -152,8 +152,12 @@ def test_masked_errors_and_facade(tmp_path):
         tmur_masked(x, t(_M[:-1]), 4)
     with pytest.raises(KeyError):
         tmur_masked(x, t(_M), 4, distance_type="is")
-    with pytest.raises(NotImplementedError):
-        tmur_masked(x, t(_M), 4, max_iter=3, checkpoint_path="ckpt")
+    # checkpoints are ported: an unmasked run's checkpoint is refused (the
+    # masked tag, tpunmf/solvers/masked.py:212)
+    ck = str(tmp_path / "ckpt")
+    tpunmf_torch.solvers.mur(x, 4, max_iter=3, checkpoint_path=ck)
+    with pytest.raises(ValueError, match="configuration mismatch"):
+        tmur_masked(x, t(_M), 4, max_iter=3, checkpoint_path=ck, resume=True)
     with pytest.raises(ValueError, match="mutually exclusive"):
         tpunmf_torch.NMF(x, 4).factorize(method="mur", mask=t(_M), beta=1.0)
     kw = dict(distance_type="kl", max_iter=4, nndsvd_init=(True, "zero"))

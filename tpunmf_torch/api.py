@@ -6,11 +6,11 @@ saving=True, param_file=None)``, ``.w`` / ``.h``, the sklearn-style
 ``transform`` and ``inverse_transform``, ``factorize``,
 ``default_save_name`` (the reference's file-name grammar,
 nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
-Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR),
-``method="anls"``, ``method="hals"``, ``method="admm"`` and
-``method="ao_admm"``; the other known methods and the routing extensions
-``schedule=``, ``beta=``, ``multilevel=`` and ``mesh=`` raise
-``NotImplementedError``.
+Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR and
+``beta=`` for the beta-divergence MUR), ``method="anls"``,
+``method="hals"``, ``method="admm"`` and ``method="ao_admm"``; the other
+known methods and the routing extensions ``schedule=``, ``multilevel=``
+and ``mesh=`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,12 +25,12 @@ from .io.npz import load_results, save_results
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
 _PORTED = ("mur", "anls", "hals", "admm", "ao_admm")
-_UNPORTED_OPTIONS = ("schedule", "beta", "multilevel", "mesh")
+_UNPORTED_OPTIONS = ("schedule", "multilevel", "mesh")
 
 
 class NMF:
-    """Non-negative matrix factorization (MUR, masked MUR, ANLS, HALS, ADMM
-    and AO-ADMM ported).
+    """Non-negative matrix factorization (MUR, masked and beta-divergence
+    MUR, ANLS, HALS, ADMM and AO-ADMM ported).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -90,7 +90,7 @@ class NMF:
                 f"method {method!r} is not ported yet; ported: "
                 + " ".join(_PORTED))
         params = {**self.method_params, **method_params}
-        mask = None
+        mask = beta = None
         if method == "mur":
             # routing extensions, as tpunmf/api.py:122-129 (None is ignored)
             chosen = [n for n in ("schedule", "beta", "mask")
@@ -99,6 +99,7 @@ class NMF:
                 raise ValueError(
                     f"{' and '.join(chosen)} are mutually exclusive")
             mask = params.pop("mask", None)
+            beta = params.pop("beta", None)
         for opt in _UNPORTED_OPTIONS:
             if params.pop(opt, None) is not None:
                 raise NotImplementedError(f"{opt}= is not ported yet")
@@ -113,6 +114,9 @@ class NMF:
             self.results = solvers.admm(self.data, self.factors, **params)
         elif method == "ao_admm":
             self.results = solvers.ao_admm(self.data, self.factors, **params)
+        elif beta is not None:
+            self.results = solvers.mur_beta(self.data, self.factors, beta=beta,
+                                            **params)
         elif mask is not None:
             self.results = solvers.mur_masked(self.data, mask, self.factors,
                                               **params)

@@ -173,6 +173,20 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def set_build_dir(path) -> None:
+    """Build and load the library in ``path`` from now on (the port's
+    counterpart of a persistent compilation cache: a directory that holds
+    the built library is reused by every later process).  Raises if the
+    library was already loaded from another directory."""
+    global _BUILD_DIR
+    path = Path(path).resolve()
+    if library.cache_info().currsize and path != _BUILD_DIR.resolve():
+        raise RuntimeError(
+            f"the kernel library is already loaded from {_BUILD_DIR}; "
+            "set the build directory before the first kernel call")
+    _BUILD_DIR = path
+
+
 def check(status: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if status != 0:

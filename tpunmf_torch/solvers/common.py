@@ -8,8 +8,8 @@ exactly the same iteration as ``tpunmf``.  ``obj_buf`` is a preallocated
 was recorded.
 
 Blocked execution (``block_size`` / ``on_block_end``) hands control back
-between blocks with identical per-iteration semantics.  Checkpointing is
-not ported yet.
+between blocks with identical per-iteration semantics; ``run_loop`` adds
+checkpoint/resume between blocks (``io/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -145,11 +145,32 @@ def run_loop(
     resume: bool = False,
     config_tag: Optional[str] = None,
 ) -> LoopCarry:
-    """drive(); checkpoint/resume is not ported yet."""
+    """drive() plus optional checkpoint/resume (tpunmf/solvers/common.py:236-271).
+
+    With ``checkpoint_path`` set, the carry is saved atomically every block
+    (block size defaults to ``checkpoint_every`` or 500) and, when
+    ``resume=True`` and a checkpoint exists, restored before running: the
+    loop continues from the saved iteration with identical semantics.
+    ``config_tag`` is stored with each checkpoint and checked on resume, so
+    a checkpoint of another configuration is refused even where the shapes
+    coincide.  Each save copies the state to the host, which waits for the
+    device.
+    """
     if checkpoint_path:
-        raise NotImplementedError(
-            "checkpoint_path: io/checkpoint.py is not ported yet "
-            "(ROADMAP.md, queue 1, item 6 'Tooling')")
+        from ..io.checkpoint import checkpoint_exists, load_state, save_state
+
+        if resume and checkpoint_exists(checkpoint_path):
+            carry = load_state(checkpoint_path, carry, expected_meta=config_tag)
+        if block_size is None:
+            block_size = checkpoint_every or 500
+
+        user_cb = on_block_end
+
+        def on_block_end(c):
+            save_state(checkpoint_path, c, meta=config_tag)
+            if user_cb is not None:
+                user_cb(c)
+
     return drive(run_block, carry, max_iter=max_iter, block_size=block_size,
                  on_block_end=on_block_end)
 

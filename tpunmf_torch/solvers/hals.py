@@ -134,8 +134,8 @@ def hals(
     ``sweep_unroll`` is accepted and has no effect: it is the unroll count
     of ``tpunmf``'s XLA loop.  ``use_pallas``: kernels on/off (default on
     for CUDA X; they engage for float32 X, the sweeps up to k = 1024 and
-    the objective up to 2048).
-    ``checkpoint_path`` is not ported yet and raises.
+    the objective up to 2048).  ``checkpoint_path`` / ``checkpoint_every``
+    / ``resume``: periodic saves and restart (``solvers/common.run_loop``).
     """
     if distance_type != "eu":
         raise KeyError("HALS is Euclidean-only; use mur/admm for 'kl'.")

@@ -108,8 +108,8 @@ def mur_masked(
     any finite filler (0 is conventional).  Other kwargs match
     :func:`tpunmf_torch.solvers.mur` (``key``: a ``torch.Generator`` or int
     seed for the random init); ``use_pallas``: kernel route on/off
-    (default on for CUDA X; it engages where ``masked_takes`` says so).
-    ``checkpoint_path`` is not ported yet.
+    (default on for CUDA X; it engages where ``masked_takes`` says so);
+    ``checkpoint_path`` / ``checkpoint_every`` / ``resume``: as ``mur``.
     """
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
