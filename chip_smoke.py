@@ -164,8 +164,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        objectives, seconds a rank;
      - mur_beta at 8192x8192 r128 from NNDSVD 'zero' (nudged as mur_beta
        nudges it), 50 iterations: beta 0 and 0.5 finite and decreasing,
-       beta 1 and 2 within 1e-4 of mur KL and EU on the plain route (the
-       kernel route's distance printed beside it); it/s;
+       beta 1 and 2 within 1e-4 of mur KL and EU on the plain route and on
+       the kernel route; it/s;
      - the sklearn estimator at config[2]'s stand-in (6040x3706 r64):
        'cd' and 'mu' with KL from 'nndsvd', 50 iterations, transform of
        512 new rows finite and >= 0;
@@ -177,6 +177,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        records, its mean it/s beside the wall rate), trace() around 5
        iterations (names the route's kernels), determinism_check of 10
        iterations of MUR EU and of HALS on the kernel routes.
+  6. MUR KL against float64 (fault 3.5), every time beside the card's name
+     and power limit: 50 iterations from one init at 8192x8192 r128 (its
+     NNDSVD 'zero'), 8192x4096 r128 and BASELINE config[1] (random_init
+     seed 0), on the plain route in float64, the plain route in f32 and the
+     kernel route in f32; the kernel route within 1e-5 of float64 at every
+     iteration (twice the plain f32 route's distance where that exceeds
+     5e-6).  Then the solver families, 50 iterations a run, kernel route
+     against plain route from one init, with it/s over factorize(), ms an
+     iteration, final objective and launches:
+     - semi_nmf on the 8192x8192 X minus its column means (mixed sign)
+       from one seeded |N(0, 1)| H; onmf from X's NNDSVD 'zero' (nudged to
+       1e-6): eu_residual_obj once an iteration and once for the initial
+       objective, nothing else; the plain route nothing; W and H the same
+       bits on both routes, traces within OBJECTIVE_RTOL; semi_nmf's trace
+       non-increasing within EU_MONOTONE_RTOL;
+     - robust_nmf on X with 50 |N(0, 1)| added to 1% of its columns
+       (tests/test_robust.py's recipe), from the same nudged init: no
+       kernel (one route, run twice: the same bits), its l2,1 trace
+       non-increasing within EU_MONOTONE_RTOL;
+     - the multilevel warm start (levels 2, factor 4, 50 coarse
+       iterations) over HALS (inner_sweeps=2) and MUR EU at 8192x16384
+       r128: its route's kernels and none of the other's, the plain route
+       nothing, the traces within ROUTE_RTOL over ROUTE_ITERS iterations,
+       and below a cold start's of the same fine budget;
+     each final objective within OBJECTIVE_RTOL of the final (W, H)'s in
+     float64.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -1469,6 +1495,80 @@ def objective_f64(torch, x, w, h, dist, rows=4096):
                for r in range(0, x.shape[0], rows))
 
 
+# MUR KL against float64 (fault 3.5): 50 iterations, the exact objective,
+# every f32 trace held to the float64 plain route's from the same init
+KL_F64_ITERS = 50
+KL_F64_TOL = 1e-5
+# where the plain f32 route is itself farther than this from float64, the
+# kernel route's gate is twice the plain route's distance
+KL_F64_PLAIN_FLOOR = 5e-6
+
+
+def kl_f64_cases(torch, eu_x, eu_init, kl_x, kl2_x):
+    """The three shapes of the float64 check, each (label, X, k, W0, H0):
+    8192^2 r128 from its NNDSVD 'zero' (given, as the paths computed it);
+    KL 8192x4096 r128 (mur_iteration_kl) and BASELINE config[1] (the 2-pass
+    pair) from random_init(0)."""
+    from tpunmf_torch.init import random_init
+
+    cases = [(f"8192^2 r{eu_init[0].shape[1]} NNDSVD 'zero'", eu_x, eu_init[0].shape[1],
+              *eu_init)]
+    for label, x, k in ((f"KL {tuple(kl2_x.shape)} r{KL_SINGLE['k']}", kl2_x, KL_SINGLE["k"]),
+                        (f"config[1] {tuple(kl_x.shape)} r50", kl_x, 50)):
+        cases.append((label, x, k, *random_init(0, *x.shape, k, device=x.device)))
+    return cases
+
+
+def kl_f64_phase(torch, tt, cases, card, gate=True):
+    """MUR KL, KL_F64_ITERS iterations from one init three ways: the plain
+    route in float64 on the card (X and the init upcast), the plain route
+    in f32 and the kernel route in f32.  Prints each f32 trace's largest
+    relative distance from the float64 trace and the route mur_route
+    chose; with ``gate``, the kernel route must stay within KL_F64_TOL of
+    float64 at every iteration (twice the plain route's distance where
+    that exceeds KL_F64_PLAIN_FLOOR)."""
+    from tpunmf_torch.solvers import mur
+    from tpunmf_torch.solvers.mur import mur_route
+
+    out = {}
+    for label, x, k, w0, h0 in cases:
+        kw = dict(distance_type="kl", min_iter=KL_F64_ITERS, max_iter=KL_F64_ITERS,
+                  tol1=0.0, tol2=0.0)
+        ref = mur(x.double(), k, w_init=w0.double(), h_init=h0.double(), **kw)
+        want = np.asarray(ref.obj_history, dtype=np.float64)
+        del ref
+        dist, it_s = {}, {}
+        for name, plain in (("plain f32", True), ("kernels f32", False)):
+            mur(x, k, w_init=w0, h_init=h0, use_pallas=not plain,
+                **{**kw, "min_iter": 2, "max_iter": 2})  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mur(x, k, w_init=w0, h_init=h0, use_pallas=not plain, **kw)
+            it_s[name] = KL_F64_ITERS / (time.perf_counter() - t0)
+            got = np.asarray(res.obj_history, dtype=np.float64)
+            require(got.shape == want.shape and np.all(np.isfinite(got)),
+                    f"KL float64 check {label}: {name} trace")
+            dist[name] = float(np.max(np.abs(got - want) / np.abs(want)))
+        route = mur_route(x, k, "kl")[0]
+        tol = (KL_F64_TOL if dist["plain f32"] <= KL_F64_PLAIN_FLOOR
+               else 2.0 * dist["plain f32"])
+        rule = ("1e-5" if tol == KL_F64_TOL
+                else f"twice the plain route's distance, {tol:.3e}")
+        print(f"  MUR KL {label}, {KL_F64_ITERS} iterations against float64: plain f32 "
+              f"{dist['plain f32']:.3e}, kernels f32 {dist['kernels f32']:.3e} (route "
+              f"{route!r}); gate {rule}; {it_s['kernels f32']:.2f} it/s on the kernels, "
+              f"{it_s['plain f32']:.2f} plain (over mur(), init given) [{card}]", flush=True)
+        if gate:
+            require(dist["kernels f32"] <= tol,
+                    f"MUR KL {label}: the kernel route is {dist['kernels f32']:.3e} off "
+                    f"float64, above {tol:.3e}")
+        out[label] = {"plain_f32": dist["plain f32"], "kernels_f32": dist["kernels f32"],
+                      "route": route, "gate": tol, "it_s": it_s["kernels f32"],
+                      "plain_it_s": it_s["plain f32"]}
+        torch.cuda.empty_cache()
+    return out
+
+
 def config4_on_card(torch):
     """One card's cut of BASELINE config[4]'s matrix: lowrank_dense's recipe
     at seed 4 (the planted factors drawn from numpy's default_rng(4)), with
@@ -1875,11 +1975,10 @@ SCAN = dict(m=8192, n=4096, k=16, ks=(8, 16, 24), seeds=8, iters=100)
 # the sklearn estimator at BASELINE config[2]'s stand-in (movielens_like,
 # density 0.2, seed 2), and 512 new rows to transform
 SKLEARN = dict(m=6040, n=3706, k=64, new=512, iters=50)
-# beta = 1 and 2 against MUR KL and EU from one init on MUR's plain route:
-# the same f32 products on cuBLAS, the eps guards in other places
-# (tpunmf/solvers/beta.py:15-18).  The kernel route's distance is printed
-# beside it: its KL passes keep the tensor cores' truncated sums, 1.29e-4
-# off beta = 1 after 50 iterations here (PERF.md §6-7)
+# beta = 1 and 2 against MUR KL and EU from one init on MUR's plain route
+# (the same f32 products on cuBLAS, the eps guards in other places,
+# tpunmf/solvers/beta.py:15-18) and on its kernel route, whose KL numerators
+# round their sums (fault 3.5, phase 6)
 BETA_RTOL = 1e-4
 BETA_ITERS = 50
 
@@ -2090,8 +2189,9 @@ def tooling_phase(torch, tt, drive, card, eu_np, eu_x, eu_init, hals_init, kl2_x
                     ref = mur(eu_x, k, distance_type=dist, use_pallas=not plain, **kw)
                     b = np.asarray(ref.obj_history, dtype=np.float64)
                     errs.append(float(np.max(np.abs(a - b) / np.abs(b))))
-                require(errs[0] <= BETA_RTOL,
-                        f"mur_beta {beta} off MUR {dist}'s plain route by {errs[0]:.3e}")
+                for err, route in zip(errs, ("plain", "kernel")):
+                    require(err <= BETA_RTOL,
+                            f"mur_beta {beta} off MUR {dist}'s {route} route by {err:.3e}")
                 out[f"beta={beta:g}"] = {"it_s": BETA_ITERS / secs, "first": a[0],
                                          "final": a[-1], "max_rel_err_vs_mur_plain": errs[0],
                                          "max_rel_err_vs_mur_kernels": errs[1]}
@@ -2233,6 +2333,202 @@ def cli_path(card, eu_np, k, d, device):
           f"4 rows (subprocesses, NNDSVD included) [{card}]", flush=True)
     return {"factorize_s": secs[0], "resume_s": secs[1],
             "final_objective": first["final_objective"], "grid_rows": len(grid_rows)}
+
+
+# Phase 6: semi-NMF, ONMF and robust NMF at the bench's 8192^2 r128, the
+# multilevel warm start at 8192x16384 r128; 50 iterations a run
+FAMILY_ITERS = 50
+# robust NMF's X: outliers added to this share of the columns, as
+# tests/test_robust.py's recipe adds them (50 |N(0, 1)| a cell)
+ROBUST_OUTLIERS = 0.01
+MULTILEVEL = dict(levels=2, factor=4, coarse_iters=50)
+
+
+def l21_f64(torch, x, w, h, rows=4096):
+    """sum_j ||x_j - W h_j|| in float64 on the card, a block of rows at a
+    time (robust NMF's objective)."""
+    hd = h.double()
+    sq = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for r in range(0, x.shape[0], rows):
+        d = x[r:r + rows].double() - w[r:r + rows].double() @ hd
+        sq += torch.sum(d * d, dim=0)
+    return float(torch.sum(torch.sqrt(sq)))
+
+
+def family_run(torch, tt, counters, label, x, k, card, objective_of, *, routes=(True, False),
+               exact=None, needed=(), banned=(), monotone=False, same_bits=True, **kw):
+    """NMF(x, k).factorize(**kw) for FAMILY_ITERS iterations on each of
+    ``routes`` (use_pallas; robust NMF has one route, None, run twice): it/s
+    over factorize() (host clock with a synchronize, the init given), ms an
+    iteration (from the ends of the last FAMILY_ITERS one-iteration blocks,
+    the first left out), final objective and launches.  The first route
+    launches exactly ``exact`` (or each of ``needed`` and none of
+    ``banned``), every other route nothing; its final objective is within
+    OBJECTIVE_RTOL of the final (W, H)'s in float64 (``objective_of``); with
+    ``monotone`` its trace rises by no more than EU_MONOTONE_RTOL.  Between
+    routes: W and H the same bits and the traces within OBJECTIVE_RTOL, or
+    without ``same_bits`` the traces within ROUTE_RTOL over the first
+    ROUTE_ITERS iterations.  One warm-up iteration a route first."""
+    iters = FAMILY_ITERS
+    flag = (lambda route: {} if route is None else {"use_pallas": route})
+    for route in routes:
+        tt.NMF(x, k).factorize(**flag(route), **{**kw, "min_iter": 1, "max_iter": 1})
+
+    def one(route):
+        stamps = []
+        torch.cuda.synchronize()
+        before = counts(counters)
+        t0 = time.perf_counter()
+        res = tt.NMF(x, k).factorize(
+            min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0, block_size=1,
+            on_block_end=lambda c: stamps.append(time.perf_counter()), **flag(route), **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        hist = np.asarray(res.obj_history, dtype=np.float64)
+        require(res.i == iters - 1 and len(hist) == iters + 1,
+                f"{label}: ran {res.i + 1} iterations, expected {iters}")
+        require(np.all(np.isfinite(hist)) and np.all(np.isfinite(res.w))
+                and np.all(np.isfinite(res.h)), f"{label}: non-finite factors or trace")
+        return {"res": res, "hist": hist, "it_s": iters / secs,
+                "ms_per_it": 1e3 * (stamps[-1] - stamps[-iters]) / (iters - 1),
+                "launched": {n: c - before[n] for n, c in counts(counters).items()}}
+
+    first = one(routes[0])
+    res, hist = first["res"], first["hist"]
+    ref = objective_of(*(torch.from_numpy(np.ascontiguousarray(f)).to(x.device)
+                         for f in (res.w, res.h)))
+    ref_err = abs(hist[-1] / ref - 1)
+    launched = {n: c for n, c in first["launched"].items() if c}
+    out = {"it_s": first["it_s"], "ms_per_it": first["ms_per_it"], "obj0": float(hist[0]),
+           "obj": float(hist[-1]), "obj_f64": ref, "f64_err": ref_err, "launches": launched}
+    print(f"  {label}: obj[0]={hist[0]:.6e} obj[{iters}]={hist[-1]:.9e} (float64 {ref:.9e}, "
+          f"rel {ref_err:.3e}); {first['it_s']:.2f} it/s over factorize(), "
+          f"{first['ms_per_it']:.3f} ms an iteration; launches {launched} [{card}]",
+          flush=True)
+    if exact is not None:
+        require(first["launched"] == {n: exact.get(n, 0) for n in counters},
+                f"{label}: launches {launched}, not {exact}")
+    for name in needed:
+        require(first["launched"][name] > 0, f"{label}: {name} was not launched")
+    for name in banned:
+        require(first["launched"][name] == 0, f"{label}: {name} was launched off its route")
+    require(ref_err <= OBJECTIVE_RTOL,
+            f"{label}: the final objective is {ref_err:.3e} off its float64 value")
+    if monotone:
+        rises = np.diff(hist) / np.abs(hist[:-1])
+        out["max_rise"] = float(rises.max())
+        require(np.all(rises <= EU_MONOTONE_RTOL),
+                f"{label}: the objective rose by {rises.max():.3e}")
+    for route in routes[1:] if len(routes) > 1 else (routes[0],):
+        other = one(route)
+        name = "plain route" if route is False else "the same run again"
+        b = other["hist"]
+        if same_bits:
+            same = (np.array_equal(res.w, other["res"].w)
+                    and np.array_equal(res.h, other["res"].h))
+            err = float(np.max(np.abs(hist - b) / np.abs(b)))
+            tol, what = OBJECTIVE_RTOL, "traces"
+        else:
+            same = None
+            n = ROUTE_ITERS + 1
+            err = float(np.max(np.abs(hist[:n] - b[:n]) / np.abs(b[:n])))
+            tol, what = ROUTE_RTOL["float32"], f"first {ROUTE_ITERS} iterations"
+        out.update(other_it_s=other["it_s"], other_ms_per_it=other["ms_per_it"],
+                   other_obj=float(b[-1]), route_err=err)
+        print(f"  {label}: {name} {other['it_s']:.2f} it/s, {other['ms_per_it']:.3f} ms an "
+              f"iteration, obj[{iters}]={b[-1]:.9e}; "
+              + ("" if same is None else f"W, H {'the same bits' if same else 'DIFFER'}; ")
+              + f"{what} max rel {err:.3e} (tol {tol:.0e})", flush=True)
+        if route is False:
+            require(not any(other["launched"].values()),
+                    f"{label}: the plain route launched a kernel")
+        require(same is not False, f"{label}: W, H differ between runs")
+        require(err <= tol, f"{label}: the runs' traces disagree ({err:.3e})")
+    return out
+
+
+def families_phase(torch, tt, counters, drive, card, eu_x, eu_init):
+    """Phase 6: semi_nmf on the column-centred 8192^2 X from one seeded
+    |N(0, 1)| H, onmf from X's NNDSVD 'zero' (nudged to 1e-6), robust_nmf
+    on X with outliers in 1% of its columns from the same nudged init, and
+    the multilevel warm start over HALS and MUR EU at 8192x16384 r128,
+    each beside a cold start with the same fine budget."""
+    from tpunmf_torch.data import lowrank_dense
+
+    k, (m, n) = eu_init[0].shape[1], eu_x.shape
+    iters = FAMILY_ITERS
+    nudged = [f.clamp(min=1e-6).contiguous() for f in eu_init]
+    out = {}
+
+    def eu_f64(x):
+        return lambda w, h: objective_f64(torch, x, w, h, "eu")
+
+    def semi_path():
+        xc = eu_x - eu_x.mean(dim=0)
+        g = torch.Generator(device=eu_x.device)
+        g.manual_seed(0)
+        h0 = torch.randn((k, n), generator=g, device=eu_x.device).abs_()
+        require(float(xc.min()) < 0 < float(xc.max()), "semi_nmf: X is not mixed-sign")
+        out["semi_nmf"] = family_run(
+            torch, tt, counters, f"semi_nmf {tuple(xc.shape)} k{k} centred", xc, k, card,
+            eu_f64(xc), exact={"eu_residual_obj": iters + 1}, monotone=True,
+            method="semi_nmf", h_init=h0)
+
+    def onmf_path():
+        out["onmf"] = family_run(
+            torch, tt, counters, f"onmf {tuple(eu_x.shape)} k{k} NNDSVD 'zero'", eu_x, k, card,
+            eu_f64(eu_x), exact={"eu_residual_obj": iters + 1}, method="onmf",
+            w_init=nudged[0], h_init=nudged[1])
+
+    def robust_path():
+        rng = np.random.default_rng(0)
+        cols = torch.from_numpy(rng.choice(n, size=int(ROBUST_OUTLIERS * n), replace=False))
+        xr = eu_x.clone()
+        xr[:, cols.to(xr.device)] += torch.from_numpy(
+            50.0 * np.abs(rng.standard_normal((m, len(cols))))).float().to(xr.device)
+        out["robust_nmf"] = family_run(
+            torch, tt, counters, f"robust_nmf {tuple(xr.shape)} k{k}, {len(cols)} outlier "
+            "columns", xr, k, card, lambda w, h: l21_f64(torch, xr, w, h), routes=(None,),
+            exact={}, monotone=True, method="robust", w_init=nudged[0], h_init=nudged[1])
+
+    # each path: its kernel-route warm-up (2 objectives) and run (iters + 1)
+    drive("semi_nmf path", ("eu_residual_obj",), semi_path,
+          exact={"eu_residual_obj": iters + 3})
+    drive("onmf path", ("eu_residual_obj",), onmf_path, exact={"eu_residual_obj": iters + 3})
+    drive("robust_nmf path", (), robust_path, exact={})
+
+    t0 = time.perf_counter()
+    wide = torch.from_numpy(lowrank_dense(EU_WIDE["m"], EU_WIDE["n"], EU_WIDE["k"],
+                                          seed=EU_WIDE["seed"])).cuda()
+    print(f"  multilevel's X {tuple(wide.shape)} made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def multilevel_path(method, needed, banned, **kw):
+        label = f"multilevel {method} {tuple(wide.shape)} k{k}"
+        warm = family_run(torch, tt, counters, label, wide, k, card, eu_f64(wide),
+                          needed=needed, banned=banned, same_bits=False, method=method,
+                          multilevel=MULTILEVEL, **kw)
+        t0 = time.perf_counter()
+        cold = tt.NMF(wide, k).factorize(method=method, min_iter=iters, max_iter=iters,
+                                         tol1=0.0, tol2=0.0, **kw)
+        secs = time.perf_counter() - t0
+        warm.update(cold_obj=float(cold.obj_history[-1]), cold_it_s=iters / secs)
+        print(f"  {label}: cold start, {iters} iterations from the solver's own init: "
+              f"obj[{iters}]={cold.obj_history[-1]:.9e}, {iters / secs:.2f} it/s over "
+              f"factorize(); the warm start ends "
+              f"{warm['obj'] / cold.obj_history[-1]:.4f} of it [{card}]", flush=True)
+        require(warm["obj"] < cold.obj_history[-1],
+                f"{label}: the warm start ends at {warm['obj']:.6e}, not below the cold "
+                f"start's {cold.obj_history[-1]:.6e}")
+        out[f"multilevel {method}"] = warm
+
+    hals_kernels = ("gs_sweep", "eu_residual_obj")
+    drive("multilevel HALS path", hals_kernels,
+          lambda: multilevel_path("hals", hals_kernels, UPDATES, inner_sweeps=2))
+    drive("multilevel MUR path", ("eu_residual_obj",),
+          lambda: multilevel_path("mur", ("eu_residual_obj",), ("gs_sweep",),
+                                  distance_type="eu"))
+    return out
 
 
 def main() -> int:
@@ -2784,7 +3080,14 @@ def main() -> int:
     print(f"phase 5: tooling [{card}]", flush=True)
     torch.cuda.empty_cache()  # room for the CLI's processes beside this one
     tooling = tooling_phase(torch, tt, drive, card, eu_np, eu_x, eu_nndsvd, hals_init, kl2_x)
-    print(f"  phase 5 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 5 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 6: MUR KL against float64, semi_nmf, onmf, robust_nmf, multilevel [{card}]",
+          flush=True)
+    kl_f64 = kl_f64_phase(torch, tt, kl_f64_cases(torch, eu_x, eu_nndsvd, kl_x, kl2_x), card)
+    families = families_phase(torch, tt, counters, drive, card, eu_x, eu_nndsvd)
+    print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -2814,7 +3117,7 @@ def main() -> int:
                  for label, r in runs.items()},
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
-        "profiles": profiles, "tooling": tooling}))
+        "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,6 +76,37 @@ def assert_traces_match(got, want, rtol=TRACE_RTOL):
     np.testing.assert_allclose(got[real], want[real], rtol=rtol)
 
 
+def assert_results_match(got, want, rtol):
+    """Two solvers' Results agree: the same ``i`` and experiment, traces
+    and factors within ``rtol`` (factors also within ``rtol`` of their
+    largest entry, for the entries near 0)."""
+    assert got.i == want.i
+    assert_traces_match(got.obj_history, want.obj_history, rtol=rtol)
+    for a, b in ((got.w, want.w), (got.h, want.h)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * np.abs(b).max())
+    assert tuple(got.experiment) == tuple(want.experiment)
+
+
+class Interrupt(Exception):
+    pass
+
+
+def run_interrupted(fn, path, every, blocks, **kw):
+    """Run ``fn`` with checkpoints at ``path`` every ``every`` iterations
+    and stop it after ``blocks`` blocks."""
+    seen = []
+
+    def stop(carry):
+        seen.append(carry.i)
+        if len(seen) >= blocks:
+            raise Interrupt
+
+    with pytest.raises(Interrupt):
+        fn(checkpoint_path=path, checkpoint_every=every, on_block_end=stop, **kw)
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or skip: decided when the test runs, never at import."""

@@ -75,17 +75,24 @@ def test_facade_properties_and_save_guard(tmp_path):
 
 @pytest.mark.parametrize("method", ["anls", "admm", "ao_admm", "hals", "ntf"])
 def test_unported_methods_raise(method, tmp_path):
-    # hals is ported, its multilevel= warm start is not; anls, admm and
-    # ao_admm are ported and so are their checkpoints: the run saves its state
+    # anls, admm and ao_admm are ported and so are their checkpoints: the
+    # run saves its state
     if method in ("anls", "admm", "ao_admm"):
         ck = str(tmp_path / "ckpt")
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, max_iter=3,
                                                     checkpoint_path=ck)
         assert os.path.exists(ck + ".npz")
         return
-    kw = {"hals": {"multilevel": {"levels": 2}}}.get(method, {})
+    if method == "hals":
+        # hals and its multilevel= warm start are ported: tpunmf's run
+        kw = dict(multilevel={"levels": 2}, min_iter=3, max_iter=3, tol1=0.0, tol2=0.0)
+        got = tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, **kw)
+        want = tpunmf.NMF(lowrank(), 5).factorize(method=method, **kw)
+        assert got.i == want.i == 2
+        np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-10)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, **kw)
+        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method)
 
 
 def test_unknown_method_fails_as_tpunmf_does():
@@ -111,6 +118,15 @@ def test_unported_routes_raise(option):
             tpunmf_torch.NMF(t(lowrank()), 5).factorize(
                 method="mur", mask=np.ones((60, 48)), beta=1)
         return
+    if option == "multilevel":
+        # multilevel= is ported: the warm start rides mur as in tpunmf
+        kw = dict(multilevel=True, min_iter=3, max_iter=3, tol1=0.0, tol2=0.0,
+                  nndsvd_init=(True, "zero"))
+        got = tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", **kw)
+        want = tpunmf.NMF(lowrank(), 5).factorize(method="mur", **kw)
+        assert got.i == want.i == 2
+        np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-10)
+        return
     with pytest.raises(NotImplementedError, match=option):
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", **{option: 1})
 
@@ -118,7 +134,10 @@ def test_unported_routes_raise(option):
 @pytest.mark.parametrize("kw,exc", [
     # a checkpoint of another configuration (max_iter 5) is refused
     (dict(checkpoint_path="ckpt"), ValueError),
-    (dict(multilevel={"levels": 2}), NotImplementedError),
+    # the id predates the port of multilevel=, which raised
+    # NotImplementedError; levels=0 is an error tpunmf raises too
+    pytest.param(dict(multilevel={"levels": 0}), ValueError,
+                 id="kw1-NotImplementedError"),
     (dict(w_init=np.ones((60, 5))), ValueError),
     (dict(distance_type="is"), KeyError),
     (dict(objective_every=0), ValueError),

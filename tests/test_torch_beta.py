@@ -14,6 +14,7 @@ import tpunmf_torch
 from _torch_parity import TRACE_RTOL, assert_traces_match, lowrank, t
 from tpunmf.solvers import beta_divergence as jbeta_divergence
 from tpunmf.solvers import mur_beta as jmur_beta
+from tpunmf_torch.solvers import beta_divergence as tbeta_divergence_export
 from tpunmf_torch.solvers import mur_beta as tmur_beta
 from tpunmf_torch.solvers.beta import beta_divergence as tbeta_divergence
 
@@ -59,6 +60,12 @@ def test_beta_divergence_matches_tpunmf(beta):
     want = float(jbeta_divergence(_X, wh, beta))
     got = float(tbeta_divergence(t(_X), t(wh), beta))
     np.testing.assert_allclose(got, want, rtol=1e-13)
+
+
+def test_beta_divergence_is_exported_as_in_tpunmf():
+    assert tbeta_divergence_export is tbeta_divergence
+    np.testing.assert_allclose(float(tbeta_divergence_export(t(_X), t(_W0 @ _H0), 0.5)),
+                               float(jbeta_divergence(_X, _W0 @ _H0, 0.5)), rtol=1e-13)
 
 
 def test_explicit_init_rejection_and_negative_data():

@@ -95,14 +95,42 @@ def test_grid_command(tmp_path, data_file, capsys):
     (["grid", "-k", "3", "--checkpoint", "ck"], 2, "not supported with grid"),
     (["grid", "-k", "3", "-m", "ntf"], 2, "grid does not support"),
     (["grid", "-k", "3", "-m", "robust"], 2, "grid does not support"),
-    (["factorize", "-k", "3", "-m", "onmf"], 1, "'onmf' is not ported yet"),
-    (["grid", "-k", "3", "-m", "semi_nmf"], 1, "'semi_nmf' is not ported yet"),
+    (["factorize", "-k", "3", "-m", "ntf"], 1, "'ntf' is not ported yet"),
+    (["grid", "-k", "3", "-m", "ntf", "--ntf-update", "hals"], 2,
+     "grid does not support -m ntf"),
 ], ids=["grid_checkpoint", "grid_ntf", "grid_robust", "unported", "grid_unported"])
 def test_refusals(tmp_path, data_file, capsys, argv, code, message):
     args = [argv[0], data_file, *argv[1:], "--device", "cpu", "--no-save",
             "--max-iter", "2"]
     assert tmain(args) == code
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("onmf", ["--nndsvd", "zero"]),
+    ("robust", []),  # NNDSVD 'zero' by default
+])
+def test_factorize_new_methods_match_tpunmf_s_cli(tmp_path, data_file, capsys, method,
+                                                  extra):
+    args = ["factorize", data_file, "-k", "4", "-m", method, "--min-iter", "5",
+            "--max-iter", "12", "--tol1", "0", "--tol2", "0", "--no-save", *extra]
+    assert jmain(args) == 0
+    want = _rows(capsys.readouterr().out)[0]
+    assert tmain(args + ["--device", "cpu"]) == 0
+    got = _rows(capsys.readouterr().out)[0]
+    # ONMF's objective may rise, which stops a run early: the same iteration
+    assert got["method"] == method and got["iterations"] == want["iterations"] > 5
+    np.testing.assert_allclose(got["final_objective"], want["final_objective"],
+                               rtol=1e-10)
+
+
+def test_factorize_semi_nmf_runs(tmp_path, data_file, capsys):
+    # its random init is torch's own draw, so only the run is held
+    args = ["factorize", data_file, "-k", "4", "-m", "semi_nmf", "--min-iter", "5",
+            "--max-iter", "12", "--tol1", "0", "--tol2", "0", "--no-save", "--device", "cpu"]
+    assert tmain(args) == 0
+    got = _rows(capsys.readouterr().out)[0]
+    assert got["iterations"] == 11 and np.isfinite(got["final_objective"])
 
 
 @pytest.mark.parametrize("extra,message", [

@@ -32,6 +32,8 @@ ROUTE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 GRAM_ULPS = 2
 # the KL objective near a fit against float64: chip_smoke.py's OBJECTIVE_RTOL
 KL_FIT_RTOL = 1e-4
+# MUR KL's kernel route against float64 over a run: chip_smoke.py's KL_F64_TOL
+KL_RUN_F64_RTOL = 1e-5
 
 
 def _on(device, xdtype, m=1000, n=777, k=37):
@@ -503,6 +505,29 @@ def test_kl_objective_near_a_fit_holds_f32_accuracy(cuda_device, seed):
     assert abs(plain / want - 1) <= KL_FIT_RTOL, (plain, want)
     assert abs(got / want - 1) <= KL_FIT_RTOL, (got, plain, want)
     assert torch.equal(fused.kl_ratio_and_obj(xt, wt, ht)[1], torch.tensor(got).to(xt))
+
+
+@pytest.mark.cuda
+def test_mur_kl_kernel_route_holds_float64(cuda_device):
+    """50 MUR KL iterations at 8192 x 1024 r128 on the kernel route (the KL
+    passes' S and numerators rounded at every step) stay within
+    KL_RUN_F64_RTOL of the same run in float64 at every iteration.  With
+    the tensor cores' own sums, whose truncation falls one way over about
+    a thousand steps, the route drifted to 1.3e-4 at 8192 x 8192."""
+    from tpunmf_torch.data import tfidf_like
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.solvers import mur
+
+    m, n, k = 8192, 1024, 128
+    x = t(tfidf_like(m, n, n_topics=k, seed=4)).to(cuda_device)
+    w0, h0 = random_init(0, m, n, k, device=cuda_device)
+    kw = dict(distance_type="kl", min_iter=50, max_iter=50, tol1=0.0, tol2=0.0)
+    want = np.asarray(mur(x.double(), k, w_init=w0.double(), h_init=h0.double(),
+                          **kw).obj_history)
+    assert mur_route(x, k, "kl")[0] in ("single", "pair")
+    got = np.asarray(mur(x, k, w_init=w0, h_init=h0, **kw).obj_history)
+    assert got.shape == want.shape == (51,)
+    assert np.max(np.abs(got - want) / want) <= KL_RUN_F64_RTOL
 
 
 @pytest.mark.cuda

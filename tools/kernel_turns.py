@@ -3,7 +3,7 @@
 CUDA card, alone and in turns with the same kernels of another checkout.
 
     python3 tools/kernel_turns.py [--parent DIR]
-        [--only mur|w|single|dma|int8|score|sweep|masked|objectives|gram]
+        [--only mur|w|kl|single|dma|int8|score|sweep|masked|objectives|gram]
 
 DIR is a checkout of another commit (for instance the parent, unpacked
 with ``git archive`` into a git-ignored directory); its kernels are built
@@ -51,6 +51,10 @@ Cases, on chip_smoke.py's data recipes:
     r50), 8192 x 4096 r1536 and one card's cut of BASELINE config[4]
     (50000 x 20000 r256, chip_smoke.config4_on_card); kl_ratio_and_obj
     at config[3].
+With --only kl, MUR's KL passes on the tensor cores alone: mur_w_update KL
+and lagged KL and mur_h_update KL at BASELINE config[1] and at 8192 x 4096
+r128 (tfidf_like seed 4), and mur_iteration_kl at 8192 x 4096 r128 through
+both sides' C entries, with device times.
 With --only single, the two single passes alone, each side through its
 own C entry with its buffers made once: mur_iteration_kl at 8192 x 4096
 r128 (tfidf_like seed 4, f32 and bf16 X) and at 8192 x 1024 (tfidf_like
@@ -163,10 +167,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="a checkout whose kernels to time in turns")
     ap.add_argument("--only",
-                    choices=("mur", "w", "single", "dma", "int8", "score", "sweep", "masked",
-                             "objectives", "gram"),
+                    choices=("mur", "w", "kl", "single", "dma", "int8", "score", "sweep",
+                             "masked", "objectives", "gram"),
                     help="time one family of cases (w: the MUR W pass alone, a part of "
-                         "mur; single: mur_iteration_kl and hals_iteration_eu; dma: "
+                         "mur; kl: MUR's KL passes on the tensor cores and "
+                         "mur_iteration_kl; single: mur_iteration_kl and "
+                         "hals_iteration_eu; dma: "
                          "mur_iteration_eu_dma, v1_iter and mur_iteration_eu; int8: "
                          "iter_eu_int8; score: score_blockmax_relayout; sweep: gs_sweep "
                          "and hals_iteration_eu; gram: accuracy, no times)")
@@ -242,15 +248,17 @@ def main() -> int:
             *dma, stream()), "other")
         return outs
 
-    def other_h_update(x, w, h, dist):
-        """The other checkout's mur_h_update, as its wrapper calls it (one
-        split where it takes splits)."""
+    def other_h_update(x, w, h, dist, splits=1):
+        """The other checkout's mur_h_update, as its wrapper calls it
+        (``splits`` row splits where its entry takes splits)."""
         m, n = x.shape
         k = w.shape[1]
         is_kl = int(dist == "kl")
         aux = torch.sum(w, dim=0) if is_kl else w.T @ w
         h_out, numer = torch.empty_like(h), torch.empty_like(h)
-        extra = ((numer.data_ptr(), 1) if len(other.tpunmf_mur_h_update.argtypes) == 15
+        part = (torch.empty(mur_fused.h_scratch_floats(splits, n, k) or 1, device="cuda")
+                if splits > 1 else numer)
+        extra = ((part.data_ptr(), splits) if len(other.tpunmf_mur_h_update.argtypes) == 15
                  else ())  # part, splits
         _build.check(other.tpunmf_mur_h_update(
             x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), h.data_ptr(),
@@ -327,8 +335,8 @@ def main() -> int:
         w, h = factors(m, n, k, 14)
         other_fn = None
         if other is not None:
-            def other_fn():
-                return other_h_update(x, w, h, dist)
+            def other_fn():  # the wrapper's own split count, where the entry takes one
+                return other_h_update(x, w, h, dist, mur_fused.h_splits(m, n, k, dist))
         for sp in splits:
             def this_fn(sp=sp):
                 return mur_fused.mur_h_update(x, w, h, distance_type=dist, lam=0.0, splits=sp)
@@ -521,8 +529,32 @@ def main() -> int:
         del x
         torch.cuda.empty_cache()
 
-    if args.only == "single":
-        single_cases()
+    def kl_cases():
+        """MUR's KL passes on the tensor cores (the masked passes' bodies
+        with no mask): the W pass, plain and lagged, and the H pass at
+        BASELINE config[1] and 8192 x 4096 r128, and mur_iteration_kl at
+        8192 x 4096 r128 through both sides' C entries."""
+        print(f"MUR KL passes ({card})", flush=True)
+        for label, x, k in (
+                ("config[1] 20000x11000 f32",
+                 torch.from_numpy(tfidf_like(20000, 11000, n_topics=50, seed=1)).cuda(), 50),
+                ("KL 8192x4096 f32",
+                 torch.from_numpy(tfidf_like(8192, 4096, n_topics=128, seed=4)).cuda(), 128)):
+            w_case(label, x, k, "kl")
+            w_case(label, x, k, "kl", lagged=True)
+            h_case(label, x, k, "kl")
+            if k == 128:
+                w, h = factors(*x.shape, k, 14)
+                this_fn = kl_entry(lib, x, w, h)
+                other_fn = kl_entry(other, x, w, h) if other is not None else None
+                report(f"mur_iteration_kl {label} k{k}", this_fn, other_fn, 3)
+                device_line(this_fn, other_fn)
+                del w, h
+            del x
+        torch.cuda.empty_cache()
+
+    if args.only in ("single", "kl"):
+        (single_cases if args.only == "single" else kl_cases)()
         print(card)
         return 0
 

@@ -8,9 +8,11 @@ saving=True, param_file=None)``, ``.w`` / ``.h``, the sklearn-style
 nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
 Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR and
 ``beta=`` for the beta-divergence MUR), ``method="anls"``,
-``method="hals"``, ``method="admm"`` and ``method="ao_admm"``; the other
-known methods and the routing extensions ``schedule=``, ``multilevel=``
-and ``mesh=`` raise ``NotImplementedError``.
+``method="hals"``, ``method="admm"``, ``method="ao_admm"``,
+``method="semi_nmf"``, ``method="onmf"``, ``method="robust"``, and the
+``multilevel=`` warm start of mur and hals; ``method="ntf"`` and the
+routing extensions ``schedule=`` and ``mesh=`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,13 +26,14 @@ from .io.npz import load_results, save_results
 # tpunmf's dispatch list, kept whole so an unknown method fails the same way
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
-_PORTED = ("mur", "anls", "hals", "admm", "ao_admm")
-_UNPORTED_OPTIONS = ("schedule", "multilevel", "mesh")
+_PORTED = ("mur", "anls", "hals", "admm", "ao_admm", "semi_nmf", "onmf", "robust")
+_UNPORTED_OPTIONS = ("schedule", "mesh")
 
 
 class NMF:
     """Non-negative matrix factorization (MUR, masked and beta-divergence
-    MUR, ANLS, HALS, ADMM and AO-ADMM ported).
+    MUR, ANLS, HALS, ADMM, AO-ADMM, semi-NMF, ONMF, robust NMF and the
+    multilevel warm start ported).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -85,11 +88,29 @@ class NMF:
         if method not in _METHODS:
             raise Exception("Method not known. Choose one from: "
                             + " ".join(_METHODS))
+        params = {**self.method_params, **method_params}
+
+        from . import solvers
+
+        # multilevel warm start (arXiv:1009.0881) rides any mur/hals fit:
+        # factorize(method='hals', multilevel={'levels': 2, 'factor': 4}),
+        # as tpunmf/api.py:102-116
+        ml = params.pop("multilevel", None)
+        if ml is not None:
+            if method not in ("mur", "hals"):
+                raise ValueError("multilevel= supports methods mur and hals")
+            ml = dict(ml) if not isinstance(ml, bool) else {}
+            self.results = solvers.multilevel(self.data, self.factors,
+                                              method=method, **ml, **params)
+            print("Factorization done.")
+            if saving:
+                self.save_factorization()
+            return self.results
+
         if method not in _PORTED:
             raise NotImplementedError(
                 f"method {method!r} is not ported yet; ported: "
                 + " ".join(_PORTED))
-        params = {**self.method_params, **method_params}
         mask = beta = None
         if method == "mur":
             # routing extensions, as tpunmf/api.py:122-129 (None is ignored)
@@ -104,8 +125,6 @@ class NMF:
             if params.pop(opt, None) is not None:
                 raise NotImplementedError(f"{opt}= is not ported yet")
 
-        from . import solvers
-
         if method == "anls":
             self.results = solvers.anls(self.data, self.factors, **params)
         elif method == "hals":
@@ -114,6 +133,15 @@ class NMF:
             self.results = solvers.admm(self.data, self.factors, **params)
         elif method == "ao_admm":
             self.results = solvers.ao_admm(self.data, self.factors, **params)
+        elif method == "semi_nmf":
+            # mixed-sign data, W free / H >= 0
+            self.results = solvers.semi_nmf(self.data, self.factors, **params)
+        elif method == "onmf":
+            # orthogonality-constrained clustering NMF
+            self.results = solvers.onmf(self.data, self.factors, **params)
+        elif method == "robust":
+            # l2,1-norm objective, outlier-resistant
+            self.results = solvers.robust_nmf(self.data, self.factors, **params)
         elif beta is not None:
             self.results = solvers.mur_beta(self.data, self.factors, beta=beta,
                                             **params)

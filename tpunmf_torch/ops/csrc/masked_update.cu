@@ -57,7 +57,13 @@
 // 132 SMs, where one block over all rows left the card idle.
 //
 // MUR's KL passes (mur_update.cu) are these passes with M = 1 (NoMask): each
-// step sums P = X / (S + eps) alone, one product a step.  The H pass writes
+// step sums P = X / (S + eps) alone, one product a step, into a numerator
+// whose steps are rounded to nearest (warp_mma's ROUNDED, tf32x3.cuh): the
+// tensor cores truncate what they accumulate, and over the thousand steps
+// of a numerator at m = 8192 that bias moved MUR KL 1.3e-4 off float64
+// after 50 iterations at 8192 x 8192 r128 on an H100; rounded, 1.3e-6 (the
+// plain f32 route: 2.7e-7).  S keeps the tensor cores' sums: rounding it
+// as well moved nothing measurable and cost 3-5% a pass.  The H pass writes
 // one partial sum a split (kl_h_sums), and kl_h_finish adds them and
 // applies MUR's KL update (d = colsum(W), no guard); the single-pass KL
 // iteration (mur_iteration.cu) adds them into its numerator instead.  The
@@ -196,13 +202,13 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
     __syncthreads();
     // acc += W_i[:, chunk]^T P over the tile's 64 rows (A read transposed,
-    // once for both sums)
+    // once for both sums); MUR's numerator rounds each step's sum
     if constexpr (kMasked)
       tc::warp_mma2<MTL, NTL, true>(acc_n, acc_d, sm.wc, kLdp, sm.u.p.pn, sm.u.p.pd, kLdp, wr,
                                     wcol, kHTile, lane);
     else
-      tc::warp_mma<MTL, NTL, true>(acc_n, sm.wc, kLdp, sm.u.p.pn, kLdp, wr, wcol, kHTile,
-                                   lane);
+      tc::warp_mma<MTL, NTL, true, true>(acc_n, sm.wc, kLdp, sm.u.p.pn, kLdp, wr, wcol, kHTile,
+                                         lane);
     __syncthreads();  // the tiles are read before the next step's copies land
   }
 
@@ -346,13 +352,14 @@ __device__ __forceinline__ void w_tc_body(
     if constexpr (LAGGED) obj += tile_obj;  // zero outside chunk 0
     __syncthreads();
     // acc[c][r] += sum_j H[c0 + c][j0 + j] P[r][j] (the H chunk's fragments
-    // once for both sums; P read in .col layout)
+    // once for both sums; P read in .col layout); MUR's numerator rounds
+    // each step's sum
     if constexpr (kMasked)
       tc::warp_mma2<WP::MT, WP::NT, false, true>(acc_n, acc_d, sm.hc, kWLd, sm.u.p.pn,
                                                 sm.u.p.pd, kWLd, ar, acol, kHTile, lane);
     else
-      tc::warp_mma<WP::MT, WP::NT, false, false, true>(acc_n, sm.hc, kWLd, sm.u.p.pn, kWLd,
-                                                       ar, acol, kHTile, lane);
+      tc::warp_mma<WP::MT, WP::NT, false, true, true>(acc_n, sm.hc, kWLd, sm.u.p.pn, kWLd,
+                                                      ar, acol, kHTile, lane);
     __syncthreads();  // the tiles are read before the next step's copies land
   }
 

@@ -174,7 +174,9 @@ __device__ __forceinline__ void step_all(Acc<MT, NT>& acc, const Frag<4> (&a)[MT
 // 16 more registers a row of tiles and one add an entry a step (the EU
 // objective 17-22% slower on an H100).  The KL objective needs it too: it
 // moves by S's bias times sum(W H - X), which near a fit can be a hundred
-// times the objective (objective.cu).
+// times the objective (objective.cu).  So does a long sum: MUR's KL
+// numerators (masked_update.cu, about a thousand steps at m = 8192) round
+// their steps, which costs those passes 0.7-2.5% on an H100.
 //
 // BCOL: B is read column by column as load_b<true> does; EXACT: every
 // operand value is exact in TF32 (bf16 operands), so one TF32 product a
