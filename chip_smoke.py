@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about eight minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about eight and a half minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -203,6 +203,43 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        and below a cold start's of the same fine budget;
      each final objective within OBJECTIVE_RTOL of the final (W, H)'s in
      float64.
+  7. N-way CP and the remaining families, every number beside the card's
+     name and power limit, each path through drive() with its launches
+     counted as in phase 3 (exact where the code fixes them), each
+     kernel-route run held to a plain-route run from the same init:
+     - ntf at tpunmf's own production shape, 512x512x512 r64 f32
+       (benchmarks/rate_probe.py:146-152: X the CP model of three seeded
+       U[0, 1) + 0.01 factors, plus 0.05 U[0, 1) noise), from one
+       factors_init: MUR EU and CP-HALS 50 iterations, KL MUR and masked
+       EU MUR (a seeded 50% mask) 20; each route's it/s over factorize(),
+       ms an iteration, peak memory above the resting allocation, final
+       objective and the final factors' objective in float64 (from X -
+       cp_reconstruct, slices at a time); CP-HALS launches exactly 3
+       gs_sweep an iteration on the kernel route, every other run nothing;
+       MUR's routes give the same bits; the routes' float64 objectives
+       within OBJECTIVE_RTOL; MUR EU's trace rises by no more than
+       EU_MONOTONE_RTOL x ||X||^2 / 2 (where its float32 Gram form
+       rounds); the Gram form's gap from float64 is printed, not gated;
+     - the same at 64^4 r16 (MUR EU and CP-HALS, 20 iterations);
+     - ntf_rank_scan on a planted 256^3 rank-16 X, ks 8, 16, 24, hals, 50
+       iterations: seconds a rank, relative errors and core consistencies;
+     - python -m tpunmf_torch factorize stack.npy -k 16 -m ntf --ntf-update
+       hals on a 256x256x64 stack (a subprocess): its save file loads
+       through NMF.load_factorization with the same factors, i and final
+       objective as the same fit in this process;
+     - convex_nmf on the 8192x8192 X minus its column means, r128 (no
+       kernel: run twice, the same bits); knn_graph of X's columns (5
+       neighbours, heat), timed; gnmf with it, lambda_g 1, and nmtf (k_row =
+       k_col = 32, its own k-means init, the peak memory printed), each
+       launching eu_residual_obj iters + 1 times a run and the same W, H
+       bits on both routes; symnmf of the graph (no kernel, run twice); 50
+       iterations each, the final objective against float64 (printed, not
+       gated, for the Gram forms of convex_nmf and symnmf);
+     - OnlineNMF over the 8192x8192 X in 8 minibatches of 1024 columns, two
+       passes, r128, sweeps=2: exactly 16 gs_sweep on the kernel route and
+       none on the plain route (after one warm-up minibatch a route), the
+       final W within 1e-4 of the plain route's, minibatches a second, and
+       the EU fit of a transform of X.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -210,6 +247,7 @@ this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -2356,32 +2394,37 @@ def l21_f64(torch, x, w, h, rows=4096):
 
 
 def family_run(torch, tt, counters, label, x, k, card, objective_of, *, routes=(True, False),
-               exact=None, needed=(), banned=(), monotone=False, same_bits=True, **kw):
-    """NMF(x, k).factorize(**kw) for FAMILY_ITERS iterations on each of
-    ``routes`` (use_pallas; robust NMF has one route, None, run twice): it/s
-    over factorize() (host clock with a synchronize, the init given), ms an
-    iteration (from the ends of the last FAMILY_ITERS one-iteration blocks,
-    the first left out), final objective and launches.  The first route
-    launches exactly ``exact`` (or each of ``needed`` and none of
-    ``banned``), every other route nothing; its final objective is within
-    OBJECTIVE_RTOL of the final (W, H)'s in float64 (``objective_of``); with
+               exact=None, needed=(), banned=(), monotone=False, same_bits=True, fit=None,
+               f64_gate=True, **kw):
+    """NMF(x, k).factorize(**kw) (or ``fit(**kw)``, a solver's own entry)
+    for FAMILY_ITERS iterations on each of ``routes`` (use_pallas; a solver
+    without a kernel has one route, None, run twice): it/s over the call
+    (host clock with a synchronize, the init given), ms an iteration (from
+    the ends of the last FAMILY_ITERS one-iteration blocks, the first left
+    out), final objective and launches.  The first route launches exactly
+    ``exact`` (or each of ``needed`` and none of ``banned``), every other
+    route nothing; its final objective is within OBJECTIVE_RTOL of the final
+    (W, H)'s in float64 (``objective_of``; without ``f64_gate``, for a Gram
+    form that cancels in float32, the distance is printed, not gated); with
     ``monotone`` its trace rises by no more than EU_MONOTONE_RTOL.  Between
     routes: W and H the same bits and the traces within OBJECTIVE_RTOL, or
     without ``same_bits`` the traces within ROUTE_RTOL over the first
     ROUTE_ITERS iterations.  One warm-up iteration a route first."""
     iters = FAMILY_ITERS
     flag = (lambda route: {} if route is None else {"use_pallas": route})
+    if fit is None:
+        fit = (lambda **a: tt.NMF(x, k).factorize(**a))
     for route in routes:
-        tt.NMF(x, k).factorize(**flag(route), **{**kw, "min_iter": 1, "max_iter": 1})
+        fit(**flag(route), **{**kw, "min_iter": 1, "max_iter": 1})
 
     def one(route):
         stamps = []
         torch.cuda.synchronize()
         before = counts(counters)
         t0 = time.perf_counter()
-        res = tt.NMF(x, k).factorize(
-            min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0, block_size=1,
-            on_block_end=lambda c: stamps.append(time.perf_counter()), **flag(route), **kw)
+        res = fit(min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0, block_size=1,
+                  on_block_end=lambda c: stamps.append(time.perf_counter()), **flag(route),
+                  **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         hist = np.asarray(res.obj_history, dtype=np.float64)
@@ -2412,7 +2455,7 @@ def family_run(torch, tt, counters, label, x, k, card, objective_of, *, routes=(
         require(first["launched"][name] > 0, f"{label}: {name} was not launched")
     for name in banned:
         require(first["launched"][name] == 0, f"{label}: {name} was launched off its route")
-    require(ref_err <= OBJECTIVE_RTOL,
+    require(ref_err <= OBJECTIVE_RTOL or not f64_gate,
             f"{label}: the final objective is {ref_err:.3e} off its float64 value")
     if monotone:
         rises = np.diff(hist) / np.abs(hist[:-1])
@@ -2530,6 +2573,401 @@ def families_phase(torch, tt, counters, drive, card, eu_x, eu_init):
                                   distance_type="eu"))
     return out
 
+
+# Phase 7: N-way CP at tpunmf's own production shape (benchmarks/rate_probe.py:
+# 146-152: X the exact CP model of three seeded uniform + 0.01 factors, here
+# with 0.05 U[0, 1) noise so that a fit does not drive the objective to 0),
+# a 4-way tensor, the CP rank scan, the CLI on a 3-D stack, then convex, graph,
+# symmetric and tri-factor NMF and online NMF at the bench's 8192^2 r128
+NTF = dict(dims=(512, 512, 512), k=64, seed=5, noise=0.05)
+# (label, solver keywords, iterations, observed share of a seeded mask or None)
+NTF_RUNS = (("MUR EU", dict(update="mur", distance_type="eu"), 50, None),
+            ("CP-HALS EU", dict(update="hals"), 50, None),
+            ("MUR KL", dict(update="mur", distance_type="kl"), 20, None),
+            ("masked MUR EU", dict(update="mur", distance_type="eu"), 20, 0.5))
+NTF4 = dict(dims=(64, 64, 64, 64), k=16, seed=6, noise=0.05, iters=20)
+NTF_SCAN = dict(dims=(256, 256, 256), k=16, ks=(8, 16, 24), iters=50, seed=7, noise=0.05)
+NTF_CLI = dict(dims=(256, 256, 64), k=16, seed=8, noise=0.05)
+NMTF_K = 32
+KNN_NEIGHBORS = 5
+ONLINE = dict(batch=1024, passes=2, sweeps=2, tol=1e-4)
+
+
+def cp_data(torch, dims, k, seed, noise):
+    """(X, init): X the CP model of k seeded U[0, 1) + 0.01 factors plus
+    ``noise`` U[0, 1), and an init of the same recipe from the next draws,
+    all float32 on the card."""
+    from tpunmf_torch.solvers import cp_reconstruct
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    factors = [torch.rand((d, k), generator=g, device="cuda") + 0.01 for d in dims]
+    x = cp_reconstruct(factors)
+    x += noise * torch.rand(x.shape, generator=g, device="cuda")
+    init = [torch.rand((d, k), generator=g, device="cuda") + 0.01 for d in dims]
+    return x, init
+
+
+def cp_objective_f64(torch, x, factors, dist, mask=None, rows=32):
+    """The CP model's objective on X in float64 on the card (core/losses.py's
+    formulas), directly from X - cp_reconstruct, a block of mode-0 slices at
+    a time."""
+    from tpunmf_torch.core.losses import distance
+    from tpunmf_torch.solvers import cp_reconstruct
+
+    fs = [torch.as_tensor(f, device=x.device).double() for f in factors]
+    total = 0.0
+    for r in range(0, x.shape[0], rows):
+        xr = x[r:r + rows].double()
+        xhat = cp_reconstruct([fs[0][r:r + rows]] + fs[1:])
+        if mask is not None:
+            mr = mask[r:r + rows].double()
+            xr, xhat = mr * xr, mr * xhat
+        total += float(distance(xr, xhat, dist))
+    return total
+
+
+def ntf_run(torch, tt, counters, label, x, init, iters, card, *, mask=None, **kw):
+    """NMF(x, k).factorize(method="ntf", factors_init=init, **kw) for exactly
+    ``iters`` iterations on the kernel route and on the plain route (one
+    warm-up iteration each first): it/s over factorize(), ms an iteration
+    (ends of one-iteration blocks, the first left out), the peak device
+    memory above the resting allocation, the final Gram-form (or direct)
+    objective and the final factors' objective in float64.  CP-HALS's kernel
+    route launches exactly ``x.ndim`` gs_sweep an iteration, every other run
+    nothing; MUR's routes are one code (the same bits); the routes' float64
+    objectives agree within OBJECTIVE_RTOL; MUR EU's trace rises by no more
+    than EU_MONOTONE_RTOL x ||X||^2 / 2, the scale at which its float32 Gram
+    form rounds."""
+    k = init[0].shape[1]
+    dist = kw.get("distance_type", "eu")
+    hals = kw.get("update") == "hals"
+    fit = dict(method="ntf", factors_init=init, mask=mask, **kw)
+    xsq = float(torch.sum(x.double() ** 2))
+    for route in (True, False):
+        tt.NMF(x, k).factorize(use_pallas=route, min_iter=1, max_iter=1, **fit)
+
+    def one(route):
+        stamps = []
+        torch.cuda.synchronize()
+        rest = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts(counters)
+        t0 = time.perf_counter()
+        res = tt.NMF(x, k).factorize(
+            use_pallas=route, min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0,
+            block_size=1, on_block_end=lambda c: stamps.append(time.perf_counter()), **fit)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - rest
+        launched = {n: c - before[n] for n, c in counts(counters).items() if c - before[n]}
+        hist = np.asarray(res.obj_history, dtype=np.float64)
+        require(res.i == iters - 1 and len(hist) == iters + 1,
+                f"{label}: ran {res.i + 1} iterations, expected {iters}")
+        require(np.all(np.isfinite(hist)) and all(np.all(np.isfinite(f)) for f in res.factors),
+                f"{label}: non-finite factors or trace")
+        f64 = cp_objective_f64(torch, x, res.factors, dist, mask)
+        want = {"gs_sweep": x.ndim * iters} if (route and hals) else {}
+        require(launched == want, f"{label}: launches {launched}, not {want}")
+        return {"res": res, "hist": hist, "it_s": iters / secs, "launches": launched,
+                "ms_per_it": 1e3 * (stamps[-1] - stamps[-iters]) / (iters - 1),
+                "peak_gb": peak / 1e9, "obj": float(hist[-1]), "obj_f64": f64,
+                "gap": float(hist[-1] / f64 - 1)}
+
+    out = {}
+    for route, name in ((True, "kernel route"), (False, "plain route")):
+        r = one(route)
+        out[name] = r
+        print(f"  ntf {label} {tuple(x.shape)} k{k}, {name}: {r['it_s']:.2f} it/s over "
+              f"factorize(), {r['ms_per_it']:.3f} ms an iteration, peak {r['peak_gb']:.3f} GB "
+              f"above the resting allocation (X {x.numel() * x.element_size() / 1e9:.3f} GB); "
+              f"obj[0]={r['hist'][0]:.6e} obj[{iters}]={r['obj']:.9e}, float64 of the final "
+              f"factors {r['obj_f64']:.9e} (gap {r['gap']:+.3e}); launches {r['launches']} "
+              f"[{card}]", flush=True)
+    a, b = out["kernel route"], out["plain route"]
+    err = abs(a["obj_f64"] / b["obj_f64"] - 1)
+    same = all(np.array_equal(p, q) for p, q in zip(a["res"].factors, b["res"].factors))
+    print(f"  ntf {label}: the routes' float64 objectives {err:.3e} apart (tol "
+          f"{OBJECTIVE_RTOL:.0e}); factors {'the same bits' if same else 'differ'}", flush=True)
+    require(err <= OBJECTIVE_RTOL, f"{label}: the routes' float64 objectives differ by {err:.3e}")
+    if not hals:
+        require(same, f"{label}: MUR's routes are one code, yet the factors differ")
+    if dist == "eu" and mask is None and not hals:
+        rise = float(np.max(np.diff(a["hist"])))
+        a["max_rise_over_xsq"] = rise / (0.5 * xsq)
+        print(f"  ntf {label}: largest rise of the trace {rise:+.3e} = "
+              f"{a['max_rise_over_xsq']:+.3e} x ||X||^2/2 (tol {EU_MONOTONE_RTOL:.0e})",
+              flush=True)
+        require(a["max_rise_over_xsq"] <= EU_MONOTONE_RTOL,
+                f"{label}: the trace rose by {rise:.3e}")
+    return {name: {k_: v for k_, v in r.items() if k_ not in ("res", "hist")}
+            for name, r in out.items()} | {"routes_f64_err": err}
+
+
+def ntf_cli_path(torch, tt, card, d):
+    """python -m tpunmf_torch factorize stack.npy -k 16 -m ntf --ntf-update
+    hals on a 3-D stack in a subprocess: its save file loads through
+    NMF.load_factorization with the factors, i and final objective of the
+    same fit in this process (the init is the default seed's on both)."""
+    cfg = NTF_CLI
+    x, _ = cp_data(torch, cfg["dims"], cfg["k"], cfg["seed"], cfg["noise"])
+    stack = x.cpu().numpy()
+    data = os.path.join(d, "stack.npy")
+    np.save(data, stack)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpunmf_torch", "factorize", data, "-k",
+                        str(cfg["k"]), "-m", "ntf", "--ntf-update", "hals", "--save-dir",
+                        os.path.join(d, "out"), "--device", "cuda"],
+                       capture_output=True, text=True, env=env, cwd=d, timeout=300)
+    secs = time.perf_counter() - t0
+    require(r.returncode == 0, f"CLI ntf exited {r.returncode}: {r.stderr[-2000:]}")
+    row = [json.loads(s) for s in r.stdout.splitlines() if s.startswith("{")][0]
+    saved = os.listdir(os.path.join(d, "out"))
+    loaded = tt.NMF.load_factorization(os.path.join(d, "out", saved[0]))
+    model = tt.NMF(torch.from_numpy(stack).cuda(), cfg["k"])
+    res = model.factorize(method="ntf", update="hals")
+    same = all(np.array_equal(p, q) for p, q in zip(loaded.results.factors, res.factors))
+    print(f"  CLI factorize -m ntf --ntf-update hals {stack.shape} k{cfg['k']}: {row}, saved "
+          f"{saved[0]} in {secs:.1f} s (a subprocess); loaded: "
+          f"{[f.shape for f in loaded.results.factors]}, i {loaded.results.i}; the same fit "
+          f"here: i {res.i}, factors {'the same bits' if same else 'DIFFER'} [{card}]",
+          flush=True)
+    require(row["method"] == "ntf" and row["iterations"] == res.i == loaded.results.i
+            and row["final_objective"] == float(res.obj_history[-1]),
+            f"CLI ntf printed {row}, the same fit here ends at i {res.i}, "
+            f"{res.obj_history[-1]}")
+    require(saved == [model.default_save_name() + ".npz"] and same,
+            f"CLI ntf saved {saved}; factors the same bits: {same}")
+    return {"seconds": secs, "iterations": row["iterations"],
+            "final_objective": row["final_objective"]}
+
+
+def ntf_phase(torch, tt, counters, drive, card):
+    """Phase 7, first half: ntf at 512^3 r64 (MUR EU, CP-HALS, KL, masked
+    EU), the 4-way tensor, ntf_rank_scan and the CLI."""
+    from tpunmf_torch.experiments import ntf_rank_scan
+
+    out = {}
+    t0 = time.perf_counter()
+    x, init = cp_data(torch, NTF["dims"], NTF["k"], NTF["seed"], NTF["noise"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(NTF["seed"] + 100)
+    torch.cuda.synchronize()
+    print(f"  ntf's X {tuple(x.shape)} made in {time.perf_counter() - t0:.1f} s", flush=True)
+    for label, kw, iters, observed in NTF_RUNS:
+        mask = (None if observed is None else
+                (torch.rand(x.shape, generator=g, device="cuda") < observed).float())
+        hals = kw.get("update") == "hals"
+        exact = {"gs_sweep": x.ndim * (iters + 1)} if hals else {}
+        out[label] = drive(f"ntf {label} path", ("gs_sweep",) if hals else (),
+                           lambda: ntf_run(torch, tt, counters, label, x, init, iters, card,
+                                           mask=mask, **kw), exact=exact)
+        del mask
+
+    def profile_path():
+        # where an iteration's time goes at 512^3, each update family on the
+        # kernel route, CP-HALS on the plain route too
+        for label, kw, _, observed in NTF_RUNS:
+            extra = dict(kw, factors_init=init)
+            if observed is not None:
+                extra["mask"] = (torch.rand(x.shape, generator=g, device="cuda")
+                                 < observed).float()
+            out["profile " + label] = profile_run(torch, tt, f"ntf {label} {tuple(x.shape)}",
+                                                  x, NTF["k"], None, method="ntf", **extra)
+            if kw.get("update") == "hals":
+                out["profile " + label + " plain"] = profile_run(
+                    torch, tt, f"ntf {label} {tuple(x.shape)} plain", x, NTF["k"], None,
+                    plain=True, method="ntf", **extra)
+
+    drive("ntf profile path", ("gs_sweep",), profile_path)
+    del x, init
+
+    x4, init4 = cp_data(torch, NTF4["dims"], NTF4["k"], NTF4["seed"], NTF4["noise"])
+    for label, kw in (("4-way MUR EU", dict(update="mur")), ("4-way CP-HALS", dict(update="hals"))):
+        hals = kw["update"] == "hals"
+        out[label] = drive(f"ntf {label} path", ("gs_sweep",) if hals else (),
+                           lambda: ntf_run(torch, tt, counters, label, x4, init4, NTF4["iters"],
+                                           card, **kw),
+                           exact={"gs_sweep": 4 * (NTF4["iters"] + 1)} if hals else {})
+    del x4, init4
+
+    def scan_path():
+        xs, _ = cp_data(torch, NTF_SCAN["dims"], NTF_SCAN["k"], NTF_SCAN["seed"],
+                        NTF_SCAN["noise"])
+        t0 = time.perf_counter()
+        rows = ntf_rank_scan(xs, NTF_SCAN["ks"], update="hals", n_iter=NTF_SCAN["iters"],
+                             key=0)
+        secs = time.perf_counter() - t0
+        print(f"  ntf_rank_scan {tuple(xs.shape)} planted rank {NTF_SCAN['k']}, ks "
+              f"{NTF_SCAN['ks']}, hals, {NTF_SCAN['iters']} iterations at most: "
+              f"{secs / len(rows):.2f} s a rank; "
+              + "; ".join(f"k {r['k']}: rel_err {r['rel_err']:.4e} corcondia "
+                          f"{r['corcondia']:.2f} final_obj {r['final_obj']:.6e}" for r in rows)
+              + f" [{card}]", flush=True)
+        require(all(np.isfinite([r["rel_err"], r["corcondia"], r["final_obj"]]).all()
+                    for r in rows), f"ntf_rank_scan: non-finite rows {rows}")
+        require(rows[1]["rel_err"] < rows[0]["rel_err"],
+                "ntf_rank_scan: the planted rank fits no better than half of it")
+        return {"s_a_rank": secs / len(rows), "rows": rows}
+
+    out["ntf_rank_scan"] = drive("ntf_rank_scan path", ("gs_sweep",), scan_path)
+    with tempfile.TemporaryDirectory() as d:
+        out["cli"] = drive("ntf CLI path", ("gs_sweep",), lambda: ntf_cli_path(torch, tt, card, d))
+    return out
+
+
+def matrix_families_phase(torch, tt, counters, drive, card, eu_x, eu_init):
+    """Phase 7, second half, at the bench's 8192^2 r128: convex_nmf on the
+    column-centred X (no kernel: run twice, the same bits), knn_graph of X's
+    columns, gnmf with it (eu_residual_obj iters + 1 a run), symnmf of the
+    graph (no kernel), nmtf from its own k-means init (eu_residual_obj
+    iters + 1 a run) and OnlineNMF over 8 minibatches of 1024 columns, two
+    passes (exactly 16 gs_sweep on the kernel route)."""
+    from tpunmf_torch import solvers
+
+    k, (m, n) = eu_init[0].shape[1], eu_x.shape
+    iters = FAMILY_ITERS
+    nudged = [f.clamp(min=1e-6).contiguous() for f in eu_init]
+    out = {}
+
+    def eu_f64(x, scale=1.0):
+        return lambda w, h: scale * objective_f64(torch, x, w, h, "eu")
+
+    def convex_path():
+        xc = eu_x - eu_x.mean(dim=0)
+        out["convex_nmf"] = family_run(
+            torch, tt, counters, f"convex_nmf {tuple(xc.shape)} k{k} centred", xc, k, card,
+            eu_f64(xc, 2.0), routes=(None,), exact={}, f64_gate=False,
+            fit=lambda **a: solvers.convex_nmf(xc, k, **a))
+
+    drive("convex_nmf path", (), convex_path, exact={})
+
+    graph = {}
+
+    def knn_path():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = solvers.knn_graph(eu_x, KNN_NEIGHBORS, mode="heat")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        nnz = int((a > 0).sum())
+        sym = bool(torch.equal(a, a.T))
+        print(f"  knn_graph of {n} columns, {KNN_NEIGHBORS} neighbours, heat: {1e3 * secs:.1f} "
+              f"ms, {nnz} nonzeros ({nnz / n:.2f} a column), symmetric {sym} [{card}]",
+              flush=True)
+        require(sym and nnz >= KNN_NEIGHBORS * n and bool(torch.isfinite(a).all()),
+                "knn_graph: not a symmetric finite graph with every column's neighbours")
+        graph["a"] = a
+        return {"ms": 1e3 * secs, "nnz": nnz}
+
+    out["knn_graph"] = drive("knn_graph path", (), knn_path, exact={})
+    a = graph["a"]
+    a64 = a.double()
+    deg64 = a64.sum(dim=1)
+
+    def gnmf_f64(w, h):
+        hd = h.double()
+        smooth = float(torch.sum(deg64 * torch.sum(hd * hd, dim=0)) - torch.sum((hd @ a64) * hd))
+        return objective_f64(torch, eu_x, w, h, "eu") + 0.5 * smooth
+
+    def gnmf_path():
+        out["gnmf"] = family_run(
+            torch, tt, counters, f"gnmf {tuple(eu_x.shape)} k{k} lambda_g 1", eu_x, k, card,
+            gnmf_f64, exact={"eu_residual_obj": iters + 1},
+            fit=lambda **kw: solvers.gnmf(eu_x, k, a, lambda_g=1.0, **kw),
+            w_init=nudged[0], h_init=nudged[1])
+
+    def symnmf_path():
+        out["symnmf"] = family_run(
+            torch, tt, counters, f"symnmf of the graph {tuple(a.shape)} k{k}", a, k, card,
+            eu_f64(a, 2.0), routes=(None,), exact={}, f64_gate=False,
+            fit=lambda **kw: solvers.symnmf(a, k, **kw))
+
+    # each kernel path: its kernel-route warm-up (2 objectives) and run (iters + 1)
+    drive("gnmf path", ("eu_residual_obj",), gnmf_path, exact={"eu_residual_obj": iters + 3})
+    del a64, deg64
+    drive("symnmf path", (), symnmf_path, exact={})
+    del graph["a"], a
+
+    core = {}
+
+    def nmtf_fit(**kw):
+        res, core["s"] = solvers.nmtf(eu_x, NMTF_K, NMTF_K, **kw)
+        return res
+
+    def nmtf_path():
+        torch.cuda.synchronize()
+        rest = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["nmtf"] = family_run(
+            torch, tt, counters, f"nmtf {tuple(eu_x.shape)} k_row = k_col = {NMTF_K}, k-means "
+            "init", eu_x, NMTF_K, card,
+            lambda f, gt: objective_f64(torch, eu_x, f,
+                                        torch.from_numpy(core["s"]).cuda() @ gt, "eu"),
+            exact={"eu_residual_obj": iters + 1}, fit=nmtf_fit)
+        peak = (torch.cuda.max_memory_allocated() - rest) / 1e9
+        out["nmtf"]["peak_gb"] = peak
+        chunk = importlib.import_module("tpunmf_torch.solvers.nmtf")._KMEANS_CHUNK_BYTES
+        print(f"  nmtf: peak {peak:.3f} GB above the resting allocation over its runs, the "
+              f"k-means distances in chunks of {chunk >> 20} MB [{card}]", flush=True)
+
+    drive("nmtf path", ("eu_residual_obj",), nmtf_path, exact={"eu_residual_obj": iters + 3})
+
+    batches = [eu_x[:, j:j + ONLINE["batch"]].contiguous() for j in range(0, n, ONLINE["batch"])]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    w0 = torch.randn((m, k), generator=g, device="cuda").abs_()
+    online = {}
+
+    def stream(route):
+        model = solvers.OnlineNMF(m, k, sweeps=ONLINE["sweeps"], w_init=w0, use_pallas=route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ONLINE["passes"]):
+            for b in batches:
+                model.partial_fit(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        online[route] = model
+        return len(batches) * ONLINE["passes"] / secs
+
+    def warm_up():
+        # one minibatch a route first: the NNLS's first solves start the
+        # card's solver library, which the stream's rate should not hold
+        for route in (True, False):
+            solvers.OnlineNMF(m, k, sweeps=ONLINE["sweeps"], w_init=w0,
+                              use_pallas=route).partial_fit(batches[0])
+        torch.cuda.synchronize()
+
+    def online_kernel_path():
+        rate = stream(True)
+        model = online[True]
+        h = model.transform(eu_x)
+        w = model._w
+        fit = objective_f64(torch, eu_x, w, h, "eu")
+        xsq = float(torch.sum(eu_x.double() ** 2))
+        print(f"  OnlineNMF {tuple(eu_x.shape)} k{k}, {len(batches)} minibatches of "
+              f"{ONLINE['batch']} columns, {ONLINE['passes']} passes, sweeps "
+              f"{ONLINE['sweeps']}, kernel route: {rate:.2f} minibatches/s; last minibatch's "
+              f"objective {model.obj_history[-1]:.6e}; transform of X re-encoded: EU "
+              f"objective {fit:.9e} = {fit / (0.5 * xsq):.4e} of ||X||^2/2 [{card}]", flush=True)
+        require(np.all(np.isfinite(model.obj_history)) and np.isfinite(fit),
+                "OnlineNMF: non-finite objective")
+        online["fit"], online["rate"] = fit, rate
+
+    drive("OnlineNMF warm-up path", ("gs_sweep",), warm_up, exact={"gs_sweep": 1})
+    drive("OnlineNMF kernel path", ("gs_sweep",), online_kernel_path,
+          exact={"gs_sweep": len(batches) * ONLINE["passes"]})
+    plain_rate = drive("OnlineNMF plain path", (), lambda: stream(False), exact={})
+    wk, wp = online[True]._w, online[False]._w
+    err = float(torch.max(torch.abs(wk - wp)) / torch.max(torch.abs(wp)))
+    print(f"  OnlineNMF plain route {plain_rate:.2f} minibatches/s; final W {err:.3e} of its "
+          f"largest entry off the plain route's (tol {ONLINE['tol']:.0e})", flush=True)
+    require(err <= ONLINE["tol"], f"OnlineNMF: the routes' W differ by {err:.3e}")
+    out["online"] = {"rate": online["rate"], "plain_rate": plain_rate, "w_err": err,
+                     "transform_obj": online["fit"]}
+    return out
 
 def main() -> int:
     import torch
@@ -3087,7 +3525,14 @@ def main() -> int:
           flush=True)
     kl_f64 = kl_f64_phase(torch, tt, kl_f64_cases(torch, eu_x, eu_nndsvd, kl_x, kl2_x), card)
     families = families_phase(torch, tt, counters, drive, card, eu_x, eu_nndsvd)
-    print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 7: N-way CP and the remaining families [{card}]", flush=True)
+    torch.cuda.empty_cache()  # room for the CLI's process beside this one
+    remaining = ntf_phase(torch, tt, counters, drive, card)
+    remaining.update(matrix_families_phase(torch, tt, counters, drive, card, eu_x, eu_nndsvd))
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -3117,7 +3562,8 @@ def main() -> int:
                  for label, r in runs.items()},
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
-        "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families}))
+        "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families,
+        "remaining": remaining}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,8 +75,8 @@ def test_facade_properties_and_save_guard(tmp_path):
 
 @pytest.mark.parametrize("method", ["anls", "admm", "ao_admm", "hals", "ntf"])
 def test_unported_methods_raise(method, tmp_path):
-    # anls, admm and ao_admm are ported and so are their checkpoints: the
-    # run saves its state
+    # every method of the list is ported (the id predates the ports); anls,
+    # admm and ao_admm's checkpoints too: the run saves its state
     if method in ("anls", "admm", "ao_admm"):
         ck = str(tmp_path / "ckpt")
         tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method, max_iter=3,
@@ -91,8 +91,17 @@ def test_unported_methods_raise(method, tmp_path):
         assert got.i == want.i == 2
         np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-10)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method=method)
+    # ntf is ported, the last method of tpunmf's list: tpunmf's run on a 3-way X
+    from tpunmf_torch.api import _METHODS, _PORTED
+
+    assert _PORTED == _METHODS
+    x = lowrank().reshape(60, 6, 8)
+    init = [np.random.default_rng(d).random((n, 5)) + 0.1 for d, n in enumerate(x.shape)]
+    kw = dict(factors_init=init, min_iter=4, max_iter=4, tol1=0.0, tol2=0.0)
+    got = tpunmf_torch.NMF(t(x), 5).factorize(method=method, **kw)
+    want = tpunmf.NMF(x, 5).factorize(method=method, **kw)
+    assert got.i == want.i == 3
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-10)
 
 
 def test_unknown_method_fails_as_tpunmf_does():

@@ -14,10 +14,12 @@ import torch
 from _torch_parity import TRACE_RTOL, assert_traces_match, lowrank, t
 from tpunmf.io import checkpoint_exists as jcheckpoint_exists
 from tpunmf.solvers import admm as jadmm
+from tpunmf.solvers import gnmf as jgnmf
 from tpunmf.solvers import mur as jmur
+from tpunmf.solvers import ntf as jntf
 from tpunmf_torch.io import checkpoint_exists, load_state, save_state
-from tpunmf_torch.solvers import (admm, anls, ao_admm, hals, mur, mur_beta,
-                                  mur_masked)
+from tpunmf_torch.solvers import (admm, anls, ao_admm, gnmf, hals, knn_graph, mur, mur_beta,
+                                  mur_masked, ntf)
 from tpunmf_torch.solvers.common import init_carry
 
 mur_module = importlib.import_module("tpunmf_torch.solvers.mur")
@@ -152,6 +154,20 @@ _X = lowrank()
 _MASK = (np.random.default_rng(3).random(_X.shape) < 0.7).astype(np.float64)
 _BASE = dict(min_iter=30, max_iter=30, tol1=1e-12, tol2=1e-12,
              nndsvd_init=(True, "zero"))
+_NTF_INIT = [np.random.default_rng(4).random((n, 5)) + 0.1 for n in _X.shape]
+_GRAPH = knn_graph(t(_X), 5).numpy()
+
+
+def _no_nndsvd(kw):
+    """ntf draws its own init: the keywords without nndsvd_init."""
+    return {n: v for n, v in kw.items() if n != "nndsvd_init"}
+
+
+def _factors(res):
+    """The factors of a Results (w, h) or of an NtfResults (its list)."""
+    return res.factors if hasattr(res, "factors") else (res.w, res.h)
+
+
 SOLVERS = {
     "mur_eu": lambda x, **k: mur(x, 5, distance_type="eu", **_BASE, **k),
     "mur_kl": lambda x, **k: mur(x, 5, distance_type="kl", **_BASE, **k),
@@ -165,6 +181,8 @@ SOLVERS = {
     "mur_masked": lambda x, **k: mur_masked(x, t(_MASK), 5, distance_type="kl",
                                             **_BASE, **k),
     "mur_beta": lambda x, **k: mur_beta(x, 5, beta=0.5, **_BASE, **k),
+    "ntf": lambda x, **k: ntf(x, 5, factors_init=_NTF_INIT, **_no_nndsvd(_BASE), **k),
+    "gnmf": lambda x, **k: gnmf(x, 5, _GRAPH, **_BASE, **k),
 }
 
 
@@ -187,8 +205,8 @@ def test_resume_equals_uninterrupted_run(tmp_path, name, monkeypatch):
                  **extra)
     assert resumed.i == full.i
     np.testing.assert_allclose(resumed.obj_history, full.obj_history, rtol=1e-12)
-    np.testing.assert_allclose(resumed.w, full.w, rtol=1e-12, atol=1e-300)
-    np.testing.assert_allclose(resumed.h, full.h, rtol=1e-12, atol=1e-300)
+    for a, b in zip(_factors(resumed), _factors(full), strict=True):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-300)
 
 
 _CROSS = {
@@ -196,6 +214,12 @@ _CROSS = {
                lambda x, **k: jmur(x, 5, distance_type="eu", **k)),
     "admm_eu": (lambda x, **k: admm(x, 5, distance_type="eu", reg_h=(0.05, "l1n"), **k),
                 lambda x, **k: jadmm(x, 5, distance_type="eu", reg_h=(0.05, "l1n"), **k)),
+    # the tag formats X's shape as tpunmf does, "(60, 48)": a torch.Size
+    # there would refuse tpunmf's checkpoint
+    "ntf": (lambda x, **k: ntf(x, 5, factors_init=_NTF_INIT, **_no_nndsvd(k)),
+            lambda x, **k: jntf(x, 5, factors_init=_NTF_INIT, **_no_nndsvd(k))),
+    "gnmf": (lambda x, **k: gnmf(x, 5, _GRAPH, lambda_g=0.5, **k),
+             lambda x, **k: jgnmf(x, 5, _GRAPH, lambda_g=0.5, **k)),
 }
 _CROSS_KW = dict(min_iter=40, max_iter=40, tol1=1e-12, tol2=1e-12,
                  nndsvd_init=(True, "zero"))
@@ -215,7 +239,8 @@ def test_checkpoints_cross_between_packages(tmp_path, name, direction):
     got = reader(checkpoint_path=ck, checkpoint_every=10, resume=True, **_CROSS_KW)
     assert got.i == want.i == 39
     assert_traces_match(got.obj_history, want.obj_history, rtol=TRACE_RTOL)
-    np.testing.assert_allclose(np.asarray(got.w), np.asarray(want.w), rtol=1e-8)
+    for a, b in zip(_factors(got), _factors(want), strict=True):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-8)
 
 
 def test_kl_checkpoint_refused_on_the_other_route_kind(tmp_path, monkeypatch):

@@ -95,14 +95,32 @@ def test_grid_command(tmp_path, data_file, capsys):
     (["grid", "-k", "3", "--checkpoint", "ck"], 2, "not supported with grid"),
     (["grid", "-k", "3", "-m", "ntf"], 2, "grid does not support"),
     (["grid", "-k", "3", "-m", "robust"], 2, "grid does not support"),
-    (["factorize", "-k", "3", "-m", "ntf"], 1, "'ntf' is not ported yet"),
+    # the id predates the port of ntf: factorize -m ntf now runs, and prints
+    # tpunmf's line (both CLIs read one factors_init from a parameter module)
+    (["factorize", "-k", "3", "-m", "ntf", "--ntf-update", "hals"], 0, None),
     (["grid", "-k", "3", "-m", "ntf", "--ntf-update", "hals"], 2,
      "grid does not support -m ntf"),
 ], ids=["grid_checkpoint", "grid_ntf", "grid_robust", "unported", "grid_unported"])
-def test_refusals(tmp_path, data_file, capsys, argv, code, message):
-    args = [argv[0], data_file, *argv[1:], "--device", "cpu", "--no-save",
-            "--max-iter", "2"]
-    assert tmain(args) == code
+def test_refusals(tmp_path, data_file, capsys, monkeypatch, argv, code, message):
+    args = [argv[0], data_file, *argv[1:], "--no-save", "--max-iter", "2"]
+    if code == 0:
+        (tmp_path / "ntf_cli_params.py").write_text(
+            "import numpy as np\n"
+            "_rng = np.random.default_rng(0)\n"
+            "method_params = {'factors_init': [_rng.random((60, 3)) + 0.1,\n"
+            "                                  _rng.random((40, 3)) + 0.1]}\n")
+        monkeypatch.syspath_prepend(str(tmp_path))
+        args += ["--param-file", "ntf_cli_params", "--tol1", "0", "--tol2", "0"]
+        assert jmain(args) == 0
+        want = _rows(capsys.readouterr().out)
+    assert tmain(args + ["--device", "cpu"]) == code
+    if code == 0:
+        got = _rows(capsys.readouterr().out)
+        assert len(got) == len(want) == 1 and got[0]["method"] == "ntf"
+        assert got[0]["iterations"] == want[0]["iterations"] == 1
+        np.testing.assert_allclose(got[0]["final_objective"], want[0]["final_objective"],
+                                   rtol=1e-10)
+        return
     assert message in capsys.readouterr().err
 
 

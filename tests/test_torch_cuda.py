@@ -1598,3 +1598,82 @@ def test_ao_admm_launches_its_objective_once_an_iteration_and_keeps_the_plain_bi
     np.testing.assert_allclose(kern.obj_history, plain.obj_history, rtol=1e-4)
     assert np.all(np.isfinite(kern.obj_history)) and kern.w.dtype == np.float32
     assert kern.w.min() >= 0 and kern.h.min() >= 0
+
+
+def _cp_problem(device, dims=(512, 96, 80), k=64, seed=21):
+    """A CP-model tensor (+ noise) and an init, float32 on the card."""
+    rng = np.random.default_rng(seed)
+    fs = [rng.random((d, k)) + 0.01 for d in dims]
+    x = np.einsum("ir,jr,kr->ijk", *fs) + 0.05 * rng.random(dims)
+    init = [torch.from_numpy(rng.random((d, k)) + 0.01).float().to(device) for d in dims]
+    return torch.from_numpy(x).float().to(device), init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam", [0.0, 0.2])
+def test_cp_hals_sweeps_match_the_plain_version(cuda_device, lam):
+    """CP-HALS's component loop is gs_sweep in the transposed frame: one
+    mode's update at (512, 64) against gs_sweep_ref, and one whole
+    iteration (3 launches) against the plain route."""
+    from tpunmf_torch.solvers import mttkrp, ntf
+    from tpunmf_torch.solvers.ntf import _gram_except
+
+    x, init = _cp_problem(cuda_device)
+    grams = [f.T @ f for f in init]
+    m, g = mttkrp(x, init, 0), _gram_except(grams, 0)
+    got = hals_sweep.gs_sweep(m.T, g, init[0].T, lam=lam, nsweeps=1).T
+    want = hals_sweep.gs_sweep_ref(m.T, g, init[0].T, lam=lam, nsweeps=1).T
+    assert tuple(got.shape) == (512, 64) and got.is_contiguous()
+    assert _scaled_err(got, want) <= RTOL
+    kw = dict(update="hals", factors_init=init, lambdas=[lam] * 3, min_iter=1, max_iter=1)
+    kern, launched = _launched_by(lambda: ntf(x, 64, use_pallas=True, **kw))
+    plain, p_launched = _launched_by(lambda: ntf(x, 64, use_pallas=False, **kw))
+    assert launched == {(hals_sweep.gs_sweep, "launches"): 3} and p_launched == {}
+    for a, b in zip(kern.factors, plain.factors):
+        assert _scaled_err(torch.from_numpy(a), torch.from_numpy(b)) <= RTOL
+    np.testing.assert_allclose(kern.obj_history, plain.obj_history, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_an_online_step_s_sweeps_match_the_plain_version(cuda_device):
+    """One OnlineNMF minibatch from one state on both routes: the kernel
+    route launches gs_sweep once (both sweeps), and W agrees."""
+    from tpunmf_torch.solvers import OnlineNMF
+
+    x, w0, _ = (t(a).to(cuda_device) for a in kernel_problem(22, m=512, n=256, k=64))
+    models = []
+    for route in (True, False):
+        model = OnlineNMF(512, 64, sweeps=2, w_init=w0, use_pallas=route)
+        h, launched = _launched_by(lambda: model.partial_fit(x))
+        models.append((model, h, launched))
+    (kern, hk, launched), (plain, hp, p_launched) = models
+    assert launched == {(hals_sweep.gs_sweep, "launches"): 1} and p_launched == {}
+    assert torch.equal(hk, hp)  # the encode precedes the sweeps
+    assert _scaled_err(kern._w, plain._w) <= RTOL and kern.w.min() >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gnmf", "nmtf"])
+def test_gnmf_and_nmtf_routes_give_the_same_bits(cuda_device, solver):
+    """gnmf's and nmtf's routes differ only in the objective, which does not
+    feed back: eu_residual_obj once an iteration and once for the initial
+    objective on the kernel route, nothing on the plain route, and the same
+    W, H bits."""
+    from tpunmf_torch import solvers
+
+    x, w0, h0 = (t(a).to(cuda_device) for a in kernel_problem(23, m=300, n=200, k=16))
+    if solver == "gnmf":
+        a = solvers.knn_graph(x, 5)
+
+        def fit(route):
+            return solvers.gnmf(x, 16, a, w_init=w0, h_init=h0, min_iter=5, max_iter=5,
+                                use_pallas=route)
+    else:
+        def fit(route):
+            return solvers.nmtf(x, 8, 6, min_iter=5, max_iter=5, use_pallas=route)[0]
+    kern, launched = _launched_by(lambda: fit(True))
+    plain, p_launched = _launched_by(lambda: fit(False))
+    assert launched == {(fused.eu_residual_obj, "launches"): 6} and p_launched == {}
+    np.testing.assert_array_equal(kern.w, plain.w)
+    np.testing.assert_array_equal(kern.h, plain.h)
+    np.testing.assert_allclose(kern.obj_history, plain.obj_history, rtol=RTOL)

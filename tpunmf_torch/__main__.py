@@ -159,7 +159,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     try:
         return args.fn(args)
-    except NotImplementedError as e:  # a method or option not ported yet
+    except NotImplementedError as e:  # an option not ported yet (schedule=, mesh=)
         print(f"error: {e}", file=sys.stderr)
         return 1
 

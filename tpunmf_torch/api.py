@@ -1,17 +1,19 @@
 """Public facade: the ``NMF`` class, as in ``tpunmf.api``.
 
-Same surface as ``tpunmf.NMF`` for what is ported: ``NMF(data, factors,
-saving=True, param_file=None)``, ``.w`` / ``.h``, the sklearn-style
-``components_``, ``reconstruction_err_``, ``fit``, ``fit_transform``,
-``transform`` and ``inverse_transform``, ``factorize``,
-``default_save_name`` (the reference's file-name grammar,
-nmf/nmf.py:95-126), ``save_factorization`` and ``load_factorization``.
-Ported: ``method="mur"`` (with ``mask=`` for masked/weighted MUR and
-``beta=`` for the beta-divergence MUR), ``method="anls"``,
-``method="hals"``, ``method="admm"``, ``method="ao_admm"``,
-``method="semi_nmf"``, ``method="onmf"``, ``method="robust"``, and the
-``multilevel=`` warm start of mur and hals; ``method="ntf"`` and the
-routing extensions ``schedule=`` and ``mesh=`` raise
+Same surface as ``tpunmf.NMF``: ``NMF(data, factors, saving=True,
+param_file=None)``, ``.w`` / ``.h``, the sklearn-style ``components_``,
+``reconstruction_err_``, ``fit``, ``fit_transform``, ``transform`` and
+``inverse_transform``, ``factorize``, ``default_save_name`` (the
+reference's file-name grammar, nmf/nmf.py:95-126, and ``tpunmf``'s
+``ntf_...`` name for an N-way fit), ``save_factorization`` and
+``load_factorization`` (either layout, told apart by ``n_modes``).
+Every method of ``tpunmf``'s dispatch list is ported: ``"mur"`` (with
+``mask=`` for masked/weighted MUR and ``beta=`` for the beta-divergence
+MUR), ``"anls"``, ``"hals"``, ``"admm"``, ``"ao_admm"``, ``"semi_nmf"``,
+``"onmf"``, ``"robust"``, ``"ntf"`` (N-way CP: ``.w`` / ``.h`` are None,
+``fit_transform`` gives the mode-0 factor, ``transform`` and
+``inverse_transform`` refuse), and the ``multilevel=`` warm start of mur
+and hals; the routing extensions ``schedule=`` and ``mesh=`` raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -21,19 +23,21 @@ from collections import namedtuple
 from importlib import import_module
 
 from .core.types import Results
-from .io.npz import load_results, save_results
+from .io.npz import (is_ntf_file, load_ntf_results, load_results, save_ntf_results,
+                     save_results)
 
 # tpunmf's dispatch list, kept whole so an unknown method fails the same way
 _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
-_PORTED = ("mur", "anls", "hals", "admm", "ao_admm", "semi_nmf", "onmf", "robust")
+# every method of the list is ported
+_PORTED = _METHODS
 _UNPORTED_OPTIONS = ("schedule", "mesh")
 
 
 class NMF:
     """Non-negative matrix factorization (MUR, masked and beta-divergence
-    MUR, ANLS, HALS, ADMM, AO-ADMM, semi-NMF, ONMF, robust NMF and the
-    multilevel warm start ported).
+    MUR, ANLS, HALS, ADMM, AO-ADMM, semi-NMF, ONMF, robust NMF, N-way CP
+    and the multilevel warm start).
 
     Example:
         >>> from tpunmf_torch import NMF
@@ -61,13 +65,14 @@ class NMF:
                 return
             self.method_params = dict(parameters.method_params)
 
+    # getattr: N-way (ntf) results carry .factors instead of .w/.h
     @property
     def w(self):
-        return None if self.results is None else self.results.w
+        return None if self.results is None else getattr(self.results, "w", None)
 
     @property
     def h(self):
-        return None if self.results is None else self.results.h
+        return None if self.results is None else getattr(self.results, "h", None)
 
     # sklearn-style aliases
     @property
@@ -107,10 +112,6 @@ class NMF:
                 self.save_factorization()
             return self.results
 
-        if method not in _PORTED:
-            raise NotImplementedError(
-                f"method {method!r} is not ported yet; ported: "
-                + " ".join(_PORTED))
         mask = beta = None
         if method == "mur":
             # routing extensions, as tpunmf/api.py:122-129 (None is ignored)
@@ -142,6 +143,9 @@ class NMF:
         elif method == "robust":
             # l2,1-norm objective, outlier-resistant
             self.results = solvers.robust_nmf(self.data, self.factors, **params)
+        elif method == "ntf":
+            # native CP/PARAFAC for N-way data
+            self.results = solvers.ntf(self.data, self.factors, **params)
         elif beta is not None:
             self.results = solvers.mur_beta(self.data, self.factors, beta=beta,
                                             **params)
@@ -162,9 +166,10 @@ class NMF:
 
     def fit_transform(self, method: str = "mur", **method_params):
         """sklearn-style convenience: factorize and return W (the
-        sample-by-component representation, as sklearn's NMF)."""
+        sample-by-component representation, as sklearn's NMF); for
+        ``method='ntf'`` the mode-0 factor."""
         self.factorize(method=method, **method_params)
-        return self.w
+        return self.w if self.w is not None else self.results.factors[0]
 
     def transform(self, data, **opts):
         """Encode new data against the trained basis W (k x n_new), on
@@ -172,6 +177,10 @@ class NMF:
         to the distance the model was trained with."""
         if self.results is None:
             raise RuntimeError("Nothing trained: call factorize() first.")
+        if self.w is None:
+            raise RuntimeError(
+                "transform() needs a 2-D basis; the trained model is an "
+                "N-way CP factorization (use its .factors directly).")
         from .solvers import transform as _transform
 
         trained = getattr(self.results.experiment, "distance_type", "eu")
@@ -182,6 +191,11 @@ class NMF:
         """Reconstruct data from coefficients: W @ h."""
         if self.results is None:
             raise RuntimeError("Nothing trained: call factorize() first.")
+        if self.w is None:
+            raise RuntimeError(
+                "inverse_transform() needs a 2-D basis; the trained model "
+                "is an N-way CP factorization (use cp_reconstruct on its "
+                ".factors).")
         from .solvers import inverse_transform as _inv
 
         return _inv(self.results.w, h)
@@ -189,6 +203,9 @@ class NMF:
     def default_save_name(self) -> str:
         """Parameter-encoded save name, grammar-identical to nmf/nmf.py:95-126."""
         exp = self.results.experiment
+        if exp.method == "ntf":
+            return (f"ntf_{exp.components}_{exp.distance_type}_{exp.update}"
+                    + "_" + "x".join(str(len(f)) for f in self.results.factors))
         save_name = f"nmf_{exp.method}"
         save_name += f"_{self.factors}"
         save_name += f"_{exp.distance_type}"
@@ -219,6 +236,14 @@ class NMF:
         os.makedirs(save_dir, exist_ok=True)
         if save_name is None:
             save_name = self.default_save_name()
+        if getattr(self.results.experiment, "method", None) == "ntf":
+            return save_ntf_results(
+                os.path.join(save_dir, save_name),
+                factors=self.results.factors,
+                i=self.results.i,
+                obj_history=self.results.obj_history,
+                experiment=self.results.experiment._asdict(),
+            )
         return save_results(
             os.path.join(save_dir, save_name),
             w=self.results.w,
@@ -234,12 +259,22 @@ class NMF:
 
         The experiment record is rebuilt as a namedtuple (files store it as
         a dict), so ``save_factorization`` / ``default_save_name`` work on
-        a loaded model too."""
-        payload = load_results(path)
+        a loaded model too.  An N-way file (``n_modes``) loads as
+        ``NtfResults``."""
+        ntf = is_ntf_file(path)
+        payload = load_ntf_results(path) if ntf else load_results(path)
         experiment = payload["experiment"]
         if isinstance(experiment, dict):
             exp_cls = namedtuple("Experiment", list(experiment.keys()))
             experiment = exp_cls(**experiment)
+        if ntf:
+            from .solvers.ntf import NtfResults
+
+            obj = cls(data=None, factors=payload["factors"][0].shape[1])
+            obj.results = NtfResults(factors=payload["factors"], i=payload["i"],
+                                     obj_history=payload["obj_history"],
+                                     experiment=experiment)
+            return obj
         obj = cls(data=None, factors=payload["w"].shape[1])
         obj.results = Results(
             w=payload["w"],

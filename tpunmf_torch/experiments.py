@@ -8,7 +8,9 @@ nmf/nmf_old.py:52-54, and its parameter modules, :14-18), on the port:
   from one shared init, for exactly ``n_iter`` iterations;
 - ``rank_scan`` scores candidate ranks by the stability of the seeds'
   clusterings;
-- ``corcondia`` is the CP core-consistency diagnostic.
+- ``corcondia`` is the CP core-consistency diagnostic, and
+  ``ntf_rank_scan`` fits a CP model at each candidate rank and scores it
+  by its fit and its core consistency.
 
 Where ``tpunmf`` vmaps a run over the grid or the seeds, the port folds
 the batch into the products' N dimension, so X is read once per product:
@@ -230,13 +232,14 @@ def rank_scan_body(x, w0s, h0s, distance_type: str, n_iter: int):
     return float(dispersion), float(torch.mean(objs))
 
 
-def _rank_seed(key, k: int) -> int:
-    """The seed of rank k's draws: a function of ``key`` and k alone, so a
-    rank's draws do not depend on which other ranks are scanned (what
-    ``fold_in`` gives ``tpunmf``)."""
+def _rank_seed(key, index: int) -> int:
+    """The seed of one fit's draws: a function of ``key`` and ``index``
+    alone (``rank_scan`` passes the rank, ``ntf_rank_scan`` the position
+    in ``ks``, as ``tpunmf`` folds each into its key with ``fold_in``), so
+    a fit's draws do not depend on which others are scanned."""
     base = key.initial_seed() if isinstance(key, torch.Generator) else (
         0 if key is None else int(key))
-    return int(np.random.SeedSequence([base, k]).generate_state(1, np.uint64)[0] >> 1)
+    return int(np.random.SeedSequence([base, index]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def rank_scan(
@@ -329,3 +332,48 @@ def corcondia(x, factors) -> float:
         idx = (torch.arange(k, device=g.device),) * ndim
         ideal[idx] = 1.0
         return float(100.0 * (1.0 - torch.sum((g - ideal) ** 2) / k))
+
+
+def ntf_rank_scan(
+    x,
+    ks: Sequence[int],
+    *,
+    update: str = "hals",
+    n_iter: int = 200,
+    key=None,
+) -> list:
+    """CP rank selection: fit + core consistency per candidate rank.
+
+    Fits a CP model at each rank (``solvers.ntf``, ``n_iter`` iterations at
+    most, ``min_iter`` 10, tolerances 1e-9) and reports the relative
+    reconstruction error together with :func:`corcondia`.  The usual
+    reading: pick the largest k whose core consistency stays high (~>50)
+    before the collapse.  Rank ``ks[i]``'s init is drawn from a generator
+    seeded by ``key`` (an int seed or a ``torch.Generator``'s initial seed,
+    default 0) and i, as ``tpunmf`` folds i into its key; torch's draws
+    differ from ``jax.random``'s.
+
+    Returns a list of dicts: {k, rel_err, corcondia, final_obj}.
+    """
+    from .solvers.ntf import cp_reconstruct, ntf
+
+    x = as_input(x)
+    with torch.no_grad(), full_f32():
+        xnorm = float(torch.linalg.norm(x))
+    out = []
+    for i, k in enumerate(ks):
+        g = torch.Generator(device=x.device)
+        g.manual_seed(_rank_seed(key, i))
+        res = ntf(x, int(k), update=update, max_iter=n_iter, min_iter=10,
+                  tol1=1e-9, tol2=1e-9, key=g)
+        with torch.no_grad(), full_f32():
+            xhat = cp_reconstruct([torch.as_tensor(f, device=x.device) for f in res.factors])
+            rel = float(torch.linalg.norm(x - xhat)) / (xnorm + 1e-30)
+        del xhat
+        out.append({
+            "k": int(k),
+            "rel_err": rel,
+            "corcondia": corcondia(x, res.factors),
+            "final_obj": float(res.obj_history[-1]),
+        })
+    return out

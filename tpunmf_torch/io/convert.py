@@ -3,7 +3,8 @@
 ``tpunmf``'s factors, ``Results`` and ``LoopCarry`` fields become the
 port's tensors on a given device and dtype, and back.  Nothing here
 imports JAX: the JAX side hands over (or takes back) numpy arrays, e.g.
-``np.asarray(jax_array)`` / ``jnp.asarray(numpy_array)``.
+``np.asarray(jax_array)`` / ``jnp.asarray(numpy_array)``.  Also: an
+``NtfResults``' factor list, and an ``OnlineNMF``'s stream state.
 """
 from __future__ import annotations
 
@@ -55,3 +56,32 @@ def results_to_torch(results, *, device=None, dtype=None) -> Results:
 def results_to_numpy(results) -> Results:
     """A ``Results`` record with w/h as numpy arrays."""
     return results._replace(w=host_array(results.w), h=host_array(results.h))
+
+
+def ntf_results_to_torch(results, *, device=None, dtype=None):
+    """An ``NtfResults`` record with its factor list as tensors on ``device``."""
+    return results._replace(factors=[to_tensor(f, device=device, dtype=dtype)
+                                     for f in results.factors])
+
+
+def ntf_results_to_numpy(results):
+    """An ``NtfResults`` record with its factor list as numpy arrays."""
+    return results._replace(factors=[host_array(f) for f in results.factors])
+
+
+def online_state(model) -> dict:
+    """The stream state of either package's ``OnlineNMF`` as numpy: W, the
+    statistics A and B, ``n_batches`` and the padded batch width."""
+    return {"w": host_array(model._w), "a": host_array(model._a),
+            "b": host_array(model._b), "n_batches": int(model.n_batches),
+            "batch_width": int(model._batch_width)}
+
+
+def set_online_state(model, state: dict) -> None:
+    """Load :func:`online_state`'s dict (from either package) into the
+    port's ``OnlineNMF``, on its device and in its dtype."""
+    dev, dtype = model._w.device, model._w.dtype
+    model._w, model._a, model._b = (to_tensor(state[n], device=dev, dtype=dtype).contiguous()
+                                    for n in ("w", "a", "b"))
+    model.n_batches = int(state["n_batches"])
+    model._batch_width = int(state["batch_width"])
