@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about eight and a half minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about eleven minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
-     tpunmf_torch/ops/csrc with nvcc (sm_90a) and print the build time.
+     tpunmf_torch/ops/csrc with nvcc (sm_90a) and the native panelizer of
+     tpunmf_torch/native with g++ (it must build), and print the build
+     times.
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes and ragged ones: the error against a stated tolerance,
      both times (CUDA events, in the order plain, kernel, kernel, plain)
@@ -240,6 +242,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        none on the plain route (after one warm-up minibatch a route), the
        final W within 1e-4 of the plain route's, minibatches a second, and
        the EU fit of a transform of X.
+  8. out of core (tpunmf_torch.solvers.mur_streaming, PanelStream and the
+     native panelizer, the pinned ring of data/pipeline.py), every number
+     beside the card's name and power limit, each run through drive():
+     (a) the panelizer must build from tpunmf_torch/native/panelize.cpp;
+     the densify rate of 8192x8192 tiles alone into a pinned buffer (f32
+     and bf16) and the pinned host-to-device copy rate, in GB/s; (b) 20
+     iterations from one init inside HBM: EU at BASELINE config[3] streamed
+     with f32 transfer against in-core mur (1e-4) and with bf16 transfer
+     against in-core mur on the bf16-rounded X (5e-3), no kernel launched;
+     KL at config[1] streamed on its kernel route (exactly two kl_ratio a
+     nonempty tile an iteration and one kl_obj a nonempty tile an
+     objective) against its plain route (no kernel) and in-core mur
+     (1e-4); (c) MUR EU with bf16 transfer at BASELINE config[4]'s data
+     scale, sparse_csr(1_000_000, 100_000, density=1e-3, seed=0) (dense
+     400 GB f32, 200 GB bf16), r256, 2 iterations from the seeded random
+     init in 8192x8192 tiles: seconds a pass and an iteration, GB an
+     iteration, the pipeline's GB/s beside the copy and densify rates, the
+     peak device memory (below 10 GB), the objective (it must not rise),
+     and one more pass under torch.profiler for the device's idle share;
+     (d) topk_streaming of 64 users, k 100, from a host H of 2^24 items
+     r128 (8.6 GB f32) in panels of 2^20: topk_retrieval's answers on the
+     whole H, ms a request and the panels' GB/s.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -1971,13 +1995,13 @@ def check_serving(torch, runs, kept):
 
 def config3_on_card(torch):
     """BASELINE config[3]'s matrix, made on the host with the seed's draws
-    and densified to float32 on the card."""
+    and densified to float32 on the card; and its CSR (phase 8 streams it)."""
     from tpunmf_torch.data import densify, sparse_csr
 
     csr = sparse_csr(CONFIG3["m"], CONFIG3["n"], density=CONFIG3["density"],
                      k=CONFIG3["k"], seed=CONFIG3["seed"])
     x = torch.from_numpy(densify(csr)).cuda()
-    return x, csr.nnz
+    return x, csr
 
 
 def roundtrip_phase(tt, x, k, **kw):
@@ -2969,6 +2993,319 @@ def matrix_families_phase(torch, tt, counters, drive, card, eu_x, eu_init):
                      "transform_obj": online["fit"]}
     return out
 
+# Phase 8: out of core.  The streamed MUR's host path (the native panelizer,
+# the pinned ring, the copy stream), its agreement with in-core mur inside
+# HBM, and MUR EU at BASELINE config[4]'s data scale, whose dense X is 400 GB
+# in f32 and 200 GB in bf16 (benchmarks/run_configs.py:229-244: 1M x 100k,
+# r256; here sparse_csr's recipe at 1e-3 density, 1e8 nonzeros), then
+# topk_streaming from a host H larger than one panel
+OOC = dict(m=1_000_000, n=100_000, density=1e-3, seed=0, k=256, iters=2)
+# the panelizer's tiles and the ring's panels, 134 MB each in bf16
+OOC_TILE = 8192
+# the in-HBM agreements: iterations from one init, and the tolerances of the
+# streamed runs against in-core mur (f32 transfer; bf16 transfer against
+# in-core mur on the bf16-rounded X) and of the KL kernel route against its
+# plain route and in-core mur: f32 sums in another order
+OOC_AGREE_ITERS = 20
+OOC_RTOL = {"f32": 1e-4, "bf16": 5e-3, "kl": 1e-4}
+# W, H, the accumulators and the ring; never X
+OOC_PEAK_BYTES = 10e9
+# topk_streaming: 64 users, k = 100, 2^24 items at r128 (an 8.6 GB f32 host
+# H), panels of 2^20 items
+OOC_TOPK = dict(users=64, k=100, items=1 << 24, r=128, panel=1 << 20, requests=3)
+
+
+@contextlib.contextmanager
+def timed_passes(torch, log):
+    """Record (start, end, tiles) of each streamed pass of mur_streaming:
+    host clock from the pass's first panel to its last, with a synchronize
+    at its end."""
+    from tpunmf_torch.solvers import streaming
+
+    real = streaming._Panels.pipelined
+
+    def pipelined(self, sched):
+        t0 = time.perf_counter()
+        yield from real(self, sched)
+        torch.cuda.synchronize()
+        log.append((t0, time.perf_counter(), len(sched)))
+
+    streaming._Panels.pipelined = pipelined
+    try:
+        yield
+    finally:
+        streaming._Panels.pipelined = real
+
+
+def host_path_rates(torch, stream, card):
+    """(a): the densify rate of full-width tiles alone into a pinned buffer
+    (host clock, one row block of tiles), f32 and bf16: as the ring fills
+    its buffers (the held tile's nonzeros cleared, ``holds=``) and with each
+    tile zeroed first; and the pinned host-to-device copy rate (CUDA events
+    over 10 copies); all in GB/s of tile bytes."""
+    t = stream.row_block
+    tiles = [(1, j) for j in range(stream.grid[1]) if (j + 1) * stream.col_panel <= stream.n]
+    out = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        buf = torch.empty((t, t), dtype=dtype, pin_memory=True)
+        if dtype == torch.float32:
+            def fill(ij, holds, view=buf.numpy()):
+                stream.panel(*ij, out=view, holds=holds)
+        else:
+            def fill(ij, holds):
+                stream.panel_bf16(*ij, out=buf, holds=holds)
+        fill(tiles[-1], None)
+        for label, sparse in (("densify", True), ("zeroing_densify", False)):
+            held = tiles[-1]
+            t0 = time.perf_counter()
+            for ij in tiles:
+                fill(ij, held if sparse else None)
+                held = ij
+            secs = time.perf_counter() - t0
+            out[f"{label}_gb_s_{name}"] = len(tiles) * buf.nbytes / secs / 1e9
+        dev = torch.empty((t, t), dtype=dtype, device="cuda")
+        dev.copy_(buf, non_blocking=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            dev.copy_(buf, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[f"copy_gb_s_{name}"] = 10 * buf.nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+        print(f"  host path, {t}x{t} {name} tiles of the config[4]-scale matrix: densify "
+              f"{out[f'densify_gb_s_{name}']:.2f} GB/s of tiles as the ring fills (the held "
+              f"tile's nonzeros cleared), {out[f'zeroing_densify_gb_s_{name}']:.2f} zeroing "
+              f"each tile ({len(tiles)} tiles, {stream.n_threads} threads, host clock); "
+              f"pinned copy to the card {out[f'copy_gb_s_{name}']:.2f} GB/s (CUDA events, 10 "
+              f"copies of {buf.nbytes / 1e6:.0f} MB; {card})", flush=True)
+        del dev
+    return out
+
+
+def agree(label, got, want, tol):
+    """The largest relative gap of two Results' traces (the same length) and
+    the scaled gaps of their factors, each within ``tol``."""
+    g, w = np.asarray(got.obj_history, dtype=np.float64), np.asarray(want.obj_history,
+                                                                      dtype=np.float64)
+    require(g.shape == w.shape, f"{label}: traces of {g.shape} and {w.shape}")
+    trace = float(np.max(np.abs(g - w) / np.abs(w)))
+    fw = float(np.max(np.abs(got.w - want.w)) / np.max(np.abs(want.w)))
+    fh = float(np.max(np.abs(got.h - want.h)) / np.max(np.abs(want.h)))
+    print(f"  {label}: trace within {trace:.3e}, W {fw:.3e}, H {fh:.3e} (tol {tol:.0e})",
+          flush=True)
+    require(all(np.isfinite(v) and v <= tol for v in (trace, fw, fh)),
+            f"{label}: {trace:.3e} / {fw:.3e} / {fh:.3e} above {tol:.0e}")
+    return {"trace": trace, "w": fw, "h": fh, "tol": tol}
+
+
+def streamed(torch, label, card, csr, k, **kw):
+    """One mur_streaming run, timed on the host clock with a synchronize."""
+    from tpunmf_torch.solvers import mur_streaming
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mur_streaming(csr, k, **kw)
+    secs = time.perf_counter() - t0
+    print(f"  {label}: {res.i + 1} iterations in {secs:.2f} s, obj {res.obj_history[-1]:.6e} "
+          f"({card})", flush=True)
+    require(np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.obj_history)),
+            f"{label}: non-finite factors or trace")
+    return res, secs
+
+
+def in_hbm_agreement(torch, drive, card, adm_csr, kl_x):
+    """(b): 20 iterations from one init, streamed against in-core mur (its
+    kernel route) on the densified X: EU at config[3] with f32 and bf16
+    transfer, KL at config[1] on the streamed kernel route (exact kl_ratio
+    and kl_obj counts) against its plain route and in-core mur."""
+    import scipy.sparse as sp
+
+    from tpunmf_torch.data import PanelStream, densify
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.solvers import mur
+
+    its = OOC_AGREE_ITERS
+    common = dict(min_iter=its, max_iter=its, tol1=0.0, tol2=0.0)
+    out = {}
+    k = CONFIG3["k"]
+    w0, h0 = random_init(0, *adm_csr.shape, k, device="cuda")
+    x = torch.from_numpy(densify(adm_csr)).cuda()
+    tiles = dict(row_block=OOC_TILE, col_panel=OOC_TILE)
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        if dtype is not None:
+            x = x.bfloat16().float()  # the bf16-rounded X, in float32
+        incore = mur(x, k, distance_type="eu", w_init=w0, h_init=h0, **common)
+        res, secs = drive(f"out-of-core EU config[3] {name} path", (),
+                          lambda: streamed(torch, f"streamed EU config[3] {name} transfer",
+                                           card, adm_csr, k, distance_type="eu", w_init=w0,
+                                           h_init=h0, transfer_dtype=dtype, **tiles,
+                                           **common), exact={})
+        out[f"eu_config3_{name}"] = {
+            "secs": secs, **agree(f"streamed EU config[3] {name} transfer against in-core mur",
+                                  res, incore, OOC_RTOL[name])}
+    del x
+    torch.cuda.empty_cache()
+
+    kl_csr = sp.csr_matrix(kl_x.cpu().numpy())
+    stream = PanelStream(kl_csr)
+    nonempty = sum(stream.panel_nnz(i, j) > 0 for i in range(stream.grid[0])
+                   for j in range(stream.grid[1]))
+    k = 50
+    w0, h0 = random_init(1, *kl_csr.shape, k, device="cuda")
+    kw = dict(distance_type="kl", w_init=w0, h_init=h0, **common)
+    kern, secs = drive("out-of-core KL config[1] path", ("kl_ratio", "kl_obj"),
+                       lambda: streamed(torch, "streamed KL config[1], kernels", card, kl_csr,
+                                        k, **kw),
+                       exact={"kl_ratio": 2 * nonempty * its, "kl_obj": nonempty * (its + 1)})
+    plain, plain_secs = drive("out-of-core KL config[1] plain path", (),
+                              lambda: streamed(torch, "streamed KL config[1], plain", card,
+                                               kl_csr, k, use_pallas=False, **kw), exact={})
+    incore = mur(kl_x, k, **kw)
+    out["kl_config1"] = {"secs": secs, "plain_secs": plain_secs, "tiles": nonempty,
+                         "plain": agree("streamed KL config[1] kernels against plain", kern,
+                                        plain, OOC_RTOL["kl"]),
+                         "incore": agree("streamed KL config[1] kernels against in-core mur",
+                                         kern, incore, OOC_RTOL["kl"])}
+    return out
+
+
+def out_of_core_run(torch, drive, card):
+    """(a) on the matrix of (c), then (c): MUR EU with bf16 transfer at
+    config[4]'s data scale, 2 iterations from the seeded random init, its
+    passes timed, its peak memory, and one more pass under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpunmf_torch.data import PanelStream, sparse_csr
+    from tpunmf_torch.native import loader, native_available
+
+    t0 = time.perf_counter()
+    built = native_available()  # built at first use (phase 1 in chip_smoke.py)
+    print(f"  native panelizer: {'loaded' if built else 'NOT built'} "
+          f"(tpunmf_torch/native/panelize.cpp, {time.perf_counter() - t0:.1f} s)", flush=True)
+    require(built, f"the native panelizer did not build: {loader.build_error}")
+    t0 = time.perf_counter()
+    m, n, k = OOC["m"], OOC["n"], OOC["k"]
+    csr = sparse_csr(m, n, density=OOC["density"], seed=OOC["seed"])
+    print(f"  config[4]-scale matrix {m}x{n}, {csr.nnz} nonzeros, made on the host in "
+          f"{time.perf_counter() - t0:.1f} s (dense: {4 * m * n / 1e9:.0f} GB f32, "
+          f"{2 * m * n / 1e9:.0f} GB bf16)", flush=True)
+    stream = PanelStream(csr, row_block=OOC_TILE, col_panel=OOC_TILE)
+    require(stream.native, "PanelStream took the scipy path")
+    out = host_path_rates(torch, stream, card)
+    tiles = stream.grid[0] * stream.grid[1]
+    del stream
+
+    kw = dict(distance_type="eu", transfer_dtype=torch.bfloat16, key=0, tol1=0.0, tol2=0.0,
+              row_block=OOC_TILE, col_panel=OOC_TILE)
+    torch.cuda.empty_cache()
+    resting = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    passes = []
+    with timed_passes(torch, passes):
+        res, secs = drive("out-of-core EU config[4]-scale path", (),
+                          lambda: streamed(torch, f"streamed EU {m}x{n} r{k} bf16 transfer",
+                                           card, csr, k, min_iter=OOC["iters"],
+                                           max_iter=OOC["iters"], **kw), exact={})
+    peak = torch.cuda.max_memory_allocated()
+    obj = [float(v) for v in res.obj_history]
+    nonempty = passes[0][2]
+    tile_bytes = 2 * OOC_TILE * OOC_TILE
+    pass_secs = [e - s for s, e, _ in passes]
+    iter_secs = [passes[2][1] - passes[0][1], passes[4][1] - passes[2][1]]
+    pass_gb = nonempty * tile_bytes / 1e9
+    rate = pass_gb / np.median(pass_secs)
+    pace = ("copy" if out["copy_gb_s_bf16"] < out["densify_gb_s_bf16"] else "densify")
+    print(f"  {len(passes)} passes of {nonempty} of {tiles} tiles ({OOC_TILE}^2 bf16): "
+          f"{', '.join(f'{s:.2f}' for s in pass_secs)} s a pass; iterations "
+          f"{iter_secs[0]:.2f} and {iter_secs[1]:.2f} s; {2 * pass_gb:.1f} GB an iteration; "
+          f"the pipeline {rate:.2f} GB/s against copy {out['copy_gb_s_bf16']:.2f} and densify "
+          f"{out['densify_gb_s_bf16']:.2f} (the bound, bytes / copy rate: "
+          f"{pass_gb / out['copy_gb_s_bf16']:.2f} s a pass; the slower of the two, {pace}, "
+          f"sets the pace); peak memory {peak / 1e9:.3f} GB ({(peak - resting) / 1e9:.3f} "
+          f"above the resting {resting / 1e9:.3f}); objective {obj} ({card})", flush=True)
+    require(len(passes) == 1 + 2 * OOC["iters"], f"{len(passes)} passes")
+    require(peak < OOC_PEAK_BYTES, f"peak memory {peak / 1e9:.3f} GB")
+    require(all(b <= a for a, b in zip(obj, obj[1:])), f"the objective rose: {obj}")
+
+    # one pass (the initial objective's W^T X) under the profiler
+    prof_passes = []
+    with timed_passes(torch, prof_passes), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        streamed(torch, "profiled pass", card, csr, k, min_iter=0, max_iter=0, **kw)
+    wall = prof_passes[0][1] - prof_passes[0][0]
+    compute = copies = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            if "memcpy" in e.key.lower():
+                copies += us / 1e6
+            else:
+                compute += us / 1e6
+    idle = 1.0 - compute / wall
+    print(f"  profile of one pass: {wall:.2f} s, compute kernels {compute:.2f} s (idle share "
+          f"{idle:.3f}), host-to-device copies {copies:.2f} s ({copies / wall:.3f} of the "
+          f"pass) ({card})", flush=True)
+    out.update({"shape": [m, n], "k": k, "nnz": int(csr.nnz), "tile": OOC_TILE,
+                "tiles": tiles, "nonempty": nonempty, "pass_secs": pass_secs,
+                "iter_secs": iter_secs, "gb_per_iter": 2 * pass_gb, "pipeline_gb_s": rate,
+                "pace": pace, "peak_gb": peak / 1e9, "resting_gb": resting / 1e9,
+                "objective": obj, "run_secs": secs, "profiled_pass_secs": wall,
+                "profiled_compute_secs": compute, "profiled_copy_secs": copies,
+                "idle_share": idle})
+    return out
+
+
+def topk_out_of_core(torch, drive, card, copy_rate):
+    """(d): topk_streaming of 64 users from a host H of 2^24 items r128
+    (8.6 GB f32) in panels of 2^20, against topk_retrieval on the whole H
+    on the card; ms a request."""
+    from tpunmf_torch.serve import topk
+
+    c = OOC_TOPK
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h_dev = torch.rand((c["r"], c["items"]), generator=gen, device="cuda")
+    w = torch.rand((c["users"], c["r"]), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    h_host = h_dev.cpu().numpy()
+    print(f"  H {h_host.shape} f32 ({h_host.nbytes / 1e9:.2f} GB) on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want = topk.topk_retrieval(None, w, h_dev, c["k"])
+    del h_dev
+    torch.cuda.empty_cache()
+
+    def request():
+        return topk.topk_streaming(w, h_host, c["items"], c["k"], panel_cols=c["panel"])
+
+    got = drive("out-of-core serving path", ("score_blockmax_relayout",), request)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "topk_streaming differs from topk_retrieval on the whole H")
+    secs = []
+    for _ in range(c["requests"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(secs))
+    rate = h_host.nbytes / (ms / 1e3) / 1e9
+    print(f"  topk_streaming ({c['users']} users, k {c['k']}, {c['items']} items r{c['r']}, "
+          f"panels of {c['panel']}): the answers of topk_retrieval on the whole H; "
+          f"{ms:.1f} ms a request (median of {c['requests']}, host clock), panels at "
+          f"{rate:.2f} GB/s against the pinned copy's {copy_rate:.2f} ({card})", flush=True)
+    return {"ms": ms, "gb_s": rate, "copy_gb_s": copy_rate, "all_ms": [1e3 * s for s in secs]}
+
+
+def out_of_core_phase(torch, drive, card, adm_csr, kl_x):
+    out = {"in_hbm": in_hbm_agreement(torch, drive, card, adm_csr, kl_x)}
+    torch.cuda.empty_cache()
+    out["config4_scale"] = out_of_core_run(torch, drive, card)
+    torch.cuda.empty_cache()
+    out["topk_streaming"] = topk_out_of_core(torch, drive, card,
+                                             out["config4_scale"]["copy_gb_s_f32"])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3050,10 +3387,15 @@ def main() -> int:
           f"{tuple(ml1_x.shape)} {float((ml1_x > 0).float().mean()):.4f} observed; "
           f"{tuple(ml10_x.shape)} {int(ml10_obs.sum())} observed", flush=True)
     t0 = time.perf_counter()
-    adm_x, adm_nnz = config3_on_card(torch)
+    from tpunmf_torch.native import loader, native_available
+    require(native_available(), f"the native panelizer did not build: {loader.build_error}")
+    print(f"  native panelizer built from tpunmf_torch/native/panelize.cpp with g++ and "
+          f"loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    adm_x, adm_csr = config3_on_card(torch)
     adm_label = f"config[3] {tuple(adm_x.shape)} k{CONFIG3['k']} f32"
     print(f"  BASELINE config[3] made in {time.perf_counter() - t0:.1f} s: "
-          f"{tuple(adm_x.shape)}, {adm_nnz} nonzeros", flush=True)
+          f"{tuple(adm_x.shape)}, {adm_csr.nnz} nonzeros", flush=True)
 
     t_phase = time.perf_counter()
     print("phase 2: kernels vs plain versions", flush=True)
@@ -3503,6 +3845,7 @@ def main() -> int:
     drive("sweep_int8 path", ("iter_eu_int8", "mur_iteration_eu"), int8_path,
           exact={"iter_eu_int8": SWEEP_ITERS, "mur_iteration_eu": SWEEP_ITERS})
     drive("read-rate path", ("read_probe",), rate_path, exact={"read_probe": 3 * (10 + 110)})
+    del sweep_data, x2, w2, h2, x8, w8, h8
     print(f"  launches over the paths: {launches}", flush=True)
     for name, c in launches.items():
         require(c > 0, f"{name} was not launched on any path")
@@ -3532,7 +3875,13 @@ def main() -> int:
     torch.cuda.empty_cache()  # room for the CLI's process beside this one
     remaining = ntf_phase(torch, tt, counters, drive, card)
     remaining.update(matrix_families_phase(torch, tt, counters, drive, card, eu_x, eu_nndsvd))
-    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 8: out of core [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    out_of_core = out_of_core_phase(torch, drive, card, adm_csr, kl_x)
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -3563,7 +3912,7 @@ def main() -> int:
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
         "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families,
-        "remaining": remaining}))
+        "remaining": remaining, "out_of_core": out_of_core}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1677,3 +1677,89 @@ def test_gnmf_and_nmtf_routes_give_the_same_bits(cuda_device, solver):
     np.testing.assert_array_equal(kern.w, plain.w)
     np.testing.assert_array_equal(kern.h, plain.h)
     np.testing.assert_allclose(kern.obj_history, plain.obj_history, rtol=RTOL)
+
+
+def _streamed_problem(seed=33, m=1000, n=777, k=37):
+    """A scipy CSR matrix about 60% zeros with an all-zero column band (empty
+    tiles at 256 x 200), and float32 inits."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    dense = rng.random((m, n)).astype(np.float32)
+    dense[dense < 0.6] = 0.0
+    dense[:, 200:400] = 0.0
+    w0 = torch.from_numpy(rng.random((m, k)).astype(np.float32) + 0.1)
+    h0 = torch.from_numpy(rng.random((k, n)).astype(np.float32) + 0.1)
+    return sp.csr_matrix(dense), w0, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transfer", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_streamed_kl_kernel_route_matches_its_plain_route(cuda_device, transfer):
+    """Out-of-core MUR KL on a ragged tile grid: on the card each nonempty
+    tile's ratio is kl_ratio (twice an iteration) and its objective kl_obj
+    (once an objective), within 1e-5 of the plain route, which launches
+    neither."""
+    from tpunmf_torch.solvers import mur_streaming
+
+    csr, w0, h0 = _streamed_problem()
+    kw = dict(k=37, w_init=w0.to(cuda_device), h_init=h0.to(cuda_device), distance_type="kl",
+              row_block=256, col_panel=200, min_iter=5, max_iter=5, tol1=0.0, tol2=0.0,
+              transfer_dtype=transfer)
+    nonempty = 4 * 4 - 4  # column panel 1 (200-399) is empty in every row block
+    got, launched = _launched_by(lambda: mur_streaming(csr, **kw))
+    want, p_launched = _launched_by(lambda: mur_streaming(csr, use_pallas=False, **kw))
+    assert launched == {(fused.kl_ratio, "launches"): 2 * nonempty * 5,
+                        (fused.kl_obj, "launches"): nonempty * 6} and p_launched == {}
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-5)
+    for a, b in ((got.w, want.w), (got.h, want.h)):
+        assert _scaled_err(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist,transfer", [("eu", None), ("kl", None), ("kl", torch.bfloat16)])
+def test_the_ring_never_overwrites_a_panel_in_flight(cuda_device, dist, transfer, monkeypatch):
+    """A ring of two pinned buffers and two device panels over 24 tiles:
+    the pipelined run equals the same run with a synchronize after every
+    panel, bit for bit (a panel overwritten in flight would change them)."""
+    import importlib
+
+    from tpunmf_torch.data import pipeline
+
+    streaming = importlib.import_module("tpunmf_torch.solvers.streaming")
+    monkeypatch.setattr(streaming, "RING_SLOTS", 2)
+    csr, w0, h0 = _streamed_problem(seed=34, m=3000, n=1600, k=64)
+    kw = dict(w_init=w0.to(cuda_device), h_init=h0.to(cuda_device), distance_type=dist,
+              row_block=512, col_panel=400, min_iter=3, max_iter=3, tol1=0.0, tol2=0.0,
+              transfer_dtype=transfer)
+    piped = streaming.mur_streaming(csr, 64, **kw)
+    real = pipeline.PanelPipeline.run
+
+    def synchronized(self, *args, **kwargs):
+        for out in real(self, *args, **kwargs):
+            yield out
+            torch.cuda.synchronize()
+
+    monkeypatch.setattr(pipeline.PanelPipeline, "run", synchronized)
+    synced = streaming.mur_streaming(csr, 64, **kw)
+    np.testing.assert_array_equal(piped.w, synced.w)
+    np.testing.assert_array_equal(piped.h, synced.h)
+    assert piped.obj_history == synced.obj_history
+
+
+@pytest.mark.cuda
+def test_streamed_panels_from_a_callable_match_the_whole_h(cuda_device):
+    """topk_streaming through the pinned ring: a callable source, a ragged
+    last panel (5 panels, more than the ring's slots) and exclusions give
+    topk_retrieval's values and indices on the whole H, ties included
+    (multiples of 1/16 keep every score exact)."""
+    rng = np.random.default_rng(35)
+    w = (rng.integers(0, 16, (8, 32)) / 16).astype(np.float32)
+    h = (rng.integers(0, 16, (32, 70000)) / 16).astype(np.float32)
+    exclude = rng.random((8, 70000)) < 0.05
+    vals, idx = topk.topk_streaming(t(w).to(cuda_device), lambda s, e: h[:, s:e], 70000, 50,
+                                    panel_cols=16384, exclude=exclude)
+    want_vals, want_idx = topk.topk_retrieval(None, t(w).to(cuda_device),
+                                              t(h).to(cuda_device), 50, exclude=exclude)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(vals, want_vals)

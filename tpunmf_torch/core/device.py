@@ -36,3 +36,18 @@ def as_input(x, dtype=None, device=None) -> torch.Tensor:
     if dtype is None and host.dtype == torch.float64 and torch.device(device).type == "cuda":
         dtype = torch.float32
     return host.to(device=device, dtype=dtype)
+
+
+def state_device(init, device=None) -> torch.device:
+    """Where a solver's state lives when its data is not a tensor (a scipy
+    matrix, a stream of minibatches): on ``init``'s device when that is a
+    tensor, else on ``device`` (default ``cuda``; without a CUDA device this
+    raises, as :func:`as_input` does)."""
+    if isinstance(init, torch.Tensor):
+        return init.device
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "tpunmf_torch runs on the CUDA device, and none is available; to run "
+            "on the CPU, pass CPU torch.Tensor inits or device='cpu'")
+    return dev

@@ -1,8 +1,7 @@
 """Synthetic data generators (numpy and scipy), the same as ``tpunmf.data``'s.
 
 Copies of ``lowrank_dense``, ``tfidf_like``, ``movielens_like`` and
-``sparse_csr`` from tpunmf/data/synthetic.py, and ``densify`` (the dense
-form of tpunmf/data/sparse_panels.py:149-159), so that the port's scripts
+``sparse_csr`` from tpunmf/data/synthetic.py, so that the port's scripts
 make the same matrices from the same seeds without importing ``tpunmf``
 (which imports JAX).
 """
@@ -100,7 +99,3 @@ def sparse_csr(m: int, n: int, *, density: float = 0.01, k: int = 16,
     mat.sum_duplicates()
     return mat
 
-
-def densify(matrix) -> np.ndarray:
-    """The sparse matrix as a dense float32 array (``tpunmf.data.densify``)."""
-    return np.asarray(matrix.toarray(), dtype=np.float32)

@@ -34,6 +34,9 @@ from .core.device import as_input
 from .core.precision import full_f32
 from .init import random_init
 from .ops import fused
+# the update rules with their numerators given: one copy, on batches too
+from .solvers.streaming import (_mur_h_update_eu, _mur_h_update_kl, _mur_w_update_eu,
+                                _mur_w_update_kl)
 
 _EPS = 1e-9
 
@@ -74,28 +77,6 @@ def grid_search(
     return out
 
 
-# MUR's updates with the numerators given (tpunmf/solvers/streaming.py:82-102),
-# on one (m, k) / (k, n) pair or on a batch (B, m, k) / (B, k, n)
-def _w_update_eu(w, numer, gram_h, lam):
-    return w * numer / (w @ gram_h + lam * w + _EPS)
-
-
-def _h_update_eu(h, numer, gram_w, lam):
-    return h * numer / (gram_w @ h + lam * h + _EPS)
-
-
-def _w_update_kl(w, numer, h, lam):
-    b = torch.sum(h, dim=-1).unsqueeze(-2)
-    a = w * numer
-    return 2.0 * a / (b + torch.sqrt(b * b + 4.0 * lam * a))
-
-
-def _h_update_kl(h, numer, w, lam):
-    d = torch.sum(w, dim=-2).unsqueeze(-1)
-    c = h * numer
-    return 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lam * c))
-
-
 def _objective_passes(x, k):
     """(EU objective, KL objective, KL ratio): the kernels' wrappers where
     they take X at rank k (on the CPU, their plain versions), else the
@@ -126,17 +107,17 @@ def _batched_mur(x, ws, hs, lws, lhs, distance_type, n_iter, trace):
         if distance_type == "kl":
             numer = torch.stack([kl_ratio(x, ws[b], hs[b], eps=_EPS) @ hs[b].T
                                  for b in range(n_runs)])
-            ws = _w_update_kl(ws, numer, hs, lws)
+            ws = _mur_w_update_kl(ws, numer, hs, lws)
             numer = torch.stack([ws[b].T @ kl_ratio(x, ws[b], hs[b], eps=_EPS)
                                  for b in range(n_runs)])
-            hs = _h_update_kl(hs, numer, ws, lhs)
+            hs = _mur_h_update_kl(hs, numer, ws, lhs)
         else:
             xht = xf @ hs.reshape(n_runs * k, n).T                    # (m, B*k)
             numer = xht.reshape(m, n_runs, k).transpose(0, 1)         # (B, m, k)
-            ws = _w_update_eu(ws, numer, torch.bmm(hs, hs.transpose(1, 2)), lws)
+            ws = _mur_w_update_eu(ws, numer, torch.bmm(hs, hs.transpose(1, 2)), lws)
             wcat = ws.transpose(0, 1).reshape(m, n_runs * k)
             wtx = (wcat.T @ xf).reshape(n_runs, k, n)                 # (B, k, n)
-            hs = _h_update_eu(hs, wtx, torch.bmm(ws.transpose(1, 2), ws), lhs)
+            hs = _mur_h_update_eu(hs, wtx, torch.bmm(ws.transpose(1, 2), ws), lhs)
         if trace:
             objs.append(objectives(ws, hs))
     if trace:

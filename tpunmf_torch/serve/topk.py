@@ -30,12 +30,14 @@ plain versions.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from ..core.device import as_input
 from ..core.precision import full_f32
+from ..data.pipeline import PanelPipeline
 from ..ops.topk_select import (blockmax_relayout, score_blockmax_fits,
                                score_blockmax_relayout)
 
@@ -318,11 +320,13 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
     """Top-k retrieval when H does not fit on the device.
 
     Column panels of H, ``h_source[:, start:stop]`` (a numpy array or
-    memmap) or ``h_source(start, stop)``, are copied from the host to
-    ``w_batch``'s device one at a time (through ``as_input``: a float64
-    panel as float32 on the card), ranked by :func:`topk_retrieval`,
-    and merged into a running (b, k) candidate set.  A ragged last panel is
-    ranked at its own width (on one device it needs no padding).  Where
+    memmap) or ``h_source(start, stop)``, go from the host to
+    ``w_batch``'s device (:func:`_device_panels`: on the card through a
+    ring of pinned buffers and a copy stream, a float64 panel as float32,
+    so panel t is ranked while the next ones are copied), are ranked by
+    :func:`topk_retrieval`, and merged into a running (b, k) candidate
+    set.  A ragged last panel is ranked at its own width (on one device it
+    needs no padding).  Where
     fewer than k items remain after ``exclude`` (a (b, n) bool host
     array), the -inf-scored slots carry index -1.
 
@@ -342,11 +346,8 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
     b = w_batch.shape[0]
     vals = None
     idx = torch.full((b, k), -1, dtype=torch.int64, device=device)
-    for start in range(0, n, take):
-        stop = min(start + take, n)
-        # as_input: a float64 host panel is scored in float32 on the card, as
-        # topk_retrieval's own H is (tpunmf/serve/topk.py:590, 607)
-        panel = as_input(np.asarray(slicer(start, stop)), device=device)
+    spans = [(start, min(start + take, n)) for start in range(0, n, take)]
+    for start, stop, panel in _device_panels(slicer, spans, device):
         excl = None if exclude is None else np.asarray(exclude[:, start:stop])
         p_vals, p_idx = topk_retrieval(
             None, w_batch, panel, min(k, stop - start), exclude=excl,
@@ -359,6 +360,39 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
     # -inf-scored candidates (exclusion) may carry real item ids: scrub them
     idx = torch.where(torch.isneginf(vals), torch.full_like(idx, -1), idx)
     return vals, idx
+
+
+def _device_panels(slicer, spans, device):
+    """Yield (start, stop, panel of H on ``device``) over ``spans``.
+
+    A float64 host panel is scored in float32 on the card, as
+    topk_retrieval's own H is (tpunmf/serve/topk.py:590, 607): on the
+    CPU the panels go through ``as_input``; on the card the first panel's
+    type sets the ring's (``as_input``'s rule), and each panel is cast
+    while it is copied into its pinned buffer (``data/pipeline.py``)."""
+    if device.type != "cuda":
+        for start, stop in spans:
+            yield start, stop, as_input(np.asarray(slicer(start, stop)), device=device)
+        return
+    fetched = {spans[0]: np.asarray(slicer(*spans[0]))}
+    first = fetched[spans[0]]
+    dtype = torch.from_numpy(np.empty(0, dtype=first.dtype)).dtype
+    if dtype == torch.float64:
+        dtype = torch.float32
+    rows, width = first.shape[0], spans[0][1] - spans[0][0]
+    ring = PanelPipeline(rows * width, dtype, device)
+
+    def fill(span, host):
+        src = fetched.pop(span, None)
+        if src is None:
+            src = np.asarray(slicer(*span))
+        with warnings.catch_warnings():
+            # a read-only source (a memmap) is only read here
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            host.copy_(torch.from_numpy(src))
+
+    for (start, stop), panel in ring.run(spans, fill, lambda span: (rows, span[1] - span[0])):
+        yield start, stop, panel
 
 
 def recall_at_k(pred_idx, true_idx) -> float:

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.device import as_input
+from ..core.device import as_input, state_device
 from ..core.precision import full_f32
 from ..init.random import make_generator
 from ..nnls import nnls_activeset
@@ -41,17 +41,6 @@ from . import cuda_defaults
 from .common import host_array
 
 _EPS = 1e-12
-
-
-def _state_device(w_init, device) -> torch.device:
-    if isinstance(w_init, torch.Tensor):
-        return w_init.device
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "tpunmf_torch runs on the CUDA device, and none is available; to run "
-            "on the CPU, pass a CPU torch.Tensor as w_init or device='cpu'")
-    return dev
 
 
 class OnlineNMF:
@@ -82,7 +71,7 @@ class OnlineNMF:
         self.k = k
         self.rho = float(rho)
         self.sweeps = int(sweeps)
-        dev = _state_device(w_init, device)
+        dev = state_device(w_init, device)
         if w_init is not None:
             w = as_input(w_init, dtype=dtype, device=dev)
             if tuple(w.shape) != (m, k):
