@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about eleven minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about thirteen minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -256,14 +256,43 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      objective) against its plain route (no kernel) and in-core mur
      (1e-4); (c) MUR EU with bf16 transfer at BASELINE config[4]'s data
      scale, sparse_csr(1_000_000, 100_000, density=1e-3, seed=0) (dense
-     400 GB f32, 200 GB bf16), r256, 2 iterations from the seeded random
-     init in 8192x8192 tiles: seconds a pass and an iteration, GB an
+     400 GB f32, 200 GB bf16), r256, 1 iteration (3 passes) from the
+     seeded random init in 8192x8192 tiles: seconds a pass and an iteration, GB an
      iteration, the pipeline's GB/s beside the copy and densify rates, the
      peak device memory (below 10 GB), the objective (it must not rise),
      and one more pass under torch.profiler for the device's idle share;
      (d) topk_streaming of 64 users, k 100, from a host H of 2^24 items
      r128 (8.6 GB f32) in panels of 2^20: topk_retrieval's answers on the
      whole H, ms a request and the panels' GB/s.
+  9. MUR across GPUs (tpunmf_torch.parallel) as a world of one: the card's
+     machine has one H100, and NCCL puts no two ranks of a communicator on
+     one device, so the sharded paths run as one rank, through the code
+     and kernels an N-rank world runs.  Every number beside the card's name
+     and power limit, each run through drive() with its launches counted:
+     an NCCL process group through a file store in a temporary directory
+     (ms to init it, to build the meshes (1,) 'cols' and (1, 1) 'rows' x
+     'cols', and for the first all_reduce); on both meshes the facade's
+     mesh= (parallel.mur_mesh) and schedule="ulysses" and "rank"
+     (parallel.mur_sharded), 50 iterations from one random init at EU
+     8192x8192 r128 f32 and at KL config[1] (20000x11000 r50), each on its
+     kernel route and its plain route: exact launches (mesh= and Ulysses:
+     mur_w_update and mur_h_update once an iteration, the objective kernel
+     once an iteration and once more; rank: none) and exact collective
+     calls by kind (parallel.calls), the first ROUTE_ITERS iterations of
+     the kernel route within ROUTE_RTOL of the plain route and of one-device
+     NMF(...).factorize("mur"), ms an iteration beside the one-device
+     run's; solvers.mur_streaming_sharded on the (1,) mesh: EU at BASELINE
+     config[3], 5 iterations from one init, f32 and bf16 transfer, against
+     mur_streaming (1e-4); KL at config[1] on its kernel route (exactly two
+     kl_ratio a row block an iteration, one kl_obj a row block an
+     objective) against its plain route (1e-4), and objective="lagged"
+     (kl_ratio_and_obj and kl_ratio once a row block an iteration) against
+     the exact trace; MUR EU with bf16 transfer at phase 8's config[4]-scale
+     matrix, r256, one iteration in 8192-row panels: seconds a pass, GB/s,
+     peak memory above the resting allocation (below 20 GB), the objective
+     must not rise; topk_retrieval over the (1,) mesh at (64, 2^20) r128, k
+     100, exact, quantized (stored bf16 H) and 1% excluded: the one-device
+     answers, ms a request beside the one-device path's.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -2999,7 +3028,8 @@ def matrix_families_phase(torch, tt, counters, drive, card, eu_x, eu_init):
 # in f32 and 200 GB in bf16 (benchmarks/run_configs.py:229-244: 1M x 100k,
 # r256; here sparse_csr's recipe at 1e-3 density, 1e8 nonzeros), then
 # topk_streaming from a host H larger than one panel
-OOC = dict(m=1_000_000, n=100_000, density=1e-3, seed=0, k=256, iters=2)
+# one iteration (two before phase 9 came)
+OOC = dict(m=1_000_000, n=100_000, density=1e-3, seed=0, k=256, iters=1)
 # the panelizer's tiles and the ring's panels, 134 MB each in bf16
 OOC_TILE = 8192
 # the in-HBM agreements: iterations from one init, and the tolerances of the
@@ -3171,8 +3201,9 @@ def in_hbm_agreement(torch, drive, card, adm_csr, kl_x):
 
 def out_of_core_run(torch, drive, card):
     """(a) on the matrix of (c), then (c): MUR EU with bf16 transfer at
-    config[4]'s data scale, 2 iterations from the seeded random init, its
-    passes timed, its peak memory, and one more pass under the profiler."""
+    config[4]'s data scale, OOC['iters'] iterations from the seeded random
+    init, its passes timed, its peak memory, and one more pass under the
+    profiler.  Returns (the numbers, the matrix)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3212,13 +3243,13 @@ def out_of_core_run(torch, drive, card):
     nonempty = passes[0][2]
     tile_bytes = 2 * OOC_TILE * OOC_TILE
     pass_secs = [e - s for s, e, _ in passes]
-    iter_secs = [passes[2][1] - passes[0][1], passes[4][1] - passes[2][1]]
+    iter_secs = [passes[2 * i + 2][1] - passes[2 * i][1] for i in range(OOC["iters"])]
     pass_gb = nonempty * tile_bytes / 1e9
     rate = pass_gb / np.median(pass_secs)
     pace = ("copy" if out["copy_gb_s_bf16"] < out["densify_gb_s_bf16"] else "densify")
     print(f"  {len(passes)} passes of {nonempty} of {tiles} tiles ({OOC_TILE}^2 bf16): "
           f"{', '.join(f'{s:.2f}' for s in pass_secs)} s a pass; iterations "
-          f"{iter_secs[0]:.2f} and {iter_secs[1]:.2f} s; {2 * pass_gb:.1f} GB an iteration; "
+          f"{', '.join(f'{s:.2f}' for s in iter_secs)} s; {2 * pass_gb:.1f} GB an iteration; "
           f"the pipeline {rate:.2f} GB/s against copy {out['copy_gb_s_bf16']:.2f} and densify "
           f"{out['densify_gb_s_bf16']:.2f} (the bound, bytes / copy rate: "
           f"{pass_gb / out['copy_gb_s_bf16']:.2f} s a pass; the slower of the two, {pace}, "
@@ -3253,7 +3284,7 @@ def out_of_core_run(torch, drive, card):
                 "objective": obj, "run_secs": secs, "profiled_pass_secs": wall,
                 "profiled_compute_secs": compute, "profiled_copy_secs": copies,
                 "idle_share": idle})
-    return out
+    return out, csr
 
 
 def topk_out_of_core(torch, drive, card, copy_rate):
@@ -3297,12 +3328,325 @@ def topk_out_of_core(torch, drive, card, copy_rate):
 
 
 def out_of_core_phase(torch, drive, card, adm_csr, kl_x):
+    """Phase 8; returns (its numbers, the config[4]-scale matrix)."""
     out = {"in_hbm": in_hbm_agreement(torch, drive, card, adm_csr, kl_x)}
     torch.cuda.empty_cache()
-    out["config4_scale"] = out_of_core_run(torch, drive, card)
+    out["config4_scale"], csr = out_of_core_run(torch, drive, card)
     torch.cuda.empty_cache()
     out["topk_streaming"] = topk_out_of_core(torch, drive, card,
                                              out["config4_scale"]["copy_gb_s_f32"])
+    return out, csr
+
+
+# Phase 9: MUR across GPUs as a world of one.  The card's machine has one
+# H100 and NCCL puts no two ranks of a communicator on one device, so the
+# sharded paths run as one rank over NCCL, at full width, through the same
+# code and the same kernels as an N-rank world: the facade's mesh= and
+# schedule= at the MUR shapes of phase 3, mur_streaming_sharded in HBM and at
+# BASELINE config[4]'s data scale, and sharded serving
+MGPU_MESHES = (((1,), ("cols",)), ((1, 1), ("rows", "cols")))
+# (label, X's name, k, distance, iterations)
+MGPU_RUNS = (("EU 8192x8192 k128 f32", "eu", 128, "eu", 50),
+             ("KL config[1] 20000x11000 k50 f32", "kl", 50, "kl", 50))
+# the streamed runs in HBM: iterations from one init
+MGPU_STREAM_ITERS = 5
+MGPU_STREAM_RTOL = 1e-4
+# the config[4]-scale run: W, H, the accumulators, the ring's row panels
+# (3 x 8192 x 100000 bf16) and a row panel in f32; never X
+MGPU_PEAK_BYTES = 20e9
+
+
+def collective_counts(tt):
+    return dict(tt.parallel.calls)
+
+
+def mesh_run(torch, tt, x, k, mesh, driver, iters, init, use_pallas, dist):
+    """One factorize() over ``mesh``, timed on the host clock with a
+    synchronize: (Results, seconds, kernel launches, collective calls)."""
+    kw = dict(method="mur", distance_type=dist, w_init=init[0], h_init=init[1],
+              min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0, use_pallas=use_pallas)
+    if driver == "mesh":
+        model = tt.NMF(x, k, mesh=mesh)
+    else:
+        model = tt.NMF(x, k)
+        kw.update(schedule=driver, mesh=mesh)
+    tt.parallel.reset_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.factorize(**kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, collective_counts(tt)
+
+
+def expected_calls(driver, axes, iters, kernels):
+    """The collectives a run of ``iters`` iterations over a mesh of ``axes``
+    axes of size 1 sends (inits given, so no broadcast): the data's minimum
+    and the initial objective reduced over every axis; then an iteration:
+    mesh= the objective over every axis, and on the plain route the two
+    sums of each half whose axis the mesh has (the kernel route takes both
+    halves locally); Ulysses W and H gathered and the objective reduced;
+    rank two reconstructions; at the end the sharded factors gathered."""
+    if driver == "mesh":
+        per_iter = axes if kernels else 3 * axes
+        return {"all_reduce": 2 * axes + per_iter * iters, "all_gather": axes,
+                "all_to_all": 0, "p2p": 0, "broadcast": 0}
+    if driver == "ulysses":
+        return {"all_reduce": axes + 1 + iters, "all_gather": 1 + 2 * iters + 1,
+                "all_to_all": 0, "p2p": 0, "broadcast": 0}
+    return {"all_reduce": axes + 1 + 2 * iters, "all_gather": 2, "all_to_all": 0, "p2p": 0,
+            "broadcast": 0}
+
+
+def expected_launches(driver, dist, iters, kernels):
+    """Kernel launches of a run: mesh= and Ulysses take the W and H update
+    kernels once an iteration (both halves local on these meshes) and the
+    objective kernel once an iteration and once for the initial iterate;
+    the rank schedule is plain products."""
+    if driver == "rank" or not kernels:
+        return {}
+    obj = "kl_obj" if dist == "kl" else "eu_residual_obj"
+    return {"mur_w_update": iters, "mur_h_update": iters, obj: iters + 1}
+
+
+def trace_gap(got, want, iters=ROUTE_ITERS):
+    g = np.asarray(got.obj_history, dtype=np.float64)[:iters + 1]
+    w = np.asarray(want.obj_history, dtype=np.float64)[:iters + 1]
+    return float(np.max(np.abs(g - w) / np.abs(w)))
+
+
+def mesh_paths(torch, tt, drive, card, data, meshes):
+    """The facade's mesh= and schedule= at the MUR shapes, on both meshes,
+    each on its kernel route and its plain route, against one-device
+    NMF(...).factorize('mur') from the same init: exact launches and
+    collectives, ms an iteration beside the one-device run's."""
+    from tpunmf_torch.init import random_init
+
+    out = {}
+    for label, name, k, dist, iters in MGPU_RUNS:
+        x = data[name]
+        init = random_init(0, *x.shape, k, device="cuda")
+        kw = dict(method="mur", distance_type=dist, w_init=init[0], h_init=init[1],
+                  min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0)
+        tt.NMF(x, k).factorize(**{**kw, "min_iter": 2, "max_iter": 2})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = tt.NMF(x, k).factorize(**kw)
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0) / iters
+        print(f"  {label}: one device NMF.factorize('mur') {one_ms:.3f} ms an iteration, "
+              f"obj[{iters}] {one.obj_history[-1]:.6e} ({card})", flush=True)
+        out[label] = {"one_device_ms": one_ms}
+        for shape, names in MGPU_MESHES:
+            mesh = meshes[shape]
+            for driver in ("mesh", "ulysses", "rank"):
+                tag = f"{label} {driver} {shape}"
+                mesh_run(torch, tt, x, k, mesh, driver, 2, init, None, dist)  # warm-up
+                runs = {}
+                for kernels in (True, False):
+                    want = expected_launches(driver, dist, iters, kernels)
+                    res, secs, sent = drive(
+                        f"{tag} {'kernels' if kernels else 'plain'} path", tuple(want),
+                        lambda: mesh_run(torch, tt, x, k, mesh, driver, iters, init,
+                                         None if kernels else False, dist), exact=want)
+                    calls = expected_calls(driver, len(shape), iters, kernels)
+                    require(sent == calls, f"{tag}: collectives {sent}, not {calls}")
+                    require(res.i == iters - 1 and np.all(np.isfinite(res.obj_history))
+                            and np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.h)),
+                            f"{tag}: {res.i + 1} iterations or non-finite results")
+                    runs[kernels] = (res, secs)
+                (kern, ks), (plain, ps) = runs[True], runs[False]
+                route, vs_one = trace_gap(kern, plain), trace_gap(kern, one)
+                ms, plain_ms = 1e3 * ks / iters, 1e3 * ps / iters
+                print(f"  {tag}: {ms:.3f} ms an iteration on the kernel route, {plain_ms:.3f} "
+                      f"plain, {one_ms:.3f} one device; first {ROUTE_ITERS} iterations: "
+                      f"kernels vs plain {route:.3e}, vs one device {vs_one:.3e} (tol "
+                      f"{ROUTE_RTOL['float32']:.0e}); collectives {sent} ({card})", flush=True)
+                require(route <= ROUTE_RTOL["float32"] and vs_one <= ROUTE_RTOL["float32"],
+                        f"{tag}: routes disagree ({route:.3e}, {vs_one:.3e})")
+                if dist == "eu":
+                    hist = np.asarray(kern.obj_history, dtype=np.float64)
+                    rises = np.diff(hist) / hist[:-1]
+                    require(np.all(rises <= EU_MONOTONE_RTOL),
+                            f"{tag}: EU objective rose by {rises.max():.3e}")
+                out[label][f"{driver} {shape}"] = {
+                    "ms": ms, "plain_ms": plain_ms, "route_err": route,
+                    "vs_one_device": vs_one, "collectives": sent,
+                    "obj": float(kern.obj_history[-1])}
+        del init
+    return out
+
+
+def streamed_sharded(torch, label, card, csr, k, mesh, **kw):
+    """One mur_streaming_sharded run, timed on the host clock."""
+    from tpunmf_torch.solvers import mur_streaming_sharded
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mur_streaming_sharded(csr, k, mesh, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  {label}: {res.i + 1} iterations in {secs:.2f} s, obj {res.obj_history[-1]:.6e} "
+          f"({card})", flush=True)
+    require(np.all(np.isfinite(res.w)) and np.all(np.isfinite(res.h))
+            and np.all(np.isfinite(res.obj_history)), f"{label}: non-finite results")
+    return res, secs
+
+
+def streaming_paths(torch, tt, drive, card, adm_csr, kl_x, c4_csr, mesh):
+    """mur_streaming_sharded: EU at config[3] against mur_streaming (f32 and
+    bf16 transfer), KL config[1] kernels against plain (exact kl_ratio and
+    kl_obj counts), then one iteration at config[4]'s data scale."""
+    import scipy.sparse as sp
+
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.solvers import mur_streaming
+
+    its = MGPU_STREAM_ITERS
+    common = dict(min_iter=its, max_iter=its, tol1=0.0, tol2=0.0)
+    out = {}
+    k = CONFIG3["k"]
+    w0, h0 = random_init(0, *adm_csr.shape, k, device="cuda")
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        kw = dict(distance_type="eu", w_init=w0, h_init=h0, transfer_dtype=dtype, **common)
+        one, one_secs = streamed(torch, f"mur_streaming EU config[3] {name}", card, adm_csr, k,
+                                 row_block=OOC_TILE, col_panel=OOC_TILE, **kw)
+        res, secs = drive(f"sharded streaming EU config[3] {name} path", (),
+                          lambda: streamed_sharded(torch, f"mur_streaming_sharded EU config[3] "
+                                                   f"{name}", card, adm_csr, k, mesh, **kw),
+                          exact={})
+        out[f"eu_config3_{name}"] = {"secs": secs, "one_device_secs": one_secs,
+                                     **agree(f"sharded streaming EU config[3] {name} against "
+                                             "mur_streaming", res, one, MGPU_STREAM_RTOL)}
+    kl_csr = sp.csr_matrix(kl_x.cpu().numpy())
+    rb = -(-kl_csr.shape[0] // 8192)  # row blocks at the default row_block
+    k = 50
+    w0, h0 = random_init(1, *kl_csr.shape, k, device="cuda")
+    kw = dict(distance_type="kl", w_init=w0, h_init=h0, **common)
+    kern, secs = drive("sharded streaming KL config[1] path", ("kl_ratio", "kl_obj"),
+                       lambda: streamed_sharded(torch, "mur_streaming_sharded KL config[1], "
+                                                "kernels", card, kl_csr, k, mesh, **kw),
+                       exact={"kl_ratio": 2 * rb * its, "kl_obj": rb * (its + 1)})
+    plain, plain_secs = drive("sharded streaming KL config[1] plain path", (),
+                              lambda: streamed_sharded(torch, "mur_streaming_sharded KL "
+                                                       "config[1], plain", card, kl_csr, k,
+                                                       mesh, use_pallas=False, **kw),
+                              exact={})
+    lagged, lagged_secs = drive(
+        "sharded streaming KL config[1] lagged path", ("kl_ratio_and_obj", "kl_ratio"),
+        lambda: streamed_sharded(torch, "mur_streaming_sharded KL config[1], lagged", card,
+                                 kl_csr, k, mesh, objective="lagged", **kw),
+        exact={"kl_ratio_and_obj": rb * its, "kl_ratio": rb * its})
+    # lagged[i] is the objective of the iterate entering iteration i: exact[i]
+    lag = np.asarray(lagged.obj_history, dtype=np.float64)
+    exact = np.asarray(kern.obj_history[:its], dtype=np.float64)
+    lag_err = float(np.max(np.abs(lag - exact) / np.abs(exact)))
+    print(f"  sharded streaming KL lagged[i] against exact[i]: {lag_err:.3e} ({card})",
+          flush=True)
+    require(lag_err <= MGPU_STREAM_RTOL, f"lagged KL trace {lag_err:.3e} off the exact one")
+    out["kl_config1"] = {"secs": secs, "plain_secs": plain_secs, "lagged_secs": lagged_secs,
+                         "lagged_err": lag_err,
+                         **agree("sharded streaming KL config[1] kernels against plain", kern,
+                                 plain, MGPU_STREAM_RTOL)}
+    del kl_csr, w0, h0
+    torch.cuda.empty_cache()
+
+    # config[4]'s data scale: one iteration, bf16 transfer, 8192-row panels
+    m, n = c4_csr.shape
+    k = OOC["k"]
+    resting = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    passes = []
+    with timed_passes(torch, passes):
+        res, secs = drive("sharded streaming EU config[4]-scale path", (),
+                          lambda: streamed_sharded(torch, f"mur_streaming_sharded EU {m}x{n} "
+                                                   f"r{k} bf16", card, c4_csr, k, mesh,
+                                                   distance_type="eu", key=0, min_iter=1,
+                                                   max_iter=1, tol1=0.0, tol2=0.0,
+                                                   transfer_dtype=torch.bfloat16),
+                          exact={})
+    peak = torch.cuda.max_memory_allocated()
+    obj = [float(v) for v in res.obj_history]
+    pass_secs = [e - s for s, e, _ in passes]
+    pass_gb = 2 * m * n / 1e9
+    rate = pass_gb / float(np.median(pass_secs))
+    print(f"  {len(passes)} passes of {passes[0][2]} row panels (8192x{n} bf16): "
+          f"{', '.join(f'{s:.2f}' for s in pass_secs)} s a pass, {pass_gb:.1f} GB a pass, "
+          f"{rate:.2f} GB/s; peak memory {peak / 1e9:.3f} GB ({(peak - resting) / 1e9:.3f} above "
+          f"the resting {resting / 1e9:.3f}); objective {obj} ({card})", flush=True)
+    require(len(passes) == 2, f"{len(passes)} passes")
+    require(peak - resting < MGPU_PEAK_BYTES, f"peak memory {peak / 1e9:.3f} GB")
+    require(obj[1] <= obj[0], f"the objective rose: {obj}")
+    out["config4_scale"] = {"shape": [m, n], "k": k, "pass_secs": pass_secs,
+                            "gb_per_pass": pass_gb, "gb_s": rate, "peak_gb": peak / 1e9,
+                            "resting_gb": resting / 1e9, "objective": obj, "run_secs": secs}
+    return out
+
+
+def sharded_serving(torch, tt, drive, card, mesh):
+    """topk_retrieval over the mesh at (64, 2^20) r128, k 100: exact,
+    quantized (bf16 first stage from a stored bf16 H) and 1% excluded, the
+    indices those of the one-device path; ms a request."""
+    from tpunmf_torch.serve import topk
+
+    users, h, excl = serving_data(torch, 128, 1 << 20, seed=7, exclusion=True)
+    w, excl = users[:SERVE_BATCH], excl[:SERVE_BATCH]
+    hq = h.to(torch.bfloat16)
+    out = {}
+    for mode, kw, needed in (("exact", {}, ("score_blockmax_relayout",)),
+                             ("quantized", {"first_stage_dtype": "bf16", "h_quantized": hq},
+                              ("score_blockmax_relayout",)),
+                             ("exclude 1%", {"exclude": excl}, ("blockmax_relayout",))):
+        want = topk.topk_retrieval(None, w, h, 100, **kw)
+        got = drive(f"sharded serving {mode} path", needed,
+                    lambda: topk.topk_retrieval(mesh, w, h, 100, **kw))
+        require(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+                f"sharded serving {mode}: not the one-device answer")
+        ms = {}
+        for name, m in (("sharded", mesh), ("one_device", None)):
+            topk.topk_retrieval(m, w, h, 100, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                topk.topk_retrieval(m, w, h, 100, **kw)
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0) / 10
+        print(f"  sharded serving {mode} ({SERVE_BATCH} users, 2^20 items r128, k 100): the "
+              f"one-device answer; {ms['sharded']:.3f} ms a request, one device "
+              f"{ms['one_device']:.3f} ({card})", flush=True)
+        out[mode] = ms
+    return out
+
+
+def multi_gpu_phase(torch, tt, drive, card, data, adm_csr, c4_csr):
+    """Phase 9: an NCCL group of one rank through a file store, meshes
+    (1,) and (1, 1), then the facade's mesh= and schedule=, the sharded
+    streamed MUR and sharded serving."""
+    import torch.distributed as dist
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        tt.parallel.initialize_multihost(f"file://{d}/store", 1, 0)
+        init_s = time.perf_counter() - t0
+        meshes = {shape: tt.parallel.build_mesh(shape, names) for shape, names in MGPU_MESHES}
+        mesh_s = time.perf_counter() - t0 - init_s
+        probe = torch.ones(1, device="cuda")
+        tt.parallel.collectives.all_reduce(probe, meshes[(1,)], "cols")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0 - init_s - mesh_s
+        require(float(probe[0]) == 1.0, "a one-rank all_reduce changed its input")
+        print(f"  NCCL group of one rank ({dist.get_backend()}, file store): "
+              f"{1e3 * init_s:.1f} ms to init, {1e3 * mesh_s:.1f} ms for the two meshes, "
+              f"{1e3 * first_s:.1f} ms for the first all_reduce ({card})", flush=True)
+        out["nccl_startup_ms"] = {"init": 1e3 * init_s, "meshes": 1e3 * mesh_s,
+                                  "first_all_reduce": 1e3 * first_s}
+        try:
+            out["mesh_paths"] = mesh_paths(torch, tt, drive, card, data, meshes)
+            out["streaming"] = streaming_paths(torch, tt, drive, card, adm_csr, data["kl"],
+                                               c4_csr, meshes[(1,)])
+            out["serving"] = sharded_serving(torch, tt, drive, card, meshes[(1,)])
+        finally:
+            dist.destroy_process_group()
     return out
 
 
@@ -3318,6 +3662,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import tpunmf_torch as tt
+    import tpunmf_torch.parallel  # noqa: F401  (tt.parallel, phase 9)
     from tpunmf_torch.data import lowrank_dense, movielens_like, tfidf_like
     from tpunmf_torch.init import nndsvd
     from tpunmf_torch.ops import (_build, fused, hals_sweep, masked_fused, mur_fused,
@@ -3880,8 +4225,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     print(f"phase 8: out of core [{card}]", flush=True)
     torch.cuda.empty_cache()
-    out_of_core = out_of_core_phase(torch, drive, card, adm_csr, kl_x)
-    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    out_of_core, c4_csr = out_of_core_phase(torch, drive, card, adm_csr, kl_x)
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 9: MUR across GPUs as a world of one [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    multi_gpu = multi_gpu_phase(torch, tt, drive, card, {"eu": eu_x, "kl": kl_x}, adm_csr,
+                                c4_csr)
+    del c4_csr
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -3912,7 +4265,7 @@ def main() -> int:
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
         "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families,
-        "remaining": remaining, "out_of_core": out_of_core}))
+        "remaining": remaining, "out_of_core": out_of_core, "multi_gpu": multi_gpu}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

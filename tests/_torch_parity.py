@@ -114,3 +114,15 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU (on the card: python -m pytest "
                     "tests/test_torch_cuda.py -m cuda --noconftest)")
     return torch.device("cuda")
+
+
+def one_rank_meshes():
+    """(tpunmf_torch, tpunmf) meshes of one rank each on the CPU, axis
+    'cols': the port's brings up a gloo world of one in this process."""
+    import jax
+
+    from tpunmf import parallel as jpar
+    from tpunmf_torch import parallel as tpar
+
+    return (tpar.build_mesh((1,), ("cols",), device_type="cpu"),
+            jpar.build_mesh((1,), ("cols",), devices=jax.devices()[:1]))

@@ -12,7 +12,7 @@ import torch
 
 import tpunmf
 import tpunmf_torch
-from _torch_parity import lowrank, t
+from _torch_parity import assert_results_match, lowrank, one_rank_meshes, t
 from tpunmf.data import synthetic as jsynthetic
 from tpunmf_torch.data import synthetic as tsynthetic
 from tpunmf_torch.io import convert
@@ -136,8 +136,29 @@ def test_unported_routes_raise(option):
         assert got.i == want.i == 2
         np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-10)
         return
-    with pytest.raises(NotImplementedError, match=option):
-        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", **{option: 1})
+    # schedule= and mesh= are ported (tpunmf_torch.parallel): a schedule
+    # without a mesh fails as tpunmf's does (tpunmf/api.py:130-139), and on
+    # a one-rank CPU mesh each runs as tpunmf's does on a one-device mesh
+    kw = dict(schedule="rank") if option == "schedule" else dict(schedule="ulysses",
+                                                                  mesh=None)
+    with pytest.raises(ValueError, match="requires a mesh") as got:
+        tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", **kw)
+    with pytest.raises(ValueError) as want:
+        tpunmf.NMF(lowrank(), 5).factorize(method="mur", **kw)
+    assert str(got.value) == str(want.value)
+    tmesh, jmesh = one_rank_meshes()
+    run = dict(distance_type="kl", nndsvd_init=(True, "zero"), min_iter=3, max_iter=50,
+               tol1=0.0, tol2=0.1)
+    if option == "schedule":
+        got = tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", schedule="ulysses",
+                                                          mesh=tmesh, **run)
+        want = tpunmf.NMF(lowrank(), 5).factorize(method="mur", schedule="ulysses",
+                                                  mesh=jmesh, **run)
+    else:
+        got = tpunmf_torch.NMF(t(lowrank()), 5, mesh=tmesh).factorize(method="mur", **run)
+        want = tpunmf.NMF(lowrank(), 5, mesh=jmesh).factorize(method="mur", **run)
+    assert got.i < 49
+    assert_results_match(got, want, rtol=1e-9)
 
 
 @pytest.mark.parametrize("kw,exc", [
@@ -160,8 +181,27 @@ def test_solver_errors(kw, exc, tmp_path):
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpunmf_torch.NMF(t(lowrank()), 5, mesh=object())
+    """A mesh given at construction is kept, as tpunmf keeps it
+    (tpunmf/api.py:46-56): MUR runs over it, by default or with a
+    schedule, and gives tpunmf's results; the data stay global (each rank
+    keeps its block inside the drivers).  The methods whose mesh= waits
+    for the next slice raise, naming ROADMAP item 9."""
+    tmesh, jmesh = one_rank_meshes()
+    got_model = tpunmf_torch.NMF(t(lowrank()), 5, mesh=tmesh)
+    want_model = tpunmf.NMF(lowrank(), 5, mesh=jmesh)
+    assert got_model.mesh is tmesh and want_model.mesh is jmesh
+    kw = dict(distance_type="eu", nndsvd_init=(True, "zero"), max_iter=6)
+    for schedule in (None, "rank"):
+        got = got_model.factorize(method="mur", schedule=schedule, **kw)
+        want = want_model.factorize(method="mur", schedule=schedule, **kw)
+        assert_results_match(got, want, rtol=1e-9)
+        np.testing.assert_allclose(got_model.w, np.asarray(want_model.w), rtol=1e-9)
+    for method, extra in (("hals", {}), ("anls", {}), ("mur", {"multilevel": True}),
+                          ("mur", {"beta": 1}), ("mur", {"mask": np.ones((60, 48))})):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            got_model.factorize(method=method, max_iter=2, **extra)
+    with pytest.raises(NotImplementedError, match="objective.*item 9"):
+        got_model.factorize(method="mur", objective="gram", max_iter=2)
 
 
 def test_synthetic_data_is_tpunmf_s():

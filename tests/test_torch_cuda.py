@@ -1763,3 +1763,61 @@ def test_streamed_panels_from_a_callable_match_the_whole_h(cuda_device):
                                               t(h).to(cuda_device), 50, exclude=exclude)
     assert torch.equal(idx, want_idx)
     assert torch.equal(vals, want_vals)
+
+
+@pytest.fixture
+def card_mesh(cuda_device):
+    """A "cuda" mesh (1,) 'cols' over NCCL: the card's machine has one card,
+    so a world of one rank (build_mesh brings it up in this process)."""
+    from tpunmf_torch import parallel
+
+    return parallel.build_mesh((1,), ("cols",))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+@pytest.mark.parametrize("driver", ["mesh", "ulysses", "rank"])
+def test_mur_over_a_card_mesh_matches_one_device(card_mesh, driver, dist):
+    """The facade's mesh= and both schedules on a CUDA X with no argument
+    naming a device: the one-device trace over the first iterations, the
+    update kernels once an iteration where both halves are local."""
+    x = t(lowrank(m=600, n=480, k=8)).float().cuda()
+    w0, h0 = (torch.rand(s, device=x.device) + 0.1 for s in ((600, 8), (8, 480)))
+    kw = dict(method="mur", distance_type=dist, w_init=w0, h_init=h0, min_iter=10,
+              max_iter=10, tol1=0.0, tol2=0.0)
+    want = tpunmf_torch.NMF(x, 8).factorize(**kw)
+    before = mur_fused.mur_w_update.launches
+    if driver == "mesh":
+        got = tpunmf_torch.NMF(x, 8, mesh=card_mesh).factorize(**kw)
+    else:
+        got = tpunmf_torch.NMF(x, 8).factorize(schedule=driver, mesh=card_mesh, **kw)
+    assert mur_fused.mur_w_update.launches - before == (0 if driver == "rank" else 10)
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=RTOL)
+    np.testing.assert_allclose(got.w, want.w, rtol=RTOL, atol=RTOL * np.abs(want.w).max())
+
+
+@pytest.mark.cuda
+def test_sharded_serving_and_streaming_on_a_card_mesh(card_mesh):
+    import scipy.sparse as sp
+
+    from tpunmf_torch.solvers import mur_streaming, mur_streaming_sharded
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.rand((16, 32), generator=g, device="cuda")
+    h = torch.rand((32, 70000), generator=g, device="cuda")
+    want = topk.topk_retrieval(None, w, h, 50)
+    got = topk.topk_retrieval(card_mesh, w, h, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = topk.topk_streaming(w, h.cpu().numpy(), 70000, 50, panel_cols=16384, mesh=card_mesh)
+    assert torch.equal(got[1], want[1])
+
+    csr = sp.random(3000, 2000, density=0.05, format="csr", random_state=4,
+                    dtype=np.float32)
+    w0, h0 = (torch.rand(s, device="cuda") + 0.1 for s in ((3000, 6), (6, 2000)))
+    kw = dict(distance_type="kl", w_init=w0, h_init=h0, min_iter=5, max_iter=5, tol1=0.0,
+              tol2=0.0)
+    before = fused.kl_ratio.launches
+    got = mur_streaming_sharded(csr, 6, card_mesh, row_block=1024, **kw)
+    assert fused.kl_ratio.launches - before == 2 * 3 * 5
+    want = mur_streaming(csr, 6, row_block=1024, col_panel=2000, **kw)
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=RTOL)

@@ -9,6 +9,7 @@ their plain versions; tests/test_torch_cuda.py holds the kernels to them.
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -269,6 +270,15 @@ def test_fused_route_needs_f32_scores_and_a_rank_in_range():
     assert got[0].dtype == torch.float64
 
 
+class _EightCols:
+    """A mesh's axis sizes alone: 'cols' of 8 ranks."""
+
+    mesh_dim_names = ("cols",)
+
+    def size(self, dim=None):
+        return 8
+
+
 def test_argument_checks_match_tpunmf():
     w, h = _factors(1, n=300)
     hq = t(h).to(torch.bfloat16)
@@ -278,9 +288,20 @@ def test_argument_checks_match_tpunmf():
         ttopk.topk_retrieval(None, t(w), t(h), 5, h_quantized=hq)
     with pytest.raises(ValueError, match="does not match"):
         ttopk.topk_retrieval(None, t(w), t(h), 5, first_stage_dtype="f16", h_quantized=hq)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttopk.topk_retrieval(object(), t(w), t(h), 5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttopk.topk_streaming(t(w), h, 300, 5, mesh=object())
+    # sharded serving is ported: with 8 ranks on 'cols', n = 300 items fail
+    # tpunmf's own divisibility check (topk_streaming pads its panels, so
+    # there it is the item count's check); both checks come before any
+    # collective, so the port's side needs only the mesh's axis sizes
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:8]), ("cols",))
+    with pytest.raises(ValueError, match="not divisible by 'cols'=8") as got:
+        ttopk.topk_retrieval(_EightCols(), t(w), t(h), 5)
+    with pytest.raises(ValueError) as want:
+        jtopk.topk_retrieval(jmesh, w, h, 5)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="exceeds") as got:
+        ttopk.topk_streaming(t(w), h, 300, 301, mesh=_EightCols())
+    with pytest.raises(ValueError) as want:
+        jtopk.topk_streaming(w, h, 300, 301, mesh=jmesh)
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="exceeds"):
         ttopk.topk_streaming(t(w), h, 300, 301)

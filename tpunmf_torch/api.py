@@ -13,8 +13,14 @@ MUR), ``"anls"``, ``"hals"``, ``"admm"``, ``"ao_admm"``, ``"semi_nmf"``,
 ``"onmf"``, ``"robust"``, ``"ntf"`` (N-way CP: ``.w`` / ``.h`` are None,
 ``fit_transform`` gives the mode-0 factor, ``transform`` and
 ``inverse_transform`` refuse), and the ``multilevel=`` warm start of mur
-and hals; the routing extensions ``schedule=`` and ``mesh=`` raise
-``NotImplementedError``.
+and hals.  MUR runs across devices (``tpunmf_torch.parallel``):
+``NMF(data, k, mesh=m)`` keeps the mesh, and ``factorize("mur")`` then runs
+``parallel.mur_mesh`` (``tpunmf``'s GSPMD run, its collectives written
+out); ``factorize("mur", schedule="ulysses" | "rank")`` runs
+``parallel.mur_sharded`` and needs a mesh.  Every rank passes the global
+data and gets the same results.  ``mesh=`` with another method, or with
+``mask=``, ``beta=`` or ``multilevel=``, raises ``NotImplementedError``
+(ROADMAP.md, queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -31,7 +37,6 @@ _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
 # every method of the list is ported
 _PORTED = _METHODS
-_UNPORTED_OPTIONS = ("schedule", "mesh")
 
 
 class NMF:
@@ -48,14 +53,13 @@ class NMF:
 
     def __init__(self, data=None, factors=None, saving=True, param_file=None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: multi-GPU solvers are not ported yet (ROADMAP.md)")
+        # the data stay global: the mesh's drivers keep each rank's block
         self.data = data
         self.factors = factors
         self.saving = saving
         self.results = None
         self.method_params = {}
+        self.mesh = mesh
 
         if param_file is not None:
             try:
@@ -97,6 +101,14 @@ class NMF:
 
         from . import solvers
 
+        if params.get("mesh", self.mesh) is not None:
+            options = [f"{o}=" for o in ("multilevel", "mask", "beta")
+                       if params.get(o) is not None]
+            if method != "mur" or options:
+                raise NotImplementedError(
+                    f"mesh= with {' and '.join([f'method={method!r}'] + options)} is not "
+                    "ported yet (ROADMAP.md, queue 1, item 9)")
+
         # multilevel warm start (arXiv:1009.0881) rides any mur/hals fit:
         # factorize(method='hals', multilevel={'levels': 2, 'factor': 4}),
         # as tpunmf/api.py:102-116
@@ -112,7 +124,7 @@ class NMF:
                 self.save_factorization()
             return self.results
 
-        mask = beta = None
+        mask = beta = schedule = mesh = None
         if method == "mur":
             # routing extensions, as tpunmf/api.py:122-129 (None is ignored)
             chosen = [n for n in ("schedule", "beta", "mask")
@@ -122,11 +134,23 @@ class NMF:
                     f"{' and '.join(chosen)} are mutually exclusive")
             mask = params.pop("mask", None)
             beta = params.pop("beta", None)
-        for opt in _UNPORTED_OPTIONS:
-            if params.pop(opt, None) is not None:
-                raise NotImplementedError(f"{opt}= is not ported yet")
+            schedule = params.pop("schedule", None)
+            mesh = params.pop("mesh", self.mesh)
+            if schedule is not None and mesh is None:
+                raise ValueError(
+                    "schedule= requires a mesh (NMF(..., mesh=...) or "
+                    "factorize(..., mesh=...))")
 
-        if method == "anls":
+        if schedule is not None:
+            from .parallel import mur_sharded
+
+            self.results = mur_sharded(self.data, self.factors, mesh, schedule=schedule,
+                                       **params)
+        elif mesh is not None:
+            from .parallel import mur_mesh
+
+            self.results = mur_mesh(self.data, self.factors, mesh, **params)
+        elif method == "anls":
             self.results = solvers.anls(self.data, self.factors, **params)
         elif method == "hals":
             self.results = solvers.hals(self.data, self.factors, **params)

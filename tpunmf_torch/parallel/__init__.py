@@ -1,0 +1,95 @@
+"""MUR across devices over ``torch.distributed``: the port of ``tpunmf.parallel``.
+
+The SPMD convention.  ``tpunmf`` runs one process over many devices and
+hands around global sharded arrays; ``torch.distributed`` runs one
+process a device.  So:
+
+* **Mesh.** A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
+  ``tpunmf``'s axis names ('rows', 'cols', 'rank') as its
+  ``mesh_dim_names`` (``mesh.build_mesh``).  ``mesh.axis_size``,
+  ``axis_index`` and ``axis_group`` stand for ``mesh.shape[axis]``,
+  ``lax.axis_index`` and the axis of a ``psum``.
+* **Backend and device.** A "cuda" mesh is the default: NCCL, rank r on
+  ``cuda:LOCAL_RANK`` (or r modulo the host's cards without torchrun).
+  A "cpu" mesh (gloo) is how a caller asks for the CPU.  A "cuda" mesh
+  without a card raises; nothing falls back to the CPU.
+  ``initialize_multihost`` brings up a group for both (gloo for CPU
+  tensors, NCCL for CUDA ones); ``build_mesh`` brings up a world of one
+  where no group exists.
+* **The collectives level.** ``collectives.*``, ``mur_ulysses`` and
+  ``mur_rank_sharded`` take and return the rank's local blocks, in the
+  layout ``nmf_shardings`` / ``rank_shardings`` name (a tuple of axis
+  names, one a dimension): what ``shard_map``'s body sees in ``tpunmf``.
+* **The drivers.** ``mur_sharded``, ``mur_mesh`` (the facade's ``mesh=``),
+  ``solvers.mur_streaming_sharded`` and ``serve.topk``'s ``mesh=`` keep
+  ``tpunmf``'s contract: every rank passes the global host data, keeps
+  its block, and gets the same result, the factors gathered to the host.
+* **Same decision on every rank.** Every stop is decided from a value all
+  ranks hold bit for bit: an all-reduced objective.
+* **Same start on every rank.** Random and NNDSVD inits are made once, on
+  rank 0, by the port's seeded rule, and broadcast.
+* **Counts.** Every collective counts its calls by kind in
+  ``collectives.calls`` (``reset_calls()``), as each kernel wrapper counts
+  its launches.
+
+``ntf_sharded`` is not ported yet and raises (ROADMAP.md, queue 1, item 9).
+"""
+from .collectives import (
+    calls,
+    gram_h,
+    gram_h_rank,
+    gram_w,
+    reset_calls,
+    reshard_cols_to_rows,
+    reshard_rows_to_cols,
+    ring_xht,
+    ring_xht_rotate_h,
+    wh_psum_rank,
+    wtx_psum,
+    xht_psum,
+)
+from .mesh import (axis_group, axis_index, axis_size, build_mesh, local_block, nmf_shardings,
+                   rank_shardings, shard_problem)
+from .multihost import (
+    assemble_global_columns,
+    assert_collective_consistency,
+    global_mesh,
+    host_local_column_range,
+    initialize_multihost,
+)
+from .ntf_sharded import ntf_sharded
+from .sharded_solvers import mur_mesh, mur_rank_sharded, mur_sharded, mur_ulysses
+
+__all__ = [
+    "build_mesh",
+    "nmf_shardings",
+    "shard_problem",
+    "gram_h",
+    "gram_w",
+    "xht_psum",
+    "wtx_psum",
+    "ring_xht",
+    "ring_xht_rotate_h",
+    "reshard_rows_to_cols",
+    "reshard_cols_to_rows",
+    "mur_ulysses",
+    "mur_rank_sharded",
+    "ntf_sharded",
+    "mur_sharded",
+    "wh_psum_rank",
+    "gram_h_rank",
+    "rank_shardings",
+    "initialize_multihost",
+    "global_mesh",
+    "host_local_column_range",
+    "assemble_global_columns",
+    "assert_collective_consistency",
+    # the port's own
+    "mur_mesh",
+    "calls",
+    "reset_calls",
+    "axis_size",
+    "axis_index",
+    "axis_group",
+    "local_block",
+]

@@ -18,7 +18,15 @@ check is one host read per request.  Small sorts are stable descending
 
 ``recall_target < 1`` asks ``tpunmf`` for ``lax.approx_max_k``, a TPU
 primitive with no torch counterpart: here it takes the exact path, so the
-recall is 1 >= target.  ``mesh=`` (sharded H) is not ported yet.
+recall is 1 >= target.
+
+``mesh=`` (a mesh with a 'cols' axis, ``tpunmf_torch.parallel``) shards H
+by columns (tpunmf/serve/topk.py:356-531): every rank passes the global H
+(and exclusion), ranks its own column panel as one device would, offsets
+its candidates' indices by ``rank_on_cols * n_local``, all-gathers them
+over 'cols' and takes the final top k in ``lax.top_k``'s order, so every
+rank returns the same answer.  A mesh without a 'cols' axis takes the
+one-device path.
 
 The fused scoring kernel is gated by ``TPUNMF_FUSED_SCORING`` (read at
 each call; 1/0, true/false, yes/no in any case; default on).  With the
@@ -40,6 +48,8 @@ from ..core.precision import full_f32
 from ..data.pipeline import PanelPipeline
 from ..ops.topk_select import (blockmax_relayout, score_blockmax_fits,
                                score_blockmax_relayout)
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import axis_index, axis_size, has_axis
 
 _TOPK_BLOCK = 16384
 # candidate sets wider than this use a second block-max level
@@ -259,7 +269,8 @@ def topk_retrieval(mesh, w_batch, h, k: int, exclude=None,
     """Top-k item retrieval for a batch of user factors.
 
     Args:
-      mesh: must be None (one device); a mesh raises NotImplementedError.
+      mesh: a mesh with a 'cols' axis (H column-sharded, every rank
+        passing the global H), or None for one device.
       w_batch: (b, r) user factor rows.
       h: (r, n) item factors.
       k: number of items to return per user.
@@ -289,19 +300,48 @@ def topk_retrieval(mesh, w_batch, h, k: int, exclude=None,
             raise ValueError(
                 f"h_quantized dtype {h_quantized.dtype} does not match "
                 f"first_stage_dtype {first_stage_dtype!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharded serving is not ported yet (ROADMAP.md, queue 1, "
-            "item 9 'Multi-GPU')")
+    if mesh is not None and has_axis(mesh, "cols"):
+        n, p = h.shape[1], axis_size(mesh, "cols")
+        if n % p:
+            raise ValueError(f"items axis {n} not divisible by 'cols'={p}")
+        lo = axis_index(mesh, "cols") * (n // p)
+
+        def own(a):
+            return None if a is None else a[:, lo:lo + n // p]
+
+        w_batch, h_loc, excl_loc = _tensors(w_batch, own(h), own(exclude))
+        hq_loc = None if h_quantized is None else own(h_quantized).contiguous()
+        return _sharded_topk(mesh, w_batch, h_loc.contiguous(), k, excl_loc,
+                             first_stage_dtype, oversample, hq_loc)
     w_batch, h, exclude = _tensors(w_batch, h, exclude)
+    return _one_device_topk(w_batch, h, k, exclude, first_stage_dtype, oversample,
+                            h_quantized)
+
+
+def _one_device_topk(w_batch, h, k, exclude, first_stage_dtype, oversample, hq):
     with torch.no_grad():
         if first_stage_dtype is not None:
             return _quantized_rerank(w_batch, h, k, first_stage_dtype, oversample,
-                                     exclude=exclude, hq=h_quantized)
+                                     exclude=exclude, hq=hq)
         if exclude is None:
             return _scored_topk(w_batch, h, k)
         scores = torch.where(exclude, -torch.inf, _score(w_batch, h))
         return _exact_topk(scores, k)
+
+
+def _sharded_topk(mesh, w_batch, h_loc, k, excl_loc, first_stage_dtype, oversample, hq_loc):
+    """The global top k from this rank's column panel of H: the panel's
+    top min(k, n_local) as one device ranks it, indices offset to global
+    ones, the candidates of every rank on 'cols' gathered and re-ranked."""
+    n_local = h_loc.shape[1]
+    vals, idx = _one_device_topk(w_batch, h_loc, min(k, n_local), excl_loc,
+                                 first_stage_dtype, oversample, hq_loc)
+    idx = idx + axis_index(mesh, "cols") * n_local
+    all_vals = all_gather(vals, mesh, "cols", dim=1)
+    all_idx = all_gather(idx, mesh, "cols", dim=1)
+    with torch.no_grad():
+        out_vals, pos = _topk(all_vals, k)
+    return out_vals, _take(all_idx, pos)
 
 
 def _merge_topk(vals_a, idx_a, vals_b, idx_b, k: int):
@@ -330,68 +370,108 @@ def topk_streaming(w_batch, h_source, n: int, k: int, *,
     fewer than k items remain after ``exclude`` (a (b, n) bool host
     array), the -inf-scored slots carry index -1.
 
+    With ``mesh=`` (a 'cols' axis) each panel is padded with zero columns
+    to a multiple of the shard count and the pad masked through the
+    exclusion path (tpunmf/serve/topk.py:539-625); each rank copies only
+    its own columns of each panel to its device and ranks them as
+    :func:`topk_retrieval`'s sharded path does.
+
     Returns: (values (b, k), indices (b, k) int64).
     """
     if k > n:
         raise ValueError(f"k={k} exceeds the item count n={n}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharded serving is not ported yet (ROADMAP.md, queue 1, "
-            "item 9 'Multi-GPU')")
+    sharded = mesh is not None and has_axis(mesh, "cols")
+    shards = axis_size(mesh, "cols") if sharded else 1
+    rank = axis_index(mesh, "cols") if sharded else 0
     w_batch = as_input(w_batch)
     device = w_batch.device
     take = min(panel_cols, n)
     slicer = h_source if callable(h_source) else (lambda s, e: h_source[:, s:e])
 
+    def own(span):
+        """This rank's columns [lo, hi) of the panel padded to a multiple
+        of the shards, and the padded width it ranks."""
+        start, stop = span
+        width = -(-(stop - start) // shards)
+        lo = min(start + rank * width, stop)
+        return lo, min(lo + width, stop), width
+
     b = w_batch.shape[0]
     vals = None
     idx = torch.full((b, k), -1, dtype=torch.int64, device=device)
     spans = [(start, min(start + take, n)) for start in range(0, n, take)]
-    for start, stop, panel in _device_panels(slicer, spans, device):
-        excl = None if exclude is None else np.asarray(exclude[:, start:stop])
-        p_vals, p_idx = topk_retrieval(
-            None, w_batch, panel, min(k, stop - start), exclude=excl,
-            recall_target=recall_target, first_stage_dtype=first_stage_dtype,
-            oversample=oversample)
+    for start, stop, panel in _device_panels(slicer, spans, device, own):
+        lo, hi, width = own((start, stop))
+        padded = (stop - start) % shards != 0
+        excl = None
+        if exclude is not None or padded:
+            # ragged tail: the pad columns can never enter the candidates
+            excl = np.ones((b, width), dtype=bool)
+            excl[:, :hi - lo] = False if exclude is None else np.asarray(exclude[:, lo:hi])
+        if sharded:
+            excl = None if excl is None else as_input(excl, device=device)
+            p_vals, p_idx = _sharded_topk(mesh, w_batch, panel,
+                                          min(k, width * shards), excl,
+                                          first_stage_dtype, oversample, None)
+        else:
+            p_vals, p_idx = topk_retrieval(
+                None, w_batch, panel, min(k, stop - start), exclude=excl,
+                recall_target=recall_target, first_stage_dtype=first_stage_dtype,
+                oversample=oversample)
         if vals is None:
             # candidates keep the scores' dtype across the merges
             vals = torch.full((b, k), -torch.inf, dtype=p_vals.dtype, device=device)
         vals, idx = _merge_topk(vals, idx, p_vals.to(vals.dtype), p_idx + start, k)
-    # -inf-scored candidates (exclusion) may carry real item ids: scrub them
+    # -inf-scored candidates (exclusion, padding) may carry real item ids:
+    # scrub them
     idx = torch.where(torch.isneginf(vals), torch.full_like(idx, -1), idx)
     return vals, idx
 
 
-def _device_panels(slicer, spans, device):
-    """Yield (start, stop, panel of H on ``device``) over ``spans``.
+def _device_panels(slicer, spans, device, own):
+    """Yield (start, stop, panel on ``device``) over ``spans``: the panel
+    is this rank's columns of the span, ``own(span)`` = (lo, hi, width),
+    zero-padded to ``width`` (one device: the whole span).
 
     A float64 host panel is scored in float32 on the card, as
     topk_retrieval's own H is (tpunmf/serve/topk.py:590, 607): on the
-    CPU the panels go through ``as_input``; on the card the first panel's
-    type sets the ring's (``as_input``'s rule), and each panel is cast
-    while it is copied into its pinned buffer (``data/pipeline.py``)."""
+    CPU the panels go through ``as_input``; on the card the source's type
+    sets the ring's (``as_input``'s rule), and each panel is cast while it
+    is copied into its pinned buffer (``data/pipeline.py``)."""
+    # the first panel gives the rows and the type (a rank whose columns of
+    # it are all padding reads one column of the source instead)
+    lo, hi, _ = own(spans[0])
+    first = np.asarray(slicer(lo, hi) if hi > lo else slicer(spans[0][0], spans[0][0] + 1))
+    fetched = {spans[0]: first} if hi > lo else {}
+    rows = first.shape[0]
+
+    def host_panel(span):
+        lo, hi, width = own(span)
+        src = fetched.pop(span, None)
+        if src is None and hi > lo:
+            src = np.asarray(slicer(lo, hi))
+        if hi - lo == width:
+            return src
+        out = np.zeros((rows, width), dtype=first.dtype)
+        out[:, :hi - lo] = src if hi > lo else 0
+        return out
+
     if device.type != "cuda":
         for start, stop in spans:
-            yield start, stop, as_input(np.asarray(slicer(start, stop)), device=device)
+            yield start, stop, as_input(host_panel((start, stop)), device=device)
         return
-    fetched = {spans[0]: np.asarray(slicer(*spans[0]))}
-    first = fetched[spans[0]]
     dtype = torch.from_numpy(np.empty(0, dtype=first.dtype)).dtype
     if dtype == torch.float64:
         dtype = torch.float32
-    rows, width = first.shape[0], spans[0][1] - spans[0][0]
-    ring = PanelPipeline(rows * width, dtype, device)
+    ring = PanelPipeline(rows * own(spans[0])[2], dtype, device)
 
     def fill(span, host):
-        src = fetched.pop(span, None)
-        if src is None:
-            src = np.asarray(slicer(*span))
         with warnings.catch_warnings():
             # a read-only source (a memmap) is only read here
             warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-            host.copy_(torch.from_numpy(src))
+            host.copy_(torch.from_numpy(host_panel(span)))
 
-    for (start, stop), panel in ring.run(spans, fill, lambda span: (rows, span[1] - span[0])):
+    for (start, stop), panel in ring.run(spans, fill, lambda span: (rows, own(span)[2])):
         yield start, stop, panel
 
 

@@ -15,11 +15,12 @@ from .onmf import onmf, orthogonality_residual
 from .robust import robust_nmf
 from .semi import semi_nmf
 from .streaming import mur_streaming
+from .streaming_sharded import mur_streaming_sharded
 from .symnmf import symnmf
 from .transform import inverse_transform, transform
 
 __all__ = ["admm", "anls", "ao_admm", "beta_divergence", "convex_nmf", "cp_reconstruct",
            "gnmf", "hals", "inverse_transform", "knn_graph", "multilevel", "mttkrp", "mur",
-           "mur_beta", "mur_masked", "mur_multilevel", "mur_streaming", "nmtf", "ntf",
+           "mur_beta", "mur_masked", "mur_multilevel", "mur_streaming", "mur_streaming_sharded", "nmtf", "ntf",
            "NtfResults", "OnlineNMF", "online_nmf", "onmf", "orthogonality_residual",
            "robust_nmf", "semi_nmf", "symnmf", "transform"]

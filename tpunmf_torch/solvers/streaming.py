@@ -70,16 +70,18 @@ def _mur_h_update_eu(h, numer, gram_w, lam):
     return h * numer / (gram_w @ h + lam * h + _EPS)
 
 
-def _mur_w_update_kl(w, numer, h, lam):
-    b = torch.sum(h, dim=-1).unsqueeze(-2)
-    a = w * numer
+def _kl_closed_form(a, b, lam):
+    """The regularized KL update 2a / (b + sqrt(b^2 + 4 lam a)), a the
+    factor times its numerator and b the other factor's sums."""
     return 2.0 * a / (b + torch.sqrt(b * b + 4.0 * lam * a))
 
 
+def _mur_w_update_kl(w, numer, h, lam):
+    return _kl_closed_form(w * numer, torch.sum(h, dim=-1).unsqueeze(-2), lam)
+
+
 def _mur_h_update_kl(h, numer, w, lam):
-    d = torch.sum(w, dim=-2).unsqueeze(-1)
-    c = h * numer
-    return 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lam * c))
+    return _kl_closed_form(h * numer, torch.sum(w, dim=-2).unsqueeze(-1), lam)
 
 
 class _Panels:
