@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about thirteen minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about fifteen minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -293,6 +293,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      must not rise; topk_retrieval over the (1,) mesh at (64, 2^20) r128, k
      100, exact, quantized (stored bf16 H) and 1% excluded: the one-device
      answers, ms a request beside the one-device path's.
+ 10. the reference solvers across GPUs (tpunmf_torch.parallel's
+     mesh_solvers, ntf_sharded and the lambda grid's mesh=) as a world of
+     one, on a new NCCL group through a file store and the meshes (1,)
+     'cols' and (1, 1) 'rows' x 'cols': first the host microseconds of a
+     one-element all_reduce (alone, and with a host read after each);
+     then each path of MM_RUNS through NMF(x, k, mesh=).factorize, at the
+     widths of phase 3: HALS EU 8192x8192 r128 (50 iterations), AO-ADMM EU
+     8192x8192 r128 (20), ANLS EU 'chol', EU 'bpp' and KL 'chol' at
+     config[2]'s stand-in, 6040x3706 r64 (10), ADMM EU with l1 on H (10)
+     and KL (5) at config[3], 50000x20000 r128, AO-ADMM KL at config[4]'s
+     cut, 50000x20000 r256 (3), masked MUR EU and KL at MovieLens-10M's
+     dimensions r64 with a uint8 mask (20), each from its X's NNDSVD 'zero'
+     (masked: a seeded |N(0, 1)|); ntf_sharded EU mur, EU hals and KL mur
+     at 512x512x512 r64 (20) from one factors_init against the one-device
+     ntf(normalize=False); mur_lambda_grid over the mesh's last axis at
+     phase 5's grids against the unsharded grid.  Each path: the
+     one-device run on its kernel route, then on each mesh its kernel
+     route and its plain route (use_pallas=False), each through drive()
+     with exact launches (mm_launches) and exact collective calls by kind
+     (mesh_method_calls, ntf_sharded_calls, grid_calls: the formulas the
+     CPU tests hold on 4 gloo ranks); every mesh run stops where the
+     one-device run does and stays within MM_MESH_RTOL of its trace at
+     every iteration (whether the bits are equal is printed), the kernel
+     route within ROUTE_RTOL of the plain over ROUTE_ITERS iterations; ms
+     an iteration of each beside one device's.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -3409,8 +3434,11 @@ def expected_launches(driver, dist, iters, kernels):
 
 
 def trace_gap(got, want, iters=ROUTE_ITERS):
-    g = np.asarray(got.obj_history, dtype=np.float64)[:iters + 1]
-    w = np.asarray(want.obj_history, dtype=np.float64)[:iters + 1]
+    """The largest relative gap of two traces over their first ``iters``
+    iterations (None: all of them, which must be as many)."""
+    g = np.asarray(got, dtype=np.float64)[:None if iters is None else iters + 1]
+    w = np.asarray(want, dtype=np.float64)[:None if iters is None else iters + 1]
+    require(g.shape == w.shape, f"traces of {g.shape} and {w.shape}")
     return float(np.max(np.abs(g - w) / np.abs(w)))
 
 
@@ -3455,7 +3483,8 @@ def mesh_paths(torch, tt, drive, card, data, meshes):
                             f"{tag}: {res.i + 1} iterations or non-finite results")
                     runs[kernels] = (res, secs)
                 (kern, ks), (plain, ps) = runs[True], runs[False]
-                route, vs_one = trace_gap(kern, plain), trace_gap(kern, one)
+                route = trace_gap(kern.obj_history, plain.obj_history)
+                vs_one = trace_gap(kern.obj_history, one.obj_history)
                 ms, plain_ms = 1e3 * ks / iters, 1e3 * ps / iters
                 print(f"  {tag}: {ms:.3f} ms an iteration on the kernel route, {plain_ms:.3f} "
                       f"plain, {one_ms:.3f} one device; first {ROUTE_ITERS} iterations: "
@@ -3645,6 +3674,365 @@ def multi_gpu_phase(torch, tt, drive, card, data, adm_csr, c4_csr):
             out["streaming"] = streaming_paths(torch, tt, drive, card, adm_csr, data["kl"],
                                                c4_csr, meshes[(1,)])
             out["serving"] = sharded_serving(torch, tt, drive, card, meshes[(1,)])
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+# Phase 10: the reference solvers across GPUs as a world of one: the facade's
+# mesh= for hals, anls, admm, ao_admm and masked MUR, ntf_sharded and the
+# lambda grid's mesh=, at the widths of phases 3, 5 and 7, each held to the
+# one-device run and to its plain route from one init
+MM_MESH_RTOL = 1e-6   # a mesh run against the one-device run, every iteration
+# (label, X's name, k, method, options, iterations); ADMM and ANLS from
+# their X's NNDSVD 'zero', masked MUR from a seeded |N(0, 1)| init
+MM_RUNS = (
+    ("HALS EU 8192^2 k128", "eu", 128, "hals", dict(inner_sweeps=2), 50),
+    ("AO-ADMM EU 8192^2 k128", "eu", 128, "ao_admm", dict(distance_type="eu"), 20),
+    ("ANLS EU chol config[2]", "ml1", ANLS_K, "anls",
+     dict(distance_type="eu", use_fcnnls=True), 10),
+    ("ANLS EU bpp config[2]", "ml1", ANLS_K, "anls",
+     dict(distance_type="eu", nnls_solver="bpp"), 10),
+    ("ANLS KL chol config[2]", "ml1", ANLS_K, "anls", dict(distance_type="kl"), 10),
+    ("ADMM EU l1 on H config[3]", "adm", CONFIG3["k"], "admm",
+     dict(distance_type="eu", rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n")), 10),
+    ("ADMM KL config[3]", "adm", CONFIG3["k"], "admm",
+     dict(distance_type="kl", rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n")), 5),
+    ("AO-ADMM KL config[4] cut", "c4", CONFIG4["k"], "ao_admm", AO_KL_KW, 3),
+    ("masked MUR EU ML-10M k64", "ml10", 64, "mur", dict(distance_type="eu"), 20),
+    ("masked MUR KL ML-10M k64", "ml10", 64, "mur", dict(distance_type="kl"), 20),
+)
+MM_NTF_ITERS = 20
+MM_NTF_RUNS = (("ntf_sharded EU mur", "eu", "mur"), ("ntf_sharded EU hals", "eu", "hals"),
+               ("ntf_sharded KL mur", "kl", "mur"))
+# the lambda grids of phase 5
+MM_GRIDS = (("EU 8192^2 k128", "eu", 128, (0.0, 0.1, 1.0), 50),
+            ("KL 8192x4096 k128", "kl", KL_SINGLE["k"], (0.0, 0.1), 20))
+
+
+def mesh_method_calls(method, kw, rows, cols, iters, trips=None, kernels=False):
+    """The collectives a facade mesh= run sends, by kind, on a mesh with
+    the axes 'rows' / 'cols' that ``rows`` / ``cols`` say (of any size; a
+    world of one has them of size 1), over ``iters`` iterations; AO-ADMM's
+    inner ``trips`` as ``ao_admm.trips`` counted them (h_calls, h, w_calls,
+    w).  Every driver: inits given (none sent) or made on rank 0 and
+    broadcast (W and H), the initial objective all-reduced over each axis,
+    the factors gathered at the end (W over 'rows', H over 'cols').  An
+    iteration: HALS X H^T, H H^T over 'cols', W^T X, W^T W over 'rows', the
+    objective over each axis (the Gram form: its two sums over 'cols');
+    ANLS the same four products; ADMM the same four and, with adaptive rho,
+    its two residuals' two sums; AO-ADMM a subproblem's Gram (and W^T V for
+    EU) over its frame's rows once, each trip its stop test's norms (one
+    all_reduce, which adaptive rho reuses) over its frame's columns and,
+    for KL, the split's product over its rows; the local-sparsity W
+    update's Gram once and, each trip, its three products over 'cols' and
+    its norms (of W over 'rows' twice, of V over both once); masked MUR each half's two sums where it
+    is not local (the kernel route on a world of one is), after the
+    elevation's minimum and, on the kernel route, the binary-mask test over
+    each axis.  MUR and HALS elevate X by a minimum over each axis."""
+    r, c = int(rows), int(cols)
+    axes = r + c
+    ar = ag = 0
+    kl = kw.get("distance_type", "kl" if method == "mur" else "eu") == "kl"
+    reg_w, reg_h = kw.get("reg_w", (0, "nn"))[1], kw.get("reg_h", (0, "l2n"))[1]
+    adaptive = kw.get("rho_mode") == "adaptive"
+    if method == "hals":
+        gram = kw.get("objective") == "gram"
+        ar = axes + axes * gram + axes + iters * (2 * r + 2 * c + (2 * c if gram else axes))
+    elif method == "anls":
+        ar = axes + iters * (2 * r + 2 * c + axes)
+    elif method == "admm":
+        ar = axes + iters * (2 * r + 2 * c + axes + 2 * axes * adaptive)
+        ag = iters * 2 * (c * (reg_h == "l1inf") + r * (reg_w == "l1inf"))
+    elif method == "ao_admm":
+        h_calls, h_trips, w_calls, w_trips = trips
+        ar = axes + iters * axes
+        ar += h_calls * r * (1 + (not kl)) + h_trips * (r * kl + c)
+        ag = h_trips * c * (reg_h == "l1inf")
+        if adaptive and reg_w == "l1inf":
+            ar += w_calls * c + w_trips * (4 * c + 3 * r)
+        else:
+            ar += w_calls * c * (1 + (not kl)) + w_trips * (c * kl + r)
+            ag += w_trips * r * (reg_w == "l1inf")
+    else:  # masked MUR
+        ar = axes + axes * kernels + axes + iters * (2 * (r + c) * (not kernels) + axes)
+    return {"all_gather": ag + axes, "all_reduce": ar, "all_to_all": 0,
+            "broadcast": 0 if "w_init" in kw else 2, "p2p": 0}
+
+
+def ntf_sharded_calls(dist, ndim, iters, factors_given):
+    """ntf_sharded's collectives: the non-negativity test, the initial
+    objective (EU: ||X||^2, the last MTTKRP and the mode-0 Gram; KL: the
+    KL sum), then an EU iteration's mode-0 Gram twice and N-1 MTTKRPs, a KL
+    iteration's N-1 MTTKRPs, N-1 mode-0 column sums and the KL sum; the
+    mode-0 factor gathered at the end; random inits broadcast a mode each."""
+    eu = dist == "eu"
+    ar = 1 + (3 if eu else 1) + iters * ((ndim + 1) if eu else (2 * ndim - 1))
+    return {"all_gather": 1, "all_reduce": ar, "all_to_all": 0,
+            "broadcast": 0 if factors_given else ndim, "p2p": 0}
+
+
+def grid_calls(init_given):
+    """The lambda grid over a mesh: W, H and the traces gathered; a random
+    init broadcast."""
+    return {"all_gather": 3, "all_reduce": 0, "all_to_all": 0,
+            "broadcast": 0 if init_given else 2, "p2p": 0}
+
+
+def mm_launches(method, kw, iters, kernels, ndim=3):
+    """Kernel launches of a phase-10 run on its route: HALS gs_sweep twice
+    an iteration and eu_residual_obj once an iteration and once more; ANLS
+    and AO-ADMM their objective kernel once an iteration (eu_residual_obj
+    or kl_obj), ADMM eu_residual_obj or kl_ratio_and_obj; masked MUR both
+    masked passes once an iteration (local halves); CP-HALS gs_sweep once a
+    mode an iteration; the plain route nothing."""
+    if not kernels:
+        return {}
+    kl = kw.get("distance_type", "kl" if method == "mur" else "eu") == "kl"
+    if method == "hals":
+        return {"gs_sweep": 2 * iters, "eu_residual_obj": iters + 1}
+    if method in ("anls", "ao_admm"):
+        return {"kl_obj" if kl else "eu_residual_obj": iters}
+    if method == "admm":
+        return {"kl_ratio_and_obj" if kl else "eu_residual_obj": iters}
+    if method == "ntf":
+        return {"gs_sweep": ndim * iters} if kw.get("update") == "hals" else {}
+    return {"masked_w_update": iters, "masked_h_update": iters}
+
+
+def mm_same_bits(a, b, fields):
+    """Whether two results hold the same bits in ``fields`` (a list of
+    arrays, as ntf's factors, compared one by one)."""
+    def arrays(r, f):
+        v = getattr(r, f)
+        return [np.asarray(u) for u in v] if f == "factors" else [np.asarray(v)]
+
+    return all(np.array_equal(p, q) for f in fields
+               for p, q in zip(arrays(a, f), arrays(b, f)))
+
+
+def mm_timed(torch, tt, fn):
+    from tpunmf_torch.solvers.ao_admm import trips
+
+    tt.parallel.reset_calls()
+    trips.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, dict(tt.parallel.calls),
+            [trips.h_calls, trips.h, trips.w_calls, trips.w])
+
+
+def mm_path(torch, tt, drive, card, label, x, k, method, kw, iters, meshes, one_device, run,
+            ndim=None, fields=("w", "h")):
+    """One path: the one-device run on its kernel route, then each mesh's
+    kernel and plain routes (``run(mesh, use_pallas)``), each with exact
+    launches and collective calls; the mesh runs within MM_MESH_RTOL of one
+    device at every iteration (bits compared), the kernel route within
+    ROUTE_RTOL of the plain over the first ROUTE_ITERS iterations; ms an
+    iteration."""
+    want = mm_launches(method, kw, iters, True, ndim=ndim or 3)
+    run(meshes[(1,)], None, 1)  # warm-up: first-call costs out of the timing
+    one, one_s, _, _ = drive(f"{label} one device path", tuple(want),
+                             lambda: mm_timed(torch, tt, one_device), exact=want)
+    one_ms = 1e3 * one_s / iters
+    out = {"one_device_ms": one_ms}
+    for shape, mesh in meshes.items():
+        rows, cols = "rows" in mesh.mesh_dim_names, "cols" in mesh.mesh_dim_names
+        runs = {}
+        for kernels in (True, False):
+            route = "kernels" if kernels else "plain"
+            got, secs, sent, trips = drive(
+                f"{label} {shape} {route} path", tuple(mm_launches(method, kw, iters, kernels,
+                                                                   ndim=ndim or 3)),
+                lambda: mm_timed(torch, tt, lambda: run(mesh, None if kernels else False,
+                                                        iters)),
+                exact=mm_launches(method, kw, iters, kernels, ndim=ndim or 3))
+            calls = (ntf_sharded_calls(kw["distance_type"], ndim, iters, True)
+                     if method == "ntf"
+                     else mesh_method_calls(method, kw, rows, cols, iters, trips, kernels))
+            require(sent == calls, f"{label} {shape} {route}: collectives {sent}, not {calls}")
+            require(got.i == iters - 1 and np.all(np.isfinite(np.asarray(got.obj_history))),
+                    f"{label} {shape} {route}: {got.i + 1} iterations or a non-finite trace")
+            runs[kernels] = (got, secs, sent)
+        (kern, ks, sent), (plain, ps, _) = runs[True], runs[False]
+        vs_one = trace_gap(kern.obj_history, one.obj_history, None)
+        vs_plain = trace_gap(kern.obj_history, plain.obj_history)
+        bits = mm_same_bits(kern, one, ("obj_history",) + fields)
+        ms, plain_ms = 1e3 * ks / iters, 1e3 * ps / iters
+        print(f"  {label} {shape}: {ms:.3f} ms an iteration on the kernel route, "
+              f"{plain_ms:.3f} plain, {one_ms:.3f} one device; against one device "
+              f"{vs_one:.3e} (tol {MM_MESH_RTOL:.0e}, the same bits: "
+              f"{'yes' if bits else 'no'}), kernels vs plain {vs_plain:.3e} over "
+              f"{ROUTE_ITERS} iterations (tol {ROUTE_RTOL['float32']:.0e}); collectives "
+              f"{sent} ({card})", flush=True)
+        require(kern.i == one.i, f"{label} {shape}: stopped at {kern.i}, one device {one.i}")
+        require(vs_one <= MM_MESH_RTOL, f"{label} {shape}: {vs_one:.3e} off one device")
+        require(vs_plain <= ROUTE_RTOL["float32"],
+                f"{label} {shape}: routes disagree ({vs_plain:.3e})")
+        out[str(shape)] = {"ms": ms, "plain_ms": plain_ms, "vs_one_device": vs_one,
+                           "same_bits": bits, "route_err": vs_plain, "collectives": sent}
+    return out
+
+
+def mm_factorize_path(torch, tt, drive, card, label, x, k, method, kw, iters, init, meshes,
+                      mask=None):
+    common = dict(method=method, w_init=init[0], h_init=init[1], min_iter=iters,
+                  max_iter=iters, tol1=0.0, tol2=0.0, **kw)
+    if mask is not None:
+        common["mask"] = mask
+
+    def one_device():
+        return tt.NMF(x, k).factorize(**common)
+
+    def run(mesh, use_pallas, its):
+        return tt.NMF(x, k, mesh=mesh).factorize(
+            **{**common, "use_pallas": use_pallas, "min_iter": its, "max_iter": its})
+
+    return mm_path(torch, tt, drive, card, label, x, k, method,
+                   {**kw, "w_init": init[0]}, iters, meshes, one_device, run)
+
+
+def mm_ntf_paths(torch, tt, drive, card, meshes):
+    from tpunmf_torch import solvers
+
+    x, init = cp_data(torch, NTF["dims"], NTF["k"], NTF["seed"], NTF["noise"])
+    out = {}
+    for label, dist, update in MM_NTF_RUNS:
+        kw = dict(distance_type=dist, update=update, factors_init=init, tol1=0.0, tol2=0.0)
+
+        def one_device():
+            return solvers.ntf(x, NTF["k"], normalize=False, min_iter=MM_NTF_ITERS,
+                               max_iter=MM_NTF_ITERS, **kw)
+
+        def run(mesh, use_pallas, its):
+            return tt.parallel.ntf_sharded(mesh, x, NTF["k"], use_pallas=use_pallas,
+                                           min_iter=its, max_iter=its, **kw)
+
+        out[label] = mm_path(torch, tt, drive, card, f"{label} 512^3 k{NTF['k']}", x,
+                             NTF["k"], "ntf", kw, MM_NTF_ITERS, meshes, one_device, run,
+                             ndim=3, fields=("factors",))
+    del x, init
+    return out
+
+
+def mm_grid_paths(torch, tt, drive, card, data, meshes):
+    """The lambda grid over the mesh's first axis against the unsharded
+    grid: the same combinations' traces; combination-iterations a second."""
+    from tpunmf_torch import experiments
+    from tpunmf_torch.init import random_init
+
+    out = {}
+    for label, name, k, lambdas, iters in MM_GRIDS:
+        x = data[name]
+        init = random_init(0, *x.shape, k, device="cuda")
+        kw = dict(lambda_w=lambdas, lambda_h=lambdas, distance_type=name, n_iter=iters,
+                  w_init=init[0], h_init=init[1])
+        n = len(lambdas) ** 2
+        kl = name == "kl"
+        want = ({"kl_ratio": 2 * n * iters, "kl_obj": n * iters} if kl
+                else {"eu_residual_obj": n * iters})
+        experiments.mur_lambda_grid(x, k, **{**kw, "n_iter": 1})  # warm-up
+        one, one_s, _, _ = drive(f"lambda grid {label} one device path", tuple(want),
+                                 lambda: mm_timed(torch, tt, lambda: experiments.mur_lambda_grid(
+                                     x, k, **kw)), exact=want)
+        out[label] = {"one_device_ci_s": n * iters / one_s}
+        for shape, mesh in meshes.items():
+            got, secs, sent, _ = drive(
+                f"lambda grid {label} {shape} path", tuple(want),
+                lambda: mm_timed(torch, tt, lambda: experiments.mur_lambda_grid(
+                    x, k, mesh=mesh, grid_axis=mesh.mesh_dim_names[-1], **kw)), exact=want)
+            require(sent == grid_calls(True), f"lambda grid {label} {shape}: collectives {sent}")
+            gap = trace_gap(got[3].cpu().numpy(), one[3].cpu().numpy(), None)
+            bits = all(torch.equal(a, b) for a, b in zip(got[1:], one[1:]))
+            print(f"  lambda grid {label} {shape}, {n} combinations x {iters} iterations: "
+                  f"{n * iters / secs:.1f} combination-iterations a second, one device "
+                  f"{n * iters / one_s:.1f}; against one device {gap:.3e} (tol "
+                  f"{MM_MESH_RTOL:.0e}, the same bits: {'yes' if bits else 'no'}); "
+                  f"collectives {sent} ({card})", flush=True)
+            require(got[0] == one[0] and gap <= MM_MESH_RTOL,
+                    f"lambda grid {label} {shape}: {gap:.3e} off one device")
+            out[label][str(shape)] = {"ci_s": n * iters / secs, "vs_one_device": gap,
+                                      "same_bits": bits}
+        del init
+    return out
+
+
+def all_reduce_probe(torch, tt, mesh, card, calls=200):
+    """Host microseconds of a one-element all_reduce over the one-rank
+    mesh: alone (enqueued back to back, then one synchronize) and followed
+    by a host read each, as AO-ADMM's stop test reads its norms."""
+    from tpunmf_torch.parallel.collectives import all_reduce
+
+    t = torch.ones(1, device="cuda")
+    out = {}
+    for read in (False, True, False, True):
+        all_reduce(t, mesh, "cols")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            all_reduce(t, mesh, "cols")
+            if read:
+                float(t[0])
+        torch.cuda.synchronize()
+        out["with_read" if read else "alone"] = 1e6 * (time.perf_counter() - t0) / calls
+    print(f"  a one-element all_reduce over the one-rank NCCL mesh: {out['alone']:.1f} us "
+          f"alone, {out['with_read']:.1f} us with a host read after each (second of two "
+          f"rounds of {calls}; {card})", flush=True)
+    return out
+
+
+def methods_phase(torch, tt, drive, card, data, adm_csr):
+    """Phase 10: an NCCL group of one rank through a file store, meshes (1,)
+    'cols' and (1, 1) 'rows' x 'cols', then every path of MM_RUNS through
+    the facade's mesh=, ntf_sharded at 512^3 r64 and the lambda grids.
+    ``data``: the 8192^2 EU X ("eu") and the 8192x4096 KL X ("kl")."""
+    import torch.distributed as dist
+
+    from tpunmf_torch.data import densify, movielens_like
+    from tpunmf_torch.init import nndsvd, random_init
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tt.parallel.initialize_multihost(f"file://{d}/store", 1, 0)
+        meshes = {shape: tt.parallel.build_mesh(shape, names) for shape, names in MGPU_MESHES}
+        try:
+            out["all_reduce_us"] = all_reduce_probe(torch, tt, meshes[(1,)], card)
+            t0 = time.perf_counter()
+            made = {"eu": lambda: data["eu"],
+                    "ml1": lambda: torch.from_numpy(movielens_like(6040, 3706, density=0.2,
+                                                                   seed=2)).cuda(),
+                    "adm": lambda: torch.from_numpy(densify(adm_csr)).cuda(),
+                    "c4": lambda: config4_on_card(torch),
+                    "ml10": lambda: movielens_on_card(torch, *ML10M, seed=3)}
+            for name in dict.fromkeys(run[1] for run in MM_RUNS):
+                t1 = time.perf_counter()
+                x, mask = made[name](), None
+                if name == "ml10":
+                    x, mask = x
+                torch.cuda.synchronize()
+                print(f"  {name} made in {time.perf_counter() - t1:.1f} s", flush=True)
+                inits = {}
+                for label, n, k, method, kw, iters in MM_RUNS:
+                    if n != name:
+                        continue
+                    if k not in inits:
+                        inits[k] = (random_init(0, *x.shape, k, device="cuda")
+                                    if mask is not None else nndsvd(x, k, variant="zero"))
+                    # row-major, as the mesh places them (cuBLAS rounds by layout)
+                    init = tuple(f.contiguous() for f in inits[k])
+                    if method == "hals":  # as HALS nudges the inits it makes
+                        init = tuple(torch.clamp(f, min=1e-16) for f in init)
+                    out[label] = mm_factorize_path(torch, tt, drive, card, label, x, k, method,
+                                                   kw, iters, init, meshes, mask=mask)
+                del x, mask, inits
+                torch.cuda.empty_cache()
+            out["ntf_sharded"] = mm_ntf_paths(torch, tt, drive, card, meshes)
+            grid_meshes = {(1,): tt.parallel.build_mesh((1,), ("grid",)),
+                           (1, 1): meshes[(1, 1)]}
+            out["lambda_grid"] = mm_grid_paths(torch, tt, drive, card, data, grid_meshes)
+            print(f"  phase 10's paths took {time.perf_counter() - t0:.1f} s", flush=True)
         finally:
             dist.destroy_process_group()
     return out
@@ -4234,7 +4622,15 @@ def main() -> int:
     multi_gpu = multi_gpu_phase(torch, tt, drive, card, {"eu": eu_x, "kl": kl_x}, adm_csr,
                                 c4_csr)
     del c4_csr
-    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 10: the reference solvers across GPUs as a world of one [{card}]",
+          flush=True)
+    torch.cuda.empty_cache()
+    multi_gpu["methods"] = methods_phase(torch, tt, drive, card, {"eu": eu_x, "kl": kl2_x},
+                                         adm_csr)
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):

@@ -7,7 +7,11 @@ to one thread, so parallel workers do not oversubscribe the cores.
 """
 from __future__ import annotations
 
+import fcntl
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -126,3 +130,55 @@ def one_rank_meshes():
 
     return (tpar.build_mesh((1,), ("cols",), device_type="cpu"),
             jpar.build_mesh((1,), ("cols",), devices=jax.devices()[:1]))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_world(worker, d, world, timeout):
+    """Start ``world`` ranks of ``worker`` on ``d``/inputs.npz; None, or
+    why the world failed."""
+    port = _free_port()
+    env = dict(os.environ, LOCAL_WORLD_SIZE="2", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, worker, str(r), str(world), str(port), str(d)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        return f"the {world}-process gloo world did not finish in {timeout} s"
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0 or "WORKER_OK" not in out:
+            return f"worker failed (rc={p.returncode}):\n{out}\n{err}"
+    return None
+
+
+def gloo_world(tmp_path_factory, name, worker, inputs, world, timeout):
+    """Inputs and every rank's outputs of one gloo world of ``worker``
+    (a module's fixture).  Under xdist the first worker to need them runs
+    the world, under a lock, and the others read its files; a world that
+    hangs is killed at ``timeout`` and fails the test."""
+    base = tmp_path_factory.getbasetemp()
+    d = (base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base) / name
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (d / "status").exists():
+            np.savez(d / "inputs.npz", **inputs)
+            status = _run_world(worker, d, world, timeout)
+            if status and "address already in use" in status.lower():
+                status = _run_world(worker, d, world, timeout)  # the port was taken
+            (d / "status").write_text(status or "ok")
+    status = (d / "status").read_text()
+    if status != "ok":
+        pytest.fail(status)
+    return inputs, [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]

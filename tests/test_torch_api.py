@@ -183,9 +183,11 @@ def test_solver_errors(kw, exc, tmp_path):
 def test_mesh_is_not_ported():
     """A mesh given at construction is kept, as tpunmf keeps it
     (tpunmf/api.py:46-56): MUR runs over it, by default or with a
-    schedule, and gives tpunmf's results; the data stay global (each rank
-    keeps its block inside the drivers).  The methods whose mesh= waits
-    for the next slice raise, naming ROADMAP item 9."""
+    schedule, and so do HALS, ANLS, ADMM, AO-ADMM and MUR with mask=, each
+    giving tpunmf's results; the data stay global (each rank keeps its
+    block inside the drivers).  What waits for the next slice raises,
+    naming ROADMAP item 9: other methods, multilevel=, beta= and MUR's
+    objective=."""
     tmesh, jmesh = one_rank_meshes()
     got_model = tpunmf_torch.NMF(t(lowrank()), 5, mesh=tmesh)
     want_model = tpunmf.NMF(lowrank(), 5, mesh=jmesh)
@@ -196,8 +198,15 @@ def test_mesh_is_not_ported():
         want = want_model.factorize(method="mur", schedule=schedule, **kw)
         assert_results_match(got, want, rtol=1e-9)
         np.testing.assert_allclose(got_model.w, np.asarray(want_model.w), rtol=1e-9)
-    for method, extra in (("hals", {}), ("anls", {}), ("mur", {"multilevel": True}),
-                          ("mur", {"beta": 1}), ("mur", {"mask": np.ones((60, 48))})):
+    mask = np.random.default_rng(4).random((60, 48)) < 0.8
+    for method, extra in (("hals", {}), ("anls", {}), ("admm", {}), ("ao_admm", {}),
+                          ("mur", {"mask": mask, "distance_type": "eu"})):
+        kw = dict(nndsvd_init=(True, "zero"), min_iter=2, max_iter=6, **extra)
+        got = got_model.factorize(method=method, **kw)
+        want = want_model.factorize(method=method, **kw)
+        assert_results_match(got, want, rtol=1e-9)
+    for method, extra in (("semi_nmf", {}), ("robust", {}), ("mur", {"multilevel": True}),
+                          ("mur", {"beta": 1})):
         with pytest.raises(NotImplementedError, match="item 9"):
             got_model.factorize(method=method, max_iter=2, **extra)
     with pytest.raises(NotImplementedError, match="objective.*item 9"):

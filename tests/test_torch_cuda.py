@@ -1821,3 +1821,79 @@ def test_sharded_serving_and_streaming_on_a_card_mesh(card_mesh):
     assert fused.kl_ratio.launches - before == 2 * 3 * 5
     want = mur_streaming(csr, 6, row_block=1024, col_panel=2000, **kw)
     np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,options,kernel", [
+    ("hals", {}, "gs_sweep"),
+    ("anls", {}, "eu_residual_obj"),
+    ("anls", {"distance_type": "kl", "nnls_solver": "bpp"}, "kl_obj"),
+    ("admm", {"reg_h": (0.1, "l1n")}, "eu_residual_obj"),
+    ("admm", {"distance_type": "kl"}, "kl_ratio_and_obj"),
+    ("ao_admm", {}, "eu_residual_obj"),
+    ("ao_admm", {"distance_type": "kl", "reg_w": (0.05, "l1n")}, "kl_obj"),
+    ("mur", {"mask": True, "distance_type": "eu"}, "masked_w_update"),
+    ("mur", {"mask": True, "distance_type": "kl"}, "masked_h_update"),
+])
+def test_methods_over_a_card_mesh_match_one_device(card_mesh, method, options, kernel):
+    """The facade's mesh= for the reference solvers on a world of one: the
+    one-device run's trace, its kernels launched as many times, and the
+    plain route within RTOL."""
+    x = t(lowrank(m=600, n=480, k=8)).float().cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w0, h0 = (torch.rand(s, generator=g, device="cuda") + 0.1 for s in ((600, 8), (8, 480)))
+    kw = dict(method=method, w_init=w0, h_init=h0, min_iter=8, max_iter=8, tol1=0.0, tol2=0.0,
+              **options)
+    if kw.pop("mask", False):
+        kw["mask"] = torch.rand(x.shape, generator=g, device="cuda") < 0.6
+    wrapper = {"gs_sweep": hals_sweep.gs_sweep, "eu_residual_obj": fused.eu_residual_obj,
+               "kl_obj": fused.kl_obj, "kl_ratio_and_obj": fused.kl_ratio_and_obj,
+               "masked_w_update": masked_fused.masked_w_update,
+               "masked_h_update": masked_fused.masked_h_update}[kernel]
+    before = wrapper.launches
+    want = tpunmf_torch.NMF(x, 8).factorize(**kw)
+    one_device = wrapper.launches - before
+    got = tpunmf_torch.NMF(x, 8, mesh=card_mesh).factorize(**kw)
+    assert one_device > 0 and wrapper.launches - before == 2 * one_device
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-6)
+    np.testing.assert_allclose(got.w, want.w, rtol=RTOL, atol=RTOL * np.abs(want.w).max())
+    plain = tpunmf_torch.NMF(x, 8, mesh=card_mesh).factorize(use_pallas=False, **kw)
+    assert wrapper.launches - before == 2 * one_device
+    np.testing.assert_allclose(plain.obj_history[:6], got.obj_history[:6], rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist,update", [("eu", "mur"), ("eu", "hals"), ("kl", "mur")])
+def test_ntf_sharded_on_a_card_mesh_matches_ntf(cuda_device, dist, update):
+    """ntf_sharded over a "cuda" mesh (1,) 'rows' against the one-device
+    ntf from one init; CP-HALS sweeps on gs_sweep, one launch a mode."""
+    from tpunmf_torch import parallel
+    from tpunmf_torch.solvers import ntf
+
+    mesh = parallel.build_mesh((1,), ("rows",))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand((40, 30, 20), generator=g, device="cuda")
+    init = [torch.rand((s, 6), generator=g, device="cuda") + 0.1 for s in x.shape]
+    kw = dict(distance_type=dist, update=update, min_iter=10, max_iter=10, tol1=0.0, tol2=0.0,
+              factors_init=init)
+    want = ntf(x, 6, normalize=False, **kw)
+    before = hals_sweep.gs_sweep.launches
+    got = parallel.ntf_sharded(mesh, x, 6, **kw)
+    assert hals_sweep.gs_sweep.launches - before == (30 if update == "hals" else 0)
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-6)
+    plain = parallel.ntf_sharded(mesh, x, 6, use_pallas=False, **kw)
+    np.testing.assert_allclose(plain.obj_history, got.obj_history, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_lambda_grid_over_a_card_mesh(cuda_device, dist):
+    from tpunmf_torch import experiments, parallel
+
+    mesh = parallel.build_mesh((1,), ("grid",))
+    x = t(lowrank(m=600, n=480, k=8)).float().cuda()
+    kw = dict(lambda_w=(0.0, 0.1), lambda_h=(0.0, 0.05), n_iter=6, distance_type=dist, key=2)
+    want = experiments.mur_lambda_grid(x, 8, **kw)
+    got = experiments.mur_lambda_grid(x, 8, mesh=mesh, **kw)
+    assert got[0] == want[0]
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0)

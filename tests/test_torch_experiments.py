@@ -84,8 +84,21 @@ def test_mur_lambda_grid_random_init_and_refusals():
     again = texp.mur_lambda_grid(t(_X), 3, lambda_w=(0.0, 0.2), n_iter=5, key=3)
     torch.testing.assert_close(again[3], objs, rtol=0, atol=0)
     assert bool(torch.all(objs[:, -1] <= objs[:, 0]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        texp.mur_lambda_grid(t(_X), 3, n_iter=2, mesh=object(), grid_axis="grid")
+    # over a mesh (a world of one here): tpunmf's sharded grid, and the
+    # unsharded one, from the same init
+    from tpunmf import parallel as jpar
+    from tpunmf_torch import parallel as tpar
+
+    kw = dict(lambda_w=(0.0, 0.2), n_iter=5, w_init=_W0[:, :3], h_init=_H0[:3])
+    got = texp.mur_lambda_grid(t(_X), 3, mesh=tpar.build_mesh((1,), ("grid",),
+                                                               device_type="cpu"),
+                               grid_axis="grid", **kw)
+    want = jexp.mur_lambda_grid(_X, 3, mesh=jpar.build_mesh((1,), ("grid",),
+                                                            devices=jax.devices()[:1]),
+                                grid_axis="grid", **kw)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), rtol=1e-9)
+    torch.testing.assert_close(got[3], texp.mur_lambda_grid(t(_X), 3, **kw)[3], rtol=0, atol=0)
     with pytest.raises(KeyError):
         texp.mur_lambda_grid(t(_X), 3, distance_type="is")
     with pytest.raises(ValueError, match="both"):

@@ -11,11 +11,7 @@ fails the test.
 """
 from __future__ import annotations
 
-import fcntl
 import os
-import socket
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -27,6 +23,8 @@ from tpunmf import parallel as jpar
 from tpunmf.serve import topk as jtopk
 from tpunmf.solvers import mur_streaming_sharded as j_streaming_sharded
 
+from _torch_parity import gloo_world
+
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_worker.py")
 _WORLD = 4
 _TIMEOUT = 180
@@ -34,12 +32,6 @@ _TIMEOUT = 180
 _MESHES = {"m22": ((2, 2), ("rows", "cols")), "m4": ((4,), ("cols",)),
            "r4": ((4,), ("rank",)), "r22": ((2, 2), ("rows", "rank"))}
 _STOP = dict(min_iter=5, max_iter=300, tol1=0.0, tol2=1e-3)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _inputs():
@@ -63,49 +55,10 @@ def _inputs():
                 excl_s=rng.random((5, 150)) < 0.2)
 
 
-def _run_world(d):
-    """Start the 4 ranks on ``d``/inputs.npz; None, or why the world failed."""
-    port = _free_port()
-    env = dict(os.environ, LOCAL_WORLD_SIZE="2", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, _WORKER, str(r), str(_WORLD), str(port), str(d)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-             for r in range(_WORLD)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=_TIMEOUT))
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        for p in procs:
-            p.communicate()
-        return f"the {_WORLD}-process gloo world did not finish in {_TIMEOUT} s"
-    for p, (out, err) in zip(procs, outs):
-        if p.returncode != 0 or "WORKER_OK" not in out:
-            return f"worker failed (rc={p.returncode}):\n{out}\n{err}"
-    return None
-
-
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """Inputs and every rank's outputs.  Under xdist the first worker to
-    need them runs the world, under a lock, and the others read its files."""
-    base = tmp_path_factory.getbasetemp()
-    d = (base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base) / "torch_world"
-    d.mkdir(exist_ok=True)
-    inp = _inputs()
-    with open(d / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not (d / "status").exists():
-            np.savez(d / "inputs.npz", **inp)
-            status = _run_world(d)
-            if status and "address already in use" in status.lower():
-                status = _run_world(d)  # the free port was taken meanwhile
-            (d / "status").write_text(status or "ok")
-    status = (d / "status").read_text()
-    if status != "ok":
-        pytest.fail(status)
-    return inp, [dict(np.load(d / f"rank{r}.npz")) for r in range(_WORLD)]
+    """Inputs and every rank's outputs (``_torch_parity.gloo_world``)."""
+    return gloo_world(tmp_path_factory, "torch_world", _WORKER, _inputs(), _WORLD, _TIMEOUT)
 
 
 def _coords(ranks, mesh):
@@ -433,8 +386,18 @@ def test_the_port_exports_tpunmf_parallel_s_names():
     from tpunmf_torch import parallel as tpar
 
     assert set(jpar.__all__) <= set(tpar.__all__)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpar.ntf_sharded(np.ones((4, 4, 4)), 2, None)
+    # ntf_sharded takes tpunmf's (mesh, x, k): a world of one in this process
+    import torch
+
+    x = np.abs(np.random.default_rng(3).standard_normal((4, 5, 6)))
+    init = [np.full((s, 2), 0.5) for s in x.shape]
+    kw = dict(min_iter=3, max_iter=3, tol1=0.0, tol2=0.0, factors_init=init)
+    got = tpar.ntf_sharded(tpar.build_mesh((1,), ("rows",), device_type="cpu"),
+                           torch.from_numpy(x), 2, **kw)
+    want = jpar.ntf_sharded(jpar.build_mesh((1,), ("rows",), devices=jax.devices()[:1]), x,
+                            2, **kw)
+    assert got.i == want.i
+    np.testing.assert_allclose(got.obj_history, np.asarray(want.obj_history), rtol=1e-9)
 
 
 def test_a_cuda_mesh_without_a_card_raises():
@@ -450,7 +413,11 @@ def test_a_cuda_mesh_without_a_card_raises():
         tpar.build_mesh(device_type="tpu")
 
 
-@pytest.mark.parametrize("path", ["tests/_torch_dist_worker.py", "tools/multi_gpu.py"])
+@pytest.mark.parametrize("path", ["tests/_torch_dist_worker.py", "tools/multi_gpu.py",
+                                  "tests/_torch_dist_methods_worker.py",
+                                  "tpunmf_torch/parallel/mesh_solvers.py",
+                                  "tpunmf_torch/parallel/ntf_sharded.py",
+                                  "tpunmf_torch/core/sums.py"])
 def test_worker_and_tool_import_neither_jax_nor_tpunmf(path):
     import ast
 

@@ -13,14 +13,16 @@ MUR), ``"anls"``, ``"hals"``, ``"admm"``, ``"ao_admm"``, ``"semi_nmf"``,
 ``"onmf"``, ``"robust"``, ``"ntf"`` (N-way CP: ``.w`` / ``.h`` are None,
 ``fit_transform`` gives the mode-0 factor, ``transform`` and
 ``inverse_transform`` refuse), and the ``multilevel=`` warm start of mur
-and hals.  MUR runs across devices (``tpunmf_torch.parallel``):
-``NMF(data, k, mesh=m)`` keeps the mesh, and ``factorize("mur")`` then runs
-``parallel.mur_mesh`` (``tpunmf``'s GSPMD run, its collectives written
-out); ``factorize("mur", schedule="ulysses" | "rank")`` runs
+and hals.  MUR, masked MUR, HALS, ANLS, ADMM and AO-ADMM run across
+devices (``tpunmf_torch.parallel``): ``NMF(data, k, mesh=m)`` keeps the
+mesh, and ``factorize`` then runs ``parallel.mur_mesh`` (``tpunmf``'s
+GSPMD run, its collectives written out), ``mur_masked_mesh`` (with
+``mask=``), ``hals_mesh``, ``anls_mesh``, ``admm_mesh`` or
+``ao_admm_mesh``; ``factorize("mur", schedule="ulysses" | "rank")`` runs
 ``parallel.mur_sharded`` and needs a mesh.  Every rank passes the global
 data and gets the same results.  ``mesh=`` with another method, or with
-``mask=``, ``beta=`` or ``multilevel=``, raises ``NotImplementedError``
-(ROADMAP.md, queue 1, item 9).
+``beta=`` or ``multilevel=``, raises ``NotImplementedError`` (ROADMAP.md,
+queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -37,6 +39,9 @@ _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
 # every method of the list is ported
 _PORTED = _METHODS
+# the methods that run over mesh= (tpunmf_torch.parallel), by driver
+_MESH_METHODS = {"mur": "mur_mesh", "hals": "hals_mesh", "anls": "anls_mesh",
+                 "admm": "admm_mesh", "ao_admm": "ao_admm_mesh"}
 
 
 class NMF:
@@ -102,9 +107,9 @@ class NMF:
         from . import solvers
 
         if params.get("mesh", self.mesh) is not None:
-            options = [f"{o}=" for o in ("multilevel", "mask", "beta")
+            options = [f"{o}=" for o in ("multilevel", "beta")
                        if params.get(o) is not None]
-            if method != "mur" or options:
+            if method not in _MESH_METHODS or options:
                 raise NotImplementedError(
                     f"mesh= with {' and '.join([f'method={method!r}'] + options)} is not "
                     "ported yet (ROADMAP.md, queue 1, item 9)")
@@ -124,7 +129,8 @@ class NMF:
                 self.save_factorization()
             return self.results
 
-        mask = beta = schedule = mesh = None
+        mask = beta = schedule = None
+        mesh = params.pop("mesh", self.mesh)
         if method == "mur":
             # routing extensions, as tpunmf/api.py:122-129 (None is ignored)
             chosen = [n for n in ("schedule", "beta", "mask")
@@ -135,7 +141,6 @@ class NMF:
             mask = params.pop("mask", None)
             beta = params.pop("beta", None)
             schedule = params.pop("schedule", None)
-            mesh = params.pop("mesh", self.mesh)
             if schedule is not None and mesh is None:
                 raise ValueError(
                     "schedule= requires a mesh (NMF(..., mesh=...) or "
@@ -147,9 +152,14 @@ class NMF:
             self.results = mur_sharded(self.data, self.factors, mesh, schedule=schedule,
                                        **params)
         elif mesh is not None:
-            from .parallel import mur_mesh
+            from . import parallel
 
-            self.results = mur_mesh(self.data, self.factors, mesh, **params)
+            if mask is not None:
+                self.results = parallel.mur_masked_mesh(self.data, mask, self.factors, mesh,
+                                                        **params)
+            else:
+                self.results = getattr(parallel, _MESH_METHODS[method])(
+                    self.data, self.factors, mesh, **params)
         elif method == "anls":
             self.results = solvers.anls(self.data, self.factors, **params)
         elif method == "hals":

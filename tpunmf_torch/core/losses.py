@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .sums import LOCAL
+
 
 def kl_elementwise_sum(x, wh):
     """Masked KL sum matching reference nmf/utils.py:21-26."""
@@ -34,14 +36,16 @@ def distance(x, wh, distance_type: str = "eu"):
     raise KeyError('Distance type unknown: use "kl" or "eu"')
 
 
-def eu_objective_gram(xsq, wtx, gram_w, h):
+def eu_objective_gram(xsq, wtx, gram_w, h, sums=LOCAL):
     """Euclidean objective without materializing ``w @ h``.
 
     0.5*||X - WH||^2 = 0.5*(||X||^2 - 2<H, W^T X> + tr((W^T W)(H H^T))).
     ``wtx`` is ``w.T @ x`` (k, n), as the H update already forms it;
-    ``gram_w`` is ``w.T @ w`` (k, k).
+    ``gram_w`` is ``w.T @ w`` (k, k).  Over a mesh (``sums``, core/sums.py)
+    ``xsq`` and ``gram_w`` are already global, and ``wtx`` and ``h`` are
+    this rank's columns: the cross term and H H^T are summed over them.
     """
-    cross = torch.sum(h * wtx)
-    gram_h = h @ h.T
+    cross = sums.psum(torch.sum(h * wtx), "cols")
+    gram_h = sums.psum(h @ h.T, "cols")
     quad = torch.sum(gram_w * gram_h)
     return 0.5 * (xsq - 2.0 * cross + quad)

@@ -152,36 +152,61 @@ def mur_lambda_grid(
     Returns ``(combos, ws, hs, obj_hist)`` where combos is the list of
     (lambda_w, lambda_h) pairs in row-major grid order, ws is (B, m, k), hs
     is (B, k, n) and obj_hist is (B, n_iter), tensors on X's device.
+
+    ``mesh`` (``tpunmf_torch.parallel``) splits the combinations over
+    ``grid_axis`` (default: the mesh's first axis), X replicated: each
+    rank passes the global data, runs its share and gets all of them back
+    (all_gather over the axis), on the mesh's device; the random init is
+    drawn on rank 0 and broadcast.  The combinations must divide the
+    axis's size.
     """
-    if mesh is not None or grid_axis is not None:
-        raise NotImplementedError(
-            "mesh=/grid_axis=: the sharded lambda grid is not ported yet "
-            "(ROADMAP.md, queue 1, item 9)")
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
-    x = as_input(data)
-    m, n = x.shape
     if (w_init is None) != (h_init is None):
         raise ValueError("pass both w_init and h_init, or neither")
+    combos = [(lw, lh) for lw in lambda_w for lh in lambda_h]
+    if mesh is not None:
+        from .parallel.mesh import axis_index, axis_size, mesh_device
+
+        grid_axis = grid_axis or mesh.mesh_dim_names[0]
+        size = axis_size(mesh, grid_axis)
+        if len(combos) % size:
+            raise ValueError(f"{len(combos)} grid combinations do not divide across mesh "
+                             f"axis {grid_axis!r} of size {size}")
+        x = as_input(data, device=mesh_device(mesh))
+        share = len(combos) // size
+        mine = combos[axis_index(mesh, grid_axis) * share:][:share]
+    else:
+        x = as_input(data)
+        mine = combos
+    m, n = x.shape
     factor_dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
     if w_init is None:
         w0, h0 = random_init(key, m, n, k, kind="abs_normal", dtype=factor_dtype,
                              device=x.device)
-    else:
-        w0 = torch.as_tensor(w_init, dtype=factor_dtype, device=x.device)
-        h0 = torch.as_tensor(h_init, dtype=factor_dtype, device=x.device)
+        if mesh is not None:
+            from .parallel.collectives import broadcast
 
-    combos = [(lw, lh) for lw in lambda_w for lh in lambda_h]
-    n_runs = len(combos)
-    lws = torch.tensor([c[0] for c in combos], dtype=factor_dtype,
+            broadcast(w0)
+            broadcast(h0)
+    else:
+        w0 = as_input(w_init, dtype=factor_dtype, device=x.device)
+        h0 = as_input(h_init, dtype=factor_dtype, device=x.device)
+
+    n_runs = len(mine)
+    lws = torch.tensor([c[0] for c in mine], dtype=factor_dtype,
                        device=x.device).reshape(n_runs, 1, 1)
-    lhs = torch.tensor([c[1] for c in combos], dtype=factor_dtype,
+    lhs = torch.tensor([c[1] for c in mine], dtype=factor_dtype,
                        device=x.device).reshape(n_runs, 1, 1)
     with torch.no_grad(), full_f32():
         ws, hs, objs = _batched_mur(
             x.contiguous(), w0.expand(n_runs, m, k).contiguous(),
             h0.expand(n_runs, k, n).contiguous(), lws, lhs, distance_type, n_iter,
             trace=True)
+        if mesh is not None:
+            from .parallel.collectives import all_gather
+
+            ws, hs, objs = (all_gather(a, mesh, grid_axis, dim=0) for a in (ws, hs, objs))
     return combos, ws, hs, objs
 
 

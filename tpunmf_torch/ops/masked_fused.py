@@ -110,27 +110,57 @@ def _guarded(num2, den, old):
 
 
 @full_f32()
-def masked_w_update_ref(x, mask, w, h, *, distance_type: str, lam: float):
-    """Plain version of :func:`masked_w_update` (tpunmf/solvers/masked.py:79-108)."""
+def masked_w_parts(x, mask, w, h, *, distance_type: str):
+    """The two (m, k) products of the masked W update: EU ((M*X) H^T,
+    (M*(W H)) H^T), KL ((M*X / (W H + eps)) H^T, M H^T).  Over a mesh each
+    is this rank's partial over its columns, summed before
+    :func:`masked_w_closed`."""
     xf, mf = x.to(w.dtype), mask.to(w.dtype)
     wh = w @ h
     if distance_type == "eu":
-        return w * ((mf * xf) @ h.T) / ((mf * wh) @ h.T + lam * w + _EPS)
-    a = w * ((mf * xf / (wh + _EPS)) @ h.T)
-    b = mf @ h.T
-    return _guarded(2.0 * a, b + torch.sqrt(b * b + 4.0 * lam * a), w)
+        return (mf * xf) @ h.T, (mf * wh) @ h.T
+    return (mf * xf / (wh + _EPS)) @ h.T, mf @ h.T
+
+
+def masked_w_closed(w, num, den, *, distance_type: str, lam: float):
+    """The masked W update from :func:`masked_w_parts`' products."""
+    if distance_type == "eu":
+        return w * num / (den + lam * w + _EPS)
+    a = w * num
+    return _guarded(2.0 * a, den + torch.sqrt(den * den + 4.0 * lam * a), w)
+
+
+@full_f32()
+def masked_h_parts(x, mask, w, h, *, distance_type: str):
+    """The two (k, n) products of the masked H update, the mirror of
+    :func:`masked_w_parts` (partials over a rank's rows on a mesh)."""
+    xf, mf = x.to(h.dtype), mask.to(h.dtype)
+    wh = w @ h
+    if distance_type == "eu":
+        return w.T @ (mf * xf), w.T @ (mf * wh)
+    return w.T @ (mf * xf / (wh + _EPS)), w.T @ mf
+
+
+def masked_h_closed(h, num, den, *, distance_type: str, lam: float):
+    """The masked H update from :func:`masked_h_parts`' products."""
+    if distance_type == "eu":
+        return h * num / (den + lam * h + _EPS)
+    c = h * num
+    return _guarded(2.0 * c, den + torch.sqrt(den * den + 4.0 * lam * c), h)
+
+
+@full_f32()
+def masked_w_update_ref(x, mask, w, h, *, distance_type: str, lam: float):
+    """Plain version of :func:`masked_w_update` (tpunmf/solvers/masked.py:79-108)."""
+    num, den = masked_w_parts(x, mask, w, h, distance_type=distance_type)
+    return masked_w_closed(w, num, den, distance_type=distance_type, lam=lam)
 
 
 @full_f32()
 def masked_h_update_ref(x, mask, w, h, *, distance_type: str, lam: float):
     """Plain version of :func:`masked_h_update`."""
-    xf, mf = x.to(h.dtype), mask.to(h.dtype)
-    wh = w @ h
-    if distance_type == "eu":
-        return h * (w.T @ (mf * xf)) / (w.T @ (mf * wh) + lam * h + _EPS)
-    c = h * (w.T @ (mf * xf / (wh + _EPS)))
-    d = w.T @ mf
-    return _guarded(2.0 * c, d + torch.sqrt(d * d + 4.0 * lam * c), h)
+    num, den = masked_h_parts(x, mask, w, h, distance_type=distance_type)
+    return masked_h_closed(h, num, den, distance_type=distance_type, lam=lam)
 
 
 def _run_kernel(name, x, mask, w, h, distance_type, lam, splits=None):

@@ -1,4 +1,4 @@
-"""MUR across devices over ``torch.distributed``: the port of ``tpunmf.parallel``.
+"""Solvers across devices over ``torch.distributed``: the port of ``tpunmf.parallel``.
 
 The SPMD convention.  ``tpunmf`` runs one process over many devices and
 hands around global sharded arrays; ``torch.distributed`` runs one
@@ -32,7 +32,12 @@ process a device.  So:
   ``collectives.calls`` (``reset_calls()``), as each kernel wrapper counts
   its launches.
 
-``ntf_sharded`` is not ported yet and raises (ROADMAP.md, queue 1, item 9).
+The other solvers (``mesh_solvers``): ``hals_mesh``, ``anls_mesh``,
+``admm_mesh``, ``ao_admm_mesh`` and ``mur_masked_mesh``, the facade's
+``mesh=`` for those methods, run the one-device solver's own step on the
+rank's blocks with the products and norms all-reduced
+(``core/sums.py``'s hooks, ``MeshSums``).  ``ntf_sharded``: N-way CP on
+mode-0 slabs.
 """
 from .collectives import (
     calls,
@@ -57,6 +62,8 @@ from .multihost import (
     host_local_column_range,
     initialize_multihost,
 )
+from .mesh_solvers import (MeshSums, admm_mesh, anls_mesh, ao_admm_mesh, hals_mesh,
+                           mur_masked_mesh)
 from .ntf_sharded import ntf_sharded
 from .sharded_solvers import mur_mesh, mur_rank_sharded, mur_sharded, mur_ulysses
 
@@ -86,6 +93,12 @@ __all__ = [
     "assert_collective_consistency",
     # the port's own
     "mur_mesh",
+    "hals_mesh",
+    "anls_mesh",
+    "admm_mesh",
+    "ao_admm_mesh",
+    "mur_masked_mesh",
+    "MeshSums",
     "calls",
     "reset_calls",
     "axis_size",

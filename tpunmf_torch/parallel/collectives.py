@@ -43,6 +43,19 @@ def all_reduce(t, mesh, axis: str, op=dist.ReduceOp.SUM):
     return t
 
 
+def all_reduce_in_layout(t, mesh, axis: str):
+    """:func:`all_reduce` of ``t`` keeping its layout: NCCL takes contiguous
+    tensors, so a transposed ``t`` is reduced through its contiguous
+    transpose (a copy only where neither is contiguous).  The sums that
+    read ``t`` afterwards then run in the order they would on one device."""
+    if t.is_contiguous():
+        return all_reduce(t, mesh, axis)
+    if t.dim() == 2 and t.T.is_contiguous():
+        all_reduce(t.T, mesh, axis)
+        return t
+    return all_reduce(t.contiguous(), mesh, axis)
+
+
 def all_gather(t, mesh, axis: str, dim: int):
     """``all_gather(tiled=True)``: the blocks of ``axis``'s ranks joined
     along ``dim`` in rank order."""

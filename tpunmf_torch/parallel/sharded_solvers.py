@@ -214,38 +214,55 @@ def _reduce_mesh(mesh, t, op=dist.ReduceOp.SUM):
     return t
 
 
-def _setup(x, k, mesh, layouts, *, nndsvd_init, w_init, h_init, key):
-    """This rank's blocks of X (elevated by the global minimum), W and H
-    under ``layouts`` (x, w, h).  W and H are the given inits, or made once
-    on rank 0 (NNDSVD of the global X, or |N(0, 1)| by the port's seeded
-    rule) and broadcast."""
+def global_inits(mesh, m, n, k, dtype, *, nndsvd_init, w_init, h_init, key,
+                 kind="abs_normal", nndsvd_data=None):
+    """Global (W, H) on every rank, on the mesh's device: the given inits
+    (``as_input``'s rule, in ``dtype``), or made once on rank 0 (NNDSVD of
+    ``nndsvd_data()``, the global X, or ``random_init``'s ``kind`` by the
+    port's seeded rule) and broadcast."""
     if (w_init is None) != (h_init is None):
         raise ValueError("pass both w_init and h_init, or neither")
-    dev = mesh_device(mesh)
-    xl = place(mesh, x, layouts[0])
-    # data elevation for slightly-negative inputs (nmf/mur.py:99-102)
-    low = _reduce_mesh(mesh, torch.min(xl).reshape(1), dist.ReduceOp.MIN)
-    shift = torch.clamp(-low[0], min=0.0)
-    xl = xl + shift
-    m, n = x.shape
     if w_init is not None:
-        w = place(mesh, w_init, (None, None), dtype=xl.dtype)
-        h = place(mesh, h_init, (None, None), dtype=xl.dtype)
-    else:
-        w = torch.empty((m, k), dtype=xl.dtype, device=dev)
-        h = torch.empty((k, n), dtype=xl.dtype, device=dev)
-        if dist.get_rank() == 0:
-            if nndsvd_init[0]:
-                xg = place(mesh, x, (None, None)) + shift
-                w0, h0 = _nndsvd(xg, k, variant=nndsvd_init[1], key=key)
-                del xg
-            else:
-                w0, h0 = random_init(key, m, n, k, kind="abs_normal", dtype=xl.dtype,
-                                     device=dev)
-            w.copy_(w0)
-            h.copy_(h0)
-        broadcast(w)
-        broadcast(h)
+        return (place(mesh, w_init, (None, None), dtype=dtype),
+                place(mesh, h_init, (None, None), dtype=dtype))
+    dev = mesh_device(mesh)
+    w = torch.empty((m, k), dtype=dtype, device=dev)
+    h = torch.empty((k, n), dtype=dtype, device=dev)
+    if dist.get_rank() == 0:
+        if nndsvd_init[0]:
+            xg = nndsvd_data()
+            w0, h0 = _nndsvd(xg, k, variant=nndsvd_init[1], key=key)
+            del xg
+        else:
+            w0, h0 = random_init(key, m, n, k, kind=kind, dtype=dtype, device=dev)
+        w.copy_(w0)
+        h.copy_(h0)
+    broadcast(w)
+    broadcast(h)
+    return w, h
+
+
+def _setup(x, k, mesh, layouts, *, nndsvd_init, w_init, h_init, key, kind="abs_normal",
+           elevate=True):
+    """This rank's blocks of X (elevated by the global minimum where
+    ``elevate``, as MUR and HALS do), W and H under ``layouts`` (x, w, h),
+    from :func:`global_inits`."""
+    if (w_init is None) != (h_init is None):
+        raise ValueError("pass both w_init and h_init, or neither")
+    xl = place(mesh, x, layouts[0])
+    shift = None
+    if elevate:
+        # data elevation for slightly-negative inputs (nmf/mur.py:99-102)
+        low = _reduce_mesh(mesh, torch.min(xl).reshape(1), dist.ReduceOp.MIN)
+        shift = torch.clamp(-low[0], min=0.0)
+        xl = xl + shift
+
+    def nndsvd_data():
+        xg = place(mesh, x, (None, None))
+        return xg if shift is None else xg + shift
+
+    w, h = global_inits(mesh, *x.shape, k, xl.dtype, nndsvd_init=nndsvd_init, w_init=w_init,
+                        h_init=h_init, key=key, kind=kind, nndsvd_data=nndsvd_data)
     return (xl, local_block(mesh, w, layouts[1]).contiguous(),
             local_block(mesh, h, layouts[2]).contiguous())
 

@@ -36,6 +36,7 @@ from ..core.device import as_input
 from ..core.linalg import spd_solve
 from ..core.losses import distance
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import AdmmExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_ratio_and_obj,
@@ -65,6 +66,18 @@ def kl_data_split(v, wh_aux, dual_v):
     return v_aux, dual_v
 
 
+def prox_split(sums, over: str, prox_type: str, mat_aux, dual, **kw):
+    """``prox`` of a (k, n) pair whose columns split over ``over``
+    (core/sums.py): the row-wise l1,inf prox sorts along that axis, so it
+    takes the whole rows (``sums.whole``); every other prox is local."""
+    def fn(a, d):
+        return prox(prox_type, a, d, **kw)
+
+    if prox_type == "l1inf":
+        return sums.whole(fn, over, mat_aux, dual)
+    return fn(mat_aux, dual)
+
+
 def _spd_solve(g, rho, b, method="chol"):
     """Solve (g + rho*I) x = b; g is k x k PSD."""
     k = g.shape[0]
@@ -92,6 +105,7 @@ def _admm_block(
     max_iter: int,
     use_pallas: bool,
     verbose=False,
+    sums=LOCAL,
 ) -> LoopCarry:
     """Run ADMM iterations from ``carry`` up to ``stop_i`` (or convergence).
 
@@ -99,15 +113,19 @@ def _admm_block(
     (w, h, w_aux, h_aux, dual_w, dual_h, v_aux, dual_v, rho) for KL, rho a
     0-d tensor; the carried tensors are never updated in place.
     ``use_pallas`` here means the objective kernels, which :func:`admm`
-    chooses by V's dtype and rank."""
+    chooses by V's dtype and rank.  Over a mesh (``parallel.admm_mesh``)
+    every array is this rank's block (W's rows, H's columns, V's block)
+    and ``sums`` (core/sums.py) all-reduces the products, the residual
+    balance's sums and the objective; the k x k solves are replicated."""
 
     def balance(rho, w, h, w_aux, h_aux, w_prev, h_prev, duals):
         """Residual balancing: returns (rho_new, rescaled duals)."""
         if rho_mode != "adaptive":
             return rho, duals
-        r = torch.sqrt(torch.sum((h - h_aux) ** 2) + torch.sum((w - w_aux) ** 2))
-        sres = rho * torch.sqrt(torch.sum((h - h_prev) ** 2)
-                                + torch.sum((w - w_prev) ** 2))
+        r = torch.sqrt(sums.psum(torch.sum((h - h_aux) ** 2), "cols")
+                       + sums.psum(torch.sum((w - w_aux) ** 2), "rows"))
+        sres = rho * torch.sqrt(sums.psum(torch.sum((h - h_prev) ** 2), "cols")
+                                + sums.psum(torch.sum((w - w_prev) ** 2), "rows"))
         rho_new = torch.where(r > mu * sres, rho * tau,
                               torch.where(sres > mu * r, rho / tau, rho))
         scale = rho / rho_new
@@ -118,19 +136,22 @@ def _admm_block(
         w, h = w.contiguous(), h.contiguous()
         if distance_type == "kl":
             fn = kl_ratio_and_obj if use_pallas else kl_ratio_and_obj_ref
-            return fn(v, w, h)[1]
+            return sums.psum(fn(v, w, h)[1], "rows", "cols")
         fn = eu_residual_obj if use_pallas else eu_residual_obj_ref
-        return fn(v, w, h)
+        return sums.psum(fn(v, w, h), "rows", "cols")
 
     def solve_and_prox(rhs_v, w, h, w_aux, dual_w, dual_h, rho):
         """Aux least-squares updates against ``rhs_v`` (V, or the split
         data term), then the prox steps (nmf/admm.py:216-230, 294-306)."""
-        h_aux = _spd_solve(w_aux.T @ w_aux, rho,
-                           w_aux.T @ rhs_v + rho * (h + dual_h), spd_solver)
-        w_aux = _spd_solve(h_aux @ h_aux.T, rho,
-                           h_aux @ rhs_v.T + rho * (w.T + dual_w.T), spd_solver).T
-        h = prox(prox_h, h_aux, dual_h, rho=rho, lambda_=lambda_h)
-        w = prox(prox_w, w_aux.T, dual_w.T, rho=rho, lambda_=lambda_w).T
+        h_aux = _spd_solve(sums.psum(w_aux.T @ w_aux, "rows"), rho,
+                           sums.psum(w_aux.T @ rhs_v, "rows") + rho * (h + dual_h),
+                           spd_solver)
+        w_aux = _spd_solve(sums.psum(h_aux @ h_aux.T, "cols"), rho,
+                           sums.psum(h_aux @ rhs_v.T, "cols") + rho * (w.T + dual_w.T),
+                           spd_solver).T
+        h = prox_split(sums, "cols", prox_h, h_aux, dual_h, rho=rho, lambda_=lambda_h)
+        w = prox_split(sums, "rows", prox_w, w_aux.T, dual_w.T, rho=rho,
+                       lambda_=lambda_w).T
         return w, h, w_aux, h_aux
 
     def step_eu(inner, i):

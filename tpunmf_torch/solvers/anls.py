@@ -34,6 +34,7 @@ import torch
 from ..core.device import as_input
 from ..core.losses import distance
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import AnlsExperiment, Results
 from ..init import nndsvd, random_init
 from ..nnls import nnls_activeset, nnls_bpp
@@ -74,27 +75,36 @@ def _anls_block(
     max_iter: int,
     use_pallas: bool,
     verbose=False,
+    sums=LOCAL,
 ) -> LoopCarry:
     """Run ANLS iterations from ``carry`` up to ``stop_i`` (or convergence).
 
     ``carry.inner`` is (w, h); ``use_pallas`` here means the objective
-    kernels, which :func:`anls` chooses by X's dtype and rank."""
+    kernels, which :func:`anls` chooses by X's dtype and rank.  Over a mesh
+    (``parallel.anls_mesh``) ``x`` and the factors are this rank's blocks,
+    ``sums`` (core/sums.py) all-reduces the normal equations' products and
+    the objective, and the NNLS solves the rank's own columns, with no
+    collective inside it."""
     solve = _make_solve(nnls_solver, solve_method, nnls_opts)
     eye = torch.eye(k, dtype=x.dtype, device=x.device)
 
     def objective(w, h):
         w, h = w.contiguous(), h.contiguous()  # w is a transposed view
         if distance_type == "kl":
-            return (kl_obj if use_pallas else kl_obj_ref)(x, w, h)
-        return (eu_residual_obj if use_pallas else eu_residual_obj_ref)(x, w, h)
+            part = (kl_obj if use_pallas else kl_obj_ref)(x, w, h)
+        else:
+            part = (eu_residual_obj if use_pallas else eu_residual_obj_ref)(x, w, h)
+        return sums.psum(part, "rows", "cols")
 
     def step(inner, i):
         w, h = inner
         # W update: normal equations of [h.T; sqrt(2*lw) I] vs [x.T; 0]
         # (nmf/anls.py:18-31 folded), warm-started from the previous W
-        w = solve(h @ h.T + 2.0 * lambda_w * eye, h @ x.T, w.T).T
+        w = solve(sums.psum(h @ h.T, "cols") + 2.0 * lambda_w * eye,
+                  sums.psum(h @ x.T, "cols"), w.T).T
         # H update (nmf/anls.py:34-47)
-        h = solve(w.T @ w + 2.0 * lambda_h * eye, w.T @ x, h)
+        h = solve(sums.psum(w.T @ w, "rows") + 2.0 * lambda_h * eye,
+                  sums.psum(w.T @ x, "rows"), h)
         return (w, h), objective(w, h)
 
     with torch.no_grad(), full_f32():

@@ -39,6 +39,7 @@ from ..core.device import as_input
 from ..core.linalg import cho_factor, cho_solve
 from ..core.losses import distance
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import AoAdmmExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj, kl_obj_ref,
@@ -99,32 +100,46 @@ def _subproblem_solve(g, rho, cho, b, method):
     return _spd_solve(g, rho, b, "cg")
 
 
-def _inner_prox(prox_type, mat_aux, dual, *, rho, lambda_, upper_bound):
+def _inner_prox(prox_type, mat_aux, dual, *, rho, lambda_, upper_bound, sums=LOCAL):
     """Prox step of the inner ADMM updates.
 
     ``l1inf`` / ``l1inf_transpose`` take the self-consistent ball prox
     (``prox_l1inf_ball``) at the ADMM point ``mat_aux - dual``, as
     ``tpunmf`` does (tpunmf/solvers/ao_admm.py:62-84): ``prox()``'s parity
     ``prox_l1inf``, which ADMM keeps, diverges within a few AO-ADMM outer
-    iterations once the duals grow."""
+    iterations once the duals grow.  The row-wise ball sorts along the
+    columns, which a mesh splits: it takes the whole rows (``sums.whole``)."""
     if prox_type in ("l1inf", "l1inf_transpose"):
         z = mat_aux - dual
         if prox_type == "l1inf_transpose":
             return prox_l1inf_ball(z.T, rho=rho, lambda_=lambda_,
                                    upper_bound=upper_bound).T
-        return prox_l1inf_ball(z, rho=rho, lambda_=lambda_, upper_bound=upper_bound)
+        return sums.whole(lambda z: prox_l1inf_ball(z, rho=rho, lambda_=lambda_,
+                                                    upper_bound=upper_bound), "cols", z)
     return prox(prox_type, mat_aux, dual, rho=rho, lambda_=lambda_,
                 upper_bound=upper_bound)
 
 
-def _terminated(h, h_prev, h_aux, dual):
-    """Reference terminate() (nmf/ao_admm.py:33-43): relative primal and
-    dual residuals both below 1e-2.  A zero-norm dual gives inf or NaN, so
-    the test is False, as in numpy."""
-    norm = torch.linalg.vector_norm
-    r = norm(h - h_aux) / norm(h)
-    s = norm(h - h_prev) / norm(dual)
+def _residual_norms(h, h_prev, h_aux, dual, sums=LOCAL):
+    """The stop test's norms ||h - h_aux||, ||h||, ||h - h_prev||, ||dual||.
+    Over a mesh they are of the whole factor (``sums``, one all_reduce),
+    so every rank takes the same number of trips."""
+    return sums.norms((h - h_aux, h, h - h_prev, dual), "cols")
+
+
+def _stop(norms):
+    """Reference terminate() (nmf/ao_admm.py:33-43) on
+    :func:`_residual_norms`: relative primal and dual residuals both below
+    1e-2.  A zero-norm dual gives inf or NaN, so the test is False, as in
+    numpy."""
+    r = norms[0] / norms[1]
+    s = norms[2] / norms[3]
     return (r < _INNER_TOL) & (s < _INNER_TOL)
+
+
+def _terminated(h, h_prev, h_aux, dual, sums=LOCAL):
+    """The reference's terminate() on the iterates."""
+    return _stop(_residual_norms(h, h_prev, h_aux, dual, sums))
 
 
 def _product_like(v, w, h):
@@ -137,43 +152,47 @@ def _product_like(v, w, h):
 
 
 def _admm_ls_update(y, w, h, dual, k, prox_type, admm_iter, lambda_,
-                    spd_solver="chol", upper_bound=1.0, *, side="h"):
+                    spd_solver="chol", upper_bound=1.0, *, side="h", sums=LOCAL):
     """Least-squares inner ADMM (nmf/ao_admm.py:46-68): ``W^T Y`` formed
-    once, the factor of ``G + rho I`` reused on every trip."""
-    g = w.T @ w
+    once, the factor of ``G + rho I`` reused on every trip.  Over a mesh
+    ``y``, ``w`` and ``h`` are this rank's blocks of the subproblem's frame
+    and ``sums`` all-reduces W^T W and W^T Y over its rows."""
+    g = sums.psum(w.T @ w, "rows")
     rho = torch.trace(g) / k
     cho = _chol(g, rho) if spd_solver == "chol" else None
-    wty = w.T @ y
+    wty = sums.psum(w.T @ y, "rows")
 
     def body(state):
         h, dual = state
         h_aux = _subproblem_solve(g, rho, cho, wty + rho * (h + dual), spd_solver)
         h_prev = h
         h = _inner_prox(prox_type, h_aux, dual, rho=rho, lambda_=lambda_,
-                        upper_bound=upper_bound)
+                        upper_bound=upper_bound, sums=sums)
         dual = dual + h - h_aux
-        return (h, dual), _terminated(h, h_prev, h_aux, dual)
+        return (h, dual), _terminated(h, h_prev, h_aux, dual, sums)
 
     return _inner_loop(body, (h, dual), admm_iter, side)
 
 
 def _admm_kl_update(v, v_aux, dual_v, w, h, dual_h, k, prox_type, admm_iter,
-                    lambda_, spd_solver="chol", upper_bound=1.0, *, side="h"):
-    """KL inner ADMM with the data-term split (nmf/ao_admm.py:71-101)."""
-    g = w.T @ w
+                    lambda_, spd_solver="chol", upper_bound=1.0, *, side="h", sums=LOCAL):
+    """KL inner ADMM with the data-term split (nmf/ao_admm.py:71-101).
+    Over a mesh the split's arrays are this rank's block of V's."""
+    g = sums.psum(w.T @ w, "rows")
     rho = torch.trace(g) / k
     cho = _chol(g, rho) if spd_solver == "chol" else None
 
     def body(state):
         h, dual_h, v_aux, dual_v = state
         h_aux = _subproblem_solve(
-            g, rho, cho, w.T @ (v_aux + dual_v) + rho * (h + dual_h), spd_solver)
+            g, rho, cho, sums.psum(w.T @ (v_aux + dual_v), "rows") + rho * (h + dual_h),
+            spd_solver)
         h_prev = h
         h = _inner_prox(prox_type, h_aux, dual_h, rho=rho, lambda_=lambda_,
-                        upper_bound=upper_bound)
+                        upper_bound=upper_bound, sums=sums)
         v_aux, dual_v = kl_data_split(v, _product_like(v, w, h_aux), dual_v)
         dual_h = dual_h + h - h_aux
-        return (h, dual_h, v_aux, dual_v), _terminated(h, h_prev, h_aux, dual_h)
+        return (h, dual_h, v_aux, dual_v), _terminated(h, h_prev, h_aux, dual_h, sums)
 
     return _inner_loop(body, (h, dual_h, v_aux, dual_v), admm_iter, side)
 
@@ -202,43 +221,55 @@ def _ao_admm_block(
     admm_iter: int,
     use_pallas: bool,
     verbose=False,
+    sums=LOCAL,
 ) -> LoopCarry:
     """Run AO-ADMM iterations from ``carry`` up to ``stop_i`` (or
     convergence).  ``carry.inner`` is ``tpunmf``'s tuple: (w, h, dual_w,
     dual_h) for EU, with (v_aux, dual_v) after it for KL; the local-sparsity
     variant (w, h, w_aux, dual_w, dual_h), likewise.  ``use_pallas`` here
     means the objective kernels, which :func:`ao_admm` chooses by V's dtype
-    and rank."""
+    and rank.  Over a mesh (``parallel.ao_admm_mesh``) every array is this
+    rank's block and ``sums`` (core/sums.py) all-reduces the products, the
+    inner loops' norms and the objective; the W subproblem, on V^T, takes
+    ``sums.T``."""
     from .ao_admm_local import (admm_kl_update_adaptive, admm_local_sparsity_update,
                                 admm_ls_update_adaptive)
 
     adaptive = rho_mode == "adaptive"
 
+    def frame(side):
+        # the W subproblem runs on V^T: its rows are V's columns
+        return sums if side == "h" else sums.T
+
     def ls_update(y, w, h, dual, ptype, lam, side):
         if adaptive:
             return admm_ls_update_adaptive(y, w, h, dual, k, ptype, admm_iter, lam,
-                                           spd_solver, tau, eta, upper_bound, side=side)
+                                           spd_solver, tau, eta, upper_bound, side=side,
+                                           sums=frame(side))
         return _admm_ls_update(y, w, h, dual, k, ptype, admm_iter, lam, spd_solver,
-                               upper_bound, side=side)
+                               upper_bound, side=side, sums=frame(side))
 
     def kl_update(vv, v_aux, dual_v, w, h, dual_h, ptype, lam, side):
         if adaptive:
             return admm_kl_update_adaptive(vv, v_aux, dual_v, w, h, dual_h, k, ptype,
                                            admm_iter, lam, spd_solver, tau, eta,
-                                           upper_bound, side=side)
+                                           upper_bound, side=side, sums=frame(side))
         return _admm_kl_update(vv, v_aux, dual_v, w, h, dual_h, k, ptype, admm_iter,
-                               lam, spd_solver, upper_bound, side=side)
+                               lam, spd_solver, upper_bound, side=side, sums=frame(side))
 
     def local_w_update(w, w_aux, dual_w, h):
         return admm_local_sparsity_update(v, w, w_aux, dual_w, h, k, admm_iter, lambda_w,
-                                          upper_bound, adaptive, tau, eta, spd_solver)
+                                          upper_bound, adaptive, tau, eta, spd_solver,
+                                          sums=sums)
 
     def objective(w, h):
         # w is a transposed view; the kernels take row-major operands
         w, h = w.contiguous(), h.contiguous()
         if distance_type == "kl":
-            return (kl_obj if use_pallas else kl_obj_ref)(v, w, h)
-        return (eu_residual_obj if use_pallas else eu_residual_obj_ref)(v, w, h)
+            part = (kl_obj if use_pallas else kl_obj_ref)(v, w, h)
+        else:
+            part = (eu_residual_obj if use_pallas else eu_residual_obj_ref)(v, w, h)
+        return sums.psum(part, "rows", "cols")
 
     def step_eu(inner, i):
         w, h, dual_w, dual_h = inner

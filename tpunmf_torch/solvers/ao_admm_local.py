@@ -28,17 +28,14 @@ from __future__ import annotations
 import torch
 
 from ..core.linalg import spd_solve
+from ..core.sums import LOCAL
 from ..prox import prox_l1inf_ball
-from .ao_admm import _inner_loop, _inner_prox, _product_like, _terminated
+from .ao_admm import _inner_loop, _inner_prox, _product_like, _residual_norms, _stop
 from .admm import _spd_solve, kl_data_split
 
 _EPS_ABS = 1e-6
 _EPS_REL = 1e-3
 _RHO_CLAMP = 8.0  # trust region around each rho's initial value
-
-# the reference's terminate() (nmf/ao_admm.py:33-43), as in ao_admm.py
-_terminated_rel = _terminated
-
 
 def balance_rho(rho, r_norm, s_norm, dual, *, tau, eta, lo=None, hi=None):
     """One residual-balancing step: raise rho (and scale the scaled dual
@@ -55,25 +52,27 @@ def balance_rho(rho, r_norm, s_norm, dual, *, tau, eta, lo=None, hi=None):
 
 
 def admm_ls_update_adaptive(y, w, h, dual, k, prox_type, admm_iter, lambda_,
-                            spd_solver, tau, eta, upper_bound=1.0, *, side="h"):
+                            spd_solver, tau, eta, upper_bound=1.0, *, side="h", sums=LOCAL):
     """Least-squares inner ADMM with residual balancing on rho; rho
-    restarts at trace(G)/k at each call."""
-    g = w.T @ w
+    restarts at trace(G)/k at each call.  Over a mesh (``sums``) rho moves
+    on norms of the whole factor, the same on every rank."""
+    g = sums.psum(w.T @ w, "rows")
     rho0 = torch.trace(g) / k
-    wty = w.T @ y
-    norm = torch.linalg.vector_norm
+    wty = sums.psum(w.T @ y, "rows")
 
     def body(state):
         h, dual, rho = state
         h_aux = _spd_solve(g, rho, wty + rho * (h + dual), spd_solver)
         h_prev = h
         h = _inner_prox(prox_type, h_aux, dual, rho=rho, lambda_=lambda_,
-                        upper_bound=upper_bound)
+                        upper_bound=upper_bound, sums=sums)
         dual = dual + h - h_aux
-        done = _terminated_rel(h, h_prev, h_aux, dual)
+        # the reference's terminate() (nmf/ao_admm.py:33-43), as in ao_admm.py
+        norms = _residual_norms(h, h_prev, h_aux, dual, sums)
+        done = _stop(norms)
         # scaled residuals (Boyd §3.3): r = rho (h - h_aux), s = rho (h - h_prev)
-        r_norm = rho * norm(h - h_aux)
-        s_norm = rho * norm(h - h_prev)
+        r_norm = rho * norms[0]
+        s_norm = rho * norms[2]
         rho, dual = balance_rho(rho, r_norm, s_norm, dual, tau=tau, eta=eta)
         return (h, dual, rho), done
 
@@ -83,25 +82,25 @@ def admm_ls_update_adaptive(y, w, h, dual, k, prox_type, admm_iter, lambda_,
 
 def admm_kl_update_adaptive(v, v_aux, dual_v, w, h, dual_h, k, prox_type,
                             admm_iter, lambda_, spd_solver, tau, eta,
-                            upper_bound=1.0, *, side="h"):
+                            upper_bound=1.0, *, side="h", sums=LOCAL):
     """KL inner ADMM with the data-term split and adaptive rho; ``dual_v``
     is not rescaled when rho moves."""
-    g = w.T @ w
+    g = sums.psum(w.T @ w, "rows")
     rho0 = torch.trace(g) / k
-    norm = torch.linalg.vector_norm
 
     def body(state):
         h, dual_h, v_aux, dual_v, rho = state
-        h_aux = _spd_solve(g, rho, w.T @ (v_aux + dual_v) + rho * (h + dual_h),
-                           spd_solver)
+        h_aux = _spd_solve(g, rho, sums.psum(w.T @ (v_aux + dual_v), "rows")
+                           + rho * (h + dual_h), spd_solver)
         h_prev = h
         h = _inner_prox(prox_type, h_aux, dual_h, rho=rho, lambda_=lambda_,
-                        upper_bound=upper_bound)
+                        upper_bound=upper_bound, sums=sums)
         v_aux, dual_v = kl_data_split(v, _product_like(v, w, h_aux), dual_v)
         dual_h = dual_h + h - h_aux
-        done = _terminated_rel(h, h_prev, h_aux, dual_h)
-        r_norm = rho * norm(h - h_aux)
-        s_norm = rho * norm(h - h_prev)
+        norms = _residual_norms(h, h_prev, h_aux, dual_h, sums)
+        done = _stop(norms)
+        r_norm = rho * norms[0]
+        s_norm = rho * norms[2]
         rho, dual_h = balance_rho(rho, r_norm, s_norm, dual_h, tau=tau, eta=eta)
         return (h, dual_h, v_aux, dual_v, rho), done
 
@@ -111,27 +110,30 @@ def admm_kl_update_adaptive(v, v_aux, dual_v, w, h, dual_h, k, prox_type,
 
 
 def admm_local_sparsity_update(v, w, w_aux, dual_w, h, k, admm_iter, lambda_w,
-                               upper_bound, adaptive, tau, eta, spd_solver):
+                               upper_bound, adaptive, tau, eta, spd_solver, sums=LOCAL):
     """The coupled two-block W subproblem with l1,inf local sparsity
     (``tpunmf``'s re-derivation of nmf/ao_admm_local_sparsity.py:110-156).
     Scaled duals are added (``dual += primal - aux``), so the W block
     solves ``W (rho1 I + rho2 H H^T) = rho1 (W_aux - dual_w) + rho2 (V_aux
-    - dual_v) H^T``.  Returns ``(w, w_aux, dual_w)``."""
-    g = h @ h.T
+    - dual_v) H^T``.  Returns ``(w, w_aux, dual_w)``.  Over a mesh
+    (``sums``, V's frame) the products over H's columns and the norms are
+    all-reduced; the ball prox works along W's rows, which stay whole."""
+    g = sums.psum(h @ h.T, "cols")
     keye = torch.eye(k, dtype=g.dtype, device=g.device)
     rho1_0 = torch.clamp(torch.trace(g) / k, min=1e-6)        # regularizer coupling
     rho2_0 = torch.tensor(1.0, dtype=v.dtype, device=v.device)  # data-term coupling
     v_aux = w @ h
     dual_v = torch.zeros_like(v)
-    sqrt_w = torch.sqrt(torch.tensor(float(w.numel()), dtype=v.dtype, device=v.device))
-    sqrt_v = torch.sqrt(torch.tensor(float(v.numel()), dtype=v.dtype, device=v.device))
-    norm = torch.linalg.vector_norm
+    sqrt_w = torch.sqrt(torch.tensor(float(sums.numel(w, "rows")), dtype=v.dtype,
+                                     device=v.device))
+    sqrt_v = torch.sqrt(torch.tensor(float(sums.numel(v, "rows", "cols")), dtype=v.dtype,
+                                     device=v.device))
 
     def body(state):
         w, w_aux, dual_w, v_aux, dual_v, rho1, rho2 = state
         # W block (:126-129): normal-equation solve, then the nonneg projection
         a = rho1 * keye + rho2 * g
-        b = rho1 * (w_aux - dual_w) + rho2 * (v_aux - dual_v) @ h.T
+        b = rho1 * (w_aux - dual_w) + sums.psum(rho2 * (v_aux - dual_v) @ h.T, "cols")
         w = spd_solve(a, b.T, method=spd_solver).T
         w = torch.where(w < 0, torch.zeros_like(w), w)
 
@@ -150,10 +152,11 @@ def admm_local_sparsity_update(v, w, w_aux, dual_w, h, k, admm_iter, lambda_w,
         dual_v = dual_v + wh - v_aux
 
         # residuals as update_residuals (:193-195)
-        s = rho1 * (w_aux_old - w_aux) + rho2 * (v_aux_old - v_aux) @ h.T
-        nr1 = norm(rho1 * (w_aux - w))
-        nr2 = norm(rho2 * (v_aux - wh))
-        ns = norm(s)
+        s = rho1 * (w_aux_old - w_aux) + sums.psum(rho2 * (v_aux_old - v_aux) @ h.T, "cols")
+        # the norms of W's shape, then of V's, each set in one all_reduce
+        # over a mesh (``sums``)
+        nr1, ns, nw, nw_aux = sums.norms((rho1 * (w_aux - w), s, w, w_aux), "rows")
+        nr2, nwh, nv_aux = sums.norms((rho2 * (v_aux - wh), wh, v_aux), "rows", "cols")
 
         if adaptive:
             rho1, dual_w = balance_rho(rho1, nr1, ns, dual_w, tau=tau, eta=eta,
@@ -163,10 +166,10 @@ def admm_local_sparsity_update(v, w, w_aux, dual_w, h, k, admm_iter, lambda_w,
 
         # epsilons per update_residuals (:211-216), eps_abs a constant and
         # the break condition un-inverted (:149-152)
-        eps_pri1 = sqrt_w * _EPS_ABS + _EPS_REL * torch.maximum(norm(w), norm(w_aux))
-        eps_pri2 = sqrt_v * _EPS_ABS + _EPS_REL * torch.maximum(norm(wh), norm(v_aux))
-        eps_dual = sqrt_w * _EPS_ABS + _EPS_REL * norm(rho1 * dual_w
-                                                        + rho2 * dual_v @ h.T)
+        eps_pri1 = sqrt_w * _EPS_ABS + _EPS_REL * torch.maximum(nw, nw_aux)
+        eps_pri2 = sqrt_v * _EPS_ABS + _EPS_REL * torch.maximum(nwh, nv_aux)
+        eps_dual = sqrt_w * _EPS_ABS + _EPS_REL * sums.norms(
+            (rho1 * dual_w + sums.psum(rho2 * dual_v @ h.T, "cols"),), "rows")[0]
         done = (nr1 < eps_pri1) & (nr2 < eps_pri2) & (ns < eps_dual)
         return (w, w_aux, dual_w, v_aux, dual_v, rho1, rho2), done
 

@@ -45,6 +45,7 @@ import torch
 from ..core.device import as_input
 from ..core.losses import eu_objective_gram
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import eu_residual_obj, eu_residual_obj_ref, objective_takes
@@ -59,19 +60,22 @@ _EPS = 1e-16
 def _hals_block(x, xsq, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
                 min_iter: int, max_iter: int, inner_sweeps: int,
                 objective: str, sweep_kernel: bool, objective_kernel: bool,
-                single_pass_bm=None, verbose=False):
+                single_pass_bm=None, verbose=False, sums=LOCAL):
     """Run HALS iterations from ``carry`` up to ``stop_i`` (or convergence);
     ``sweep_kernel`` and ``objective_kernel`` select the kernels, and a
-    ``single_pass_bm`` the single pass (see the module docstring)."""
+    ``single_pass_bm`` the single pass (see the module docstring).  Over a
+    mesh (``parallel.hals_mesh``) ``x`` and the factors are this rank's
+    blocks and ``sums`` (core/sums.py) all-reduces the products and the
+    objective; the sweeps run on the rank's rows and columns."""
     sweep = gs_sweep if sweep_kernel else gs_sweep_ref
     residual = eu_residual_obj if objective_kernel else eu_residual_obj_ref
 
     def h_half_and_objective(w, h, wtx, wtw):
         h = sweep(wtx, wtw, h, lam=lambda_h, nsweeps=inner_sweeps)
         if objective == "gram":
-            obj = eu_objective_gram(xsq, wtx, wtw, h)
+            obj = eu_objective_gram(xsq, wtx, wtw, h, sums)
         else:
-            obj = residual(x, w, h)
+            obj = sums.psum(residual(x, w, h), "rows", "cols")
         return (w, h), obj
 
     def step_single(inner, i):
@@ -85,11 +89,12 @@ def _hals_block(x, xsq, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
         w, h = inner
         # W half: one m*n*k GEMM + k x k Gram, then the sweeps in the
         # transposed frame (the result's .T is row-major again)
-        xht = x @ h.T
-        hht = h @ h.T
+        xht = sums.psum(x @ h.T, "cols")
+        hht = sums.psum(h @ h.T, "cols")
         w = sweep(xht.T, hht, w.T, lam=lambda_w, nsweeps=inner_sweeps).T
         # H half (mirror)
-        return h_half_and_objective(w, h, w.T @ x, w.T @ w)
+        return h_half_and_objective(w, h, sums.psum(w.T @ x, "rows"),
+                                    sums.psum(w.T @ w, "rows"))
 
     chosen = step if single_pass_bm is None else step_single
     with torch.no_grad(), full_f32():
