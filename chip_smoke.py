@@ -318,6 +318,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      every iteration (whether the bits are equal is printed), the kernel
      route within ROUTE_RTOL of the plain over ROUTE_ITERS iterations; ms
      an iteration of each beside one device's.
+ 11. every other method and keyword across GPUs as a world of one
+     (mesh_rest_phase; ``python3 tools/multi_gpu.py --phase 11`` alone), on
+     a new NCCL group and the meshes of phase 10, through mm_path as there:
+     semi_nmf (on X less its column means), onmf (orthogonal 'h' and 'w')
+     and robust at 8192x8192 r128 (20 iterations); beta= 0.5 and 0 there
+     (20); MUR EU objective="gram", KL objective="lagged" and KL
+     objective_every=8 there (24) and KL "lagged" at config[1] (20), the
+     one-device MUR on the 2-pass pair (two_pass_route), which the mesh's
+     local halves take, and 'lagged' held against the plain route's
+     'exact' a step later; multilevel= with mur (EU) and hals there,
+     levels 2, factor 4, 10 iterations a coarse level (20 at the finest);
+     ntf EU mur, EU hals and KL (normalize=True) and masked EU at
+     512x512x512 r64 (10); every path with exact launches (mr_launches)
+     and exact collective calls (mesh_method_calls, multilevel_calls,
+     ntf_mesh_calls).  Then checkpoints: HALS EU 8192x8192 r128 on (1, 1)
+     in blocks of 10, stopped after two blocks and resumed, through .npz
+     and through DCP, each the uninterrupted run's bits, the .npz resumed
+     in one-device hals with its bits, and the seconds a save costs.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -3710,12 +3728,21 @@ MM_GRIDS = (("EU 8192^2 k128", "eu", 128, (0.0, 0.1, 1.0), 50),
             ("KL 8192x4096 k128", "kl", KL_SINGLE["k"], (0.0, 0.1), 20))
 
 
-def mesh_method_calls(method, kw, rows, cols, iters, trips=None, kernels=False):
+def _real_objectives(kw, iters):
+    """The iterations of ``iters`` that record a real objective: every
+    objective_every-th and the last possible one (tpunmf mur.py:96-131)."""
+    every, top = int(kw.get("objective_every", 1)), kw.get("max_iter", 100000)
+    return sum(1 for i in range(iters) if (i + 1) % every == 0 or i + 1 >= top)
+
+
+def mesh_method_calls(method, kw, rows, cols, iters, trips=None, kernels=False, saves=0):
     """The collectives a facade mesh= run sends, by kind, on a mesh with
     the axes 'rows' / 'cols' that ``rows`` / ``cols`` say (of any size; a
     world of one has them of size 1), over ``iters`` iterations; AO-ADMM's
     inner ``trips`` as ``ao_admm.trips`` counted them (h_calls, h, w_calls,
-    w).  Every driver: inits given (none sent) or made on rank 0 and
+    w); ``saves`` ``.npz`` checkpoint saves of a carry whose split leaves
+    are W and H (each save gathers W over 'rows' and H over 'cols').
+    Every driver: inits given (none sent) or made on rank 0 and
     broadcast (W and H), the initial objective all-reduced over each axis,
     the factors gathered at the end (W over 'rows', H over 'cols').  An
     iteration: HALS X H^T, H H^T over 'cols', W^T X, W^T W over 'rows', the
@@ -3726,13 +3753,33 @@ def mesh_method_calls(method, kw, rows, cols, iters, trips=None, kernels=False):
     all_reduce, which adaptive rho reuses) over its frame's columns and,
     for KL, the split's product over its rows; the local-sparsity W
     update's Gram once and, each trip, its three products over 'cols' and
-    its norms (of W over 'rows' twice, of V over both once); masked MUR each half's two sums where it
-    is not local (the kernel route on a world of one is), after the
+    its norms (of W over 'rows' twice, of V over both once); masked MUR
+    each half's two sums where it is not local (the kernel route on a
+    world of one is), after the
     elevation's minimum and, on the kernel route, the binary-mask test over
-    each axis.  MUR and HALS elevate X by a minimum over each axis."""
+    each axis.  MUR and HALS elevate X by a minimum over each axis.
+    MUR (``mur_mesh``): on the plain route each half's two sums (EU X H^T,
+    H H^T / W^T X, W^T W; KL R H^T and H's row sums / W^T R and W's column
+    sums), on the kernel route (both halves local) none; then on an
+    iteration that records a real objective (``objective_every``) the
+    objective over each axis, or the Gram form's W^T W over 'rows' (the
+    kernel route's, which the plain route has already) and two sums over
+    'cols', or 'lagged' KL's incoming objective over each axis; the Gram
+    form's ||X||^2 over each axis once.  beta= (``mur_beta_mesh``): the
+    elevation, then each half's numerator and denominator over its axis and
+    the divergence over each axis.  semi_nmf: H (when not given) and W
+    (when not given, by least squares) broadcast, H H^T, X H^T over 'cols',
+    W^T X, W^T W over 'rows', the objective over each axis.  onmf: the
+    elevation, X H^T, H H^T and (W^T X) H^T over 'cols', W^T X over
+    'rows', the objective over each axis (``orthogonal='w'``: the roles
+    swapped).  robust: the non-negativity test over each axis, ||x_j||^2
+    over 'rows', then W^T W and W^T X over 'rows' and the objective over
+    'cols' (initially), an iteration W^T W, W^T X over 'rows' twice, X (HD)^T
+    and H (HD)^T over 'cols', the objective over 'cols'."""
     r, c = int(rows), int(cols)
     axes = r + c
     ar = ag = 0
+    bc = 0 if "w_init" in kw else 2
     kl = kw.get("distance_type", "kl" if method == "mur" else "eu") == "kl"
     reg_w, reg_h = kw.get("reg_w", (0, "nn"))[1], kw.get("reg_h", (0, "l2n"))[1]
     adaptive = kw.get("rho_mode") == "adaptive"
@@ -3754,10 +3801,79 @@ def mesh_method_calls(method, kw, rows, cols, iters, trips=None, kernels=False):
         else:
             ar += w_calls * c * (1 + (not kl)) + w_trips * (c * kl + r)
             ag += w_trips * r * (reg_w == "l1inf")
+    elif method == "semi_nmf":
+        bc = int("h_init" not in kw) + int("w_init" not in kw)
+        ar = axes + iters * (2 * c + 2 * r + axes)
+    elif method == "onmf":
+        if kw.get("orthogonal") == "w":
+            r, c = c, r
+        ar = axes + axes + iters * (3 * c + r + axes)
+    elif method == "robust":
+        ar = axes + r + (2 * r + c) + iters * (4 * r + 3 * c)
+    elif method == "mur" and kw.get("beta") is not None:
+        ar = axes + axes + iters * (2 * c + 2 * r + axes)
+    elif method == "mur" and "mask" not in kw:
+        objective = kw.get("objective", "exact")
+        real = _real_objectives(kw, iters)
+        gram = not kl and objective == "gram"
+        # 'lagged' sends what 'exact' sends: one objective over each axis
+        per_obj = (2 * c + r * kernels) if gram else axes
+        ar = axes + axes * gram + axes + iters * (0 if kernels else 2 * r + 2 * c)
+        ar += real * per_obj
     else:  # masked MUR
         ar = axes + axes * kernels + axes + iters * (2 * (r + c) * (not kernels) + axes)
+    ag += saves * axes
     return {"all_gather": ag + axes, "all_reduce": ar, "all_to_all": 0,
-            "broadcast": 0 if "w_init" in kw else 2, "p2p": 0}
+            "broadcast": bc, "p2p": 0}
+
+
+def multilevel_calls(method, kw, rows, cols, iters, n, k, kernels=False):
+    """``multilevel_mesh``'s collectives: its levels' runs, each a mesh run
+    (:func:`mesh_method_calls`): the coarsest from the solver's default
+    init for ``coarse_iters`` iterations, the finer coarse levels likewise
+    from the prolongated factors, the finest ``iters`` from them (every
+    level at tol 0 runs all its iterations).  ``n``: X's columns (rows for
+    ``axis=0``)."""
+    ml = dict(kw["multilevel"])
+    levels, factor = ml.get("levels", 2), ml.get("factor", 4)
+    coarse = ml.get("coarse_iters", 200)
+    sizes = [n]
+    for _ in range(levels):
+        nxt = -(-sizes[-1] // factor)
+        if nxt < max(2 * k, 8):
+            break
+        sizes.append(nxt)
+    base = {key: v for key, v in kw.items() if key != "multilevel"}
+    given = {**base, "w_init": True}
+    total = mesh_method_calls(method, base, rows, cols, coarse, kernels=kernels)
+    for _ in range(len(sizes) - 2):
+        part = mesh_method_calls(method, given, rows, cols, coarse, kernels=kernels)
+        total = {key: total[key] + part[key] for key in total}
+    part = mesh_method_calls(method, given, rows, cols, iters, kernels=kernels)
+    return {key: total[key] + part[key] for key in total}
+
+
+def ntf_mesh_calls(kw, rows, cols, ndim, iters, saves=0):
+    """``ntf_mesh``'s collectives (modes 0 and 1 split over 'rows' and
+    'cols'): the non-negativity tests (X's, the mask's) over each axis,
+    ||X||^2 over each axis, the initial objective (EU: the mode-0 and
+    mode-1 Grams and the last MTTKRP, over both axes; else over each axis);
+    an iteration: EU the two split Grams, each mode's MTTKRP over the axes
+    that split the other modes, the updated split Grams; KL and masked each
+    mode's MTTKRP and its denominator's sums likewise, the objective over
+    each axis; the normalization's split column norms; the split factors
+    gathered at the end; random factors broadcast a mode each."""
+    r, c = int(rows), int(cols)
+    axes = r + c
+    masked = kw.get("mask") is not None
+    eu = kw.get("distance_type", "eu") == "eu" and not masked
+    ar = axes + axes * masked + axes
+    ar += 2 * axes if eu else axes
+    per = (ndim + 1) * axes if eu else (2 * (ndim - 1) + 1) * axes
+    per += axes * kw.get("normalize", True)
+    ar += iters * per
+    return {"all_gather": axes + saves * axes, "all_reduce": ar, "all_to_all": 0,
+            "broadcast": 0 if kw.get("factors_init") is not None else ndim, "p2p": 0}
 
 
 def ntf_sharded_calls(dist, ndim, iters, factors_given):
@@ -3807,8 +3923,8 @@ def mm_same_bits(a, b, fields):
         v = getattr(r, f)
         return [np.asarray(u) for u in v] if f == "factors" else [np.asarray(v)]
 
-    return all(np.array_equal(p, q) for f in fields
-               for p, q in zip(arrays(a, f), arrays(b, f)))
+    return all(np.array_equal(p, q, equal_nan=np.issubdtype(p.dtype, np.floating))
+               for f in fields for p, q in zip(arrays(a, f), arrays(b, f)))
 
 
 def mm_timed(torch, tt, fn):
@@ -3824,18 +3940,54 @@ def mm_timed(torch, tt, fn):
             [trips.h_calls, trips.h, trips.w_calls, trips.w])
 
 
+def real_pattern(kw, iters):
+    """Where a trace of ``iters`` iterations holds a real objective: the
+    initial one and each iteration that objective_every records."""
+    every, top = int(kw.get("objective_every", 1)), kw.get("max_iter", iters)
+    return np.array([True] + [(i + 1) % every == 0 or i + 1 >= top for i in range(iters)])
+
+
+def gap_where_real(got, want, shift=0, iters=None):
+    """trace_gap over the entries both traces record, ``got`` read
+    ``shift`` entries later ('lagged' against 'exact': lagged[i + 1] is
+    exact[i]); the first ``iters`` iterations only where given."""
+    g = np.asarray(got, dtype=np.float64)[shift:]
+    w = np.asarray(want, dtype=np.float64)[:len(got) - shift]
+    if iters is not None:
+        g, w = g[:iters + 1], w[:iters + 1]
+    real = ~(np.isnan(g) | np.isnan(w))
+    require(real.any(), "no entry to compare")
+    return float(np.max(np.abs(g[real] - w[real]) / np.abs(w[real])))
+
+
 def mm_path(torch, tt, drive, card, label, x, k, method, kw, iters, meshes, one_device, run,
-            ndim=None, fields=("w", "h")):
+            ndim=None, fields=("w", "h"), launches=None, calls_of=None, plain_shift=0,
+            one_device_ctx=contextlib.nullcontext):
     """One path: the one-device run on its kernel route, then each mesh's
     kernel and plain routes (``run(mesh, use_pallas)``), each with exact
     launches and collective calls; the mesh runs within MM_MESH_RTOL of one
     device at every iteration (bits compared), the kernel route within
     ROUTE_RTOL of the plain over the first ROUTE_ITERS iterations; ms an
-    iteration."""
-    want = mm_launches(method, kw, iters, True, ndim=ndim or 3)
+    iteration.  ``launches(kernels)`` and ``calls_of(rows, cols, kernels,
+    trips)`` give a run's counts where ``mm_launches`` and
+    ``mesh_method_calls`` do not; ``plain_shift`` compares a 'lagged'
+    kernel trace with the plain route's 'exact' one; ``one_device_ctx``
+    wraps the one-device run (``two_pass_route`` puts it on the mesh's
+    kernels); a trace may hold NaN only where ``objective_every`` puts it."""
+    if launches is None:
+        def launches(kernels):
+            return mm_launches(method, kw, iters, kernels, ndim=ndim or 3)
+    if calls_of is None:
+        def calls_of(rows, cols, kernels, trips):
+            if method == "ntf":
+                return ntf_sharded_calls(kw["distance_type"], ndim, iters, True)
+            return mesh_method_calls(method, kw, rows, cols, iters, trips, kernels)
+    pattern = real_pattern(kw, iters)
+    want = launches(True)
     run(meshes[(1,)], None, 1)  # warm-up: first-call costs out of the timing
-    one, one_s, _, _ = drive(f"{label} one device path", tuple(want),
-                             lambda: mm_timed(torch, tt, one_device), exact=want)
+    with one_device_ctx():
+        one, one_s, _, _ = drive(f"{label} one device path", tuple(want),
+                                 lambda: mm_timed(torch, tt, one_device), exact=want)
     one_ms = 1e3 * one_s / iters
     out = {"one_device_ms": one_ms}
     for shape, mesh in meshes.items():
@@ -3844,21 +3996,20 @@ def mm_path(torch, tt, drive, card, label, x, k, method, kw, iters, meshes, one_
         for kernels in (True, False):
             route = "kernels" if kernels else "plain"
             got, secs, sent, trips = drive(
-                f"{label} {shape} {route} path", tuple(mm_launches(method, kw, iters, kernels,
-                                                                   ndim=ndim or 3)),
+                f"{label} {shape} {route} path", tuple(launches(kernels)),
                 lambda: mm_timed(torch, tt, lambda: run(mesh, None if kernels else False,
                                                         iters)),
-                exact=mm_launches(method, kw, iters, kernels, ndim=ndim or 3))
-            calls = (ntf_sharded_calls(kw["distance_type"], ndim, iters, True)
-                     if method == "ntf"
-                     else mesh_method_calls(method, kw, rows, cols, iters, trips, kernels))
+                exact=launches(kernels))
+            calls = calls_of(rows, cols, kernels, trips)
             require(sent == calls, f"{label} {shape} {route}: collectives {sent}, not {calls}")
-            require(got.i == iters - 1 and np.all(np.isfinite(np.asarray(got.obj_history))),
+            hist = np.asarray(got.obj_history, dtype=np.float64)
+            require(got.i == iters - 1 and np.array_equal(~np.isnan(hist), pattern)
+                    and np.all(np.isfinite(hist[pattern])),
                     f"{label} {shape} {route}: {got.i + 1} iterations or a non-finite trace")
             runs[kernels] = (got, secs, sent)
         (kern, ks, sent), (plain, ps, _) = runs[True], runs[False]
-        vs_one = trace_gap(kern.obj_history, one.obj_history, None)
-        vs_plain = trace_gap(kern.obj_history, plain.obj_history)
+        vs_one = gap_where_real(kern.obj_history, one.obj_history)
+        vs_plain = gap_where_real(kern.obj_history, plain.obj_history, plain_shift, ROUTE_ITERS)
         bits = mm_same_bits(kern, one, ("obj_history",) + fields)
         ms, plain_ms = 1e3 * ks / iters, 1e3 * ps / iters
         print(f"  {label} {shape}: {ms:.3f} ms an iteration on the kernel route, "
@@ -3890,8 +4041,10 @@ def mm_factorize_path(torch, tt, drive, card, label, x, k, method, kw, iters, in
         return tt.NMF(x, k, mesh=mesh).factorize(
             **{**common, "use_pallas": use_pallas, "min_iter": its, "max_iter": its})
 
-    return mm_path(torch, tt, drive, card, label, x, k, method,
-                   {**kw, "w_init": init[0]}, iters, meshes, one_device, run)
+    # the formulas read the inits and the mask from the keywords
+    counted = {**kw, "w_init": init[0], **({} if mask is None else {"mask": True})}
+    return mm_path(torch, tt, drive, card, label, x, k, method, counted, iters, meshes,
+                   one_device, run)
 
 
 def mm_ntf_paths(torch, tt, drive, card, meshes):
@@ -4033,6 +4186,287 @@ def methods_phase(torch, tt, drive, card, data, adm_csr):
                            (1, 1): meshes[(1, 1)]}
             out["lambda_grid"] = mm_grid_paths(torch, tt, drive, card, data, grid_meshes)
             print(f"  phase 10's paths took {time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+# Phase 11: every other method and keyword across GPUs as a world of one
+MR_ITERS = 20
+# (label, X's name, k, method, options, iterations); from one seeded |N(0, 1)|
+# init (ntf: cp_data's), the one-device MUR on the 2-pass pair
+MR_RUNS = (
+    ("semi_nmf EU 8192^2 k128", "semi", 128, "semi_nmf", {}, MR_ITERS),
+    ("onmf h 8192^2 k128", "eu", 128, "onmf", {}, MR_ITERS),
+    ("onmf w 8192^2 k128", "eu", 128, "onmf", {"orthogonal": "w"}, MR_ITERS),
+    ("robust 8192^2 k128", "eu", 128, "robust", {}, MR_ITERS),
+    ("beta 0.5 8192^2 k128", "eu", 128, "mur", {"beta": 0.5}, MR_ITERS),
+    ("beta 0 8192^2 k128", "eu", 128, "mur", {"beta": 0.0}, MR_ITERS),
+    ("MUR EU gram 8192^2 k128", "eu", 128, "mur",
+     {"distance_type": "eu", "objective": "gram"}, 24),
+    ("MUR KL lagged 8192^2 k128", "eu", 128, "mur",
+     {"distance_type": "kl", "objective": "lagged"}, 24),
+    ("MUR KL objective_every=8 8192^2 k128", "eu", 128, "mur",
+     {"distance_type": "kl", "objective_every": 8}, 24),
+    ("MUR KL lagged config[1] k50", "kl", 50, "mur",
+     {"distance_type": "kl", "objective": "lagged"}, MR_ITERS),
+    ("multilevel mur EU 8192^2 k128", "eu", 128, "mur",
+     {"distance_type": "eu", "multilevel": {"levels": 2, "factor": 4, "coarse_iters": 10}},
+     MR_ITERS),
+    ("multilevel hals 8192^2 k128", "eu", 128, "hals",
+     {"multilevel": {"levels": 2, "factor": 4, "coarse_iters": 10}}, MR_ITERS),
+)
+MR_NTF_ITERS = 10
+MR_NTF_RUNS = (("ntf EU mur", dict(distance_type="eu", update="mur")),
+               ("ntf EU hals", dict(distance_type="eu", update="hals")),
+               ("ntf KL mur", dict(distance_type="kl", update="mur")),
+               ("ntf masked EU mur", dict(distance_type="eu", update="mur", mask=0.7)))
+# HALS's checkpoints: blocks of MR_CK_EVERY, stopped after two, of 3 blocks
+MR_CK_EVERY = 10
+
+
+def mr_launches(method, kw, iters, kernels, n=None, k=None):
+    """Kernel launches of a phase-11 run on a world of one: semi_nmf and
+    onmf eu_residual_obj once an iteration and once more; robust and beta=
+    none; MUR the two update kernels once an iteration (both halves local),
+    its objective pass (eu_residual_obj or kl_obj) initially and on each
+    iteration that records an exact objective, the lagged W pass in place
+    of the W pass where 'lagged' records one; multilevel every level's
+    (the coarse levels of ``n`` columns at rank ``k``, coarse_iters each);
+    ntf CP-HALS gs_sweep once a mode an iteration; the plain route nothing."""
+    if not kernels:
+        return {}
+    if "multilevel" in kw:
+        ml = kw["multilevel"]
+        sizes = [n]
+        for _ in range(ml["levels"]):
+            if -(-sizes[-1] // ml["factor"]) < max(2 * k, 8):
+                break
+            sizes.append(-(-sizes[-1] // ml["factor"]))
+        total = {}
+        base = {key: v for key, v in kw.items() if key != "multilevel"}
+        for its in [ml["coarse_iters"]] * (len(sizes) - 1) + [iters]:
+            for name, c in mr_launches(method, base, its, True).items():
+                total[name] = total.get(name, 0) + c
+        return total
+    if method in ("semi_nmf", "onmf"):
+        return {"eu_residual_obj": iters + 1}
+    if method in ("robust",) or kw.get("beta") is not None:
+        return {}
+    if method == "hals":
+        return {"gs_sweep": 2 * iters, "eu_residual_obj": iters + 1}
+    if method == "ntf":
+        return {"gs_sweep": 3 * iters} if kw.get("update") == "hals" else {}
+    kl = kw.get("distance_type", "kl") == "kl"
+    real = _real_objectives({**kw, "max_iter": iters}, iters)
+    obj = "kl_obj" if kl else "eu_residual_obj"
+    out = {"mur_w_update": iters, "mur_h_update": iters, obj: 1}
+    if kl and kw.get("objective") == "lagged":
+        out["mur_w_update"] -= real
+        out["mur_w_update_lagged"] = real
+    elif kw.get("objective") != "gram" or kl:
+        out[obj] += real
+    return {name: c for name, c in out.items() if c}
+
+
+def mr_factorize_path(torch, tt, drive, card, label, x, k, method, kw, iters, init, meshes):
+    common = dict(method=method, min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0, **kw)
+    ml = "multilevel" in kw
+    if not ml:
+        common.update(w_init=init[0], h_init=init[1])
+
+    def one_device():
+        return tt.NMF(x, k).factorize(**common)
+
+    # robust NMF and beta= have no kernel (nor use_pallas): both routes are one
+    switch = method != "robust" and kw.get("beta") is None
+
+    def run(mesh, use_pallas, its):
+        extra = {"use_pallas": use_pallas} if switch else {}
+        return tt.NMF(x, k, mesh=mesh).factorize(
+            **{**common, **extra, "min_iter": its, "max_iter": its})
+
+    full = {**kw, "max_iter": iters, **({} if ml else {"w_init": True, "h_init": True})}
+    n = x.shape[1] if ml else None
+
+    def calls_of(rows, cols, kernels, trips):
+        if ml:
+            return multilevel_calls(method, full, rows, cols, iters, n, k, kernels=kernels)
+        return mesh_method_calls(method, full, rows, cols, iters, trips, kernels)
+
+    lagged = kw.get("objective") == "lagged"
+    return mm_path(torch, tt, drive, card, label, x, k, method, full, iters, meshes,
+                   one_device, run,
+                   launches=lambda kernels: mr_launches(method, full, iters, kernels, n, k),
+                   calls_of=calls_of, plain_shift=1 if lagged else 0,
+                   one_device_ctx=two_pass_route if method == "mur" else contextlib.nullcontext)
+
+
+def mr_ntf_paths(torch, tt, drive, card, meshes):
+    from tpunmf_torch import solvers
+
+    x, init = cp_data(torch, NTF["dims"], NTF["k"], NTF["seed"], NTF["noise"])
+    out = {}
+    for label, options in MR_NTF_RUNS:
+        kw = dict(options, factors_init=init, tol1=0.0, tol2=0.0)
+        if "mask" in kw:
+            g = torch.Generator(device="cuda").manual_seed(NTF["seed"])
+            kw["mask"] = (torch.rand(x.shape, generator=g, device="cuda")
+                          < kw["mask"]).float()
+
+        def one_device(kw=kw):
+            return solvers.ntf(x, NTF["k"], min_iter=MR_NTF_ITERS, max_iter=MR_NTF_ITERS, **kw)
+
+        def run(mesh, use_pallas, its, kw=kw):
+            return tt.NMF(x, NTF["k"], mesh=mesh).factorize(
+                method="ntf", use_pallas=use_pallas, min_iter=its, max_iter=its, **kw)
+
+        out[label] = mm_path(
+            torch, tt, drive, card, f"{label} 512^3 k{NTF['k']}", x, NTF["k"], "ntf", kw,
+            MR_NTF_ITERS, meshes, one_device, run, ndim=3, fields=("factors",),
+            launches=lambda kernels, kw=kw: mr_launches("ntf", kw, MR_NTF_ITERS, kernels),
+            calls_of=lambda rows, cols, kernels, trips, kw=kw: ntf_mesh_calls(
+                kw, rows, cols, 3, MR_NTF_ITERS))
+    del x, init
+    return out
+
+
+class _Stop(Exception):
+    pass
+
+
+def mr_checkpoints(torch, tt, drive, card, x, mesh, d):
+    """HALS EU over (1, 1) in blocks of MR_CK_EVERY, three blocks: the
+    uninterrupted run with checkpoints through each backend, a run stopped
+    after two blocks and resumed, which must give its bits, with exact
+    launches and collectives; then the .npz, resumed in one-device hals,
+    must give one device's bits.  The seconds a save costs: the
+    checkpointed run's against one without saves (the first save of a
+    backend in the process inside), and three saves of the final carry
+    through ``MeshStore`` timed alone after them."""
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.solvers import hals
+
+    k, iters = 128, 3 * MR_CK_EVERY
+    w0, h0 = random_init(0, *x.shape, k, device="cuda")
+    kw = dict(method="hals", w_init=w0, h_init=h0, min_iter=iters, max_iter=iters, tol1=0.0,
+              tol2=0.0)
+    counted = {**kw, "w_init": True}
+    model = tt.NMF(x, k, mesh=mesh)
+
+    def timed(**extra):
+        return mm_timed(torch, tt, lambda: model.factorize(**kw, **extra))
+
+    def launches(its, runs=1):
+        return {"gs_sweep": 2 * its, "eu_residual_obj": its + runs}
+
+    model.factorize(**{**kw, "min_iter": 2, "max_iter": 2})  # warm-up
+    bare, bare_s, _, _ = drive("HALS checkpoints: no saves path", ("gs_sweep",),
+                               lambda: timed(), exact=launches(iters))
+    out = {"bare_ms": 1e3 * bare_s / iters}
+    for backend in ("npz", "dcp"):
+        saves = 3 if backend == "npz" else 0
+        ck = dict(checkpoint_every=MR_CK_EVERY, checkpoint_backend=backend)
+        full, full_s, sent, _ = drive(
+            f"HALS checkpoints {backend} uninterrupted path", ("gs_sweep",),
+            lambda: timed(checkpoint_path=os.path.join(d, f"full_{backend}"), **ck),
+            exact=launches(iters))
+        want = mesh_method_calls("hals", counted, True, True, iters, saves=saves)
+        require(sent == want, f"HALS checkpoints {backend}: collectives {sent}, not {want}")
+        path = os.path.join(d, f"stopped_{backend}")
+        seen = []
+
+        def stop(carry):
+            seen.append(carry.i)
+            if len(seen) == 2:
+                raise _Stop
+
+        def stopped_and_resumed():
+            try:
+                model.factorize(checkpoint_path=path, on_block_end=stop, **ck, **kw)
+            except _Stop:
+                pass
+            return model.factorize(checkpoint_path=path, resume=True, **ck, **kw)
+
+        got, _, _, _ = drive(f"HALS checkpoints {backend} stopped and resumed path",
+                             ("gs_sweep",), lambda: mm_timed(torch, tt, stopped_and_resumed),
+                             exact=launches(iters, runs=2))
+        bits = mm_same_bits(got, full, ("obj_history", "w", "h"))
+        per_save = (full_s - bare_s) / 3
+        print(f"  HALS EU 8192^2 k128 (1, 1) checkpoints through {backend}: stopped at "
+              f"{seen}, resumed to {got.i + 1}; the uninterrupted run's bits: "
+              f"{'yes' if bits else 'no'}; {1e3 * full_s / iters:.3f} ms an iteration with a "
+              f"save every {MR_CK_EVERY}, {1e3 * bare_s / iters:.3f} without: "
+              f"{per_save:.3f} s a save ({card})", flush=True)
+        require(seen == [MR_CK_EVERY, 2 * MR_CK_EVERY] and bits,
+                f"HALS checkpoints {backend}: the resumed run is not the uninterrupted one")
+        out[backend] = {"save_s": per_save, "same_bits": bits,
+                        "ms": 1e3 * full_s / iters}
+    # a mesh run stopped after two blocks, its .npz resumed in one-device hals
+    path = os.path.join(d, "mesh_to_one_device")
+    seen.clear()
+    try:
+        model.factorize(checkpoint_path=path, checkpoint_every=MR_CK_EVERY, on_block_end=stop,
+                        **kw)
+    except _Stop:
+        pass
+    solver_kw = {key: v for key, v in kw.items() if key != "method"}
+    one = hals(x, k, **solver_kw)
+    resumed = hals(x, k, checkpoint_path=path, checkpoint_every=MR_CK_EVERY, resume=True,
+                   **solver_kw)
+    bits = mm_same_bits(resumed, one, ("obj_history", "w", "h"))
+    print(f"  the (1, 1) mesh's .npz resumed in one-device hals: one device's bits: "
+          f"{'yes' if bits else 'no'} ({card})", flush=True)
+    require(bits, "the mesh's .npz does not resume in one-device hals with its bits")
+    out["npz_in_one_device"] = bits
+    # a save alone: the final carry through each backend's store, three times
+    final = []
+    model.factorize(block_size=iters, on_block_end=final.append, **kw)
+    layouts = [("rows", None), (None, "cols")]
+    for backend in ("npz", "dcp"):
+        store = tt.parallel.MeshStore(mesh, layouts, backend)
+        times = []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store.save(os.path.join(d, f"alone_{backend}"), final[0], "HALS")
+            times.append(time.perf_counter() - t0)
+        print(f"  a save of HALS 8192^2 k128's carry (8.4 MB) through {backend} alone: "
+              f"{', '.join(f'{1e3 * t:.1f}' for t in times)} ms ({card})", flush=True)
+        out[backend]["alone_ms"] = [1e3 * t for t in times]
+    return out
+
+
+def mesh_rest_phase(torch, tt, drive, card, data):
+    """Phase 11: an NCCL group of one rank through a file store, the meshes
+    of phase 10, then MR_RUNS through the facade's mesh=, MR_NTF_RUNS and
+    HALS's checkpoints.  ``data``: the 8192^2 EU X ("eu") and BASELINE
+    config[1] ("kl")."""
+    import torch.distributed as dist
+
+    from tpunmf_torch.init import random_init
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tt.parallel.initialize_multihost(f"file://{d}/store", 1, 0)
+        meshes = {shape: tt.parallel.build_mesh(shape, names) for shape, names in MGPU_MESHES}
+        try:
+            t0 = time.perf_counter()
+            made = {"eu": data["eu"], "kl": data["kl"],
+                    "semi": data["eu"] - data["eu"].mean(dim=0)}
+            for label, name, k, method, kw, iters in MR_RUNS:
+                x = made[name]
+                init = random_init(0, *x.shape, k, device="cuda")
+                out[label] = mr_factorize_path(torch, tt, drive, card, label, x, k, method, kw,
+                                               iters, init, meshes)
+                del init
+            del made
+            torch.cuda.empty_cache()
+            out["ntf"] = mr_ntf_paths(torch, tt, drive, card, meshes)
+            out["checkpoints"] = mr_checkpoints(torch, tt, drive, card, data["eu"],
+                                                meshes[(1, 1)], d)
+            out["seconds"] = time.perf_counter() - t0
+            print(f"  phase 11's paths took {out['seconds']:.1f} s", flush=True)
         finally:
             dist.destroy_process_group()
     return out
@@ -4630,7 +5064,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     multi_gpu["methods"] = methods_phase(torch, tt, drive, card, {"eu": eu_x, "kl": kl2_x},
                                          adm_csr)
-    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 11: every other method and keyword across GPUs as a world of one [{card}]",
+          flush=True)
+    torch.cuda.empty_cache()
+    multi_gpu["rest"] = mesh_rest_phase(torch, tt, drive, card, {"eu": eu_x, "kl": kl_x})
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):

@@ -4,12 +4,15 @@
 
 Brings up the process group with ``tpunmf_torch.parallel``'s
 ``initialize_multihost`` over localhost:PORT, runs every case of
-``CASES`` through ``NMF(x, k, mesh=...).factorize`` on CPU meshes (2, 2)
-and (4,) 'cols', ``ntf_sharded`` on a (4,) 'rows' mesh and the lambda grid
-on a (4,) 'grid' mesh, all at float64 on DIR/inputs.npz, and writes this
-rank's results, collective calls and AO-ADMM's inner trips to
-DIR/rank{RANK}.npz.  It imports torch and ``tpunmf_torch`` only; the
-parent holds the results against ``tpunmf`` on JAX.
+``CASES`` and ``NTF_MESH_CASES`` through ``NMF(x, k, mesh=...).factorize``
+on CPU meshes (2, 2) and (4,) 'cols', ``ntf_sharded`` on a (4,) 'rows' mesh
+and the lambda grid on a (4,) 'grid' mesh, all at float64 on
+DIR/inputs.npz, then HALS's checkpoints over the (2, 2) mesh through both
+backends (``CHECKPOINT``: uninterrupted, interrupted and resumed, resumed
+on the (4,) mesh), and writes this rank's results, collective calls and
+AO-ADMM's inner trips to DIR/rank{RANK}.npz; the checkpoints stay in DIR.
+It imports torch and ``tpunmf_torch`` only; the parent holds the results
+against ``tpunmf`` on JAX.
 """
 import os
 import sys
@@ -23,6 +26,7 @@ import tpunmf_torch  # noqa: E402
 from tpunmf_torch import experiments  # noqa: E402
 from tpunmf_torch import parallel as par  # noqa: E402
 from tpunmf_torch.solvers.ao_admm import trips  # noqa: E402
+from tpunmf_torch.solvers.onmf import orthogonality_residual  # noqa: E402
 
 MESHES = (("m22", (2, 2), ("rows", "cols")), ("m4", (4,), ("cols",)),
           ("r4", (4,), ("rows",)), ("g4", (4,), ("grid",)))
@@ -45,22 +49,76 @@ CASES = (
     ("ao_admm_l1inf_h", "ao_admm", dict(reg_h=(0.1, "l1inf"))),
     ("masked_eu", "mur", dict(distance_type="eu", mask=True, tol2=0.1)),
     ("masked_kl", "mur", dict(distance_type="kl", mask=True, tol2=0.1)),
+    # mixed-sign X; W by least squares against the given H, on rank 0
+    ("semi", "semi_nmf", dict(data="xs", h_only=True)),
+    ("onmf_h", "onmf", dict()),
+    ("onmf_w", "onmf", dict(orthogonal="w")),
+    ("robust", "robust", dict()),
+    ("beta0", "mur", dict(beta=0.0)),
+    ("beta05", "mur", dict(beta=0.5)),
+    ("beta1", "mur", dict(beta=1.0)),
+    ("beta2", "mur", dict(beta=2.0)),
+    ("mur_gram", "mur", dict(distance_type="eu", objective="gram")),
+    ("mur_lagged", "mur", dict(distance_type="kl", objective="lagged")),
+    ("mur_every", "mur", dict(distance_type="kl", objective_every=3)),
+    # every level a fixed number of iterations (tol 0), from NNDSVD 'zero'
+    ("ml_mur", "mur", dict(multilevel=dict(levels=2, factor=2, coarse_iters=6),
+                           distance_type="eu", nndsvd=True, tol2=0.0, max_iter=8)),
+    ("ml_hals", "hals", dict(multilevel=dict(levels=2, factor=2, coarse_iters=6),
+                             nndsvd=True, tol2=0.0, max_iter=8)),
 )
 # absolute tolerances at which every family stops early here
 STOP = dict(min_iter=3, max_iter=40, tol1=0.0, tol2=3e-3)
 NTF_CASES = (("eu", "mur"), ("eu", "hals"), ("kl", "mur"))
+# the facade's ntf over the meshes (normalize=True, the default): (name,
+# options); modes 0 and 1 of X (8, 12, 5) split as tpunmf's facade splits
+# them
+NTF_MESH_CASES = (("eu_mur", dict(distance_type="eu", update="mur")),
+                  ("eu_hals", dict(distance_type="eu", update="hals")),
+                  ("kl", dict(distance_type="kl")),
+                  ("masked", dict(distance_type="eu", mask=True)))
+NTF_STOP = dict(min_iter=3, max_iter=12, tol1=0.0, tol2=1e-3)
+# HALS's checkpoints over the (2, 2) mesh: blocks of 5 of 10 iterations
+CHECKPOINT = dict(method="hals", min_iter=10, max_iter=10, tol1=0.0, tol2=0.0,
+                  checkpoint_every=5)
+
+
+class Interrupt(Exception):
+    pass
+
+
+def stop_after_one_block(carry):
+    raise Interrupt
+
+
+def ntf_kwargs(options, inp):
+    """The factorize() keywords of an ntf case (shared with the parent)."""
+    kw = {**NTF_STOP, **options, "factors_init": [inp[f"n{m}"] for m in range(3)]}
+    if kw.pop("mask", False):
+        kw["mask"] = inp["mask3"]
+    return kw
 
 
 def case_kwargs(options, inp):
     """The factorize() keywords of a case (shared with the parent)."""
     kw = dict(options)
+    kw.pop("data", None)
     if kw.pop("nndsvd", False):
         kw["nndsvd_init"] = (True, "zero")
+    elif kw.pop("h_only", False):
+        kw["h_init"] = inp["h0"]
     else:
         kw.update(w_init=inp["w0"], h_init=inp["h0"])
     if kw.pop("mask", False):
         kw["mask"] = inp["mask"]
     return {**STOP, **kw}
+
+
+def case_data(options, kw, inp):
+    """The X a case factorizes: its own, else the KL X for KL, else x."""
+    if "data" in options:
+        return inp[options["data"]]
+    return inp["xkl"] if kw.get("distance_type") == "kl" else inp["x"]
 
 
 def main():
@@ -82,7 +140,7 @@ def main():
     for name in ("m22", "m4"):
         for case, method, options in CASES:
             kw = case_kwargs(options, inp)
-            data = x if kw.get("distance_type") != "kl" else torch.from_numpy(inp["xkl"])
+            data = torch.from_numpy(case_data(options, kw, inp))
             par.reset_calls()
             trips.reset()
             res = tpunmf_torch.NMF(data, 4, mesh=meshes[name]).factorize(method=method, **kw)
@@ -93,6 +151,57 @@ def main():
             put(key + "/obj", np.asarray(res.obj_history))
             put(key + "/calls", calls())
             put(key + "/trips", np.array([trips.h_calls, trips.h, trips.w_calls, trips.w]))
+            if case == "onmf_h":  # the residual of this rank's columns of H
+                h_cols = par.local_block(meshes[name], torch.from_numpy(res.h), (None, "cols"))
+                put(key + "/orth", orthogonality_residual(h_cols, par.MeshSums(meshes[name])))
+
+    # --- the facade's ntf over the meshes
+    for name in ("m22", "m4"):
+        for case, options in NTF_MESH_CASES:
+            par.reset_calls()
+            res = tpunmf_torch.NMF(torch.from_numpy(inp["x3m"]), 3, mesh=meshes[name]).factorize(
+                method="ntf", **ntf_kwargs(options, inp))
+            key = f"ntf_mesh/{case}/{name}"
+            for m, f in enumerate(res.factors):
+                put(f"{key}/f{m}", f)
+            put(key + "/obj", np.asarray(res.obj_history))
+            put(key + "/i", res.i)
+            put(key + "/calls", calls())
+
+    # --- a multilevel level that does not divide the (4,) mesh's axis
+    try:
+        tpunmf_torch.NMF(torch.from_numpy(inp["x40"]), 4, mesh=meshes["m4"]).factorize(
+            method="hals", multilevel=dict(levels=2, factor=4), max_iter=2)
+        put("ml_uneven", "")
+    except ValueError as e:
+        put("ml_uneven", str(e))
+
+    # --- HALS's checkpoints over (2, 2): uninterrupted, interrupted and
+    # resumed on the same mesh, and resumed on the (4,) mesh
+    xt = torch.from_numpy(inp["x"])
+    ck = dict(CHECKPOINT, w_init=inp["w0"], h_init=inp["h0"])
+    method = ck.pop("method")
+    for backend in ("npz", "dcp"):
+        base = os.path.join(d, f"ck_{backend}")
+        run = dict(ck, checkpoint_backend=backend)
+        par.reset_calls()
+        full = tpunmf_torch.NMF(xt, 4, mesh=meshes["m22"]).factorize(
+            method=method, checkpoint_path=base + "_full", **run)
+        put(f"ck/{backend}/full/calls", calls())
+        for tag, mesh in (("resumed", "m22"), ("moved", "m4")):
+            path = f"{base}_{tag}"
+            try:
+                tpunmf_torch.NMF(xt, 4, mesh=meshes["m22"]).factorize(
+                    method=method, checkpoint_path=path, on_block_end=stop_after_one_block,
+                    **run)
+            except Interrupt:
+                pass
+            res = tpunmf_torch.NMF(xt, 4, mesh=meshes[mesh]).factorize(
+                method=method, checkpoint_path=path, resume=True, **run)
+            for f in ("w", "h", "obj_history"):
+                put(f"ck/{backend}/{tag}/{f}", np.asarray(getattr(res, f)))
+        for f in ("w", "h", "obj_history"):
+            put(f"ck/{backend}/full/{f}", np.asarray(getattr(full, f)))
 
     # --- ntf_sharded on mode-0 slabs, and its refusals
     mesh = meshes["r4"]

@@ -120,16 +120,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def one_rank_meshes():
-    """(tpunmf_torch, tpunmf) meshes of one rank each on the CPU, axis
-    'cols': the port's brings up a gloo world of one in this process."""
+def one_rank_meshes(shape=(1,), names=("cols",)):
+    """(tpunmf_torch, tpunmf) meshes of one rank each on the CPU (axis
+    'cols', or ``shape`` and ``names``): the port's brings up a gloo world
+    of one in this process."""
     import jax
 
     from tpunmf import parallel as jpar
     from tpunmf_torch import parallel as tpar
 
-    return (tpar.build_mesh((1,), ("cols",), device_type="cpu"),
-            jpar.build_mesh((1,), ("cols",), devices=jax.devices()[:1]))
+    return (tpar.build_mesh(shape, names, device_type="cpu"),
+            jpar.build_mesh(shape, names, devices=jax.devices()[:1]))
 
 
 def _free_port() -> int:
@@ -162,14 +163,22 @@ def _run_world(worker, d, world, timeout):
     return None
 
 
+def world_dir(tmp_path_factory, name):
+    """The directory of the gloo world ``name``: its inputs, every rank's
+    outputs and what the ranks wrote beside them (one for all xdist
+    workers)."""
+    base = tmp_path_factory.getbasetemp()
+    d = (base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base) / name
+    d.mkdir(exist_ok=True)
+    return d
+
+
 def gloo_world(tmp_path_factory, name, worker, inputs, world, timeout):
     """Inputs and every rank's outputs of one gloo world of ``worker``
     (a module's fixture).  Under xdist the first worker to need them runs
     the world, under a lock, and the others read its files; a world that
     hangs is killed at ``timeout`` and fails the test."""
-    base = tmp_path_factory.getbasetemp()
-    d = (base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base) / name
-    d.mkdir(exist_ok=True)
+    d = world_dir(tmp_path_factory, name)
     with open(d / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not (d / "status").exists():

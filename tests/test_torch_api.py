@@ -12,7 +12,7 @@ import torch
 
 import tpunmf
 import tpunmf_torch
-from _torch_parity import assert_results_match, lowrank, one_rank_meshes, t
+from _torch_parity import assert_results_match, lowrank, one_rank_meshes, run_interrupted, t
 from tpunmf.data import synthetic as jsynthetic
 from tpunmf_torch.data import synthetic as tsynthetic
 from tpunmf_torch.io import convert
@@ -182,12 +182,12 @@ def test_solver_errors(kw, exc, tmp_path):
 
 def test_mesh_is_not_ported():
     """A mesh given at construction is kept, as tpunmf keeps it
-    (tpunmf/api.py:46-56): MUR runs over it, by default or with a
-    schedule, and so do HALS, ANLS, ADMM, AO-ADMM and MUR with mask=, each
-    giving tpunmf's results; the data stay global (each rank keeps its
-    block inside the drivers).  What waits for the next slice raises,
-    naming ROADMAP item 9: other methods, multilevel=, beta= and MUR's
-    objective=."""
+    (tpunmf/api.py:46-56), and every method runs over it: MUR by default,
+    with a schedule, mask=, beta=, multilevel= and its objective
+    keywords, HALS, ANLS, ADMM, AO-ADMM, semi-NMF, ONMF, robust NMF and
+    ntf, each giving tpunmf's results on its one-device mesh (the id
+    predates the ports: these raised until the mesh drivers came); the
+    data stay global (each rank keeps its block inside the drivers)."""
     tmesh, jmesh = one_rank_meshes()
     got_model = tpunmf_torch.NMF(t(lowrank()), 5, mesh=tmesh)
     want_model = tpunmf.NMF(lowrank(), 5, mesh=jmesh)
@@ -200,17 +200,148 @@ def test_mesh_is_not_ported():
         np.testing.assert_allclose(got_model.w, np.asarray(want_model.w), rtol=1e-9)
     mask = np.random.default_rng(4).random((60, 48)) < 0.8
     for method, extra in (("hals", {}), ("anls", {}), ("admm", {}), ("ao_admm", {}),
-                          ("mur", {"mask": mask, "distance_type": "eu"})):
+                          ("mur", {"mask": mask, "distance_type": "eu"}),
+                          ("semi_nmf", {}), ("onmf", {}), ("onmf", {"orthogonal": "w"}),
+                          ("robust", {}), ("mur", {"multilevel": True}),
+                          ("hals", {"multilevel": {"levels": 1, "axis": 0}}),
+                          ("mur", {"beta": 1}), ("mur", {"beta": 0.5}),
+                          ("mur", {"objective": "gram", "distance_type": "eu"}),
+                          ("mur", {"objective": "lagged", "objective_every": 2})):
         kw = dict(nndsvd_init=(True, "zero"), min_iter=2, max_iter=6, **extra)
-        got = got_model.factorize(method=method, **kw)
-        want = want_model.factorize(method=method, **kw)
+        if method == "semi_nmf":  # mixed-sign X; the random init is torch's or JAX's own
+            kw = dict(min_iter=2, max_iter=6, h_init=np.random.default_rng(5).random((5, 48)))
+        data = lowrank() - 0.5 if method == "semi_nmf" else lowrank()
+        got = tpunmf_torch.NMF(t(data), 5, mesh=tmesh).factorize(method=method, **kw)
+        want = tpunmf.NMF(data, 5, mesh=jmesh).factorize(method=method, **kw)
         assert_results_match(got, want, rtol=1e-9)
-    for method, extra in (("semi_nmf", {}), ("robust", {}), ("mur", {"multilevel": True}),
-                          ("mur", {"beta": 1})):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            got_model.factorize(method=method, max_iter=2, **extra)
-    with pytest.raises(NotImplementedError, match="objective.*item 9"):
-        got_model.factorize(method="mur", objective="gram", max_iter=2)
+    # data_dtype= stores X in bf16 as one device does (tpunmf's takes a JAX dtype)
+    kw = dict(distance_type="eu", data_dtype=torch.bfloat16, nndsvd_init=(True, "zero"),
+              max_iter=6, save_dir="unused", verbose=True)
+    got = tpunmf_torch.NMF(t(lowrank()), 5, mesh=tmesh).factorize(method="mur", **kw)
+    want = tpunmf_torch.NMF(t(lowrank()), 5).factorize(method="mur", **kw)
+    assert_results_match(got, want, rtol=0)
+    x = lowrank().reshape(60, 6, 8)
+    init = [np.random.default_rng(d).random((n, 5)) + 0.1 for d, n in enumerate(x.shape)]
+    kw = dict(factors_init=init, min_iter=4, max_iter=4, tol1=0.0, tol2=0.0)
+    got = tpunmf_torch.NMF(t(x), 5, mesh=tmesh).factorize(method="ntf", **kw)
+    want = tpunmf.NMF(x, 5, mesh=jmesh).factorize(method="ntf", **kw)
+    assert got.i == want.i == 3
+    np.testing.assert_allclose(got.obj_history, want.obj_history, rtol=1e-10)
+    for a, b in zip(got.factors, want.factors):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-8, atol=1e-12)
+    assert "item 9" not in Path(tpunmf_torch.api.__file__).read_text()
+
+
+# every mesh driver through the facade on a (1, 1) mesh: (method, options)
+_MESH_DRIVERS = {
+    "mur_eu": ("mur", dict(distance_type="eu")),
+    "mur_kl": ("mur", dict(distance_type="kl")),
+    "mur_masked": ("mur", dict(distance_type="eu", mask=True)),
+    "mur_beta": ("mur", dict(beta=0.5)),
+    "hals": ("hals", dict()),
+    "anls": ("anls", dict()),
+    "admm_kl": ("admm", dict(distance_type="kl")),
+    "ao_admm": ("ao_admm", dict()),
+    "semi_nmf": ("semi_nmf", dict()),
+    "onmf": ("onmf", dict()),
+    "robust": ("robust", dict()),
+    "ntf": ("ntf", dict()),
+}
+
+
+def _driver_run(name, mesh, **kw):
+    method, options = _MESH_DRIVERS[name]
+    rng = np.random.default_rng(11)
+    x = lowrank()
+    kw = dict(options, min_iter=9, max_iter=9, tol1=0.0, tol2=0.0, **kw)
+    if kw.pop("mask", False):
+        kw["mask"] = t(rng.random(x.shape) < 0.8)
+    if method == "ntf":
+        x = x.reshape(60, 6, 8)
+        kw["factors_init"] = [rng.random((n, 5)) + 0.1 for n in x.shape]
+    elif method == "semi_nmf":
+        x = x - 0.5
+        kw["h_init"] = rng.random((5, 48))
+    else:
+        kw.update(w_init=rng.random((60, 5)) + 0.1, h_init=rng.random((5, 48)) + 0.1)
+    return tpunmf_torch.NMF(t(x), 5, mesh=mesh).factorize(method=method, **kw)
+
+
+def _fields(res):
+    out = [np.asarray(res.obj_history)]
+    return out + ([np.asarray(f) for f in res.factors] if hasattr(res, "factors")
+                  else [res.w, res.h])
+
+
+@pytest.mark.parametrize("backend", ["npz", "dcp"])
+@pytest.mark.parametrize("name", list(_MESH_DRIVERS))
+def test_a_mesh_run_resumes_bit_for_bit(name, backend, tmp_path):
+    """Each mesh driver, in blocks of 3 with checkpoints, stopped after two
+    blocks and resumed, gives the uninterrupted run's bits."""
+    tmesh, _ = one_rank_meshes((1, 1), ("rows", "cols"))
+    full = _driver_run(name, tmesh)
+    path = str(tmp_path / "ck")
+    run_interrupted(lambda **kw: _driver_run(name, tmesh, **kw), path, 3, 2,
+                    checkpoint_backend=backend)
+    seen = []
+    resumed = _driver_run(name, tmesh, checkpoint_path=path, checkpoint_every=3, resume=True,
+                          checkpoint_backend=backend, on_block_end=lambda c: seen.append(c.i))
+    assert seen == [9]
+    assert resumed.i == full.i == 8
+    for a, b in zip(_fields(resumed), _fields(full)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_checkpoints_cross_packages_and_meshes(tmp_path):
+    """HALS's checkpoint written on the port's (1, 1) mesh resumes in
+    tpunmf's one-device hals, and one written by tpunmf's mesh run resumes
+    in the port's (1,) mesh driver: each gives its uninterrupted run."""
+    tmesh, jmesh = one_rank_meshes((1, 1), ("rows", "cols"))
+    x = lowrank()
+    rng = np.random.default_rng(12)
+    kw = dict(w_init=rng.random((60, 5)) + 0.1, h_init=rng.random((5, 48)) + 0.1, min_iter=8,
+              max_iter=8, tol1=0.0, tol2=0.0)
+    from tpunmf.solvers import hals as jhals
+
+    want = jhals(x, 5, **kw)
+    path = str(tmp_path / "port")
+    run_interrupted(lambda **k: tpunmf_torch.NMF(t(x), 5, mesh=tmesh).factorize(
+        method="hals", **k, **kw), path, 4, 1)
+    got = jhals(x, 5, checkpoint_path=path, checkpoint_every=4, resume=True, **kw)
+    assert_results_match(got, want, rtol=1e-10)
+    path = str(tmp_path / "jax")
+    run_interrupted(lambda **k: tpunmf.NMF(x, 5, mesh=jmesh).factorize(method="hals", **k, **kw),
+                    path, 4, 1)
+    tmesh1, _ = one_rank_meshes()
+    got = tpunmf_torch.NMF(t(x), 5, mesh=tmesh1).factorize(
+        method="hals", checkpoint_path=path, checkpoint_every=4, resume=True, **kw)
+    assert_results_match(got, want, rtol=1e-10)
+
+
+def test_dcp_backend_roundtrip(tmp_path):
+    """The DCP backend restores the carry the .npz backend restores
+    (tests/test_checkpoint.py::test_orbax_backend_roundtrip's check), and
+    refuses another configuration."""
+    from tpunmf_torch.io import checkpoint_exists_dcp, load_state_dcp, save_state_dcp
+    from tpunmf_torch.solvers.common import init_carry
+
+    x = t(lowrank())
+    w, h = x[:, :4], x[:4, :].T.contiguous().T  # h column-major
+    carry = init_carry(torch.tensor(1.25, dtype=torch.float64), 20, (w, h))
+    path = str(tmp_path / "state")
+    assert not checkpoint_exists_dcp(path)
+    save_state_dcp(path, carry, meta="cfg-1")
+    assert checkpoint_exists_dcp(path)
+    restored = load_state_dcp(path, carry, expected_meta="cfg-1")
+    np.testing.assert_array_equal(restored.inner[0].numpy(), w.numpy())
+    np.testing.assert_array_equal(restored.inner[1].numpy(), h.numpy())
+    assert restored.inner[1].stride() == h.stride()
+    np.testing.assert_array_equal(restored.obj_buf.numpy(), carry.obj_buf.numpy())
+    assert restored.i == 0 and restored.converged is False
+    with pytest.raises(ValueError, match="mismatch"):
+        load_state_dcp(path, carry, expected_meta="cfg-2")
+    with pytest.raises(ValueError, match="shape"):
+        load_state_dcp(path, carry._replace(inner=(w[:30], h)), expected_meta="cfg-1")
 
 
 def test_synthetic_data_is_tpunmf_s():

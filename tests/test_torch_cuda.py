@@ -1897,3 +1897,84 @@ def test_lambda_grid_over_a_card_mesh(cuda_device, dist):
     got = experiments.mur_lambda_grid(x, 8, mesh=mesh, **kw)
     assert got[0] == want[0]
     torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0)
+
+
+@pytest.fixture
+def card_mesh11(cuda_device):
+    """A "cuda" mesh (1, 1) 'rows' x 'cols' over NCCL, a world of one."""
+    from tpunmf_torch import parallel
+
+    return parallel.build_mesh((1, 1), ("rows", "cols"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,options,kernel", [
+    ("semi_nmf", {}, "eu_residual_obj"),
+    ("onmf", {"orthogonal": "w"}, "eu_residual_obj"),
+    ("robust", {}, None),
+    ("mur", {"beta": 0.5}, None),
+    ("ntf", {"update": "hals"}, "gs_sweep"),
+])
+def test_new_drivers_over_a_card_mesh_hold_one_device_bits(card_mesh11, method, options,
+                                                           kernel):
+    """semi-NMF, ONMF, robust NMF, beta= and ntf through the facade's mesh=
+    on a (1, 1) world of one: the one-device run's bits (the same
+    expressions on the same blocks), its kernels launched as many times."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = t(lowrank(m=600, n=480, k=8)).float().cuda()
+    kw = dict(method=method, min_iter=8, max_iter=8, tol1=0.0, tol2=0.0, **options)
+    if method == "ntf":
+        x = x.reshape(600, 24, 20)
+        kw["factors_init"] = [torch.rand((s, 8), generator=g, device="cuda") + 0.1
+                              for s in x.shape]
+    else:
+        if method == "semi_nmf":
+            x = x - x.mean(dim=0)
+        kw["w_init"] = torch.rand((600, 8), generator=g, device="cuda") + 0.1
+        kw["h_init"] = torch.rand((8, 480), generator=g, device="cuda") + 0.1
+    wrapper = {"gs_sweep": hals_sweep.gs_sweep,
+               "eu_residual_obj": fused.eu_residual_obj}.get(kernel)
+    before = wrapper.launches if wrapper else 0
+    want = tpunmf_torch.NMF(x, 8).factorize(**kw)
+    one_device = wrapper.launches - before if wrapper else 0
+    got = tpunmf_torch.NMF(x, 8, mesh=card_mesh11).factorize(**kw)
+    if wrapper:
+        assert one_device > 0 and wrapper.launches - before == 2 * one_device
+    assert got.i == want.i == 7
+    np.testing.assert_array_equal(got.obj_history, want.obj_history)
+    fields = ((got.factors, want.factors) if method == "ntf"
+              else ((got.w, got.h), (want.w, want.h)))
+    for a, b in zip(*fields):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["npz", "dcp"])
+def test_hals_checkpoint_resumes_on_a_card_mesh(card_mesh11, backend, tmp_path):
+    """HALS over a (1, 1) card mesh in blocks of 4, stopped after a block
+    and resumed, gives the uninterrupted run's bits; the .npz resumes in
+    one-device hals with the same bits."""
+    from _torch_parity import run_interrupted
+    from tpunmf_torch.solvers import hals
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = t(lowrank(m=600, n=480, k=8)).float().cuda()
+    kw = dict(w_init=torch.rand((600, 8), generator=g, device="cuda") + 0.1,
+              h_init=torch.rand((8, 480), generator=g, device="cuda") + 0.1, min_iter=12,
+              max_iter=12, tol1=0.0, tol2=0.0)
+    model = tpunmf_torch.NMF(x, 8, mesh=card_mesh11)
+    full = model.factorize(method="hals", **kw)
+    path = str(tmp_path / "ck")
+    run_interrupted(lambda **k: model.factorize(method="hals", checkpoint_backend=backend,
+                                                **k, **kw), path, 4, 1)
+    got = model.factorize(method="hals", checkpoint_path=path, checkpoint_every=4, resume=True,
+                          checkpoint_backend=backend, **kw)
+    for a, b in ((got.obj_history, full.obj_history), (got.w, full.w), (got.h, full.h)):
+        np.testing.assert_array_equal(a, b)
+    if backend == "npz":
+        path = str(tmp_path / "ck2")
+        run_interrupted(lambda **k: model.factorize(method="hals", **k, **kw), path, 4, 1)
+        one = hals(x, 8, checkpoint_path=path, checkpoint_every=4, resume=True, **kw)
+        want = hals(x, 8, **kw)
+        for a, b in ((one.obj_history, want.obj_history), (one.w, want.w)):
+            np.testing.assert_array_equal(a, b)

@@ -417,7 +417,9 @@ def test_a_cuda_mesh_without_a_card_raises():
                                   "tests/_torch_dist_methods_worker.py",
                                   "tpunmf_torch/parallel/mesh_solvers.py",
                                   "tpunmf_torch/parallel/ntf_sharded.py",
-                                  "tpunmf_torch/core/sums.py"])
+                                  "tpunmf_torch/core/sums.py",
+                                  "tpunmf_torch/parallel/mesh_checkpoint.py",
+                                  "tpunmf_torch/io/checkpoint.py"])
 def test_worker_and_tool_import_neither_jax_nor_tpunmf(path):
     import ast
 

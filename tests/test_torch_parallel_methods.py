@@ -4,8 +4,10 @@ One 4-process world a module (``world`` fixture, ``_torch_parity.gloo_world``):
 the parent makes the inputs from a numpy seed, starts
 ``_torch_dist_methods_worker.py`` on 4 ranks, and each rank runs every case
 at float64 through ``tpunmf_torch.NMF(x, k, mesh=...).factorize`` on CPU
-meshes (2, 2) and (4,) 'cols', ``parallel.ntf_sharded`` on a (4,) 'rows'
-mesh and ``mur_lambda_grid`` on a (4,) 'grid' mesh.  Here every rank must
+meshes (2, 2) and (4,) 'cols' (every method, ``beta=``, ``multilevel=``,
+MUR's objective keywords and ntf), ``parallel.ntf_sharded`` on a (4,)
+'rows' mesh and ``mur_lambda_grid`` on a (4,) 'grid' mesh, then HALS's
+checkpoints over (2, 2) through both backends.  Here every rank must
 hold the same results, bit for bit, and they are held against ``tpunmf``
 on a JAX mesh of the same shape over 4 of the 8 CPU devices, with
 ``tpunmf``'s own tolerances (tests/test_sharding.py:139-161,
@@ -21,13 +23,20 @@ import jax
 import numpy as np
 import pytest
 
+import torch
+
 from tpunmf import NMF as JNMF
 from tpunmf import parallel as jpar
 from tpunmf.experiments import mur_lambda_grid as j_grid
+from tpunmf.io import checkpoint as jcheckpoint
+from tpunmf.solvers import common as jcommon
 from tpunmf.solvers import ntf as jntf
+from tpunmf_torch.io import load_state, load_state_dcp
+from tpunmf_torch.solvers.common import init_carry
 
-from _torch_dist_methods_worker import CASES, NTF_CASES, STOP, case_kwargs
-from _torch_parity import gloo_world
+from _torch_dist_methods_worker import (CASES, CHECKPOINT, NTF_CASES, NTF_MESH_CASES, STOP,
+                                        case_data, case_kwargs, ntf_kwargs)
+from _torch_parity import gloo_world, world_dir
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _WORKER = os.path.join(_HERE, "_torch_dist_methods_worker.py")
@@ -52,6 +61,13 @@ def _inputs():
         out[f"f{m}"] = np.abs(rng.standard_normal((s, 3)))
     for m, s in enumerate((16, 8, 4)):
         out[f"g{m}"] = np.abs(rng.standard_normal((s, 2)))
+    # semi-NMF's mixed-sign X; ntf's X of (8, 12, 5), its factors and mask
+    out["xs"] = rng.standard_normal((16, 24))
+    out["x3m"] = np.abs(rng.standard_normal((8, 12, 5)))
+    for m, s in enumerate((8, 12, 5)):
+        out[f"n{m}"] = np.abs(rng.standard_normal((s, 3)))
+    out["mask3"] = rng.random((8, 12, 5)) < 0.7
+    out["x40"] = rng.random((16, 40))  # a coarse level of 10 columns
     return out
 
 
@@ -92,8 +108,8 @@ def test_facade_mesh_is_tpunmf_s_gspmd_run(world, jmeshes, case, mesh):
     inp, _ = world
     method, options = _CASES[case]
     kw = case_kwargs(options, inp)
-    x = inp["xkl"] if kw.get("distance_type") == "kl" else inp["x"]
-    want = JNMF(x, 4, mesh=jmeshes[mesh]).factorize(method=method, **kw)
+    want = JNMF(case_data(options, kw, inp), 4, mesh=jmeshes[mesh]).factorize(method=method,
+                                                                              **kw)
     key = f"{case}/{mesh}"
     i = int(same_on_every_rank(world, key + "/i"))
     assert i == want.i
@@ -102,6 +118,19 @@ def test_facade_mesh_is_tpunmf_s_gspmd_run(world, jmeshes, case, mesh):
     for f in ("w", "h"):
         np.testing.assert_allclose(same_on_every_rank(world, f"{key}/{f}"),
                                    np.asarray(getattr(want, f)), rtol=1e-7, atol=1e-10)
+
+
+@pytest.mark.parametrize("mesh", ["m22", "m4"])
+def test_orthogonality_residual_reads_all_reduced_grams(world, jmeshes, mesh):
+    """ONMF's residual from each rank's columns of H, its Gram summed over
+    'cols': tpunmf's residual of the whole H, on every rank."""
+    from tpunmf.solvers.onmf import orthogonality_residual as j_residual
+
+    inp, _ = world
+    kw = case_kwargs(_CASES["onmf_h"][1], inp)
+    want = JNMF(inp["x"], 4, mesh=jmeshes[mesh]).factorize(method="onmf", **kw)
+    np.testing.assert_allclose(same_on_every_rank(world, f"onmf_h/{mesh}/orth"),
+                               float(j_residual(want.h)), rtol=1e-9)
 
 
 def test_some_runs_stop_early(world):
@@ -128,9 +157,14 @@ def test_what_each_run_sends(world, chip_smoke, case, mesh):
     got = dict(zip(kinds, same_on_every_rank(world, key + "/calls").tolist()))
     trips = same_on_every_rank(world, key + "/trips").tolist()
     names = _MESHES[mesh][1]
-    want = chip_smoke.mesh_method_calls(
-        method, kw, rows="rows" in names, cols="cols" in names,
-        iters=int(same_on_every_rank(world, key + "/i")) + 1, trips=trips, kernels=False)
+    axes = dict(rows="rows" in names, cols="cols" in names)
+    iters = int(same_on_every_rank(world, key + "/i")) + 1
+    if "multilevel" in kw:
+        want = chip_smoke.multilevel_calls(method, kw, iters=iters, n=inp["x"].shape[1], k=4,
+                                           **axes)
+    else:
+        want = chip_smoke.mesh_method_calls(method, kw, iters=iters, trips=trips,
+                                            kernels=False, **axes)
     assert got == want
 
 
@@ -155,6 +189,89 @@ def test_ntf_sharded_matches_tpunmf(world, jmeshes, chip_smoke, dist, update):
     kinds = [str(k) for k in ranks[0]["calls/kinds"]]
     got = dict(zip(kinds, same_on_every_rank(world, key + "/calls").tolist()))
     assert got == chip_smoke.ntf_sharded_calls(dist, 3, 12, factors_given=True)
+
+
+@pytest.mark.parametrize("mesh", ["m22", "m4"])
+@pytest.mark.parametrize("case", [name for name, _ in NTF_MESH_CASES])
+def test_facade_ntf_over_a_mesh_is_tpunmf_s(world, jmeshes, chip_smoke, case, mesh):
+    """ntf through the facade's mesh= (modes 0 and 1 split, normalize=True):
+    tpunmf's GSPMD run on the same mesh within its ntf tolerances, every
+    rank the same bits, and the collective calls by formula."""
+    inp, ranks = world
+    kw = ntf_kwargs(dict(NTF_MESH_CASES)[case], inp)
+    want = JNMF(inp["x3m"], 3, mesh=jmeshes[mesh]).factorize(method="ntf", **kw)
+    key = f"ntf_mesh/{case}/{mesh}"
+    i = int(same_on_every_rank(world, key + "/i"))
+    assert i == want.i
+    np.testing.assert_allclose(same_on_every_rank(world, key + "/obj"),
+                               np.asarray(want.obj_history), rtol=1e-9, atol=1e-9)
+    for m in range(3):
+        np.testing.assert_allclose(same_on_every_rank(world, f"{key}/f{m}"),
+                                   np.asarray(want.factors[m]), rtol=1e-8, atol=1e-10)
+    kinds = [str(k) for k in ranks[0]["calls/kinds"]]
+    got = dict(zip(kinds, same_on_every_rank(world, key + "/calls").tolist()))
+    names = _MESHES[mesh][1]
+    assert got == chip_smoke.ntf_mesh_calls(kw, "rows" in names, "cols" in names, 3, i + 1)
+
+
+def test_multilevel_refuses_a_level_the_mesh_does_not_divide(world):
+    """Where tpunmf's GSPMD run pads, the port's even blocks refuse, naming
+    the level: X (16, 40) coarsened by 4 has 10 columns over 4 ranks."""
+    got = str(same_on_every_rank(world, "ml_uneven"))
+    assert got.startswith("multilevel level 1: X of shape (16, 10)") and "'cols'" in got
+
+
+def _checkpoint_run(inp):
+    kw = dict(CHECKPOINT, w_init=inp["w0"], h_init=inp["h0"])
+    kw.pop("method")
+    return kw
+
+
+@pytest.mark.parametrize("backend", ["npz", "dcp"])
+def test_a_mesh_checkpoint_resumes_bit_for_bit(world, jmeshes, chip_smoke, backend):
+    """HALS over (2, 2) stopped after its first block of 5 and resumed
+    gives the uninterrupted run's bits; resumed on the (4,) mesh instead,
+    tpunmf's run within its tolerances; an .npz save gathers W and H."""
+    inp, ranks = world
+    full = {f: same_on_every_rank(world, f"ck/{backend}/full/{f}")
+            for f in ("w", "h", "obj_history")}
+    for f in ("w", "h", "obj_history"):
+        np.testing.assert_array_equal(same_on_every_rank(world, f"ck/{backend}/resumed/{f}"),
+                                      full[f], err_msg=f)
+    kw = _checkpoint_run(inp)
+    kw.pop("checkpoint_every")
+    want = JNMF(inp["x"], 4, mesh=jmeshes["m22"]).factorize(method="hals", **kw)
+    np.testing.assert_allclose(full["obj_history"], np.asarray(want.obj_history), rtol=1e-9)
+    np.testing.assert_allclose(same_on_every_rank(world, f"ck/{backend}/moved/obj_history"),
+                               np.asarray(want.obj_history), rtol=1e-9)
+    np.testing.assert_allclose(same_on_every_rank(world, f"ck/{backend}/moved/w"),
+                               np.asarray(want.w), rtol=1e-7, atol=1e-10)
+    kinds = [str(k) for k in ranks[0]["calls/kinds"]]
+    got = dict(zip(kinds, same_on_every_rank(world, f"ck/{backend}/full/calls").tolist()))
+    assert got == chip_smoke.mesh_method_calls("hals", kw, True, True, 10,
+                                               saves=2 if backend == "npz" else 0)
+
+
+@pytest.mark.parametrize("backend", ["npz", "dcp"])
+def test_a_sharded_checkpoint_loads_in_one_process(world, tmp_path_factory, backend):
+    """The (2, 2) run's last checkpoint holds the global arrays: the port
+    loads it in this one process (the .npz also into tpunmf's carry), and
+    its W, H and trace are the run's."""
+    inp, _ = world
+    path = str(world_dir(tmp_path_factory, "torch_methods_world") / f"ck_{backend}_full")
+    w0, h0 = torch.from_numpy(inp["w0"]), torch.from_numpy(inp["h0"])
+    template = init_carry(torch.tensor(0.0, dtype=torch.float64), 10, (w0, h0))
+    got = (load_state_dcp if backend == "dcp" else load_state)(path, template)
+    assert got.i == 10
+    for leaf, f in ((got.inner[0], "w"), (got.inner[1], "h")):
+        np.testing.assert_array_equal(leaf.numpy(),
+                                      same_on_every_rank(world, f"ck/{backend}/full/{f}"))
+    np.testing.assert_array_equal(got.obj_buf.numpy(),
+                                  same_on_every_rank(world, f"ck/{backend}/full/obj_history"))
+    if backend == "npz":
+        jt = jcommon.init_carry(np.float64(0.0), 10, (inp["w0"], inp["h0"]))
+        back = jcheckpoint.load_state(path, jt)
+        np.testing.assert_array_equal(np.asarray(back.inner[0]), got.inner[0].numpy())
 
 
 @pytest.mark.parametrize("tag", ["divide", "kl_hals", "negative", "factors"])

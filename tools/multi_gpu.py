@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phase 9 or 10 alone: the solvers across GPUs as a world of one.
+"""chip_smoke.py's phase 9, 10 or 11 alone: the solvers across GPUs as a world of one.
 
     python3 tools/multi_gpu.py              # phase 9: MUR, streamed MUR, serving
     python3 tools/multi_gpu.py --phase 10   # phase 10: the reference solvers
+    python3 tools/multi_gpu.py --phase 11   # phase 11: every other method and keyword
 
 Builds the CUDA kernels and the native panelizer of this checkout, makes
 the EU 8192x8192 X (lowrank_dense, seed 0) and BASELINE config[3]'s CSR
@@ -14,7 +15,10 @@ seed=0))): an NCCL group of one rank, the facade's mesh= and schedule= on
 Phase 10 (``methods_phase``, with the KL 8192x4096 X, tfidf_like seed 4):
 hals, anls, admm, ao_admm and masked MUR through the facade's mesh=,
 ntf_sharded and the lambda grid's mesh=, each against one device and its
-plain route.  Every number is printed beside the card's name and power
+plain route.  Phase 11 (``mesh_rest_phase``, with config[1]): semi_nmf,
+onmf, robust, beta=, MUR's objective keywords, multilevel= and ntf through
+the facade's mesh=, each against one device and its plain route, and
+HALS's checkpoints through both backends.  Every number is printed beside the card's name and power
 limit; a failure exits non-zero.
 """
 from __future__ import annotations
@@ -30,7 +34,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", type=int, choices=(9, 10), default=9)
+    parser.add_argument("--phase", type=int, choices=(9, 10, 11), default=9)
     phase = parser.parse_args().phase
     import torch
 
@@ -60,13 +64,14 @@ def main() -> int:
           flush=True)
     t0 = time.perf_counter()
     eu_x = torch.from_numpy(lowrank_dense(8192, 8192, 128, seed=0)).cuda()
-    adm_csr = cs.config3_on_card(torch)[1]
-    if phase == 9:
+    adm_csr = cs.config3_on_card(torch)[1] if phase != 11 else None
+    if phase in (9, 11):
         data = {"eu": eu_x,
                 "kl": torch.from_numpy(tfidf_like(20000, 11000, n_topics=50, seed=1)).cuda()}
+    if phase == 9:
         o = cs.OOC
         c4_csr = sparse_csr(o["m"], o["n"], density=o["density"], seed=o["seed"])
-    else:
+    elif phase == 10:
         k = cs.KL_SINGLE
         data = {"eu": eu_x, "kl": torch.from_numpy(tfidf_like(k["m"], k["n"], n_topics=k["k"],
                                                               seed=k["seed"])).cuda()}
@@ -76,6 +81,10 @@ def main() -> int:
                 "mur_h_update": (mur_fused.mur_h_update, "launches"),
                 "eu_residual_obj": (fused.eu_residual_obj, "launches"),
                 "kl_obj": (fused.kl_obj, "launches"), "kl_ratio": (fused.kl_ratio, "launches"),
+                "mur_w_update_lagged": (mur_fused.mur_w_update, "lagged_launches"),
+                "mur_iteration_eu": (mur_fused.mur_iteration_eu, "launches"),
+                "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches"),
+                "hals_iteration_eu": (hals_sweep.hals_iteration_eu, "launches"),
                 "kl_ratio_and_obj": (fused.kl_ratio_and_obj, "launches"),
                 "gs_sweep": (hals_sweep.gs_sweep, "launches"),
                 "masked_w_update": (masked_fused.masked_w_update, "launches"),
@@ -94,8 +103,10 @@ def main() -> int:
     t0 = time.perf_counter()
     if phase == 9:
         cs.multi_gpu_phase(torch, tt, drive, card, data, adm_csr, c4_csr)
-    else:
+    elif phase == 10:
         cs.methods_phase(torch, tt, drive, card, data, adm_csr)
+    else:
+        cs.mesh_rest_phase(torch, tt, drive, card, data)
     print(f"  phase {phase} took {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

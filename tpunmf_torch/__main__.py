@@ -159,7 +159,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     try:
         return args.fn(args)
-    except NotImplementedError as e:  # an option not ported yet (schedule=, mesh=)
+    except NotImplementedError as e:  # what tpunmf refuses too (bf16 X in ANLS, AO-ADMM)
         print(f"error: {e}", file=sys.stderr)
         return 1
 

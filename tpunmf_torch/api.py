@@ -13,16 +13,19 @@ MUR), ``"anls"``, ``"hals"``, ``"admm"``, ``"ao_admm"``, ``"semi_nmf"``,
 ``"onmf"``, ``"robust"``, ``"ntf"`` (N-way CP: ``.w`` / ``.h`` are None,
 ``fit_transform`` gives the mode-0 factor, ``transform`` and
 ``inverse_transform`` refuse), and the ``multilevel=`` warm start of mur
-and hals.  MUR, masked MUR, HALS, ANLS, ADMM and AO-ADMM run across
-devices (``tpunmf_torch.parallel``): ``NMF(data, k, mesh=m)`` keeps the
-mesh, and ``factorize`` then runs ``parallel.mur_mesh`` (``tpunmf``'s
-GSPMD run, its collectives written out), ``mur_masked_mesh`` (with
-``mask=``), ``hals_mesh``, ``anls_mesh``, ``admm_mesh`` or
-``ao_admm_mesh``; ``factorize("mur", schedule="ulysses" | "rank")`` runs
+and hals.  Every method runs across devices too (``tpunmf_torch.parallel``):
+``NMF(data, k, mesh=m)`` keeps the mesh, and ``factorize`` then runs the
+method's mesh driver (``tpunmf``'s GSPMD run, its collectives written
+out): ``parallel.mur_mesh``, ``mur_masked_mesh`` (with ``mask=``),
+``mur_beta_mesh`` (with ``beta=``), ``hals_mesh``, ``anls_mesh``,
+``admm_mesh``, ``ao_admm_mesh``, ``semi_nmf_mesh``, ``onmf_mesh``,
+``robust_mesh``, ``ntf_mesh``, or ``multilevel_mesh`` (with
+``multilevel=``), each with every keyword of the one-device solver,
+blocks and checkpoints included (a mesh run's ``.npz`` checkpoint is the
+one-device one; ``checkpoint_backend="dcp"`` writes a sharded one);
+``factorize("mur", schedule="ulysses" | "rank")`` runs
 ``parallel.mur_sharded`` and needs a mesh.  Every rank passes the global
-data and gets the same results.  ``mesh=`` with another method, or with
-``beta=`` or ``multilevel=``, raises ``NotImplementedError`` (ROADMAP.md,
-queue 1, item 9).
+data and gets the same results.
 """
 from __future__ import annotations
 
@@ -39,9 +42,11 @@ _METHODS = ("mur", "anls", "admm", "ao_admm", "hals", "semi_nmf", "onmf",
             "ntf", "robust")
 # every method of the list is ported
 _PORTED = _METHODS
-# the methods that run over mesh= (tpunmf_torch.parallel), by driver
+# every method runs over mesh= (tpunmf_torch.parallel), by driver
 _MESH_METHODS = {"mur": "mur_mesh", "hals": "hals_mesh", "anls": "anls_mesh",
-                 "admm": "admm_mesh", "ao_admm": "ao_admm_mesh"}
+                 "admm": "admm_mesh", "ao_admm": "ao_admm_mesh",
+                 "semi_nmf": "semi_nmf_mesh", "onmf": "onmf_mesh", "robust": "robust_mesh",
+                 "ntf": "ntf_mesh"}
 
 
 class NMF:
@@ -106,14 +111,6 @@ class NMF:
 
         from . import solvers
 
-        if params.get("mesh", self.mesh) is not None:
-            options = [f"{o}=" for o in ("multilevel", "beta")
-                       if params.get(o) is not None]
-            if method not in _MESH_METHODS or options:
-                raise NotImplementedError(
-                    f"mesh= with {' and '.join([f'method={method!r}'] + options)} is not "
-                    "ported yet (ROADMAP.md, queue 1, item 9)")
-
         # multilevel warm start (arXiv:1009.0881) rides any mur/hals fit:
         # factorize(method='hals', multilevel={'levels': 2, 'factor': 4}),
         # as tpunmf/api.py:102-116
@@ -122,8 +119,15 @@ class NMF:
             if method not in ("mur", "hals"):
                 raise ValueError("multilevel= supports methods mur and hals")
             ml = dict(ml) if not isinstance(ml, bool) else {}
-            self.results = solvers.multilevel(self.data, self.factors,
-                                              method=method, **ml, **params)
+            mesh = params.pop("mesh", self.mesh)
+            if mesh is not None:
+                from .parallel import multilevel_mesh
+
+                self.results = multilevel_mesh(self.data, self.factors, mesh, method=method,
+                                               **ml, **params)
+            else:
+                self.results = solvers.multilevel(self.data, self.factors,
+                                                  method=method, **ml, **params)
             print("Factorization done.")
             if saving:
                 self.save_factorization()
@@ -157,6 +161,9 @@ class NMF:
             if mask is not None:
                 self.results = parallel.mur_masked_mesh(self.data, mask, self.factors, mesh,
                                                         **params)
+            elif beta is not None:
+                self.results = parallel.mur_beta_mesh(self.data, self.factors, mesh, beta=beta,
+                                                      **params)
             else:
                 self.results = getattr(parallel, _MESH_METHODS[method])(
                     self.data, self.factors, mesh, **params)

@@ -33,11 +33,17 @@ process a device.  So:
   its launches.
 
 The other solvers (``mesh_solvers``): ``hals_mesh``, ``anls_mesh``,
-``admm_mesh``, ``ao_admm_mesh`` and ``mur_masked_mesh``, the facade's
-``mesh=`` for those methods, run the one-device solver's own step on the
-rank's blocks with the products and norms all-reduced
-(``core/sums.py``'s hooks, ``MeshSums``).  ``ntf_sharded``: N-way CP on
-mode-0 slabs.
+``admm_mesh``, ``ao_admm_mesh``, ``mur_masked_mesh``, ``mur_beta_mesh``,
+``semi_nmf_mesh``, ``onmf_mesh``, ``robust_mesh``, ``ntf_mesh`` (modes 0
+and 1 split, ``tpunmf``'s facade layout) and ``multilevel_mesh``, the
+facade's ``mesh=`` for every method, run the one-device solver's own step
+on the rank's blocks with the products and norms all-reduced
+(``core/sums.py``'s hooks, ``MeshSums``).  Each takes the one-device
+solver's keywords, blocks and checkpoints included: ``MeshStore``
+(``mesh_checkpoint.py``) saves a mesh run's state as the one-device
+``.npz`` file of global arrays, or as a sharded DCP directory
+(``checkpoint_backend="dcp"``).  ``ntf_sharded``: N-way CP on mode-0
+slabs.
 """
 from .collectives import (
     calls,
@@ -62,8 +68,10 @@ from .multihost import (
     host_local_column_range,
     initialize_multihost,
 )
+from .mesh_checkpoint import MeshStore
 from .mesh_solvers import (MeshSums, admm_mesh, anls_mesh, ao_admm_mesh, hals_mesh,
-                           mur_masked_mesh)
+                           mur_beta_mesh, mur_masked_mesh, multilevel_mesh, ntf_mesh, onmf_mesh,
+                           robust_mesh, semi_nmf_mesh)
 from .ntf_sharded import ntf_sharded
 from .sharded_solvers import mur_mesh, mur_rank_sharded, mur_sharded, mur_ulysses
 
@@ -98,7 +106,14 @@ __all__ = [
     "admm_mesh",
     "ao_admm_mesh",
     "mur_masked_mesh",
+    "mur_beta_mesh",
+    "semi_nmf_mesh",
+    "onmf_mesh",
+    "robust_mesh",
+    "ntf_mesh",
+    "multilevel_mesh",
     "MeshSums",
+    "MeshStore",
     "calls",
     "reset_calls",
     "axis_size",

@@ -21,12 +21,14 @@ and the factors are never gathered.  Its products are plain
 
 Mesh (``mur_mesh``, the facade's ``mesh=`` without a schedule): ``mur`` on
 the canonical layout, V ('rows', 'cols'), W ('rows', None), H (None,
-'cols'), with the collectives GSPMD would insert written out:
-``xht_psum`` and ``gram_h`` for the W half, ``wtx_psum`` and ``gram_w``
-for the H half, and an all-reduced exact objective.  A half whose
-contraction axis is absent or of size 1 is local and takes its update
-kernel; the other takes the products, the collectives and the canonical
-update (``solvers/streaming.py``), its KL ratios on ``kl_ratio``.
+'cols'), with the collectives GSPMD would insert written out (what
+``collectives``' ``xht_psum`` and ``gram_h`` compute for the W half,
+``wtx_psum`` and ``gram_w`` for the H half) and an all-reduced
+objective.  A half whose contraction axis is absent or of size 1 is local
+and takes its update kernel; the other takes the products, the
+collectives and the canonical update (``solvers/streaming.py``), its KL
+ratios on ``kl_ratio``; the plain and high-rank routes run one device's
+step with ``MeshSums``.
 
 Every driver stops on a value all ranks hold bit for bit (an all-reduced
 objective), through ``solvers/common.py``'s loop: the check only at i >
@@ -37,21 +39,24 @@ predicates take X and k; the CPU always takes the plain versions.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
-from ..core.losses import eu_elementwise_sum, kl_elementwise_sum
+from ..core.losses import eu_elementwise_sum, eu_objective_gram, kl_elementwise_sum
 from ..core.precision import full_f32
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd as _nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj, kl_obj_ref, kl_ratio,
-                         kl_ratio_ref, objective_takes)
+                         kl_ratio_and_obj, kl_ratio_and_obj_ref, kl_ratio_ref, objective_takes)
 from ..ops.mur_fused import mur_h_update, mur_w_update, updates_take
-from ..solvers.common import finalize_history, host_array, init_carry, while_block
+from ..solvers.common import (finalize_history, host_array, init_carry, verbose_precision,
+                              while_block)
+from ..solvers.mur import _mur_block, _passes
 from ..solvers.streaming import (_kl_closed_form, _mur_h_update_eu, _mur_h_update_kl,
                                  _mur_w_update_eu, _mur_w_update_kl)
-from .collectives import (all_gather, all_reduce, broadcast, gram_h, gram_w,
-                          reshard_rows_to_cols, wtx_psum, xht_psum)
+from .collectives import all_gather, all_reduce, broadcast, reshard_rows_to_cols
 from .mesh import (axis_index, axis_size, has_axis, local_block, mesh_device, nmf_shardings,
                    place)
 
@@ -354,68 +359,166 @@ def mur_mesh(
     lambda_w: float = 0.0,
     lambda_h: float = 0.0,
     nndsvd_init=(False, "zero"),
+    save_dir: str = "./results/",
     w_init=None,
     h_init=None,
     key=None,
+    objective: str = "exact",
+    objective_every: int = 1,
+    data_dtype=None,
     use_pallas=None,
-    **unported,
+    verbose: bool = False,
+    block_size=None,
+    on_block_end=None,
+    checkpoint_path=None,
+    checkpoint_every=None,
+    resume: bool = False,
+    checkpoint_backend: str = "npz",
+    frame=None,
 ):
     """``mur`` over a mesh on the canonical layout (``nmf_shardings``): the
     facade's ``mesh=`` path, ``tpunmf``'s GSPMD run with its collectives
-    written out.  Takes ``mur_sharded``'s keywords (but ``schedule`` and
-    ``axis``); the exact objective a step, all-reduced.  Every rank passes
-    the global host data and returns the same ``Results``."""
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(sorted(unported))}: MUR over mesh= takes mur_sharded's keywords; "
-            "the others are not ported yet (ROADMAP.md, queue 1, item 9)")
+    written out.  Takes every keyword of ``solvers.mur``, with its
+    semantics (``objective`` 'exact', 'gram' or 'lagged', ``objective_every``,
+    ``data_dtype``, blocks and checkpoints), plus ``checkpoint_backend``
+    ('npz' or 'dcp', ``parallel/mesh_checkpoint.py``) and ``frame``
+    (``mesh_solvers._frame``).  Every rank passes the global host data and
+    returns the same ``Results``; ``verbose`` prints on rank 0.
+
+    Where the update kernels take X and k, a half whose contraction axis
+    is absent or of size 1 takes its update kernel on the rank's block (the
+    W pass's lagged KL too), the other its products, collectives and
+    closed form (KL ratios on ``kl_ratio``, or ``kl_ratio_and_obj`` where
+    'lagged' reads the incoming iterate's objective).  Elsewhere (float64,
+    ``use_pallas=False``, k > 1024) it runs the one-device step of the
+    high-rank or plain route (``solvers.mur._mur_block``) with
+    ``MeshSums``, carrying KL's ratio as one device does; 'lagged' then
+    runs as 'exact', as there."""
+    from .mesh_solvers import _checkpointed, _frame, _gathered, _rank0
+
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
-    sh = nmf_shardings(mesh)
-    rows, cols = sh["w"][0], sh["h"][1]
-    xl, wl, hl = _setup(x, k, mesh, (sh["v"], sh["w"], sh["h"]), nndsvd_init=nndsvd_init, w_init=w_init,
-                        h_init=h_init, key=key)
+    objective_every = int(objective_every)
+    if objective_every < 1:
+        raise ValueError("objective_every must be >= 1")
+    sums, lay = _frame(mesh, frame)
+    rows, cols = lay["w"][0], lay["h"][1]
+    xl = place(mesh, x, lay["v"])
+    # data elevation for slightly-negative inputs (nmf/mur.py:99-102)
+    low = _reduce_mesh(mesh, torch.min(xl).reshape(1), dist.ReduceOp.MIN)
+    shift = torch.clamp(-low[0], min=0.0)
+    xl = xl + shift
+    if data_dtype is not None:
+        xl = xl.to(data_dtype)
+    xl = xl.contiguous()
+    factor_dtype = torch.float32 if xl.dtype == torch.bfloat16 else xl.dtype
+
+    def nndsvd_data():
+        xg = place(mesh, x, (None, None)) + shift
+        return (xg if data_dtype is None else xg.to(data_dtype)).to(factor_dtype)
+
+    w, h = global_inits(mesh, *x.shape, k, factor_dtype, nndsvd_init=nndsvd_init,
+                        w_init=w_init, h_init=h_init, key=key, nndsvd_data=nndsvd_data)
+    w = local_block(mesh, w, lay["w"]).contiguous()
+    h = local_block(mesh, h, lay["h"]).contiguous()
     kl = distance_type == "kl"
     upd, obj_k = _routes(xl, k, use_pallas)
-    # a half is local where its contraction axis is absent or of size 1
-    w_local = upd and (cols is None or axis_size(mesh, cols) == 1)
-    h_local = upd and (rows is None or axis_size(mesh, rows) == 1)
-    ratio = kl_ratio if obj_k else kl_ratio_ref
     lam_w, lam_h = float(lambda_w), float(lambda_h)
-
-    def summed(t, axis):
-        return t if axis is None else all_reduce(t, mesh, axis)
-
-    def objective(w, h):
-        return _reduce_mesh(mesh, _objective_part(kl, obj_k, xl, w, h))
-
-    def step(inner, i):
-        w, h = inner
-        if w_local:
-            w = mur_w_update(xl, w, h, distance_type=distance_type, lam=lam_w)
-        elif kl:
-            numer = xht_psum(mesh, ratio(xl, w, h, eps=_EPS), h)
-            w = _kl_closed_form(w * numer, summed(torch.sum(h, dim=1), cols)[None, :], lam_w)
-        else:
-            w = _mur_w_update_eu(w, xht_psum(mesh, xl, h), gram_h(mesh, h), lam_w)
-        if h_local:
-            h, _ = mur_h_update(xl, w, h, distance_type=distance_type, lam=lam_h)
-        elif kl:
-            numer = wtx_psum(mesh, w, ratio(xl, w, h, eps=_EPS))
-            h = _kl_closed_form(h * numer, summed(torch.sum(w, dim=0), rows)[:, None], lam_h)
-        else:
-            h = _mur_h_update_eu(h, wtx_psum(mesh, w, xl), gram_w(mesh, w), lam_h)
-        return (w, h), objective(w, h)[0]
-
-    with torch.no_grad(), full_f32():
-        obj0 = objective(wl, hl)
-    carry = _loop(step, obj0, (wl, hl), min_iter=min_iter, max_iter=max_iter, tol1=tol1,
-                  tol2=tol2)
-    w, h = carry.inner
-    if rows is not None:
-        w = all_gather(w, mesh, rows, dim=0)
-    if cols is not None:
-        h = all_gather(h, mesh, cols, dim=1)
+    verbose = _rank0(verbose_precision(verbose, tol1, tol2))
     experiment = _experiment(k, distance_type, nndsvd_init, max_iter, tol1, tol2, lambda_w,
                              lambda_h)
-    return _results(carry, w, h, experiment)
+    layouts = [lay["w"], lay["h"]]
+    with torch.no_grad(), full_f32():
+        if not kl and objective == "gram":
+            xf = xl.to(torch.float32) if xl.dtype == torch.bfloat16 else xl
+            xsq = sums.psum(torch.sum(xf * xf), "rows", "cols")
+        else:
+            xsq = torch.zeros((), dtype=factor_dtype, device=xl.device)
+        if not upd:
+            route = "high_rank" if obj_k else "plain"
+            # the jnp step's products promote bf16 X; upcast it once here
+            xl = xl.to(factor_dtype)
+            if kl:
+                r0, part = _passes(route)[1](xl, w, h, eps=_EPS)
+                inner = (w, h, r0)
+                layouts.append(lay["v"])
+            else:
+                part = _passes(route)[2](xl, w, h)
+                inner = (w, h)
+            obj0 = sums.psum(part, "rows", "cols")
+
+    if not upd:
+        def run(c, stop):
+            return _mur_block(xl, xsq, c, stop, tol1, tol2, lam_w, lam_h,
+                              distance_type=distance_type, min_iter=min_iter,
+                              max_iter=max_iter, objective=objective, route=route,
+                              objective_every=objective_every, verbose=verbose, sums=sums)
+    else:
+        # a half is local where its contraction axis is absent or of size 1
+        w_local = cols is None or axis_size(mesh, cols) == 1
+        h_local = rows is None or axis_size(mesh, rows) == 1
+        ratio = kl_ratio if obj_k else kl_ratio_ref
+        ratio_obj = kl_ratio_and_obj if obj_k else kl_ratio_and_obj_ref
+        lagged = kl and objective == "lagged"
+
+        def objective_of(w, h):
+            return sums.psum(_objective_part(kl, obj_k, xl, w, h), "rows", "cols")[0]
+
+        def step(inner, i):
+            w, h = inner
+            # tpunmf mur.py:96-131: a real objective every objective_every
+            # iterations and at the last possible one, NaN in between
+            real = objective_every == 1 or (i + 1) % objective_every == 0 or i + 1 >= max_iter
+            obj = torch.tensor(math.nan)
+            if w_local:
+                if lagged and real:
+                    w, part = mur_w_update(xl, w, h, distance_type="kl", lam=lam_w,
+                                           with_lagged_obj=True)
+                    obj = sums.psum(part, "rows", "cols")
+                else:
+                    w = mur_w_update(xl, w, h, distance_type=distance_type, lam=lam_w)
+            elif kl:
+                if lagged and real:
+                    r, part = ratio_obj(xl, w, h, eps=_EPS)
+                    obj = sums.psum(part, "rows", "cols")
+                else:
+                    r = ratio(xl, w, h, eps=_EPS)
+                numer = sums.psum(r @ h.T, "cols")
+                w = _kl_closed_form(w * numer, sums.psum(torch.sum(h, dim=1), "cols")[None, :],
+                                    lam_w)
+            else:
+                w = _mur_w_update_eu(w, sums.psum(xl @ h.T, "cols"),
+                                     sums.psum(h @ h.T, "cols"), lam_w)
+            wtx = gram = None
+            if h_local:
+                h, wtx = mur_h_update(xl, w, h, distance_type=distance_type, lam=lam_h)
+            elif kl:
+                numer = sums.psum(w.T @ ratio(xl, w, h, eps=_EPS), "rows")
+                h = _kl_closed_form(h * numer, sums.psum(torch.sum(w, dim=0), "rows")[:, None],
+                                    lam_h)
+            else:
+                wtx, gram = sums.psum(w.T @ xl, "rows"), sums.psum(w.T @ w, "rows")
+                h = _mur_h_update_eu(h, wtx, gram, lam_h)
+            if lagged or not real:
+                return (w, h), obj
+            if not kl and objective == "gram":
+                if gram is None:
+                    gram = sums.psum(w.T @ w, "rows")
+                return (w, h), eu_objective_gram(xsq, wtx, gram, h, sums)
+            return (w, h), objective_of(w, h)
+
+        with torch.no_grad(), full_f32():
+            inner = (w, h)
+            obj0 = objective_of(w, h)
+
+        def run(c, stop):
+            with torch.no_grad(), full_f32():
+                return while_block(step, c, stop, tol1, tol2, min_iter=min_iter,
+                                   max_iter=max_iter, verbose=verbose)
+
+    carry = _checkpointed(mesh, run, init_carry(obj0, max_iter, inner), layouts,
+                          max_iter=max_iter, config_tag=repr(experiment),
+                          block_size=block_size, on_block_end=on_block_end,
+                          checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
+                          resume=resume, checkpoint_backend=checkpoint_backend)
+    return _gathered(mesh, carry, carry.inner[0], carry.inner[1], experiment, lay)

@@ -27,6 +27,7 @@ import torch
 
 from ..core.device import as_input
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from .common import finalize_history, host_array, init_carry, run_loop, while_block
@@ -63,8 +64,24 @@ def _gamma(beta: float) -> float:
     return 1.0
 
 
+def check_init(w, h, beta: float) -> None:
+    """Refuse given inits whose reconstruction has a cell <= 0 where beta
+    < 1 (negative powers of it would NaN the first update)."""
+    if beta < 1.0 and float(torch.min(w @ h)) <= 0.0:
+        raise ValueError(
+            "beta < 1 needs a strictly positive init reconstruction: "
+            "min(w_init @ h_init) <= 0 would raise zero cells to a "
+            "negative power and NaN the run. Nudge the inits to a "
+            "small positive floor (e.g. torch.clamp(w, min=1e-6)).")
+
+
 def _mur_beta_block(x, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
-                    beta: float, min_iter: int, max_iter: int, verbose):
+                    beta: float, min_iter: int, max_iter: int, verbose, sums=LOCAL):
+    """Beta-divergence MUR iterations up to ``stop_i``.  Over a mesh
+    (``parallel.mur_beta_mesh``) the powers of W H are taken on this rank's
+    block (a local product with k whole), the numerators and denominators
+    are summed over the axis each contracts, and the divergence's
+    partials over both."""
     g = _gamma(beta)
 
     def ratio_parts(wh):
@@ -76,12 +93,14 @@ def _mur_beta_block(x, carry, stop_i, tol1, tol2, lambda_w, lambda_h, *,
     def step(inner, i):
         w, h = inner
         num, den = ratio_parts(w @ h)
-        ratio_w = (num @ h.T) / (den @ h.T + lambda_w * w + _EPS)
+        ratio_w = sums.psum(num @ h.T, "cols") / (sums.psum(den @ h.T, "cols")
+                                                  + lambda_w * w + _EPS)
         w = w * (ratio_w ** g if g != 1.0 else ratio_w)
         num, den = ratio_parts(w @ h)
-        ratio_h = (w.T @ num) / (w.T @ den + lambda_h * h + _EPS)
+        ratio_h = sums.psum(w.T @ num, "rows") / (sums.psum(w.T @ den, "rows")
+                                                  + lambda_h * h + _EPS)
         h = h * (ratio_h ** g if g != 1.0 else ratio_h)
-        return (w, h), beta_divergence(x, w @ h, beta)
+        return (w, h), sums.psum(beta_divergence(x, w @ h, beta), "rows", "cols")
 
     with torch.no_grad(), full_f32():
         return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,
@@ -140,12 +159,7 @@ def mur_beta(
         if w_init is not None:
             w = torch.as_tensor(w_init, dtype=x.dtype, device=x.device)
             h = torch.as_tensor(h_init, dtype=x.dtype, device=x.device)
-            if beta < 1.0 and float(torch.min(w @ h)) <= 0.0:
-                raise ValueError(
-                    "beta < 1 needs a strictly positive init reconstruction: "
-                    "min(w_init @ h_init) <= 0 would raise zero cells to a "
-                    "negative power and NaN the run. Nudge the inits to a "
-                    "small positive floor (e.g. torch.clamp(w, min=1e-6)).")
+            check_init(w, h, beta)
         elif nndsvd_init[0]:
             w, h = nndsvd(x, k, variant=nndsvd_init[1], key=key)
             if beta < 1.0:

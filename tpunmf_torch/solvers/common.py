@@ -9,7 +9,10 @@ was recorded.
 
 Blocked execution (``block_size`` / ``on_block_end``) hands control back
 between blocks with identical per-iteration semantics; ``run_loop`` adds
-checkpoint/resume between blocks (``io/checkpoint.py``).
+checkpoint/resume between blocks (``io/checkpoint.py``), through a
+``store``: the one-device ``.npz`` files by default, or a mesh driver's
+(``parallel/mesh_checkpoint.py``), which gathers the rank's blocks into
+the same global files.
 """
 from __future__ import annotations
 
@@ -144,6 +147,7 @@ def run_loop(
     checkpoint_every: Optional[int] = None,
     resume: bool = False,
     config_tag: Optional[str] = None,
+    store=None,
 ) -> LoopCarry:
     """drive() plus optional checkpoint/resume (tpunmf/solvers/common.py:236-271).
 
@@ -154,25 +158,52 @@ def run_loop(
     ``config_tag`` is stored with each checkpoint and checked on resume, so
     a checkpoint of another configuration is refused even where the shapes
     coincide.  Each save copies the state to the host, which waits for the
-    device.
+    device.  ``store`` (``exists(path)``, ``load(path, carry, meta)``,
+    ``save(path, carry, meta)``) is where the checkpoints go: by default
+    the ``.npz`` files of ``io/checkpoint.py``.
     """
     if checkpoint_path:
-        from ..io.checkpoint import checkpoint_exists, load_state, save_state
-
-        if resume and checkpoint_exists(checkpoint_path):
-            carry = load_state(checkpoint_path, carry, expected_meta=config_tag)
+        if store is None:
+            store = NPZ_STORE
+        if resume and store.exists(checkpoint_path):
+            carry = store.load(checkpoint_path, carry, config_tag)
         if block_size is None:
             block_size = checkpoint_every or 500
 
         user_cb = on_block_end
 
         def on_block_end(c):
-            save_state(checkpoint_path, c, meta=config_tag)
+            store.save(checkpoint_path, c, config_tag)
             if user_cb is not None:
                 user_cb(c)
 
     return drive(run_block, carry, max_iter=max_iter, block_size=block_size,
                  on_block_end=on_block_end)
+
+
+class NpzStore:
+    """One device's checkpoints: ``io/checkpoint.py``'s ``.npz`` files."""
+
+    @staticmethod
+    def exists(path):
+        from ..io.checkpoint import checkpoint_exists
+
+        return checkpoint_exists(path)
+
+    @staticmethod
+    def load(path, carry, meta):
+        from ..io.checkpoint import load_state
+
+        return load_state(path, carry, expected_meta=meta)
+
+    @staticmethod
+    def save(path, carry, meta):
+        from ..io.checkpoint import save_state
+
+        save_state(path, carry, meta=meta)
+
+
+NPZ_STORE = NpzStore()
 
 
 def finalize_history(carry: LoopCarry) -> tuple[int, list]:

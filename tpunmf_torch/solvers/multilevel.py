@@ -82,60 +82,72 @@ def multilevel(
     fine solve only; coarse work is the warm start).  X that is a tensor
     stays on its device; any other X goes to the CUDA device.
     """
+    check_levels(levels, factor)
+    if axis == 0:
+        res = multilevel(as_input(x).T.contiguous(), k, method=method, levels=levels,
+                         factor=factor, coarse_iters=coarse_iters, axis=1, key=key,
+                         **swapped(params))
+        return transposed(res)
+    x = as_input(x)
+    return solve_up(_get_solver(method), build_pyramid(x, k, levels, factor), k, factor,
+                    coarse_iters, key, params)
+
+
+def check_levels(levels: int, factor: int) -> None:
     if levels < 1:
         raise ValueError("levels must be >= 1")
     if factor < 2:
         raise ValueError("factor must be >= 2")
-    if axis == 0:
-        # transposition swaps the factor roles, so the per-factor
-        # regularizers swap too (remove-then-reinsert: a lone lambda_w
-        # must become lambda_h, not apply to both)
-        sw = dict(params)
-        lw = sw.pop("lambda_w", None)
-        lh = sw.pop("lambda_h", None)
-        if lh is not None:
-            sw["lambda_w"] = lh
-        if lw is not None:
-            sw["lambda_h"] = lw
-        res = multilevel(
-            as_input(x).T.contiguous(), k, method=method, levels=levels,
-            factor=factor, coarse_iters=coarse_iters, axis=1, key=key,
-            **sw,
-        )
-        exp = res.experiment
-        return Results(w=res.h.T, h=res.w.T, i=res.i,
-                       obj_history=res.obj_history, experiment=exp)
 
-    solver = _get_solver(method)
-    x = as_input(x)
-    n = x.shape[1]
 
-    # build the pyramid (fine -> coarse), stopping early if a level
-    # would drop below ~4k columns of rank headroom
+def swapped(params) -> dict:
+    """``params`` for the transposed problem, which swaps the factor roles
+    and so the per-factor regularizers (remove-then-reinsert: a lone
+    lambda_w must become lambda_h, not apply to both)."""
+    sw = dict(params)
+    lw = sw.pop("lambda_w", None)
+    lh = sw.pop("lambda_h", None)
+    if lh is not None:
+        sw["lambda_w"] = lh
+    if lw is not None:
+        sw["lambda_h"] = lw
+    return sw
+
+
+def transposed(res) -> Results:
+    """The transposed problem's ``Results`` with its factors transposed back."""
+    return Results(w=res.h.T, h=res.w.T, i=res.i, obj_history=res.obj_history,
+                   experiment=res.experiment)
+
+
+def build_pyramid(x, k: int, levels: int, factor: int) -> list:
+    """[X, X coarsened once, ...] (fine -> coarse), stopping early where a
+    level would drop below ~4k columns of rank headroom."""
     pyramid = [x]
     for _ in range(levels):
         nxt = coarsen_columns(pyramid[-1], factor)
         if nxt.shape[1] < max(2 * k, 8):
             break
         pyramid.append(nxt)
+    return pyramid
 
-    # coarsest solve from the solver's own default init
+
+def solve_up(solver, pyramid, k: int, factor: int, coarse_iters: int, key, params):
+    """The coarsest level from ``solver``'s own default init, then each
+    finer level from the prolongated factors; the finest ``Results``.
+    ``solver(x, k, **kw)`` is ``mur`` or ``hals``, or their mesh drivers."""
     coarse_params = {kk: v for kk, v in params.items()
-                     if kk not in ("min_iter", "max_iter", "w_init",
-                                   "h_init", "verbose")}
-    res_c = solver(pyramid[-1], k, max_iter=coarse_iters, key=key,
-                   **coarse_params)
+                     if kk not in ("min_iter", "max_iter", "w_init", "h_init", "verbose")}
+    res_c = solver(pyramid[-1], k, max_iter=coarse_iters, key=key, **coarse_params)
     w, h_c = res_c.w, res_c.h
-
     # prolongate + refine up the pyramid
     for lvl in range(len(pyramid) - 2, 0, -1):
         h0 = prolongate_h(h_c, factor, pyramid[lvl].shape[1])
-        res_mid = solver(pyramid[lvl], k, w_init=w, h_init=h0,
-                         max_iter=coarse_iters, **coarse_params)
+        res_mid = solver(pyramid[lvl], k, w_init=w, h_init=h0, max_iter=coarse_iters,
+                         **coarse_params)
         w, h_c = res_mid.w, res_mid.h
-
-    h0 = prolongate_h(h_c, factor, n)
-    return solver(x, k, w_init=w, h_init=h0, **params)
+    h0 = prolongate_h(h_c, factor, pyramid[0].shape[1])
+    return solver(pyramid[0], k, w_init=w, h_init=h0, **params)
 
 
 def mur_multilevel(x, k, **kw) -> Results:

@@ -54,6 +54,7 @@ import torch
 from ..core.device import as_input
 from ..core.losses import eu_objective_gram
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import (eu_residual_obj, eu_residual_obj_ref, kl_obj, kl_ratio,
@@ -121,6 +122,7 @@ def _mur_block(
     strips=None,
     objective_every: int = 1,
     verbose=False,
+    sums=LOCAL,
 ) -> LoopCarry:
     """Run MUR iterations from ``carry`` up to ``stop_i`` (or convergence).
 
@@ -128,7 +130,11 @@ def _mur_block(
     (w, h) on the kernel-update routes and for EU, and (w, h, r) on the
     high-rank and plain KL routes, r = x / (w h + eps) from the previous
     trailing pass.  On those two routes ``x`` is bfloat16 X upcast to the
-    factors' dtype (tpunmf's jnp products promote it the same way).
+    factors' dtype (tpunmf's jnp products promote it the same way).  Over
+    a mesh (``parallel.mur_mesh`` on the high-rank and plain routes) ``x``,
+    ``r`` and the factors are this rank's blocks and ``sums``
+    (core/sums.py) all-reduces the products that contract a split axis,
+    the KL closed form's sums and the objective.
     """
 
     def refresh(i):
@@ -202,28 +208,31 @@ def _mur_block(
 
     def step_eu(inner, i):
         w, h = inner
-        gram_h = h @ h.T
-        w = w * (x @ h.T) / (w @ gram_h + lambda_w * w + _EPS)
-        wtx = w.T @ x
-        gram_w = w.T @ w
+        gram_h = sums.psum(h @ h.T, "cols")
+        w = w * sums.psum(x @ h.T, "cols") / (w @ gram_h + lambda_w * w + _EPS)
+        wtx = sums.psum(w.T @ x, "rows")
+        gram_w = sums.psum(w.T @ w, "rows")
         h = h * wtx / (gram_w @ h + lambda_h * h + _EPS)
         if objective == "gram":
-            obj = cadence_obj(i, lambda: eu_objective_gram(xsq, wtx, gram_w, h))
+            obj = cadence_obj(i, lambda: eu_objective_gram(xsq, wtx, gram_w, h, sums))
         else:
-            obj = cadence_obj(i, lambda: eu_obj(x, w, h))
+            obj = cadence_obj(i, lambda: sums.psum(eu_obj(x, w, h), "rows", "cols"))
         return (w, h), obj
 
     def step_kl(inner, i):
         w, h, r = inner
-        a = w * (r @ h.T)
-        b = torch.sum(h, dim=1)  # == row of ones_like(x) @ h.T (nmf/mur.py:26)
+        a = w * sums.psum(r @ h.T, "cols")
+        # == row of ones_like(x) @ h.T (nmf/mur.py:26)
+        b = sums.psum(torch.sum(h, dim=1), "cols")
         w = 2.0 * a / (b[None, :] + torch.sqrt(b[None, :] ** 2 + 4.0 * lambda_w * a))
         r2 = ratio(x, w, h, eps=_EPS)
-        c = h * (w.T @ r2)
-        d = torch.sum(w, dim=0)[:, None]  # == column of w.T @ ones_like(x)
+        c = h * sums.psum(w.T @ r2, "rows")
+        # == column of w.T @ ones_like(x)
+        d = sums.psum(torch.sum(w, dim=0), "rows")[:, None]
         h = 2.0 * c / (d + torch.sqrt(d * d + 4.0 * lambda_h * c))
         if objective_every == 1 or refresh(i):
             r, obj = ratio_obj(x, w, h, eps=_EPS)
+            obj = sums.psum(obj, "rows", "cols")
         else:
             # off-cadence trailing passes skip the log term (the ratio is
             # still needed by the next W update)

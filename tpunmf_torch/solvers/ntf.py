@@ -57,6 +57,7 @@ import torch
 from ..core.device import as_input
 from ..core.losses import kl_elementwise_sum
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..init.random import make_generator
 from ..ops.hals_sweep import gs_sweep, gs_sweep_ref, sweep_takes
 from .common import finalize_history, host_array, init_carry, run_loop, while_block
@@ -120,11 +121,25 @@ def _gram_except(grams, mode: int):
     return out
 
 
-def _normalize_columns(factors):
+def _split(roles, d):
+    """The roles of the mesh axes that split mode ``d`` (none on one device)."""
+    return () if roles is None or roles[d] is None else (roles[d],)
+
+
+def _others(roles, d):
+    """The roles of the axes that split the modes other than ``d``: what
+    mode ``d``'s MTTKRP and the Khatri-Rao sums contract over."""
+    return tuple(r for e in range(len(roles or ())) if e != d for r in _split(roles, e))
+
+
+def _normalize_columns(factors, sums=LOCAL, roles=None):
     """Equilibrate per-component column norms across modes (the
-    reconstruction is unchanged up to rounding)."""
+    reconstruction is unchanged up to rounding).  A norm is the square
+    root of the column's sum of squares, summed over the axis that splits
+    the mode over a mesh."""
     n = len(factors)
-    norms = [torch.linalg.norm(f, dim=0) + _HALS_EPS for f in factors]
+    norms = [torch.sqrt(sums.psum(torch.sum(f * f, dim=0), *_split(roles, d))) + _HALS_EPS
+             for d, f in enumerate(factors)]
     total = norms[0]
     for nm in norms[1:]:
         total = total * nm
@@ -139,11 +154,20 @@ def _hadamard(grams):
     return full
 
 
-def _eu_gram_obj(xsq, m_last, f_last, grams):
-    return 0.5 * (xsq - 2.0 * torch.sum(m_last * f_last) + torch.sum(_hadamard(grams)))
+def _eu_gram_obj(xsq, m_last, f_last, grams, sums=LOCAL, split=()):
+    """The Gram-form EU objective; over a mesh ``xsq``, ``m_last`` and the
+    Grams are global and the cross term is summed over ``split``, the
+    axes that split the last mode."""
+    cross = sums.psum(torch.sum(m_last * f_last), *split)
+    return 0.5 * (xsq - 2.0 * cross + torch.sum(_hadamard(grams)))
 
 
-def _make_masked_step(x, mask, distance_type: str, lambdas, normalize: bool):
+def _all(roles):
+    return tuple(r for r in (roles or ()) if r is not None)
+
+
+def _make_masked_step(x, mask, distance_type: str, lambdas, normalize: bool, sums=LOCAL,
+                      roles=None):
     """Masked MUR steps (tpunmf/solvers/ntf.py:116-160): only observed
     cells drive the fit, the model formed once per mode."""
     ndim = x.ndim
@@ -153,14 +177,14 @@ def _make_masked_step(x, mask, distance_type: str, lambdas, normalize: bool):
         factors = list(inner)
         for d in range(ndim):
             xhat = cp_reconstruct(factors)
-            numer = mttkrp(mx, factors, d)
-            denom = (mttkrp(mask * xhat, factors, d)
+            numer = sums.psum(mttkrp(mx, factors, d), *_others(roles, d))
+            denom = (sums.psum(mttkrp(mask * xhat, factors, d), *_others(roles, d))
                      + lambdas[d] * factors[d] + _EPS)
             factors[d] = factors[d] * (numer / denom)
         resid = mask * (x - cp_reconstruct(factors))
-        obj = 0.5 * torch.sum(resid * resid)
+        obj = sums.psum(0.5 * torch.sum(resid * resid), *_all(roles))
         if normalize:
-            factors = _normalize_columns(factors)
+            factors = _normalize_columns(factors, sums, roles)
         return tuple(factors), obj
 
     def kl_step(inner, i):
@@ -168,40 +192,44 @@ def _make_masked_step(x, mask, distance_type: str, lambdas, normalize: bool):
         for d in range(ndim):
             xhat = cp_reconstruct(factors)
             ratio = mask * (x / (xhat + _EPS))
-            numer = mttkrp(ratio, factors, d)
-            denom = mttkrp(mask, factors, d) + _EPS
+            numer = sums.psum(mttkrp(ratio, factors, d), *_others(roles, d))
+            denom = sums.psum(mttkrp(mask, factors, d), *_others(roles, d)) + _EPS
             factors[d] = factors[d] * (numer / denom)
         xhat = cp_reconstruct(factors)
-        obj = kl_elementwise_sum(mx, mask * xhat)
+        obj = sums.psum(kl_elementwise_sum(mx, mask * xhat), *_all(roles))
         if normalize:
-            factors = _normalize_columns(factors)
+            factors = _normalize_columns(factors, sums, roles)
         return tuple(factors), obj
 
     return eu_step if distance_type == "eu" else kl_step
 
 
 def _make_step(x, xsq, distance_type: str, update: str, lambdas, normalize: bool,
-               sweep):
+               sweep, sums=LOCAL, roles=None):
     ndim = x.ndim
+
+    def gram(f, d):
+        return sums.psum(f.T @ f, *_split(roles, d))
 
     def eu_step(inner, i):
         factors = list(inner)
-        grams = [f.T @ f for f in factors]
+        grams = [gram(f, d) for d, f in enumerate(factors)]
         m_last = None
         for d in range(ndim):
-            m = mttkrp(x, factors, d)
+            m = sums.psum(mttkrp(x, factors, d), *_others(roles, d))
             g = _gram_except(grams, d)
             if update == "mur":
                 denom = factors[d] @ g + lambdas[d] * factors[d] + _EPS
                 factors[d] = factors[d] * (m / denom)
             else:  # CP-HALS: one Gauss-Seidel sweep over the components
                 factors[d] = sweep(m.T, g, factors[d].T, lam=lambdas[d], nsweeps=1).T
-            grams[d] = factors[d].T @ factors[d]
+            grams[d] = gram(factors[d], d)
             m_last = m
         # <X, Xhat> = <MTTKRP_last, F_last(new)>; ||Xhat||^2 by the Grams
-        obj = _eu_gram_obj(xsq, m_last, factors[ndim - 1], grams)
+        obj = _eu_gram_obj(xsq, m_last, factors[ndim - 1], grams, sums,
+                           _split(roles, ndim - 1))
         if normalize:
-            factors = _normalize_columns(factors)
+            factors = _normalize_columns(factors, sums, roles)
         return tuple(factors), obj
 
     def kl_step(inner, i):
@@ -209,7 +237,7 @@ def _make_step(x, xsq, distance_type: str, update: str, lambdas, normalize: bool
         for d in range(ndim):
             xhat = cp_reconstruct(factors)
             ratio = x / (xhat + _EPS)
-            numer = mttkrp(ratio, factors, d)
+            numer = sums.psum(mttkrp(ratio, factors, d), *_others(roles, d))
             del xhat, ratio
             # the Khatri-Rao product's column sums: the Hadamard product
             # of the other factors' column sums
@@ -217,27 +245,114 @@ def _make_step(x, xsq, distance_type: str, update: str, lambdas, normalize: bool
             for e in range(ndim):
                 if e == d:
                     continue
-                s = torch.sum(factors[e], dim=0)
+                s = sums.psum(torch.sum(factors[e], dim=0), *_split(roles, e))
                 denom = s if denom is None else denom * s
             factors[d] = factors[d] * (numer / (denom[None, :] + _EPS))
-        obj = kl_elementwise_sum(x, cp_reconstruct(factors))
+        obj = sums.psum(kl_elementwise_sum(x, cp_reconstruct(factors)), *_all(roles))
         if normalize:
-            factors = _normalize_columns(factors)
+            factors = _normalize_columns(factors, sums, roles)
         return tuple(factors), obj
 
     return eu_step if distance_type == "eu" else kl_step
 
 
+def _initial_objective(x, mask, xsq, factors, distance_type: str, sums=LOCAL, roles=None):
+    """The objective of the initial factors, as the steps record theirs."""
+    ndim = x.ndim
+    if mask is not None:
+        xhat = cp_reconstruct(factors)
+        if distance_type == "eu":
+            resid = mask * (x - xhat)
+            obj = 0.5 * torch.sum(resid * resid)
+        else:
+            obj = kl_elementwise_sum(mask * x, mask * xhat)
+        return sums.psum(obj, *_all(roles))
+    if distance_type == "eu":
+        grams = [sums.psum(f.T @ f, *_split(roles, d)) for d, f in enumerate(factors)]
+        m_last = sums.psum(mttkrp(x, factors, ndim - 1), *_others(roles, ndim - 1))
+        return _eu_gram_obj(xsq, m_last, factors[ndim - 1], grams, sums,
+                            _split(roles, ndim - 1))
+    return sums.psum(kl_elementwise_sum(x, cp_reconstruct(factors)), *_all(roles))
+
+
 def _ntf_block(x, mask, xsq, lambdas, carry, stop_i, tol1, tol2, *, distance_type: str,
                update: str, normalize: bool, sweep, min_iter: int, max_iter: int,
-               verbose=False):
+               verbose=False, sums=LOCAL, roles=None):
+    """NTF iterations up to ``stop_i``.  Over a mesh (``parallel.ntf_mesh``)
+    ``x`` (and ``mask``) are this rank's block, mode ``d``'s factor is
+    split over the axis of role ``roles[d]`` (or whole), and ``sums``
+    all-reduces each MTTKRP over the axes that split the other modes, each
+    Gram and column sum over its own mode's axis, and the objective."""
     if mask is None:
-        step = _make_step(x, xsq, distance_type, update, lambdas, normalize, sweep)
+        step = _make_step(x, xsq, distance_type, update, lambdas, normalize, sweep, sums,
+                          roles)
     else:
-        step = _make_masked_step(x, mask, distance_type, lambdas, normalize)
+        step = _make_masked_step(x, mask, distance_type, lambdas, normalize, sums, roles)
     with torch.no_grad(), full_f32():
         return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,
                            max_iter=max_iter, verbose=verbose)
+
+
+def check_options(shape, distance_type: str, update: str) -> None:
+    """``tpunmf``'s checks of X's order and the update family."""
+    if len(shape) < 2:
+        raise ValueError(f"x must be at least 2-way; got shape {shape}")
+    if distance_type not in ("eu", "kl"):
+        raise ValueError("distance_type must be 'eu' or 'kl'")
+    if update not in ("mur", "hals"):
+        raise ValueError("update must be 'mur' or 'hals'")
+    if distance_type == "kl" and update == "hals":
+        raise ValueError("HALS is least-squares only; use update='mur' for KL")
+
+
+def check_mask(mask, shape, update: str) -> None:
+    """``mask=``'s checks but its sign (which reads its values)."""
+    if update != "mur":
+        raise ValueError("mask= requires update='mur' (masked HALS "
+                         "closed forms are not implemented)")
+    if tuple(mask.shape) != shape:
+        raise ValueError(f"mask shape {tuple(mask.shape)} != x shape {shape}")
+
+
+def strengths(lambdas, ndim: int, dtype, distance_type: str) -> list:
+    """The per-mode ridge strengths as ``tpunmf`` keeps them: rounded
+    through X's dtype, Python floats (no iteration reads one back)."""
+    if lambdas is None:
+        return [0.0] * ndim
+    if len(lambdas) != ndim:
+        raise ValueError(f"lambdas must have length {ndim}")
+    lam = torch.tensor([float(v) for v in lambdas], dtype=dtype).tolist()
+    if distance_type == "kl" and any(v != 0 for v in lam):
+        raise ValueError("lambdas are Euclidean-only (KL MUR here is "
+                         "unregularized)")
+    return lam
+
+
+def given_factors(factors_init, shape, k: int, as_tensor) -> list:
+    """``factors_init`` checked (count, shapes, signs), each through
+    ``as_tensor`` and row-major."""
+    if len(factors_init) != len(shape):
+        raise ValueError(f"factors_init must have length {len(shape)}")
+    factors = []
+    for d, f in enumerate(factors_init):
+        f = as_tensor(f)
+        if tuple(f.shape) != (shape[d], k):
+            raise ValueError(
+                f"factors_init[{d}] must be {(shape[d], k)}; got {tuple(f.shape)}")
+        factors.append(f.contiguous())
+    if any(bool(torch.any(f < 0)) for f in factors):
+        raise ValueError("factors_init must be non-negative")
+    return factors
+
+
+def random_factors(mean, shape, k: int, key, dtype, device) -> list:
+    """|N(0, 1)| * (mean(X)/k + 1e-9)^(1/N) a mode, drawn in turn from a
+    generator seeded by ``key`` (default 42): the rank-k sum matches the
+    data's mean magnitude."""
+    g = make_generator(key if key is not None else 42, device)
+    scale = (mean / k + _EPS) ** (1.0 / len(shape))
+    return [torch.randn((s, k), generator=g, dtype=dtype, device=g.device).abs_() * scale
+            for s in shape]
 
 
 def ntf(
@@ -283,57 +398,24 @@ def ntf(
     x = as_input(x).contiguous()
     ndim = x.ndim
     shape = tuple(x.shape)
-    if ndim < 2:
-        raise ValueError(f"x must be at least 2-way; got shape {shape}")
-    if distance_type not in ("eu", "kl"):
-        raise ValueError("distance_type must be 'eu' or 'kl'")
-    if update not in ("mur", "hals"):
-        raise ValueError("update must be 'mur' or 'hals'")
-    if distance_type == "kl" and update == "hals":
-        raise ValueError("HALS is least-squares only; use update='mur' for KL")
+    check_options(shape, distance_type, update)
     if bool(torch.any(x < 0)):
         raise ValueError("x must be non-negative")
     if mask is not None:
-        if update != "mur":
-            raise ValueError("mask= requires update='mur' (masked HALS "
-                             "closed forms are not implemented)")
+        check_mask(mask, shape, update)
         mask = as_input(mask, dtype=x.dtype, device=x.device)
-        if tuple(mask.shape) != shape:
-            raise ValueError(f"mask shape {tuple(mask.shape)} != x shape {shape}")
         if bool(torch.any(mask < 0)):
             raise ValueError("mask must be non-negative")
         mask = mask.contiguous()
-
-    # the strengths as tpunmf keeps them: rounded through X's dtype
-    if lambdas is None:
-        lam = [0.0] * ndim
-    else:
-        if len(lambdas) != ndim:
-            raise ValueError(f"lambdas must have length {ndim}")
-        lam = torch.tensor([float(v) for v in lambdas], dtype=x.dtype).tolist()
-        if distance_type == "kl" and any(v != 0 for v in lam):
-            raise ValueError("lambdas are Euclidean-only (KL MUR here is "
-                             "unregularized)")
+    lam = strengths(lambdas, ndim, x.dtype, distance_type)
 
     with torch.no_grad(), full_f32():
         if factors_init is not None:
-            if len(factors_init) != ndim:
-                raise ValueError(f"factors_init must have length {ndim}")
-            factors = []
-            for d, f in enumerate(factors_init):
-                f = torch.as_tensor(f, dtype=x.dtype, device=x.device)
-                if tuple(f.shape) != (shape[d], k):
-                    raise ValueError(
-                        f"factors_init[{d}] must be {(shape[d], k)}; got {tuple(f.shape)}")
-                factors.append(f.contiguous())
-            if any(bool(torch.any(f < 0)) for f in factors):
-                raise ValueError("factors_init must be non-negative")
+            factors = given_factors(
+                factors_init, shape, k,
+                lambda f: torch.as_tensor(f, dtype=x.dtype, device=x.device))
         else:
-            g = make_generator(key if key is not None else 42, x.device)
-            # scale so the rank-k sum matches the data's mean magnitude
-            scale = (torch.mean(x) / k + _EPS) ** (1.0 / ndim)
-            factors = [torch.randn((shape[d], k), generator=g, dtype=x.dtype,
-                                   device=g.device).abs_() * scale for d in range(ndim)]
+            factors = random_factors(torch.mean(x), shape, k, key, x.dtype, x.device)
 
     experiment = NtfExperiment(
         method="ntf", components=k, distance_type=distance_type,
@@ -348,19 +430,7 @@ def ntf(
     with torch.no_grad(), full_f32():
         flat = x.reshape(-1)
         xsq = torch.dot(flat, flat)
-        if mask is not None:
-            xhat = cp_reconstruct(factors)
-            if distance_type == "eu":
-                resid = mask * (x - xhat)
-                obj0 = 0.5 * torch.sum(resid * resid)
-            else:
-                obj0 = kl_elementwise_sum(mask * x, mask * xhat)
-            del xhat
-        elif distance_type == "eu":
-            grams = [f.T @ f for f in factors]
-            obj0 = _eu_gram_obj(xsq, mttkrp(x, factors, ndim - 1), factors[ndim - 1], grams)
-        else:
-            obj0 = kl_elementwise_sum(x, cp_reconstruct(factors))
+        obj0 = _initial_objective(x, mask, xsq, factors, distance_type)
 
     carry = init_carry(obj0, max_iter, tuple(factors))
 

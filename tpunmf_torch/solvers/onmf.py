@@ -30,6 +30,7 @@ import torch
 
 from ..core.device import as_input
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import eu_residual_obj, eu_residual_obj_ref, objective_takes
@@ -38,26 +39,31 @@ from .common import finalize_history, host_array, init_carry, run_loop, while_bl
 _EPS = 1e-9
 
 
-def orthogonality_residual(h) -> torch.Tensor:
-    """||H H^T - diag(H H^T)||_F / ||H H^T||_F (0 = exactly orthogonal)."""
+def orthogonality_residual(h, sums=LOCAL) -> torch.Tensor:
+    """||H H^T - diag(H H^T)||_F / ||H H^T||_F (0 = exactly orthogonal).
+    Over a mesh ``h`` is this rank's columns and ``sums`` all-reduces the
+    Gram, so every rank reads the same residual."""
     h = torch.as_tensor(h)
     with full_f32():
-        g = h @ h.T
+        g = sums.psum(h @ h.T, "cols")
     off = g - torch.diag(torch.diag(g))
     return torch.linalg.norm(off) / (torch.linalg.norm(g) + _EPS)
 
 
 def _onmf_block(x, carry, stop_i, tol1, tol2, *, objective, min_iter: int, max_iter: int,
-                verbose=False):
+                verbose=False, sums=LOCAL):
+    """ONMF iterations up to ``stop_i``; over a mesh (``parallel.onmf_mesh``)
+    ``x`` and the factors are this rank's blocks and ``sums`` all-reduces
+    the products that contract a split axis, and the objective."""
     def step(inner, i):
         w, h = inner
         # unconstrained W half (Lee-Seung EU)
-        w = w * (x @ h.T) / (w @ (h @ h.T) + _EPS)
+        w = w * sums.psum(x @ h.T, "cols") / (w @ sums.psum(h @ h.T, "cols") + _EPS)
         # orthogonal H half (Ding et al. 2006 eq. 28, transposed frame)
-        wtx = w.T @ x                                  # (k, n)
-        denom = (wtx @ h.T) @ h + _EPS                 # k x k grouping
+        wtx = sums.psum(w.T @ x, "rows")               # (k, n)
+        denom = sums.psum(wtx @ h.T, "cols") @ h + _EPS  # k x k grouping
         h = h * torch.sqrt(wtx / denom)
-        return (w, h), objective(x, w, h)
+        return (w, h), sums.psum(objective(x, w, h), "rows", "cols")
 
     with torch.no_grad(), full_f32():
         return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,

@@ -28,6 +28,7 @@ import torch
 
 from ..core.device import as_input
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from .common import finalize_history, host_array, init_carry, run_loop, while_block
@@ -44,12 +45,18 @@ def _column_residual_norms(xsq_cols, wtx, gram_w, h):
 
 
 def _robust_block(x, xsq_cols, carry, stop_i, tol1, tol2, *, min_iter: int, max_iter: int,
-                  verbose=False):
+                  verbose=False, sums=LOCAL):
+    """Robust NMF iterations up to ``stop_i``.  Over a mesh
+    (``parallel.robust_mesh``) ``x`` and the factors are this rank's
+    blocks: W^T X, W^T W and ``xsq_cols`` are summed over 'rows' before any
+    column norm is read, so every rank of a column block weights its
+    columns with the same ``d``; the W half's products are summed over
+    'cols', and the l2,1 objective over 'cols'."""
     def step(inner, i):
         w, h = inner
         # weights from the CURRENT iterate's residuals
-        gram_w = w.T @ w
-        wtx = w.T @ x
+        gram_w = sums.psum(w.T @ w, "rows")
+        wtx = sums.psum(w.T @ x, "rows")
         d = 1.0 / (_column_residual_norms(xsq_cols, wtx, gram_w, h) + _EPS)
 
         # H update on the reweighted problem (D broadcasts over columns)
@@ -58,11 +65,11 @@ def _robust_block(x, xsq_cols, carry, stop_i, tol1, tol2, *, min_iter: int, max_
         # W update with the fresh H (Gauss-Seidel like reference MUR,
         # nmf/mur.py:122-124)
         hd = h * d[None, :]
-        w = w * (x @ hd.T) / (w @ (h @ hd.T) + _EPS)
+        w = w * sums.psum(x @ hd.T, "cols") / (w @ sums.psum(h @ hd.T, "cols") + _EPS)
 
-        gram_w = w.T @ w
-        wtx = w.T @ x
-        obj = torch.sum(_column_residual_norms(xsq_cols, wtx, gram_w, h))
+        gram_w = sums.psum(w.T @ w, "rows")
+        wtx = sums.psum(w.T @ x, "rows")
+        obj = sums.psum(torch.sum(_column_residual_norms(xsq_cols, wtx, gram_w, h)), "cols")
         return (w, h), obj
 
     with torch.no_grad(), full_f32():

@@ -34,6 +34,7 @@ import torch
 from ..core.device import as_input
 from ..core.linalg import spd_solve
 from ..core.precision import full_f32
+from ..core.sums import LOCAL
 from ..core.types import MurExperiment, Results
 from ..init.random import make_generator
 from ..ops.fused import eu_residual_obj, eu_residual_obj_ref, objective_takes
@@ -63,7 +64,11 @@ def _lstsq(a, b):
 
 
 def _semi_block(x, carry, stop_i, tol1, tol2, lambda_h, *, objective, min_iter: int,
-                max_iter: int, verbose=False):
+                max_iter: int, verbose=False, sums=LOCAL):
+    """Semi-NMF iterations up to ``stop_i``; over a mesh
+    (``parallel.semi_nmf_mesh``) ``x`` and the factors are this rank's
+    blocks and ``sums`` (core/sums.py) all-reduces the products and the
+    objective; the ridge solve is replicated, the H update local."""
     k = carry.inner[1].shape[0]
     eye = torch.eye(k, dtype=x.dtype, device=x.device)
 
@@ -71,15 +76,15 @@ def _semi_block(x, carry, stop_i, tol1, tol2, lambda_h, *, objective, min_iter: 
         w, h = inner
         # --- W: exact least squares against the current H (free sign);
         # ridge keeps the k x k Gram SPD when H rows are degenerate
-        gram_h = h @ h.T + 1e-10 * eye
-        w = spd_solve(gram_h, (x @ h.T).T).T.contiguous()
+        gram_h = sums.psum(h @ h.T, "cols") + 1e-10 * eye
+        w = spd_solve(gram_h, sums.psum(x @ h.T, "cols").T).T.contiguous()
         # --- H: split-sign multiplicative update with the sqrt exponent
-        wtx = w.T @ x
-        wtw = w.T @ w
+        wtx = sums.psum(w.T @ x, "rows")
+        wtw = sums.psum(w.T @ w, "rows")
         numer = _pos(wtx) + _neg(wtw) @ h
         denom = _neg(wtx) + _pos(wtw) @ h + lambda_h * h + _EPS
         h = h * torch.sqrt(numer / denom)
-        return (w, h), objective(x, w, h)
+        return (w, h), sums.psum(objective(x, w, h), "rows", "cols")
 
     with torch.no_grad(), full_f32():
         return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,
