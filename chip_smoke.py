@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about fifteen minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about nineteen minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
-     tpunmf_torch/ops/csrc with nvcc (sm_90a) and the native panelizer of
-     tpunmf_torch/native with g++ (it must build), and print the build
-     times.
+     tpunmf_torch/ops/csrc with nvcc (sm_90a), in a thread while the host
+     makes the data, and the native panelizer of tpunmf_torch/native with
+     g++ (both must build), and print the build times.
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes and ragged ones: the error against a stated tolerance,
      both times (CUDA events, in the order plain, kernel, kernel, plain)
@@ -59,8 +59,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      same bits on a second call, and kl_ratio's ratio and kl_obj's
      objective must be kl_ratio_and_obj's bit for bit at every KL shape.
   3. the paths through tpunmf_torch.NMF(...).factorize, exactly 50
-     iterations each (ANLS 20), the kernel route against the plain route on
-     the card:
+     iterations each (masked MUR and ADMM SLOW_RUN_ITERS, ANLS and AO-ADMM
+     fewer, below), the kernel route
+     against the plain route on the card; each profile a factorize() of
+     PROFILE_ITERS iterations:
      - MUR: EU at 8192x8192 r128 (lowrank_dense) with bf16 and f32 X, which
        tpunmf's route rule sends to the single pass, and the same runs on
        the 2-pass pair for comparison; EU f32 at 8192x16384 r128, which the
@@ -95,7 +97,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        of 10 requests on each route;
      - ANLS (method="anls") at BASELINE config[2]'s stand-in, 6040x3706
        (movielens_like, density 0.2, seed 2) at r64 from one NNDSVD 'zero'
-       init, 20 iterations each on both routes: EU with use_fcnnls and
+       init, 3 iterations each on both routes: EU with use_fcnnls and
        'chol', EU 'cg', EU 'bpp', KL 'chol', each with its it/s over
        factorize(), ms an iteration, NNLS trips per half-step and final
        objective; the kernel route launches its objective kernel
@@ -115,10 +117,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      - AO-ADMM (method="ao_admm"), after the ADMM path freed config[3]: KL
        at one card's cut of BASELINE config[4], 50000x20000 r256
        (lowrank_dense's recipe, seed 4, formed on the card; L1 on W, l2n
-       on H, admm_iter 10), 10 iterations; at the bench's 8192x8192 r128,
+       on H, admm_iter 10), 2 iterations; at the bench's 8192x8192 r128,
        the defaults and the local-sparsity variant (rho_mode adaptive,
-       l1inf on W, an l1 budget of 256), 50 iterations, and 'cg' on the
-       kernel route, 10; each from its X's NNDSVD 'zero' init on both
+       l1inf on W, an l1 budget of 256), 20 iterations, and 'cg' on the
+       kernel route, 2; each from its X's NNDSVD 'zero' init on both
        routes (one warm-up iteration a route first), with its it/s over
        factorize(), ms an outer iteration, inner trips per H and per W
        subproblem, final objective and peak memory; the kernel route
@@ -185,7 +187,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      seed 0), on the plain route in float64, the plain route in f32 and the
      kernel route in f32; the kernel route within 1e-5 of float64 at every
      iteration (twice the plain f32 route's distance where that exceeds
-     5e-6).  Then the solver families, 50 iterations a run, kernel route
+     5e-6).  Then the solver families, 10 iterations a run, kernel route
      against plain route from one init, with it/s over factorize(), ms an
      iteration, final objective and launches:
      - semi_nmf on the 8192x8192 X minus its column means (mixed sign)
@@ -198,7 +200,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        (tests/test_robust.py's recipe), from the same nudged init: no
        kernel (one route, run twice: the same bits), its l2,1 trace
        non-increasing within EU_MONOTONE_RTOL;
-     - the multilevel warm start (levels 2, factor 4, 50 coarse
+     - the multilevel warm start (levels 2, factor 4, 10 coarse
        iterations) over HALS (inner_sweeps=2) and MUR EU at 8192x16384
        r128: its route's kernels and none of the other's, the plain route
        nothing, the traces within ROUTE_RTOL over ROUTE_ITERS iterations,
@@ -234,7 +236,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        neighbours, heat), timed; gnmf with it, lambda_g 1, and nmtf (k_row =
        k_col = 32, its own k-means init, the peak memory printed), each
        launching eu_residual_obj iters + 1 times a run and the same W, H
-       bits on both routes; symnmf of the graph (no kernel, run twice); 50
+       bits on both routes; symnmf of the graph (no kernel, run twice); 10
        iterations each, the final objective against float64 (printed, not
        gated, for the Gram forms of convex_nmf and symnmf);
      - OnlineNMF over the 8192x8192 X in 8 minibatches of 1024 columns, two
@@ -247,7 +249,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      beside the card's name and power limit, each run through drive():
      (a) the panelizer must build from tpunmf_torch/native/panelize.cpp;
      the densify rate of 8192x8192 tiles alone into a pinned buffer (f32
-     and bf16) and the pinned host-to-device copy rate, in GB/s; (b) 20
+     and bf16) and the pinned host-to-device copy rate, in GB/s; (b) 2
      iterations from one init inside HBM: EU at BASELINE config[3] streamed
      with f32 transfer against in-core mur (1e-4) and with bf16 transfer
      against in-core mur on the bf16-rounded X (5e-3), no kernel launched;
@@ -299,12 +301,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      'cols' and (1, 1) 'rows' x 'cols': first the host microseconds of a
      one-element all_reduce (alone, and with a host read after each);
      then each path of MM_RUNS through NMF(x, k, mesh=).factorize, at the
-     widths of phase 3: HALS EU 8192x8192 r128 (50 iterations), AO-ADMM EU
-     8192x8192 r128 (20), ANLS EU 'chol', EU 'bpp' and KL 'chol' at
-     config[2]'s stand-in, 6040x3706 r64 (10), ADMM EU with l1 on H (10)
-     and KL (5) at config[3], 50000x20000 r128, AO-ADMM KL at config[4]'s
-     cut, 50000x20000 r256 (3), masked MUR EU and KL at MovieLens-10M's
-     dimensions r64 with a uint8 mask (20), each from its X's NNDSVD 'zero'
+     widths of phase 3: HALS EU 8192x8192 r128 (20 iterations), AO-ADMM EU
+     8192x8192 r128 (10), ANLS EU 'chol', EU 'bpp' and KL 'chol' at
+     config[2]'s stand-in, 6040x3706 r64 (5), ADMM EU with l1 on H (5)
+     and KL (3) at config[3], 50000x20000 r128, AO-ADMM KL at config[4]'s
+     cut, 50000x20000 r256 (2), masked MUR EU and KL at MovieLens-10M's
+     dimensions r64 with a uint8 mask (10), each from its X's NNDSVD 'zero'
      (masked: a seeded |N(0, 1)|); ntf_sharded EU mur, EU hals and KL mur
      at 512x512x512 r64 (20) from one factors_init against the one-device
      ntf(normalize=False); mur_lambda_grid over the mesh's last axis at
@@ -336,12 +338,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      in blocks of 10, stopped after two blocks and resumed, through .npz
      and through DCP, each the uninterrupted run's bits, the .npz resumed
      in one-device hals with its bits, and the seconds a save costs.
+ 12. the CLI's bench (bench_phase): ``python -m tpunmf_torch bench``
+     through tpunmf_torch.__main__.main(["bench"]) in-process at its own
+     full sizes (tpunmf_torch.bench: the probes, MUR EU 8192x8192 r128 on
+     bf16 and f32 X, rank 512 at 8192x2048, MUR KL at cadence 1 and 8,
+     serving at (64, 2^20) r128 and (64, 2^19) r512, eight solver families'
+     rates), its line printed; it must return 0 with no "error" in the
+     line, a positive headline and vs_baseline, a roofline fraction against
+     the measured ceiling and a rank-512 MFU of at most BENCH_FRACTION_MAX
+     (the former unless the probes undershot the solver), and launches of
+     the read probe, the headline route's MUR kernel, the fused scoring
+     kernel and gs_sweep (HALS's rate); the phase's seconds.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import importlib
 import json
@@ -369,6 +383,8 @@ OBJECTIVE_RTOL = 1e-4
 ROUTE_RTOL = {"float32": 1e-4, "bfloat16": 5e-3}
 ROUTE_ITERS = 5
 RUN_ITERS = 50
+# the masked MUR and ADMM paths of phase 3, over ML-10M and config[3]
+SLOW_RUN_ITERS = 20
 # EU objective may not rise by more than f32 rounding between iterations
 EU_MONOTONE_RTOL = 1e-5
 # HALS sweeps clamp at 0, so an element's relative error means nothing
@@ -403,7 +419,7 @@ AO_KL_KW = dict(distance_type="kl", reg_w=(0.05, "l1n"), reg_h=(0.05, "l2n"),
 # budget binds (tpunmf's default 1, or 64) the variant's iterates blow up
 # here, in float64 as in float32 (tools/ao_admm_budget.py), as tpunmf's do
 # at rank 32 (tests/test_torch_ao_admm.py)
-AO_KL_ITERS, AO_EU_ITERS, AO_CG_ITERS = 10, 50, 10
+AO_KL_ITERS, AO_EU_ITERS, AO_CG_ITERS = 2, 20, 2
 AO_EU_RUNS = (("AO-ADMM EU 8192^2", AO_EU_ITERS, dict(distance_type="eu"), True),
               ("AO-ADMM EU local sparsity 8192^2", AO_EU_ITERS,
                dict(distance_type="eu", rho_mode="adaptive", reg_w=(0.1, "l1inf"),
@@ -412,8 +428,8 @@ AO_EU_RUNS = (("AO-ADMM EU 8192^2", AO_EU_ITERS, dict(distance_type="eu"), True)
                dict(distance_type="eu", spd_solver="cg"), False))
 # BASELINE config[2] (benchmarks/run_configs.py:136-158): ANLS + FCNNLS on
 # the MovieLens-1M stand-in at r64, from one NNDSVD 'zero' init; each NNLS
-# configuration 20 iterations on each route, EU 'chol' also 10 at 8192^2 r128
-ANLS_K, ANLS_ITERS, ANLS_EU_ITERS = 64, 20, 10
+# configuration 3 iterations on each route, EU 'chol' also 10 at 8192^2 r128
+ANLS_K, ANLS_ITERS, ANLS_EU_ITERS = 64, 3, 10
 ANLS_RUNS = (("ANLS EU chol config[2]", dict(distance_type="eu", use_fcnnls=True)),
              ("ANLS EU cg config[2]", dict(distance_type="eu", masked_solver="cg")),
              ("ANLS EU bpp config[2]", dict(distance_type="eu", nnls_solver="bpp")),
@@ -437,6 +453,9 @@ SERVE_VALUE_RTOL = 1e-5
 SERVE_BATCH, SERVE_BATCHES, SERVE_K = 64, 20, 100
 # calls of a kernel and of its library call that the profiler times
 PROFILED_CALLS = 20
+# iterations of a profiled factorize() (profile_run): the profiler's own
+# host cost grows with the host ops it records, about 1.5 s an ANLS iteration
+PROFILE_ITERS = 5
 
 # masked_w_bits as the masked W pass gave them on an H100 before MUR's KL W
 # pass came to share its kernel: the bits it must keep
@@ -1764,15 +1783,16 @@ def device_ms_by_kernel(prof, per):
     return kernels
 
 
-def profile_run(torch, tt, label, x, k, distance, iters=20, plain=False, method="mur",
+def profile_run(torch, tt, label, x, k, distance, iters=None, plain=False, method="mur",
                 **extra):
     """Device time by kernel over one factorize() of `iters` iterations
-    (torch.profiler; the kernels run on one stream, so their sum is their
-    union), it/s in that window, and the device's idle share of its host
+    (PROFILE_ITERS by default; torch.profiler; the kernels run on one
+    stream, so their sum is their union), it/s in that window, and the device's idle share of its host
     wall time (an upper bound: the profiler's own overhead is inside)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    iters = iters or PROFILE_ITERS
     kw = dict(method=method, min_iter=iters, max_iter=iters, **extra)
     if method == "mur":
         kw["distance_type"] = distance
@@ -2470,12 +2490,12 @@ def cli_path(card, eu_np, k, d, device):
 
 
 # Phase 6: semi-NMF, ONMF and robust NMF at the bench's 8192^2 r128, the
-# multilevel warm start at 8192x16384 r128; 50 iterations a run
-FAMILY_ITERS = 50
+# multilevel warm start at 8192x16384 r128; 10 iterations a run
+FAMILY_ITERS = 10
 # robust NMF's X: outliers added to this share of the columns, as
 # tests/test_robust.py's recipe adds them (50 |N(0, 1)| a cell)
 ROBUST_OUTLIERS = 0.01
-MULTILEVEL = dict(levels=2, factor=4, coarse_iters=50)
+MULTILEVEL = dict(levels=2, factor=4, coarse_iters=10)
 
 
 def l21_f64(torch, x, w, h, rows=4096):
@@ -3079,7 +3099,7 @@ OOC_TILE = 8192
 # streamed runs against in-core mur (f32 transfer; bf16 transfer against
 # in-core mur on the bf16-rounded X) and of the KL kernel route against its
 # plain route and in-core mur: f32 sums in another order
-OOC_AGREE_ITERS = 20
+OOC_AGREE_ITERS = 2
 OOC_RTOL = {"f32": 1e-4, "bf16": 5e-3, "kl": 1e-4}
 # W, H, the accumulators and the ring; never X
 OOC_PEAK_BYTES = 10e9
@@ -3187,7 +3207,7 @@ def streamed(torch, label, card, csr, k, **kw):
 
 
 def in_hbm_agreement(torch, drive, card, adm_csr, kl_x):
-    """(b): 20 iterations from one init, streamed against in-core mur (its
+    """(b): OOC_AGREE_ITERS iterations from one init, streamed against in-core mur (its
     kernel route) on the densified X: EU at config[3] with f32 and bf16
     transfer, KL at config[1] on the streamed kernel route (exact kl_ratio
     and kl_obj counts) against its plain route and in-core mur."""
@@ -3705,20 +3725,20 @@ MM_MESH_RTOL = 1e-6   # a mesh run against the one-device run, every iteration
 # (label, X's name, k, method, options, iterations); ADMM and ANLS from
 # their X's NNDSVD 'zero', masked MUR from a seeded |N(0, 1)| init
 MM_RUNS = (
-    ("HALS EU 8192^2 k128", "eu", 128, "hals", dict(inner_sweeps=2), 50),
-    ("AO-ADMM EU 8192^2 k128", "eu", 128, "ao_admm", dict(distance_type="eu"), 20),
+    ("HALS EU 8192^2 k128", "eu", 128, "hals", dict(inner_sweeps=2), 20),
+    ("AO-ADMM EU 8192^2 k128", "eu", 128, "ao_admm", dict(distance_type="eu"), 10),
     ("ANLS EU chol config[2]", "ml1", ANLS_K, "anls",
-     dict(distance_type="eu", use_fcnnls=True), 10),
+     dict(distance_type="eu", use_fcnnls=True), 5),
     ("ANLS EU bpp config[2]", "ml1", ANLS_K, "anls",
-     dict(distance_type="eu", nnls_solver="bpp"), 10),
-    ("ANLS KL chol config[2]", "ml1", ANLS_K, "anls", dict(distance_type="kl"), 10),
+     dict(distance_type="eu", nnls_solver="bpp"), 5),
+    ("ANLS KL chol config[2]", "ml1", ANLS_K, "anls", dict(distance_type="kl"), 5),
     ("ADMM EU l1 on H config[3]", "adm", CONFIG3["k"], "admm",
-     dict(distance_type="eu", rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n")), 10),
+     dict(distance_type="eu", rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n")), 5),
     ("ADMM KL config[3]", "adm", CONFIG3["k"], "admm",
-     dict(distance_type="kl", rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n")), 5),
-    ("AO-ADMM KL config[4] cut", "c4", CONFIG4["k"], "ao_admm", AO_KL_KW, 3),
-    ("masked MUR EU ML-10M k64", "ml10", 64, "mur", dict(distance_type="eu"), 20),
-    ("masked MUR KL ML-10M k64", "ml10", 64, "mur", dict(distance_type="kl"), 20),
+     dict(distance_type="kl", rho=1.0, reg_w=(0, "nn"), reg_h=(0.1, "l1n")), 3),
+    ("AO-ADMM KL config[4] cut", "c4", CONFIG4["k"], "ao_admm", AO_KL_KW, 2),
+    ("masked MUR EU ML-10M k64", "ml10", 64, "mur", dict(distance_type="eu"), 10),
+    ("masked MUR KL ML-10M k64", "ml10", 64, "mur", dict(distance_type="kl"), 10),
 )
 MM_NTF_ITERS = 20
 MM_NTF_RUNS = (("ntf_sharded EU mur", "eu", "mur"), ("ntf_sharded EU hals", "eu", "hals"),
@@ -4472,6 +4492,62 @@ def mesh_rest_phase(torch, tt, drive, card, data):
     return out
 
 
+# Phase 12: the CLI's bench, in-process, at its own full sizes
+BENCH_HEADLINE = dict(m=8192, n=8192, k=128)  # tpunmf_torch.bench's headline MUR EU, bf16 X
+BENCH_FRACTION_MAX = 1.05  # a fraction of a ceiling (roofline, product peak) past which
+                           # the timing, not the program, is wrong
+
+
+def bench_phase(torch, counters, card):
+    """Phase 12: ``python -m tpunmf_torch bench`` through the CLI's main,
+    in-process, its line captured and printed; every count set to 0 just
+    before it and read just after.  The headline's MUR kernel (the route
+    mur_route gives bf16 X at 8192^2 r128), the read probe, the fused
+    scoring kernel and gs_sweep (HALS's rate) must have launched, and no
+    kernel behind the port's switches or of the sweep scripts."""
+    import io
+
+    from tpunmf_torch.__main__ import main as cli_main
+    from tpunmf_torch.bench import errors
+    from tpunmf_torch.solvers.mur import mur_route
+
+    h = BENCH_HEADLINE
+    route, strips = mur_route(torch.empty((h["m"], h["n"]), dtype=torch.bfloat16,
+                                          device="meta"), h["k"], "eu")
+    headline = {"single": ("mur_iteration_eu_dma" if isinstance(strips, tuple)
+                           else "mur_iteration_eu"),
+                "pair": "mur_w_update"}[route]
+    needed = ("read_probe", headline, "score_blockmax_relayout", "gs_sweep")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counters(counters)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["bench"])
+    finally:
+        launched = counts(counters)
+        seconds = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)  # the bench's line, or what it printed
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"  bench: launches {launched} ({seconds:.1f} s, {card})", flush=True)
+    require(rc == 0, f"bench: the CLI returned {rc}")
+    require(not errors(line), f"bench: errors at {errors(line)}")
+    require(line["value"] > 0 and line["vs_baseline"] > 0,
+            f"bench: headline {line['value']}, vs_baseline {line['vs_baseline']}")
+    extra = line["extra"]
+    require(extra["probes_undershoot_solver"]
+            or extra["roofline_fraction_measured_bw"] <= BENCH_FRACTION_MAX,
+            f"bench: roofline fraction {extra['roofline_fraction_measured_bw']} against "
+            "the measured ceiling, with no undershoot")
+    mfu = extra["rank512_compute_bound"]["mfu_vs_measured_mxu"]
+    require(mfu <= BENCH_FRACTION_MAX, f"bench: rank-512 MFU {mfu}")
+    for name in needed:
+        require(launched[name] > 0, f"bench: {name} was not launched")
+    for name in OPT_IN + tuple(n for n in SWEEP_ONLY if n != "read_probe"):
+        require(launched[name] == 0, f"bench: {name} was launched off its path")
+    return {"seconds": seconds, "route": route, "launches": launched}, launched
+
+
 def main() -> int:
     import torch
 
@@ -4519,10 +4595,11 @@ def main() -> int:
     card = nvidia_smi_line()
     print(f"phase 1: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    t0 = time.perf_counter()
-    _build.library()  # builds from tpunmf_torch/ops/csrc on first use
-    print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    # nvcc builds tpunmf_torch/ops/csrc (one process a source) while the
+    # host makes the data; every kernel must have built before phase 2
+    t_build = time.perf_counter()
+    nvcc_pool = concurrent.futures.ThreadPoolExecutor(1)
+    built = nvcc_pool.submit(_build.library)
 
     t0 = time.perf_counter()
     eu_np = lowrank_dense(8192, 8192, 128, seed=0)
@@ -4563,6 +4640,11 @@ def main() -> int:
     adm_label = f"config[3] {tuple(adm_x.shape)} k{CONFIG3['k']} f32"
     print(f"  BASELINE config[3] made in {time.perf_counter() - t0:.1f} s: "
           f"{tuple(adm_x.shape)}, {adm_csr.nnz} nonzeros", flush=True)
+    t0 = time.perf_counter()
+    built.result()  # raises if a kernel did not build
+    nvcc_pool.shutdown()
+    print(f"  kernels built and loaded in {time.perf_counter() - t_build:.1f} s beside the "
+          f"data ({time.perf_counter() - t0:.1f} s waited for after them)", flush=True)
 
     t_phase = time.perf_counter()
     print("phase 2: kernels vs plain versions", flush=True)
@@ -4772,7 +4854,7 @@ def main() -> int:
         for dist in ("eu", "kl"):
             label = f"masked {dist.upper()} ML-10M"
             runs[label] = run_slice(
-                torch, tt, counters, label, ml10_x, 64, dist, None, card, RUN_ITERS,
+                torch, tt, counters, label, ml10_x, 64, dist, None, card, SLOW_RUN_ITERS,
                 needed=("masked_w_update", "masked_h_update"), mask=ml10_obs)
 
     def lagged_path():
@@ -4790,7 +4872,7 @@ def main() -> int:
                                   ("ADMM KL config[3]", "kl", "fixed")):
             runs[label] = run_slice(
                 torch, tt, counters, label, adm_x, CONFIG3["k"], dist, None, card,
-                RUN_ITERS, method="admm",
+                SLOW_RUN_ITERS, method="admm",
                 needed=("eu_residual_obj" if dist == "eu" else "kl_ratio_and_obj",),
                 rho_mode=mode, **ADMM_KW)
 
@@ -5071,7 +5153,15 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     multi_gpu["rest"] = mesh_rest_phase(torch, tt, drive, card, {"eu": eu_x, "kl": kl_x})
-    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 12: the CLI's bench (python -m tpunmf_torch bench) [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    bench, bench_launched = bench_phase(torch, counters, card)
+    for name, c in bench_launched.items():
+        launches[name] += c
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -5102,7 +5192,8 @@ def main() -> int:
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
         "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families,
-        "remaining": remaining, "out_of_core": out_of_core, "multi_gpu": multi_gpu}))
+        "remaining": remaining, "out_of_core": out_of_core, "multi_gpu": multi_gpu,
+        "bench": bench}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

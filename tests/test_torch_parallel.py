@@ -419,7 +419,8 @@ def test_a_cuda_mesh_without_a_card_raises():
                                   "tpunmf_torch/parallel/ntf_sharded.py",
                                   "tpunmf_torch/core/sums.py",
                                   "tpunmf_torch/parallel/mesh_checkpoint.py",
-                                  "tpunmf_torch/io/checkpoint.py"])
+                                  "tpunmf_torch/io/checkpoint.py",
+                                  "tpunmf_torch/bench.py"])
 def test_worker_and_tool_import_neither_jax_nor_tpunmf(path):
     import ast
 

@@ -1,12 +1,15 @@
 """Command-line interface: ``python -m tpunmf_torch <command>``.
 
 ``tpunmf``'s CLI on the port: factorize a data file with any ported
-solver, or grid-search over parameters.  ``--device`` (``cuda``, the
+solver, grid-search over parameters, or run the headline benchmark
+(``tpunmf_torch.bench``, on the card).  ``--device`` (``cuda``, the
 default, or ``cpu``) says where the loaded matrix goes: the port runs on
-the card unless asked for the CPU, and never falls back to it.
+the card unless asked for the CPU, and never falls back to it; ``bench``
+needs an H100 and raises without one.
 
     python -m tpunmf_torch factorize data.npy -k 10 --distance-type eu
     python -m tpunmf_torch grid data.npy --features 5,10 --lambda-w 0,0.1 --no-save
+    python -m tpunmf_torch bench
 """
 from __future__ import annotations
 
@@ -141,6 +144,13 @@ def cmd_grid(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .bench import main as bench_main
+
+    bench_main()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tpunmf_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -155,6 +165,9 @@ def main(argv=None) -> int:
     p_g.add_argument("--lambda-w", default="0", help="comma-separated values")
     p_g.add_argument("--lambda-h", default="0", help="comma-separated values")
     p_g.set_defaults(fn=cmd_grid)
+
+    p_b = sub.add_parser("bench", help="run the headline benchmark")
+    p_b.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     try:
