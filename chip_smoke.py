@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpunmf_torch's main paths once on one CUDA card, through its kernels.
 
-    python3 chip_smoke.py       # one card; about nineteen minutes of command time on an H100
+    python3 chip_smoke.py       # one card; about fifteen minutes of command time on an H100
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. the card's name and power limit; build the CUDA kernels of
@@ -19,8 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and kl_ratio at ragged 1000x777 k37 and k1100 and at KL config[1];
      mur_h_update, mur_w_update and the lagged W pass also at KL
      8192x4096 r128; the lagged W must be the plain KL W bit for bit, and
-     masked_w_update must give the bits it gave before MUR's KL W pass
-     came to share its kernel (masked_w_bits).  mur_iteration_kl also at
+     masked_w_update must give its pinned bits (masked_w_bits, with its
+     sums rounded every step).  mur_iteration_kl also at
      KL 8192x4096 r128 on bf16 X and at 8192x1024 k 256-1024 (across the
      KL rank lines), where up to KL_ITER_PAIR_RANK its W', objective and
      wtr must be the lagged W pass's and the KL H pass's numerator bit for
@@ -181,15 +181,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
        records, its mean it/s beside the wall rate), trace() around 5
        iterations (names the route's kernels), determinism_check of 10
        iterations of MUR EU and of HALS on the kernel routes.
-  6. MUR KL against float64 (fault 3.5), every time beside the card's name
-     and power limit: 50 iterations from one init at 8192x8192 r128 (its
+  6. every kernel route that updates the iterate against float64 (faults
+     3.5 and 3.7, route_f64_phase; ``python3 tools/route_drift.py`` alone),
+     every time beside the card's name and power limit: 50 iterations from
+     one init on the plain route in float64 (X and the init upcast), the
+     plain route in f32 and the kernel route in f32, each f32 trace's
+     largest relative distance from float64 and both routes' it/s; the
+     kernel route within 1e-5 of float64 at every iteration (twice the
+     plain f32 route's distance where that exceeds 5e-6), launching its
+     route's kernels, the plain routes none: MUR KL at 8192x8192 r128 (its
      NNDSVD 'zero'), 8192x4096 r128 and BASELINE config[1] (random_init
-     seed 0), on the plain route in float64, the plain route in f32 and the
-     kernel route in f32; the kernel route within 1e-5 of float64 at every
-     iteration (twice the plain f32 route's distance where that exceeds
-     5e-6).  Then the solver families, 10 iterations a run, kernel route
-     against plain route from one init, with it/s over factorize(), ms an
-     iteration, final objective and launches:
+     seed 0); MUR EU at 8192x8192 r128 from its NNDSVD 'zero' on the
+     single pass, the 2-pass pair and the "dma" single pass; HALS there
+     (inner_sweeps=2, the init nudged to 1e-16) on gs_sweep and on its
+     single pass; masked MUR EU and KL at MovieLens-10M's dimensions r64
+     and on the KL 8192x4096 r128 X with a seeded 25% mask, from
+     random_init seed 0.  The "dma" and HALS single passes, off by
+     default, are printed and not gated.  Then the solver families, 10
+     iterations a run, kernel route against plain route from one init,
+     with it/s over factorize(), ms an iteration, final objective and
+     launches:
      - semi_nmf on the 8192x8192 X minus its column means (mixed sign)
        from one seeded |N(0, 1)| H; onmf from X's NNDSVD 'zero' (nudged to
        1e-6): eu_residual_obj once an iteration and once for the initial
@@ -338,13 +349,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      in blocks of 10, stopped after two blocks and resumed, through .npz
      and through DCP, each the uninterrupted run's bits, the .npz resumed
      in one-device hals with its bits, and the seconds a save costs.
- 12. the CLI's bench (bench_phase): ``python -m tpunmf_torch bench``
-     through tpunmf_torch.__main__.main(["bench"]) in-process at its own
-     full sizes (tpunmf_torch.bench: the probes, MUR EU 8192x8192 r128 on
-     bf16 and f32 X, rank 512 at 8192x2048, MUR KL at cadence 1 and 8,
-     serving at (64, 2^20) r128 and (64, 2^19) r512, eight solver families'
-     rates), its line printed; it must return 0 with no "error" in the
-     line, a positive headline and vs_baseline, a roofline fraction against
+ 12. the CLI's bench (bench_phase): ``python -m tpunmf_torch bench
+     --deltas ao_admm=200,ao_admm_local_l1inf=100`` through
+     tpunmf_torch.__main__.main in-process at its own full sizes
+     (tpunmf_torch.bench: the probes, MUR EU 8192x8192 r128 on bf16 and
+     f32 X, rank 512 at 8192x2048, MUR KL at cadence 1 and 8, serving at
+     (64, 2^20) r128 and (64, 2^19) r512, eight solver families' rates, the
+     two AO-ADMM families on 200 and 100 extra iterations where bench.py
+     takes 2000 and 1000: BENCH_DELTAS), the deltas and its line printed;
+     it must return 0 with no "error" in the line, a positive headline and
+     vs_baseline, a roofline fraction against
      the measured ceiling and a rank-512 MFU of at most BENCH_FRACTION_MAX
      (the former unless the probes undershot the solver), and launches of
      the read probe, the headline route's MUR kernel, the fused scoring
@@ -457,9 +471,10 @@ PROFILED_CALLS = 20
 # host cost grows with the host ops it records, about 1.5 s an ANLS iteration
 PROFILE_ITERS = 5
 
-# masked_w_bits as the masked W pass gave them on an H100 before MUR's KL W
-# pass came to share its kernel: the bits it must keep
-MASKED_W_BITS = "7cdbaf0dd25264455ec0e6c7d08771d51db7fed38144b35f800e60027f0d8e97"
+# masked_w_bits as the masked W pass gives them on an H100 with its sums
+# rounded every step (fault 3.7); before, with the tensor cores' own sums,
+# 7cdbaf0dd25264455ec0e6c7d08771d51db7fed38144b35f800e60027f0d8e97
+MASKED_W_BITS = "2e7339ae5cda5404af7403a594f7814d772ac0bb37711d6e1680c50947e7aba3"
 # the single-pass shapes: tpunmf's own route test (tests/test_ops.py:265-277)
 KL_SINGLE = dict(m=8192, n=4096, k=128, seed=4)
 EU_WIDE = dict(m=8192, n=16384, k=128, seed=0)
@@ -1275,6 +1290,35 @@ def serving_kernel_phase(torch, records, reps):
     return line
 
 
+def kernel_counters():
+    """Each kernel of KERNELS (and the lagged W pass): its wrapper and the
+    attribute that counts its launches."""
+    from tpunmf_torch.ops import (fused, hals_sweep, masked_fused, mur_fused, mur_variants,
+                                  read_probe, topk_select)
+
+    return {"mur_w_update": (mur_fused.mur_w_update, "launches"),
+            "mur_h_update": (mur_fused.mur_h_update, "launches"),
+            "eu_residual_obj": (fused.eu_residual_obj, "launches"),
+            "kl_obj": (fused.kl_obj, "launches"),
+            "mur_w_update_lagged": (mur_fused.mur_w_update, "lagged_launches"),
+            "gs_sweep": (hals_sweep.gs_sweep, "launches"),
+            "masked_w_update": (masked_fused.masked_w_update, "launches"),
+            "masked_h_update": (masked_fused.masked_h_update, "launches"),
+            "kl_ratio_and_obj": (fused.kl_ratio_and_obj, "launches"),
+            "blockmax_relayout": (topk_select.blockmax_relayout, "launches"),
+            "score_blockmax_relayout": (topk_select.score_blockmax_relayout,
+                                        "launches"),
+            "mur_iteration_eu": (mur_fused.mur_iteration_eu, "launches"),
+            "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches"),
+            "kl_ratio": (fused.kl_ratio, "launches"),
+            "mur_iteration_eu_dma": (mur_fused.mur_iteration_eu_dma, "launches"),
+            "hals_iteration_eu": (hals_sweep.hals_iteration_eu, "launches"),
+            "v1_iter": (mur_variants.v1_iter, "launches"),
+            "v2_iter": (mur_variants.v2_iter, "launches"),
+            "iter_eu_int8": (mur_variants.iter_eu_int8, "launches"),
+            "read_probe": (read_probe.read_probe, "launches")}
+
+
 def reset_counters(counters):
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -1648,76 +1692,203 @@ def objective_f64(torch, x, w, h, dist, rows=4096):
                for r in range(0, x.shape[0], rows))
 
 
-# MUR KL against float64 (fault 3.5): 50 iterations, the exact objective,
-# every f32 trace held to the float64 plain route's from the same init
-KL_F64_ITERS = 50
-KL_F64_TOL = 1e-5
+# every kernel route that updates the iterate against float64 (faults 3.5
+# and 3.7): 50 iterations, the exact objective, every f32 trace held to the
+# float64 plain route's from the same init
+F64_ITERS = 50
+F64_TOL = 1e-5
 # where the plain f32 route is itself farther than this from float64, the
 # kernel route's gate is twice the plain route's distance
-KL_F64_PLAIN_FLOOR = 5e-6
+F64_PLAIN_FLOOR = 5e-6
+# the masked cases' kernel route is also held within this many times the
+# plain f32 route's distance (fault 3.7): on an H100 it sat 0.96-1.96
+# times it with the W pass's sums rounded every step, 2.2-4.0 times with
+# the tensor cores' own sums in both passes, and 1.29-5.25 times (3.39 and
+# 5.25 in two of the four cases) with those in the W pass alone
+F64_NEAR_PLAIN = 2.5
+# the masked cases' second X: phase 6's KL 8192x4096 (KL_SINGLE) with the
+# bench's 25% mask (tpunmf_torch/bench.py's bench_solver_rates)
+F64_MASK_DENSITY, F64_MASK_SEED = 0.25, 2
+
+
+def f64_case(key, label, fit, x, k, init, needed, banned=(), gated=True, ref=None,
+             within=contextlib.nullcontext, near_plain=None):
+    """One case of route_f64_phase: ``fit(x, k, **kw)`` runs the solver on
+    X from ``init`` (W0, H0); its kernel route must launch every kernel of
+    ``needed`` and none of ``banned``, inside ``within()`` (a route's
+    switch); the cases of one ``ref`` (one solver, X and init) share their
+    float64 and plain f32 runs; ``near_plain`` also holds the kernel
+    route within that many times the plain f32 route's distance.  A
+    ``gated`` case that misses its gate fails the phase; another is
+    printed and recorded."""
+    return dict(key=key, label=label, fit=fit, x=x, k=k, init=init, needed=needed,
+                banned=banned, gated=gated, ref=ref or key, within=within,
+                near_plain=near_plain)
 
 
 def kl_f64_cases(torch, eu_x, eu_init, kl_x, kl2_x):
-    """The three shapes of the float64 check, each (label, X, k, W0, H0):
-    8192^2 r128 from its NNDSVD 'zero' (given, as the paths computed it);
-    KL 8192x4096 r128 (mur_iteration_kl) and BASELINE config[1] (the 2-pass
-    pair) from random_init(0)."""
+    """MUR KL at three shapes (fault 3.5): 8192^2 r128 from its NNDSVD
+    'zero' (given, as the paths computed it); KL 8192x4096 r128 and
+    BASELINE config[1] from random_init(0), each on the route mur_route
+    gives it."""
+    import functools
+
     from tpunmf_torch.init import random_init
-
-    cases = [(f"8192^2 r{eu_init[0].shape[1]} NNDSVD 'zero'", eu_x, eu_init[0].shape[1],
-              *eu_init)]
-    for label, x, k in ((f"KL {tuple(kl2_x.shape)} r{KL_SINGLE['k']}", kl2_x, KL_SINGLE["k"]),
-                        (f"config[1] {tuple(kl_x.shape)} r50", kl_x, 50)):
-        cases.append((label, x, k, *random_init(0, *x.shape, k, device=x.device)))
-    return cases
-
-
-def kl_f64_phase(torch, tt, cases, card, gate=True):
-    """MUR KL, KL_F64_ITERS iterations from one init three ways: the plain
-    route in float64 on the card (X and the init upcast), the plain route
-    in f32 and the kernel route in f32.  Prints each f32 trace's largest
-    relative distance from the float64 trace and the route mur_route
-    chose; with ``gate``, the kernel route must stay within KL_F64_TOL of
-    float64 at every iteration (twice the plain route's distance where
-    that exceeds KL_F64_PLAIN_FLOOR)."""
     from tpunmf_torch.solvers import mur
     from tpunmf_torch.solvers.mur import mur_route
 
-    out = {}
-    for label, x, k, w0, h0 in cases:
-        kw = dict(distance_type="kl", min_iter=KL_F64_ITERS, max_iter=KL_F64_ITERS,
-                  tol1=0.0, tol2=0.0)
-        ref = mur(x.double(), k, w_init=w0.double(), h_init=h0.double(), **kw)
-        want = np.asarray(ref.obj_history, dtype=np.float64)
-        del ref
-        dist, it_s = {}, {}
-        for name, plain in (("plain f32", True), ("kernels f32", False)):
-            mur(x, k, w_init=w0, h_init=h0, use_pallas=not plain,
-                **{**kw, "min_iter": 2, "max_iter": 2})  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = mur(x, k, w_init=w0, h_init=h0, use_pallas=not plain, **kw)
-            it_s[name] = KL_F64_ITERS / (time.perf_counter() - t0)
-            got = np.asarray(res.obj_history, dtype=np.float64)
-            require(got.shape == want.shape and np.all(np.isfinite(got)),
-                    f"KL float64 check {label}: {name} trace")
-            dist[name] = float(np.max(np.abs(got - want) / np.abs(want)))
-        route = mur_route(x, k, "kl")[0]
-        tol = (KL_F64_TOL if dist["plain f32"] <= KL_F64_PLAIN_FLOOR
-               else 2.0 * dist["plain f32"])
-        rule = ("1e-5" if tol == KL_F64_TOL
+    fit = functools.partial(mur, distance_type="kl")
+    cases = []
+    for key, label, x, k, init in (
+            ("kl-8192sq", f"8192^2 r{eu_init[0].shape[1]} NNDSVD 'zero'", eu_x,
+             eu_init[0].shape[1], eu_init),
+            ("kl-8192x4096", f"{tuple(kl2_x.shape)} r{KL_SINGLE['k']}", kl2_x,
+             KL_SINGLE["k"], None),
+            ("kl-config1", f"config[1] {tuple(kl_x.shape)} r50", kl_x, 50, None)):
+        init = init or random_init(0, *x.shape, k, device=x.device)
+        single = mur_route(x, k, "kl")[0] == "single"
+        cases.append(f64_case(key, "MUR KL " + label, fit, x, k, init,
+                              (("mur_iteration_kl",) if single else PAIR) + ("kl_obj",),
+                              PAIR if single else ("mur_iteration_kl",)))
+    return cases
+
+
+def eu_f64_cases(torch, eu_x, eu_init, hals_init):
+    """MUR EU and HALS at 8192^2 r128 (lowrank_dense seed 0) from its NNDSVD
+    'zero' (HALS's nudged to 1e-16, as hals() nudges the inits it makes),
+    on each route: MUR's single pass ("auto", tpunmf's rule), the 2-pass
+    pair and the "dma" single pass; HALS's gs_sweep and its single pass.
+    The two switched routes, off by default, are not gated."""
+    import functools
+
+    from tpunmf_torch.solvers import hals, mur
+
+    k = eu_init[0].shape[1]
+    mur_eu = functools.partial(mur, distance_type="eu")
+    hals2 = functools.partial(hals, inner_sweeps=2)
+    shape = f"8192^2 r{k} NNDSVD 'zero'"
+    return [
+        f64_case("mur-eu", f"MUR EU f32 single pass {shape}", mur_eu, eu_x, k, eu_init,
+                 SINGLE_EU, PAIR + OPT_IN),
+        f64_case("mur-eu-pair", f"MUR EU f32 2-pass pair {shape}", mur_eu, eu_x, k, eu_init,
+                 PAIR + ("eu_residual_obj",), ("mur_iteration_eu",) + OPT_IN, ref="mur-eu",
+                 within=two_pass_route),
+        f64_case("mur-eu-dma", f"MUR EU f32 dma {shape}", mur_eu, eu_x, k, eu_init,
+                 ("mur_iteration_eu_dma", "eu_residual_obj"), ("mur_iteration_eu",) + PAIR,
+                 gated=False, ref="mur-eu",
+                 within=lambda: switched(mur_single_pass_variant="dma")),
+        f64_case("hals", f"HALS EU f32 gs_sweep, inner_sweeps=2, {shape}", hals2, eu_x, k,
+                 hals_init, ("gs_sweep", "eu_residual_obj"), OPT_IN),
+        f64_case("hals-single", f"HALS EU f32 single pass, inner_sweeps=2, {shape}", hals2,
+                 eu_x, k, hals_init, ("hals_iteration_eu", "eu_residual_obj"), gated=False,
+                 ref="hals", within=lambda: switched(hals_single_pass=True))]
+
+
+def masked_f64_cases(torch, key, label, x, mask, k):
+    """Masked MUR EU and KL (fault 3.7) on X with a boolean mask, from
+    random_init(0) (phase 10's masked init), each also held within
+    F64_NEAR_PLAIN times the plain f32 route's distance."""
+    import functools
+
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.solvers import mur_masked
+
+    def fit(x, k, dist, **kw):
+        return mur_masked(x, mask, k, distance_type=dist, **kw)
+
+    init = random_init(0, *x.shape, k, device=x.device)
+    return [f64_case(f"masked-{dist}-{key}", f"masked MUR {dist.upper()} {label} r{k}",
+                     functools.partial(fit, dist=dist), x, k, init,
+                     ("masked_w_update", "masked_h_update"), near_plain=F64_NEAR_PLAIN)
+            for dist in ("eu", "kl")]
+
+
+def f64_mask(torch, x):
+    """The F64_MASK_DENSITY share of X's cells, drawn on the card from
+    F64_MASK_SEED."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(F64_MASK_SEED)
+    return torch.rand(x.shape, generator=g, device=x.device) < F64_MASK_DENSITY
+
+
+def f64_mask_label(x):
+    return (f"{tuple(x.shape)} tfidf_like seed {KL_SINGLE['seed']}, "
+            f"{F64_MASK_DENSITY:.0%} observed")
+
+
+def route_f64_phase(torch, counters, cases, card, gate=True):
+    """Each case F64_ITERS iterations from its init three ways: the plain
+    route in float64 on the card (X and the init upcast), the plain route
+    in f32 and the kernel route in f32 (after a 2-iteration warm-up of each
+    f32 route).  Prints each f32 trace's largest relative distance from the
+    float64 trace, the gate, the it/s of both f32 routes over the solver
+    call and the kernels the kernel route launched; the plain routes must
+    launch none.  With ``gate``, a gated case's kernel route must stay
+    within F64_TOL of float64 at every iteration (twice the plain route's
+    distance where that exceeds F64_PLAIN_FLOOR), and within its
+    ``near_plain`` times the plain route's distance where it has one."""
+    kw = dict(min_iter=F64_ITERS, max_iter=F64_ITERS, tol1=0.0, tol2=0.0)
+
+    def timed(fit, x, k, w0, h0, use_pallas):
+        fit(x, k, w_init=w0, h_init=h0, use_pallas=use_pallas,
+            **{**kw, "min_iter": 2, "max_iter": 2})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(x, k, w_init=w0, h_init=h0, use_pallas=use_pallas, **kw)
+        return (np.asarray(res.obj_history, dtype=np.float64),
+                F64_ITERS / (time.perf_counter() - t0))
+
+    out, refs = {}, {}
+    for c in cases:
+        label, fit, x, k, (w0, h0) = c["label"], c["fit"], c["x"], c["k"], c["init"]
+        if c["ref"] not in refs:
+            before = counts(counters)
+            ref = fit(x.double(), k, w_init=w0.double(), h_init=h0.double(), use_pallas=False,
+                      **kw)
+            want = np.asarray(ref.obj_history, dtype=np.float64)
+            del ref
+            torch.cuda.empty_cache()
+            plain, plain_it_s = timed(fit, x, k, w0, h0, False)
+            require(counts(counters) == before, f"{label}: a plain route launched a kernel")
+            refs[c["ref"]] = want, plain, plain_it_s
+        want, plain, plain_it_s = refs[c["ref"]]
+        with c["within"]():
+            before = counts(counters)
+            got, it_s = timed(fit, x, k, w0, h0, True)
+            launched = {n: v - before[n] for n, v in counts(counters).items() if v > before[n]}
+        dist = {}
+        for name, trace in (("plain f32", plain), ("kernels f32", got)):
+            require(trace.shape == want.shape and np.all(np.isfinite(trace)),
+                    f"{label}: the {name} trace")
+            dist[name] = float(np.max(np.abs(trace - want) / np.abs(want)))
+        tol = F64_TOL if dist["plain f32"] <= F64_PLAIN_FLOOR else 2.0 * dist["plain f32"]
+        rule = ("1e-5" if tol == F64_TOL
                 else f"twice the plain route's distance, {tol:.3e}")
-        print(f"  MUR KL {label}, {KL_F64_ITERS} iterations against float64: plain f32 "
-              f"{dist['plain f32']:.3e}, kernels f32 {dist['kernels f32']:.3e} (route "
-              f"{route!r}); gate {rule}; {it_s['kernels f32']:.2f} it/s on the kernels, "
-              f"{it_s['plain f32']:.2f} plain (over mur(), init given) [{card}]", flush=True)
-        if gate:
-            require(dist["kernels f32"] <= tol,
-                    f"MUR KL {label}: the kernel route is {dist['kernels f32']:.3e} off "
-                    f"float64, above {tol:.3e}")
-        out[label] = {"plain_f32": dist["plain f32"], "kernels_f32": dist["kernels f32"],
-                      "route": route, "gate": tol, "it_s": it_s["kernels f32"],
-                      "plain_it_s": it_s["plain f32"]}
+        held = dist["kernels f32"] <= tol
+        ratio = dist["kernels f32"] / dist["plain f32"] if dist["plain f32"] else np.inf
+        if c["near_plain"] is not None:
+            rule += (f", and {ratio:.2f} times the plain route's distance within "
+                     f"{c['near_plain']:g}")
+            held = held and ratio <= c["near_plain"]
+        print(f"  {label}, {F64_ITERS} iterations against float64: plain f32 "
+              f"{dist['plain f32']:.3e}, kernels f32 {dist['kernels f32']:.3e}; gate {rule}"
+              f"{'' if c['gated'] else ' (not gated: off by default)'}: "
+              f"{'held' if held else 'MISSED'}; {it_s:.2f} it/s on the kernels, "
+              f"{plain_it_s:.2f} plain (over the solver, init given); launches {launched} "
+              f"[{card}]", flush=True)
+        for name in c["needed"]:
+            require(launched.get(name, 0) > 0, f"{label}: {name} was not launched")
+        for name in c["banned"]:
+            require(name not in launched, f"{label}: {name} was launched off its route")
+        if gate and c["gated"]:
+            require(held, f"{label}: the kernel route is {dist['kernels f32']:.3e} off "
+                          f"float64 ({ratio:.2f} times the plain route's distance), "
+                          f"gate {rule}")
+        out[label] = {"key": c["key"], "plain_f32": dist["plain f32"],
+                      "kernels_f32": dist["kernels f32"], "gate": tol, "gated": c["gated"],
+                      "near_plain": c["near_plain"],
+                      "ratio": ratio if np.isfinite(ratio) else None, "held": held,
+                      "it_s": it_s, "plain_it_s": plain_it_s, "launches": launched}
         torch.cuda.empty_cache()
     return out
 
@@ -4496,19 +4667,25 @@ def mesh_rest_phase(torch, tt, drive, card, data):
 BENCH_HEADLINE = dict(m=8192, n=8192, k=128)  # tpunmf_torch.bench's headline MUR EU, bf16 X
 BENCH_FRACTION_MAX = 1.05  # a fraction of a ceiling (roofline, product peak) past which
                            # the timing, not the program, is wrong
+# the bench's solver rates here run the two AO-ADMM families on fewer extra
+# iterations than bench.py's 2000 and 1000 (RATE_DELTAS, which python -m
+# tpunmf_torch bench keeps): sized for the TPU's on-device loops, they took
+# 459 s at the card's 65 and 24 it/s (host-bound inner loops)
+BENCH_DELTAS = {"ao_admm": 200, "ao_admm_local_l1inf": 100}
 
 
 def bench_phase(torch, counters, card):
-    """Phase 12: ``python -m tpunmf_torch bench`` through the CLI's main,
-    in-process, its line captured and printed; every count set to 0 just
-    before it and read just after.  The headline's MUR kernel (the route
-    mur_route gives bf16 X at 8192^2 r128), the read probe, the fused
+    """Phase 12: ``python -m tpunmf_torch bench --deltas ...`` (BENCH_DELTAS)
+    through the CLI's main, in-process, its line captured and printed;
+    every count set to 0 just before it and read just after.  The
+    headline's MUR kernel (the route mur_route gives bf16 X at 8192^2
+    r128), the read probe, the fused
     scoring kernel and gs_sweep (HALS's rate) must have launched, and no
     kernel behind the port's switches or of the sweep scripts."""
     import io
 
     from tpunmf_torch.__main__ import main as cli_main
-    from tpunmf_torch.bench import errors
+    from tpunmf_torch.bench import RATE_DELTAS, errors
     from tpunmf_torch.solvers.mur import mur_route
 
     h = BENCH_HEADLINE
@@ -4518,12 +4695,16 @@ def bench_phase(torch, counters, card):
                            else "mur_iteration_eu"),
                 "pair": "mur_w_update"}[route]
     needed = ("read_probe", headline, "score_blockmax_relayout", "gs_sweep")
+    deltas = {**RATE_DELTAS, **BENCH_DELTAS}
+    arg = ",".join(f"{name}={count}" for name, count in BENCH_DELTAS.items())
+    print(f"  bench --deltas {arg}: the solver rates' deltas {deltas} (bench.py's "
+          f"{RATE_DELTAS})", flush=True)
     buf = io.StringIO()
     t0 = time.perf_counter()
     reset_counters(counters)
     try:
         with contextlib.redirect_stdout(buf):
-            rc = cli_main(["bench"])
+            rc = cli_main(["bench", "--deltas", arg])
     finally:
         launched = counts(counters)
         seconds = time.perf_counter() - t0
@@ -4541,11 +4722,13 @@ def bench_phase(torch, counters, card):
             "the measured ceiling, with no undershoot")
     mfu = extra["rank512_compute_bound"]["mfu_vs_measured_mxu"]
     require(mfu <= BENCH_FRACTION_MAX, f"bench: rank-512 MFU {mfu}")
+    require(extra.get("solver_rate_deltas") == deltas,
+            f"bench: the line names deltas {extra.get('solver_rate_deltas')}, not {deltas}")
     for name in needed:
         require(launched[name] > 0, f"bench: {name} was not launched")
     for name in OPT_IN + tuple(n for n in SWEEP_ONLY if n != "read_probe"):
         require(launched[name] == 0, f"bench: {name} was launched off its path")
-    return {"seconds": seconds, "route": route, "launches": launched}, launched
+    return {"seconds": seconds, "route": route, "launches": launched, "deltas": deltas}, launched
 
 
 def main() -> int:
@@ -4563,33 +4746,12 @@ def main() -> int:
     import tpunmf_torch.parallel  # noqa: F401  (tt.parallel, phase 9)
     from tpunmf_torch.data import lowrank_dense, movielens_like, tfidf_like
     from tpunmf_torch.init import nndsvd
-    from tpunmf_torch.ops import (_build, fused, hals_sweep, masked_fused, mur_fused,
-                                  mur_variants, read_probe, topk_select)
+    from tpunmf_torch.ops import _build, masked_fused, read_probe
     from tpunmf_torch.sweeps import sweep_int8, sweep_iter2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = {"mur_w_update": (mur_fused.mur_w_update, "launches"),
-                "mur_h_update": (mur_fused.mur_h_update, "launches"),
-                "eu_residual_obj": (fused.eu_residual_obj, "launches"),
-                "kl_obj": (fused.kl_obj, "launches"),
-                "mur_w_update_lagged": (mur_fused.mur_w_update, "lagged_launches"),
-                "gs_sweep": (hals_sweep.gs_sweep, "launches"),
-                "masked_w_update": (masked_fused.masked_w_update, "launches"),
-                "masked_h_update": (masked_fused.masked_h_update, "launches"),
-                "kl_ratio_and_obj": (fused.kl_ratio_and_obj, "launches"),
-                "blockmax_relayout": (topk_select.blockmax_relayout, "launches"),
-                "score_blockmax_relayout": (topk_select.score_blockmax_relayout,
-                                            "launches"),
-                "mur_iteration_eu": (mur_fused.mur_iteration_eu, "launches"),
-                "mur_iteration_kl": (mur_fused.mur_iteration_kl, "launches"),
-                "kl_ratio": (fused.kl_ratio, "launches"),
-                "mur_iteration_eu_dma": (mur_fused.mur_iteration_eu_dma, "launches"),
-                "hals_iteration_eu": (hals_sweep.hals_iteration_eu, "launches"),
-                "v1_iter": (mur_variants.v1_iter, "launches"),
-                "v2_iter": (mur_variants.v2_iter, "launches"),
-                "iter_eu_int8": (mur_variants.iter_eu_int8, "launches"),
-                "read_probe": (read_probe.read_probe, "launches")}
+    counters = kernel_counters()
 
     t_start = time.perf_counter()
     card = nvidia_smi_line()
@@ -4689,8 +4851,7 @@ def main() -> int:
         (f"ML-10M {tuple(ml10_x.shape)} k64 f32", ml10_x, ml10_obs, 64)], reps=3)
     bits = masked_w_bits(torch, masked_fused)
     print(f"  masked_w_update: sha256 of its outputs on the fixed inputs {bits[:16]}, "
-          f"{'as' if bits == MASKED_W_BITS else 'NOT as'} before MUR's KL W pass shared "
-          f"its kernel", flush=True)
+          f"{'as' if bits == MASKED_W_BITS else 'NOT as'} pinned", flush=True)
     require(bits == MASKED_W_BITS, "masked_w_update: its bits moved")
     rag = f"ragged {tuple(ragged.shape)}"
     pass_phase(torch, records, [
@@ -5113,9 +5274,22 @@ def main() -> int:
     print(f"  phase 5 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     t_phase = time.perf_counter()
-    print(f"phase 6: MUR KL against float64, semi_nmf, onmf, robust_nmf, multilevel [{card}]",
-          flush=True)
-    kl_f64 = kl_f64_phase(torch, tt, kl_f64_cases(torch, eu_x, eu_nndsvd, kl_x, kl2_x), card)
+    print(f"phase 6: every kernel route against float64, semi_nmf, onmf, robust_nmf, "
+          f"multilevel [{card}]", flush=True)
+    t0 = time.perf_counter()
+    kl_f64 = route_f64_phase(torch, counters,
+                             kl_f64_cases(torch, eu_x, eu_nndsvd, kl_x, kl2_x), card)
+    route_f64 = route_f64_phase(torch, counters,
+                                eu_f64_cases(torch, eu_x, eu_nndsvd, hals_init)
+                                + masked_f64_cases(torch, "8192x4096", f64_mask_label(kl2_x), kl2_x,
+                                                   f64_mask(torch, kl2_x), KL_SINGLE["k"]),
+                                card)
+    ml10_x, ml10_obs = movielens_on_card(torch, *ML10M, seed=3)
+    route_f64.update(route_f64_phase(torch, counters, masked_f64_cases(
+        torch, "ml10m", f"ML-10M {tuple(ml10_x.shape)}", ml10_x, ml10_obs, 64), card))
+    del ml10_x, ml10_obs
+    torch.cuda.empty_cache()
+    print(f"  the float64 check took {time.perf_counter() - t0:.1f} s", flush=True)
     families = families_phase(torch, tt, counters, drive, card, eu_x, eu_nndsvd)
     print(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -5191,7 +5365,8 @@ def main() -> int:
                  for label, r in runs.items()},
         "torch_topk": topk_line, "single_vs_pair": route_line, "dma_vs_auto": dma_line,
         "v1_vs_auto": v1_line,
-        "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "families": families,
+        "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "route_f64": route_f64,
+        "families": families,
         "remaining": remaining, "out_of_core": out_of_core, "multi_gpu": multi_gpu,
         "bench": bench}))
     print(card)

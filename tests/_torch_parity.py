@@ -27,6 +27,11 @@ TRACE_RTOL = 1e-10
 # f32 kernel vs plain version, as tpunmf's own kernel tests (test_ops.py)
 KERNEL_RTOL = 1e-5
 SUM_RTOL = 1e-4
+# the port's plain f32 route against tpunmf's float64 trace over a run (50
+# iterations): chip_smoke.py's F64_PLAIN_FLOOR, the plain route's distance
+# up to which a kernel route's gate on the card is 1e-5, twice this
+PLAIN_F64_RTOL = 5e-6
+F64_RUN = dict(min_iter=50, max_iter=50, tol1=0.0, tol2=0.0)
 
 
 def lowrank(seed=42, m=60, n=48, k=5, noise=0.01):
@@ -63,6 +68,19 @@ def masked_problem(seed, m=32, n=24, k=4, frac=0.6, weights=False):
     w = (rng.random((m, k)) + 0.1).astype(np.float32)
     h = (rng.random((k, n)) + 0.1).astype(np.float32)
     return x, mask, w, h
+
+
+def f64_distance(got, want):
+    """An f32 trace's largest relative distance from a float64 trace, over
+    traces of one length."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape and np.all(np.isfinite(got)), (got.shape, want.shape)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def f32(*arrays):
+    """numpy arrays -> float32 CPU tensors (the port's f32 route)."""
+    return tuple(torch.from_numpy(np.asarray(a, dtype=np.float32)) for a in arrays)
 
 
 def t(a):

@@ -59,15 +59,21 @@ def _bench_py_rate_families():
             and isinstance(t.value, ast.Name) and t.value.id == "out"]
 
 
+def _bench_py_rate_deltas():
+    """bench.py's delta of each family (out["..."] = rate(fn, delta, ...))."""
+    tree = ast.parse(open(os.path.join(REPO, "bench.py")).read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "bench_solver_rates")
+    return {n.targets[0].slice.value: n.value.args[1].value for n in ast.walk(fn)
+            if isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Subscript)
+            and isinstance(n.value, ast.Call) and getattr(n.value.func, "id", "") == "rate"}
+
+
 @pytest.fixture(scope="module")
 def port_rates():
     """The port's solver rates at a small shape, each family's delta 2."""
-    saved = dict(tb.RATE_DELTAS)
-    tb.RATE_DELTAS.update({name: 2 for name in tb.RATE_DELTAS})
-    try:
-        return tb.bench_solver_rates(**SMALL_RATES, device="cpu")
-    finally:
-        tb.RATE_DELTAS.update(saved)
+    return tb.bench_solver_rates(**SMALL_RATES, device="cpu",
+                                 deltas={name: 2 for name in tb.RATE_DELTAS})
 
 
 def _port(dist, dtype, **kw):
@@ -113,6 +119,26 @@ def test_solver_rates_cover_bench_py_s_families(port_rates):
     assert all(rate > 0 for rate in port_rates.values())
 
 
+def test_rate_deltas_are_bench_py_s_and_the_cli_replaces_named_ones(monkeypatch):
+    """RATE_DELTAS is bench.py's; ``bench`` runs with them unless
+    ``--deltas`` names families, whose counts it replaces."""
+    from tpunmf_torch.__main__ import _deltas
+
+    assert tb.RATE_DELTAS == _bench_py_rate_deltas()
+    seen = []
+    monkeypatch.setattr(tb, "main", lambda deltas=None: seen.append(deltas))
+    assert tmain(["bench"]) == 0
+    assert tmain(["bench", "--deltas", "ao_admm=200,ao_admm_local_l1inf=100"]) == 0
+    assert seen == [tb.RATE_DELTAS,
+                    {**tb.RATE_DELTAS, "ao_admm": 200, "ao_admm_local_l1inf": 100}]
+    assert tb.RATE_DELTAS == _bench_py_rate_deltas()  # the table itself is untouched
+    with pytest.raises(SystemExit, match="no solver family 'admm_x'"):
+        _deltas("admm_x=3")
+    for bad in ("ao_admm", "ao_admm=", "ao_admm=0", "ao_admm=-5", "ao_admm=2.5", "ao_admm=x"):
+        with pytest.raises(SystemExit, match="count of at least 1"):
+            _deltas(bad)
+
+
 def _tree(obj):
     return {k: _tree(v) for k, v in obj.items()} if isinstance(obj, dict) else None
 
@@ -127,7 +153,7 @@ def _small_port(monkeypatch, port_rates, serving=None):
     monkeypatch.setattr(tb, "bench_mur_kl", lambda **kw: real_kl(**SMALL, device="cpu", **kw))
     monkeypatch.setattr(tb, "bench_serving", serving or (
         lambda **kw: real_serving(**SMALL_SERVING, device="cpu")))
-    monkeypatch.setattr(tb, "bench_solver_rates", lambda: dict(port_rates))
+    monkeypatch.setattr(tb, "bench_solver_rates", lambda **kw: dict(port_rates))
 
 
 def _last_json(out):
@@ -189,6 +215,17 @@ def test_a_recorded_error_raises_after_printing(h100, monkeypatch, capsys, port_
     assert line["extra"]["serving_topk"] == {"error": "serving broke"}
     assert line["extra"]["serving_topk_r512"] == {"error": "serving broke"}
     assert tb.errors(line) == ["extra.serving_topk.error", "extra.serving_topk_r512.error"]
+
+
+def test_the_line_names_deltas_that_are_not_bench_py_s(h100, monkeypatch, capsys, port_rates):
+    """Rates taken at other deltas than RATE_DELTAS say so in the line;
+    at RATE_DELTAS it has bench.py's keys (test_main_prints_bench_py_s_line)."""
+    _small_port(monkeypatch, port_rates)
+    deltas = {**tb.RATE_DELTAS, "ao_admm": 200, "ao_admm_local_l1inf": 100}
+    line = tb.main(deltas=deltas)
+    assert _last_json(capsys.readouterr().out) == json.loads(json.dumps(line))
+    assert line["extra"]["solver_rate_deltas"] == deltas
+    assert "solver_rate_deltas" not in tb.main(deltas=dict(tb.RATE_DELTAS))["extra"]
 
 
 def test_tracker_rules_with_timing_stubbed(h100, monkeypatch):

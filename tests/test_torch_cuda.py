@@ -32,8 +32,12 @@ ROUTE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 GRAM_ULPS = 2
 # the KL objective near a fit against float64: chip_smoke.py's OBJECTIVE_RTOL
 KL_FIT_RTOL = 1e-4
-# MUR KL's kernel route against float64 over a run: chip_smoke.py's KL_F64_TOL
-KL_RUN_F64_RTOL = 1e-5
+# a kernel route against float64 over a run: chip_smoke.py's F64_TOL
+RUN_F64_RTOL = 1e-5
+# the masked kernel route's distance from float64 over the plain f32
+# route's: chip_smoke.py's F64_NEAR_PLAIN (here 1.0-1.2 on an H100 with
+# the W pass's sums rounded, 2.9 and 7.7 with the tensor cores' own)
+RUN_NEAR_PLAIN = 2.5
 
 
 def _on(device, xdtype, m=1000, n=777, k=37):
@@ -511,7 +515,7 @@ def test_kl_objective_near_a_fit_holds_f32_accuracy(cuda_device, seed):
 def test_mur_kl_kernel_route_holds_float64(cuda_device):
     """50 MUR KL iterations at 8192 x 1024 r128 on the kernel route (the KL
     passes' S and numerators rounded at every step) stay within
-    KL_RUN_F64_RTOL of the same run in float64 at every iteration.  With
+    RUN_F64_RTOL of the same run in float64 at every iteration.  With
     the tensor cores' own sums, whose truncation falls one way over about
     a thousand steps, the route drifted to 1.3e-4 at 8192 x 8192."""
     from tpunmf_torch.data import tfidf_like
@@ -527,7 +531,42 @@ def test_mur_kl_kernel_route_holds_float64(cuda_device):
     assert mur_route(x, k, "kl")[0] in ("single", "pair")
     got = np.asarray(mur(x, k, w_init=w0, h_init=h0, **kw).obj_history)
     assert got.shape == want.shape == (51,)
-    assert np.max(np.abs(got - want) / want) <= KL_RUN_F64_RTOL
+    assert np.max(np.abs(got - want) / want) <= RUN_F64_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_masked_kernel_route_holds_float64(cuda_device, dist):
+    """50 masked MUR iterations at 8192 x 1024 r64 with 25% of the cells
+    observed (movielens_like ratings) on the kernel route (the masked W
+    pass's numerator and denominator rounded at every step) stay within
+    RUN_F64_RTOL of the same run in float64 at every iteration, and within
+    RUN_NEAR_PLAIN times the plain f32 route's distance from it.  (On
+    tfidf_like's 64 topics the EU fit is nearly exact, 0.5 ||M (X - W H)||^2
+    falls from 1.8e9 to 10, and the plain f32 route is itself 2.2e-5 off
+    float64 on the CPU.)"""
+    from tpunmf_torch.data import movielens_like
+    from tpunmf_torch.init import random_init
+    from tpunmf_torch.solvers import mur_masked
+
+    m, n, k = 8192, 1024, 64
+    x = t(movielens_like(m, n, density=0.25, seed=3)).to(cuda_device)
+    mask = x > 0
+    w0, h0 = random_init(0, m, n, k, device=cuda_device)
+    kw = dict(distance_type=dist, min_iter=50, max_iter=50, tol1=0.0, tol2=0.0)
+    want = np.asarray(mur_masked(x.double(), mask, k, w_init=w0.double(), h_init=h0.double(),
+                                 **kw).obj_history)
+    plain = np.asarray(mur_masked(x, mask, k, w_init=w0, h_init=h0, use_pallas=False,
+                                  **kw).obj_history)
+    before = masked_fused.masked_w_update.launches, masked_fused.masked_h_update.launches
+    got = np.asarray(mur_masked(x, mask, k, w_init=w0, h_init=h0, **kw).obj_history)
+    assert (masked_fused.masked_w_update.launches, masked_fused.masked_h_update.launches) == (
+        before[0] + 50, before[1] + 50)
+    assert got.shape == plain.shape == want.shape == (51,)
+    kernels = np.max(np.abs(got - want) / want)
+    plain = np.max(np.abs(plain - want) / want)
+    assert kernels <= RUN_F64_RTOL
+    assert kernels <= RUN_NEAR_PLAIN * plain, (kernels, plain)
 
 
 @pytest.mark.cuda

@@ -11,7 +11,7 @@ import torch
 
 import tpunmf
 import tpunmf_torch
-from _torch_parity import assert_traces_match, lowrank, t
+from _torch_parity import F64_RUN, assert_traces_match, f32, f64_distance, lowrank, t
 from tpunmf.ops import hals_sweep as jsweep
 from tpunmf.solvers import hals as jhals
 from tpunmf_torch.io import convert
@@ -270,3 +270,27 @@ def test_facade_names_files_and_carries_results_as_tpunmf(tmp_path):
     carried = convert.results_to_torch(jm.results, dtype=torch.float64)
     assert carried.experiment.method == "hals" and carried.w.dtype == torch.float64
     np.testing.assert_array_equal(convert.results_to_numpy(carried).h, np.asarray(jm.h))
+
+
+# HALS's plain f32 route against tpunmf's float64 trace over 50 iterations
+# at 256 x 192 k16: 1.4e-6 to 1.6e-5 over four seeded inits (the objective
+# falls to the noise floor within a few sweeps, where 0.5 ||X - W H||^2
+# cancels), so past 5e-6 at some inits, where chip_smoke.py's
+# float64 gate on the card is twice the plain route's distance
+HALS_F64_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("inner_sweeps", [1, 2])
+def test_plain_f32_route_stays_near_tpunmf_float64(inner_sweeps):
+    """50 HALS iterations at 256 x 192 k16: the port's plain f32 route within
+    HALS_F64_RTOL of tpunmf's float64 trace at every iteration, the
+    yardstick of chip_smoke.py's float64 gate."""
+    x = lowrank(5, 256, 192, 16)
+    rng = np.random.default_rng(8)
+    w0, h0 = rng.random((256, 16)) + 0.1, rng.random((16, 192)) + 0.1
+    kw = dict(method="hals", inner_sweeps=inner_sweeps, **F64_RUN)
+    want = tpunmf.NMF(x, 16).factorize(w_init=w0, h_init=h0, **kw).obj_history
+    xt, wt, ht = f32(x, w0, h0)
+    got = tpunmf_torch.NMF(xt, 16).factorize(w_init=wt, h_init=ht, use_pallas=False,
+                                             **kw).obj_history
+    assert f64_distance(got, want) <= HALS_F64_RTOL

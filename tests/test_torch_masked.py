@@ -12,7 +12,8 @@ import torch
 
 import tpunmf
 import tpunmf_torch
-from _torch_parity import assert_traces_match, masked_problem, t
+from _torch_parity import (F64_RUN, PLAIN_F64_RTOL, assert_traces_match, f32, f64_distance,
+                           masked_problem, t)
 from tpunmf.data import synthetic as jsynthetic
 from tpunmf.ops import masked_fused as jmasked
 from tpunmf.solvers import mur_masked as jmur_masked
@@ -117,6 +118,24 @@ def test_masked_matches_tpunmf(name, use_pallas, monkeypatch):
     if kw["distance_type"] == "kl" and kw["w_init"] is not None:
         np.testing.assert_array_equal(model.w[7], _W0[7])  # the cold user
         np.testing.assert_array_equal(model.h[:, 11], _H0[:, 11])  # the cold item
+
+
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+def test_plain_f32_route_stays_near_tpunmf_float64(dist):
+    """50 masked iterations at 300 x 277 k37 with a 30% mask: the port's
+    plain f32 route within PLAIN_F64_RTOL of tpunmf's float64 trace at
+    every iteration, the yardstick of chip_smoke.py's float64 gate."""
+    rng = np.random.default_rng(7)
+    m, n, k = 300, 277, 37
+    x = rng.random((m, k)) @ rng.random((k, n)) + 0.05
+    mask = rng.random((m, n)) < 0.3
+    w0, h0 = rng.random((m, k)) + 0.1, rng.random((k, n)) + 0.1
+    kw = dict(method="mur", distance_type=dist, **F64_RUN)
+    want = tpunmf.NMF(x, k).factorize(mask=mask, w_init=w0, h_init=h0, **kw).obj_history
+    xt, wt, ht = f32(x, w0, h0)
+    got = tpunmf_torch.NMF(xt, k).factorize(mask=t(mask), w_init=wt, h_init=ht,
+                                            use_pallas=False, **kw).obj_history
+    assert f64_distance(got, want) <= PLAIN_F64_RTOL
 
 
 def test_kernel_route_gets_a_byte_mask_and_f32_factors(monkeypatch):

@@ -18,7 +18,8 @@ import torch
 
 import tpunmf
 import tpunmf_torch
-from _torch_parity import assert_traces_match, lowrank, t
+from _torch_parity import (F64_RUN, PLAIN_F64_RTOL, assert_traces_match, f32, f64_distance,
+                           lowrank, t)
 from tpunmf.core import convergence as jconv
 from tpunmf.init import nndsvd as jnndsvd
 from tpunmf.solvers import mur as jmur
@@ -277,6 +278,22 @@ def test_kernel_route_gets_row_major_operands(init, monkeypatch):
           dict(w_init=np.asfortranarray(_W0), h_init=np.asfortranarray(_H0)))
     tmur(x, 5, distance_type="kl", max_iter=3, use_pallas=True, **kw)
     assert len(seen) == 10 and all(seen)
+
+
+@pytest.mark.parametrize("distance", ["eu", "kl"])
+def test_plain_f32_route_stays_near_tpunmf_float64(distance):
+    """50 MUR iterations at 256 x 192 k16: the port's plain f32 route within
+    PLAIN_F64_RTOL of tpunmf's float64 trace at every iteration, the
+    yardstick of chip_smoke.py's float64 gate."""
+    x = lowrank(5, 256, 192, 16)
+    rng = np.random.default_rng(8)
+    w0, h0 = rng.random((256, 16)) + 0.1, rng.random((16, 192)) + 0.1
+    kw = dict(method="mur", distance_type=distance, **F64_RUN)
+    want = tpunmf.NMF(x, 16).factorize(w_init=w0, h_init=h0, **kw).obj_history
+    xt, wt, ht = f32(x, w0, h0)
+    got = tpunmf_torch.NMF(xt, 16).factorize(w_init=wt, h_init=ht, use_pallas=False,
+                                             **kw).obj_history
+    assert f64_distance(got, want) <= PLAIN_F64_RTOL
 
 
 def test_random_init_is_seeded_and_explicit():

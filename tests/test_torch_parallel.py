@@ -414,6 +414,7 @@ def test_a_cuda_mesh_without_a_card_raises():
 
 
 @pytest.mark.parametrize("path", ["tests/_torch_dist_worker.py", "tools/multi_gpu.py",
+                                  "tools/route_drift.py",
                                   "tests/_torch_dist_methods_worker.py",
                                   "tpunmf_torch/parallel/mesh_solvers.py",
                                   "tpunmf_torch/parallel/ntf_sharded.py",

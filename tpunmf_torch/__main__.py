@@ -9,7 +9,7 @@ needs an H100 and raises without one.
 
     python -m tpunmf_torch factorize data.npy -k 10 --distance-type eu
     python -m tpunmf_torch grid data.npy --features 5,10 --lambda-w 0,0.1 --no-save
-    python -m tpunmf_torch bench
+    python -m tpunmf_torch bench [--deltas ao_admm=200,ao_admm_local_l1inf=100]
 """
 from __future__ import annotations
 
@@ -144,10 +144,26 @@ def cmd_grid(args) -> int:
     return 0
 
 
+def _deltas(text: str) -> dict:
+    """RATE_DELTAS with the families that "name=count,..." names replaced;
+    each count an integer of at least 1."""
+    from .bench import RATE_DELTAS
+
+    out = dict(RATE_DELTAS)
+    for item in filter(None, text.split(",")):
+        name, _, count = item.partition("=")
+        if name not in out:
+            raise SystemExit(f"--deltas: no solver family {name!r} (one of {list(out)})")
+        if not count.strip().isdigit() or int(count) < 1:
+            raise SystemExit(f"--deltas: {item!r} is not name=count with a count of at least 1")
+        out[name] = int(count)
+    return out
+
+
 def cmd_bench(args) -> int:
     from .bench import main as bench_main
 
-    bench_main()
+    bench_main(deltas=_deltas(args.deltas))
     return 0
 
 
@@ -167,6 +183,9 @@ def main(argv=None) -> int:
     p_g.set_defaults(fn=cmd_grid)
 
     p_b = sub.add_parser("bench", help="run the headline benchmark")
+    p_b.add_argument("--deltas", default="",
+                     help="solver rates' extra iterations as name=count,... "
+                          "(default: bench.py's, tpunmf_torch.bench.RATE_DELTAS)")
     p_b.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)

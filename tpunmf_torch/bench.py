@@ -485,15 +485,16 @@ def bench_serving(b=64, r=128, n=1 << 20, topk=100, iters=20, device="cuda") -> 
     }
 
 
-def bench_solver_rates(m=2048, n=1024, k=64, iters=8, device="cuda") -> dict:
+def bench_solver_rates(m=2048, n=1024, k=64, iters=8, device="cuda", deltas=None) -> dict:
     """Warm iterations/s of eight solver families on one problem, each
     from the same numpy inits: after one warm-up run, each family runs
-    ``iters`` and ``iters + RATE_DELTAS[family]`` iterations and is rated
-    on the delta (the median of three pairs, each point the better of two
-    runs, a 50 ms floor on the delta).  Each family's seconds go to
-    stderr."""
+    ``iters`` and ``iters + deltas[family]`` iterations and is rated on
+    the delta (the median of three pairs, each point the better of two
+    runs, a 50 ms floor on the delta).  ``deltas`` defaults to
+    RATE_DELTAS, bench.py's.  Each family's seconds go to stderr."""
     from .solvers import admm, anls, ao_admm, hals, mur, mur_masked
 
+    deltas = RATE_DELTAS if deltas is None else deltas
     device = torch.device(device)
     g = _generator(1, device)
     w0 = torch.rand((m, k), generator=g, device=device)
@@ -543,7 +544,7 @@ def bench_solver_rates(m=2048, n=1024, k=64, iters=8, device="cuda") -> dict:
     out = {}
     for name, fn, kw in families:
         t0 = time.perf_counter()
-        out[name] = rate(fn, RATE_DELTAS[name], **kw)
+        out[name] = rate(fn, deltas[name], **kw)
         print(f"bench: solver rate {name} {out[name]} it/s in "
               f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
     return out
@@ -577,9 +578,11 @@ def errors(line, path=()) -> list:
     return found
 
 
-def main() -> dict:
+def main(deltas=None) -> dict:
     """Run the bench on the card, print its line and return it; raise
-    after printing if a sub-bench recorded an error."""
+    after printing if a sub-bench recorded an error.  ``deltas``: the
+    solver rates' extra iterations (default RATE_DELTAS); other deltas
+    are named in the line's ``extra.solver_rate_deltas``."""
     _chip_limits()  # an H100, or raise: the bench never runs on the CPU
     t0 = time.perf_counter()
     # interleave the probes across the bench window, so that one slow
@@ -611,7 +614,7 @@ def main() -> dict:
     serving_r512 = _recorded("serving r512", lambda: bench_serving(b=64, r=512, n=1 << 19,
                                                                    topk=100, iters=10))
     tracker.sample()
-    rates = _recorded("solver rates", bench_solver_rates)
+    rates = _recorded("solver rates", lambda: bench_solver_rates(deltas=deltas))
     tracker.sample()
 
     # every probe sample is in before any headline math: every field
@@ -699,6 +702,9 @@ def main() -> dict:
                 "roofline_fraction_nominal_bw": round(r["roofline_fraction_nominal"], 3),
             },
             "solver_rates_it_per_s": rates,
+            # only where they are not bench.py's, so its report keeps its keys
+            **({"solver_rate_deltas": dict(deltas)}
+               if deltas is not None and deltas != RATE_DELTAS else {}),
             "device": r16["device"],
             "note": "Headline = bf16-X MUR EU iteration through the port's solver loop "
                     "(Gram objective, one host read an iteration) on the route "

@@ -27,10 +27,21 @@
 // writes P_n and P_d (EU: M*X and M*S; KL: M*X / (S + eps) and M) to shared
 // memory and adds two products against one factor tile into two 64 x 64
 // accumulators held in registers, the two sums sharing each step's
-// fragments of that tile.  A zero numerator of KL's P_n (most cells: M is
-// 98.7% zeros at MovieLens-10M) skips the division's slow path
-// (div_zero_first, the same bits).  A rank above 64 takes more 64-wide
-// chunks of k, each forming S again.
+// fragments of that tile.  The W pass's two sums, about 1,300 8-deep steps
+// along n at MovieLens-10M, take each step's products into fresh
+// accumulators added to both sums with round to nearest (warp_mma2's
+// ROUNDED, tf32x3.cuh), as MUR's KL numerators below do: with the tensor
+// cores' own sums, whose truncation falls one way, masked MUR's kernel
+// route sat up to 4 times the plain f32 route's distance from float64
+// over 50 iterations on an H100, with W's rounded within 1.96 times
+// (chip_smoke.py's F64_NEAR_PLAIN gate is 2.5); it costs the W pass
+// 3.5-3.9% at MovieLens-10M.  The H pass's sums (about 670 steps a row
+// split) keep the tensor cores' own: rounding them too took 1.96 to 1.07
+// times, inside that gate either way, and cost the H pass 5.5-5.7%.  A
+// zero numerator of KL's P_n (most cells: M is 98.7% zeros at
+// MovieLens-10M) skips the division's slow path (div_zero_first, the same
+// bits).  A rank above 64 takes more 64-wide chunks of k, each forming S
+// again.
 //
 // The W pass: a block owns BM rows of W (and of X) and one chunk of k, and
 // walks all of n in 64-column steps; for each it forms S = W_i H_j, copies
@@ -78,8 +89,7 @@
 // (tpunmf/core/losses.py:20-25): only the blocks of the first chunk of k
 // add (every chunk forms the same S), each writing one partial that
 // reduce_partials_into (objective.cu) adds in a fixed order.
-// masked_w_update's and masked_h_update's instantiations keep their code
-// and bits.
+// masked_h_update's instantiations keep their code and bits.
 //
 // X is f32 or bf16 and M is 1-byte (binary) or X's type (weights); both are
 // upcast to f32 and the factors are not rounded to X's type
@@ -352,11 +362,11 @@ __device__ __forceinline__ void w_tc_body(
     if constexpr (LAGGED) obj += tile_obj;  // zero outside chunk 0
     __syncthreads();
     // acc[c][r] += sum_j H[c0 + c][j0 + j] P[r][j] (the H chunk's fragments
-    // once for both sums; P read in .col layout); MUR's numerator rounds
-    // each step's sum
+    // once for both sums; P read in .col layout); every sum rounds each
+    // step's products
     if constexpr (kMasked)
-      tc::warp_mma2<WP::MT, WP::NT, false, true>(acc_n, acc_d, sm.hc, kWLd, sm.u.p.pn,
-                                                sm.u.p.pd, kWLd, ar, acol, kHTile, lane);
+      tc::warp_mma2<WP::MT, WP::NT, false, true, true>(acc_n, acc_d, sm.hc, kWLd, sm.u.p.pn,
+                                                      sm.u.p.pd, kWLd, ar, acol, kHTile, lane);
     else
       tc::warp_mma<WP::MT, WP::NT, false, true, true>(acc_n, sm.hc, kWLd, sm.u.p.pn, kWLd,
                                                       ar, acol, kHTile, lane);

@@ -176,7 +176,8 @@ __device__ __forceinline__ void step_all(Acc<MT, NT>& acc, const Frag<4> (&a)[MT
 // moves by S's bias times sum(W H - X), which near a fit can be a hundred
 // times the objective (objective.cu).  So does a long sum: MUR's KL
 // numerators (masked_update.cu, about a thousand steps at m = 8192) round
-// their steps, which costs those passes 0.7-2.5% on an H100.
+// their steps, which costs those passes 0.7-2.5% on an H100, and so do
+// the masked W pass's two sums (warp_mma2), 3.5-3.9% there.
 //
 // BCOL: B is read column by column as load_b<true> does; EXACT: every
 // operand value is exact in TF32 (bf16 operands), so one TF32 product a
@@ -241,8 +242,10 @@ __device__ __forceinline__ void warp_mma(Acc<MT, NT>& acc, const TA* a, int lda,
 
 // acc0 += A B0 and acc1 += A B1 as warp_mma does, the A fragments loaded
 // and split once a step for both (MT <= 2); B0 and B1 as load_b<BCOL>
-// reads them.
-template <int MT, int NT, bool TRANS, bool BCOL = false>
+// reads them.  ROUNDED as in warp_mma: each step's products go into two
+// fresh accumulators, added to acc0 and acc1 with round to nearest (the
+// masked W pass's numerator and denominator, masked_update.cu).
+template <int MT, int NT, bool TRANS, bool ROUNDED = false, bool BCOL = false>
 __device__ __forceinline__ void warp_mma2(Acc<MT, NT>& acc0, Acc<MT, NT>& acc1, const float* a,
                                           int lda, const float* b0, const float* b1, int ldb,
                                           int r0, int c0, int depth, int lane) {
@@ -258,12 +261,36 @@ __device__ __forceinline__ void warp_mma2(Acc<MT, NT>& acc0, Acc<MT, NT>& acc1, 
     Frag<4> af[MT];
 #pragma unroll
     for (int i = 0; i < MT; ++i) load_a<TRANS>(af[i], a, lda, r0 + 16 * i, k0, lane);
-    pass_all<0>(acc0, af, bf0);
-    pass_all<0>(acc1, af, bf1);
-    pass_all<1>(acc0, af, bf0);
-    pass_all<1>(acc1, af, bf1);
-    pass_all<2>(acc0, af, bf0);
-    pass_all<2>(acc1, af, bf1);
+    if constexpr (ROUNDED) {
+      Acc<MT, NT> t0, t1;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          mma_tf32_fresh(t0[i][j], af[i].small, bf0[j].big);
+          mma_tf32_fresh(t1[i][j], af[i].small, bf1[j].big);
+        }
+      pass_all<1>(t0, af, bf0);
+      pass_all<1>(t1, af, bf1);
+      pass_all<2>(t0, af, bf0);
+      pass_all<2>(t1, af, bf1);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc0[i][j][q] += t0[i][j][q];
+            acc1[i][j][q] += t1[i][j][q];
+          }
+    } else {
+      pass_all<0>(acc0, af, bf0);
+      pass_all<0>(acc1, af, bf1);
+      pass_all<1>(acc0, af, bf0);
+      pass_all<1>(acc1, af, bf1);
+      pass_all<2>(acc0, af, bf0);
+      pass_all<2>(acc1, af, bf1);
+    }
   }
 }
 
