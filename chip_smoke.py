@@ -350,19 +350,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and through DCP, each the uninterrupted run's bits, the .npz resumed
      in one-device hals with its bits, and the seconds a save costs.
  12. the CLI's bench (bench_phase): ``python -m tpunmf_torch bench
-     --deltas ao_admm=200,ao_admm_local_l1inf=100`` through
+     --deltas admm=1000,ao_admm=100,ao_admm_local_l1inf=50`` through
      tpunmf_torch.__main__.main in-process at its own full sizes
      (tpunmf_torch.bench: the probes, MUR EU 8192x8192 r128 on bf16 and
      f32 X, rank 512 at 8192x2048, MUR KL at cadence 1 and 8, serving at
-     (64, 2^20) r128 and (64, 2^19) r512, eight solver families' rates, the
-     two AO-ADMM families on 200 and 100 extra iterations where bench.py
-     takes 2000 and 1000: BENCH_DELTAS), the deltas and its line printed;
+     (64, 2^20) r128 and (64, 2^19) r512, eight solver families' rates,
+     ADMM and the two AO-ADMM families on 1000, 100 and 50 extra
+     iterations where bench.py takes 3000, 2000 and 1000: BENCH_DELTAS),
+     the deltas and its line printed;
      it must return 0 with no "error" in the line, a positive headline and
      vs_baseline, a roofline fraction against
      the measured ceiling and a rank-512 MFU of at most BENCH_FRACTION_MAX
      (the former unless the probes undershot the solver), and launches of
      the read probe, the headline route's MUR kernel, the fused scoring
      kernel and gs_sweep (HALS's rate); the phase's seconds.
+ 13. BASELINE's five configs to convergence and HALS against MUR-EU in
+     time to objective (configs_phase): tpunmf_torch.sweeps.run_configs at
+     scale 1.0, no iteration cap, each config from one float64 NNDSVD init
+     on its kernel route (f32), the plain route at float64 (the yardstick)
+     and at f32 (config[1] and config[3] on phase 3's matrices, config 4
+     also on a (1, 1) mesh of an NCCL group of one); each route's stop
+     iteration, error and deviation, recall@10, config 3's trajectories,
+     the launches by kernel and the seconds printed.  Each config's final
+     error (config 3: its fixed-rho run; configs 1 and 4: the final KL)
+     must be within BASELINE's 1e-4 of float64 (run_configs.gate: twice
+     the plain f32 route's deviation where that exceeds 1e-4), config 4's
+     mesh run within rtol 1e-6 of one device with its bits, and each
+     config must launch its route's kernels (CONFIG_KERNELS).  Then
+     tpunmf_torch.sweeps.bench_hals: MUR-EU, HALS 1 and 2 sweeps at
+     8192x8192 r128, 150 iterations from one init, each trace non-increasing
+     within EU_MONOTONE_RTOL; it/s and the iterations and seconds each HALS
+     run takes to MUR-EU's 150th objective printed.
 Then one JSON line of the kernels, the nvidia-smi line, and the result
 line.  Without a CUDA card, or without the tpunmf_torch package beside
 this script, it exits non-zero and prints no result.
@@ -4667,11 +4685,13 @@ def mesh_rest_phase(torch, tt, drive, card, data):
 BENCH_HEADLINE = dict(m=8192, n=8192, k=128)  # tpunmf_torch.bench's headline MUR EU, bf16 X
 BENCH_FRACTION_MAX = 1.05  # a fraction of a ceiling (roofline, product peak) past which
                            # the timing, not the program, is wrong
-# the bench's solver rates here run the two AO-ADMM families on fewer extra
-# iterations than bench.py's 2000 and 1000 (RATE_DELTAS, which python -m
-# tpunmf_torch bench keeps): sized for the TPU's on-device loops, they took
-# 459 s at the card's 65 and 24 it/s (host-bound inner loops)
-BENCH_DELTAS = {"ao_admm": 200, "ao_admm_local_l1inf": 100}
+# the bench's solver rates here run ADMM and the two AO-ADMM families on
+# fewer extra iterations than bench.py's 3000, 2000 and 1000 (RATE_DELTAS,
+# which python -m tpunmf_torch bench keeps): sized for the TPU's on-device
+# loops, the AO-ADMM pair took 459 s at the card's 65 and 24 it/s
+# (host-bound inner loops); at 200 and 100, and ADMM at 3000, the three
+# took 108 s of phase 12's 220, which phase 13's time came out of
+BENCH_DELTAS = {"admm": 1000, "ao_admm": 100, "ao_admm_local_l1inf": 50}
 
 
 def bench_phase(torch, counters, card):
@@ -4729,6 +4749,129 @@ def bench_phase(torch, counters, card):
     for name in OPT_IN + tuple(n for n in SWEEP_ONLY if n != "read_probe"):
         require(launched[name] == 0, f"bench: {name} was launched off its path")
     return {"seconds": seconds, "route": route, "launches": launched, "deltas": deltas}, launched
+
+
+# Phase 13: BASELINE's configs to convergence (tpunmf_torch.sweeps.run_configs)
+# and the HALS time-to-objective bench (tpunmf_torch.sweeps.bench_hals)
+def config_kernels():
+    """The kernels each config's kernel route must launch: MUR's route at
+    config 0's and config 1's shapes (mur_route) and the objective pass."""
+    import torch
+
+    from tpunmf_torch.solvers.mur import mur_route
+
+    def mur_kernels(m, n, k, dist):
+        route, strips = mur_route(torch.empty((m, n), device="meta"), k, dist)
+        single = {"eu": ("mur_iteration_eu_dma" if isinstance(strips, tuple)
+                         else "mur_iteration_eu"),
+                  "kl": "mur_iteration_kl"}[dist]
+        return (single,) if route == "single" else PAIR
+
+    return {0: mur_kernels(2000, 1000, 20, "eu") + ("eu_residual_obj",),
+            1: mur_kernels(20000, 11000, 50, "kl") + ("kl_obj",),
+            2: ("eu_residual_obj",), 3: ("eu_residual_obj",), 4: ("kl_obj",)}
+
+
+def configs_phase(torch, tt, counters, card, kl_x, adm_csr):
+    """Phase 13: run_configs' five configs at scale 1.0 (config[1] on phase
+    3's matrix, config[3] densified again from phase 1's CSR, as phase 10
+    does), each within the float64 gate, then bench_hals' three runs; every
+    count set to 0 just before each and read just after.  Returns (record,
+    launches over the phase)."""
+    import torch.distributed as dist
+
+    from tpunmf_torch.data import densify
+    from tpunmf_torch.sweeps import bench_hals, run_configs
+
+    needed = config_kernels()
+    out, total = {"configs": {}}, {name: 0 for name in counters}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tt.parallel.initialize_multihost(f"file://{d}/store", 1, 0)
+        try:
+            for idx, fn in enumerate(run_configs.runners()):
+                given = {1: lambda: dict(x=kl_x),
+                         3: lambda: dict(x=torch.from_numpy(densify(adm_csr)).cuda())}
+                given = given[idx]() if idx in given else {}
+                reset_counters(counters)
+                t0 = time.perf_counter()
+                r = fn(1.0, device="cuda", **given)
+                seconds = time.perf_counter() - t0
+                launched = {n: c for n, c in counts(counters).items() if c}
+                for n, c in launched.items():
+                    total[n] += c
+                held, tol = run_configs.gate(r)
+                ours = r["fixed"] if idx == 3 else r
+                err = "final_kl" if "final_kl" in r else "rel_err"
+                plain = r["plain_f32"]
+                extra = ""
+                if idx == 2:
+                    extra = f"; recall@10 against float64's factors {r['recall10_vs_ref']:.4f}"
+                if idx == 3:
+                    extra = (f"; adaptive rho i={r['rho_damped']['i']} rel_err "
+                             f"{r['rho_damped']['rel_err']:.9e}; 25-iteration trajectory "
+                             f"{r['trajectory_max_rel_dev']:.3e} (plain f32 "
+                             f"{plain['trajectory_max_rel_dev']:.3e}, float64 on X(1 + 1e-15) "
+                             f"{r['ref_self_divergence']:.3e})")
+                if idx == 4:
+                    extra = (f"; mesh {tuple(r['mesh'])} i={r['sharded_i']} final_kl "
+                             f"{r['sharded_final_kl']:.9e}, within rtol 1e-6: "
+                             f"{r['sharded_matches']}, one device's bits: "
+                             f"{r['sharded_same_bits']} ({r['sharded_wall_s']:.1f} s)")
+                print(f"  config {idx} {r['config']} {tuple(r['shape'])}: NNDSVD in float64 "
+                      f"{r['init_s']:.1f} s; kernels i={ours['i']} {err} {ours[err]:.9e} "
+                      f"({ours['wall_s']:.1f} s), float64 i={r['ref_i']} {r['ref_' + err]:.9e} "
+                      f"({r['ref_wall_s']:.1f} s), plain f32 i={plain['i']} {plain[err]:.9e} "
+                      f"({plain['wall_s']:.1f} s); deviation {r['final_err_deviation']:.3e} "
+                      f"(plain f32 {plain['final_err_deviation']:.3e}), gate {tol:.3e}: "
+                      f"{'held' if held else 'MISSED'}; iters_match {r['iters_match']}{extra}; "
+                      f"launches {launched}; {seconds:.1f} s [{card}]", flush=True)
+                require(held, f"config {idx}: {r['final_err_deviation']:.3e} off float64, "
+                              f"gate {tol:.3e}")
+                for name in needed[idx]:
+                    require(launched.get(name, 0) > 0, f"config {idx}: {name} was not launched")
+                if idx == 4:
+                    require(r["sharded_matches"] and r["sharded_same_bits"],
+                            "config 4: the mesh run is not the one-device run")
+                out["configs"][idx] = {**r, "launches": launched, "seconds": seconds}
+                del given
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    x, w0, h0 = bench_hals.problem()
+    recs = {}
+    for name in bench_hals.CONFIGS:
+        reset_counters(counters)
+        recs[name] = bench_hals.measure(name, x, w0, h0)
+        launched = {n: c for n, c in counts(counters).items() if c}
+        for n, c in launched.items():
+            total[n] += c
+        obj = np.asarray(recs[name]["obj"])
+        rises = float(np.max((obj[1:] - obj[:-1]) / obj[:-1]))
+        print(f"  bench_hals {name}: {recs[name]['it_per_s']} it/s over {bench_hals.ITERS} "
+              f"iterations ({recs[name]['s_total']:.3f} s), obj {obj[0]:.6e} -> {obj[-1]:.6e}, "
+              f"largest rise {rises:.3e}; launches {launched} [{card}]", flush=True)
+        require(np.all(np.isfinite(obj)) and rises <= EU_MONOTONE_RTOL,
+                f"bench_hals {name}: the trace rises by {rises:.3e}")
+        require(launched.get("gs_sweep" if name.startswith("hals") else "eu_residual_obj", 0) > 0,
+                f"bench_hals {name}: its kernels were not launched")
+        recs[name]["launches"] = launched
+    target = recs["mur_eu"]["obj"][-1]
+    for name in ("hals_s1", "hals_s2"):
+        reach = bench_hals.time_to(recs[name], target)
+        recs[name]["to_mur_objective"] = reach
+        print(f"  bench_hals {name}: MUR-EU's objective after {bench_hals.ITERS} iterations "
+              f"({target:.6e}) "
+              + (f"after {reach[0]} iterations, {reach[1]:.3f} s against MUR's "
+                 f"{recs['mur_eu']['s_total']:.3f} s" if reach else "not reached"), flush=True)
+    del x, w0, h0
+    torch.cuda.empty_cache()
+    out["bench_hals"] = {name: {k: v for k, v in rec.items() if k != "obj"} | {
+        "obj_first_last": [rec["obj"][0], rec["obj"][-1]]} for name, rec in recs.items()}
+    out["bench_hals_seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, total
 
 
 def main() -> int:
@@ -5335,7 +5478,16 @@ def main() -> int:
     bench, bench_launched = bench_phase(torch, counters, card)
     for name, c in bench_launched.items():
         launches[name] += c
-    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s; all phases "
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print(f"phase 13: BASELINE's configs to convergence against float64, and HALS against "
+          f"MUR-EU in time to objective [{card}]", flush=True)
+    torch.cuda.empty_cache()
+    baseline, baseline_launched = configs_phase(torch, tt, counters, card, kl_x, adm_csr)
+    for name, c in baseline_launched.items():
+        launches[name] += c
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     def headline(name):
@@ -5368,7 +5520,7 @@ def main() -> int:
         "profiles": profiles, "tooling": tooling, "kl_f64": kl_f64, "route_f64": route_f64,
         "families": families,
         "remaining": remaining, "out_of_core": out_of_core, "multi_gpu": multi_gpu,
-        "bench": bench}))
+        "bench": bench, "baseline": baseline}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

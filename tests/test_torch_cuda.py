@@ -2017,3 +2017,40 @@ def test_hals_checkpoint_resumes_on_a_card_mesh(card_mesh11, backend, tmp_path):
         want = hals(x, 8, **kw)
         for a, b in ((one.obj_history, want.obj_history), (one.w, want.w)):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", [0, 2])
+def test_baseline_configs_hold_the_float64_gate(cuda_device, idx):
+    """BASELINE configs 0 (MUR EU) and 2 (ANLS + FCNNLS) at scale 0.1 on the
+    card: the kernel route's final error within chip_smoke.py phase 13's
+    gate of the float64 plain route's, its kernels launched."""
+    from tpunmf_torch.ops import fused
+    from tpunmf_torch.sweeps import run_configs
+
+    before = fused.eu_residual_obj.launches
+    got = run_configs.runners()[idx](0.1, device=cuda_device)
+    held, tol = run_configs.gate(got)
+    assert held, (got["final_err_deviation"], tol)
+    assert fused.eu_residual_obj.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,options", [
+    ("ao_admm", dict(distance_type="kl", reg_w=(0.05, "l1n"), reg_h=(0.05, "l2n"))),
+    ("admm", dict(reg_h=(0.1, "l1n"))),
+    ("anls", dict(use_fcnnls=True)),
+])
+def test_nndsvd_inits_over_a_card_mesh_hold_one_device_bits(card_mesh11, method, options):
+    """From NNDSVD's column-major U, one device and a (1, 1) world of one
+    give the same bits: both take the factors row-major (BASELINE config 4
+    drifted 6e-5 apart over 60 iterations when one device kept U's layout)."""
+    from tpunmf_torch.solvers import admm, anls, ao_admm
+
+    x = t(lowrank(m=600, n=480, k=8)).float().cuda()
+    kw = dict(min_iter=12, max_iter=12, tol1=0.0, tol2=0.0, nndsvd_init=(True, "zero"),
+              **options)
+    one = {"ao_admm": ao_admm, "admm": admm, "anls": anls}[method](x, 8, **kw)
+    mesh = tpunmf_torch.NMF(x, 8, mesh=card_mesh11).factorize(method=method, **kw)
+    for a, b in ((mesh.obj_history, one.obj_history), (mesh.w, one.w), (mesh.h, one.h)):
+        np.testing.assert_array_equal(a, b)

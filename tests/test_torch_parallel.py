@@ -421,7 +421,9 @@ def test_a_cuda_mesh_without_a_card_raises():
                                   "tpunmf_torch/core/sums.py",
                                   "tpunmf_torch/parallel/mesh_checkpoint.py",
                                   "tpunmf_torch/io/checkpoint.py",
-                                  "tpunmf_torch/bench.py"])
+                                  "tpunmf_torch/bench.py",
+                                  "tpunmf_torch/sweeps/run_configs.py",
+                                  "tpunmf_torch/sweeps/bench_hals.py"])
 def test_worker_and_tool_import_neither_jax_nor_tpunmf(path):
     import ast
 

@@ -269,6 +269,9 @@ def admm(
         else:
             w, h = random_init(key, v.shape[0], v.shape[1], k, kind="abs_normal",
                                dtype=v.dtype, device=v.device)
+        # row-major factors, as the mesh solvers place their blocks: cuBLAS
+        # rounds by layout, and an SVD's U (NNDSVD) is column-major
+        w, h = w.contiguous(), h.contiguous()
 
         # aux start as copies, duals at zero (nmf/admm.py:26-35); rho is
         # carried in the state so adaptive damping survives blocks

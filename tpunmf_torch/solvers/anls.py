@@ -207,6 +207,9 @@ def anls(
             # reference uses U[0,1) for ANLS (nmf/anls.py:104-105)
             w, h = random_init(key, x.shape[0], x.shape[1], k, kind="uniform",
                                dtype=x.dtype, device=x.device)
+        # row-major factors, as the mesh solvers place their blocks: cuBLAS
+        # rounds by layout, and an SVD's U (NNDSVD) is column-major
+        w, h = w.contiguous(), h.contiguous()
         obj0 = distance(x, w @ h, distance_type)
     carry = init_carry(obj0, max_iter, (w, h))
 

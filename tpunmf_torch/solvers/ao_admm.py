@@ -406,6 +406,9 @@ def ao_admm(
         else:
             w, h = random_init(key, v.shape[0], v.shape[1], k, kind="abs_normal",
                                dtype=v.dtype, device=v.device)
+        # row-major factors, as the mesh solvers place their blocks: cuBLAS
+        # rounds by layout, and an SVD's U (NNDSVD) is column-major
+        w, h = w.contiguous(), h.contiguous()
 
         zw, zh = torch.zeros_like(w), torch.zeros_like(h)
         if local_sparsity:

@@ -1,14 +1,20 @@
-"""The port's counterparts of ``tpunmf``'s single-pass sweep scripts.
+"""The port's counterparts of ``tpunmf``'s scripts under benchmarks/.
 
 ``sweep_iter2`` (benchmarks/sweep_iter2.py) and ``sweep_int8``
 (benchmarks/sweep_int8.py) drive the EU single-pass variants of
-``ops/mur_variants.py`` on the card:
+``ops/mur_variants.py`` on the card; ``run_configs``
+(benchmarks/run_configs.py) runs BASELINE's five configs to convergence
+against the float64 plain route, and ``bench_hals``
+(benchmarks/bench_hals.py) times HALS against MUR-EU to an objective:
 
     python -m tpunmf_torch.sweeps.sweep_iter2
     python -m tpunmf_torch.sweeps.sweep_int8
+    python -m tpunmf_torch.sweeps.run_configs [--scale 0.1] [--device cpu]
+    python -m tpunmf_torch.sweeps.bench_hals all [out.jsonl] [--device cpu]
 
 Their loops take CPU tensors too (the kernels' plain versions), which is
-how the tests drive them; the scripts themselves need a CUDA card.
+how the tests drive them; the first two scripts need a CUDA card, the
+last two one too unless given ``--device cpu``.
 """
 from __future__ import annotations
 
